@@ -1,0 +1,926 @@
+"""Grouped aggregation on the device.
+
+The counterpart of the JAX package's `exec/aggregate.py`, on its
+grouped-reduce route only:
+
+- **Filter fusion**: an aggregate directly over a Selection evaluates
+  the predicate inside the aggregate operator, so TPC-H Q1's filter and
+  eight aggregates are one pass over each batch.
+- **Group-key encoding (host)**: a persistent `GroupKeyEncoder` maps
+  each row's key tuple to a dense, append-only group id (numpy, the
+  JAX package's encoder unchanged).  Dense ids are stable across
+  batches, so device accumulators grow by identity padding.
+- **Slot deduplication**: aggregates lower to accumulator *slots*
+  shared across functions — SUM(x) and AVG(x) share one sum slot and
+  one count slot; COUNT(*) rides the per-group row count, and a count
+  whose argument has no validity aliases the row count.  TPC-H Q1's 8
+  aggregates touch 5 sum slots.
+- **Accumulation (device)**: per batch, the used columns cross to the
+  device, the predicate and slot arguments evaluate as torch ops, and
+  each slot is one launch of the hand-written grouped-reduce kernel
+  (`exec/cuda/hash_agg.py`).  The JAX package keeps a dense one-hot
+  route for G <= 64 and sort-merge above 8192 because scatter is serial
+  on a TPU and f64 is emulated there; Hopper has neither limit, so the
+  kernel takes every capacity up to `agg_max_groups()`.  Capacities
+  above it need the sort-merge route, which is not ported yet.
+- **Finalization**: one device-to-host copy of the state; AVG =
+  SUM/COUNT on the host; groups observed only in filtered-out rows
+  (count 0) are dropped.
+
+Not ported yet (ROADMAP queue 1): the batch-group fold and megabatch,
+host-split placement, cost presizing, the prefetch pipeline and the
+sort-merge route.
+
+Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
+internally, UInt64 in the output (planner contract); MIN/MAX keep the
+argument dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from datafusion_tpu_torch.datatypes import DataType, Schema
+from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
+from datafusion_tpu_torch.exec.batch import (
+    RecordBatch,
+    StringDictionary,
+    bucket_capacity,
+    device_inputs,
+    make_host_batch,
+    subset_view,
+    to_device,
+)
+from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg
+from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
+from datafusion_tpu_torch.exec.relation import Relation
+from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
+
+
+def group_capacity(n: int) -> int:
+    """Accumulator capacity: next power of two, floor 8."""
+    cap = 8
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
+def _row_bytes_view(a: np.ndarray) -> np.ndarray:
+    """(N, K) int64 -> (N,) opaque-bytes view with a consistent total
+    order (memcmp), used for cross-batch key identity."""
+    a = np.ascontiguousarray(a)
+    return a.view([("", a.dtype)] * a.shape[1]).ravel()
+
+
+class GroupKeyEncoder:
+    """Host-side dense encoder of group-key tuples -> stable group ids.
+
+    Vectorized: the known key set lives in a sorted row-view array
+    matched with `searchsorted`; no per-key Python dict operations, so
+    encoding stays numpy-speed at 10^6 groups.
+    """
+
+    # radix-LUT fast path bound: product of per-component radices must
+    # keep the id lookup table at most this many entries (16 MB int32)
+    _LUT_MAX = 1 << 22
+
+    def __init__(self, num_keys: int):
+        self.num_keys = num_keys
+        k = max(2 * num_keys, 1)
+        self._arr = np.empty((0, k), dtype=np.int64)  # key rows by group id
+        self._sorted_rows = _row_bytes_view(self._arr)  # sorted row view
+        self._sorted_ids = np.empty(0, dtype=np.int64)
+        # radix-LUT fast path (small non-negative key spaces: dictionary
+        # codes, low-cardinality ints): encode = one gather instead of a
+        # per-batch sort.  Disabled permanently on the first batch whose
+        # key space can't be packed small (negatives / wide ranges).
+        self._fast = True
+        self._radix: Optional[list[int]] = None
+        self._lut: Optional[np.ndarray] = None
+
+    @property
+    def num_groups(self) -> int:
+        return len(self._arr)
+
+    @staticmethod
+    def _to_int_image(c: np.ndarray) -> np.ndarray:
+        """Lossless integer image of a key column.  Floats are *bit-cast*
+        (a value cast would merge 1.5 and 1.7); -0.0 normalizes to 0.0
+        and NaNs to one canonical NaN so SQL equality groups them.
+        Integer columns keep their native width (packing upcasts)."""
+        if c.dtype.kind == "f":
+            c = c.astype(np.float64)
+            c = np.where(c == 0.0, 0.0, c)  # -0.0 == 0.0
+            c = np.where(np.isnan(c), np.float64(np.nan), c)
+            return c.view(np.int64)
+        if c.dtype.kind == "b":
+            return c.astype(np.int8)
+        return c
+
+    def encode(
+        self,
+        key_cols: list[np.ndarray],
+        key_valids: list,
+    ) -> np.ndarray:
+        """key_cols: per-key numpy arrays (dict codes for strings);
+        key_valids: per-key bool validity arrays or None.  Returns int32
+        group ids per row.  NULL keys form their own group (SQL
+        semantics): each key contributes (value-with-nulls-zeroed,
+        isnull flag) to the group tuple.
+        """
+        if key_cols and len(key_cols[0]) == 0:
+            return np.empty(0, dtype=np.int32)  # _pack can't reduce empty
+        # components: (value, isnull) per key.  None stands for an
+        # all-zero component (no nulls) — the fast path skips it and the
+        # general path materializes zeros.  Values keep their native
+        # integer width here; packing/stacking upcasts as needed.
+        comps: list[Optional[np.ndarray]] = []
+        n = len(key_cols[0]) if key_cols else 0
+        for c, v in zip(key_cols, key_valids):
+            c = self._to_int_image(np.asarray(c))
+            if v is None:
+                comps.append(c)
+                comps.append(None)
+            else:
+                v = np.asarray(v)
+                comps.append(np.where(v, c, 0))
+                comps.append(~v)
+        if self._fast:
+            ids = self._encode_fast(comps, n)
+            if ids is not None:
+                return ids
+            # the key space just outgrew the LUT: fall through to the
+            # general path for this and every later batch (ids assigned
+            # so far stay valid — _arr is shared between both paths)
+            self._rebuild_sorted()
+        rows = [
+            np.zeros(n, dtype=np.int64) if c is None else c.astype(np.int64)
+            for c in comps
+        ]
+        stacked = np.stack(rows, axis=1)  # (n, 2K)
+        # Fast path: pack the key tuple into one int64 (mixed radix), so
+        # per-batch uniquing is a single 1-D sort; the pack is per-batch
+        # only — cross-batch identity goes through the row-bytes view.
+        packed = self._pack(stacked)
+        if packed is not None:
+            _, first, inv = np.unique(packed, return_index=True, return_inverse=True)
+        else:
+            _, first, inv = np.unique(
+                _row_bytes_view(stacked), return_index=True, return_inverse=True
+            )
+        urows = stacked[first]  # (U, 2K), per-batch unique keys
+        uview = _row_bytes_view(urows)
+        order = np.argsort(uview)  # row-bytes order for searchsorted
+        sview = uview[order]
+        pos = np.searchsorted(self._sorted_rows, sview)
+        found = np.zeros(len(sview), dtype=bool)
+        in_range = pos < len(self._sorted_rows)
+        found[in_range] = self._sorted_rows[pos[in_range]] == sview[in_range]
+
+        lut_sorted = np.empty(len(sview), dtype=np.int64)
+        lut_sorted[found] = self._sorted_ids[pos[found]]
+        n_new = int((~found).sum())
+        if n_new:
+            new_ids = np.arange(
+                self.num_groups, self.num_groups + n_new, dtype=np.int64
+            )
+            lut_sorted[~found] = new_ids
+            self._arr = np.concatenate([self._arr, urows[order][~found]])
+            ins = pos[~found]  # insertion points into the old sorted view
+            self._sorted_rows = np.insert(self._sorted_rows, ins, sview[~found])
+            self._sorted_ids = np.insert(self._sorted_ids, ins, new_ids)
+
+        lut = np.empty(len(uview), dtype=np.int64)
+        lut[order] = lut_sorted
+        return lut[inv].astype(np.int32)
+
+    @staticmethod
+    def _pack(stacked: np.ndarray) -> Optional[np.ndarray]:
+        """Mixed-radix pack of (n, 2K) int64 key parts into (n,) int64;
+        None when the combined range could overflow 63 bits."""
+        mins = stacked.min(axis=0).tolist()
+        maxs = stacked.max(axis=0).tolist()
+        # ranges in Python ints: a single int64 column can span > 2^63,
+        # which would wrap (and slip past the bail-out) in int64 math
+        ranges = [int(mx) - int(mn) + 1 for mn, mx in zip(mins, maxs)]
+        total = 1
+        for r in ranges:
+            total *= r
+            if total > (1 << 62):
+                return None
+        # total <= 2^62 implies every range (and every shifted value)
+        # fits comfortably in int64
+        packed = np.zeros(stacked.shape[0], dtype=np.int64)
+        for k in range(stacked.shape[1]):
+            packed = packed * np.int64(ranges[k]) + (stacked[:, k] - np.int64(mins[k]))
+        return packed
+
+    def _encode_fast(self, comps, n: int) -> Optional[np.ndarray]:
+        """Radix-LUT encode: pack each key tuple into a small int64 with
+        FIXED per-component radices (stable across batches, unlike
+        `_pack`'s per-batch ranges) and look ids up in a dense table —
+        one gather per batch instead of a sort.  Returns None —
+        permanently disabling the path — when the key space has
+        negatives or would need a LUT past _LUT_MAX."""
+        maxs = []
+        for c in comps:
+            if c is None:
+                maxs.append(0)
+                continue
+            if c.dtype.kind == "b":
+                maxs.append(1)
+                continue
+            lo, hi = int(c.min()), int(c.max())
+            if lo < 0:
+                self._fast = False
+                return None
+            maxs.append(hi)
+        if self._radix is None or any(
+            mx >= r for mx, r in zip(maxs, self._radix)
+        ):
+            # (re)choose radices: next power of two above the observed
+            # max, doubled for growth headroom (string dictionaries keep
+            # appending codes); rebuild the LUT from the known groups
+            radix = []
+            for k, mx in enumerate(maxs):
+                seen = mx
+                if len(self._arr):
+                    seen = max(seen, int(self._arr[:, k].max()))
+                if seen == 0:
+                    radix.append(1)
+                    continue
+                r = 1
+                while r <= seen:
+                    r <<= 1
+                radix.append(r * 2)
+            total = 1
+            for r in radix:
+                total *= r
+                if total > self._LUT_MAX:
+                    self._fast = False
+                    return None
+            self._radix = radix
+            self._lut = np.full(total, -1, dtype=np.int32)
+            if len(self._arr):
+                self._lut[self._pack_rows(self._arr)] = np.arange(
+                    len(self._arr), dtype=np.int32
+                )
+        packed = self._pack_comps(comps, n)
+        ids = self._lut[packed]
+        if (ids < 0).any():
+            new_packed = np.unique(packed[ids < 0])
+            self._lut[new_packed] = np.arange(
+                self.num_groups, self.num_groups + len(new_packed), dtype=np.int32
+            )
+            self._arr = np.concatenate([self._arr, self._unpack_fixed(new_packed)])
+            ids = self._lut[packed]
+        return ids.astype(np.int32, copy=False)
+
+    def _pack_comps(self, comps, n: int) -> np.ndarray:
+        """Horner pack of per-component arrays (None = zeros) with the
+        fixed radices; int64 throughout (ranges proven < _LUT_MAX)."""
+        packed = np.zeros(n, dtype=np.int64)
+        for c, r in zip(comps, self._radix):
+            if r == 1:
+                continue  # radix 1 => component is globally all-zero
+            packed *= np.int64(r)
+            if c is not None:
+                if c.dtype != np.int64:
+                    c = c.astype(np.int64)
+                packed += c
+        return packed
+
+    def _pack_rows(self, rows2d: np.ndarray) -> np.ndarray:
+        packed = np.zeros(rows2d.shape[0], dtype=np.int64)
+        for k, r in enumerate(self._radix):
+            packed = packed * np.int64(r) + rows2d[:, k]
+        return packed
+
+    def _unpack_fixed(self, packed: np.ndarray) -> np.ndarray:
+        out = np.empty((len(packed), len(self._radix)), dtype=np.int64)
+        rest = packed.copy()
+        for k in range(len(self._radix) - 1, -1, -1):
+            out[:, k] = rest % self._radix[k]
+            rest //= self._radix[k]
+        return out
+
+    def _rebuild_sorted(self):
+        """Reconstruct the general path's sorted row view from `_arr`
+        after the fast path retires (its inserts never ran)."""
+        view = _row_bytes_view(self._arr)
+        order = np.argsort(view, kind="stable")
+        self._sorted_rows = view[order]
+        self._sorted_ids = order.astype(np.int64)
+
+    def key_column(self, k: int):
+        """(values, validity) of key position k across all groups, in
+        group-id order; validity None when no group has a NULL key."""
+        vals = self._arr[:, 2 * k].copy()
+        isnull = self._arr[:, 2 * k + 1] != 0
+        return vals, (None if not isnull.any() else ~isnull)
+
+
+class _Slot:
+    """One deduplicated accumulator column.
+
+    kind: "sum" (also serves AVG), "cnt" (non-null count of one arg),
+    "min"/"max", "smin"/"smax" (Utf8 via dictionary ranks).
+    """
+
+    __slots__ = ("kind", "arg", "fn", "acc_dtype", "arg_index")
+
+    def __init__(self, kind, arg, fn, acc_dtype, arg_index=None):
+        self.kind = kind
+        self.arg = arg
+        self.fn = fn
+        self.acc_dtype = acc_dtype
+        self.arg_index = arg_index  # column index for string slots
+
+    @property
+    def is_string(self) -> bool:
+        return self.kind in ("smin", "smax")
+
+
+class AggregateSpec:
+    """One aggregate function, resolved to its accumulator slots."""
+
+    def __init__(self, expr: AggregateFunction, input_schema: Schema):
+        self.name = expr.name.lower()
+        if self.name not in ("sum", "count", "min", "max", "avg"):
+            raise NotSupportedError(f"unknown aggregate {expr.name!r}")
+        if len(expr.args) != 1:
+            raise ExecutionError(f"{expr.name} takes one argument")
+        self.arg = expr.args[0]
+        self.return_type = expr.return_type
+        self.count_star = self.name == "count" and expr.count_star
+        self.arg_type = self.arg.get_type(input_schema)
+        # MIN/MAX over Utf8: the accumulator is the best dictionary
+        # *code* per group; comparison rides per-version rank tables
+        # (codes are append-ordered, ranks are lexicographic)
+        self.is_string = self.arg_type == DataType.UTF8 and self.name in ("min", "max")
+        if self.is_string and not isinstance(self.arg, Column):
+            raise NotSupportedError(
+                f"{expr.name} over a computed Utf8 expression is not supported"
+            )
+        if self.name in ("sum", "avg") and self.arg_type == DataType.UTF8:
+            raise NotSupportedError(f"{expr.name} over Utf8 is not supported")
+        # slot references, filled by AggregateRelation._build_slots
+        self.sum_slot: Optional[int] = None
+        self.cnt_slot: Optional[int] = None  # None => per-group row count
+        self.minmax_slot: Optional[int] = None
+
+    @property
+    def sum_dtype(self) -> np.dtype:
+        npd = self.arg_type.np_dtype
+        if self.arg_type.is_signed_integer:
+            return np.dtype(np.int64)
+        if self.arg_type.is_unsigned_integer:
+            return np.dtype(np.uint64)
+        return npd
+
+
+def _min_identity(dtype: np.dtype):
+    if dtype.kind == "f":
+        return np.asarray(np.inf, dtype)
+    if dtype.kind in "iu":
+        return np.asarray(np.iinfo(dtype).max, dtype)
+    if dtype.kind == "b":
+        return np.asarray(True, dtype)
+    raise ExecutionError(f"MIN unsupported for {dtype}")
+
+
+def _max_identity(dtype: np.dtype):
+    if dtype.kind == "f":
+        return np.asarray(-np.inf, dtype)
+    if dtype.kind in "iu":
+        return np.asarray(np.iinfo(dtype).min, dtype)
+    if dtype.kind == "b":
+        return np.asarray(False, dtype)
+    raise ExecutionError(f"MAX unsupported for {dtype}")
+
+
+def _torch_acc_dtype(np_dtype: np.dtype) -> torch.dtype:
+    if np_dtype.kind == "u":
+        raise NotSupportedError(
+            f"{np_dtype} accumulators have no device dtype yet "
+            "(ROADMAP queue 3: unsigned widening rule)"
+        )
+    return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+
+
+class _AggregateCore:
+    """The shareable part of an aggregation: specs, slots (with their
+    compiled argument closures) and the predicate closure.  Cached
+    process-wide by plan fingerprint (exec/kernels.py), so a fresh
+    operator tree for an identical GROUP BY reuses the built core."""
+
+    def __init__(self, in_schema, group_expr, aggr_expr, predicate, functions,
+                 param_slots=None):
+        for g in group_expr:
+            if not isinstance(g, Column):
+                raise NotSupportedError(f"GROUP BY supports column references, got {g!r}")
+            if in_schema.field(g.index).data_type.np_dtype.kind == "O":
+                raise NotSupportedError("struct columns cannot be GROUP BY keys")
+        self.key_cols = [g.index for g in group_expr]
+        self.specs = []
+        for a in aggr_expr:
+            if not isinstance(a, AggregateFunction):
+                raise ExecutionError(f"non-aggregate expression {a!r} in aggr_expr")
+            self.specs.append(AggregateSpec(a, in_schema))
+
+        compiler = ExprCompiler(in_schema, functions, param_slots)
+        self._pred_fn = compiler.compile(predicate) if predicate is not None else None
+        self.slots = self._build_slots(compiler)
+        self.aux_specs = compiler.aux_specs
+        # ship only the columns the kernel reads (group keys travel as
+        # dense ids); Env's col_map translates schema indices to subset
+        # positions
+        used: set[int] = set()
+        if predicate is not None:
+            predicate.collect_columns(used)
+        for a in aggr_expr:
+            a.collect_columns(used)
+        self.used_cols = sorted(used)
+        self.col_map = {c: i for i, c in enumerate(self.used_cols)}
+        self.acc_dtypes = [_torch_acc_dtype(sl.acc_dtype) for sl in self.slots]
+
+    @staticmethod
+    def param_exprs(predicate, aggr_expr):
+        """Exprs compiled into the core, in slot order."""
+        return ([] if predicate is None else [predicate]) + list(aggr_expr)
+
+    @staticmethod
+    def build(in_schema, group_expr, aggr_expr, predicate, functions):
+        from datafusion_tpu_torch.exec.kernels import (
+            cached_kernel,
+            functions_fingerprint,
+            parameterize_exprs,
+            schema_fingerprint,
+        )
+
+        elig = _AggregateCore.param_exprs(predicate, aggr_expr)
+        fps, slot_by_id, _ = parameterize_exprs(elig)
+        n_pred = 0 if predicate is None else 1
+        key = (
+            "aggregate",
+            schema_fingerprint(in_schema),
+            tuple(group_expr),
+            fps[n_pred:],
+            fps[0] if n_pred else None,
+            functions_fingerprint(functions),
+        )
+        return cached_kernel(
+            key,
+            lambda: _AggregateCore(
+                in_schema, group_expr, aggr_expr, predicate, functions,
+                slot_by_id,
+            ),
+        )
+
+    def _build_slots(self, compiler: ExprCompiler) -> list[_Slot]:
+        """Deduplicate aggregates into accumulator slots.  SUM(x) and
+        AVG(x) share one sum slot; their validity counts (and any
+        COUNT(x)) share one cnt slot per distinct argument; COUNT(*)
+        rides the per-group row count (slot None).  A cnt slot whose
+        argument carries no validity aliases the row count (see
+        _kernel_update)."""
+        slots: list[_Slot] = []
+        index: dict[tuple, int] = {}
+
+        def get(kind, arg, acc_dtype, arg_index=None):
+            key = (kind, arg)
+            hit = index.get(key)
+            if hit is not None:
+                return hit
+            index[key] = len(slots)
+            slots.append(_Slot(kind, arg, compiler.compile(arg), acc_dtype, arg_index))
+            return index[key]
+
+        for s in self.specs:
+            if s.is_string:
+                kind = "smin" if s.name == "min" else "smax"
+                s.minmax_slot = get(kind, s.arg, np.dtype(np.int32), s.arg.index)
+            elif s.name in ("sum", "avg"):
+                s.sum_slot = get("sum", s.arg, s.sum_dtype)
+                s.cnt_slot = get("cnt", s.arg, np.dtype(np.int64))
+            elif s.name == "count":
+                # COUNT(*) counts rows; COUNT(x) counts non-null x
+                s.cnt_slot = None if s.count_star else get(
+                    "cnt", s.arg, np.dtype(np.int64)
+                )
+            else:
+                s.minmax_slot = get(
+                    s.name, s.arg, np.dtype(s.arg_type.np_dtype)
+                )
+        return slots
+
+    # -- accumulator state: (counts, tuple(per-slot accumulators)) --
+    def _slot_identity(self, sl: _Slot):
+        if sl.kind == "smin" or sl.kind == "smax":
+            return np.asarray(-1, np.int32)
+        if sl.kind in ("sum", "cnt"):
+            return np.asarray(0, sl.acc_dtype)
+        if sl.kind == "min":
+            return _min_identity(sl.acc_dtype)
+        return _max_identity(sl.acc_dtype)
+
+    def _init_state(self, capacity: int, device: torch.device):
+        accs = tuple(
+            torch.full((capacity,), self._slot_identity(sl).item(), dtype=dt,
+                       device=device)
+            for sl, dt in zip(self.slots, self.acc_dtypes)
+        )
+        return torch.zeros(capacity, dtype=torch.int64, device=device), accs
+
+    def _grow_state(self, state, new_capacity: int):
+        """Dense group ids are stable: growth is identity padding."""
+        counts, accs = state
+        pad = new_capacity - counts.shape[0]
+
+        def grow(a, fill):
+            return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
+                                            device=a.device)])
+
+        new_accs = tuple(
+            grow(acc, self._slot_identity(sl).item())
+            for sl, acc in zip(self.slots, accs)
+        )
+        return grow(counts, 0), new_accs
+
+    def update(self, cols, valids, aux, num_rows, base_mask, ids, state,
+               str_aux, params, device):
+        """Fold one batch into the state (the JAX core's `_kernel`)."""
+        env = Env(cols, valids, aux, device, self.col_map, params)
+        capacity = cols[0].shape[0] if cols else ids.shape[0]
+        mask = torch.arange(capacity, dtype=torch.int32, device=device) < num_rows
+        if base_mask is not None:
+            mask = mask & base_mask
+        if self._pred_fn is not None:
+            pv, pvalid = self._pred_fn(env)
+            pv = pv.expand(capacity)
+            if pvalid is not None:
+                pv = pv & pvalid.expand(capacity)
+            mask = mask & pv
+        counts, accs = state
+        return self._kernel_update(env, capacity, mask, ids, counts, accs, str_aux)
+
+    def _slot_inputs(self, env, capacity, mask):
+        """(value, ok-mask) per slot, masking padding/filtered/null
+        rows.  `ok is mask` when the argument has no validity — the
+        update uses that identity to alias the row-count reduction."""
+        out = []
+        for sl in self.slots:
+            v, valid = sl.fn(env)
+            v = v.expand(capacity)
+            if valid is None:
+                ok = mask
+            else:
+                ok = mask & valid.expand(capacity)
+            out.append((v, ok))
+        return out
+
+    # -- string MIN/MAX rank arithmetic (codes are stable across
+    # batches; ranks are valid only within one dictionary version) --
+    @staticmethod
+    def _rank_sentinel(kind) -> int:
+        """Identity element in rank space: +inf-like for smin (any real
+        rank beats it under minimum), -1 for smax."""
+        return 2**31 - 1 if kind == "smin" else -1
+
+    @classmethod
+    def _codes_to_ranks(cls, kind, codes, str_aux_k):
+        """Best-code accumulator -> rank space (-1 = empty -> sentinel)."""
+        ranks, _ = str_aux_k
+        cap = ranks.shape[0]
+        return torch.where(
+            codes >= 0,
+            torch.index_select(ranks, 0, codes.clamp(0, cap - 1)),
+            cls._rank_sentinel(kind),
+        )
+
+    @classmethod
+    def _ranks_to_codes(cls, kind, best, str_aux_k):
+        """Winning rank -> stable code (-1 when the group is empty)."""
+        _, order = str_aux_k
+        cap = order.shape[0]
+        alive = best != cls._rank_sentinel(kind)
+        return torch.where(
+            alive, torch.index_select(order, 0, best.clamp(0, cap - 1)), -1
+        ).to(torch.int32)
+
+    @classmethod
+    def _string_combine(cls, kind, acc, batch_best_rank, str_aux_k):
+        """Merge a per-group best-rank candidate into a best-code
+        accumulator."""
+        old_rank = cls._codes_to_ranks(kind, acc, str_aux_k)
+        if kind == "smin":
+            best = torch.minimum(batch_best_rank, old_rank)
+        else:
+            best = torch.maximum(batch_best_rank, old_rank)
+        return cls._ranks_to_codes(kind, best, str_aux_k)
+
+    def _kernel_update(self, env, capacity, mask, ids, counts, accs,
+                       str_aux=()):
+        """Every slot through the grouped-reduce kernel (the JAX core's
+        `_pallas_update`).  Dead rows carry the identity and `mask` is
+        the kernel's live mask, exactly as there."""
+        G = counts.shape[0]
+        inputs = self._slot_inputs(env, capacity, mask)
+
+        def red(vals, kind):
+            return hash_agg.grouped_reduce(ids, vals.contiguous(), mask, G, kind)
+
+        d_counts = red(mask.to(torch.int64), "sum")
+        new_counts = counts + d_counts
+        new_accs = []
+        for i, (sl, (v, ok), acc) in enumerate(zip(self.slots, inputs, accs)):
+            if sl.kind == "cnt" and ok is mask:
+                new_accs.append(acc + d_counts)
+            elif sl.is_string:
+                ranks, _ = str_aux[i]
+                cap = ranks.shape[0]
+                r = torch.index_select(ranks, 0, v.to(torch.int32).clamp(0, cap - 1))
+                contrib = torch.where(ok, r, self._rank_sentinel(sl.kind))
+                best = red(contrib, "min" if sl.kind == "smin" else "max")
+                new_accs.append(
+                    self._string_combine(sl.kind, acc, best, str_aux[i])
+                )
+            elif sl.kind == "sum":
+                new_accs.append(
+                    acc + red(torch.where(ok, v, 0).to(acc.dtype), "sum")
+                )
+            elif sl.kind == "cnt":
+                new_accs.append(acc + red(ok.to(torch.int64), "sum"))
+            else:
+                ident = self._slot_identity(sl).item()
+                r = red(torch.where(ok, v.to(acc.dtype), ident), sl.kind)
+                new_accs.append(
+                    torch.minimum(acc, r) if sl.kind == "min"
+                    else torch.maximum(acc, r)
+                )
+        return new_counts, tuple(new_accs)
+
+
+class AggregateRelation(Relation):
+    """Executes [Selection +] Aggregate over a child relation; emits a
+    single result batch.
+
+    Group expressions must be column references over the child schema
+    (the planner produces exactly that shape).  The core — specs,
+    slots, predicate closure — is shared process-wide across relations
+    with the same plan fingerprint.
+    """
+
+    def __init__(
+        self,
+        child: Relation,
+        group_expr: list[Expr],
+        aggr_expr: list[Expr],
+        out_schema: Schema,
+        device: torch.device,
+        predicate: Optional[Expr] = None,
+        functions=None,
+    ):
+        self.child = child
+        self._schema = out_schema
+        self.device = device
+        self.core = _AggregateCore.build(
+            child.schema, list(group_expr), list(aggr_expr), predicate,
+            functions,
+        )
+        # THIS query's literal values for the shared core's parameter
+        # slots (identical fingerprints guarantee identical slot order)
+        from datafusion_tpu_torch.exec.kernels import parameterize_exprs
+
+        self._param_values = parameterize_exprs(
+            _AggregateCore.param_exprs(predicate, list(aggr_expr))
+        )[2]
+        self.key_cols = self.core.key_cols
+        self.specs = self.core.specs
+        self.slots = self.core.slots
+        self._aux_cache: dict = {}
+        self.encoder = GroupKeyEncoder(len(self.key_cols))
+        self._key_dicts: dict[int, StringDictionary] = {}
+        self._str_dicts: dict[int, StringDictionary] = {}
+        self._str_aux_cache: dict = {}
+
+    def _compute_str_aux(self, batch: RecordBatch):
+        """(ranks, rank->code) tensor pair per string min/max slot,
+        padded to a bucketed capacity, cached per dictionary version."""
+        out = []
+        for k, sl in enumerate(self.slots):
+            if not sl.is_string:
+                out.append(None)
+                continue
+            d = batch.dicts[sl.arg_index]
+            if d is None:
+                raise ExecutionError(
+                    f"column {sl.arg_index} has no dictionary for {sl.kind}"
+                )
+            self._str_dicts[k] = d
+            key = (k, d.version)
+            hit = self._str_aux_cache.get(key)
+            if hit is None:
+                ranks = d.sort_ranks().astype(np.int32)
+                order = np.argsort(ranks).astype(np.int32)  # rank -> code
+                cap = bucket_capacity(max(len(ranks), 1))
+                pr = np.zeros(cap, np.int32)
+                pr[: len(ranks)] = ranks
+                po = np.zeros(cap, np.int32)
+                po[: len(order)] = order
+                hit = (to_device(pr, self.device), to_device(po, self.device))
+                self._str_aux_cache[key] = hit
+            out.append(hit)
+        return tuple(out)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def _pick_capacity(self, current: int) -> int:
+        """Accumulator capacity for the observed group count: the next
+        power of two, never shrinking.  The JAX package jumps 4x past 64
+        groups because each capacity compiles a new sort-merge kernel;
+        eager torch compiles nothing per capacity, so growth stays
+        tight and Q1 (4 groups) keeps a capacity of 8."""
+        needed = max(group_capacity(max(self.encoder.num_groups, 1)), current)
+        if needed > agg_max_groups():
+            raise NotSupportedError(
+                f"GROUP BY with {self.encoder.num_groups} groups needs the "
+                f"sort-merge route above agg_max_groups()={agg_max_groups()} "
+                "(ROADMAP queue 1: sort-merge route for G > 8192)"
+            )
+        return needed
+
+    def accumulate(self):
+        """Run the scan, returning the device accumulator state."""
+        core = self.core
+        device = self.device
+        params = tuple(
+            torch.tensor(v, device=device) for v in self._param_values
+        )
+        state = None
+        capacity = 0
+        for batch in self.child.batches():
+            for idx in self.key_cols:
+                if batch.dicts[idx] is not None:
+                    self._key_dicts[idx] = batch.dicts[idx]
+            ids = self._group_ids(batch)
+            aux = compute_aux_values(core.aux_specs, batch, self._aux_cache, device)
+            str_aux = self._compute_str_aux(batch)
+            data, validity, mask = device_inputs(
+                subset_view(batch, core.used_cols), device
+            )
+            # capacity picked AFTER the batch's keys are encoded, so
+            # every id in the batch fits the accumulator
+            needed = self._pick_capacity(capacity)
+            if state is None:
+                state = core._init_state(needed, device)
+            elif needed > capacity:
+                state = core._grow_state(state, needed)
+            capacity = needed
+            state = core.update(
+                data, validity, aux, batch.num_rows, mask, ids, state,
+                str_aux, params, device,
+            )
+        if state is None:
+            state = core._init_state(group_capacity(1), device)
+        return state
+
+    def _group_ids(self, batch: RecordBatch) -> torch.Tensor:
+        """Dense group ids for one batch as an int32 tensor on the
+        device.  Cached on the batch (keyed by this relation's encoder)
+        so a re-scanned in-memory batch skips the encode and the copy
+        when the same relation scans it again."""
+        hit = batch.cache.get("group_ids")
+        if hit is not None and hit[0] is self.encoder:
+            return hit[1]
+        if self.key_cols:
+            key_cols = [np.asarray(batch.data[idx]) for idx in self.key_cols]
+            key_valids = [
+                None if batch.validity[idx] is None else np.asarray(batch.validity[idx])
+                for idx in self.key_cols
+            ]
+            ids_np = self.encoder.encode(key_cols, key_valids)
+        else:
+            ids_np = np.zeros(batch.capacity, dtype=np.int32)
+        ids = to_device(ids_np, self.device)
+        # one slot per batch: another query's encoder overwrites it, so
+        # a long-lived batch holds at most one ids tensor
+        batch.cache["group_ids"] = (self.encoder, ids)
+        return ids
+
+    @staticmethod
+    def _numeric_output(s: AggregateSpec, sums, cnts, live_counts):
+        """(values, validity) for a SUM/AVG/COUNT spec from its summed
+        and counted per-group arrays."""
+        if s.name in ("sum", "avg"):
+            if s.name == "sum":
+                vals = sums.astype(s.return_type.np_dtype)
+            else:
+                vals = (sums.astype(np.float64) / np.maximum(cnts, 1)).astype(
+                    s.return_type.np_dtype
+                )
+            valid = cnts > 0
+        else:  # count
+            raw = live_counts if cnts is None else cnts
+            vals = raw.astype(s.return_type.np_dtype)
+            valid = None
+        if valid is not None and bool(np.asarray(valid).all()):
+            valid = None
+        return vals, valid
+
+    @classmethod
+    def _spec_output(cls, s: AggregateSpec, slot_host, live_counts, str_dicts):
+        """(values, validity, dict) for one aggregate spec from pulled
+        per-slot live-group arrays."""
+        if s.is_string:
+            codes = slot_host[s.minmax_slot].astype(np.int32)
+            valid = codes >= 0
+            return (
+                np.where(valid, codes, 0).astype(np.int32),
+                None if bool(valid.all()) else valid,
+                str_dicts.get(s.minmax_slot),
+            )
+        if s.name in ("sum", "avg", "count"):
+            sums = None if s.sum_slot is None else slot_host[s.sum_slot]
+            cnts = None if s.cnt_slot is None else slot_host[s.cnt_slot]
+            vals, valid = cls._numeric_output(s, sums, cnts, live_counts)
+            return vals, valid, None
+        if s.name == "min":
+            raw = slot_host[s.minmax_slot]
+            vals = raw.astype(s.return_type.np_dtype)
+            valid = raw != _min_identity(np.dtype(raw.dtype))
+        else:
+            raw = slot_host[s.minmax_slot]
+            vals = raw.astype(s.return_type.np_dtype)
+            valid = raw != _max_identity(np.dtype(raw.dtype))
+        if bool(np.asarray(valid).all()):
+            valid = None
+        return vals, valid, None
+
+    def _key_outputs(self, live):
+        """Group-key output columns for the live groups, in key order."""
+        out_cols, out_valid, out_dicts = [], [], []
+        in_schema = self.child.schema
+        for k, idx in enumerate(self.key_cols):
+            keys, kvalid = self.encoder.key_column(k)
+            keys = keys[live]
+            f = in_schema.field(idx)
+            npd = np.dtype(f.data_type.np_dtype)
+            if npd.kind == "f":
+                # float keys were bit-cast into the encoder; bit-cast back
+                out_cols.append(keys.view(np.float64).astype(npd))
+            else:
+                out_cols.append(keys.astype(npd))
+            out_valid.append(None if kvalid is None else kvalid[live])
+            out_dicts.append(self._key_dicts.get(idx))
+        return out_cols, out_valid, out_dicts
+
+    def _pull_state(self, state):
+        """The state's live prefix on the host, in ONE device-to-host
+        copy: every array is viewed as bytes and concatenated on the
+        device first.  Returns (counts, per-slot host arrays)."""
+        counts, accs = state
+        n_groups = self.encoder.num_groups if self.key_cols else 1
+        cut = min(group_capacity(n_groups), counts.shape[0])
+        parts = [counts[:cut]] + [a[:cut] for a in accs]
+        blob = torch.cat(
+            [p.contiguous().view(-1).view(torch.uint8) for p in parts]
+        ).cpu().numpy()
+        host = []
+        off = 0
+        for p in parts:
+            np_dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
+            nbytes = cut * np_dtype.itemsize
+            host.append(blob[off:off + nbytes].view(np_dtype))
+            off += nbytes
+        return host[0], host[1:]
+
+    def finalize(self, state) -> RecordBatch:
+        counts, accs = self._pull_state(state)
+        n_groups = self.encoder.num_groups if self.key_cols else 1
+        if self.key_cols:
+            live = np.nonzero(counts[:n_groups] > 0)[0]
+        else:
+            # global aggregate: always exactly one output row
+            live = np.array([0], dtype=np.int64)
+
+        out_cols, out_valid, out_dicts = self._key_outputs(live)
+        slot_host = [a[live] for a in accs]
+        live_counts = counts[live]
+        for s in self.specs:
+            vals, valid, d = self._spec_output(
+                s, slot_host, live_counts, self._str_dicts
+            )
+            out_cols.append(vals)
+            out_valid.append(valid)
+            out_dicts.append(d)
+
+        return make_host_batch(self._schema, out_cols, out_valid, out_dicts)
+
+    def batches(self) -> Iterator[RecordBatch]:
+        yield self.finalize(self.accumulate())

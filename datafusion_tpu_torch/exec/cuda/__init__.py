@@ -1,0 +1,127 @@
+"""Hand-written CUDA kernels for Hopper, and their build.
+
+The counterpart of the JAX package's `exec/pallas/`.  Each kernel is a
+CUDA C++ source under `datafusion_tpu_torch/csrc/` with a plain C
+interface.  It is compiled with `nvcc` for `sm_90a` on first use into
+`build/datafusion_tpu_torch/` beside the package, keyed by a hash of
+the source and the flags (an edited source rebuilds), and loaded with
+`ctypes`.
+
+- `hash_agg`: grouped reduce by dense group id (replaces the Pallas
+  `hash_agg.grouped_reduce`).
+
+There is no probe and no switch that turns a kernel off: a wrapper given
+a CUDA tensor launches its kernel or raises; given a CPU tensor it runs
+the kernel's plain PyTorch version.  Each wrapper module counts its
+launches in a plain int, `LAUNCHES`, read and reset here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from datafusion_tpu_torch.errors import ExecutionError
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "datafusion_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+# every kernel source, by the name of the module that wraps it
+SOURCES = ("hash_agg",)
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def agg_max_groups() -> int:
+    """Largest group capacity the grouped-reduce kernel serves; above
+    it the sort-merge route would take the job (not ported yet, so the
+    aggregate raises)."""
+    return int(os.environ.get("DATAFUSION_TPU_PALLAS_AGG_GROUPS", 8192))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise ExecutionError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source unless its library is built already.
+    Returns (library path, process or None, temporary output path)."""
+    out = _lib_path(name)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return out, proc, tmp
+
+
+def _finish_build(name: str, out: Path, proc, tmp) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise ExecutionError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+
+
+def build_all() -> float:
+    """Build every kernel source that is not built yet, one nvcc per
+    source, all started together.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        started = [(name, *_start_build(name)) for name in SOURCES]
+        for name, out, proc, tmp in started:
+            _finish_build(name, out, proc, tmp)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            out, proc, tmp = _start_build(name)
+            _finish_build(name, out, proc, tmp)
+            lib = _LIBS[name] = ctypes.CDLL(str(out))
+    return lib
+
+
+def _modules():
+    from datafusion_tpu_torch.exec.cuda import hash_agg
+
+    return {"hash_agg": hash_agg}
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return {name: mod.LAUNCHES for name, mod in _modules().items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _modules().values():
+        mod.LAUNCHES = 0

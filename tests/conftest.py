@@ -36,3 +36,11 @@ def test_data_dir():
     return os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "test", "data"
     )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU with CUDA (the PyTorch/CUDA port's "
+        "kernel tests); skips where torch.cuda.is_available() is false",
+    )
