@@ -4,29 +4,49 @@
     python3 chip_smoke.py
 
 No setup step: the CUDA kernels build from the checkout's sources on
-first use.  Phases, each of which raises on failure:
+first use (one nvcc per source, all started together).  Phases, each of
+which raises on failure:
 
 1. Build and device: nvcc build seconds, the card's name and power
    limit.
-2. The grouped-reduce kernel against its plain PyTorch version on the
-   card, for every (kind, dtype) the aggregate sends, at N = 131,072,
-   524,288 and 6,000,000 rows and G in {4, 8, 16, 4096, 8192} groups
-   (Q1's batches have 131,072 rows and 8 group slots, config 2's
-   524,288 rows and 16 or 4096 slots), with dead rows,
-   out-of-range ids and NaNs.  Ints exactly, f64 within rtol 1e-12, and
-   every f64 result bit-identical when run twice.  Then kernel, plain
-   and library (`scatter_reduce_`) times at the main path's shapes.
+2. Kernel parity on the card, each kernel against its plain PyTorch
+   version:
+   - the grouped reduce, for every (kind, dtype) the aggregate sends, at
+     N = 131,072, 524,288 and 6,000,000 rows and G in {4, 8, 16, 4096,
+     8192} groups, with dead rows, out-of-range ids and NaNs: ints
+     exactly, f64 within rtol 1e-12, f64 bit-identical when run twice;
+   - the join build at N = S = 25 and 150,000 (the nation and customer
+     builds of Q5), with dead rows, out-of-range positions and duplicate
+     slots: exactly, and bit-identical when run twice;
+   - the radix argsort at n in {1, 2, 3, 1000, 2^18, 1,000,000,
+     6,000,000}, 1 to 3 keys, tie-heavy keys, int64.min and int64.max,
+     and the f64 images of +-NaN, +-0.0 and +-inf: exactly, and
+     bit-identical when run twice.
+   Then kernel, plain and library times at the main path's shapes
+   (library: `scatter_reduce_`, `scatter_reduce_("amax")` and
+   `torch.argsort(stable=True)`; the port never calls them).
 3. TPC-H Q1 over lineitem at SF-1 (6,000,000 rows, generated with the
    distributions of benchmarks/data.py, seed 42) on cuda:0, checked
    against a numpy oracle: keys and counts exactly, floats within rtol
-   1e-9.  p50 over 5 warm runs.
+   1e-9.
 4. The GROUP BY of bench config 2 over 4,000,000 rows with 16 and with
    4096 groups, checked the same way.
+5. Joins over the TPC-H-lite star schema at SF-1 (benchmarks/data.py's
+   cardinalities and distributions, vectorised from seed 19): Q5 and
+   Q12 with ORDER BY l_shipmode, against numpy oracles that join by
+   direct addressing.  Q5 must launch the build kernel twice (customer
+   and nation; the 1,500,000-slot orders build takes the host index),
+   Q12 the sort kernel.
+6. Full sorts: bench config 4b (`ORDER BY a, b` over 1,000,000 rows)
+   and a filtered two-key sort of the SF-1 lineitem, against
+   np.lexsort, rows and order exactly; each must launch the sort
+   kernel.
+Every query runs once cold and WARM_RUNS times warm.
 
-The main path (phases 3 and 4) runs with the launch counters set to 0
-just before each query and read just after; each query must have
-launched the kernel.  The second-to-last lines are the `kernels` JSON
-object and the nvidia-smi line; the last line is
+The main path (phases 3 to 6) runs each query with the launch counters
+set to 0 just before its cold run and read just after; each query must
+have launched the kernels of its path.  The second-to-last lines are
+the `kernels` JSON object and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the package beside this script.
 """
@@ -55,10 +75,22 @@ CONFIG2 = "SELECT k, SUM(v1), AVG(v2), MIN(v3), MAX(v3), COUNT(1) FROM t GROUP B
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 F64_OPS_PER_S = 34e12  # H100 SXM, FP64 outside the tensor cores (data sheet)
-WARM_RUNS = 5
+WARM_RUNS = 3
 TIMED_LAUNCHES = 200
 SF1_ROWS = 6_000_000
 CONFIG2_ROWS = 4_000_000
+SORT4B_ROWS = 1_000_000
+Q5 = ("SELECT n_name, SUM(l_extendedprice * (1 - l_discount)) FROM lineitem "
+      "JOIN orders ON lineitem.l_orderkey = orders.o_orderkey "
+      "JOIN customer ON orders.o_custkey = customer.c_custkey "
+      "JOIN nation ON customer.c_nationkey = nation.n_nationkey "
+      "GROUP BY n_name")
+Q12 = ("SELECT l_shipmode, COUNT(1) FROM lineitem "
+       "JOIN orders ON lineitem.l_orderkey = orders.o_orderkey "
+       "WHERE l_quantity > 25 GROUP BY l_shipmode ORDER BY l_shipmode")
+SORT4B = "SELECT a, b, x FROM t ORDER BY a, b"
+LINEITEM_SORT = ("SELECT l_shipmode, l_orderkey, l_extendedprice FROM lineitem "
+                 "WHERE l_quantity > 25 ORDER BY l_shipmode, l_orderkey DESC")
 
 
 def log(*a):
@@ -151,9 +183,10 @@ def _time_ms(torch, fn, reps=TIMED_LAUNCHES):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, reps=50):
-    """Device time per call of the kernel's own CUDA kernels, from the
-    profiler; None when the trace shows no device time."""
+def _device_ms(torch, fn, names, reps=50):
+    """Device time per call of the kernel's own CUDA kernels (those whose
+    name holds one of `names`), from the profiler; None when the trace
+    shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -164,7 +197,7 @@ def _device_ms(torch, fn, reps=50):
         torch.cuda.synchronize()
     us = sum(
         e.device_time_total for e in prof.key_averages()
-        if "partial_kernel" in e.key or "combine_kernel" in e.key
+        if any(name in e.key for name in names)
     )
     return us / reps / 1e3 if us > 0 else None
 
@@ -187,7 +220,8 @@ def phase_kernel_timing(torch, hash_agg, dev):
         acc = torch.zeros(g, dtype=torch.float64, device=dev)
         lib = _time_ms(torch, lambda: acc.scatter_reduce_(0, ids64, vals, "sum"))
         try:
-            dev_ms = _device_ms(torch, lambda: hash_agg.grouped_reduce(ids, vals, live, g, "sum"))
+            dev_ms = _device_ms(torch, lambda: hash_agg.grouped_reduce(ids, vals, live, g, "sum"),
+                                ("partial_kernel", "combine_kernel"))
         except RuntimeError as e:  # the profiler is a measurement aid only
             log(f"profiler unavailable: {e}")
             dev_ms = None
@@ -201,6 +235,170 @@ def phase_kernel_timing(torch, hash_agg, dev):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         })
     log("kernel_shapes: " + json.dumps(out))
+    return out
+
+
+def _f64_images(torch, x):
+    """The total-order int64 image of f64 keys, as exec/sort.py makes it
+    (zeros and subnormals tie, every NaN sorts last)."""
+    x = torch.where(x.abs() < torch.finfo(torch.float64).tiny, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    b = x.view(torch.int64)
+    return b ^ ((b >> 63) & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def _sort_cases(torch, n, gen, dev):
+    """Key sets for the sort parity phase: tie-heavy keys, full-range
+    keys with int64.min and int64.max, the f64 images of +-NaN, +-0.0
+    and +-inf, and 1 to 3 keys."""
+    i64 = torch.iinfo(torch.int64)
+    ties = torch.randint(0, 7, (n,), generator=gen, device=dev)
+    full = (torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev) * 2
+            + torch.randint(0, 2, (n,), generator=gen, device=dev))
+    if n >= 2:
+        full[0], full[-1] = i64.max, i64.min
+    special = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0,
+                            float("inf"), -float("inf"), 1.5, -1.5],
+                           dtype=torch.float64, device=dev)
+    f = torch.randn(n, generator=gen, device=dev, dtype=torch.float64).round(decimals=1)
+    pick = torch.rand(n, generator=gen, device=dev) < 0.2
+    f[pick] = special[torch.randint(0, 8, (n,), generator=gen, device=dev)[pick]]
+    img = _f64_images(torch, f)
+    wide = torch.randint(0, 1 << 40, (n,), generator=gen, device=dev)
+    return {
+        "ties": [ties], "full": [full], "f64": [img],
+        "ties,f64": [ties, img], "f64,wide": [img, wide],
+        "ties,full,wide": [ties, full, wide],
+    }
+
+
+SORT_SIZES = (1, 2, 3, 1000, 1 << 18, 1_000_000, 6_000_000)
+BUILD_SIZES = (25, 150_000)
+
+
+def phase_sort_parity(torch, sort_kernel, dev):
+    """The radix sort against chained torch.sort(stable=True), exactly,
+    and bit-identical over two runs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    checked = 0
+    max_abs_err = 0
+    for n in SORT_SIZES:
+        for label, ops in _sort_cases(torch, n, gen, dev).items():
+            got = sort_kernel.argsort_multi(ops)
+            torch.cuda.synchronize()
+            want = sort_kernel.argsort_multi_torch(ops)
+            max_abs_err = max(max_abs_err, int((got.long() - want.long()).abs().max()))
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"sort n={n} keys={label}: permutation differs")
+            if not torch.equal(got, sort_kernel.argsort_multi(ops)):
+                raise AssertionError(f"sort n={n} keys={label}: not repeatable")
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"sort parity: {checked} cases exact and repeatable")
+    return float(max_abs_err)
+
+
+def _build_inputs(torch, n, gen, dev):
+    """pos with duplicate slots, out-of-range values on both sides and
+    dead rows (the join computes pos for dead rows too)."""
+    pos = torch.randint(-3, n + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+    dup = torch.rand(n, generator=gen, device=dev) < 0.3
+    pos[dup] = pos[dup] // 2
+    live = torch.rand(n, generator=gen, device=dev) > 0.1
+    return pos, live
+
+
+def phase_build_parity(torch, hash_build, dev):
+    """The build kernel against its plain version, exactly, and
+    bit-identical over two runs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    max_abs_err = 0
+    for n in BUILD_SIZES:
+        pos, live = _build_inputs(torch, n, gen, dev)
+        got = hash_build.build_slot_table(pos, live, n)
+        torch.cuda.synchronize()
+        want = hash_build.build_slot_table_torch(pos, live, n)
+        again = hash_build.build_slot_table(pos, live, n)
+        for g, w, a, what in zip(got, want, again, ("row", "count")):
+            max_abs_err = max(max_abs_err, int((g - w).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"build N=S={n}: {what} differs")
+            if not torch.equal(g, a):
+                raise AssertionError(f"build N=S={n}: {what} not repeatable")
+        if int(want[1].max()) < 2:
+            raise AssertionError(f"build N=S={n}: no duplicate slot in the case")
+    torch.cuda.synchronize()
+    log(f"build parity: N=S in {BUILD_SIZES} exact and repeatable")
+    return float(max_abs_err)
+
+
+def _kernel_entry(shape, kern, plain, lib, dev_ms, nbytes):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"shape": shape, "ms": kern, "device_ms": dev_ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+def _profiled(torch, fn, names):
+    try:
+        return _device_ms(torch, fn, names)
+    except RuntimeError as e:  # the profiler is a measurement aid only
+        log(f"profiler unavailable: {e}")
+        return None
+
+
+def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
+    """Build and sort times at the main path's shapes.  The build's
+    bound is one read of pos and live and one write of row and count;
+    the sort's one read of its int64 keys and one write of the int32
+    permutation (the operations are integer compares and adds, far
+    below the card's rate)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    out = {}
+    builds = []
+    for n, where in ((150_000, "customer build of Q5"), (25, "nation build of Q5")):
+        # a unique build key per row, as the dense path requires
+        pos = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        rows = torch.arange(n, dtype=torch.int32, device=dev)
+        slot_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        pos64 = pos.long()
+        kern = _time_ms(torch, lambda: hash_build.build_slot_table(pos, live, n))
+        plain = _time_ms(torch, lambda: hash_build.build_slot_table_torch(pos, live, n))
+        lib = _time_ms(torch, lambda: slot_row.scatter_reduce_(0, pos64, rows, "amax"))
+        dev_ms = _profiled(torch, lambda: hash_build.build_slot_table(pos, live, n),
+                           ("build_kernel",))
+        builds.append(_kernel_entry(f"N=S={n} ({where})", kern, plain, lib, dev_ms,
+                                    n * (4 + 1) + n * 8))
+    out["hash_build"] = builds
+    sorts = []
+    names = ("andor_kernel", "init_kernel", "hist_kernel", "scan_kernel", "scatter_kernel")
+    a = _f64_images(torch, torch.rand(SORT4B_ROWS, generator=gen, device=dev,
+                                      dtype=torch.float64) * 1e6)
+    b = torch.randint(0, 1 << 40, (SORT4B_ROWS,), generator=gen, device=dev)
+    n3 = 3_000_000
+    mode = torch.randint(0, 7, (n3,), generator=gen, device=dev)
+    okey = ~torch.randint(0, 1_500_000, (n3,), generator=gen, device=dev)
+    for ops, where in (([a, b], "config 4b, f64 image + int64"),
+                       ([mode, okey], "lineitem sort, shipmode + ~orderkey")):
+        n = ops[0].shape[0]
+        kern = _time_ms(torch, lambda: sort_kernel.argsort_multi(ops), reps=20)
+        plain = _time_ms(torch, lambda: sort_kernel.argsort_multi_torch(ops), reps=20)
+
+        def library():
+            perm = torch.argsort(ops[-1], stable=True)
+            for op in reversed(ops[:-1]):
+                perm = perm[torch.argsort(op[perm], stable=True)]
+            return perm
+
+        lib = _time_ms(torch, library, reps=20)
+        dev_ms = _profiled(torch, lambda: sort_kernel.argsort_multi(ops), names)
+        sorts.append(_kernel_entry(f"n={n}, {len(ops)} keys ({where})", kern, plain,
+                                   lib, dev_ms, n * (8 * len(ops) + 4)))
+    out["sort_kernel"] = sorts
+    log("new_kernel_shapes: " + json.dumps(out))
     return out
 
 
@@ -289,17 +487,21 @@ def assert_rows(got_table, want_rows, label):
                 raise AssertionError(f"{label}: {g} != {w}")
 
 
-def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows):
+def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",)):
     """One cold run with the launch counters reset just before and read
-    just after, then WARM_RUNS timed runs.  Returns (result, report)."""
+    just after, then WARM_RUNS timed runs.  Every kernel in `needs`
+    must have launched in the cold run.  Returns (result, report,
+    relation)."""
     cuda_mod.reset_launch_counts()
     t0 = time.perf_counter()
-    table = tdf.collect(ctx.sql(sql))
+    rel = ctx.sql(sql)
+    table = tdf.collect(rel)
     torch.cuda.synchronize()
     cold = (time.perf_counter() - t0) * 1e3
     launches = cuda_mod.launch_counts()
-    if launches["hash_agg"] <= 0:
-        raise AssertionError(f"{label}: the grouped-reduce kernel was not launched")
+    for name in needs:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched")
     times = []
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
@@ -310,10 +512,10 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows):
     report = {
         "query": label, "rows": rows, "cold_ms": cold, "p50_ms": p50,
         "warm_ms": times, "rows_per_s": rows / (p50 / 1e3),
-        "launches_per_query": launches["hash_agg"],
+        "launches": launches,
     }
     log(f"{label}: " + json.dumps(report))
-    return table, report
+    return table, report, rel
 
 
 def q1_profile(tdf, torch, ctx, p50_ms):
@@ -394,7 +596,249 @@ def config2_oracle(c, groups):
             for g in np.nonzero(cnt)[0]]
 
 
+def query_profile(tdf, torch, ctx, sql, label, p50_ms, top=8):
+    """Where one warm run of `sql` spends its time: device time by
+    kernel from torch.profiler (None when the trace shows none) and its
+    share of the unprofiled p50, then, in a second run under cProfile,
+    the host functions with the most time of their own (numpy's and
+    torch's builtins included)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"query": label}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tdf.collect(ctx.sql(sql))
+            torch.cuda.synchronize()
+        by_kernel = sorted(
+            ((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+             if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+            key=lambda t: -t[1],
+        )
+        busy = sum(t[1] for t in by_kernel)
+        out["device_busy_ms"] = busy or None
+        out["device_busy_share_of_p50"] = (busy / p50_ms) if busy else None
+        out["top_device"] = [{"name": k[:60], "ms": ms, "count": c}
+                             for k, ms, c in by_kernel[:top]]
+    except RuntimeError as e:  # the profiler is a measurement aid only
+        log(f"profiler unavailable: {e}")
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(lambda: (tdf.collect(ctx.sql(sql)), torch.cuda.synchronize()))
+    out["wall_ms_cprofile"] = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(
+        ((f"{os.path.basename(fn)}:{name}", tt * 1e3, nc)
+         for (fn, _, name), (_, nc, tt, _, _) in stats.items()),
+        key=lambda t: -t[1],
+    )
+    out["top_host_self"] = [{"fn": f[:70], "ms": ms, "calls": n} for f, ms, n in rows[:top]]
+    log(f"profile_{label}: " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------------ phase 5
+
+
+def star_sf1(tdf, batch_rows):
+    """The TPC-H-lite star schema at SF-1 with the cardinalities and
+    distributions of benchmarks/data.py tpch_join_csvs: nation 25,
+    customer 150,000, orders 1,500,000 (about 2 % of o_custkey past the
+    customer table, o_orderdate Utf8), lineitem 6,000,000.  Generated
+    with vectorised numpy from seed 19, so not that function's per-row
+    RNG sequence, and in memory instead of CSV files.  Returns
+    ({table: MemoryDataSource}, {column: numpy array})."""
+    rng = np.random.default_rng(19)
+    n_nation, n_cust, n_orders = 25, 150_000, 1_500_000
+    c = {
+        "c_nationkey": rng.integers(0, n_nation, n_cust),
+        "c_mktsegment": rng.integers(0, 5, n_cust),
+        "c_acctbal": np.round(rng.uniform(-999, 9999, n_cust), 2),
+        "o_custkey": rng.integers(0, int(n_cust * 1.02), n_orders),
+        "o_date": rng.integers(0, 12, n_orders) * 28 + rng.integers(0, 28, n_orders),
+        "o_shippriority": rng.integers(0, 3, n_orders),
+        "l_orderkey": rng.integers(0, n_orders, SF1_ROWS),
+        "l_quantity": rng.integers(1, 51, SF1_ROWS),
+        "l_extendedprice": np.round(rng.uniform(900, 105000, SF1_ROWS), 2),
+        "l_discount": np.round(rng.uniform(0, 0.1, SF1_ROWS), 2),
+        "l_shipmode": rng.integers(0, 7, SF1_ROWS),
+    }
+    d_name, d_date = tdf.StringDictionary(), tdf.StringDictionary()
+    for i in range(n_nation):
+        d_name.add(f"NATION_{i:02d}")
+    for m in range(1, 13):
+        for d in range(1, 29):
+            d_date.add(f"1995-{m:02d}-{d:02d}")
+    I, F, U = tdf.DataType.INT64, tdf.DataType.FLOAT64, tdf.DataType.UTF8
+
+    def table(fields, cols, dicts=None):
+        schema = tdf.Schema([tdf.Field(name, t, False) for name, t in fields])
+        n = len(cols[0])
+        return tdf.MemoryDataSource(schema, [
+            tdf.make_host_batch(schema, [col[lo:lo + batch_rows] for col in cols],
+                                None, dicts)
+            for lo in range(0, n, batch_rows)
+        ])
+
+    tables = {
+        "nation": table([("n_nationkey", I), ("n_name", U)],
+                        [np.arange(n_nation), np.arange(n_nation, dtype=np.int32)],
+                        [None, d_name]),
+        "customer": table([("c_custkey", I), ("c_nationkey", I),
+                           ("c_mktsegment", I), ("c_acctbal", F)],
+                          [np.arange(n_cust), c["c_nationkey"], c["c_mktsegment"],
+                           c["c_acctbal"]]),
+        "orders": table([("o_orderkey", I), ("o_custkey", I), ("o_orderdate", U),
+                         ("o_shippriority", I)],
+                        [np.arange(n_orders), c["o_custkey"],
+                         c["o_date"].astype(np.int32), c["o_shippriority"]],
+                        [None, None, d_date, None]),
+        "lineitem": table([("l_orderkey", I), ("l_quantity", I), ("l_extendedprice", F),
+                           ("l_discount", F), ("l_shipmode", I)],
+                          [c["l_orderkey"], c["l_quantity"], c["l_extendedprice"],
+                           c["l_discount"], c["l_shipmode"]]),
+    }
+    return tables, c
+
+
+def q5_oracle(c):
+    """Q5 by direct addressing: o_orderkey and c_custkey are row
+    numbers; a dangling o_custkey drops the row."""
+    cust = c["o_custkey"][c["l_orderkey"]]
+    ok = cust < len(c["c_nationkey"])
+    nation = c["c_nationkey"][cust[ok]]
+    rev = (c["l_extendedprice"] * (1 - c["l_discount"]))[ok]
+    sums = np.bincount(nation, weights=rev, minlength=25)
+    cnt = np.bincount(nation, minlength=25)
+    return [(f"NATION_{i:02d}", sums[i]) for i in range(25) if cnt[i] > 0]
+
+
+def q12_oracle(c):
+    """Q12 with ORDER BY: every l_orderkey has its order."""
+    cnt = np.bincount(c["l_shipmode"][c["l_quantity"] > 25], minlength=7)
+    return [(m, int(cnt[m])) for m in range(7) if cnt[m] > 0]
+
+
+def join_routes(rel):
+    """Whether each join of an operator tree built densely, outermost
+    first."""
+    from datafusion_tpu_torch.join.relation import HashJoinRelation
+
+    out, stack = [], [rel]
+    while stack:
+        r = stack.pop()
+        if isinstance(r, HashJoinRelation):
+            out.append(r._artifact.dense)
+            stack.extend([r.right, r.left])
+        elif getattr(r, "child", None) is not None:
+            stack.append(r.child)
+    return out
+
+
+def phase_joins(tdf, cuda_mod, torch, ctx):
+    t0 = time.perf_counter()
+    tables, cols = star_sf1(tdf, ctx.batch_size)
+    for name, src in tables.items():
+        ctx.register_datasource(name, src)
+    log(f"star schema SF-1 generated in {time.perf_counter() - t0:.1f} s")
+    reports = []
+    table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q5, "tpch_q5_sf1", SF1_ROWS,
+                                needs=("hash_agg", "hash_build"))
+    assert_rows(table, q5_oracle(cols), "Q5")
+    routes = join_routes(rel)
+    if rep["launches"]["hash_build"] != 2 or routes != [True, True, False]:
+        raise AssertionError(f"Q5: build launches {rep['launches']['hash_build']}, "
+                             f"dense routes {routes} (want 2 and nation, customer dense)")
+    log(f"Q5 rows match the numpy oracle ({table.num_rows} nations); "
+        f"dense builds {routes} (nation, customer, orders)")
+    query_profile(tdf, torch, ctx, Q5, "tpch_q5_sf1", rep["p50_ms"])
+    reports.append(rep)
+    table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q12, "tpch_q12_order_by_sf1",
+                                SF1_ROWS, needs=("hash_agg", "sort_kernel"))
+    if table.to_rows() != q12_oracle(cols):
+        raise AssertionError(f"Q12: {table.to_rows()} != {q12_oracle(cols)}")
+    if join_routes(rel) != [False]:
+        raise AssertionError("Q12: the orders build should take the host index")
+    log(f"Q12 rows and order match the numpy oracle ({table.num_rows} ship modes)")
+    reports.append(rep)
+    return reports, cols
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def sort4b_table(tdf):
+    """Config 4b's table with benchmarks/data.py sort_batches' RNG
+    sequence (seed 11), 1,000,000 rows in batches of 2^19."""
+    F, I = tdf.DataType.FLOAT64, tdf.DataType.INT64
+    schema = tdf.Schema([tdf.Field("a", F, False), tdf.Field("b", I, False),
+                         tdf.Field("x", F, False),
+                         tdf.Field("s", tdf.DataType.FLOAT32, False)])
+    rng = np.random.default_rng(11)
+    batches, parts = [], []
+    for start in range(0, SORT4B_ROWS, 1 << 19):
+        n = min(1 << 19, SORT4B_ROWS - start)
+        cols = [
+            rng.uniform(0.0, 1e6, n),
+            rng.integers(0, 1 << 40, n).astype(np.int64),
+            rng.uniform(0.0, 1.0, n),
+            rng.uniform(0.0, 1e6, n).astype(np.float32),
+        ]
+        parts.append(cols)
+        batches.append(tdf.make_host_batch(schema, cols, None, None))
+    c = [np.concatenate([p[i] for p in parts]) for i in range(3)]
+    return tdf.MemoryDataSource(schema, batches), c
+
+
+def assert_columns(table, want_cols, label):
+    """Rows and order exactly: every output column equals the oracle's."""
+    if table.num_rows != len(want_cols[0]):
+        raise AssertionError(f"{label}: {table.num_rows} rows, oracle has "
+                             f"{len(want_cols[0])}")
+    for i, want in enumerate(want_cols):
+        if not np.array_equal(np.asarray(table.columns[i]), want):
+            raise AssertionError(f"{label}: column {i} differs from the oracle")
+
+
+def phase_sorts(tdf, cuda_mod, torch, ctx, cols):
+    reports = []
+    src, c = sort4b_table(tdf)
+    ctx.register_datasource("t", src)
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, SORT4B, "config4b_full_sort",
+                              SORT4B_ROWS, needs=("sort_kernel",))
+    order = np.lexsort((c[1], c[0]))
+    assert_columns(table, [c[0][order], c[1][order], c[2][order]], "config 4b")
+    log("config 4b rows and order match np.lexsort")
+    query_profile(tdf, torch, ctx, SORT4B, "config4b_full_sort", rep["p50_ms"])
+    reports.append(rep)
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, LINEITEM_SORT,
+                              "lineitem_filtered_sort_sf1", SF1_ROWS,
+                              needs=("sort_kernel",))
+    sel = cols["l_quantity"] > 25
+    mode, okey = cols["l_shipmode"][sel], cols["l_orderkey"][sel]
+    order = np.lexsort((~okey, mode))  # DESC by complement; stable
+    assert_columns(table, [mode[order], okey[order], cols["l_extendedprice"][sel][order]],
+                   "lineitem sort")
+    log(f"lineitem sort rows and order match np.lexsort ({table.num_rows} rows)")
+    query_profile(tdf, torch, ctx, LINEITEM_SORT, "lineitem_filtered_sort_sf1", rep["p50_ms"])
+    reports.append(rep)
+    return reports
+
+
 # ------------------------------------------------------------ main
+
+
+def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max_abs_err,
+        "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+        "library_ms": entry["library_ms"], "device_ms": entry["device_ms"],
+        "shape": entry["shape"],
+    }
 
 
 def main() -> int:
@@ -406,15 +850,18 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import datafusion_tpu_torch as tdf
     from datafusion_tpu_torch.exec import cuda as cuda_mod
-    from datafusion_tpu_torch.exec.cuda import hash_agg
+    from datafusion_tpu_torch.exec.cuda import hash_agg, hash_build, sort_kernel
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_build(cuda_mod, torch)
-    max_abs_err = phase_kernel_parity(torch, hash_agg, dev)
+    agg_err = phase_kernel_parity(torch, hash_agg, dev)
+    build_err = phase_build_parity(torch, hash_build, dev)
+    sort_err = phase_sort_parity(torch, sort_kernel, dev)
     shapes = phase_kernel_timing(torch, hash_agg, dev)
+    new_shapes = phase_new_kernel_timing(torch, hash_build, sort_kernel, dev)
 
     ctx = tdf.ExecutionContext()  # cuda:0
     t0 = time.perf_counter()
@@ -422,42 +869,45 @@ def main() -> int:
     log(f"lineitem SF-1 generated in {time.perf_counter() - t0:.1f} s "
         f"({len(list(src.batches()))} batches of {ctx.batch_size} rows)")
     ctx.register_datasource("lineitem", src)
-    table, q1 = run_query(tdf, cuda_mod, torch, ctx, Q1, "tpch_q1_sf1", SF1_ROWS)
+    table, q1, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, "tpch_q1_sf1", SF1_ROWS)
     assert_rows(table, q1_oracle(cols, dates), "Q1")
     log(f"Q1 rows match the numpy oracle ({table.num_rows} groups)")
     try:
         q1_profile(tdf, torch, ctx, q1["p50_ms"])
     except RuntimeError as e:  # the profiler is a measurement aid only
         log(f"profiler unavailable: {e}")
-    main_launches = q1["launches_per_query"]
+    reports = [q1]
     del src, cols
 
     for groups in (16, 4096):
         src, cols = groupby_table(tdf, groups)
         ctx.register_datasource("t", src)
-        table, rep = run_query(tdf, cuda_mod, torch, ctx, CONFIG2,
-                               f"config2_groupby_{groups}", CONFIG2_ROWS)
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, CONFIG2,
+                                  f"config2_groupby_{groups}", CONFIG2_ROWS)
         assert_rows(table, config2_oracle(cols, groups), f"config 2 G={groups}")
         log(f"config 2 ({groups} groups) rows match the numpy oracle")
-        main_launches += rep["launches_per_query"]
+        reports.append(rep)
         del src, cols
 
-    q1_shape = shapes[0]
-    log(json.dumps({"kernels": [{
-        "name": "hash_agg.grouped_reduce",
-        "route": "cuda",
-        "source": "datafusion_tpu_torch/csrc/hash_agg.cu",
-        "replaces": "datafusion_tpu/exec/pallas/hash_agg.py:95",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": q1_shape["ms"],
-        "plain_ms": q1_shape["plain_ms"],
-        "bound_ms": q1_shape["bound_ms"],
-        "bound_by": q1_shape["bound_by"],
-        "library_ms": q1_shape["library_ms"],
-        "device_ms": q1_shape["device_ms"],
-        "shape": q1_shape["shape"],
-    }]}))
+    join_reports, star_cols = phase_joins(tdf, cuda_mod, torch, ctx)
+    reports += join_reports
+    reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
+
+    def launched(name):
+        return sum(r["launches"][name] for r in reports)
+
+    log(json.dumps({"kernels": [
+        _kernel_line("hash_agg.grouped_reduce", "datafusion_tpu_torch/csrc/hash_agg.cu",
+                     "datafusion_tpu/exec/pallas/hash_agg.py:95", launched("hash_agg"),
+                     agg_err, shapes[0]),
+        _kernel_line("hash_build.build_slot_table",
+                     "datafusion_tpu_torch/csrc/hash_build.cu",
+                     "datafusion_tpu/exec/pallas/hash_build.py:70",
+                     launched("hash_build"), build_err, new_shapes["hash_build"][0]),
+        _kernel_line("sort_kernel.argsort_multi", "datafusion_tpu_torch/csrc/sort_kernel.cu",
+                     "datafusion_tpu/exec/pallas/sort_kernel.py:89",
+                     launched("sort_kernel"), sort_err, new_shapes["sort_kernel"][0]),
+    ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,7 @@ from datafusion_tpu_torch.exec.batch import (
     make_host_batch,
     subset_view,
     to_device,
+    to_host,
 )
 from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg
 from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
@@ -799,9 +800,11 @@ class AggregateRelation(Relation):
         if hit is not None and hit[0] is self.encoder:
             return hit[1]
         if self.key_cols:
-            key_cols = [np.asarray(batch.data[idx]) for idx in self.key_cols]
+            # a key column on the device (a join's gathered payload)
+            # crosses to the host for the encoder
+            key_cols = [to_host(batch.data[idx]) for idx in self.key_cols]
             key_valids = [
-                None if batch.validity[idx] is None else np.asarray(batch.validity[idx])
+                None if batch.validity[idx] is None else to_host(batch.validity[idx])
                 for idx in self.key_cols
             ]
             ids_np = self.encoder.encode(key_cols, key_valids)

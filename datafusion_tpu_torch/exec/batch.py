@@ -9,11 +9,14 @@ Batches are the JAX package's layout (`datafusion_tpu/exec/batch.py`):
   a global, append-only `StringDictionary`, so codes are stable across
   batches and GROUP BY keys stay consistent for the whole scan.
 
-Host batches hold numpy arrays.  `device_inputs` copies the columns a
-kernel reads to the device as torch tensors: from pinned host memory
-with `non_blocking=True` on a CUDA device, as zero-copy views on the
-CPU.  The JAX package's wire codec, f64-pair split and link probes are
-not ported (ROADMAP queue 1, "wire codec").
+Scanned batches hold numpy arrays.  `device_inputs` copies the
+columns a kernel reads to the device as torch tensors: from pinned host
+memory with `non_blocking=True` on a CUDA device, as zero-copy views on
+the CPU.  A batch may also hold tensors already on the device (the
+dense join probe yields such batches): `device_inputs` passes those
+through, and `to_host` brings any column or mask back as numpy.  The
+JAX package's wire codec, f64-pair split and link probes are not
+ported (ROADMAP queue 1, "wire codec").
 """
 
 from __future__ import annotations
@@ -45,11 +48,14 @@ class StringDictionary:
     recomputed only when the dictionary has grown.
     """
 
-    __slots__ = ("values", "index")
+    __slots__ = ("values", "index", "cmp_cache")
 
     def __init__(self):
         self.values: list[str] = []
         self.index: dict[str, int] = {}
+        # derived tables keyed by use, each stored with the version it
+        # was built at (host compare tables, join content hashes)
+        self.cmp_cache: dict = {}
 
     @property
     def version(self) -> int:
@@ -117,10 +123,10 @@ class StringDictionary:
 class RecordBatch:
     """A padded columnar batch.
 
-    `data[i]` is a numpy array of length `capacity`; rows at index >=
-    num_rows are padding.  `validity[i]` is a bool array (None = all
-    valid).  `mask` is the row-selection mask produced by upstream
-    filters (None = all rows live).  Utf8 columns store int32 codes and
+    `data[i]` is a numpy array or a torch tensor of length `capacity`;
+    rows at index >= num_rows are padding.  `validity[i]` is a bool
+    array (None = all valid).  `mask` is the row-selection mask
+    produced by upstream filters (None = all rows live).  Utf8 columns store int32 codes and
     their StringDictionary in `dicts[i]`.  `cache` holds values derived
     from the batch (device copies, group ids) and dies with it.
     """
@@ -151,7 +157,7 @@ class RecordBatch:
 
     @property
     def capacity(self) -> int:
-        return len(self.data[0]) if self.data else 0
+        return int(self.data[0].shape[0]) if self.data else 0
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -165,6 +171,22 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_host(x) -> np.ndarray:
+    """A column, validity or mask as a numpy array, whether it is a
+    host array or a tensor on any device (one device-to-host copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """A host array or a tensor as a tensor on `device`; a tensor
+    already there passes through."""
+    if isinstance(x, torch.Tensor):
+        return x if x.device == device else x.to(device)
+    return to_device(np.asarray(x), device)
+
+
 def device_inputs(batch: RecordBatch, device: torch.device):
     """(data, validity, mask) of `batch` as tensors on `device`, cached
     on the batch: a re-scanned in-memory batch crosses to the device
@@ -173,11 +195,11 @@ def device_inputs(batch: RecordBatch, device: torch.device):
     hit = batch.cache.get(key)
     if hit is not None:
         return hit
-    data = tuple(to_device(c, device) for c in batch.data)
+    data = tuple(on_device(c, device) for c in batch.data)
     validity = tuple(
-        None if v is None else to_device(v, device) for v in batch.validity
+        None if v is None else on_device(v, device) for v in batch.validity
     )
-    mask = None if batch.mask is None else to_device(np.asarray(batch.mask), device)
+    mask = None if batch.mask is None else on_device(batch.mask, device)
     out = (data, validity, mask)
     batch.cache[key] = out
     return out

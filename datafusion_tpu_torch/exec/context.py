@@ -5,13 +5,21 @@ parses, plans and optimizes (projection push-down), then maps the plan
 onto operators:
 
     TableScan                        -> DataSourceRelation
-    Aggregate(Selection(TableScan))  -> AggregateRelation with the
+    Aggregate(Selection(x))          -> AggregateRelation with the
                                         predicate evaluated inside it
     Aggregate(x)                     -> AggregateRelation
+    Join(l, r)                       -> HashJoinRelation
+    [Limit](Sort(Projection/Selection chain))
+                                     -> one SortRelation that filters,
+                                        sorts and projects
+                                        (exec/fused.rewrite_sort)
+    [Limit](Sort(x))                 -> SortRelation
+    Limit(x)                         -> LimitRelation
 
-Every other plan node, DDL, EXPLAIN, result caching, cost rewriting and
-telemetry raise NotSupportedError until their slice lands (ROADMAP
-queue 1).
+Every other plan node (a Projection or Selection that does not fold
+into a Sort or an Aggregate needs PipelineRelation), DDL, EXPLAIN,
+result caching, cost rewriting and telemetry raise NotSupportedError
+until their slice lands (ROADMAP queue 1).
 
 Device selection: `device=None` means `cuda:0`, and the context raises
 ExecutionError when no CUDA device is available — it never carries on
@@ -27,14 +35,20 @@ import torch
 
 from datafusion_tpu_torch.datatypes import DataType, Field, Schema
 from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
+from datafusion_tpu_torch.exec import fused
 from datafusion_tpu_torch.exec.aggregate import AggregateRelation
 from datafusion_tpu_torch.exec.datasource import DataSource
 from datafusion_tpu_torch.exec.relation import DataSourceRelation, Relation
+from datafusion_tpu_torch.exec.sort import LimitRelation, SortRelation
+from datafusion_tpu_torch.join.relation import HashJoinRelation
 from datafusion_tpu_torch.plan.expr import FunctionMeta, FunctionType
 from datafusion_tpu_torch.plan.logical import (
     Aggregate,
+    Join,
+    Limit,
     LogicalPlan,
     Selection,
+    Sort,
     TableScan,
 )
 from datafusion_tpu_torch.sql import ast
@@ -149,6 +163,9 @@ class ExecutionContext:
 
     def execute(self, plan: LogicalPlan) -> Relation:
         """Map a logical plan onto operators (reference `context.rs:103`)."""
+        rel = self._execute_fused(plan)
+        if rel is not None:
+            return rel
         if isinstance(plan, TableScan):
             ds = self.datasources.get(plan.table_name)
             if ds is None:
@@ -169,6 +186,43 @@ class ExecutionContext:
                 child, plan.group_expr, plan.aggr_expr, plan.schema,
                 self.device, predicate=pred, functions=self._torch_functions(),
             )
+        if isinstance(plan, Sort):
+            return SortRelation(
+                self.execute(plan.input), plan.expr, plan.schema, self.device
+            )
+        if isinstance(plan, Limit):
+            if isinstance(plan.input, Sort):
+                # the sort slices its permutation directly
+                return SortRelation(
+                    self.execute(plan.input.input), plan.input.expr,
+                    plan.schema, self.device, limit=plan.limit,
+                )
+            return LimitRelation(self.execute(plan.input), plan.limit, plan.schema)
+        if isinstance(plan, Join):
+            return HashJoinRelation(
+                self.execute(plan.left), self.execute(plan.right),
+                plan.on, plan.join_type, plan.schema, self.device,
+            )
         raise NotSupportedError(
             f"plan node {type(plan).__name__} is not ported yet (ROADMAP queue 1)"
+        )
+
+    def _execute_fused(self, plan: LogicalPlan) -> Optional[Relation]:
+        """Collapse [Limit](Sort(...)) over a filter/column-projection
+        chain into ONE SortRelation (exec/fused.rewrite_sort).  Returns
+        None when the plan is not such a chain; the caller then lowers
+        node by node."""
+        limit = None
+        sort = plan
+        if isinstance(plan, Limit) and isinstance(plan.input, Sort):
+            limit, sort = plan.limit, plan.input
+        if not isinstance(sort, Sort):
+            return None
+        hit = fused.rewrite_sort(sort, limit)
+        if hit is None:
+            return None
+        base, keys, pred, out_cols = hit
+        return SortRelation(
+            self.execute(base), keys, plan.schema, self.device, limit=limit,
+            predicate=pred, output_cols=out_cols,
         )

@@ -9,6 +9,10 @@ the source and the flags (an edited source rebuilds), and loaded with
 
 - `hash_agg`: grouped reduce by dense group id (replaces the Pallas
   `hash_agg.grouped_reduce`).
+- `hash_build`: direct-address join build (replaces the Pallas
+  `hash_build.build_slot_table`).
+- `sort_kernel`: stable int64 argsort, an LSD radix sort (replaces the
+  Pallas `sort_kernel.argsort_i64` / `argsort_multi`).
 
 There is no probe and no switch that turns a kernel off: a wrapper given
 a CUDA tensor launches its kernel or raises; given a CPU tensor it runs
@@ -36,7 +40,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # every kernel source, by the name of the module that wraps it
-SOURCES = ("hash_agg",)
+SOURCES = ("hash_agg", "hash_build", "sort_kernel")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -112,9 +116,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _modules():
-    from datafusion_tpu_torch.exec.cuda import hash_agg
+    from datafusion_tpu_torch.exec.cuda import hash_agg, hash_build, sort_kernel
 
-    return {"hash_agg": hash_agg}
+    return {"hash_agg": hash_agg, "hash_build": hash_build,
+            "sort_kernel": sort_kernel}
 
 
 def launch_counts() -> dict:

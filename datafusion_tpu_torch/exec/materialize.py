@@ -1,10 +1,14 @@
 """Result materialization: batches -> host rows.
 
-The counterpart of the JAX package's `exec/materialize.py`.  Every
-batch that reaches this boundary in this slice is a host batch (an
-aggregate's state crosses to the host in one copy in
-`AggregateRelation.finalize`), so compaction drops padding and
-masked-out rows with numpy.
+The counterpart of the JAX package's `exec/materialize.py`.  A batch
+reaching this boundary is a host batch or holds tensors on the device
+(the dense join probe's output); `compact_batch` brings either to the
+host and drops padding and masked-out rows.  The JAX package gathers
+live rows on the device first and overlaps the copies with the next
+batch through an asynchronous pull (`iter_with_mask_prefetch`); here
+batches are pulled one at a time, each device column crosses in one
+copy and the live rows are selected with numpy (that pipelining is
+ROADMAP queue 1, "wire codec").
 """
 
 from __future__ import annotations
@@ -14,6 +18,34 @@ from typing import Optional
 import numpy as np
 
 from datafusion_tpu_torch.datatypes import DataType, Schema
+from datafusion_tpu_torch.exec.batch import RecordBatch, to_host
+
+
+def _live_rows(batch: RecordBatch) -> Optional[np.ndarray]:
+    """Bool mask of the batch's live rows over its capacity, or None
+    when every row below num_rows is live (no selection mask)."""
+    if batch.mask is None:
+        return None
+    live = to_host(batch.mask)[: batch.capacity].astype(bool)
+    return live & (np.arange(batch.capacity) < batch.num_rows)
+
+
+def compact_batch(batch: RecordBatch):
+    """Bring a batch to host and drop padding/filtered rows.
+
+    Returns (columns, validity, dicts, num_live_rows); strings stay
+    dictionary-coded."""
+    live = _live_rows(batch)
+    n = batch.num_rows
+
+    def select(a):
+        a = to_host(a)
+        return a[live] if live is not None else a[:n]
+
+    cols = [select(c) for c in batch.data]
+    valids = [None if v is None else select(v) for v in batch.validity]
+    count = int(live.sum()) if live is not None else n
+    return cols, valids, list(batch.dicts), count
 
 
 class ResultTable:
@@ -61,17 +93,13 @@ def collect_columns(relation):
     dicts: list = [None] * ncols
     total = 0
     for batch in relation.batches():
-        live = np.zeros(batch.capacity, dtype=bool)
-        live[: batch.num_rows] = True
-        if batch.mask is not None:
-            live &= np.asarray(batch.mask)
-        total += int(live.sum())
+        cols, valids, bdicts, n = compact_batch(batch)
+        total += n
         for i in range(ncols):
-            parts[i].append(np.asarray(batch.data[i])[live])
-            v = batch.validity[i]
-            vparts[i].append(None if v is None else np.asarray(v)[live])
-            if batch.dicts[i] is not None:
-                dicts[i] = batch.dicts[i]
+            parts[i].append(cols[i])
+            vparts[i].append(valids[i])
+            if bdicts[i] is not None:
+                dicts[i] = bdicts[i]
     columns = []
     validity: list[Optional[np.ndarray]] = []
     for i in range(ncols):

@@ -7,10 +7,12 @@ card and no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same
-tensors (ints exactly, f64 within rtol 1e-12, the plain version's
-atomics sum in another order), and the engine on cuda:0 against the
-engine on the CPU (rtol 1e-9).
+Each kernel is held against its plain PyTorch version on the same
+tensors: the grouped reduce's ints exactly and f64 within rtol 1e-12
+(the plain version's atomics sum in another order), the join build and
+the radix argsort exactly, each bit-identical when run twice.  The
+engine on cuda:0 is held against the engine on the CPU: a GROUP BY
+(rtol 1e-9), a join chain and full sorts (rows and order exactly).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 import datafusion_tpu_torch as tdf
 from datafusion_tpu_torch.exec import cuda as port_cuda
-from datafusion_tpu_torch.exec.cuda import hash_agg
+from datafusion_tpu_torch.exec.cuda import hash_agg, hash_build, sort_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +109,134 @@ def test_engine_on_card_matches_engine_on_cpu(dev):
     for g, w in zip(got, want):
         for gv, wv in zip(g, w):
             if isinstance(wv, float):
+                assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
+            else:
+                assert gv == wv, (g, w)
+
+
+# ------------------------------------------------------------ join build
+
+
+@pytest.mark.parametrize("n,slots", [(1, 1), (25, 25), (150_000, 150_000),
+                                     (1_000_000, 4096)])
+def test_build_kernel_matches_plain_version(dev, n, slots):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    pos = torch.randint(-3, slots + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+    live = torch.rand(n, generator=gen, device=dev) > 0.1
+    before = hash_build.LAUNCHES
+    got = hash_build.build_slot_table(pos, live, slots)
+    assert hash_build.LAUNCHES == before + 1
+    want = hash_build.build_slot_table_torch(pos, live, slots)
+    again = hash_build.build_slot_table(pos, live, slots)
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(g, w) and torch.equal(g, a)
+
+
+def test_build_kernel_rejects_non_contiguous_input(dev):
+    pos = torch.zeros(16, dtype=torch.int32, device=dev)
+    live = torch.ones(16, dtype=torch.bool, device=dev)
+    with pytest.raises(tdf.ExecutionError):
+        hash_build.build_slot_table(pos[::2], live[::2], 4)
+
+
+# ------------------------------------------------------------ sort
+
+
+def _f64_image(x):
+    x = torch.where(x.abs() < torch.finfo(torch.float64).tiny, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    b = x.view(torch.int64)
+    return b ^ ((b >> 63) & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 4097, 1 << 18, 1_000_000])
+@pytest.mark.parametrize("keys", ["ties", "full", "f64", "constant,ties", "ties,full,wide"])
+def test_argsort_kernel_matches_plain_version(dev, n, keys):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    full = (torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev) * 2
+            + torch.randint(0, 2, (n,), generator=gen, device=dev))
+    full[0] = torch.iinfo(torch.int64).min
+    f = torch.randn(n, generator=gen, device=dev, dtype=torch.float64).round(decimals=1)
+    special = torch.tensor([float("nan"), -float("nan"), 0.0, -0.0, float("inf"),
+                            -float("inf")], dtype=torch.float64, device=dev)
+    pick = torch.rand(n, generator=gen, device=dev) < 0.2
+    f[pick] = special[torch.randint(0, 6, (n,), generator=gen, device=dev)[pick]]
+    pool = {
+        "ties": torch.randint(0, 7, (n,), generator=gen, device=dev),
+        "full": full,
+        "f64": _f64_image(f),
+        "constant": torch.full((n,), -3, dtype=torch.int64, device=dev),
+        "wide": torch.randint(0, 1 << 40, (n,), generator=gen, device=dev),
+    }
+    ops = [pool[k] for k in keys.split(",")]
+    before = sort_kernel.LAUNCHES
+    got = sort_kernel.argsort_multi(ops)
+    assert sort_kernel.LAUNCHES == before + 1
+    want = sort_kernel.argsort_multi_torch(ops)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got, sort_kernel.argsort_multi(ops))
+
+
+def test_argsort_kernel_rejects_non_contiguous_input(dev):
+    keys = torch.arange(16, device=dev)
+    with pytest.raises(tdf.ExecutionError):
+        sort_kernel.argsort_multi([keys[::2]])
+
+
+# ------------------------------------------------------------ engine
+
+
+def _star(n=40_000, seed=2):
+    """fact -> dim (dense, unique keys 0..999 with dangling 1000..1049)
+    -> grp (dense), and a Utf8 label on the last table."""
+    rng = np.random.default_rng(seed)
+    I, F, U = tdf.DataType.INT64, tdf.DataType.FLOAT64, tdf.DataType.UTF8
+    fs = tdf.Schema([tdf.Field("k", I, False), tdf.Field("seq", I, False),
+                     tdf.Field("x", F, False)])
+    ds = tdf.Schema([tdf.Field("dk", I, False), tdf.Field("g", I, False)])
+    gs = tdf.Schema([tdf.Field("gk", I, False), tdf.Field("label", U, False)])
+    fact = [rng.integers(0, 1050, n), np.arange(n), rng.uniform(0, 1e3, n)]
+    d = tdf.StringDictionary()
+    labels = d.encode([f"g{i:02d}" for i in range(30)])
+    tables = {
+        "fact": (fs, [tdf.make_host_batch(fs, [c[i:i + 8192] for c in fact])
+                      for i in range(0, n, 8192)]),
+        "dim": (ds, [tdf.make_host_batch(ds, [np.arange(1000), rng.integers(0, 40, 1000)])]),
+        "grp": (gs, [tdf.make_host_batch(gs, [np.arange(30), labels], None, [None, d])]),
+    }
+    return tables
+
+
+@pytest.mark.parametrize("sql,ordered", [
+    ("SELECT label, SUM(x), COUNT(1) FROM fact JOIN dim ON fact.k = dim.dk "
+     "JOIN grp ON dim.g = grp.gk GROUP BY label", False),
+    ("SELECT seq, label, x FROM fact JOIN dim ON fact.k = dim.dk "
+     "LEFT JOIN grp ON dim.g = grp.gk WHERE x > 500 ORDER BY label DESC, seq", True),
+    ("SELECT k, x, seq FROM fact WHERE x < 900 ORDER BY k, x DESC", True),
+])
+def test_engine_on_card_matches_engine_on_cpu_for_joins_and_sorts(dev, sql, ordered):
+    tables = _star()
+    rows = {}
+    for device in ("cpu", dev):
+        ctx = tdf.ExecutionContext(device=device)
+        for name, (schema, batches) in tables.items():
+            ctx.register_datasource(name, tdf.MemoryDataSource(schema, batches))
+        port_cuda.reset_launch_counts()
+        got = tdf.collect(ctx.sql(sql)).to_rows()
+        rows[str(device)] = got if ordered else sorted(got)
+        counts = port_cuda.launch_counts()
+        on_card = str(device) != "cpu"
+        if "JOIN" in sql:
+            assert (counts["hash_build"] == 2) == on_card
+        if ordered:
+            assert (counts["sort_kernel"] >= 1) == on_card
+    got, want = rows[str(dev)], rows["cpu"]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for gv, wv in zip(g, w):
+            if isinstance(wv, float) and not ordered:
                 assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
             else:
                 assert gv == wv, (g, w)

@@ -397,8 +397,11 @@ def test_unported_plan_nodes_raise_not_supported():
     schema, cols = _groupby(100, 4)
     tctx = tdf.ExecutionContext(device="cpu")
     tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
+    # a full ORDER BY is ported now (tests/test_torch_sort.py); the
+    # streaming TopK and a computed projection under a sort are not
     for sql in ("SELECT k FROM t WHERE v1 > 1",
-                "SELECT k, v1 FROM t ORDER BY v1",
+                "SELECT k, v1 FROM t ORDER BY v1 LIMIT 5",
+                "SELECT k + 1 FROM t ORDER BY k",
                 "EXPLAIN SELECT k FROM t"):
         with pytest.raises(tdf.NotSupportedError):
             tctx.sql(sql)
