@@ -15,16 +15,23 @@ which raises on failure:
      N = 131,072, 524,288 and 6,000,000 rows and G in {4, 8, 16, 4096,
      8192} groups, with dead rows, out-of-range ids and NaNs: ints
      exactly, f64 within rtol 1e-12, f64 bit-identical when run twice;
-   - the join build at N = S = 25 and 150,000 (the nation and customer
-     builds of Q5), with dead rows, out-of-range positions and duplicate
-     slots: exactly, and bit-identical when run twice;
-   - the radix argsort at n in {1, 2, 3, 1000, 2^18, 1,000,000,
-     6,000,000}, 1 to 3 keys, tie-heavy keys, int64.min and int64.max,
-     and the f64 images of +-NaN, +-0.0 and +-inf: exactly, and
-     bit-identical when run twice.
+   - the join build at N = S = 25, 150,000 and 1,500,000 (the nation,
+     customer and orders builds of Q5), 1,000 rows into a sparse 2^26-slot
+     table and an all-dead build, with dead rows, out-of-range positions
+     and duplicate slots: row and count exactly, the duplicate flag
+     against `count.max() > 1`, and bit-identical when run twice;
+   - the radix argsort at n in {1, 2, 3, 1000, 3839, 3840, 3841 (around
+     one tile of a pass), 2^18, 1,000,000, 6,000,000}, 1 to 3 keys,
+     tie-heavy keys, int64.min and int64.max, and the f64 images of
+     +-NaN, +-0.0 and +-inf: exactly, and bit-identical when run twice.
    Then kernel, plain and library times at the main path's shapes
-   (library: `scatter_reduce_`, `scatter_reduce_("amax")` and
-   `torch.argsort(stable=True)`; the port never calls them).
+   (library: `scatter_reduce_`; the build's `torch.full`,
+   `scatter_reduce_("amax")`, `torch.zeros`, `index_add_` and the
+   flag's `count.max() > 1`; chained `torch.argsort(stable=True)`; the
+   port never calls them), per call and on the device for the build and
+   the sort, with the sort's passes per key, and two builds off the main
+   path: a sparse one the dense window admits, and one with duplicate
+   keys, which the join then sends to the host index.
 3. TPC-H Q1 over lineitem at SF-1 (6,000,000 rows, generated with the
    distributions of benchmarks/data.py, seed 42) on cuda:0, checked
    against a numpy oracle: keys and counts exactly, floats within rtol
@@ -34,9 +41,11 @@ which raises on failure:
 5. Joins over the TPC-H-lite star schema at SF-1 (benchmarks/data.py's
    cardinalities and distributions, vectorised from seed 19): Q5 and
    Q12 with ORDER BY l_shipmode, against numpy oracles that join by
-   direct addressing.  Q5 must launch the build kernel twice (customer
-   and nation; the 1,500,000-slot orders build takes the host index),
-   Q12 the sort kernel.
+   direct addressing.  Every join builds dense: Q5 must launch the
+   build kernel 3 times (orders, customer, nation), Q12 once (orders)
+   and the sort kernel.  Then Q12 once more through the host index
+   (DATAFUSION_TPU_JOIN_DENSE_SLOTS=0 around that query only), cold and
+   one warm run, against the same oracle.
 6. Full sorts: bench config 4b (`ORDER BY a, b` over 1,000,000 rows)
    and a filtered two-key sort of the SF-1 lineitem, against
    np.lexsort, rows and order exactly; each must launch the sort
@@ -183,10 +192,12 @@ def _time_ms(torch, fn, reps=TIMED_LAUNCHES):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, names, reps=50):
-    """Device time per call of the kernel's own CUDA kernels (those whose
-    name holds one of `names`), from the profiler; None when the trace
-    shows no device time."""
+def _device_ms(torch, fn, names=None, reps=50):
+    """Device time per call from the profiler: of the CUDA kernels whose
+    name holds one of `names`, or with no names of all the call's device
+    work (kernels, memsets, copies); None when the trace shows no device
+    time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -197,7 +208,8 @@ def _device_ms(torch, fn, names, reps=50):
         torch.cuda.synchronize()
     us = sum(
         e.device_time_total for e in prof.key_averages()
-        if any(name in e.key for name in names)
+        if (e.device_type == DeviceType.CUDA if names is None
+            else any(name in e.key for name in names))
     )
     return us / reps / 1e3 if us > 0 else None
 
@@ -248,9 +260,10 @@ def _f64_images(torch, x):
 
 
 def _sort_cases(torch, n, gen, dev):
-    """Key sets for the sort parity phase: tie-heavy keys, full-range
-    keys with int64.min and int64.max, the f64 images of +-NaN, +-0.0
-    and +-inf, and 1 to 3 keys."""
+    """Key sets for the sort parity phase: a key with every digit
+    constant (no pass), tie-heavy keys, full-range keys with int64.min
+    and int64.max, the f64 images of +-NaN, +-0.0 and +-inf, and 1 to 3
+    keys."""
     i64 = torch.iinfo(torch.int64)
     ties = torch.randint(0, 7, (n,), generator=gen, device=dev)
     full = (torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev) * 2
@@ -266,14 +279,19 @@ def _sort_cases(torch, n, gen, dev):
     img = _f64_images(torch, f)
     wide = torch.randint(0, 1 << 40, (n,), generator=gen, device=dev)
     return {
+        "constant": [torch.full((n,), -7, dtype=torch.int64, device=dev)],
         "ties": [ties], "full": [full], "f64": [img],
         "ties,f64": [ties, img], "f64,wide": [img, wide],
         "ties,full,wide": [ties, full, wide],
     }
 
 
-SORT_SIZES = (1, 2, 3, 1000, 1 << 18, 1_000_000, 6_000_000)
-BUILD_SIZES = (25, 150_000)
+# 3839 to 3841: around one tile of a pass (sort_kernel.TILE)
+SORT_SIZES = (1, 2, 3, 1000, 3839, 3840, 3841, 1 << 18, 1_000_000, 6_000_000)
+# (N, S, share of live rows): the nation, customer and orders builds, a
+# sparse table at the dense window (2^26 slots) and an all-dead build
+BUILD_SIZES = ((25, 25, 0.9), (150_000, 150_000, 0.9), (1_500_000, 1_500_000, 0.9),
+               (1000, 1 << 26, 0.9), (10_000, 10_000, 0.0))
 
 
 def phase_sort_parity(torch, sort_kernel, dev):
@@ -299,38 +317,43 @@ def phase_sort_parity(torch, sort_kernel, dev):
     return float(max_abs_err)
 
 
-def _build_inputs(torch, n, gen, dev):
+def _build_inputs(torch, n, slots, live_share, gen, dev):
     """pos with duplicate slots, out-of-range values on both sides and
     dead rows (the join computes pos for dead rows too)."""
-    pos = torch.randint(-3, n + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.randint(-3, slots + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
     dup = torch.rand(n, generator=gen, device=dev) < 0.3
     pos[dup] = pos[dup] // 2
-    live = torch.rand(n, generator=gen, device=dev) > 0.1
+    live = torch.rand(n, generator=gen, device=dev) < live_share
     return pos, live
 
 
 def phase_build_parity(torch, hash_build, dev):
-    """The build kernel against its plain version, exactly, and
-    bit-identical over two runs."""
+    """The build kernel against its plain version, exactly, with its
+    duplicate flag against count.max() > 1, and bit-identical over two
+    runs."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(5678)
     max_abs_err = 0
-    for n in BUILD_SIZES:
-        pos, live = _build_inputs(torch, n, gen, dev)
-        got = hash_build.build_slot_table(pos, live, n)
+    for n, slots, live_share in BUILD_SIZES:
+        label = f"build N={n} S={slots} live {live_share}"
+        pos, live = _build_inputs(torch, n, slots, live_share, gen, dev)
+        got = hash_build.build_slot_table(pos, live, slots)
         torch.cuda.synchronize()
-        want = hash_build.build_slot_table_torch(pos, live, n)
-        again = hash_build.build_slot_table(pos, live, n)
+        want = hash_build.build_slot_table_torch(pos, live, slots)
+        again = hash_build.build_slot_table(pos, live, slots)
         for g, w, a, what in zip(got, want, again, ("row", "count")):
             max_abs_err = max(max_abs_err, int((g - w).abs().max()))
             if not torch.equal(g, w):
-                raise AssertionError(f"build N=S={n}: {what} differs")
+                raise AssertionError(f"{label}: {what} differs")
             if not torch.equal(g, a):
-                raise AssertionError(f"build N=S={n}: {what} not repeatable")
-        if int(want[1].max()) < 2:
-            raise AssertionError(f"build N=S={n}: no duplicate slot in the case")
+                raise AssertionError(f"{label}: {what} not repeatable")
+        dup = got[2]
+        if dup != bool(want[1].max() > 1) or again[2] != dup:
+            raise AssertionError(f"{label}: duplicate flag {dup} differs")
+        if n == slots and live_share > 0 and not dup:
+            raise AssertionError(f"{label}: no duplicate slot in the case")
     torch.cuda.synchronize()
-    log(f"build parity: N=S in {BUILD_SIZES} exact and repeatable")
+    log(f"build parity: (N, S, live share) in {BUILD_SIZES} exact and repeatable")
     return float(max_abs_err)
 
 
@@ -340,41 +363,96 @@ def _kernel_entry(shape, kern, plain, lib, dev_ms, nbytes):
             "library_ms": lib, "bound_ms": bytes_ms, "bound_by": "bytes"}
 
 
-def _profiled(torch, fn, names):
+def _profiled(torch, fn):
+    """All the device work of one call of `fn`, from the profiler."""
     try:
-        return _device_ms(torch, fn, names)
+        return _device_ms(torch, fn)
     except RuntimeError as e:  # the profiler is a measurement aid only
         log(f"profiler unavailable: {e}")
         return None
 
 
+def _sort_passes(ops):
+    """Passes the radix sort runs for each key: its 8-bit digits that are
+    not the same in every row."""
+    return [sum(int(((op >> (8 * b)) & 255).unique().numel() > 1) for b in range(8))
+            for op in ops]
+
+
 def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
-    """Build and sort times at the main path's shapes.  The build's
-    bound is one read of pos and live and one write of row and count;
-    the sort's one read of its int64 keys and one write of the int32
-    permutation (the operations are integer compares and adds, far
-    below the card's rate)."""
+    """Build and sort times at the main path's shapes, per call (CUDA
+    events around back-to-back calls) and on the device (all the call's
+    device work, from the profiler), for the kernel's wrapper and for
+    its library calls alike.  The build's wrapper is the one the join
+    calls: memsets, the kernel and the 4-byte copy of its duplicate flag.
+    The build's bound is one read of pos and live and one write of row
+    and count; the sort's one read of its int64 keys and one write of
+    the int32 permutation (the operations are integer compares and
+    adds, far below the card's rate).  The build's library time is the
+    whole function in PyTorch calls (`torch.full(-1)`,
+    `scatter_reduce_("amax")`, `torch.zeros`, `index_add_`, and
+    `count.max() > 1` read on the host for the flag);
+    `library_scatter_only_ms` is the earlier yardstick, one preallocated
+    `scatter_reduce_` alone.  `build_routing` times two builds the dense
+    window admits but the join does not keep: 1,000 unique keys spread
+    over 2^26 slots, and a build of 6,000,000 rows into 1,500,000 slots
+    (duplicates), each with the copy of its key and mask from the host
+    that the join makes first."""
+    from datafusion_tpu_torch.exec.batch import to_device
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
     out = {}
     builds = []
-    for n, where in ((150_000, "customer build of Q5"), (25, "nation build of Q5")):
+    for n, where in ((1_500_000, "orders build of Q5 and Q12"),
+                     (150_000, "customer build of Q5"), (25, "nation build of Q5")):
         # a unique build key per row, as the dense path requires
         pos = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
         live = torch.ones(n, dtype=torch.bool, device=dev)
         rows = torch.arange(n, dtype=torch.int32, device=dev)
+        ones = torch.ones(n, dtype=torch.int32, device=dev)
         slot_row = torch.full((n,), -1, dtype=torch.int32, device=dev)
         pos64 = pos.long()
-        kern = _time_ms(torch, lambda: hash_build.build_slot_table(pos, live, n))
+
+        def library():
+            row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            row.scatter_reduce_(0, pos64, rows, "amax")
+            count = torch.zeros(n, dtype=torch.int32, device=dev)
+            count.index_add_(0, pos64, ones)
+            return row, count, bool(count.max() > 1)
+
+        def kernel():
+            return hash_build.build_slot_table(pos, live, n)
+
+        kern = _time_ms(torch, kernel)
         plain = _time_ms(torch, lambda: hash_build.build_slot_table_torch(pos, live, n))
-        lib = _time_ms(torch, lambda: slot_row.scatter_reduce_(0, pos64, rows, "amax"))
-        dev_ms = _profiled(torch, lambda: hash_build.build_slot_table(pos, live, n),
-                           ("build_kernel",))
-        builds.append(_kernel_entry(f"N=S={n} ({where})", kern, plain, lib, dev_ms,
-                                    n * (4 + 1) + n * 8))
+        lib = _time_ms(torch, library)
+        scatter_only = _time_ms(
+            torch, lambda: slot_row.scatter_reduce_(0, pos64, rows, "amax"))
+        entry = _kernel_entry(f"N=S={n} ({where})", kern, plain, lib,
+                              _profiled(torch, kernel), n * (4 + 1) + n * 8)
+        entry.update(library_device_ms=_profiled(torch, library),
+                     library_scatter_only_ms=scatter_only)
+        builds.append(entry)
     out["hash_build"] = builds
+    routing = []
+    for n, slots, where in ((1000, 1 << 26, "1,000 unique keys over 2^26 slots"),
+                            (6_000_000, 1_500_000, "6,000,000 rows into 1,500,000 slots")):
+        rng = np.random.default_rng(n)
+        pos_h = (rng.choice(slots, n, replace=False) if n < slots
+                 else rng.integers(0, slots, n)).astype(np.int32)
+        live_h = np.ones(n, bool)
+
+        def detour():
+            return hash_build.build_slot_table(to_device(pos_h, dev), to_device(live_h, dev),
+                                               slots)
+
+        routing.append({"shape": f"N={n} S={slots} ({where})",
+                        "duplicate": detour()[2], "ms": _time_ms(torch, detour, reps=20),
+                        "device_ms": _profiled(torch, detour),
+                        "slot_table_bytes": slots * 4})
+    out["build_routing"] = routing
     sorts = []
-    names = ("andor_kernel", "init_kernel", "hist_kernel", "scan_kernel", "scatter_kernel")
     a = _f64_images(torch, torch.rand(SORT4B_ROWS, generator=gen, device=dev,
                                       dtype=torch.float64) * 1e6)
     b = torch.randint(0, 1 << 40, (SORT4B_ROWS,), generator=gen, device=dev)
@@ -394,9 +472,13 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
             return perm
 
         lib = _time_ms(torch, library, reps=20)
-        dev_ms = _profiled(torch, lambda: sort_kernel.argsort_multi(ops), names)
-        sorts.append(_kernel_entry(f"n={n}, {len(ops)} keys ({where})", kern, plain,
-                                   lib, dev_ms, n * (8 * len(ops) + 4)))
+        dev_ms = _profiled(torch, lambda: sort_kernel.argsort_multi(ops))
+        passes = _sort_passes(ops)
+        entry = _kernel_entry(f"n={n}, {len(ops)} keys ({where})", kern, plain,
+                              lib, dev_ms, n * (8 * len(ops) + 4))
+        entry.update(library_device_ms=_profiled(torch, library), passes_per_key=passes,
+                     kernel_launches_per_call=1 + sum(passes))
+        sorts.append(entry)
     out["sort_kernel"] = sorts
     log("new_kernel_shapes: " + json.dumps(out))
     return out
@@ -487,9 +569,10 @@ def assert_rows(got_table, want_rows, label):
                 raise AssertionError(f"{label}: {g} != {w}")
 
 
-def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",)):
+def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",),
+              warm_runs=WARM_RUNS):
     """One cold run with the launch counters reset just before and read
-    just after, then WARM_RUNS timed runs.  Every kernel in `needs`
+    just after, then `warm_runs` timed runs.  Every kernel in `needs`
     must have launched in the cold run.  Returns (result, report,
     relation)."""
     cuda_mod.reset_launch_counts()
@@ -503,7 +586,7 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",)):
         if launches[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched")
     times = []
-    for _ in range(WARM_RUNS):
+    for _ in range(warm_runs):
         t0 = time.perf_counter()
         tdf.collect(ctx.sql(sql))
         torch.cuda.synchronize()
@@ -748,21 +831,37 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
                                 needs=("hash_agg", "hash_build"))
     assert_rows(table, q5_oracle(cols), "Q5")
     routes = join_routes(rel)
-    if rep["launches"]["hash_build"] != 2 or routes != [True, True, False]:
+    if rep["launches"]["hash_build"] != 3 or routes != [True, True, True]:
         raise AssertionError(f"Q5: build launches {rep['launches']['hash_build']}, "
-                             f"dense routes {routes} (want 2 and nation, customer dense)")
+                             f"dense routes {routes} (want 3, every join dense)")
     log(f"Q5 rows match the numpy oracle ({table.num_rows} nations); "
         f"dense builds {routes} (nation, customer, orders)")
     query_profile(tdf, torch, ctx, Q5, "tpch_q5_sf1", rep["p50_ms"])
     reports.append(rep)
     table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q12, "tpch_q12_order_by_sf1",
-                                SF1_ROWS, needs=("hash_agg", "sort_kernel"))
+                                SF1_ROWS, needs=("hash_agg", "hash_build", "sort_kernel"))
     if table.to_rows() != q12_oracle(cols):
         raise AssertionError(f"Q12: {table.to_rows()} != {q12_oracle(cols)}")
-    if join_routes(rel) != [False]:
-        raise AssertionError("Q12: the orders build should take the host index")
-    log(f"Q12 rows and order match the numpy oracle ({table.num_rows} ship modes)")
+    if rep["launches"]["hash_build"] != 1 or join_routes(rel) != [True]:
+        raise AssertionError("Q12: the orders build should launch the kernel once, dense")
+    log(f"Q12 rows and order match the numpy oracle ({table.num_rows} ship modes); "
+        "orders build dense")
+    query_profile(tdf, torch, ctx, Q12, "tpch_q12_order_by_sf1", rep["p50_ms"])
     reports.append(rep)
+    # the host-index route, driven once: no dense build for this query
+    os.environ["DATAFUSION_TPU_JOIN_DENSE_SLOTS"] = "0"
+    try:
+        table, host_rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q12,
+                                         "tpch_q12_host_index_sf1", SF1_ROWS,
+                                         needs=("hash_agg", "sort_kernel"), warm_runs=1)
+    finally:
+        del os.environ["DATAFUSION_TPU_JOIN_DENSE_SLOTS"]
+    if table.to_rows() != q12_oracle(cols):
+        raise AssertionError(f"Q12 (host index): {table.to_rows()} != {q12_oracle(cols)}")
+    if host_rep["launches"]["hash_build"] != 0 or join_routes(rel) != [False]:
+        raise AssertionError("Q12 (host index): the orders build should take the host index")
+    log("Q12 through the host index matches the numpy oracle")
+    reports.append(host_rep)
     return reports, cols
 
 

@@ -16,37 +16,45 @@
 // LSD radix sort is stable by construction and takes any n in global
 // memory, so there is no run-size window.
 //
-// Design.  Keys are sorted as unsigned after flipping the sign bit (so
-// int64 order is unsigned order), 4 bits per pass, least significant
-// digit first.  Before any pass, `andor_kernel` takes the AND and the OR
-// of every key; a digit where they agree is the same in every key, so its
-// pass would not move anything and the wrapper skips it (a key of small
-// values runs a few passes, a constant key none).  Each pass is three
-// launches:
+// Design: an 8-bit least-significant-digit radix sort after the onesweep
+// scheme (Adinets and Merrill, "Onesweep: A Faster Least Significant
+// Digit Radix Sort for GPUs", 2022).  Keys are sorted as unsigned after
+// flipping the sign bit (so int64 order is unsigned order).
 //
-//   hist_kernel     one block per 4096-row tile counts the tile's digits
-//                   (warp-aggregated shared atomics) into hist[d][tile];
-//   scan_kernel     one block turns hist, digit-major and tile-minor, into
-//                   an exclusive prefix sum: the first output slot of each
-//                   (digit, tile);
-//   scatter_kernel  each thread of a tile owns 16 consecutive rows and
-//                   counts their digits into its own column of a
-//                   [digit][thread] table in shared memory; an exclusive
-//                   scan of that table, digit-major, gives each thread the
-//                   slot of its first row of each digit; the thread then
-//                   writes its rows in row order.  Rows of one digit thus
-//                   land in (tile, thread, row) order: stable.
+//   hist_kernel  one launch per call reads every key once and counts all
+//                8 digits of every key (256 buckets each) with shared-
+//                memory atomics per block, added to global memory once
+//                per block.  Lanes that hit one bucket serialize, but
+//                aggregating them first with a __match_any_sync per digit
+//                was tried and cost more.  A histogram does not depend on
+//                row order, so every pass's digit counts come from this
+//                one read.  The wrapper copies each digit's largest count
+//                to the host and skips each digit whose one bucket holds
+//                all n rows.
+//   pass_kernel  one launch per pass.  A block takes a tile of kTile rows
+//                by an atomic ticket (so it only ever waits on tiles whose
+//                blocks already run), ranks its rows by digit in shared
+//                memory (per warp with __match_any_sync, then the per-warp
+//                counts scanned in warp order: rows of a digit keep their
+//                (warp, item, lane) = row order), publishes its per-digit
+//                counts into a status array, gets its global offsets by
+//                decoupled look-back over the tiles before it, stages keys
+//                and indices in digit order in shared memory and writes
+//                each digit's run out contiguously.
 //
-// The keys and the permutation ping-pong between two buffer pairs that
-// the wrapper allocates; `init_kernel` gathers the keys through the
-// running permutation (the multi-key step) and flips the sign bit.
+// The first pass of a key reads keys[perm[i]] ^ sign itself (the
+// multi-key gather); the last pass of a key writes only the permutation,
+// since the next key gathers its own keys.  A status word is 64 bits, a
+// 2-bit flag (aggregate or inclusive prefix) over a 62-bit count, stored
+// and loaded whole, so n up to 2^31 - 1 fits and no read is torn.
 //
 // What bounds it: device memory.  A sorted key needs at least one read of
-// the key (8 bytes) and one write of the permutation (4); each pass reads
-// 12 bytes per row twice and writes 12, so a key of P passes moves about
-// 36 * P bytes per row.  Making the passes fewer (wider digits with a
-// shared-memory local sort) is left to a later change.  The kernels
-// launch on the caller's stream, do not synchronize and allocate nothing.
+// the key (8 bytes) and one write of the permutation (4).  The histogram
+// reads 8 bytes a row per key, and a pass reads and writes 12 bytes a row
+// (4 when it writes only the permutation, plus the key gather on a key's
+// first pass).  The kernels launch on the caller's stream, do not
+// synchronize and allocate nothing; the entry points zero the histogram,
+// the status array and the ticket with memsets on that stream.
 
 #include <cstdint>
 
@@ -55,85 +63,67 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;  // 4096 rows per tile
-constexpr int kRadix = 16;                // 4-bit digits
-constexpr int kScanThreads = 1024;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 15;                 // rows per thread in a pass
+constexpr int kWarpRows = 32 * kItems;     // 480
+constexpr int kTile = kThreads * kItems;   // 3840 rows per tile
+constexpr int kRadix = 256;                // 8-bit digits
+constexpr int kDigits = 8;                 // digits of a 64-bit key
+constexpr int kHistItems = 16;             // rows per thread per histogram block
+constexpr int kHistMaxBlocks = 132 * 4;
+constexpr int kMaxKeysPerLaunch = 16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kSign = 0x8000000000000000ULL;
+constexpr unsigned long long kFlagAggregate = 1ULL << 62;
+constexpr unsigned long long kFlagInclusive = 2ULL << 62;
+constexpr unsigned long long kValueMask = kFlagAggregate - 1;
+// dynamic shared memory of a pass: staged keys, staged indices and the
+// per-warp digit counts
+constexpr int kPassSmem = kTile * (8 + 4) + kWarps * kRadix * 4;  // 54,272 B
 
-int grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks);
+static_assert(kThreads == kRadix, "one thread per digit in the pass's scans");
+
+struct KeyPtrs {
+  const int64_t* p[kMaxKeysPerLaunch];
+};
+
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// out[0] &= AND of every sign-flipped key, out[1] |= their OR.
+__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// hist[key][b][d] += rows whose sign-flipped key has byte b equal to d;
+// blockIdx.y picks the key.
 __global__ void __launch_bounds__(kThreads)
-andor_kernel(const int64_t* __restrict__ keys, int64_t n,
-             unsigned long long* __restrict__ out) {
-  unsigned long long a = ~0ULL, o = 0ULL;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += stride) {
-    const unsigned long long u = static_cast<unsigned long long>(keys[i]) ^ kSign;
-    a &= u;
-    o |= u;
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    a &= __shfl_down_sync(kFull, a, d);
-    o |= __shfl_down_sync(kFull, o, d);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicAnd(out, a);
-    atomicOr(out + 1, o);
-  }
-}
-
-// ukeys[i] = keys[perm[i]] ^ sign, idx[i] = perm[i] (perm == nullptr:
-// the identity).
-__global__ void __launch_bounds__(kThreads)
-init_kernel(const int64_t* __restrict__ keys, const int32_t* perm, int64_t n,
-            unsigned long long* __restrict__ ukeys, int32_t* idx) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += stride) {
-    const int32_t src = perm != nullptr ? perm[i] : static_cast<int32_t>(i);
-    ukeys[i] = static_cast<unsigned long long>(keys[src]) ^ kSign;
-    idx[i] = src;
-  }
-}
-
-__device__ __forceinline__ int digit_of(unsigned long long k, int shift) {
-  return static_cast<int>((k >> shift) & (kRadix - 1));
-}
-
-// hist[d * num_tiles + tile] = rows of the tile whose digit is d.
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const unsigned long long* __restrict__ ukeys, int64_t n, int shift,
-            int32_t num_tiles, int32_t* __restrict__ hist) {
-  __shared__ int32_t cnt[kRadix];
-  if (threadIdx.x < kRadix) cnt[threadIdx.x] = 0;
+hist_kernel(KeyPtrs keys, int64_t n, int32_t* __restrict__ hist) {
+  __shared__ int32_t h[kDigits * kRadix];
+  for (int e = threadIdx.x; e < kDigits * kRadix; e += kThreads) h[e] = 0;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {  // whole warps iterate
-    const int64_t i = base + j;
-    const int d = i < n ? digit_of(ukeys[i], shift) : -1;
-    const unsigned same = __match_any_sync(kFull, d);
-    if (d >= 0 && lane == __ffs(same) - 1) atomicAdd(&cnt[d], __popc(same));
+  const int64_t* k = keys.p[blockIdx.y];
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const unsigned long long u = static_cast<unsigned long long>(k[i]) ^ kSign;
+#pragma unroll
+    for (int b = 0; b < kDigits; ++b) {
+      atomicAdd(&h[b * kRadix + static_cast<int>((u >> (8 * b)) & 0xFF)], 1);
+    }
   }
   __syncthreads();
-  if (threadIdx.x < kRadix) {
-    hist[static_cast<int64_t>(threadIdx.x) * num_tiles + blockIdx.x] = cnt[threadIdx.x];
+  int32_t* out = hist + static_cast<int64_t>(blockIdx.y) * kDigits * kRadix;
+  for (int e = threadIdx.x; e < kDigits * kRadix; e += kThreads) {
+    if (h[e] != 0) atomicAdd(out + e, h[e]);
   }
 }
 
-// Exclusive prefix sum of x over the threads of a block (kThreads or
-// kScanThreads wide); `sums` holds one int per warp.
-template <int kBlock>
+// Exclusive prefix sum of x over the kThreads threads of a block; `sums`
+// holds one int per warp and is not reused by another call before a
+// __syncthreads.
 __device__ __forceinline__ int32_t block_exclusive_scan(int32_t x, int32_t* sums) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -145,145 +135,220 @@ __device__ __forceinline__ int32_t block_exclusive_scan(int32_t x, int32_t* sums
   if (lane == 31) sums[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int32_t w = lane < kBlock / 32 ? sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
+    int32_t w = lane < kWarps ? sums[lane] : 0;
+    for (int d = 1; d < kWarps; d <<= 1) {
       const int32_t y = __shfl_up_sync(kFull, w, d);
       if (lane >= d) w += y;
     }
-    if (lane < kBlock / 32) sums[lane] = w;
+    if (lane < kWarps) sums[lane] = w;
   }
   __syncthreads();
   return inc - x + (warp > 0 ? sums[warp - 1] : 0);
 }
 
-// In-place exclusive prefix sum of data[0, size), one block.
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(int32_t* __restrict__ data, int32_t size) {
-  __shared__ int32_t sums[kScanThreads / 32];
-  const int32_t per = (size + kScanThreads - 1) / kScanThreads;
-  const int32_t lo = min(size, static_cast<int32_t>(threadIdx.x) * per);
-  const int32_t hi = min(size, lo + per);
-  int32_t s = 0;
-  for (int32_t i = lo; i < hi; ++i) s += data[i];
-  int32_t prefix = block_exclusive_scan<kScanThreads>(s, sums);
-  for (int32_t i = lo; i < hi; ++i) {
-    const int32_t v = data[i];
-    data[i] = prefix;
-    prefix += v;
-  }
-}
-
-// One stable scatter pass; offsets is the scanned hist.
+// One stable pass over the digit at `shift`.  First pass of a key:
+// raw_keys is the key (rows gathered through idx_in, or the identity when
+// idx_in is null) and keys_in is unused; later passes read keys_in and
+// idx_in.  keys_out null: write only the permutation.  digit_hist holds
+// the 256 counts of this digit over all n rows; status holds
+// ceil(n / kTile) * 256 zeroed words and ticket one zeroed word.
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(const unsigned long long* __restrict__ keys_in,
-               const int32_t* __restrict__ idx_in, int64_t n, int shift,
-               int32_t num_tiles, const int32_t* __restrict__ offsets,
-               unsigned long long* __restrict__ keys_out,
-               int32_t* __restrict__ idx_out) {
-  __shared__ int32_t cnt[kRadix * kThreads];  // [digit][thread]
-  __shared__ int32_t sums[kThreads / 32];
-  __shared__ int32_t start[kRadix];
+pass_kernel(const int64_t* __restrict__ raw_keys,
+            const unsigned long long* __restrict__ keys_in,
+            const int32_t* __restrict__ idx_in, int64_t n, int shift,
+            const int32_t* __restrict__ digit_hist,
+            unsigned long long* __restrict__ status,
+            unsigned int* __restrict__ ticket,
+            unsigned long long* __restrict__ keys_out,
+            int32_t* __restrict__ idx_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* s_keys = reinterpret_cast<unsigned long long*>(smem);
+  int32_t* s_idx = reinterpret_cast<int32_t*>(s_keys + kTile);
+  int32_t* s_warp = s_idx + kTile;  // [warp][digit] counts, then offsets
+  __shared__ long long s_fix[kRadix];  // global slot of staged row p: s_fix[d] + p
+  __shared__ int32_t s_start[kRadix];  // first staged slot of each digit
+  __shared__ int32_t s_sums_a[kWarps];
+  __shared__ int32_t s_sums_b[kWarps];
+  __shared__ unsigned int s_tile;
+
   const int t = threadIdx.x;
-  for (int d = 0; d < kRadix; ++d) cnt[d * kThreads + t] = 0;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t == 0) s_tile = atomicAdd(ticket, 1u);
+  for (int e = t; e < kWarps * kRadix; e += kThreads) s_warp[e] = 0;
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * kTile + warp * kWarpRows;
 
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + static_cast<int64_t>(t) * kItems;
-  unsigned long long k[kItems];
-  int32_t v[kItems];
+  // load: warp-contiguous rows, item j of lane l is row base + 32 j + l
+  unsigned long long key[kItems];
+  int32_t idx[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
+    const int64_t i = base + 32 * j + lane;
+    key[j] = 0;
+    idx[j] = 0;
     if (i < n) {
-      k[j] = keys_in[i];
-      v[j] = idx_in[i];
-      cnt[digit_of(k[j], shift) * kThreads + t] += 1;  // own column only
+      if (raw_keys != nullptr) {
+        const int32_t src = idx_in != nullptr ? idx_in[i] : static_cast<int32_t>(i);
+        idx[j] = src;
+        key[j] = static_cast<unsigned long long>(raw_keys[src]) ^ kSign;
+      } else {
+        key[j] = keys_in[i];
+        idx[j] = idx_in[i];
+      }
+    }
+  }
+
+  // rank within the warp: rows of one digit in (item, lane) order
+  const unsigned lower = (1u << lane) - 1u;
+  int32_t* wc = s_warp + warp * kRadix;
+  int32_t rank[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const bool valid = base + 32 * j + lane < n;
+    const int d = valid ? static_cast<int>((key[j] >> shift) & 0xFF) : -1;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const int32_t before = valid ? wc[d] : 0;
+    __syncwarp();
+    if (valid && (peers & lower) == 0) wc[d] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = before + __popc(peers & lower);
+  }
+  __syncthreads();
+
+  // thread t owns digit t: per-warp counts to offsets in warp order
+  const int dg = t;
+  int32_t count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int32_t c = s_warp[w * kRadix + dg];
+    s_warp[w * kRadix + dg] = count;
+    count += c;
+  }
+  // publish this tile's count, then look back for the tiles before it
+  unsigned long long* mine = status + tile * kRadix + dg;
+  long long prefix = 0;
+  if (tile == 0) {
+    store_relaxed(mine, kFlagInclusive | static_cast<unsigned long long>(count));
+  } else {
+    store_relaxed(mine, kFlagAggregate | static_cast<unsigned long long>(count));
+    int64_t p = tile - 1;
+    while (true) {
+      const unsigned long long w = load_relaxed(status + p * kRadix + dg);
+      if (w == 0) continue;  // tile p has not published yet; it runs
+      prefix += static_cast<long long>(w & kValueMask);
+      if (w & kFlagInclusive) break;
+      --p;
+    }
+    store_relaxed(mine, kFlagInclusive | static_cast<unsigned long long>(prefix + count));
+  }
+  const int32_t global_start = block_exclusive_scan(digit_hist[dg], s_sums_a);
+  const int32_t start = block_exclusive_scan(count, s_sums_b);
+  s_start[dg] = start;
+  s_fix[dg] = static_cast<long long>(global_start) + prefix - start;
+  __syncthreads();
+
+  // stage in digit order
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (base + 32 * j + lane < n) {
+      const int d = static_cast<int>((key[j] >> shift) & 0xFF);
+      const int32_t slot = s_start[d] + wc[d] + rank[j];
+      s_keys[slot] = key[j];
+      s_idx[slot] = idx[j];
     }
   }
   __syncthreads();
 
-  // exclusive scan of the table read digit-major: thread t scans the 16
-  // consecutive entries [16 t, 16 t + 16) (all of one digit)
-  int32_t* mine = cnt + t * kItems;
-  int32_t s = 0;
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) s += mine[q];
-  int32_t prefix = block_exclusive_scan<kThreads>(s, sums);
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    const int32_t c = mine[q];
-    mine[q] = prefix;
-    prefix += c;
-  }
-  __syncthreads();
-  if (t < kRadix) start[t] = cnt[t * kThreads];
-  __syncthreads();
-  // cnt[d][t] := output slot of thread t's first row of digit d
-#pragma unroll
-  for (int d = 0; d < kRadix; ++d) {
-    cnt[d * kThreads + t] += offsets[static_cast<int64_t>(d) * num_tiles + blockIdx.x] - start[d];
-  }
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (base + j < n) {
-      const int32_t dst = cnt[digit_of(k[j], shift) * kThreads + t]++;
-      keys_out[dst] = k[j];
-      idx_out[dst] = v[j];
-    }
+  // write each digit's run contiguously
+  const int64_t left = n - tile * kTile;
+  const int tile_rows = left < kTile ? static_cast<int>(left) : kTile;
+  for (int p = t; p < tile_rows; p += kThreads) {
+    const unsigned long long k = s_keys[p];
+    const long long g = s_fix[static_cast<int>((k >> shift) & 0xFF)] + p;
+    if (keys_out != nullptr) keys_out[g] = k;
+    idx_out[g] = s_idx[p];
   }
 }
 
 }  // namespace
 
-// out holds two uint64, initialised to all ones and to zero; afterwards
-// out[0] is the AND and out[1] the OR of the sign-flipped keys.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int df_radix_andor(const void* keys, long long n, void* out,
-                              void* stream) {
-  if (n > 0) {
-    andor_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(keys), n, static_cast<unsigned long long*>(out));
+// hist holds nkeys * 8 * 256 int32; the call zeroes it and counts every
+// digit of every key into it (hist[key][b][d]).  keys is a host array of
+// nkeys device pointers, each to n int64.  Returns the first CUDA error of
+// the memset and the launches, or 0.
+extern "C" int df_radix_histograms(const void* const* keys, int nkeys, long long n,
+                                   void* hist, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* h = static_cast<int32_t*>(hist);
+  cudaError_t rc = cudaMemsetAsync(
+      h, 0, static_cast<size_t>(nkeys) * kDigits * kRadix * sizeof(int32_t), s);
+  if (rc != cudaSuccess || n <= 0) return static_cast<int>(rc);
+  long long blocks = (n + kThreads * kHistItems - 1) / (kThreads * kHistItems);
+  if (blocks > kHistMaxBlocks) blocks = kHistMaxBlocks;
+  for (int first = 0; first < nkeys; first += kMaxKeysPerLaunch) {
+    const int count = nkeys - first < kMaxKeysPerLaunch ? nkeys - first : kMaxKeysPerLaunch;
+    KeyPtrs ptrs = {};
+    for (int i = 0; i < count; ++i) ptrs.p[i] = static_cast<const int64_t*>(keys[first + i]);
+    hist_kernel<<<dim3(static_cast<unsigned>(blocks), count), kThreads, 0, s>>>(
+        ptrs, n, h + static_cast<int64_t>(first) * kDigits * kRadix);
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 // Stable sort of keys[perm[i]] (perm null: keys[i]): runs the passes whose
-// bit is set in digit_mask (bit d: bits [4d, 4d + 4)), ping-ponging between
-// (keys_a, idx_a) and (keys_b, idx_b).  The sorted permutation ends in
-// idx_a when the number of passes run is even, else in idx_b.  keys_* hold
-// n uint64, idx_* n int32, hist 16 * ceil(n / 4096) int32; perm may alias
-// idx_a or idx_b.  n < 2^31.  Returns cudaGetLastError() after the
-// launches.
+// bit is set in digit_mask (bit b: bits [8b, 8b + 8)), the first gathering
+// through perm, the last writing only the permutation.  hist holds this
+// key's 8 * 256 digit counts (from df_radix_histograms).  keys_a and
+// keys_b hold n uint64, idx_a and idx_b n int32; perm may alias idx_a or
+// idx_b (the first pass then writes the other).  status holds
+// ceil(n / 3840) * 256 + 1 uint64 (the look-back words, then the ticket),
+// zeroed here before each pass.  *result_in_b is set to 1 when the
+// sorted permutation ends in idx_b, 0 when in idx_a.  0 < n < 2^31 and
+// digit_mask != 0.  Returns the first CUDA error, or 0.
 extern "C" int df_radix_sort_key(const void* keys, const void* perm, long long n,
-                                 int digit_mask, void* keys_a, void* idx_a,
-                                 void* keys_b, void* idx_b, void* hist,
-                                 void* stream) {
+                                 int digit_mask, const void* hist, void* keys_a,
+                                 void* keys_b, void* idx_a, void* idx_b,
+                                 void* status, int* result_in_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  init_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const int64_t*>(keys), static_cast<const int32_t*>(perm), n,
-      static_cast<unsigned long long*>(keys_a), static_cast<int32_t*>(idx_a));
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const int32_t num_tiles = static_cast<int32_t>((n + kTile - 1) / kTile);
-  unsigned long long* kin = static_cast<unsigned long long*>(keys_a);
-  unsigned long long* kout = static_cast<unsigned long long*>(keys_b);
-  int32_t* iin = static_cast<int32_t*>(idx_a);
-  int32_t* iout = static_cast<int32_t*>(idx_b);
-  int32_t* h = static_cast<int32_t*>(hist);
-  for (int d = 0; d < 64 / 4; ++d) {
-    if (!((digit_mask >> d) & 1)) continue;
-    const int shift = 4 * d;
-    hist_kernel<<<num_tiles, kThreads, 0, s>>>(kin, n, shift, num_tiles, h);
-    scan_kernel<<<1, kScanThreads, 0, s>>>(h, kRadix * num_tiles);
-    scatter_kernel<<<num_tiles, kThreads, 0, s>>>(kin, iin, n, shift, num_tiles, h,
-                                                  kout, iout);
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    unsigned long long* kt = kin;
-    kin = kout;
-    kout = kt;
-    int32_t* it = iin;
+  // above 48 KB of dynamic shared memory a kernel must opt in, per device
+  cudaError_t rc = cudaFuncSetAttribute(
+      pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPassSmem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long tiles = (n + kTile - 1) / kTile;
+  unsigned long long* st = static_cast<unsigned long long*>(status);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(st + tiles * kRadix);
+  const size_t status_bytes = static_cast<size_t>(tiles * kRadix + 1) * sizeof(unsigned long long);
+  unsigned long long* ka = static_cast<unsigned long long*>(keys_a);
+  unsigned long long* kb = static_cast<unsigned long long*>(keys_b);
+  int32_t* ia = static_cast<int32_t*>(idx_a);
+  int32_t* ib = static_cast<int32_t*>(idx_b);
+  const int32_t* iin = static_cast<const int32_t*>(perm);
+  const unsigned long long* kin = nullptr;
+  unsigned long long* kout = ka;
+  int32_t* iout = iin == ia ? ib : ia;
+  int left = __builtin_popcount(static_cast<unsigned>(digit_mask) & 0xFFu);
+  bool first = true;
+  for (int b = 0; b < kDigits; ++b) {
+    if (!((digit_mask >> b) & 1)) continue;
+    --left;
+    rc = cudaMemsetAsync(st, 0, status_bytes, s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    pass_kernel<<<static_cast<unsigned>(tiles), kThreads, kPassSmem, s>>>(
+        first ? static_cast<const int64_t*>(keys) : nullptr, kin, iin, n, 8 * b,
+        static_cast<const int32_t*>(hist) + b * kRadix, st, ticket,
+        left > 0 ? kout : nullptr, iout);
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    first = false;
     iin = iout;
-    iout = it;
+    kin = kout;
+    iout = iin == ia ? ib : ia;
+    kout = kin == ka ? kb : ka;
   }
+  *result_in_b = iin == ib ? 1 : 0;
   return 0;
 }

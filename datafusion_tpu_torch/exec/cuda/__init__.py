@@ -115,6 +115,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def raw_stream(device) -> int:
+    """The current CUDA stream of `device` as a pointer (an int), for a
+    C entry point: torch's raw-stream accessor (the one its compiled
+    code calls), which makes no Stream object per call."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _modules():
     from datafusion_tpu_torch.exec.cuda import hash_agg, hash_build, sort_kernel
 

@@ -126,6 +126,8 @@ def _kernel_fn():
 
 def _launch(ids, vals, live, num_groups: int, kind: str):
     global LAUNCHES
+    from datafusion_tpu_torch.exec import cuda as _cuda
+
     dtype = _DTYPE_CODES.get(vals.dtype)
     if dtype is None:
         raise ExecutionError(f"grouped_reduce kernel does not take {vals.dtype}")
@@ -136,15 +138,16 @@ def _launch(ids, vals, live, num_groups: int, kind: str):
     tile_g, chunks, chunk_rows = geometry(n, num_groups)
     if -(-num_groups // tile_g) > _MAX_TILES:
         raise ExecutionError(f"{num_groups} groups exceed the kernel's grid")
+    dev = vals.device
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(ids, vals, live, num_groups, kind)
     fn = _kernel_fn()
-    out = torch.empty(num_groups, dtype=vals.dtype, device=vals.device)
-    scratch = torch.empty(chunks * num_groups, dtype=vals.dtype,
-                          device=vals.device)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        rc = fn(dtype, _KINDS[kind], ids.data_ptr(), vals.data_ptr(),
-                live.data_ptr(), n, num_groups, chunks, chunk_rows, tile_g,
-                scratch.data_ptr(), out.data_ptr(), stream)
+    out = torch.empty(num_groups, dtype=vals.dtype, device=dev)
+    scratch = torch.empty(chunks * num_groups, dtype=vals.dtype, device=dev)
+    rc = fn(dtype, _KINDS[kind], ids.data_ptr(), vals.data_ptr(), live.data_ptr(),
+            n, num_groups, chunks, chunk_rows, tile_g, scratch.data_ptr(),
+            out.data_ptr(), _cuda.raw_stream(dev))
     if rc != 0:
         raise ExecutionError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -9,16 +9,20 @@ k - kmin; the build fills, per slot, the highest live row holding it
 
 The kernel (`csrc/hash_build.cu`) is one thread per row with int32
 atomicMax / atomicAdd, exact and repeatable since int32 max and add
-commute.  It is bound by device memory: N * 5 bytes read, S * 8 written.
-The wrapper allocates and initialises the outputs (-1 and 0) and the
-kernel bounds-checks `pos` itself: the join computes it for dead rows
-too.
+commute; a row that finds its slot already counted raises a one-int
+duplicate flag.  It is bound by device memory: N * 5 bytes read, S * 8
+written.  One C call initialises the outputs (two memsets) and launches
+the kernel, and the kernel bounds-checks `pos` itself: the join computes
+it for dead rows too.
 
-`build_slot_table` takes the kernel for a CUDA tensor and the plain
-version, `build_slot_table_torch` (the port of `build_slot_table_xla`:
-`scatter_reduce_("amax")` plus `index_add_`), for a CPU tensor; there
-is no other route.  `LAUNCHES` counts wrapper calls that launched the
-kernel (one CUDA kernel launch each).
+`build_slot_table` returns (row, count, has_duplicate), the flag as a
+Python bool after one 4-byte copy to the host: the join keeps `row`
+and asks only whether the keys are unique.  It takes the kernel for a
+CUDA tensor and the plain version, `build_slot_table_torch` (the port
+of `build_slot_table_xla`: `scatter_reduce_("amax")` plus `index_add_`,
+which gives (row, count)), for a CPU tensor; there is no other route.
+`LAUNCHES` counts wrapper calls that launched the kernel (one CUDA
+kernel launch each).
 """
 
 from __future__ import annotations
@@ -78,40 +82,49 @@ def _kernel_fn():
 
         fn = _cuda.load("hash_build").df_build_slot_table
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
         _FN = fn
     return _FN
 
 
 def _launch(pos, live, num_slots: int):
+    """(row, count, dup): row its own int32 tensor (the join keeps it),
+    count and the dup flag one allocation of num_slots + 1; the C call
+    initialises and fills both."""
     global LAUNCHES
+    from datafusion_tpu_torch.exec import cuda as _cuda
+
     for name, t in (("pos", pos), ("live", live)):
         if not t.is_contiguous():
             raise ExecutionError(f"build_slot_table kernel needs contiguous {name}")
+    dev = pos.device
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(pos, live, num_slots)
     fn = _kernel_fn()
-    row = torch.full((num_slots,), -1, dtype=torch.int32, device=pos.device)
-    count = torch.zeros(num_slots, dtype=torch.int32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        rc = fn(pos.data_ptr(), live.data_ptr(), pos.shape[0], num_slots,
-                row.data_ptr(), count.data_ptr(), stream)
+    row = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    count = torch.empty(num_slots + 1, dtype=torch.int32, device=dev)
+    rc = fn(pos.data_ptr(), live.data_ptr(), pos.shape[0], num_slots,
+            row.data_ptr(), count.data_ptr(), _cuda.raw_stream(dev))
     if rc != 0:
         raise ExecutionError(f"build_slot_table kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return row, count
+    return row, count[:num_slots], count[num_slots]
 
 
 def build_slot_table(pos, live, num_slots: int):
     """Per slot in [0, num_slots): the highest live row index whose
-    `pos` is that slot (-1 if none), and the count of such rows, as two
-    int32 tensors on the inputs' device.  Rows that are dead or whose
+    `pos` is that slot (-1 if none) and the count of such rows, as two
+    int32 tensors on the inputs' device, and whether some slot holds two
+    or more live rows, as a Python bool.  Rows that are dead or whose
     pos lies outside [0, num_slots) count nowhere."""
     _check(pos, live, num_slots)
     if pos.device.type == "cpu":
-        return build_slot_table_torch(pos, live, num_slots)
+        row, count = build_slot_table_torch(pos, live, num_slots)
+        return row, count, bool(count.max() > 1)
     if pos.device.type != "cuda":
         raise ExecutionError(f"build_slot_table runs on cuda or cpu, not {pos.device}")
-    return _launch(pos, live, num_slots)
+    row, count, dup = _launch(pos, live, num_slots)
+    return row, count, bool(dup.item())

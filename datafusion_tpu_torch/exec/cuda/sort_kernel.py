@@ -8,14 +8,17 @@ one or more int64 key operands, ops[0] most significant.  Keys compose
 as `argsort_multi` composes them: sort by the last key, then re-sort by
 each earlier key gathered through the running permutation.
 
-The kernel (`csrc/sort_kernel.cu`) is an LSD radix sort, 4 bits per
-pass, stable by construction and without a run-size window (the TPU
-kernel's 2^18-row window was its VMEM).  One wrapper call first takes
-the AND and OR of every key (one launch per key, then one 16-byte copy
-to the host per call) and skips each digit that is the same in every
-key, so a key costs 1 + 3 * P launches for its P varying digits, and a
-key that is constant (an all-false NULL flag) costs none.  It is bound
-by device memory; the source says more.
+The kernel (`csrc/sort_kernel.cu`) is an LSD radix sort after the
+onesweep scheme, 8 bits per pass, stable by construction and without a
+run-size window (the TPU kernel's 2^18-row window was its VMEM).  One
+wrapper call first counts every digit of every key in one histogram
+launch and copies the largest count of each digit (k x 8 int32) to the
+host; a digit whose one bucket holds all n rows is the same in every
+key, and its pass is skipped.  Each remaining digit is one launch
+(tile ranking in shared memory, decoupled look-back for the global
+offsets, coalesced writes), so a key of P varying digits costs P
+launches, and a key that is constant (an all-false NULL flag) none.  It is bound by device
+memory; the source says more.
 
 `argsort_multi` takes the kernel for CUDA tensors and the plain
 version, `argsort_multi_torch` (chained `torch.sort(stable=True)`), for
@@ -33,8 +36,12 @@ from datafusion_tpu_torch.errors import ExecutionError
 
 LAUNCHES = 0
 
-TILE = 4096  # rows per tile of a pass (csrc/sort_kernel.cu kTile)
-DIGITS = 16  # 4-bit digits of a 64-bit key
+THREADS = 256  # threads of a pass's block (csrc/sort_kernel.cu kThreads)
+ITEMS = 15  # rows per thread in a pass (kItems)
+TILE = THREADS * ITEMS  # rows per tile of a pass (kTile)
+RADIX_BITS = 8
+RADIX = 1 << RADIX_BITS
+DIGITS = 64 // RADIX_BITS  # 8-bit digits of a 64-bit key
 _MAX_ROWS = 2**31 - 1  # the permutation is int32
 
 
@@ -72,11 +79,11 @@ def argsort_multi_torch(ops):
     return perm.to(torch.int32)
 
 
-def digit_mask(and_bits: int, or_bits: int) -> int:
-    """Bit d set when 4-bit digit d differs between some two keys (the
-    digits where the AND and the OR of all keys disagree)."""
-    diff = (and_bits ^ or_bits) & 0xFFFF_FFFF_FFFF_FFFF
-    return sum(1 << d for d in range(DIGITS) if (diff >> (4 * d)) & 0xF)
+def digit_mask(tops, n: int) -> int:
+    """Bit b set when 8-bit digit b differs between some two of the n
+    keys: the largest bucket of its histogram (`tops[b]`, the most of
+    its 256 counts) holds fewer than all n rows."""
+    return sum(1 << b for b, top in enumerate(tops) if top < n)
 
 
 _FNS = None
@@ -89,55 +96,63 @@ def _kernel_fns():
         from datafusion_tpu_torch.exec import cuda as _cuda
 
         lib = _cuda.load("sort_kernel")
-        andor = lib.df_radix_andor
-        andor.restype = ctypes.c_int
-        andor.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                          ctypes.c_void_p]
+        hist = lib.df_radix_histograms
+        hist.restype = ctypes.c_int
+        hist.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_void_p]
         sort_key = lib.df_radix_sort_key
         sort_key.restype = ctypes.c_int
         sort_key.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p,
         ]
-        _FNS = (andor, sort_key)
+        _FNS = (hist, sort_key)
     return _FNS
 
 
 def _launch(ops):
     global LAUNCHES
+    from datafusion_tpu_torch.exec import cuda as _cuda
+
     for i, op in enumerate(ops):
         if not op.is_contiguous():
             raise ExecutionError(f"argsort kernel needs contiguous key {i}")
     dev = ops[0].device
     n = ops[0].shape[0]
-    andor_fn, sort_fn = _kernel_fns()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        bits = torch.zeros((len(ops), 2), dtype=torch.int64, device=dev)
-        bits[:, 0] = -1  # AND starts from all ones
-        for i, op in enumerate(ops):
-            rc = andor_fn(op.data_ptr(), n, bits[i].data_ptr(), stream)
-            if rc != 0:
-                raise ExecutionError(f"argsort kernel launch failed: CUDA error {rc}")
-        masks = [digit_mask(a, o) for a, o in bits.cpu().tolist()]
-        keys_a = torch.empty(n, dtype=torch.int64, device=dev)
-        keys_b = torch.empty_like(keys_a)
-        idx_a = torch.empty(n, dtype=torch.int32, device=dev)
-        idx_b = torch.empty_like(idx_a)
-        hist = torch.empty(DIGITS * max(1, -(-n // TILE)), dtype=torch.int32,
-                           device=dev)
-        perm = None
-        for op, mask in zip(reversed(ops), reversed(masks)):
-            if mask == 0:
-                continue  # a constant key reorders nothing
-            rc = sort_fn(op.data_ptr(), 0 if perm is None else perm.data_ptr(), n,
-                         mask, keys_a.data_ptr(), idx_a.data_ptr(),
-                         keys_b.data_ptr(), idx_b.data_ptr(), hist.data_ptr(),
-                         stream)
-            if rc != 0:
-                raise ExecutionError(f"argsort kernel launch failed: CUDA error {rc}")
-            perm = idx_a if bin(mask).count("1") % 2 == 0 else idx_b
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(ops)
+    hist_fn, sort_fn = _kernel_fns()
+    stream = _cuda.raw_stream(dev)
+    k = len(ops)
+    hist = torch.empty((k, DIGITS, RADIX), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * k)(*(op.data_ptr() for op in ops))
+    rc = hist_fn(ctypes.cast(ptrs, ctypes.c_void_p), k, n, hist.data_ptr(), stream)
+    if rc != 0:
+        raise ExecutionError(f"argsort kernel launch failed: CUDA error {rc}")
+    keys_a = torch.empty(n, dtype=torch.int64, device=dev)
+    keys_b = torch.empty_like(keys_a)
+    idx_a = torch.empty(n, dtype=torch.int32, device=dev)
+    idx_b = torch.empty_like(idx_a)
+    status = torch.empty(-(-n // TILE) * RADIX + 1, dtype=torch.int64, device=dev)
+    # the largest bucket of each digit, k x 8 ints, is all the host reads
+    masks = [digit_mask(tops, n) for tops in hist.amax(dim=2).cpu().tolist()]
+    in_b = ctypes.c_int(0)
+    perm = None
+    for i in reversed(range(k)):
+        if masks[i] == 0:
+            continue  # a constant key reorders nothing
+        rc = sort_fn(ops[i].data_ptr(), 0 if perm is None else perm.data_ptr(), n,
+                     masks[i], hist[i].data_ptr(), keys_a.data_ptr(),
+                     keys_b.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(),
+                     status.data_ptr(), ctypes.byref(in_b), stream)
+        if rc != 0:
+            raise ExecutionError(f"argsort kernel launch failed: CUDA error {rc}")
+        perm = idx_b if in_b.value else idx_a
     LAUNCHES += 1
     if perm is None:
         return torch.arange(n, dtype=torch.int32, device=dev)

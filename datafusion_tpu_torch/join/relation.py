@@ -13,12 +13,19 @@ relation; probe batches stream through one of two paths:
   PyTorch version on the CPU) and every probe batch runs one torch
   function of gathers (`_dense_probe`): hit mask, payload gather,
   validity and selection mask, with the batch's columns staying on
-  the device.  The JAX package capped the kernel at the TPU's 8,192-slot
-  window and kept a switch to turn the device path off; the port has
-  neither.  Tables with an unsigned or struct column take the host path
-  (they have no device dtype yet, ROADMAP queue 3).
+  the device.  Uniqueness comes from the kernel's duplicate flag, so
+  the dense path sorts nothing on the host; a duplicate sends the join
+  to the host index.  The JAX package capped the kernel at the TPU's
+  8,192-slot window, kept a switch to turn the device path off, and
+  caps the direct-address table at 2^20 slots, a number from the TPU
+  build.  The port has neither switch nor window, and its default
+  cap is 2^26 slots: the real TPC-H `o_orderkey` range up to SF-10
+  (keys below 60,000,000), a kept slot table of at most 268 MB, 0.3 %
+  of an H100's 80 GB.  Tables with an unsigned or struct column take
+  the host path (they have no device dtype yet, ROADMAP queue 3).
 - **host probe**: everything else (multi-key, strings, duplicate keys,
-  wide key ranges).  `core.HashIndex` CSR-expands matches per batch.
+  wide key ranges).  `core.HashIndex`, built only for this path,
+  CSR-expands matches per batch.
 
 Not ported (ROADMAP queue 1, "join build pins"): pinning the artifact
 in the device ledger under the build subtree's fingerprint, per-client
@@ -49,8 +56,9 @@ from datafusion_tpu_torch.join import core as _core
 
 def _dense_max_slots() -> int:
     """Largest direct-address table the dense path will build; above it
-    (sparse/huge key ranges) the host index keeps the job."""
-    return int(os.environ.get("DATAFUSION_TPU_JOIN_DENSE_SLOTS", 1 << 20))
+    (sparse/huge key ranges) the host index keeps the job.  2^26 by
+    default (the module docstring says why not the JAX package's 2^20)."""
+    return int(os.environ.get("DATAFUSION_TPU_JOIN_DENSE_SLOTS", 1 << 26))
 
 
 def _is_utf8_field(field) -> bool:
@@ -68,9 +76,9 @@ def _has_device_dtypes(schema: Schema) -> bool:
 
 
 class JoinBuildArtifact:
-    """The materialized build side: compacted host columns + the
-    `HashIndex`, plus — on the dense path — the device-resident slot
-    table and payload columns the probe gathers from."""
+    """The materialized build side: compacted host columns, plus on the
+    host path the `HashIndex` and on the dense path the device-resident
+    slot table and payload columns the probe gathers from."""
 
     __slots__ = ("cols", "valids", "dicts", "n_rows", "index", "dense",
                  "kmin", "num_slots", "dev_slot_row", "dev_cols",
@@ -78,6 +86,7 @@ class JoinBuildArtifact:
 
     def __init__(self):
         self.dense = False
+        self.index = None
         self.dev_slot_row = None
 
 
@@ -136,61 +145,66 @@ class HashJoinRelation(Relation):
         cols, valids, dicts, n = collect_columns(self.right)
         art = JoinBuildArtifact()
         art.cols, art.valids, art.dicts, art.n_rows = cols, valids, dicts, n
-        r_keys = [k for _, k in self.on]
-        art.index = _core.HashIndex(
-            [cols[k] for k in r_keys],
-            [valids[k] for k in r_keys],
-            [dicts[k] for k in r_keys],
-        )
-        self._try_dense(art)
+        if not self._try_dense(art):
+            r_keys = [k for _, k in self.on]
+            art.index = _core.HashIndex(
+                [cols[k] for k in r_keys],
+                [valids[k] for k in r_keys],
+                [dicts[k] for k in r_keys],
+            )
         return art
 
-    def _try_dense(self, art: JoinBuildArtifact) -> None:
+    def _try_dense(self, art: JoinBuildArtifact) -> bool:
         """Engage the device probe path when the key shape allows it:
-        one integer key, unique among live build rows, value range
-        small enough to direct-address."""
+        one integer key, value range small enough to direct-address, and
+        unique among live build rows by the build kernel's duplicate
+        flag.  Returns whether it did; if not, the host index joins."""
         if len(self.on) != 1:
-            return
+            return False
         if not (_has_device_dtypes(self.left.schema)
                 and _has_device_dtypes(self.right.schema)):
-            return
+            return False
         li, ri = self.on[0]
         bkey = art.cols[ri]
         pfield = self.left.schema.field(li)
         if bkey.dtype.kind not in "iu" or pfield.data_type.np_dtype.kind not in "iu":
-            return
+            return False
         # dictionary-coded (Utf8) keys LOOK integral but their codes
         # are per-dictionary — direct-address matching would compare
         # codes, not content; only the host index joins strings
         if art.dicts[ri] is not None or _is_utf8_field(pfield):
-            return
-        if not art.index.unique_keys:
-            return
+            return False
         valid = art.valids[ri]
         live = np.ones(art.n_rows, bool) if valid is None else valid.copy()
         if art.n_rows == 0 or not live.any():
             # empty/all-NULL build: the probe gathers payload rows by
             # slot, which needs at least one build row to address; the
             # host index gives "nothing matches" for free instead
-            return
+            return False
         kv = bkey[live].astype(np.int64)
         kmin = int(kv.min())
         num_slots = int(kv.max()) - kmin + 1
         if num_slots > _dense_max_slots():
-            return
+            return False
         # dead rows get a pos too (it may wrap or fall outside the
-        # table); the kernel skips them by `live` and bounds-checks pos
+        # table); the kernel skips them by `live` and bounds-checks pos.
+        # Live rows' pos lie in [0, num_slots), at most 2^26 by default,
+        # so the int32 cast is exact for them.
         pos = (bkey.astype(np.int64) - kmin).astype(np.int32)
+        dev = self.device
+        slot_row, _, has_duplicate = hash_build.build_slot_table(
+            to_device(pos, dev), to_device(live, dev), num_slots
+        )
+        if has_duplicate:
+            return False  # a routing decision: the host index joins
         art.dense = True
         art.kmin, art.num_slots = kmin, num_slots
-        dev = self.device
+        art.dev_slot_row = slot_row
         art.dev_cols = tuple(to_device(c, dev) for c in art.cols)
         art.dev_valids = tuple(
             None if v is None else to_device(v, dev) for v in art.valids
         )
-        art.dev_slot_row = hash_build.build_slot_table(
-            to_device(pos, dev), to_device(live, dev), num_slots
-        )[0]
+        return True
 
     # -- probe ---------------------------------------------------------
     def batches(self):

@@ -9,8 +9,9 @@ card and no JAX, without the suite's conftest:
 
 Each kernel is held against its plain PyTorch version on the same
 tensors: the grouped reduce's ints exactly and f64 within rtol 1e-12
-(the plain version's atomics sum in another order), the join build and
-the radix argsort exactly, each bit-identical when run twice.  The
+(the plain version's atomics sum in another order), the join build
+(row, count and its duplicate flag against `count.max() > 1`) and the
+radix argsort exactly, each bit-identical when run twice.  The
 engine on cuda:0 is held against the engine on the CPU: a GROUP BY
 (rtol 1e-9), a join chain and full sorts (rows and order exactly).
 """
@@ -117,20 +118,42 @@ def test_engine_on_card_matches_engine_on_cpu(dev):
 # ------------------------------------------------------------ join build
 
 
-@pytest.mark.parametrize("n,slots", [(1, 1), (25, 25), (150_000, 150_000),
-                                     (1_000_000, 4096)])
-def test_build_kernel_matches_plain_version(dev, n, slots):
+# the nation and customer builds of Q5, the orders build of Q5 and Q12
+# (N = S = 1,500,000), many rows into few slots, a sparse 2^26-slot
+# table (the dense window) and an all-dead build
+@pytest.mark.parametrize("n,slots,live_share", [
+    (1, 1, 0.9), (25, 25, 0.9), (150_000, 150_000, 0.9),
+    (1_500_000, 1_500_000, 0.9), (1_000_000, 4096, 0.9), (1000, 1 << 26, 0.9),
+    (10_000, 10_000, 0.0),
+])
+def test_build_kernel_matches_plain_version(dev, n, slots, live_share):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
     pos = torch.randint(-3, slots + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
-    live = torch.rand(n, generator=gen, device=dev) > 0.1
+    live = torch.rand(n, generator=gen, device=dev) < live_share
     before = hash_build.LAUNCHES
     got = hash_build.build_slot_table(pos, live, slots)
     assert hash_build.LAUNCHES == before + 1
     want = hash_build.build_slot_table_torch(pos, live, slots)
     again = hash_build.build_slot_table(pos, live, slots)
-    for g, w, a in zip(got, want, again):
+    for g, w, a in zip(got[:2], want, again[:2]):  # exact
         assert torch.equal(g, w) and torch.equal(g, a)
+    assert got[2] is again[2] is bool(want[1].max() > 1)
+
+
+@pytest.mark.parametrize("n", [25, 150_000, 1_500_000])
+def test_build_kernel_duplicate_flag_on_unique_and_one_duplicate_key(dev, n):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    pos = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    row, count, dup = hash_build.build_slot_table(pos, live, n)
+    want_row, want_count = hash_build.build_slot_table_torch(pos, live, n)
+    assert dup is False and torch.equal(row, want_row) and torch.equal(count, want_count)
+    pos[n // 3] = pos[n - 1]
+    row, count, dup = hash_build.build_slot_table(pos, live, n)
+    want_row, want_count = hash_build.build_slot_table_torch(pos, live, n)
+    assert dup is True and torch.equal(row, want_row) and torch.equal(count, want_count)
 
 
 def test_build_kernel_rejects_non_contiguous_input(dev):
@@ -150,8 +173,13 @@ def _f64_image(x):
     return b ^ ((b >> 63) & 0x7FFF_FFFF_FFFF_FFFF)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 1000, 4097, 1 << 18, 1_000_000])
-@pytest.mark.parametrize("keys", ["ties", "full", "f64", "constant,ties", "ties,full,wide"])
+# around one tile of a pass (sort_kernel.TILE = 3840 rows), up to the
+# SF-1 lineitem; "constant" has every digit constant (no pass at all)
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, sort_kernel.TILE - 1, sort_kernel.TILE,
+                               sort_kernel.TILE + 1, 4097, 1 << 18, 1_000_000,
+                               6_000_000])
+@pytest.mark.parametrize("keys", ["ties", "full", "f64", "constant", "constant,ties",
+                                  "ties,full,wide"])
 def test_argsort_kernel_matches_plain_version(dev, n, keys):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)

@@ -14,7 +14,11 @@ device path and on the host path (DATAFUSION_TPU_JOIN_DENSE_SLOTS=0
 sends both packages to the host index), duplicate build keys, Utf8
 keys (the dense path must refuse dictionary codes), multi-key joins,
 NULL keys, empty sides, a dtype matrix, join + filter + aggregate,
-and TPC-H Q5 and Q12 at SF 0.01 over `benchmarks/data.tpch_join_csvs`.
+the port's wider dense window (a unique key over 2^20 slots joins dense
+in the port and on the JAX package's host index; a duplicate takes the
+host path by the build kernel's flag; a range over 2^26 slots takes it
+before any build), and TPC-H Q5 and Q12 at SF 0.01 over
+`benchmarks/data.tpch_join_csvs`.
 Projections over a join are not ported yet (PipelineRelation), so a
 join's rows are selected through a fused ORDER BY.
 """
@@ -309,6 +313,78 @@ class TestJoinEdges:
         _assert_same(got, want)
         assert got.to_rows() == [(1, 50), (2, None), (3, None), (4, 60)]
         assert [j._artifact.dense for j in joins] == [True]
+
+
+class TestDenseWindow:
+    """The port's dense window (2^26 slots by default) and its route by
+    the build kernel's duplicate flag, against the JAX package, whose
+    window is 2^20 slots and whose uniqueness comes from its host
+    index."""
+
+    @staticmethod
+    def _tables(build_keys, seed=0):
+        rng = np.random.default_rng(seed)
+        build_keys = np.asarray(build_keys, np.int64)
+        m = len(build_keys)
+        probe = np.concatenate([rng.choice(build_keys, 3000),
+                                rng.integers(-5, build_keys.max() + 5, 1000)])
+        return {
+            "l": _jax_source(jdf.Schema([jdf.Field("k", I64, False),
+                                         jdf.Field("v", I64, False)]),
+                             [probe, np.arange(len(probe))], batch_rows=1024),
+            "r": _jax_source(jdf.Schema([jdf.Field("k", I64, False),
+                                         jdf.Field("w", I64, False)]),
+                             [build_keys, np.arange(m) * 10], batch_rows=1024),
+        }
+
+    @staticmethod
+    def _spy(monkeypatch):
+        from datafusion_tpu_torch.exec.cuda import hash_build
+
+        flags = []
+        real = hash_build.build_slot_table
+
+        def spy(pos, live, num_slots):
+            row, count, dup = real(pos, live, num_slots)
+            flags.append((num_slots, dup))
+            return row, count, dup
+
+        monkeypatch.setattr(hash_build, "build_slot_table", spy)
+        return flags
+
+    @pytest.mark.parametrize("join", ["JOIN", "LEFT JOIN"])
+    def test_unique_key_over_2_20_slots_joins_dense(self, monkeypatch, join):
+        keys = np.random.default_rng(3).choice(1_500_001, 5000, replace=False)
+        keys[:2] = [0, 1_500_000]  # 1,500,001 slots, over the JAX 2^20
+        flags = self._spy(monkeypatch)
+        want, got, joins = _run_both(
+            self._tables(keys), f"SELECT v, w FROM l {join} r ON l.k = r.k ORDER BY v")
+        _assert_same(got, want)
+        assert got.num_rows >= 3000
+        assert [j._artifact.dense for j in joins] == [True]
+        assert joins[0]._artifact.index is None  # no host index was built
+        assert flags == [(1_500_001, False)]
+
+    def test_duplicate_key_in_window_takes_host_path_by_kernel_flag(self, monkeypatch):
+        keys = np.arange(0, 20_000, 4)
+        keys[100] = keys[2000]  # one duplicate among 5,000 unique keys
+        flags = self._spy(monkeypatch)
+        want, got, joins = _run_both(
+            self._tables(keys), "SELECT v, w FROM l JOIN r ON l.k = r.k ORDER BY v, w")
+        _assert_same(got, want)
+        assert [j._artifact.dense for j in joins] == [False]
+        assert joins[0]._artifact.index is not None
+        assert flags == [(19_997, True)]
+
+    def test_key_range_over_2_26_takes_host_path(self, monkeypatch):
+        keys = np.array([0, 17, 1 << 20, 1 << 26], np.int64)  # 2^26 + 1 slots
+        flags = self._spy(monkeypatch)
+        want, got, joins = _run_both(
+            self._tables(keys), "SELECT v, w FROM l JOIN r ON l.k = r.k ORDER BY v")
+        _assert_same(got, want)
+        assert got.num_rows >= 3000
+        assert [j._artifact.dense for j in joins] == [False]
+        assert flags == []  # decided before any build
 
 
 # ------------------------------------------------------------ TPC-H

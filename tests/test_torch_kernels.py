@@ -18,9 +18,11 @@ package's own tests run them; both exactly.
 
 The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py and chip_smoke.py); here the grouped reduce's
-launch geometry and the radix sort's choice of passes are checked,
-since that Python decides which rows each block reads and which digits
-are sorted.
+launch geometry, the join build's duplicate report and the radix sort's
+choice of passes are checked, and a numpy model of one onesweep pass
+(per-warp stable rank, warp offsets, tile prefixes in tile order) is
+held against `argsort_numpy` on both sides of the tile boundary, since
+that arithmetic decides where every row lands.
 """
 
 from __future__ import annotations
@@ -238,10 +240,33 @@ def test_build_cpu_tensor_takes_plain_route_without_launching():
     pos, live = _build_inputs(300, 200, seed=1)
     args = (torch.from_numpy(pos), torch.from_numpy(live))
     before = hash_build.LAUNCHES
-    got = hash_build.build_slot_table(*args, 200)
+    row, count, dup = hash_build.build_slot_table(*args, 200)
     assert hash_build.LAUNCHES == before
-    want = hash_build.build_slot_table_torch(*args, 200)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    want_row, want_count = hash_build.build_slot_table_torch(*args, 200)
+    assert torch.equal(row, want_row) and torch.equal(count, want_count)
+    assert dup is True  # 300 rows into 200 slots
+
+
+@pytest.mark.parametrize("case", ["unique", "duplicate", "duplicate_dead",
+                                  "duplicate_out_of_range"])
+def test_build_reports_duplicates_as_count_does(case):
+    # a duplicate counts only among live rows inside [0, slots)
+    pos = np.arange(300, dtype=np.int32)
+    live = np.ones(300, bool)
+    if case != "unique":
+        pos[7] = pos[200]
+    if case == "duplicate_dead":
+        live[7] = False
+    elif case == "duplicate_out_of_range":
+        pos[7] = pos[8] = 300
+    args = (torch.from_numpy(pos), torch.from_numpy(live), 300)
+    before = hash_build.LAUNCHES
+    row, count, dup = hash_build.build_slot_table(*args)
+    assert hash_build.LAUNCHES == before
+    want_row, want_count = hash_build.build_slot_table_torch(*args)
+    assert torch.equal(row, want_row) and torch.equal(count, want_count)
+    assert dup is bool(want_count.max() > 1)
+    assert dup is (case == "duplicate")
 
 
 @pytest.mark.parametrize("bad", ["pos_dtype", "live_dtype", "length", "slots", "device"])
@@ -329,24 +354,72 @@ def test_argsort_wrapper_rejects_what_the_kernel_does_not_take(bad):
         sort_kernel.argsort_multi(ops)
 
 
+def _digit_histograms(u):
+    """The histogram kernel's counts for one sign-flipped key: row b
+    counts byte b of every key into 256 buckets."""
+    return np.stack([
+        np.bincount(((u >> np.uint64(8 * b)) & np.uint64(255)).astype(np.int64),
+                    minlength=sort_kernel.RADIX)
+        for b in range(sort_kernel.DIGITS)
+    ])
+
+
+def _onesweep_pass(keys, idx, shift, digit_hist):
+    """One pass of `pass_kernel` in numpy: each tile ranks its rows per
+    warp (item by item, lanes in order, as __match_any_sync does), the
+    per-warp counts are scanned in warp order, and the tile's global
+    offset for each digit is the digit's start over all rows plus the
+    counts of the tiles before it (the look-back, in tile order).
+    Returns (keys, idx) scattered to their global slots."""
+    n = len(keys)
+    tile, warp_rows = sort_kernel.TILE, 32 * sort_kernel.ITEMS
+    warps = sort_kernel.THREADS // 32
+    digit = ((keys >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+    global_start = np.cumsum(digit_hist) - digit_hist
+    before_tile = np.zeros(sort_kernel.RADIX, np.int64)
+    dst = np.full(n, -1, np.int64)
+    for t0 in range(0, n, tile):
+        wcount = np.zeros((warps, sort_kernel.RADIX), np.int64)
+        rank = {}
+        for w in range(warps):
+            for j in range(sort_kernel.ITEMS):
+                lo = t0 + w * warp_rows + 32 * j
+                rows = np.arange(lo, min(lo + 32, n))
+                if len(rows) == 0:
+                    continue
+                d = digit[rows]
+                earlier = (d[None, :] == d[:, None]) & np.tri(len(d), k=-1, dtype=bool)
+                for r, dd, e in zip(rows, d, earlier.sum(axis=1)):
+                    rank[r] = wcount[w, dd] + e
+                wcount[w] += np.bincount(d, minlength=sort_kernel.RADIX)
+        warp_offset = np.cumsum(wcount, axis=0) - wcount
+        for r, k in rank.items():
+            w = (r - t0) // warp_rows
+            dst[r] = global_start[digit[r]] + before_tile[digit[r]] + \
+                warp_offset[w, digit[r]] + k
+        before_tile += wcount.sum(axis=0)
+    assert np.array_equal(np.sort(dst), np.arange(n))  # a permutation
+    out_keys, out_idx = np.empty_like(keys), np.empty_like(idx)
+    out_keys[dst], out_idx[dst] = keys, idx
+    return out_keys, out_idx
+
+
 def _radix_model(ops):
-    """The kernel's algorithm in numpy: per key, last key first, gather
-    through the running permutation, flip the sign bit and run a stable
-    4-bit pass for each digit `digit_mask` keeps."""
+    """The kernel's algorithm in numpy: one histogram per key, then per
+    key, last key first, gather through the running permutation, flip
+    the sign bit and run `_onesweep_pass` for each 8-bit digit
+    `digit_mask` keeps."""
     n = len(ops[0])
     perm = np.arange(n)
-    for op in reversed(ops):
-        u = op.view(np.uint64) ^ np.uint64(1 << 63)
-        mask = sort_kernel.digit_mask(int(np.bitwise_and.reduce(u)),
-                                      int(np.bitwise_or.reduce(u)))
+    hists = [_digit_histograms(op.view(np.uint64) ^ np.uint64(1 << 63)) for op in ops]
+    for op, hist in zip(reversed(ops), reversed(hists)):
+        mask = sort_kernel.digit_mask(hist.max(axis=1), n)
         if mask == 0:
             continue
-        keys = u[perm]
-        for d in range(sort_kernel.DIGITS):
-            if mask >> d & 1:
-                order = np.argsort((keys >> np.uint64(4 * d)) & np.uint64(15),
-                                   kind="stable")
-                keys, perm = keys[order], perm[order]
+        keys = op.view(np.uint64)[perm] ^ np.uint64(1 << 63)
+        for b in range(sort_kernel.DIGITS):
+            if mask >> b & 1:
+                keys, perm = _onesweep_pass(keys, perm, 8 * b, hist[b])
     return perm
 
 
@@ -359,7 +432,7 @@ def test_radix_passes_skip_only_digits_that_never_vary(case):
         "ties": [rng.integers(0, 7, n)],
         "full": _sort_keys(n, 2, seed=2)[1:],
         "constant": [np.full(n, -5), rng.integers(0, 9, n)],
-        "one_digit": [rng.integers(0, 16, n) << 36],
+        "one_digit": [rng.integers(0, 256, n) << 40],
         "negative": [rng.integers(-20, 3, n)],
         "three_keys": _sort_keys(n, 3, seed=3),
     }[case]
@@ -367,9 +440,23 @@ def test_radix_passes_skip_only_digits_that_never_vary(case):
     np.testing.assert_array_equal(_radix_model(ops), pallas_sort.argsort_numpy(ops))
 
 
+@pytest.mark.parametrize("nkeys", [1, 3])
+@pytest.mark.parametrize("n", [1, sort_kernel.TILE - 1, sort_kernel.TILE,
+                               sort_kernel.TILE + 1, 3 * sort_kernel.TILE + 7])
+def test_onesweep_pass_model_across_tile_boundaries(n, nkeys):
+    # tie-heavy, full-range (int64.min and .max) and wide keys, so some
+    # digits repeat across tiles and warps and some are skipped
+    ops = _sort_keys(n, nkeys, seed=n + nkeys)
+    np.testing.assert_array_equal(_radix_model(ops), pallas_sort.argsort_numpy(ops))
+
+
 def test_digit_mask():
-    assert sort_kernel.digit_mask(5, 5) == 0  # every key equal
-    assert sort_kernel.digit_mask(0, 0xF) == 1
-    assert sort_kernel.digit_mask(0, 0x10) == 2
-    assert sort_kernel.digit_mask(-1, 0) == 0xFFFF  # all ones AND, zero OR
-    assert sort_kernel.digit_mask(0, 1 << 63) == 1 << 15
+    def mask(*u):
+        u = np.asarray(u, np.uint64)
+        return sort_kernel.digit_mask(_digit_histograms(u).max(axis=1), len(u))
+
+    assert mask(5, 5) == 0  # every key equal
+    assert mask(0, 0xF) == 1
+    assert mask(0, 0x10) == 1  # bit 4 lies in digit 0 of 8 bits
+    assert mask(0, 0xFFFF_FFFF_FFFF_FFFF) == 0xFF  # every digit differs
+    assert mask(0, 1 << 63) == 1 << 7
