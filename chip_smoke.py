@@ -25,7 +25,9 @@ which raises on failure:
      tie-heavy keys, int64.min and int64.max, and the f64 images of
      +-NaN, +-0.0 and +-inf: exactly, and bit-identical when run twice.
    Then kernel, plain and library times at the main path's shapes
-   (library: `scatter_reduce_`; the build's `torch.full`,
+   (library: `scatter_reduce_`, alone and with the fill, mask and cast
+   the kernel's function needs, and the grouped reduce's phases from a
+   build with DF_AGG_PHASE_CLOCKS; the build's `torch.full`,
    `scatter_reduce_("amax")`, `torch.zeros`, `index_add_` and the
    flag's `count.max() > 1`; chained `torch.argsort(stable=True)`; the
    port never calls them), per call and on the device for the build and
@@ -37,7 +39,8 @@ which raises on failure:
    against a numpy oracle: keys and counts exactly, floats within rtol
    1e-9.
 4. The GROUP BY of bench config 2 over 4,000,000 rows with 16 and with
-   4096 groups, checked the same way.
+   4096 groups, checked the same way, each with its device and host
+   profile.
 5. Joins over the TPC-H-lite star schema at SF-1 (benchmarks/data.py's
    cardinalities and distributions, vectorised from seed 19): Q5 and
    Q12 with ORDER BY l_shipmode, against numpy oracles that join by
@@ -192,11 +195,10 @@ def _time_ms(torch, fn, reps=TIMED_LAUNCHES):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(torch, fn, names=None, reps=50):
-    """Device time per call from the profiler: of the CUDA kernels whose
-    name holds one of `names`, or with no names of all the call's device
-    work (kernels, memsets, copies); None when the trace shows no device
-    time."""
+def _device_split(torch, fn, reps=50):
+    """All the device work of one call of `fn` (kernels, memsets,
+    copies) from the profiler: [name, ms, launches] per call for each
+    distinct name; empty when the trace shows no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,48 +208,149 @@ def _device_ms(torch, fn, names=None, reps=50):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(
-        e.device_time_total for e in prof.key_averages()
-        if (e.device_type == DeviceType.CUDA if names is None
-            else any(name in e.key for name in names))
-    )
-    return us / reps / 1e3 if us > 0 else None
+    return [[e.key, e.device_time_total / reps / 1e3, e.count / reps]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
 
 
-def phase_kernel_timing(torch, hash_agg, dev):
+def _device_ms(torch, fn, reps=50):
+    """Device time per call of all the call's device work; None when
+    the trace shows no device time."""
+    split = _device_split(torch, fn, reps)
+    return sum(ms for _, ms, _ in split) if split else None
+
+
+# (N, G, where): the main path's shapes of the grouped reduce
+AGG_SHAPES = ((131_072, 8, "Q1 batch"), (524_288, 16, "config 2, 16 groups"),
+              (524_288, 4096, "config 2, 4096 groups"),
+              (524_288, 8192, "8192 groups, the default capacity"))
+
+
+def _agg_timing_inputs(torch, n, g, gen, dev):
+    ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
+    live = torch.rand(n, generator=gen, device=dev) > 0.02
+    vals = torch.where(live, torch.rand(n, generator=gen, device=dev,
+                                        dtype=torch.float64) * 1e3, 0.0)
+    return ids, vals, live
+
+
+def phase_kernel_timing(torch, hash_agg, cuda_mod, dev):
     """Kernel, plain and library times at the main path's shapes, f64
-    sum (the slot Q1 and config 2 reduce most)."""
+    sum (the slot Q1 and config 2 reduce most): per call (CUDA events
+    around back-to-back calls) and on the device (all the call's device
+    work, from the profiler, split by kernel, names cut to 80 characters
+    for the log, with launches per call).
+    `library_*` is one preallocated `scatter_reduce_` over int64 ids
+    computed beforehand, the dead rows included (the yardstick of
+    earlier runs); `library_fair_*` the same function as the kernel in
+    library calls: the identity fill, the `torch.where` over live,
+    `ids.long()` and `scatter_reduce_`.  The port calls neither.
+    `phase_split_us` splits a call by phase (mean and largest over the
+    blocks) from the phase-clock build."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
+    clock_lib = _agg_clock_library(cuda_mod, hash_agg)
     out = []
-    for n, g, where in ((131_072, 8, "Q1 batch"), (524_288, 16, "config 2, 16 groups"),
-                        (524_288, 4096, "config 2, 4096 groups")):
-        ids = torch.randint(0, g, (n,), generator=gen, device=dev, dtype=torch.int32)
-        live = torch.rand(n, generator=gen, device=dev) > 0.02
-        vals = torch.where(live, torch.rand(n, generator=gen, device=dev,
-                                            dtype=torch.float64) * 1e3, 0.0)
+    for n, g, where in AGG_SHAPES:
+        ids, vals, live = _agg_timing_inputs(torch, n, g, gen, dev)
         ids64 = ids.long()
-        kern = _time_ms(torch, lambda: hash_agg.grouped_reduce(ids, vals, live, g, "sum"))
-        plain = _time_ms(torch, lambda: hash_agg.grouped_reduce_torch(ids, vals, live, g, "sum"))
         acc = torch.zeros(g, dtype=torch.float64, device=dev)
-        lib = _time_ms(torch, lambda: acc.scatter_reduce_(0, ids64, vals, "sum"))
-        try:
-            dev_ms = _device_ms(torch, lambda: hash_agg.grouped_reduce(ids, vals, live, g, "sum"),
-                                ("partial_kernel", "combine_kernel"))
-        except RuntimeError as e:  # the profiler is a measurement aid only
-            log(f"profiler unavailable: {e}")
-            dev_ms = None
+
+        def kernel():
+            return hash_agg.grouped_reduce(ids, vals, live, g, "sum")
+
+        def library():
+            return acc.scatter_reduce_(0, ids64, vals, "sum")
+
+        def library_fair():
+            res = torch.zeros(g, dtype=torch.float64, device=dev)
+            return res.scatter_reduce_(0, ids.long(), torch.where(live, vals, 0.0), "sum")
+
+        entry = {
+            "shape": f"N={n} G={g} f64 sum ({where})",
+            "ms": _time_ms(torch, kernel),
+            "plain_ms": _time_ms(torch, lambda: hash_agg.grouped_reduce_torch(
+                ids, vals, live, g, "sum")),
+            "library_ms": _time_ms(torch, library),
+            "library_fair_ms": _time_ms(torch, library_fair),
+        }
+        for key, fn in (("", kernel), ("library_", library),
+                        ("library_fair_", library_fair)):
+            try:
+                split = _device_split(torch, fn)
+            except RuntimeError as e:  # the profiler is a measurement aid only
+                log(f"profiler unavailable: {e}")
+                split = []
+            entry[key + "device_ms"] = sum(ms for _, ms, _ in split) if split else None
+            entry[key + "device_split"] = [[name[:80], ms, c] for name, ms, c in split]
+            entry[key + "launches_per_call"] = sum(c for _, _, c in split)
+        entry["phase_split_us"] = _agg_phase_split(torch, hash_agg, cuda_mod, clock_lib,
+                                                   ids, vals, live, g)
         nbytes = n * (4 + 8 + 1) + g * 8
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * n / F64_OPS_PER_S * 1e3
-        out.append({
-            "shape": f"N={n} G={g} f64 sum ({where})",
-            "ms": kern, "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        })
+        entry.update(bound_ms=max(bytes_ms, ops_ms),
+                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                     geometry=dict(zip(("warps", "tile_g", "lane_parts", "blocks",
+                                        "chunk_rows", "fold_lanes"),
+                                       hash_agg.geometry(n, g, 8, *hash_agg._limits(
+                                           torch.cuda.current_device())))))
+        out.append(entry)
     log("kernel_shapes: " + json.dumps(out))
     return out
+
+
+# the kernel's phases (csrc/hash_agg.cu, DF_AGG_PHASE_CLOCKS); "barrier" runs
+# from a block's last partial to its start of the fold, past the grid barrier
+AGG_PHASES = ("clear", "rows", "combine", "barrier", "fold")
+
+
+def _agg_clock_library(cuda_mod, hash_agg):
+    """csrc/hash_agg.cu built once more with DF_AGG_PHASE_CLOCKS: the
+    same kernel, recording the global timer at its phase boundaries.  A
+    measurement build; the port never loads it."""
+    import ctypes
+
+    out = cuda_mod.BUILD_DIR / "libhash_agg_phase_clocks.so"
+    cuda_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_mod._nvcc(), *cuda_mod.NVCC_FLAGS, "-DDF_AGG_PHASE_CLOCKS",
+                    "-o", str(out), str(cuda_mod.CSRC / "hash_agg.cu")],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    lib.df_grouped_reduce.restype = ctypes.c_int
+    lib.df_grouped_reduce.argtypes = hash_agg._library().df_grouped_reduce.argtypes
+    lib.df_grouped_reduce_phase_clocks.restype = ctypes.c_int
+    lib.df_grouped_reduce_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def _agg_phase_split(torch, hash_agg, cuda_mod, lib, ids, vals, live, g):
+    """Per phase of one call (f64 sum, one launch), the mean and the
+    largest time over the blocks, in us, and the call's span from the
+    first block's start to the last block's end."""
+    import ctypes
+
+    n = ids.shape[0]
+    geo = hash_agg.geometry(n, g, 8, *hash_agg._limits(torch.cuda.current_device()))
+    warps, tile_g, lane_parts, blocks, chunk_rows, fold_lanes = geo
+    buf = torch.empty(g * (1 + blocks), dtype=torch.float64, device=vals.device)
+    for _ in range(3):
+        rc = lib.df_grouped_reduce(
+            5, 0, ids.data_ptr(), vals.data_ptr(), live.data_ptr(), n, g, tile_g, warps,
+            lane_parts, blocks, chunk_rows, fold_lanes, buf.data_ptr(),
+            cuda_mod.raw_stream(vals.device))
+        if rc != 0:
+            raise RuntimeError(f"phase-clock build: CUDA error {rc}")
+    torch.cuda.synchronize()
+    clocks = (ctypes.c_longlong * (blocks * 6))()
+    if lib.df_grouped_reduce_phase_clocks(clocks, blocks) != 0:
+        raise RuntimeError("phase clocks: copy failed")
+    t = np.array(clocks, dtype=np.float64).reshape(blocks, 6) / 1e3
+    d = np.diff(t, axis=1)
+    split = {name: [float(d[:, i].mean()), float(d[:, i].max())]
+             for i, name in enumerate(AGG_PHASES)}
+    split["span"] = float(t[:, 5].max() - t[:, 0].min())
+    return split
 
 
 def _f64_images(torch, x):
@@ -959,7 +1062,7 @@ def main() -> int:
     agg_err = phase_kernel_parity(torch, hash_agg, dev)
     build_err = phase_build_parity(torch, hash_build, dev)
     sort_err = phase_sort_parity(torch, sort_kernel, dev)
-    shapes = phase_kernel_timing(torch, hash_agg, dev)
+    shapes = phase_kernel_timing(torch, hash_agg, cuda_mod, dev)
     new_shapes = phase_new_kernel_timing(torch, hash_build, sort_kernel, dev)
 
     ctx = tdf.ExecutionContext()  # cuda:0
@@ -985,6 +1088,7 @@ def main() -> int:
                                   f"config2_groupby_{groups}", CONFIG2_ROWS)
         assert_rows(table, config2_oracle(cols, groups), f"config 2 G={groups}")
         log(f"config 2 ({groups} groups) rows match the numpy oracle")
+        query_profile(tdf, torch, ctx, CONFIG2, f"config2_groupby_{groups}", rep["p50_ms"])
         reports.append(rep)
         del src, cols
 

@@ -9,7 +9,8 @@ card and no JAX, without the suite's conftest:
 
 Each kernel is held against its plain PyTorch version on the same
 tensors: the grouped reduce's ints exactly and f64 within rtol 1e-12
-(the plain version's atomics sum in another order), the join build
+(the plain version's atomics sum in another order), from G = 1 to a G
+past one tile and with every row dead, the join build
 (row, count and its duplicate flag against `count.max() > 1`) and the
 radix argsort exactly, each bit-identical when run twice.  The
 engine on cuda:0 is held against the engine on the CPU: a GROUP BY
@@ -56,7 +57,16 @@ def _inputs(kind, dtype, n, g, dev, seed=0):
     return ids, vals, live
 
 
-@pytest.mark.parametrize("n,g", [(1, 4), (1000, 8), (131072, 8), (70001, 4096)])
+# G = 1, 31 and 33 (not a multiple of 32; per-lane partials), 200 (a
+# partial per warp, most steps with a group that several lanes hit),
+# config 2's 4096 and the largest default capacity 8192 at N = 524,288,
+# 25,827 f64 groups, one warp's partial filling the shared memory the
+# kernel is granted to within a few bytes, and 32,768 f64 groups, past it
+# (tiles of one warp)
+@pytest.mark.parametrize("n,g", [(1, 4), (1000, 8), (131072, 8), (70001, 4096),
+                                 (524288, 4096), (524288, 8192), (1000, 1),
+                                 (70001, 31), (70001, 33), (70001, 200),
+                                 (70001, 25827), (70001, 32768)])
 @pytest.mark.parametrize("kind,dtype", CASES)
 def test_kernel_matches_plain_version(dev, kind, dtype, n, g):
     ids, vals, live = _inputs(kind, dtype, n, g, dev)
@@ -70,6 +80,15 @@ def test_kernel_matches_plain_version(dev, kind, dtype, n, g):
         assert torch.equal(got.view(torch.int64), again.view(torch.int64))
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_kernel_all_dead_rows_hold_identity(dev, kind, dtype):
+    ids, vals, live = _inputs(kind, dtype, 70001, 4096, dev)
+    live.zero_()
+    got = hash_agg.grouped_reduce(ids, vals, live, 4096, kind)
+    want = hash_agg.grouped_reduce_torch(ids, vals, live, 4096, kind)
+    assert torch.equal(got, want)
 
 
 def test_kernel_rejects_non_contiguous_input(dev):

@@ -19,10 +19,14 @@ package's own tests run them; both exactly.
 The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py and chip_smoke.py); here the grouped reduce's
 launch geometry, the join build's duplicate report and the radix sort's
-choice of passes are checked, and a numpy model of one onesweep pass
-(per-warp stable rank, warp offsets, tile prefixes in tile order) is
-held against `argsort_numpy` on both sides of the tile boundary, since
-that arithmetic decides where every row lands.
+choice of passes are checked.  A numpy model of the grouped reduce's
+order of f64 additions (per-lane partials at a small G, else peer sets
+per 32-row step in their lane-order tree; warp partials; the fold
+across chunks) is held against the oracle and the Pallas kernel within
+rtol 1e-12, and a numpy model of one onesweep pass (per-warp stable
+rank, warp offsets, tile prefixes in tile order) against
+`argsort_numpy` on both sides of the tile boundary, since that
+arithmetic decides where every row lands.
 """
 
 from __future__ import annotations
@@ -155,32 +159,156 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         hash_agg.grouped_reduce(ids, vals, live, g, kind)
 
 
+# the H100's SM count and the shared memory per block the kernel is
+# granted: the opt-in limit, 232,448 bytes, as it has no static shared memory
+H100 = (132, 232448)
+
+
+def _partial_bytes(warps, tile_g, lane_parts, itemsize):
+    """Shared memory of a block's partials: per owning warp, a value per
+    group and lane with lane_parts, else a value and a tag byte per
+    group."""
+    return warps * tile_g * (32 * itemsize if lane_parts else itemsize + 1)
+
+
 @pytest.mark.parametrize(
     "n,g", [(0, 8), (1, 8), (255, 4), (131072, 8), (131072, 4096),
             (524288, 16), (524288, 8192), (6_000_000, 4), (6_000_000, 8192)],
 )
 def test_launch_geometry_reads_every_row_once(n, g):
-    """Replays pass 1's row partition (csrc/hash_agg.cu): chunk c, warp
-    w reads rows [c*chunk_rows + w*per_warp, ... + per_warp) clipped to
-    n, in 32-row steps.  Every row must be read by exactly one warp of
-    each group tile, and the tiles must cover [0, g)."""
-    tile_g, chunks, chunk_rows = hash_agg.geometry(n, g)
-    assert chunk_rows % 256 == 0 and chunks * chunk_rows >= n
-    assert (chunks - 1) * chunk_rows < max(n, 1)
-    assert tile_g % 32 == 0 and tile_g <= hash_agg.TILE_G
-    assert -(-g // tile_g) * tile_g >= g
-    per_warp = chunk_rows // 8
-    assert per_warp % 32 == 0
-    starts = np.arange(chunks)[:, None] * chunk_rows + np.arange(8)[None, :] * per_warp
-    ends = np.minimum(n, starts + per_warp)
-    lengths = np.maximum(ends - starts, 0)
-    assert int(lengths.sum()) == n
-    order = np.argsort(starts.ravel())
-    s, e = starts.ravel()[order], ends.ravel()[order]
-    live = s < e
-    assert (s[live][1:] == e[live][:-1]).all()  # contiguous, no overlap
-    # the same shapes always give the same partition (run-to-run bits)
-    assert hash_agg.geometry(n, g) == (tile_g, chunks, chunk_rows)
+    """Replays the partials' row partition (csrc/hash_agg.cu): block c,
+    warp w reads rows [c*chunk_rows + w*per_warp, ... + per_warp)
+    clipped to n, in 32-row steps, once per group tile.  Every row must
+    be read by exactly one warp, the warps' partials must fit shared
+    memory, and G <= 8192 at 8-byte types must be one tile."""
+    sms, smem = H100
+    for itemsize in (1, 2, 4, 8):
+        warps, tile_g, lane_parts, blocks, chunk_rows, lanes = hash_agg.geometry(
+            n, g, itemsize, sms, smem)
+        assert 1 <= warps <= hash_agg.MAX_WARPS
+        assert _partial_bytes(warps, tile_g, lane_parts, itemsize) <= smem
+        # per-lane partials wherever all of a block's warps can hold them
+        assert lane_parts == (32 * g * itemsize * hash_agg.MAX_WARPS <= smem)
+        assert tile_g == g  # one tile: each row is read once
+        assert 1 <= blocks <= sms
+        assert chunk_rows % (warps * 32) == 0 and blocks * chunk_rows >= n
+        assert (blocks - 1) * chunk_rows < max(n, 1)
+        assert lanes & (lanes - 1) == 0 and lanes <= 32
+        assert lanes == 1 or lanes * g <= blocks * hash_agg.MAX_WARPS * 32
+        per_warp = chunk_rows // warps
+        starts = (np.arange(blocks)[:, None] * chunk_rows
+                  + np.arange(warps)[None, :] * per_warp)
+        ends = np.minimum(n, starts + per_warp)
+        assert int(np.maximum(ends - starts, 0).sum()) == n
+        order = np.argsort(starts.ravel())
+        s, e = starts.ravel()[order], ends.ravel()[order]
+        live = s < e
+        assert (s[live][1:] == e[live][:-1]).all()  # contiguous, no overlap
+        # the same shapes always give the same partition (run-to-run bits)
+        assert hash_agg.geometry(n, g, itemsize, sms, smem) == (
+            warps, tile_g, lane_parts, blocks, chunk_rows, lanes)
+
+
+@pytest.mark.parametrize("g,itemsize", [(25827, 8), (25828, 8), (32768, 8),
+                                        (100_000, 4)])
+def test_launch_geometry_tiles_past_shared_memory(g, itemsize):
+    """A G past one warp's shared memory takes tiles of one warp that
+    cover [0, G) without overlap."""
+    sms, smem = H100
+    warps, tile_g, lane_parts, _, _, _ = hash_agg.geometry(70_001, g, itemsize, sms, smem)
+    tiles = -(-g // tile_g)
+    assert not lane_parts
+    assert _partial_bytes(warps, tile_g, lane_parts, itemsize) <= smem
+    assert (tiles == 1) == (g * (itemsize + 1) <= smem)
+    assert warps == 1 or tiles == 1
+    assert (tiles - 1) * tile_g < g <= tiles * tile_g
+
+
+def _tree(members):
+    """A peer set's value: the balanced tree over ranks of `fold_peers`
+    (level d: rank k, k a multiple of 2d, takes rank k + d)."""
+    v = list(members)
+    d = 1
+    while d < len(v):
+        for k in range(0, len(v) - d, 2 * d):
+            v[k] = v[k] + v[k + d]
+        d *= 2
+    return v[0]
+
+
+def _shuffle_tree(x):
+    """The shuffle-down tree over axis 0 (a power of two long): lane s
+    adds lane s + delta for delta = len / 2, ..., 1; lane 0's value."""
+    x = x.copy()
+    delta = len(x) // 2
+    while delta:
+        x[:delta] = x[:delta] + x[delta:2 * delta]
+        delta //= 2
+    return x[0]
+
+
+def _reduce_model(ids, vals, live, g):
+    """The kernel's order of f64 additions, in numpy.  Per block and
+    owning warp, in step order: with lane_parts each lane adds its rows
+    to its own partial, then per group each lane adds its warps'
+    partials in warp order and the lanes are folded by the shuffle-down
+    tree; otherwise each 32-row step's peer sets are reduced by `_tree`
+    in lane order and committed to the warp's partial, and the block's
+    warp partials are added in warp order.  Then per group, fold lane s
+    adds chunks s, s + lanes, ... in chunk order from 0.0 and the lanes
+    are folded by the shuffle-down tree."""
+    n = len(ids)
+    warps, tile_g, lane_parts, blocks, chunk_rows, lanes = hash_agg.geometry(
+        n, g, 8, *H100)
+    per_warp = chunk_rows // warps
+    scratch = np.zeros((blocks, g))
+    for g0 in range(0, g, tile_g):
+        tg = min(tile_g, g - g0)
+        for b in range(blocks):
+            part = np.zeros((warps, tg, 32) if lane_parts else (warps, tg))
+            for w in range(warps):
+                r0 = b * chunk_rows + w * per_warp
+                r1 = min(n, r0 + per_warp)
+                for base in range(r0, r1, 32):
+                    rows = np.arange(base, min(base + 32, r1))
+                    hit = live[rows] & (ids[rows] >= g0) & (ids[rows] - g0 < tg)
+                    gid = np.where(hit, ids[rows] - g0, -1)
+                    if lane_parts:
+                        lane = rows - base
+                        part[w, gid[hit], lane[hit]] = (part[w, gid[hit], lane[hit]]
+                                                        + vals[rows][hit])
+                        continue
+                    for key in np.unique(gid[gid >= 0]):
+                        part[w, key] = part[w, key] + _tree(vals[rows][gid == key])
+            acc = part[0].copy()
+            for w in range(1, warps):
+                acc = acc + part[w]
+            scratch[b, g0:g0 + tg] = _shuffle_tree(acc.T) if lane_parts else acc
+    lane_acc = np.zeros((lanes, g))
+    for s in range(lanes):
+        for c in range(s, blocks, lanes):
+            lane_acc[s] = lane_acc[s] + scratch[c]
+    return _shuffle_tree(lane_acc)
+
+
+# one block's batch of rows: 8 warps of ITEMS 32-row steps
+_BLOCK_ROWS = hash_agg.MAX_WARPS * 32 * hash_agg.ITEMS
+
+
+@pytest.mark.parametrize("g", [1, 8, 33, 4096])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, _BLOCK_ROWS - 1, _BLOCK_ROWS + 1])
+def test_reduce_order_model_matches_oracle_and_pallas(n, g):
+    ids, vals, live = _inputs("sum", np.float64, n, g, seed=n + g)
+    ids[: min(n, 40)] = 0  # a run of equal ids: peer sets of a whole step
+    got = _reduce_model(ids, vals, live, g)
+    want = pallas_hash_agg.grouped_reduce_numpy(ids, vals, live, g, "sum")
+    pallas = np.asarray(jax.jit(
+        lambda i, v, l: pallas_hash_agg.grouped_reduce(i, v, l, g, "sum", interpret=True)
+    )(ids, vals, live))
+    np.testing.assert_allclose(got, want, rtol=1e-12, err_msg="model vs oracle")
+    np.testing.assert_allclose(got, pallas, rtol=1e-12, err_msg="model vs pallas")
+    again = _reduce_model(ids, vals, live, g)
+    assert np.array_equal(got.view(np.int64), again.view(np.int64))
 
 
 def test_agg_max_groups_keeps_the_jax_packages_knob(monkeypatch):
