@@ -53,9 +53,28 @@ which raises on failure:
    and a filtered two-key sort of the SF-1 lineitem, against
    np.lexsort, rows and order exactly; each must launch the sort
    kernel.
-Every query runs once cold and WARM_RUNS times warm.
+7. Bench config 1: a 2,000,000-row cities CSV (benchmarks/data.py's
+   distributions, seed 7, written by this script under build/), scanned
+   by the native CSV parser (built on first use with g++) in batches of
+   2^19 rows, filtered and projected on cuda:0: one cold warm-up run,
+   then three cold runs that each parse the file, against numpy over
+   the generated columns, exactly.  Then the reference's own example
+   over test/data/uk_cities.csv: 18 rows, equal to a parse of the file.
+8. A filter and a computed projection over the SF-1 lineitem of phase 3
+   against numpy: strings and floats of the input exactly, the product
+   within rtol 1e-9; with its device and host profile.
+9. The streaming TopK of bench config 4: sort_batches' distributions at
+   4,000,000 rows in batches of 2^19, its four queries, a key of 16
+   distinct values (LIMIT 1000) and an f64 key with -0.0, +0.0, NaN and
+   NULLs, each against a stable np.lexsort, rows and order exactly;
+   each launches the sort kernel once per batch.
+10. UInt8 to UInt64 columns (UInt64 at and above 2^63) on the card: MIN,
+   MAX and SUM under a WHERE, grouped, and a filter alone, against
+   numpy.
+Every query runs once cold and WARM_RUNS times warm (phase 7: cold
+runs only).
 
-The main path (phases 3 to 6) runs each query with the launch counters
+The main path (phases 3 to 10) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -92,6 +111,9 @@ TIMED_LAUNCHES = 200
 SF1_ROWS = 6_000_000
 CONFIG2_ROWS = 4_000_000
 SORT4B_ROWS = 1_000_000
+CONFIG1_ROWS = 2_000_000
+TOPK_ROWS = 4_000_000
+UNSIGNED_ROWS = 2_000_000
 Q5 = ("SELECT n_name, SUM(l_extendedprice * (1 - l_discount)) FROM lineitem "
       "JOIN orders ON lineitem.l_orderkey = orders.o_orderkey "
       "JOIN customer ON orders.o_custkey = customer.c_custkey "
@@ -562,8 +584,16 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
     n3 = 3_000_000
     mode = torch.randint(0, 7, (n3,), generator=gen, device=dev)
     okey = ~torch.randint(0, 1_500_000, (n3,), generator=gen, device=dev)
+    # a TopK merge of config 4 (k = 100 state rows, then a batch of
+    # 2^19): its keys hold no NULL, so each crosses as its image alone
+    nk = 100 + (1 << 19)
+    s_img = ~_f64_images(torch, torch.rand(nk, generator=gen, device=dev,
+                                           dtype=torch.float64) * 1e6)
+    b_k = torch.randint(0, 1 << 40, (nk,), generator=gen, device=dev)
     for ops, where in (([a, b], "config 4b, f64 image + int64"),
-                       ([mode, okey], "lineitem sort, shipmode + ~orderkey")):
+                       ([mode, okey], "lineitem sort, shipmode + ~orderkey"),
+                       ([s_img], "TopK merge, ORDER BY s DESC LIMIT 100"),
+                       ([s_img, b_k], "TopK merge, ORDER BY a DESC, b LIMIT 100")):
         n = ops[0].shape[0]
         kern = _time_ms(torch, lambda: sort_kernel.argsort_multi(ops), reps=20)
         plain = _time_ms(torch, lambda: sort_kernel.argsort_multi_torch(ops), reps=20)
@@ -971,17 +1001,17 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
 # ------------------------------------------------------------ phase 6
 
 
-def sort4b_table(tdf):
+def sort4b_table(tdf, rows=SORT4B_ROWS):
     """Config 4b's table with benchmarks/data.py sort_batches' RNG
-    sequence (seed 11), 1,000,000 rows in batches of 2^19."""
+    sequence (seed 11), `rows` rows in batches of 2^19."""
     F, I = tdf.DataType.FLOAT64, tdf.DataType.INT64
     schema = tdf.Schema([tdf.Field("a", F, False), tdf.Field("b", I, False),
                          tdf.Field("x", F, False),
                          tdf.Field("s", tdf.DataType.FLOAT32, False)])
     rng = np.random.default_rng(11)
     batches, parts = [], []
-    for start in range(0, SORT4B_ROWS, 1 << 19):
-        n = min(1 << 19, SORT4B_ROWS - start)
+    for start in range(0, rows, 1 << 19):
+        n = min(1 << 19, rows - start)
         cols = [
             rng.uniform(0.0, 1e6, n),
             rng.integers(0, 1 << 40, n).astype(np.int64),
@@ -990,7 +1020,7 @@ def sort4b_table(tdf):
         ]
         parts.append(cols)
         batches.append(tdf.make_host_batch(schema, cols, None, None))
-    c = [np.concatenate([p[i] for p in parts]) for i in range(3)]
+    c = [np.concatenate([p[i] for p in parts]) for i in range(4)]
     return tdf.MemoryDataSource(schema, batches), c
 
 
@@ -1026,6 +1056,282 @@ def phase_sorts(tdf, cuda_mod, torch, ctx, cols):
     log(f"lineitem sort rows and order match np.lexsort ({table.num_rows} rows)")
     query_profile(tdf, torch, ctx, LINEITEM_SORT, "lineitem_filtered_sort_sf1", rep["p50_ms"])
     reports.append(rep)
+    return reports
+
+
+# ------------------------------------------------------------ phase 7
+
+
+CITIES_SQL = ("SELECT city, lat, lng, lat + lng FROM cities "
+              "WHERE lat > 51.0 AND lat < 53.0")
+UK_SQL = "SELECT city, lat, lng, lat + lng FROM cities WHERE lat > 51.0 AND lat < 53"
+
+
+def write_cities_csv(path, rows):
+    """Bench config 1's CSV (benchmarks/data.py cities_csv: seed 7,
+    2,000 city names, lat and lng uniform and rounded to 6 places, a
+    header), floats in their shortest round-trip form.  Returns the
+    columns."""
+    rng = np.random.default_rng(7)
+    pool = np.array([f"city_{i:04d}" for i in range(2000)])
+    city = pool[rng.integers(0, len(pool), rows)]
+    lat = np.round(rng.uniform(49.9, 59.0, rows), 6)
+    lng = np.round(rng.uniform(-7.6, 1.8, rows), 6)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write("city,lat,lng\n")
+        for lo in range(0, rows, 1 << 18):
+            sl = slice(lo, lo + (1 << 18))
+            f.write("".join(map("{},{!r},{!r}\n".format, city[sl].tolist(),
+                                lat[sl].tolist(), lng[sl].tolist())))
+    os.replace(tmp, path)
+    return city, lat, lng
+
+
+def phase_csv(tdf, cuda_mod, torch, smi):
+    """Bench config 1: the scan -> filter -> project of a 2,000,000-row
+    CSV, cold (each run a new context that parses the file), then the
+    reference example over test/data/uk_cities.csv."""
+    import csv
+
+    from datafusion_tpu_torch import native
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"cities_{CONFIG1_ROWS}.csv")
+    t0 = time.perf_counter()
+    city, lat, lng = write_cities_csv(path, CONFIG1_ROWS)
+    log(f"cities CSV ({CONFIG1_ROWS} rows, {os.path.getsize(path)} bytes) written in "
+        f"{time.perf_counter() - t0:.1f} s; native CSV library ready in {build_s:.2f} s")
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("city", D.UTF8, False), tdf.Field("lat", D.FLOAT64, False),
+                         tdf.Field("lng", D.FLOAT64, False)])
+
+    def cold():
+        ctx = tdf.ExecutionContext(batch_size=1 << 19)
+        ctx.register_csv("cities", path, schema, has_header=True)
+        t = time.perf_counter()
+        table = tdf.collect(ctx.sql(CITIES_SQL))
+        torch.cuda.synchronize()
+        return table, (time.perf_counter() - t) * 1e3
+
+    cuda_mod.reset_launch_counts()
+    table, warmup_ms = cold()
+    launches = cuda_mod.launch_counts()
+    keep = (lat > 51.0) & (lat < 53.0)
+    want = [city[keep], lat[keep], lng[keep], lat[keep] + lng[keep]]
+    for i, w in enumerate(want):
+        if not np.array_equal(np.asarray(table.columns[i]), w):
+            raise AssertionError(f"config 1: column {i} differs from the oracle")
+    times = [cold()[1] for _ in range(3)]
+    p50 = float(np.median(times))
+    # the scan alone: the native parse and the batch assembly, no query
+    reader = tdf.CsvDataSource(path, schema, True, 1 << 19)
+    t0 = time.perf_counter()
+    for _ in reader.batches():
+        pass
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    rep = {"query": "config1_csv_scan_filter", "rows": CONFIG1_ROWS, "card": smi,
+           "rows_out": int(keep.sum()), "warmup_cold_ms": warmup_ms, "cold_ms": times,
+           "p50_ms": p50, "rows_per_s": CONFIG1_ROWS / (p50 / 1e3), "scan_only_ms": scan_ms,
+           "native_build_s": build_s, "launches": launches}
+    log("config1_csv_scan_filter: " + json.dumps(rep))
+    log(f"config 1 rows match the numpy oracle ({table.num_rows} rows)")
+    # the reference's own example (examples/csv_sql.rs)
+    uk = os.path.join(here, "test", "data", "uk_cities.csv")
+    ctx = tdf.ExecutionContext()
+    ctx.register_csv("cities", uk, schema, has_header=False)
+    got = tdf.collect(ctx.sql(UK_SQL)).to_rows()
+    with open(uk, newline="") as f:
+        parsed = [(r[0], float(r[1]), float(r[2])) for r in csv.reader(f)]
+    want = [(c, a, b, a + b) for c, a, b in parsed if 51.0 < a < 53]
+    if got != want or len(got) != 18:
+        raise AssertionError(f"uk_cities: {len(got)} rows differ from the file's parse")
+    log("uk_cities example: 18 rows match a parse of the file")
+    return rep
+
+
+# ------------------------------------------------------------ phase 8
+
+
+SF1_FILTER_PROJECT = ("SELECT l_returnflag, l_quantity, l_extendedprice * (1 - l_discount) "
+                      "FROM lineitem WHERE l_shipdate <= '1998-09-02' AND l_discount > 0.05")
+
+
+def phase_filter_project(tdf, cuda_mod, torch, ctx, cols, dates, smi):
+    """A filter and a computed projection over the SF-1 lineitem of phase
+    3, against numpy: strings and ints exactly, floats within rtol 1e-9."""
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, SF1_FILTER_PROJECT,
+                              "lineitem_filter_project_sf1", SF1_ROWS, needs=())
+    keep = (cols["ship"] <= dates.index("1998-09-02")) & (cols["disc"] > 0.05)
+    flags = np.array(["A", "N", "R"], dtype=object)[cols["flag"][keep]]
+    want = [flags, cols["qty"][keep], cols["price"][keep] * (1 - cols["disc"][keep])]
+    if table.num_rows != int(keep.sum()):
+        raise AssertionError(f"SF-1 filter/project: {table.num_rows} rows, oracle "
+                             f"{int(keep.sum())}")
+    got = [np.asarray(c) for c in table.columns]
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and np.allclose(got[2], want[2], rtol=1e-9, atol=0.0)):
+        raise AssertionError("SF-1 filter/project: rows differ from the numpy oracle")
+    log(f"SF-1 filter/project rows match the numpy oracle ({table.num_rows} rows; "
+        f"{smi})")
+    rep["card"] = smi
+    query_profile(tdf, torch, ctx, SF1_FILTER_PROJECT, "lineitem_filter_project_sf1",
+                  rep["p50_ms"])
+    return rep
+
+
+# ------------------------------------------------------------ phase 9
+
+
+def topk_table(tdf):
+    """Bench config 4's table (sort_batches' distributions, seed 11) at
+    4,000,000 rows in batches of 2^19, with two key columns from a seed
+    of their own: `g`, 16 distinct values, and `n`, a few hundred f64
+    values (with -0.0 and +0.0), as many NaNs, and NULLs elsewhere."""
+    src, c = sort4b_table(tdf, TOPK_ROWS)
+    rng = np.random.default_rng(12)
+    g = rng.integers(0, 16, TOPK_ROWS).astype(np.int64)
+    pick = rng.random(TOPK_ROWS)
+    n = np.where(pick < 1e-4, rng.normal(size=TOPK_ROWS).round(1), np.nan)
+    n[(pick >= 1e-4) & (pick < 1.1e-4)] = -0.0
+    valid = pick < 2e-4  # below 1e-4 a number (some +-0.0), then NaN, else NULL
+    F, I = tdf.DataType.FLOAT64, tdf.DataType.INT64
+    schema = tdf.Schema(src.schema.fields + [tdf.Field("g", I, False),
+                                             tdf.Field("n", F, True)])
+    batches, lo = [], 0
+    for b in src.batches():
+        hi = lo + b.num_rows
+        batches.append(tdf.make_host_batch(
+            schema, [col[:b.num_rows] for col in b.data] + [g[lo:hi], n[lo:hi]],
+            [None] * 4 + [None, valid[lo:hi]]))
+        lo = hi
+    return tdf.MemoryDataSource(schema, batches), c + [g, n, valid]
+
+
+def _total_order(x):
+    """IEEE total order of f64 values (-0.0 before +0.0) as int64."""
+    b = np.ascontiguousarray(x, np.float64).view(np.int64)
+    return b ^ ((b >> 63) & np.int64(0x7FFF_FFFF_FFFF_FFFF))
+
+
+def topk_cases(c):
+    """(label, SQL, output columns, oracle order) of phase 9; each
+    oracle is a stable np.lexsort, ties in ascending row order."""
+    a, b, x, s, g, n, valid = c
+    cls = np.where(~valid, 2, np.where(np.isnan(n), 1, 0))  # number, NaN, NULL
+    img = np.where(cls == 0, _total_order(np.where(cls == 0, n, 0.0)), 0)
+    return [
+        ("topk_s_desc", "SELECT s, b, x FROM t ORDER BY s DESC LIMIT 100", (s, b, x),
+         np.lexsort((-s,))[:100]),
+        ("topk_a_desc", "SELECT a, b, x FROM t ORDER BY a DESC LIMIT 100", (a, b, x),
+         np.lexsort((-a,))[:100]),
+        ("topk_b_asc", "SELECT b, a, x FROM t ORDER BY b LIMIT 100", (b, a, x),
+         np.lexsort((b,))[:100]),
+        ("topk_a_desc_b", "SELECT a, b, x FROM t ORDER BY a DESC, b LIMIT 100", (a, b, x),
+         np.lexsort((b, -a))[:100]),
+        ("topk_ties_16", "SELECT g, b FROM t ORDER BY g DESC LIMIT 1000", (g, b),
+         np.lexsort((-g,))[:1000]),
+        ("topk_nan_null", "SELECT n, b FROM t ORDER BY n LIMIT 1000", (n, b),
+         np.lexsort((img, cls))[:1000]),
+    ]
+
+
+def phase_topk(tdf, cuda_mod, torch, ctx, smi):
+    t0 = time.perf_counter()
+    src, c = topk_table(tdf)
+    ctx.register_datasource("t", src)
+    nb = len(list(src.batches()))
+    log(f"TopK table ({TOPK_ROWS} rows, {nb} batches) generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reports = []
+    for label, sql, cols, order in topk_cases(c):
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, sql, label, TOPK_ROWS,
+                                  needs=("sort_kernel",))
+        if rep["launches"]["sort_kernel"] != nb:
+            raise AssertionError(f"{label}: {rep['launches']['sort_kernel']} sort launches, "
+                                 f"one per batch is {nb}")
+        for i, col in enumerate(cols):
+            got = np.asarray(table.columns[i])
+            want = col[order]
+            if label == "topk_nan_null" and i == 0:
+                # NULL rows hold no value; the others match bit for bit
+                live = c[6][order]
+                ok = (np.array_equal(np.asarray(table.validity[i]), live)
+                      and np.array_equal(got[live].view(np.int64),
+                                         want[live].view(np.int64)))
+            else:
+                ok = np.array_equal(got, want)
+            if table.num_rows != len(order) or not ok:
+                raise AssertionError(f"{label}: rows or order differ from np.lexsort")
+        rep["card"] = smi
+        log(f"{label}: rows and order match a stable np.lexsort ({table.num_rows} rows)")
+        if label == "topk_a_desc_b":
+            query_profile(tdf, torch, ctx, sql, label, rep["p50_ms"])
+        reports.append(rep)
+    return reports
+
+
+# ------------------------------------------------------------ phase 10
+
+
+UNSIGNED_AGG = ("SELECT k, MIN(a), MAX(a), SUM(a), MIN(b), MAX(b), SUM(b), MIN(c), MAX(c), "
+                "SUM(c), MIN(d), MAX(d), SUM(d), COUNT(1) FROM u "
+                "WHERE d > 9223372036854775808 AND c < 4000000000 GROUP BY k")
+UNSIGNED_FILTER = ("SELECT a, b, c, d FROM u "
+                   "WHERE a > 100 AND b <= 60000 AND d >= 9223372036854775808")
+
+
+def phase_unsigned(tdf, cuda_mod, torch, ctx, smi):
+    """MIN, MAX and SUM over UInt8 to UInt64 columns (UInt64 at and above
+    2^63) under a WHERE, and a filter alone, against numpy: SUM wraps
+    mod 2^64 and returns the column's type, as the JAX package's does."""
+    rng = np.random.default_rng(21)
+    rows = UNSIGNED_ROWS
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", D.INT64, False), tdf.Field("a", D.UINT8, False),
+                         tdf.Field("b", D.UINT16, False), tdf.Field("c", D.UINT32, False),
+                         tdf.Field("d", D.UINT64, False)])
+    cols = [rng.integers(0, 16, rows),
+            rng.integers(0, 1 << 8, rows).astype(np.uint8),
+            rng.integers(0, 1 << 16, rows).astype(np.uint16),
+            rng.integers(0, 1 << 32, rows).astype(np.uint32),
+            rng.integers(0, 1 << 64, rows, dtype=np.uint64)]
+    batches = [tdf.make_host_batch(schema, [x[lo:lo + (1 << 19)] for x in cols])
+               for lo in range(0, rows, 1 << 19)]
+    ctx.register_datasource("u", tdf.MemoryDataSource(schema, batches))
+    k, a, b, cc, d = cols
+    keep = (d > np.uint64(1 << 63)) & (cc < 4_000_000_000)
+    want = []
+    for g in range(16):
+        m = keep & (k == g)
+        if not m.any():
+            continue
+        row = [g]
+        for x in (a, b, cc, d):
+            total = np.add.reduce(x[m].astype(np.uint64), dtype=np.uint64)
+            row += [int(x[m].min()), int(x[m].max()), int(total.astype(x.dtype))]
+        want.append(tuple(row + [int(m.sum())]))
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, UNSIGNED_AGG, "unsigned_aggregate",
+                              rows)
+    if sorted(table.to_rows()) != want:
+        raise AssertionError("unsigned aggregate: rows differ from the numpy oracle")
+    rep["card"] = smi
+    reports = [rep]
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, UNSIGNED_FILTER, "unsigned_filter",
+                              rows, needs=())
+    m = (a > 100) & (b <= 60000) & (d >= np.uint64(1 << 63))
+    for i, x in enumerate((a, b, cc, d)):
+        got = np.asarray(table.columns[i])
+        if got.dtype != x.dtype or not np.array_equal(got, x[m]):
+            raise AssertionError(f"unsigned filter: column {i} differs from numpy")
+    rep["card"] = smi
+    reports.append(rep)
+    log(f"unsigned MIN/MAX/SUM and filter match numpy ({table.num_rows} rows; {smi})")
     return reports
 
 
@@ -1078,7 +1384,7 @@ def main() -> int:
         q1_profile(tdf, torch, ctx, q1["p50_ms"])
     except RuntimeError as e:  # the profiler is a measurement aid only
         log(f"profiler unavailable: {e}")
-    reports = [q1]
+    reports = [q1, phase_filter_project(tdf, cuda_mod, torch, ctx, cols, dates, smi)]
     del src, cols
 
     for groups in (16, 4096):
@@ -1095,6 +1401,10 @@ def main() -> int:
     join_reports, star_cols = phase_joins(tdf, cuda_mod, torch, ctx)
     reports += join_reports
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
+    del star_cols
+    reports.append(phase_csv(tdf, cuda_mod, torch, smi))
+    reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
+    reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)
 
     def launched(name):
         return sum(r["launches"][name] for r in reports)

@@ -13,6 +13,7 @@ Entry points run on `cuda:0` unless the caller asks for the CPU:
     ctx = ExecutionContext()            # cuda:0, or ExecutionError
     ctx = ExecutionContext(device="cpu")
     ctx.register_datasource("t", MemoryDataSource(schema, batches))
+    ctx.register_csv("cities", "test/data/uk_cities.csv", schema, has_header=False)
     table = collect(ctx.sql("SELECT k, SUM(v) FROM t GROUP BY k"))
 """
 
@@ -61,7 +62,7 @@ from datafusion_tpu_torch.plan.logical import (
 )
 from datafusion_tpu_torch.exec.batch import StringDictionary, make_host_batch
 from datafusion_tpu_torch.exec.context import ExecutionContext
-from datafusion_tpu_torch.exec.datasource import MemoryDataSource
+from datafusion_tpu_torch.exec.datasource import CsvDataSource, MemoryDataSource
 from datafusion_tpu_torch.exec.materialize import ResultTable, collect
 
 __version__ = "0.1.0"
@@ -104,6 +105,7 @@ __all__ = [
     "EmptyRelation",
     "ExecutionContext",
     "MemoryDataSource",
+    "CsvDataSource",
     "ResultTable",
     "StringDictionary",
     "collect",

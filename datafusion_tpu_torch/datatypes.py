@@ -8,7 +8,7 @@ width/signedness rules instead of ~100 hand-written match arms.
 Device mapping: every DataType carries a numpy dtype used for host
 buffers and, through `torch_dtype`, the torch dtype of its device
 tensors.  Int64 and Float64 stay 64-bit on the card (Hopper runs f64
-natively).  Utf8 has no tensor representation; string columns are
+natively); unsigned types widen to a signed device dtype.  Utf8 has no tensor representation; string columns are
 dictionary-encoded host-side and the device sees int32 codes (see
 exec/batch.py).
 """
@@ -104,14 +104,14 @@ class DataType:
     @property
     def torch_dtype(self) -> torch.dtype:
         """The torch dtype of this type's device tensors.  Int64 and
-        Float64 stay 64-bit; Utf8 maps to int32 codes.  Unsigned types
-        raise until ROADMAP queue 3 fixes their widening rule (torch has
-        no uint32/uint64 arithmetic on the card)."""
-        if self.is_unsigned_integer:
-            raise NotSupportedError(
-                f"{self.name} has no device dtype yet "
-                "(ROADMAP queue 3: unsigned widening rule)"
-            )
+        Float64 stay 64-bit; Utf8 maps to int32 codes.  torch has no
+        arithmetic, compare or reduction on uint16/32/64, so unsigned
+        types widen (`_TORCH_DTYPE`): UInt8 stays uint8, UInt16 is
+        int32, UInt32 is int64 (both value-preserving), and UInt64 is
+        an int64 bit view whose order, MIN and MAX run on the
+        sign-flipped image (exec/expression.py, exec/aggregate.py).
+        Host buffers keep `np_dtype`; exec/batch.py converts both
+        ways."""
         try:
             return _TORCH_DTYPE[self.name]
         except KeyError:
@@ -199,6 +199,10 @@ _TORCH_DTYPE = {
     "Int16": torch.int16,
     "Int32": torch.int32,
     "Int64": torch.int64,
+    "UInt8": torch.uint8,
+    "UInt16": torch.int32,
+    "UInt32": torch.int64,
+    "UInt64": torch.int64,
     "Float32": torch.float32,
     "Float64": torch.float64,
     "Utf8": torch.int32,

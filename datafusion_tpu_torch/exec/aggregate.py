@@ -50,7 +50,9 @@ from datafusion_tpu_torch.exec.batch import (
     StringDictionary,
     bucket_capacity,
     device_inputs,
+    host_array,
     make_host_batch,
+    param_tensors,
     subset_view,
     to_device,
     to_host,
@@ -403,13 +405,37 @@ def _max_identity(dtype: np.dtype):
     raise ExecutionError(f"MAX unsupported for {dtype}")
 
 
+# Unsigned accumulators: the grouped reduce takes no unsigned dtype, so
+# a slot holds a signed image that orders as the unsigned values do.
+# UInt8 to UInt32 widen by value; UInt64 is an int64 bit view whose
+# MIN/MAX run on the sign-flipped image (`_flips`) and whose SUM wraps
+# mod 2^64 bit for bit as the JAX package's uint64 sum does.
+_IMAGE_DTYPE = {
+    np.dtype(np.uint8): torch.int16,
+    np.dtype(np.uint16): torch.int32,
+    np.dtype(np.uint32): torch.int64,
+    np.dtype(np.uint64): torch.int64,
+}
+
+
 def _torch_acc_dtype(np_dtype: np.dtype) -> torch.dtype:
-    if np_dtype.kind == "u":
-        raise NotSupportedError(
-            f"{np_dtype} accumulators have no device dtype yet "
-            "(ROADMAP queue 3: unsigned widening rule)"
-        )
+    img = _IMAGE_DTYPE.get(np.dtype(np_dtype))
+    if img is not None:
+        return img
     return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+
+
+def _flips(sl) -> bool:
+    """True for a UInt64 MIN/MAX slot: it reduces x ^ 2^63."""
+    return sl.kind in ("min", "max") and sl.acc_dtype == np.uint64
+
+
+def _host_acc(sl, acc: np.ndarray) -> np.ndarray:
+    """A pulled accumulator back in the slot's numpy dtype (the JAX
+    package's), so identities and outputs compare as they do there."""
+    if _flips(sl):
+        acc = acc ^ np.int64(-(1 << 63))
+    return host_array(acc, sl.acc_dtype)
 
 
 class _AggregateCore:
@@ -528,9 +554,16 @@ class _AggregateCore:
             return _min_identity(sl.acc_dtype)
         return _max_identity(sl.acc_dtype)
 
+    def _device_identity(self, sl: _Slot):
+        """The slot's identity as its device accumulator holds it."""
+        v = self._slot_identity(sl).item()
+        if _flips(sl):
+            v = (v ^ (1 << 63)) - (1 << 64 if v < 1 << 63 else 0)
+        return v
+
     def _init_state(self, capacity: int, device: torch.device):
         accs = tuple(
-            torch.full((capacity,), self._slot_identity(sl).item(), dtype=dt,
+            torch.full((capacity,), self._device_identity(sl), dtype=dt,
                        device=device)
             for sl, dt in zip(self.slots, self.acc_dtypes)
         )
@@ -546,7 +579,7 @@ class _AggregateCore:
                                             device=a.device)])
 
         new_accs = tuple(
-            grow(acc, self._slot_identity(sl).item())
+            grow(acc, self._device_identity(sl))
             for sl, acc in zip(self.slots, accs)
         )
         return grow(counts, 0), new_accs
@@ -656,8 +689,10 @@ class _AggregateCore:
             elif sl.kind == "cnt":
                 new_accs.append(acc + red(ok.to(torch.int64), "sum"))
             else:
-                ident = self._slot_identity(sl).item()
-                r = red(torch.where(ok, v.to(acc.dtype), ident), sl.kind)
+                img = v.to(acc.dtype)
+                if _flips(sl):
+                    img = torch.bitwise_xor(img, -(1 << 63))
+                r = red(torch.where(ok, img, self._device_identity(sl)), sl.kind)
                 new_accs.append(
                     torch.minimum(acc, r) if sl.kind == "min"
                     else torch.maximum(acc, r)
@@ -760,9 +795,7 @@ class AggregateRelation(Relation):
         """Run the scan, returning the device accumulator state."""
         core = self.core
         device = self.device
-        params = tuple(
-            torch.tensor(v, device=device) for v in self._param_values
-        )
+        params = param_tensors(self._param_values, device)
         state = None
         capacity = 0
         for batch in self.child.batches():
@@ -802,7 +835,10 @@ class AggregateRelation(Relation):
         if self.key_cols:
             # a key column on the device (a join's gathered payload)
             # crosses to the host for the encoder
-            key_cols = [to_host(batch.data[idx]) for idx in self.key_cols]
+            key_cols = [
+                to_host(batch.data[idx], batch.schema.field(idx).data_type.np_dtype)
+                for idx in self.key_cols
+            ]
             key_valids = [
                 None if batch.validity[idx] is None else to_host(batch.validity[idx])
                 for idx in self.key_cols
@@ -905,6 +941,7 @@ class AggregateRelation(Relation):
 
     def finalize(self, state) -> RecordBatch:
         counts, accs = self._pull_state(state)
+        accs = [_host_acc(sl, a) for sl, a in zip(self.slots, accs)]
         n_groups = self.encoder.num_groups if self.key_cols else 1
         if self.key_cols:
             live = np.nonzero(counts[:n_groups] > 0)[0]

@@ -160,22 +160,58 @@ class RecordBatch:
         return int(self.data[0].shape[0]) if self.data else 0
 
 
+# host unsigned dtypes and their device containers (DataType.torch_dtype):
+# uint16 and uint32 widen by value, uint64 is an int64 bit view
+_WIDEN = {np.dtype(np.uint16): np.dtype(np.int32),
+          np.dtype(np.uint32): np.dtype(np.int64),
+          np.dtype(np.uint64): np.dtype(np.int64)}
+
+
+def device_array(arr: np.ndarray) -> np.ndarray:
+    """A host array in the dtype its device tensor holds: unsigned
+    columns wider than 8 bits widen (uint64 as a bit view)."""
+    wide = _WIDEN.get(arr.dtype)
+    if wide is None:
+        return arr
+    if wide.itemsize == arr.dtype.itemsize:
+        if not arr.flags.c_contiguous:
+            arr = np.ascontiguousarray(arr)
+        return arr.view(wide)
+    return arr.astype(wide)
+
+
+def host_array(arr: np.ndarray, np_dtype) -> np.ndarray:
+    """A host array pulled from the device, back in its column's numpy
+    dtype: the inverse of `device_array` for unsigned columns (uint16
+    and uint32 narrow, uint64 is viewed back); other dtypes pass."""
+    np_dtype = np.dtype(np_dtype)
+    if np_dtype.kind != "u" or arr.dtype == np_dtype:
+        return arr
+    if arr.dtype.itemsize == np_dtype.itemsize:
+        return arr.view(np_dtype)
+    return arr.astype(np_dtype)
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host array as a tensor on `device`.  On a CUDA device the
-    copy goes through pinned memory and is asynchronous on the current
+    """One host array as a tensor on `device` (unsigned columns in
+    their device dtype, `device_array`).  On a CUDA device the copy
+    goes through pinned memory and is asynchronous on the current
     stream (the pinned buffer stays reserved by PyTorch's host
     allocator until the copy has run); on the CPU it is a view."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    t = torch.from_numpy(np.ascontiguousarray(device_array(np.asarray(arr))))
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def to_host(x) -> np.ndarray:
+def to_host(x, np_dtype=None) -> np.ndarray:
     """A column, validity or mask as a numpy array, whether it is a
-    host array or a tensor on any device (one device-to-host copy)."""
+    host array or a tensor on any device (one device-to-host copy).
+    With `np_dtype`, a device tensor of an unsigned column comes back
+    in that dtype (`host_array`)."""
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+        out = x.cpu().numpy()
+        return out if np_dtype is None else host_array(out, np_dtype)
     return np.asarray(x)
 
 
@@ -185,6 +221,16 @@ def on_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if x.device == device else x.to(device)
     return to_device(np.asarray(x), device)
+
+
+def param_tensors(values, device: torch.device) -> tuple:
+    """A core's runtime literal values (numpy scalars,
+    exec/kernels.parameterize_exprs) as 0-dim tensors on `device`, in
+    their device dtypes."""
+    return tuple(
+        torch.from_numpy(device_array(np.asarray(v)).copy()).to(device)
+        for v in values
+    )
 
 
 def device_inputs(batch: RecordBatch, device: torch.device):

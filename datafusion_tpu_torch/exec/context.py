@@ -5,21 +5,28 @@ parses, plans and optimizes (projection push-down), then maps the plan
 onto operators:
 
     TableScan                        -> DataSourceRelation
+    EmptyRelation                    -> one zero-column row
+    Selection(x), Projection(x),
+    Projection(Selection(x))         -> PipelineRelation
     Aggregate(Selection(x))          -> AggregateRelation with the
                                         predicate evaluated inside it
     Aggregate(x)                     -> AggregateRelation
     Join(l, r)                       -> HashJoinRelation
-    [Limit](Sort(Projection/Selection chain))
-                                     -> one SortRelation that filters,
-                                        sorts and projects
-                                        (exec/fused.rewrite_sort)
-    [Limit](Sort(x))                 -> SortRelation
+    [Limit](Sort(x))                 -> SortRelation (the streaming TopK
+                                        for LIMIT k, 0 < k <= TOPK_MAX)
     Limit(x)                         -> LimitRelation
 
-Every other plan node (a Projection or Selection that does not fold
-into a Sort or an Aggregate needs PipelineRelation), DDL, EXPLAIN,
-result caching, cost rewriting and telemetry raise NotSupportedError
-until their slice lands (ROADMAP queue 1).
+With fusion on (the default; `DATAFUSION_TPU_FUSE=0` turns it off) whole
+chains collapse first (exec/fused.py): an Aggregate over a deeper
+filter/project chain into ONE AggregateRelation, a deeper chain into
+ONE PipelineRelation, and a [Limit](Sort) over a filter and
+column-projection chain into ONE SortRelation that filters, sorts and
+projects.
+
+What raises NotSupportedError: statements other than SELECT (DDL,
+EXPLAIN), result caching, a `host_fn` UDF in a WHERE predicate, GROUP
+BY keys that are not columns, more groups than `agg_max_groups()`, and
+any other plan node (ROADMAP queue 1).
 
 Device selection: `device=None` means `cuda:0`, and the context raises
 ExecutionError when no CUDA device is available — it never carries on
@@ -34,19 +41,27 @@ from typing import Callable, Optional
 import torch
 
 from datafusion_tpu_torch.datatypes import DataType, Field, Schema
-from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
+from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError, PlanError
 from datafusion_tpu_torch.exec import fused
 from datafusion_tpu_torch.exec.aggregate import AggregateRelation
-from datafusion_tpu_torch.exec.datasource import DataSource
-from datafusion_tpu_torch.exec.relation import DataSourceRelation, Relation
+from datafusion_tpu_torch.exec.datasource import CsvDataSource, DataSource
+from datafusion_tpu_torch.exec.hostfn import contains_host_fn
+from datafusion_tpu_torch.exec.relation import (
+    DataSourceRelation,
+    PipelineRelation,
+    Relation,
+    _EmptyRelationExec,
+)
 from datafusion_tpu_torch.exec.sort import LimitRelation, SortRelation
 from datafusion_tpu_torch.join.relation import HashJoinRelation
 from datafusion_tpu_torch.plan.expr import FunctionMeta, FunctionType
 from datafusion_tpu_torch.plan.logical import (
     Aggregate,
+    EmptyRelation,
     Join,
     Limit,
     LogicalPlan,
+    Projection,
     Selection,
     Sort,
     TableScan,
@@ -116,6 +131,15 @@ class ExecutionContext:
     def register_datasource(self, name: str, ds: DataSource) -> None:
         self.datasources[name] = ds
 
+    def register_csv(
+        self, name: str, path: str, schema: Schema, has_header: bool = True
+    ) -> None:
+        """Register a CSV file, read by the native parser
+        (datafusion_tpu_torch/native) in batches of `batch_size` rows."""
+        self.register_datasource(
+            name, CsvDataSource(path, schema, has_header, self.batch_size)
+        )
+
     def register_udf(
         self,
         name: str,
@@ -125,22 +149,20 @@ class ExecutionContext:
         host_fn: Optional[Callable] = None,
     ) -> None:
         """Register a scalar UDF.  `torch_fn` maps tensors to a tensor
-        and runs on the batch's device.  Host functions (numpy in/out)
-        evaluate at the materialization boundary of the pipeline
-        operator, which is not ported yet."""
-        if host_fn is not None:
-            raise NotSupportedError(
-                "host_fn UDFs need PipelineRelation (ROADMAP queue 1, "
-                "PipelineRelation and the CSV scan)"
-            )
-        if torch_fn is None:
-            raise ExecutionError(f"UDF {name!r} needs a torch_fn")
+        and runs on the batch's device.  `host_fn` (numpy in/out) is
+        for functions with no tensor form (string or struct producers);
+        a projection that calls one evaluates on the host against the
+        pipeline's input batch, and a predicate that calls one raises
+        NotSupportedError."""
+        if torch_fn is None and host_fn is None:
+            raise ExecutionError(f"UDF {name!r} needs a torch_fn or a host_fn")
         self.functions[name.lower()] = FunctionMeta(
             name.lower(),
             [Field(f"arg{i}", t, True) for i, t in enumerate(arg_types)],
             return_type,
             FunctionType.Scalar,
             torch_fn,
+            host_fn,
         )
 
     def _torch_functions(self) -> dict[str, Callable]:
@@ -163,9 +185,11 @@ class ExecutionContext:
 
     def execute(self, plan: LogicalPlan) -> Relation:
         """Map a logical plan onto operators (reference `context.rs:103`)."""
-        rel = self._execute_fused(plan)
-        if rel is not None:
-            return rel
+        fns = self._torch_functions()
+        if fused.fusion_enabled():
+            rel = self._execute_fused(plan, fns)
+            if rel is not None:
+                return rel
         if isinstance(plan, TableScan):
             ds = self.datasources.get(plan.table_name)
             if ds is None:
@@ -173,6 +197,25 @@ class ExecutionContext:
             if plan.projection is not None:
                 ds = ds.with_projection(plan.projection)
             return DataSourceRelation(ds)
+        if isinstance(plan, EmptyRelation):
+            return _EmptyRelationExec()
+        if isinstance(plan, Selection):
+            return PipelineRelation(
+                self.execute(plan.input), plan.expr, None, plan.schema,
+                self.device, functions=fns,
+            )
+        if isinstance(plan, Projection):
+            # Projection(Selection(x)): one pipeline filters and projects
+            if isinstance(plan.input, Selection):
+                child = self.execute(plan.input.input)
+                pred = plan.input.expr
+            else:
+                child = self.execute(plan.input)
+                pred = None
+            return PipelineRelation(
+                child, pred, plan.expr, plan.schema, self.device,
+                functions=fns, function_metas=self.functions,
+            )
         if isinstance(plan, Aggregate):
             # Aggregate(Selection(x)): the predicate runs inside the
             # aggregate operator
@@ -184,7 +227,7 @@ class ExecutionContext:
                 pred = None
             return AggregateRelation(
                 child, plan.group_expr, plan.aggr_expr, plan.schema,
-                self.device, predicate=pred, functions=self._torch_functions(),
+                self.device, predicate=pred, functions=fns,
             )
         if isinstance(plan, Sort):
             return SortRelation(
@@ -192,7 +235,8 @@ class ExecutionContext:
             )
         if isinstance(plan, Limit):
             if isinstance(plan.input, Sort):
-                # the sort slices its permutation directly
+                # the sort slices its permutation directly, or keeps a
+                # top-k state
                 return SortRelation(
                     self.execute(plan.input.input), plan.input.expr,
                     plan.schema, self.device, limit=plan.limit,
@@ -207,11 +251,47 @@ class ExecutionContext:
             f"plan node {type(plan).__name__} is not ported yet (ROADMAP queue 1)"
         )
 
-    def _execute_fused(self, plan: LogicalPlan) -> Optional[Relation]:
-        """Collapse [Limit](Sort(...)) over a filter/column-projection
-        chain into ONE SortRelation (exec/fused.rewrite_sort).  Returns
-        None when the plan is not such a chain; the caller then lowers
-        node by node."""
+    def _execute_fused(self, plan: LogicalPlan, fns) -> Optional[Relation]:
+        """Collapse a whole chain into ONE operator (exec/fused.py): an
+        Aggregate over a filter/project chain, a filter/project chain
+        deeper than Projection(Selection(x)), or a [Limit](Sort) over a
+        filter and column-projection chain.  Returns None when the plan
+        is not such a chain; the caller then lowers node by node."""
+        if isinstance(plan, Aggregate):
+            hit = fused.rewrite_aggregate(plan)
+            if hit is None:
+                return None
+            base, group_expr, aggr_expr, pred = hit
+            checked = ([] if pred is None else [pred]) + [
+                a.args[0] for a in aggr_expr if a.args
+            ]
+            if any(contains_host_fn(e, self.functions) for e in checked):
+                return None
+            try:
+                return AggregateRelation(
+                    self.execute(base), group_expr, aggr_expr, plan.schema,
+                    self.device, predicate=pred, functions=fns,
+                )
+            except (NotSupportedError, PlanError):
+                return None  # an inlined shape the aggregate can't take
+
+        if isinstance(plan, (Selection, Projection)):
+            flat = fused.flatten_chain(plan)
+            if flat is None:
+                return None
+            base, pred, proj, n = flat
+            # single nodes and Projection(Selection(x)) lower to the
+            # same PipelineRelation node by node
+            if n <= 1 or (n == 2 and isinstance(plan, Projection)
+                          and isinstance(plan.input, Selection)):
+                return None
+            if pred is not None and contains_host_fn(pred, self.functions):
+                return None
+            return PipelineRelation(
+                self.execute(base), pred, proj, plan.schema, self.device,
+                functions=fns, function_metas=self.functions,
+            )
+
         limit = None
         sort = plan
         if isinstance(plan, Limit) and isinstance(plan.input, Sort):

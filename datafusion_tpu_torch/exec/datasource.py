@@ -2,14 +2,16 @@
 
 Mirrors the JAX package's `exec/datasource.py`.  A DataSource is
 re-iterable (each `batches()` call restarts the scan) and
-projection-aware.  Only the in-memory source is ported: the CSV,
-NDJSON and Parquet sources read through pyarrow and wait for their
-slice (ROADMAP queue 1, "Parquet and CSV readers").
+projection-aware.  The in-memory source and the CSV source (over the
+native C++ parser, datafusion_tpu_torch/native) are ported; the NDJSON
+and Parquet sources read through pyarrow in the JAX package, which the
+card's machine lacks, and wait for their slice (ROADMAP queue 1, item
+9).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.exec.batch import RecordBatch
@@ -59,3 +61,38 @@ class MemoryDataSource(DataSource):
             for b in self._batches
         ]
         return MemoryDataSource(out_schema, projected)
+
+
+class CsvDataSource(DataSource):
+    """A CSV file (reference `datasource.rs:31-50`), read by the native
+    parser.  `schema` is the projected schema; re-scans parse the file
+    again and keep the reader's dictionaries, so codes are stable."""
+
+    def __init__(
+        self,
+        path: str,
+        schema: Schema,
+        has_header: bool = True,
+        batch_size: int = 131072,
+        projection: Optional[Sequence[int]] = None,
+    ):
+        from datafusion_tpu_torch.native.csv import NativeCsvReader
+
+        self.path = path
+        self.table_schema = schema
+        self.has_header = has_header
+        self.batch_size = batch_size
+        self.projection = list(projection) if projection is not None else None
+        self._reader = NativeCsvReader(path, schema, has_header, batch_size,
+                                       self.projection)
+
+    @property
+    def schema(self) -> Schema:
+        return self._reader.out_schema
+
+    def batches(self) -> Iterator[RecordBatch]:
+        return self._reader.batches()
+
+    def with_projection(self, projection: Sequence[int]) -> "CsvDataSource":
+        return CsvDataSource(self.path, self.table_schema, self.has_header,
+                             self.batch_size, projection)

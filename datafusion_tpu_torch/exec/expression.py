@@ -13,6 +13,13 @@ every arithmetic and comparison node casts both operands to the type
 the planner gives it (`get_supertype`) before the op, and every
 literal is a tensor of its planner dtype.
 
+Unsigned columns arrive in their device dtypes (`DataType.torch_dtype`:
+uint8, then int32, int64 and an int64 bit view for UInt16, UInt32 and
+UInt64), and every node gives what the JAX package's native unsigned
+arithmetic gives: +, - and * wrap at the column's width, x / 0 is the
+type's maximum and x % 0 is x, UInt64 compares and divides unsigned,
+and UInt64 converts to a float correctly rounded (`_convert`).
+
 String semantics (no tensor form for Utf8): columns carry int32
 dictionary codes.  Equality against a string literal compares codes
 (the literal's code is resolved per dictionary version on the host);
@@ -133,6 +140,92 @@ def _int_rem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, a, r)
 
 
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+def _u64_image(v: torch.Tensor) -> torch.Tensor:
+    """The signed image of UInt64 bits: its int64 order is the
+    unsigned order."""
+    return torch.bitwise_xor(v, _I64_MIN)
+
+
+def _u64_to_float(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """UInt64 bits as a float, correctly rounded.  Values at or above
+    2^63 (negative as int64) halve first, keeping the lost bit as a
+    sticky bit so the rounding is the same, convert, and double."""
+    half = torch.bitwise_or(
+        torch.bitwise_and(torch.bitwise_right_shift(v, 1), _I64_MAX),
+        torch.bitwise_and(v, 1),
+    )
+    return torch.where(v < 0, half.to(dtype) * 2, v.to(dtype))
+
+
+def _convert(v: torch.Tensor, src: DataType, dst: DataType) -> torch.Tensor:
+    """A value of type `src` (in its device dtype) as type `dst`.
+    Integer conversions wrap, as the JAX package's `astype` does; an
+    unsigned target keeps only its width's bits."""
+    tdt = dst.torch_dtype
+    if src == dst:
+        return v.to(tdt)
+    if dst.is_float and src == DataType.UINT64:
+        return _u64_to_float(v, tdt)
+    if dst.is_unsigned_integer and dst.width in (16, 32):
+        return torch.bitwise_and(v.to(torch.int64).to(tdt), (1 << dst.width) - 1)
+    if dst.is_unsigned_integer and v.is_floating_point():
+        v = v.to(torch.int64)
+    return v.to(tdt)
+
+
+def _uint_div(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
+    """Unsigned division, with XLA's x / 0 == the type's maximum.
+    Below 64 bits the values are non-negative in their container, so
+    truncating division is unsigned division.  For UInt64 (int64 bits):
+    a divisor >= 2^63 gives a quotient of 1 where a >= b, else 0; a
+    smaller one divides a halved a, doubles the quotient and adds the
+    one the remainder may still hold."""
+    zero = b == 0
+    if width < 64:
+        q = torch.div(a, torch.where(zero, torch.ones_like(b), b), rounding_mode="trunc")
+        return torch.where(zero, torch.full_like(q, (1 << width) - 1), q)
+    big = b < 0
+    safe = torch.where(zero | big, torch.ones_like(b), b)
+    half = torch.bitwise_and(torch.bitwise_right_shift(a, 1), _I64_MAX)
+    q = torch.bitwise_left_shift(torch.div(half, safe, rounding_mode="trunc"), 1)
+    r = a - q * safe  # in [0, 2 * safe): fits 64 unsigned bits
+    q = q + (_u64_image(r) >= _u64_image(safe)).to(q.dtype)
+    q = torch.where(big, (_u64_image(a) >= _u64_image(b)).to(q.dtype), q)
+    return torch.where(zero, torch.full_like(q, -1), q)
+
+
+def _uint_rem(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
+    """Unsigned remainder, x % 0 == x (`lax.rem`)."""
+    return a - _uint_div(a, b, width) * b
+
+
+def _uint_arith(op: Operator, width: int) -> Callable:
+    """+, -, *, / or % at an unsigned width: uint8 and the UInt64 bit
+    view wrap as the type does; UInt16 and UInt32 keep their width's
+    bits of the wider container's result."""
+    if op == Operator.Divide:
+        return lambda a, b: _uint_div(a, b, width)
+    if op == Operator.Modulus:
+        return lambda a, b: _uint_rem(a, b, width)
+    f = {Operator.Plus: torch.add, Operator.Minus: torch.sub,
+         Operator.Multiply: torch.mul}[op]
+    if width in (8, 64):
+        return f
+    mask = (1 << width) - 1
+    return lambda a, b: torch.bitwise_and(f(a, b), mask)
+
+
+def _literal_value(value, dt: DataType):
+    """A literal as its device dtype holds it (UInt64 as int64 bits)."""
+    if dt == DataType.UINT64 and value >= 1 << 63:
+        return value - (1 << 64)
+    return value
+
+
 class ExprCompiler:
     """Compiles Expr trees to (Env) -> (value, validity|None) closures,
     collecting AuxSpecs for string comparisons along the way."""
@@ -186,7 +279,7 @@ class ExprCompiler:
                     return env.params[j], None
 
                 return param_fn
-            value = expr.value.value
+            value = _literal_value(expr.value.value, dt)
             tdt = dt.torch_dtype
 
             def lit_fn(env: Env):
@@ -229,14 +322,16 @@ class ExprCompiler:
             arg_fns = [self.compile(a) for a in expr.args]
             # builtins take and return Float64: integer arguments widen
             # first (torch.sqrt of an int64 tensor would give f32)
-            out_dtype = expr.return_type.torch_dtype
-            widen = expr.return_type.is_float
+            out_type = expr.return_type
+            out_dtype = out_type.torch_dtype
+            widen = out_type.is_float
+            arg_types = [a.get_type(self.schema) for a in expr.args] if widen else []
 
             def func_fn(env: Env):
                 vals, valid = [], None
-                for af in arg_fns:
+                for i, af in enumerate(arg_fns):
                     v, vd = af(env)
-                    vals.append(v.to(out_dtype) if widen else v)
+                    vals.append(_convert(v, arg_types[i], out_type) if widen else v)
                     valid = _and_valid(valid, vd)
                 return fn(*vals).to(out_dtype), valid
 
@@ -258,11 +353,10 @@ class ExprCompiler:
             return inner
         if src_type == DataType.UTF8 or dst_type == DataType.UTF8:
             raise NotSupportedError(f"CAST {src_type!r} -> {dst_type!r} not supported")
-        tdt = dst_type.torch_dtype
 
         def cast_fn(env: Env):
             v, valid = inner(env)
-            return v.to(tdt), valid
+            return _convert(v, src_type, dst_type), valid
 
         return cast_fn
 
@@ -317,7 +411,6 @@ class ExprCompiler:
         st = get_supertype(lt, rt)
         if st is None:
             raise NotSupportedError(f"no common type for {lt!r} {op!r} {rt!r}")
-        tdt = st.torch_dtype
         if op.is_comparison:
             top = {
                 Operator.Eq: torch.eq,
@@ -327,6 +420,13 @@ class ExprCompiler:
                 Operator.Gt: torch.gt,
                 Operator.GtEq: torch.ge,
             }[op]
+            if st == DataType.UINT64:
+                cmp = top
+
+                def top(a, b):
+                    return cmp(_u64_image(a), _u64_image(b))
+        elif st.is_unsigned_integer:
+            top = _uint_arith(op, st.width)
         elif st.is_integer:
             top = {
                 Operator.Plus: torch.add,
@@ -347,7 +447,8 @@ class ExprCompiler:
         def bin_fn(env: Env):
             lv, lvalid = lf(env)
             rv, rvalid = rf(env)
-            return top(lv.to(tdt), rv.to(tdt)), _and_valid(lvalid, rvalid)
+            return (top(_convert(lv, lt, st), _convert(rv, rt, st)),
+                    _and_valid(lvalid, rvalid))
 
         return bin_fn
 

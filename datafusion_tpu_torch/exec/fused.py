@@ -1,19 +1,27 @@
 """Plan-chain collapse for the fused passes.
 
 The counterpart of the plan rewrites in the JAX package's
-`exec/fused.py`.  A Sort/Limit over a filter and column-projection chain
-lowers to ONE `SortRelation` that filters, sorts and projects in a
-single pass (`rewrite_sort`); projection expressions inline into the
-consumer (`substitute_columns`) and stacked Selections AND together
-(`flatten_chain`).  The aggregate chain collapse and the batch-group
-fold are not ported yet (ROADMAP queue 1, "batch-group folding"),
-and neither is the JAX package's ``DATAFUSION_TPU_FUSE=0`` switch: its
-off position needs the per-operator `PipelineRelation`, so it comes
-with that slice.
+`exec/fused.py`.  Projection expressions inline into the consumer
+(`substitute_columns`) and stacked Selections AND together
+(`flatten_chain`), so:
+
+- an Aggregate over a filter/project chain lowers to ONE
+  `AggregateRelation` (`rewrite_aggregate`);
+- a Sort/Limit over a filter and column-projection chain lowers to ONE
+  `SortRelation` that filters, sorts and projects in a single pass
+  (`rewrite_sort`);
+- a deeper filter/project chain lowers to ONE `PipelineRelation`
+  (exec/context.py).
+
+``DATAFUSION_TPU_FUSE=0`` turns every collapse off: the plan then
+lowers node by node, to the same rows.  The JAX package's batch-group
+fold (one launch over a group of batches) is not ported (ROADMAP queue
+1, item 5).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from datafusion_tpu_torch.plan.expr import (
@@ -29,6 +37,12 @@ from datafusion_tpu_torch.plan.expr import (
     ScalarFunction,
     SortExpr,
 )
+
+
+def fusion_enabled() -> bool:
+    """The escape hatch: DATAFUSION_TPU_FUSE=0 lowers every plan node
+    by itself."""
+    return os.environ.get("DATAFUSION_TPU_FUSE", "1") != "0"
 
 
 # -- plan-chain collapse --------------------------------------------------
@@ -116,6 +130,43 @@ def flatten_chain(node):
             n += 1
     except _Unfusable:
         return None
+
+
+def rewrite_aggregate(plan):
+    """Collapse Aggregate(over a Projection/Selection chain) into the
+    (base, group_expr, aggr_expr, predicate) of ONE AggregateRelation,
+    or None when the shape doesn't admit it (non-Column group keys
+    after inlining, Utf8 MIN/MAX over computed exprs).  Chains the
+    default lowering already fuses (bare Aggregate(Selection(scan)))
+    return None too."""
+    from datafusion_tpu_torch.datatypes import DataType
+    from datafusion_tpu_torch.errors import DataFusionError
+
+    flat = flatten_chain(plan.input)
+    if flat is None:
+        return None
+    base, pred, proj, n = flat
+    if proj is None:
+        return None  # no projection in the chain: the default lowering fuses it
+    try:
+        group_expr = [substitute_columns(g, proj) for g in plan.group_expr]
+        aggr_expr = [substitute_columns(a, proj) for a in plan.aggr_expr]
+    except _Unfusable:
+        return None
+    if not all(isinstance(g, Column) for g in group_expr):
+        return None
+    for a in aggr_expr:
+        # Utf8 MIN/MAX needs a bare column (dictionary-code accumulator)
+        if not isinstance(a, AggregateFunction) or not a.args:
+            return None
+        arg = a.args[0]
+        try:
+            utf8 = arg.get_type(base.schema) == DataType.UTF8
+        except DataFusionError:  # a type error means "don't fuse"
+            return None
+        if utf8 and a.name.lower() in ("min", "max") and not isinstance(arg, Column):
+            return None
+    return base, group_expr, aggr_expr, pred
 
 
 def rewrite_sort(sort_plan, limit: Optional[int]):

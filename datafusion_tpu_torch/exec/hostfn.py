@@ -1,13 +1,14 @@
 """Host-side expression evaluation.
 
-The counterpart of the JAX package's `exec/hostfn.py`.  In this slice
-it evaluates the predicate a fused ORDER BY folds into its selection
-mask (`exec/fused.rewrite_sort` admits only `host_evaluable`
-predicates), with numpy on the host batch.  Scalar UDFs whose values a
-tensor cannot hold (strings, structs) register a `FunctionMeta.host_fn`
-in the JAX package; registering one in the port raises until the
-pipeline operator that evaluates them lands (ROADMAP queue 1,
-PipelineRelation).
+The counterpart of the JAX package's `exec/hostfn.py`.  It evaluates,
+with numpy on the host batch:
+
+- the predicate a fused ORDER BY folds into its selection mask
+  (`exec/fused.rewrite_sort` admits only `host_evaluable` predicates);
+- the projections of a `PipelineRelation` that hold a scalar UDF whose
+  values a tensor cannot hold (strings, structs): such a function
+  registers a `FunctionMeta.host_fn` (numpy in, numpy out), and
+  `contains_host_fn` finds it.
 
 Values flow as numpy arrays; struct values as tuples of numpy arrays;
 Utf8 results as object arrays of python strings (dictionary-encoded at
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from datafusion_tpu_torch.datatypes import DataType
 from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
@@ -55,6 +57,20 @@ _CMP_SYMBOL = {
     Operator.Lt: "<", Operator.LtEq: "<=",
     Operator.Gt: ">", Operator.GtEq: ">=",
 }
+
+
+def contains_host_fn(expr: Expr, metas: dict[str, FunctionMeta]) -> bool:
+    """True if any function in the tree only has a host implementation."""
+    if isinstance(expr, ScalarFunction):
+        fm = metas.get(expr.name.lower())
+        if fm is not None and fm.torch_fn is None and fm.host_fn is not None:
+            return True
+        return any(contains_host_fn(a, metas) for a in expr.args)
+    for attr in ("expr", "left", "right"):
+        child = getattr(expr, attr, None)
+        if isinstance(child, Expr) and contains_host_fn(child, metas):
+            return True
+    return False
 
 
 def _string_literal_cmp(expr: Expr, schema) -> Optional[tuple]:
@@ -156,8 +172,9 @@ def eval_host_expr(
     """
     if isinstance(expr, Column):
         i = expr.index
-        col = to_host(batch.data[i])
-        if batch.schema.field(i).data_type == DataType.UTF8:
+        dt = batch.schema.field(i).data_type
+        col = to_host(batch.data[i], dt.np_dtype)
+        if dt == DataType.UTF8:
             d = batch.dicts[i]
             if d is not None:
                 col = d.decode(col)
@@ -260,13 +277,17 @@ def eval_host_expr(
         return op(lv, rv), _and_valid(lvalid, rvalid)
     if isinstance(expr, ScalarFunction):
         fm = metas.get(expr.name.lower())
-        if fm is None or fm.host_fn is None:
-            # host_evaluable admits only host_fn calls; a torch_fn runs
-            # on the device inside its operator
-            raise NotSupportedError(f"no host implementation of {expr.name!r}")
         args = [eval_host_expr(a, batch, metas) for a in expr.args]
+        vals = [a[0] for a in args]
         valid = None
         for _, av in args:
             valid = _and_valid(valid, av)
-        return fm.host_fn(*[a[0] for a in args]), valid
+        if fm is not None and fm.host_fn is not None:
+            return fm.host_fn(*vals), valid
+        if fm is not None and fm.torch_fn is not None:
+            # a tensor function inside a host expression: it runs on
+            # the host's copies of its arguments
+            out = fm.torch_fn(*[torch.as_tensor(np.asarray(v)) for v in vals])
+            return out.numpy(), valid
+        raise ExecutionError(f"no implementation for function {expr.name!r}")
     raise NotSupportedError(f"host eval of expression {expr!r}")

@@ -2,8 +2,11 @@
 
 The counterpart of the JAX package's `exec/materialize.py`.  A batch
 reaching this boundary is a host batch or holds tensors on the device
-(the dense join probe's output); `compact_batch` brings either to the
-host and drops padding and masked-out rows.  The JAX package gathers
+(the dense join probe's output; a pipeline's computed columns and its
+selection mask beside its pass-through host columns; a pipeline's
+host-function outputs are already host arrays); `compact_batch` brings
+each column to the host, an unsigned one back in its numpy dtype, and
+drops padding and masked-out rows.  The JAX package gathers
 live rows on the device first and overlaps the copies with the next
 batch through an asynchronous pull (`iter_with_mask_prefetch`); here
 batches are pulled one at a time, each device column crosses in one
@@ -38,11 +41,16 @@ def compact_batch(batch: RecordBatch):
     live = _live_rows(batch)
     n = batch.num_rows
 
-    def select(a):
-        a = to_host(a)
+    def select(a, np_dtype=None):
+        a = to_host(a, np_dtype)
         return a[live] if live is not None else a[:n]
 
-    cols = [select(c) for c in batch.data]
+    # a device column of an unsigned type comes back in its numpy dtype
+    fields = batch.schema.fields
+    if len(fields) != len(batch.data):
+        fields = [None] * len(batch.data)
+    cols = [select(c, None if f is None else f.data_type.np_dtype)
+            for c, f in zip(batch.data, fields)]
     valids = [None if v is None else select(v) for v in batch.validity]
     count = int(live.sum()) if live is not None else n
     return cols, valids, list(batch.dicts), count

@@ -1,17 +1,37 @@
-"""Relation protocol and the scan adapter.
+"""Relation protocol, the scan adapter and the pipeline operator.
 
 The counterpart of the JAX package's `exec/relation.py`: a volcano-
-style pull iterator of RecordBatches.  The fused scan -> filter ->
-project operator (`PipelineRelation`) is the next slice (ROADMAP queue
-1, "PipelineRelation and the CSV scan").
+style pull iterator of RecordBatches.  A scan -> filter -> project
+fragment runs as one `PipelineRelation`: per batch, one pass of torch
+ops on the device evaluates the predicate into a selection mask that
+rides the batch (rows are not gathered) and computes the projected
+expressions beside it.  Only the columns those expressions read cross
+to the device; column projections pass through on the host untouched,
+Utf8 columns with their dictionaries; the mask and the computed
+columns come back when `collect` pulls them.
+
+Relations that raise NotSupportedError here: a `PipelineRelation`
+whose predicate calls a host-only function (`host_fn` UDF).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
-from datafusion_tpu_torch.datatypes import Schema
-from datafusion_tpu_torch.exec.batch import RecordBatch
+import numpy as np
+import torch
+
+from datafusion_tpu_torch.datatypes import DataType, Schema
+from datafusion_tpu_torch.errors import NotSupportedError
+from datafusion_tpu_torch.exec.batch import (
+    RecordBatch,
+    StringDictionary,
+    device_inputs,
+    param_tensors,
+    subset_view,
+)
+from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
+from datafusion_tpu_torch.plan.expr import Column, Expr
 
 
 class Relation:
@@ -37,3 +57,282 @@ class DataSourceRelation(Relation):
 
     def batches(self) -> Iterator[RecordBatch]:
         return self.datasource.batches()
+
+
+class _EmptyRelationExec(Relation):
+    """One conceptual row, zero columns (for table-less SELECTs)."""
+
+    _CAP = 8
+
+    @property
+    def schema(self) -> Schema:
+        return Schema([])
+
+    def batches(self) -> Iterator[RecordBatch]:
+        yield RecordBatch(
+            Schema([]), [], [], [], num_rows=1, mask=np.ones(self._CAP, dtype=bool)
+        )
+
+
+class _PipelineCore:
+    """The shareable part of a pipeline: the predicate and projection
+    closures, which columns they read, and where each output comes
+    from.  Cached process-wide by plan fingerprint (exec/kernels.py),
+    so a fresh operator tree for the same query shape reuses it."""
+
+    def __init__(self, in_schema, predicate, projections, functions, metas,
+                 param_slots=None):
+        from datafusion_tpu_torch.exec.hostfn import contains_host_fn
+
+        compiler = ExprCompiler(in_schema, functions, param_slots)
+        if predicate is not None and contains_host_fn(predicate, metas):
+            raise NotSupportedError(
+                "host-only functions are not supported in WHERE predicates"
+            )
+        self.pred_fn = compiler.compile(predicate) if predicate is not None else None
+        # a projection that calls a host-only function evaluates with
+        # numpy against the input batch (PipelineRelation._assemble);
+        # a bare column passes through on the host; the rest compile
+        self.host_proj: set[int] = set()
+        self.identity_proj: dict[int, int] = {}
+        self.proj_fns: Optional[list] = None
+        if projections is not None:
+            self.proj_fns = []
+            for j, e in enumerate(projections):
+                if contains_host_fn(e, metas):
+                    self.host_proj.add(j)
+                    self.proj_fns.append(None)
+                elif isinstance(e, Column):
+                    self.identity_proj[j] = e.index
+                    self.proj_fns.append(None)
+                else:
+                    self.proj_fns.append(compiler.compile(e))
+        self.aux_specs = compiler.aux_specs
+        # no predicate and nothing to compute => the batch never
+        # touches the device (a pure column selection)
+        self.needs_kernel = self.pred_fn is not None or (
+            self.proj_fns is not None and any(f is not None for f in self.proj_fns)
+        )
+        # ship only the columns the device pass reads; Env's col_map
+        # translates schema indices to subset positions
+        used: set[int] = set()
+        if predicate is not None:
+            predicate.collect_columns(used)
+        for j, e in enumerate(projections or []):
+            if self.proj_fns[j] is not None:
+                e.collect_columns(used)
+        if self.needs_kernel and not used and len(in_schema):
+            used.add(0)  # a constant predicate: one column carries capacity
+        self.used_cols = sorted(used)
+        self.col_map = {c: i for i, c in enumerate(self.used_cols)}
+
+    @staticmethod
+    def param_exprs(predicate, projections, metas):
+        """The exprs that compile into the core, in slot order.  A
+        host-evaluated projection keeps its literals on the relation."""
+        from datafusion_tpu_torch.exec.hostfn import contains_host_fn
+
+        elig = [] if predicate is None else [predicate]
+        elig.extend(e for e in projections or [] if not contains_host_fn(e, metas))
+        return elig
+
+    @staticmethod
+    def build(in_schema, predicate, projections, functions, metas):
+        from datafusion_tpu_torch.exec.hostfn import contains_host_fn
+        from datafusion_tpu_torch.exec.kernels import (
+            cached_kernel,
+            functions_fingerprint,
+            parameterize_exprs,
+            schema_fingerprint,
+        )
+
+        elig = _PipelineCore.param_exprs(predicate, projections, metas)
+        fps, slot_by_id, _ = parameterize_exprs(elig)
+        fp_of = dict(zip((id(e) for e in elig), fps))
+        proj_key = None
+        if projections is not None:
+            proj_key = tuple(
+                ("host", parameterize_exprs([e])[0][0])
+                if contains_host_fn(e, metas) else fp_of[id(e)]
+                for e in projections
+            )
+        key = (
+            "pipeline",
+            schema_fingerprint(in_schema),
+            None if predicate is None else fp_of[id(predicate)],
+            proj_key,
+            functions_fingerprint(functions),
+            tuple(sorted(n for n, m in metas.items() if m.host_fn)),
+        )
+        return cached_kernel(
+            key,
+            lambda: _PipelineCore(
+                in_schema, predicate, projections, functions, metas, slot_by_id
+            ),
+        )
+
+    def run(self, cols, valids, aux, num_rows, base_mask, params, device):
+        """One batch's device pass: (computed columns, their validity,
+        selection mask), each of the batch's capacity."""
+        env = Env(cols, valids, aux, device, self.col_map, params)
+        if cols:
+            capacity = cols[0].shape[0]
+        elif base_mask is not None:
+            capacity = base_mask.shape[0]  # a zero-column EmptyRelation batch
+        else:
+            capacity = 1
+        mask = torch.arange(capacity, dtype=torch.int32, device=device) < num_rows
+        if base_mask is not None:
+            mask = mask & base_mask
+        if self.pred_fn is not None:
+            pv, pvalid = self.pred_fn(env)
+            pv = pv.expand(capacity)
+            if pvalid is not None:
+                # SQL: a NULL predicate drops the row
+                pv = pv & pvalid.expand(capacity)
+            mask = mask & pv
+        if self.proj_fns is None:
+            return [], [], mask
+        out_cols, out_valids = [], []
+        for f in self.proj_fns:
+            if f is None:
+                continue
+            v, valid = f(env)
+            out_cols.append(_full(v, capacity))
+            out_valids.append(None if valid is None else _full(valid, capacity))
+        return out_cols, out_valids, mask
+
+
+def _full(t: torch.Tensor, capacity: int) -> torch.Tensor:
+    """`t` as a column of `capacity` rows (a literal's 0-dim result
+    broadcasts into its own storage)."""
+    if t.dim() == 1 and t.shape[0] == capacity:
+        return t
+    return t.expand(capacity).contiguous()
+
+
+class PipelineRelation(Relation):
+    """[filter +] [projection] over a child relation, one device pass
+    per batch.  The core is shared process-wide by plan fingerprint
+    (`_PipelineCore.build`); each relation carries its own literal
+    values and host-evaluated projections."""
+
+    def __init__(
+        self,
+        child: Relation,
+        predicate: Optional[Expr],
+        projections: Optional[list[Expr]],
+        out_schema: Optional[Schema],
+        device: torch.device,
+        functions: Optional[dict[str, Callable]] = None,
+        function_metas=None,
+    ):
+        self.child = child
+        self.predicate = predicate
+        self.projections = projections
+        self._schema = out_schema if out_schema is not None else child.schema
+        self.device = device
+        self._metas = function_metas or {}
+        self.core = _PipelineCore.build(
+            child.schema, predicate, projections, functions, self._metas
+        )
+        from datafusion_tpu_torch.exec.kernels import parameterize_exprs
+
+        # THIS query's literal values for the shared core's parameter
+        # slots (identical fingerprints guarantee identical slot order)
+        self._params = parameterize_exprs(
+            _PipelineCore.param_exprs(predicate, projections, self._metas)
+        )[2]
+        self._host_dicts: dict[int, StringDictionary] = {}
+        self._aux_cache: dict = {}
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def batches(self) -> Iterator[RecordBatch]:
+        core = self.core
+        dev = self.device
+        params = param_tensors(self._params, dev) if core.needs_kernel else ()
+        # a pure column selection yields one stable output batch per
+        # child batch, so a re-scanned in-memory source hands the
+        # operators above it the same batch objects (and with them the
+        # device copies cached on them); pinned by relation when host
+        # projections carry this query's literals, else by core
+        pin = self if core.host_proj else core
+        for batch in self.child.batches():
+            if core.needs_kernel:
+                aux = compute_aux_values(core.aux_specs, batch, self._aux_cache, dev)
+                data, validity, mask_in = device_inputs(
+                    subset_view(batch, core.used_cols), dev
+                )
+                cols, valids, mask = core.run(
+                    data, validity, aux, batch.num_rows, mask_in, params, dev
+                )
+            else:
+                hit = batch.cache.get("pipeline_out")
+                if hit is not None and hit[0] is pin:
+                    yield hit[1]
+                    continue
+                cols, valids, mask = [], [], batch.mask
+            if core.proj_fns is None:
+                # filter only: the input columns, untouched
+                out_cols, out_valids, dicts = batch.data, batch.validity, batch.dicts
+            else:
+                out_cols, out_valids, dicts = self._assemble(batch, cols, valids)
+            out = RecordBatch(
+                self._schema, list(out_cols), list(out_valids), list(dicts),
+                num_rows=batch.num_rows, mask=mask,
+            )
+            if not core.needs_kernel:
+                batch.cache["pipeline_out"] = (pin, out)
+            yield out
+
+    def _assemble(self, batch, dev_cols, dev_valids):
+        """Interleave the column passthroughs (the input arrays, exact),
+        the host-evaluated projections and the device pass's computed
+        columns, in projection order."""
+        from datafusion_tpu_torch.exec.hostfn import eval_host_expr
+
+        core = self.core
+        cols, valids, dicts = [], [], []
+        dev_i = 0
+        for j, e in enumerate(self.projections):
+            src = core.identity_proj.get(j)
+            if src is not None:
+                cols.append(batch.data[src])
+                valids.append(batch.validity[src])
+                dicts.append(batch.dicts[src])
+                continue
+            if j not in core.host_proj:
+                cols.append(dev_cols[dev_i])
+                valids.append(dev_valids[dev_i])
+                dicts.append(None)
+                dev_i += 1
+                continue
+            v, valid = eval_host_expr(e, batch, self._metas)
+            d = None
+            if self._schema.field(j).data_type == DataType.UTF8:
+                d = self._host_dicts.get(j)
+                if d is None:
+                    d = self._host_dicts[j] = StringDictionary()
+                v = d.encode(list(np.broadcast_to(np.asarray(v, dtype=object),
+                                                  (batch.capacity,))))
+            elif isinstance(v, tuple):
+                # struct results materialize as their Display form
+                # "f1, f2" (golden test_sql_udf_udt.csv); literal
+                # arguments arrive as 0-d scalars, so broadcast first
+                parts = np.broadcast_arrays(
+                    *[np.asarray(x) for x in v], np.empty(batch.capacity)
+                )[:-1]
+                v = np.asarray(
+                    [", ".join(str(x) for x in tup) for tup in zip(*parts)],
+                    dtype=object,
+                )
+            cols.append(np.broadcast_to(np.asarray(v), (batch.capacity,)))
+            valids.append(
+                None if valid is None
+                else np.broadcast_to(valid, (batch.capacity,))
+            )
+            dicts.append(d)
+        return cols, valids, dicts

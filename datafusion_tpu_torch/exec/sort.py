@@ -15,12 +15,13 @@ path (run sort + host merge):
   final dictionaries.
 
 Key transforms:
-- Every ORDER BY key lowers to a (dead, value) operand pair: `dead` is
-  1 for NULL keys (nulls sort last, as a *separate* leading key — a
-  value sentinel would collide with real extremes), and dead rows'
-  values are zeroed so they compare equal among themselves.  An
-  all-live run drops the dead operand (a constant key reorders
-  nothing).
+- Every ORDER BY key lowers to a value operand, led by a `dead`
+  operand, 1 for NULL keys, once a NULL has been seen in that key
+  (nulls sort last, as a *separate* leading key — a value sentinel
+  would collide with real extremes); dead rows' values are zeroed so
+  they compare equal among themselves.  One rule (`_null_keys`) picks
+  the dead operands for the full sort's run and the TopK's state: a
+  key with no NULL so far has none (a constant key reorders nothing).
 - DESC integer keys sort by their bitwise complement (-int64.min
   overflows); DESC floats by their negation.
 - Float keys sort by an int64 image that orders as the JAX package's
@@ -32,12 +33,24 @@ Key transforms:
 - Utf8 keys sort by host-computed rank tables
   (`StringDictionary.sort_ranks`).
 
+**Streaming TopK** (`ORDER BY ... LIMIT k`, 0 < k <= TOPK_MAX): the
+device holds a state of at most k rows, their key operands and their
+global row ids.  Per batch, the live rows' key operands are built on
+the host as above, cross to the device, and follow the state's; one
+radix argsort of the concatenation keeps the first k.  The sort is
+stable and the state comes first, so ties keep ascending row order, as
+the JAX package's `lax.top_k` keeps them; `torch.topk` does not, and
+the port never calls it.  Payload columns never cross: the host keeps
+the rows of the batches that still hold survivors (it pulls the k row
+ids after each merge) and gathers the output from them, bit-exact.  A
+Utf8 key's ranks change when its dictionary grows, and a key's first
+NULL adds its dead operand, so the state's key operands are rebuilt
+from the kept rows then.
+
 `LimitRelation` over anything but a Sort stops pulling batches once it
-has its rows.  Not ported (ROADMAP queue 1): the streaming TopK, which
-`ORDER BY ... LIMIT k` with 0 < k <= TOPK_MAX takes in the JAX package
-(raises NotSupportedError here), and the host-routed run sort and the
-permutation cache, which exist there for the TPU's slow link and the
-wire codec.
+has its rows.  Not ported (ROADMAP queue 1): the host-routed run sort
+and the permutation cache, which exist in the JAX package for the
+TPU's slow link and the wire codec.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import os
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from datafusion_tpu_torch.datatypes import DataType, Schema
 from datafusion_tpu_torch.errors import NotSupportedError
@@ -67,6 +81,7 @@ TOPK_MAX = 65536
 
 _SIGN_MASK = np.int64(0x7FFF_FFFF_FFFF_FFFF)
 _F64_TINY = np.finfo(np.float64).tiny  # the smallest normal f64
+_F32_TINY = np.finfo(np.float32).tiny
 
 
 def f64_sort_image(values: np.ndarray) -> np.ndarray:
@@ -77,8 +92,15 @@ def f64_sort_image(values: np.ndarray) -> np.ndarray:
     magnitude bits)."""
     k = np.asarray(values, np.float64)
     k = np.where(np.abs(k) < _F64_TINY, 0.0, k)
-    k = np.where(np.isnan(k), np.nan, k)
-    b = np.ascontiguousarray(k).view(np.int64)
+    return f64_total_image(np.where(np.isnan(k), np.nan, k))
+
+
+def f64_total_image(values: np.ndarray) -> np.ndarray:
+    """int64 image of f64 keys in IEEE total order: -0.0 before +0.0
+    and subnormals kept, as the JAX package's single-key TopK orders its
+    float scores (bit images under `lax.top_k`), magnitude bits of
+    negative floats flipped.  NaN rows are the caller's to place."""
+    b = np.ascontiguousarray(values, np.float64).view(np.int64)
     return b ^ ((b >> 63) & _SIGN_MASK)
 
 
@@ -134,12 +156,6 @@ class SortRelation(Relation):
         predicate=None,
         output_cols: Optional[list[int]] = None,
     ):
-        if limit is not None and 0 < limit <= TOPK_MAX:
-            raise NotSupportedError(
-                f"ORDER BY ... LIMIT {limit} takes the streaming TopK "
-                f"(0 < k <= {TOPK_MAX}), which is not ported yet "
-                "(ROADMAP queue 1: TopK)"
-            )
         self.child = child
         self.sort_expr = sort_expr
         self._schema = out_schema
@@ -174,6 +190,15 @@ class SortRelation(Relation):
             else:
                 kind = "f"
             self._key_plans.append(_KeyPlan(idx, kind, se.asc))
+        # a TopK over ONE float key orders as the JAX package's
+        # single-key TopK does: IEEE total order (-0.0 before +0.0,
+        # subnormals kept), every NaN after every number in either
+        # direction, NULLs last; every other key orders as the full
+        # sort (but for f32 subnormals under several keys, _host_keys)
+        self._topk = limit is not None and 0 < limit <= TOPK_MAX
+        self._total_float = (
+            self._topk and len(self._key_plans) == 1 and self._key_plans[0].kind == "f"
+        )
 
     @property
     def schema(self) -> Schema:
@@ -217,11 +242,21 @@ class SortRelation(Relation):
         )
 
     # -- run sort + host merge --
-    def _host_keys(self, columns, validity, dicts) -> list[np.ndarray]:
-        """[dead0, value0, dead1, value1, ...] int64 operands, key 0
-        most significant."""
+    def _null_keys(self, validity) -> tuple[bool, ...]:
+        """For each ORDER BY key, whether these rows hold a NULL in it:
+        the keys that need a dead operand."""
+        return tuple(
+            validity[kp.index] is not None and not validity[kp.index].all()
+            for kp in self._key_plans
+        )
+
+    def _host_keys(self, columns, validity, dicts, dead=None) -> list[np.ndarray]:
+        """int64 operands, key 0 most significant: each key's dead flag
+        where `dead` (a bool a key, None: every key) asks for it, then
+        its value image.  A key left without its flag must hold no NULL
+        in these rows."""
         keys = []
-        for kp in self._key_plans:
+        for j, kp in enumerate(self._key_plans):
             idx = kp.index
             vals = columns[idx]
             if kp.kind == "str":
@@ -236,20 +271,37 @@ class SortRelation(Relation):
                 kind = "i"
             else:
                 kind = kp.kind
-            dead, k = _np_sort_key(vals, validity[idx], kind, kp.asc)
-            keys.append(dead)
+            if kind == "f" and self._total_float:
+                d, k = self._total_float_key(vals, validity[idx], kp.asc)
+            else:
+                if kind == "f" and self._topk and vals.dtype == np.float32:
+                    # the JAX package's multi-key TopK widens f32 keys on
+                    # the CPU with subnormals read as zero
+                    vals = np.where(np.abs(vals) < _F32_TINY, np.float32(0), vals)
+                d, k = _np_sort_key(vals, validity[idx], kind, kp.asc)
+            if dead is None or dead[j]:
+                keys.append(d)
             keys.append(k)
         return keys
 
+    @staticmethod
+    def _total_float_key(values, validity, asc: bool) -> tuple[np.ndarray, np.ndarray]:
+        """(dead, value) operands of a single float TopK key.  Every NaN
+        takes int64's maximum, after every number's image in either
+        direction (the largest, +inf ASC or -inf DESC, is 0x7FF0 << 48),
+        so NaNs tie and need no operand of their own."""
+        v = values.astype(np.float64)
+        dead = np.zeros(len(v), bool) if validity is None else ~validity
+        img = f64_total_image(v)
+        if not asc:
+            img = ~img
+        img = np.where(np.isnan(v), np.iinfo(np.int64).max, img)
+        return dead.astype(np.int64), np.where(dead, np.int64(0), img)
+
     def _sorted_run(self, keys: list[np.ndarray]) -> np.ndarray:
         """Sort one run on the device; returns its permutation (int32,
-        host).  A dead flag that is 0 on every row of the run is a
-        constant key and does not cross to the device."""
-        ops = [
-            k for j, k in enumerate(keys)
-            if j % 2 == 1 or bool(k.any())
-        ]
-        dev_ops = [to_device(o, self.device) for o in ops]
+        host)."""
+        dev_ops = [to_device(o, self.device) for o in keys]
         return to_host(sort_kernel.argsort_multi(dev_ops))
 
     @staticmethod
@@ -290,6 +342,9 @@ class SortRelation(Relation):
         return items[0][1]
 
     def batches(self) -> Iterator[RecordBatch]:
+        if self.limit is not None and 0 < self.limit <= TOPK_MAX:
+            yield from self._topk_batches()
+            return
         # full sort: collect per-run host columns, device-sort each run,
         # merge the runs' keys on host
         in_schema = self.child.schema
@@ -315,7 +370,8 @@ class SortRelation(Relation):
                 )
                 for vs, cs in zip(pending_valids, pending_cols)
             ]
-            run_perms.append(self._sorted_run(self._host_keys(cols, valids, dicts)))
+            run_perms.append(self._sorted_run(
+                self._host_keys(cols, valids, dicts, self._null_keys(valids))))
             run_cols.append(cols)
             run_valids.append(valids)
             pending_cols = None
@@ -409,6 +465,96 @@ class SortRelation(Relation):
             out_cols.append(parts)
             out_valid.append(vparts if any_valid else None)
         yield make_host_batch(self._schema, out_cols, out_valid, out_dicts)
+
+
+    # -- streaming TopK --
+    def _topk_batches(self) -> Iterator[RecordBatch]:
+        k = self.limit
+        dev = self.device
+        in_schema = self.child.schema
+        dicts = [None] * len(in_schema)
+        str_keys = [kp.index for kp in self._key_plans if kp.kind == "str"]
+        needed = {kp.index for kp in self._key_plans} | set(self._out_cols)
+        # the batches that hold survivors: row base -> (columns,
+        # validity) of their live rows, only the columns needed
+        held: dict[int, tuple] = {}
+        state_ops = state_ids = None
+        rows = np.empty(0, np.int64)  # the state's global row ids, in order
+        versions = None
+        dead = (False,) * len(self._key_plans)  # keys with a dead operand
+        base = 0
+        for batch in self.child.batches():
+            for i, d in enumerate(batch.dicts):
+                if d is not None:
+                    dicts[i] = d
+            cols, valids, _, n = compact_batch(self._pred_batch(batch))
+            if n == 0:
+                continue
+            now = tuple(dicts[i].version if dicts[i] is not None else 0
+                        for i in str_keys)
+            seen = tuple(a or b for a, b in zip(dead, self._null_keys(valids)))
+            if state_ops is not None and (now != versions or seen != dead):
+                # a grown dictionary re-ranks its strings, a key's first
+                # NULL adds its dead operand: rebuild the state's
+                # operands from its rows
+                scols, svalids = self._gather(held, rows, len(in_schema))
+                state_ops = [to_device(o, dev)
+                             for o in self._host_keys(scols, svalids, dicts, seen)]
+            versions, dead = now, seen
+            ops = [to_device(o, dev) for o in self._host_keys(cols, valids, dicts, dead)]
+            ids = to_device(np.arange(base, base + n, dtype=np.int64), dev)
+            if state_ops is not None:
+                ops = [torch.cat([s, o]) for s, o in zip(state_ops, ops)]
+                ids = torch.cat([state_ids, ids])
+            keep = sort_kernel.argsort_multi(ops)[:k]
+            state_ops = [o.index_select(0, keep) for o in ops]
+            state_ids = ids.index_select(0, keep)
+            held[base] = ([c if i in needed else None for i, c in enumerate(cols)],
+                          [v if i in needed else None for i, v in enumerate(valids)])
+            base += n
+            rows = to_host(state_ids)
+            owners = set(self._owner(held, rows).tolist())
+            for b in [b for b in held if b not in owners]:
+                del held[b]
+        if state_ids is None:
+            yield self._empty_result(in_schema, dicts)
+            return
+        cols, valids = self._gather(held, rows, len(in_schema))
+        yield make_host_batch(
+            self._schema, [cols[i] for i in self._out_cols],
+            [valids[i] for i in self._out_cols], [dicts[i] for i in self._out_cols],
+        )
+
+    @staticmethod
+    def _owner(held: dict, rows: np.ndarray) -> np.ndarray:
+        """The row base of the held batch each global row id lies in."""
+        bases = np.fromiter(sorted(held), np.int64, len(held))
+        return bases[np.searchsorted(bases, rows, side="right") - 1]
+
+    def _gather(self, held: dict, rows: np.ndarray, ncols: int):
+        """The columns and validity of global rows `rows`, in order,
+        gathered from the held batches (a column none holds is None)."""
+        owner = self._owner(held, rows)
+        first = held[int(owner[0])] if len(rows) else next(iter(held.values()))
+        cols, valids = [], []
+        for i in range(ncols):
+            if first[0][i] is None:
+                cols.append(None)
+                valids.append(None)
+                continue
+            out = np.empty(len(rows), first[0][i].dtype)
+            any_valid = any(h[1][i] is not None for h in held.values())
+            vout = np.ones(len(rows), bool) if any_valid else None
+            for b in np.unique(owner).tolist():
+                m = owner == b
+                local = rows[m] - b
+                bcols, bvalids = held[b]
+                out[m] = bcols[i][local]
+                if vout is not None and bvalids[i] is not None:
+                    vout[m] = bvalids[i][local]
+            cols.append(out)
+            valids.append(vout)
+        return cols, valids
 
 
 class LimitRelation(Relation):

@@ -21,8 +21,12 @@ relation; probe batches stream through one of two paths:
   build.  The port has neither switch nor window, and its default
   cap is 2^26 slots: the real TPC-H `o_orderkey` range up to SF-10
   (keys below 60,000,000), a kept slot table of at most 268 MB, 0.3 %
-  of an H100's 80 GB.  Tables with an unsigned or struct column take
-  the host path (they have no device dtype yet, ROADMAP queue 3).
+  of an H100's 80 GB.  Tables with a struct column take the host path
+  (a struct has no device dtype).  A UInt64 key is an int64 bit view
+  on the device; build and probe both offset it from kmin in wrapping
+  int64 arithmetic, which is exact for keys in one half, and keys that
+  straddle 2^63 read as a range near 2^64 and take the host index, as
+  in the JAX package.
 - **host probe**: everything else (multi-key, strings, duplicate keys,
   wide key ranges).  `core.HashIndex`, built only for this path,
   CSR-expands matches per batch.

@@ -287,3 +287,138 @@ def test_engine_on_card_matches_engine_on_cpu_for_joins_and_sorts(dev, sql, orde
                 assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
             else:
                 assert gv == wv, (g, w)
+
+
+@pytest.mark.parametrize("base,dense", [((1 << 64) - 5000, True),
+                                         ((1 << 63) - 2500, False)])
+def test_uint64_join_key_on_card_matches_the_cpu(dev, base, dense):
+    """A unique UInt64 build key in one half of its range builds on the
+    card (one launch of the build kernel); keys that straddle 2^63 read
+    as a range near 2^64 and take the host index (no launch)."""
+    from datafusion_tpu_torch.join.relation import HashJoinRelation
+
+    rng = np.random.default_rng(9)
+    D = tdf.DataType
+    ls = tdf.Schema([tdf.Field("k", D.UINT64, False), tdf.Field("v", D.INT64, False)])
+    rs = tdf.Schema([tdf.Field("rk", D.UINT64, False), tdf.Field("w", D.INT64, False)])
+    keys = np.array([base + i for i in range(5000)], np.uint64)
+    probe = keys[rng.integers(0, 5000, 40_000)]
+    probe[::7] = np.uint64(12345)  # misses the build
+    seq = np.arange(len(probe))
+    tables = {
+        "l": (ls, [tdf.make_host_batch(ls, [probe[i:i + 8192], seq[i:i + 8192]])
+                   for i in range(0, len(probe), 8192)]),
+        "r": (rs, [tdf.make_host_batch(rs, [keys, rng.integers(0, 1000, 5000)])]),
+    }
+    sql = "SELECT v, k, w FROM l JOIN r ON l.k = r.rk"
+    rows = {}
+    for device in ("cpu", dev):
+        ctx = tdf.ExecutionContext(device=device)
+        for name, (schema, batches) in tables.items():
+            ctx.register_datasource(name, tdf.MemoryDataSource(schema, batches))
+        port_cuda.reset_launch_counts()
+        rel = ctx.sql(sql)
+        rows[str(device)] = sorted(tdf.collect(rel).to_rows())
+        on_card = str(device) != "cpu"
+        assert port_cuda.launch_counts()["hash_build"] == (1 if dense and on_card else 0)
+        while not isinstance(rel, HashJoinRelation):
+            rel = rel.child
+        assert rel._artifact.dense is dense
+    assert rows[str(dev)] == rows["cpu"] and len(rows["cpu"]) > 30_000
+
+
+# ------------------------------------------- slice 6: pipeline, TopK, unsigned
+
+
+def _slice6_table(n=60_000, seed=6):
+    """int64 i, f64 f (NULLs, NaN, +-0.0), Utf8 tag, the four unsigned
+    widths (UInt64 at and above 2^63), in batches of 16,384 rows."""
+    rng = np.random.default_rng(seed)
+    D = tdf.DataType
+    schema = tdf.Schema([
+        tdf.Field("i", D.INT64, False), tdf.Field("f", D.FLOAT64, True),
+        tdf.Field("tag", D.UTF8, False), tdf.Field("a", D.UINT8, False),
+        tdf.Field("b", D.UINT16, False), tdf.Field("c", D.UINT32, False),
+        tdf.Field("d", D.UINT64, False), tdf.Field("seq", D.INT64, False)])
+    f = rng.normal(size=n).round(2)
+    f[rng.random(n) < 0.01] = np.nan
+    f[rng.random(n) < 0.01] = -0.0
+    d = tdf.StringDictionary()
+    words = [f"w{i:03d}" for i in range(300)]
+    cols = [rng.integers(-1000, 1000, n), f, None,
+            rng.integers(0, 256, n).astype(np.uint8),
+            rng.integers(0, 1 << 16, n).astype(np.uint16),
+            rng.integers(0, 1 << 32, n).astype(np.uint32),
+            rng.integers(0, 1 << 64, n, dtype=np.uint64, endpoint=False),
+            np.arange(n)]
+    tag = np.array(words, dtype=object)[rng.integers(0, 300, n)]
+    valid = rng.random(n) > 0.05
+    batches = []
+    for lo in range(0, n, 16384):
+        sl = slice(lo, lo + 16384)
+        part = [c[sl] if c is not None else d.encode(list(tag[sl])) for c in cols]
+        batches.append(tdf.make_host_batch(
+            schema, part, [None, valid[sl], None, None, None, None, None, None],
+            [None, None, d, None, None, None, None, None]))
+    return schema, batches
+
+
+SLICE6 = [
+    # pipeline
+    ("SELECT i, f + 1, tag FROM t WHERE i > 3 AND f < 0.5", False, ()),
+    ("SELECT tag, i * 2, f / 3 FROM t WHERE tag > 'w150' OR f IS NULL", False, ()),
+    ("SELECT 1 + 2", False, ()),
+    # TopK: one launch of the radix sort per batch
+    ("SELECT seq, f FROM t ORDER BY f DESC LIMIT 100", True, ("sort_kernel",)),
+    ("SELECT seq, tag, i FROM t ORDER BY tag, i DESC LIMIT 1000", True, ("sort_kernel",)),
+    ("SELECT seq, d FROM t WHERE c > 100 ORDER BY d LIMIT 37", True, ("sort_kernel",)),
+    # unsigned
+    ("SELECT a + a, b * b, c - 1, d + d, d / 3, d % 7, CAST(d AS DOUBLE) FROM t "
+     "WHERE d > 9223372036854775808", False, ()),
+    ("SELECT i, MIN(a), MAX(b), SUM(c), MIN(d), MAX(d), SUM(d) FROM t "
+     "WHERE c < 4000000000 GROUP BY i", False, ("hash_agg",)),
+]
+
+
+@pytest.mark.parametrize("sql,ordered,needs", SLICE6)
+def test_slice6_queries_on_card_match_the_cpu(dev, sql, ordered, needs):
+    schema, batches = _slice6_table()
+    rows = {}
+    for device in ("cpu", dev):
+        ctx = tdf.ExecutionContext(device=device, batch_size=16384)
+        ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+        port_cuda.reset_launch_counts()
+        got = tdf.collect(ctx.sql(sql)).to_rows()
+        counts = port_cuda.launch_counts()
+        for name in needs:
+            assert (counts[name] > 0) == (str(device) != "cpu")
+        if "LIMIT" in sql and str(device) != "cpu":
+            assert counts["sort_kernel"] == len(batches)
+        rows[str(device)] = got if ordered else sorted(got, key=repr)
+    got, want = rows[str(dev)], rows["cpu"]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for gv, wv in zip(g, w):
+            if isinstance(wv, float):
+                assert (np.isnan(gv) and np.isnan(wv)) or np.isclose(
+                    gv, wv, rtol=1e-9, atol=0.0), (g, w)
+            else:
+                assert gv == wv, (g, w)
+
+
+def test_csv_scan_on_card_matches_the_cpu(dev):
+    import os
+
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("city", D.UTF8, False),
+                         tdf.Field("lat", D.FLOAT64, False),
+                         tdf.Field("lng", D.FLOAT64, False)])
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "test", "data", "uk_cities.csv")
+    sql = "SELECT city, lat, lng, lat + lng FROM cities WHERE lat > 51.0 AND lat < 53"
+    out = []
+    for device in ("cpu", dev):
+        ctx = tdf.ExecutionContext(device=device)
+        ctx.register_csv("cities", path, schema, has_header=False)
+        out.append(tdf.collect(ctx.sql(sql)).to_rows())
+    assert out[0] == out[1] and len(out[0]) == 18

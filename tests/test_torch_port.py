@@ -397,11 +397,11 @@ def test_unported_plan_nodes_raise_not_supported():
     schema, cols = _groupby(100, 4)
     tctx = tdf.ExecutionContext(device="cpu")
     tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
-    # a full ORDER BY is ported now (tests/test_torch_sort.py); the
-    # streaming TopK and a computed projection under a sort are not
-    for sql in ("SELECT k FROM t WHERE v1 > 1",
-                "SELECT k, v1 FROM t ORDER BY v1 LIMIT 5",
-                "SELECT k + 1 FROM t ORDER BY k",
+    # filters, projections, sorts and the TopK are ported now
+    # (tests/test_torch_pipeline.py, test_torch_sort.py,
+    # test_torch_topk.py); EXPLAIN and a computed ORDER BY key are not
+    for sql in ("SELECT k, v1 FROM t ORDER BY v1 + 1 LIMIT 5",
+                "SELECT k FROM t ORDER BY k * 2",
                 "EXPLAIN SELECT k FROM t"):
         with pytest.raises(tdf.NotSupportedError):
             tctx.sql(sql)
@@ -503,6 +503,17 @@ def test_port_imports_and_runs_with_jax_blocked():
         "ctx.register_datasource('t', t.MemoryDataSource(s, [b]))\n"
         "rows = sorted(t.collect(ctx.sql('SELECT k, SUM(v) FROM t GROUP BY k')).to_rows())\n"
         "assert rows == [(0, 18.0), (1, 12.0), (2, 15.0)], rows\n"
+        # every module of the port, the CSV scan, a pipeline and a TopK
+        "import importlib, pkgutil\n"
+        "for m in pkgutil.walk_packages(t.__path__, t.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "cs = t.Schema([t.Field('city', t.DataType.UTF8, False),"
+        " t.Field('lat', t.DataType.FLOAT64, False), t.Field('lng', t.DataType.FLOAT64, False)])\n"
+        "ctx.register_csv('c', 'test/data/uk_cities.csv', cs, has_header=False)\n"
+        "rows = t.collect(ctx.sql('SELECT city, lat + lng FROM c WHERE lat > 51.0 AND lat < 53'))\n"
+        "assert rows.num_rows == 18, rows.num_rows\n"
+        "top = t.collect(ctx.sql('SELECT k, v FROM t ORDER BY v DESC LIMIT 2')).to_rows()\n"
+        "assert top == [(0, 9.0), (2, 8.0)], top\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"
