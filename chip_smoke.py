@@ -31,16 +31,27 @@ which raises on failure:
    `scatter_reduce_("amax")`, `torch.zeros`, `index_add_` and the
    flag's `count.max() > 1`; chained `torch.argsort(stable=True)`; the
    port never calls them), per call and on the device for the build and
-   the sort, with the sort's passes per key, and two builds off the main
-   path: a sparse one the dense window admits, and one with duplicate
-   keys, which the join then sends to the host index.
+   the sort, with the sort's passes per key (also at the sort-merge
+   aggregate's shapes: G + 524,288 keys at G = 131,072, and Q3's
+   2,097,152 + 131,072), and two builds off the main path: a sparse one
+   the dense window admits, and one with duplicate keys, which the join
+   then sends to the host index.  Then the aggregate's route timing: one
+   update of config 2's SELECT list over one batch at G = 8192, 16,384,
+   131,072 (524,288 rows) and 2,097,152 (131,072 rows) through the
+   grouped reduce and through sort-merge, per call and on the device,
+   the two states held against each other, and the sort-merge's
+   compaction by `searchsorted` against a second sort.
 3. TPC-H Q1 over lineitem at SF-1 (6,000,000 rows, generated with the
    distributions of benchmarks/data.py, seed 42) on cuda:0, checked
    against a numpy oracle: keys and counts exactly, floats within rtol
    1e-9.
 4. The GROUP BY of bench config 2 over 4,000,000 rows with 16 and with
    4096 groups, checked the same way, each with its device and host
-   profile.
+   profile; then above agg_max_groups(), through the sort-merge route
+   (one radix-sort launch a batch, no grouped reduce): config 2's
+   100,000 groups (with its profile, and its f64 columns bit-identical
+   over two more warm runs) and the cache config's 10,000 groups over
+   2,000,000 rows.
 5. Joins over the TPC-H-lite star schema at SF-1 (benchmarks/data.py's
    cardinalities and distributions, vectorised from seed 19): Q5 and
    Q12 with ORDER BY l_shipmode, against numpy oracles that join by
@@ -48,7 +59,11 @@ which raises on failure:
    build kernel 3 times (orders, customer, nation), Q12 once (orders)
    and the sort kernel.  Then Q12 once more through the host index
    (DATAFUSION_TPU_JOIN_DENSE_SLOTS=0 around that query only), cold and
-   one warm run, against the same oracle.
+   one warm run, against the same oracle.  Then TPC-H Q3 and Q10 over
+   the same tables against np.bincount oracles: dense builds (2 and 3),
+   then a GROUP BY of about 1,470,000 and 150,000 encoded groups through
+   the sort-merge route, which must launch the sort kernel; Q3 with its
+   profile.
 6. Full sorts: bench config 4b (`ORDER BY a, b` over 1,000,000 rows)
    and a filtered two-key sort of the SF-1 lineitem, against
    np.lexsort, rows and order exactly; each must launch the sort
@@ -590,10 +605,21 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
     s_img = ~_f64_images(torch, torch.rand(nk, generator=gen, device=dev,
                                            dtype=torch.float64) * 1e6)
     b_k = torch.randint(0, 1 << 40, (nk,), generator=gen, device=dev)
+
+    def sortmerge_keys(groups, rows, used, live_share):
+        # arange(G), then a batch's ids, a dead row keyed as G
+        ids = torch.randint(0, used, (rows,), generator=gen, device=dev)
+        live = torch.rand(rows, generator=gen, device=dev) < live_share
+        return torch.cat([torch.arange(groups, device=dev), torch.where(live, ids, groups)])
+
     for ops, where in (([a, b], "config 4b, f64 image + int64"),
                        ([mode, okey], "lineitem sort, shipmode + ~orderkey"),
                        ([s_img], "TopK merge, ORDER BY s DESC LIMIT 100"),
-                       ([s_img, b_k], "TopK merge, ORDER BY a DESC, b LIMIT 100")):
+                       ([s_img, b_k], "TopK merge, ORDER BY a DESC, b LIMIT 100"),
+                       ([sortmerge_keys(131_072, 1 << 19, 100_000, 1.0)],
+                        "sort-merge, config 2 at 100,000 groups: G=131,072 + 524,288"),
+                       ([sortmerge_keys(1 << 21, 1 << 17, 1_470_000, 0.2)],
+                        "sort-merge, Q3 SF-1: G=2,097,152 + 131,072, 80 % dead")):
         n = ops[0].shape[0]
         kern = _time_ms(torch, lambda: sort_kernel.argsort_multi(ops), reps=20)
         plain = _time_ms(torch, lambda: sort_kernel.argsort_multi_torch(ops), reps=20)
@@ -614,6 +640,106 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
         sorts.append(entry)
     out["sort_kernel"] = sorts
     log("new_kernel_shapes: " + json.dumps(out))
+    return out
+
+
+# (G, rows): one batch of config 2 at the threshold, past it and at 100,000
+# groups' capacity; and Q3 at SF-1 (every order encoded, batches of 2^17)
+ROUTE_SHAPES = ((8192, 1 << 19), (16_384, 1 << 19), (131_072, 1 << 19), (1 << 21, 1 << 17))
+AGG_GROUPS_ENV = "DATAFUSION_TPU_PALLAS_AGG_GROUPS"
+
+
+def _route_update(tdf, dev, groups, rows):
+    """One aggregate update of config 2's SELECT list over one batch of
+    `rows` rows into a state of `groups` groups, as `accumulate` makes
+    it; the route follows DATAFUSION_TPU_PALLAS_AGG_GROUPS at the call.
+    Returns (update, the batch's sort-merge keys)."""
+    import torch
+
+    from datafusion_tpu_torch.exec.batch import device_inputs, param_tensors, subset_view
+    from datafusion_tpu_torch.exec.expression import compute_aux_values
+
+    src, _ = groupby_table(tdf, min(groups, 100_000), batch_rows=rows, rows=rows)
+    ctx = tdf.ExecutionContext(batch_size=rows)
+    ctx.register_datasource("t", src)
+    rel = ctx.sql(CONFIG2)
+    core = rel.core
+    (batch,) = list(src.batches())
+    ids = rel._group_ids(batch)
+    data, validity, mask = device_inputs(subset_view(batch, core.used_cols), dev)
+    aux = compute_aux_values(core.aux_specs, batch, {}, dev)
+    str_aux = rel._compute_str_aux(batch)
+    params = param_tensors(rel._param_values, dev)
+    state = core._init_state(groups, dev)
+    live = torch.arange(batch.capacity, device=dev) < batch.num_rows
+    keys = torch.cat([torch.arange(groups, device=dev),
+                      torch.where(live, ids.long(), groups)])
+
+    def update():
+        return core.update(data, validity, aux, batch.num_rows, mask, ids, state,
+                           str_aux, params, dev)
+
+    return update, keys
+
+
+def phase_route_timing(tdf, torch, sort_kernel, dev):
+    """The threshold's question: one update of config 2's SELECT list
+    (the predicate-free argument evaluation, then every slot) through
+    the grouped-reduce route (its kernel tiles the groups past 8192) and
+    through the sort-merge route, per call (CUDA events around
+    back-to-back calls, the route's host reads included) and on the
+    device (the profiler), with the two states held against each other:
+    ints exactly, f64 within rtol 1e-12 (and atol 1e-12 for sums that
+    cancel).  Then the sort-merge's compaction two ways at the same
+    keys: `searchsorted` of every group's last row (the port's) against
+    a second radix sort of the segment ends (the JAX package's), each
+    with its gather of one column."""
+    out = []
+    for groups, rows in ROUTE_SHAPES:
+        update, keys = _route_update(tdf, dev, groups, rows)
+        entry = {"groups": groups, "rows": rows, "sort_passes": _sort_passes([keys])}
+        states = {}
+        for route, threshold in (("grouped_reduce", 1 << 30), ("sort_merge", 0)):
+            os.environ[AGG_GROUPS_ENV] = str(threshold)
+            try:
+                entry[route + "_ms"] = _time_ms(torch, update, reps=20)
+                entry[route + "_device_ms"] = _profiled(torch, update)
+                states[route] = update()
+            finally:
+                del os.environ[AGG_GROUPS_ENV]
+        (c0, a0), (c1, a1) = states["grouped_reduce"], states["sort_merge"]
+        if not torch.equal(c0, c1):
+            raise AssertionError(f"route timing G={groups}: counts differ between routes")
+        for x, y in zip(a0, a1):
+            if x.dtype.is_floating_point:
+                # v2 in [-1, 1] sums can cancel to near 0: their error is
+                # bounded by eps * sum |v2| (< 1e-13 here), not by rtol
+                torch.testing.assert_close(y, x, rtol=1e-12, atol=1e-12, equal_nan=True)
+            elif not torch.equal(x, y):
+                raise AssertionError(f"route timing G={groups}: ints differ between routes")
+        perm = sort_kernel.argsort_i64(keys)
+        skeys = keys[perm]
+        col = torch.rand(keys.shape[0], dtype=torch.float64, device=dev)
+        group_ids = torch.arange(groups, device=dev)
+
+        def by_searchsorted():
+            right = torch.searchsorted(skeys, group_ids, right=True)
+            return col.index_select(0, right - 1)
+
+        def by_second_sort():
+            last = torch.cat([skeys[1:] != skeys[:-1], torch.ones(1, dtype=torch.bool,
+                                                                   device=dev)])
+            ends = torch.where(last & (skeys < groups), skeys, groups)
+            return col.index_select(0, sort_kernel.argsort_i64(ends)[:groups])
+
+        if not torch.equal(by_searchsorted(), by_second_sort()):
+            raise AssertionError(f"route timing G={groups}: the compactions differ")
+        entry.update(compaction_searchsorted_ms=_time_ms(torch, by_searchsorted, reps=20),
+                     compaction_second_sort_ms=_time_ms(torch, by_second_sort, reps=20),
+                     compaction_searchsorted_device_ms=_profiled(torch, by_searchsorted),
+                     compaction_second_sort_device_ms=_profiled(torch, by_second_sort))
+        out.append(entry)
+    log("route_timing: " + json.dumps(out))
     return out
 
 
@@ -777,16 +903,16 @@ def q1_profile(tdf, torch, ctx, p50_ms):
 # ------------------------------------------------------------ phase 4
 
 
-def groupby_table(tdf, groups, batch_rows=1 << 19):
+def groupby_table(tdf, groups, batch_rows=1 << 19, rows=CONFIG2_ROWS):
     """Config 2's table with benchmarks/data.py groupby_batches' RNG
-    sequence (seed 3)."""
+    sequence (seed 3), `rows` rows."""
     I, F = tdf.DataType.INT64, tdf.DataType.FLOAT64
     schema = tdf.Schema([tdf.Field("k", I, False), tdf.Field("v1", F, False),
                          tdf.Field("v2", F, False), tdf.Field("v3", I, False)])
     rng = np.random.default_rng(3)
     batches, parts = [], []
-    for start in range(0, CONFIG2_ROWS, batch_rows):
-        n = min(batch_rows, CONFIG2_ROWS - start)
+    for start in range(0, rows, batch_rows):
+        n = min(batch_rows, rows - start)
         cols = [
             rng.integers(0, groups, n).astype(np.int64),
             rng.uniform(0.0, 1000.0, n),
@@ -799,7 +925,8 @@ def groupby_table(tdf, groups, batch_rows=1 << 19):
     return tdf.MemoryDataSource(schema, batches), c
 
 
-def config2_oracle(c, groups):
+def config2_columns(c, groups):
+    """Config 2's result by numpy, as columns in key order."""
     k, v1, v2, v3 = c
     cnt = np.bincount(k, minlength=groups)
     s1 = np.bincount(k, weights=v1, minlength=groups)
@@ -808,8 +935,30 @@ def config2_oracle(c, groups):
     mx = np.full(groups, np.iinfo(np.int64).min)
     np.minimum.at(mn, k, v3)
     np.maximum.at(mx, k, v3)
-    return [(int(g), s1[g], s2[g] / cnt[g], int(mn[g]), int(mx[g]), int(cnt[g]))
-            for g in np.nonzero(cnt)[0]]
+    g = np.nonzero(cnt)[0]
+    return [g, s1[g], s2[g] / cnt[g], mn[g], mx[g], cnt[g]]
+
+
+def config2_oracle(c, groups):
+    g, s1, a2, mn, mx, cnt = config2_columns(c, groups)
+    return [(int(a), b, c_, int(d), int(e), int(f))
+            for a, b, c_, d, e, f in zip(g, s1, a2, mn, mx, cnt)]
+
+
+def assert_grouped(table, want, label):
+    """A GROUP BY's rows against oracle columns in key order, vectorised:
+    the first column (a unique key) orders the rows; keys, strings and
+    ints exactly, floats within rtol 1e-9."""
+    if table.num_rows != len(want[0]):
+        raise AssertionError(f"{label}: {table.num_rows} rows, oracle has {len(want[0])}")
+    got = [np.asarray(col) for col in table.columns]
+    order = np.argsort(got[0], kind="stable")
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g[order], np.asarray(w)
+        ok = (np.allclose(g, w, rtol=1e-9, atol=0.0) if w.dtype.kind == "f"
+              else np.array_equal(g, w))
+        if not ok:
+            raise AssertionError(f"{label}: column {i} differs from the oracle")
 
 
 def query_profile(tdf, torch, ctx, sql, label, p50_ms, top=8):
@@ -853,6 +1002,46 @@ def query_profile(tdf, torch, ctx, sql, label, p50_ms, top=8):
     out["top_host_self"] = [{"fn": f[:70], "ms": ms, "calls": n} for f, ms, n in rows[:top]]
     log(f"profile_{label}: " + json.dumps(out))
     return out
+
+
+# ------------------------------------------------------------ phase 4b
+
+CACHE_ROWS = 2_000_000  # benchmarks/suite.py's cache config (BENCH_CACHE_ROWS)
+
+
+def phase_high_cardinality(tdf, cuda_mod, torch, ctx, smi):
+    """Config 2's high_100k leg (100,000 groups over 4,000,000 rows) and
+    the cache config's shape (10,000 groups over 2,000,000 rows), both
+    above agg_max_groups(): every batch takes the sort-merge route, one
+    radix-sort launch a batch and no grouped reduce.  Then two more warm
+    runs of the 100,000-group query, whose f64 columns must be
+    bit-identical."""
+    reports = []
+    for groups, rows, label in ((100_000, CONFIG2_ROWS, "config2_groupby_100000"),
+                                (10_000, CACHE_ROWS, "cache_config_groupby_10000")):
+        src, cols = groupby_table(tdf, groups, rows=rows)
+        ctx.register_datasource("t", src)
+        nb = len(list(src.batches()))
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, CONFIG2, label, rows,
+                                  needs=("sort_kernel",))
+        if rep["launches"]["sort_kernel"] != nb or rep["launches"]["hash_agg"] != 0:
+            raise AssertionError(f"{label}: launches {rep['launches']}, want one sort a "
+                                 f"batch ({nb}) and no grouped reduce")
+        assert_grouped(table, config2_columns(cols, groups), label)
+        log(f"{label}: rows match the numpy oracle ({table.num_rows} groups; {smi})")
+        rep["card"] = smi
+        if groups == 100_000:
+            query_profile(tdf, torch, ctx, CONFIG2, label, rep["p50_ms"])
+            again = [tdf.collect(ctx.sql(CONFIG2)) for _ in range(2)]
+            for i in (1, 2):
+                a, b = (np.asarray(t.columns[i]).view(np.int64) for t in again)
+                if not (np.array_equal(a, b)
+                        and np.array_equal(a, np.asarray(table.columns[i]).view(np.int64))):
+                    raise AssertionError(f"{label}: f64 column {i} not bit-identical")
+            log(f"{label}: f64 SUM and AVG bit-identical over the cold and two warm runs")
+        reports.append(rep)
+        del src, cols
+    return reports
 
 
 # ------------------------------------------------------------ phase 5
@@ -996,6 +1185,82 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
     log("Q12 through the host index matches the numpy oracle")
     reports.append(host_rep)
     return reports, cols
+
+
+# ------------------------------------------------------------ phase 5b
+
+Q3 = ("SELECT o_orderkey, o_shippriority, "
+      "SUM(l_extendedprice * (1 - l_discount)) FROM lineitem "
+      "JOIN orders ON lineitem.l_orderkey = orders.o_orderkey "
+      "JOIN customer ON orders.o_custkey = customer.c_custkey "
+      "WHERE c_mktsegment = 1 "
+      "GROUP BY o_orderkey, o_shippriority")
+Q10 = ("SELECT c_custkey, n_name, "
+       "SUM(l_extendedprice * (1 - l_discount)) FROM lineitem "
+       "JOIN orders ON lineitem.l_orderkey = orders.o_orderkey "
+       "JOIN customer ON orders.o_custkey = customer.c_custkey "
+       "JOIN nation ON customer.c_nationkey = nation.n_nationkey "
+       "WHERE o_orderdate <= '1995-06-30' "
+       "GROUP BY c_custkey, n_name")
+
+
+def _revenue_by(key, keep, c, size):
+    """(live keys, their revenue sums) by np.bincount over dense keys."""
+    rev = (c["l_extendedprice"] * (1 - c["l_discount"]))[keep]
+    cnt = np.bincount(key[keep], minlength=size)
+    sums = np.bincount(key[keep], weights=rev, minlength=size)
+    g = np.nonzero(cnt)[0]
+    return g, sums[g]
+
+
+def q3_columns(c):
+    """Q3 by direct addressing: a dangling o_custkey drops the row; the
+    groups are the orders of market segment 1's customers."""
+    cust = c["o_custkey"][c["l_orderkey"]]
+    ok = cust < len(c["c_mktsegment"])
+    keep = ok & (c["c_mktsegment"][np.where(ok, cust, 0)] == 1)
+    g, rev = _revenue_by(c["l_orderkey"], keep, c, len(c["o_custkey"]))
+    return [g, c["o_shippriority"][g], rev]
+
+
+def q10_columns(c):
+    """Q10 by direct addressing: orders of the first half of 1995 (date
+    codes below 6 * 28), grouped by customer (its nation follows)."""
+    cust = c["o_custkey"][c["l_orderkey"]]
+    n_cust = len(c["c_nationkey"])
+    keep = (cust < n_cust) & (c["o_date"][c["l_orderkey"]] < 6 * 28)
+    g, rev = _revenue_by(cust, keep, c, n_cust)
+    names = np.array([f"NATION_{i:02d}" for i in range(25)], dtype=object)
+    return [g, names[c["c_nationkey"][g]], rev]
+
+
+def phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, cols, smi):
+    """TPC-H Q3 and Q10 (benchmarks/suite.py config_joins) over phase 5's
+    SF-1 star schema: dense builds, then a GROUP BY above
+    agg_max_groups() through the sort-merge route.  Each WHERE runs in
+    the aggregate, after the joins, so Q3 encodes every order that has
+    lines and Q10 every customer with orders."""
+    from datafusion_tpu_torch.exec.aggregate import group_capacity
+
+    reports = []
+    for sql, label, want, builds in ((Q3, "tpch_q3_sf1", q3_columns(cols), 2),
+                                     (Q10, "tpch_q10_sf1", q10_columns(cols), 3)):
+        table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, sql, label, SF1_ROWS,
+                                    needs=("sort_kernel", "hash_build"))
+        assert_grouped(table, want, label)
+        routes = join_routes(rel)
+        if rep["launches"]["hash_build"] != builds or not all(routes):
+            raise AssertionError(f"{label}: build launches {rep['launches']['hash_build']}, "
+                                 f"dense routes {routes} (want {builds}, every join dense)")
+        rep.update(card=smi, groups_out=table.num_rows,
+                   groups_encoded=rel.encoder.num_groups,
+                   capacity=group_capacity(rel.encoder.num_groups))
+        log(f"{label}: rows match the numpy oracle ({table.num_rows} groups of "
+            f"{rel.encoder.num_groups} encoded; {rep['launches']['sort_kernel']} sorts)")
+        if label == "tpch_q3_sf1":
+            query_profile(tdf, torch, ctx, sql, label, rep["p50_ms"])
+        reports.append(rep)
+    return reports
 
 
 # ------------------------------------------------------------ phase 6
@@ -1370,6 +1635,7 @@ def main() -> int:
     sort_err = phase_sort_parity(torch, sort_kernel, dev)
     shapes = phase_kernel_timing(torch, hash_agg, cuda_mod, dev)
     new_shapes = phase_new_kernel_timing(torch, hash_build, sort_kernel, dev)
+    phase_route_timing(tdf, torch, sort_kernel, dev)
 
     ctx = tdf.ExecutionContext()  # cuda:0
     t0 = time.perf_counter()
@@ -1397,9 +1663,11 @@ def main() -> int:
         query_profile(tdf, torch, ctx, CONFIG2, f"config2_groupby_{groups}", rep["p50_ms"])
         reports.append(rep)
         del src, cols
+    reports += phase_high_cardinality(tdf, cuda_mod, torch, ctx, smi)
 
     join_reports, star_cols = phase_joins(tdf, cuda_mod, torch, ctx)
     reports += join_reports
+    reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
     del star_cols
     reports.append(phase_csv(tdf, cuda_mod, torch, smi))

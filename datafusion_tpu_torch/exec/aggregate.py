@@ -1,7 +1,6 @@
 """Grouped aggregation on the device.
 
-The counterpart of the JAX package's `exec/aggregate.py`, on its
-grouped-reduce route only:
+The counterpart of the JAX package's `exec/aggregate.py`:
 
 - **Filter fusion**: an aggregate directly over a Selection evaluates
   the predicate inside the aggregate operator, so TPC-H Q1's filter and
@@ -16,20 +15,25 @@ grouped-reduce route only:
   whose argument has no validity aliases the row count.  TPC-H Q1's 8
   aggregates touch 5 sum slots.
 - **Accumulation (device)**: per batch, the used columns cross to the
-  device, the predicate and slot arguments evaluate as torch ops, and
-  each slot is one launch of the hand-written grouped-reduce kernel
-  (`exec/cuda/hash_agg.py`).  The JAX package keeps a dense one-hot
-  route for G <= 64 and sort-merge above 8192 because scatter is serial
-  on a TPU and f64 is emulated there; Hopper has neither limit, so the
-  kernel takes every capacity up to `agg_max_groups()`.  Capacities
-  above it need the sort-merge route, which is not ported yet.
+  device and the predicate and slot arguments evaluate as torch ops.
+  The slots then take one of two routes by group capacity G (the JAX
+  core's `_kernel`, less its dense one-hot route for G <= 64, which
+  the grouped-reduce kernel serves on Hopper):
+  - G <= `agg_max_groups()` (8192): each slot is one launch of the
+    hand-written grouped-reduce kernel (`exec/cuda/hash_agg.py`);
+  - above it, sort-merge (`_sortmerge_update`): the dense state
+    (implicit keys 0..G-1) and the batch rows are argsorted by group id
+    in one launch of the hand-written radix sort
+    (`exec/cuda/sort_kernel.py`), runs of equal ids reduce by segmented
+    scans, and each group's total is read back into the dense layout.
+  Both routes keep one state layout, so a scan that grows past 8192
+  groups switches route and keeps its state.
 - **Finalization**: one device-to-host copy of the state; AVG =
   SUM/COUNT on the host; groups observed only in filtered-out rows
   (count 0) are dropped.
 
 Not ported yet (ROADMAP queue 1): the batch-group fold and megabatch,
-host-split placement, cost presizing, the prefetch pipeline and the
-sort-merge route.
+host-split placement, cost presizing and the prefetch pipeline.
 
 Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
 internally, UInt64 in the output (planner contract); MIN/MAX keep the
@@ -57,10 +61,13 @@ from datafusion_tpu_torch.exec.batch import (
     to_device,
     to_host,
 )
-from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg
+from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg, sort_kernel
 from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
+
+
+_SCAN_OPS = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
 
 
 def group_capacity(n: int) -> int:
@@ -599,7 +606,9 @@ class _AggregateCore:
                 pv = pv & pvalid.expand(capacity)
             mask = mask & pv
         counts, accs = state
-        return self._kernel_update(env, capacity, mask, ids, counts, accs, str_aux)
+        if counts.shape[0] <= agg_max_groups():
+            return self._kernel_update(env, capacity, mask, ids, counts, accs, str_aux)
+        return self._sortmerge_update(env, capacity, mask, ids, counts, accs, str_aux)
 
     def _slot_inputs(self, env, capacity, mask):
         """(value, ok-mask) per slot, masking padding/filtered/null
@@ -699,6 +708,145 @@ class _AggregateCore:
                 )
         return new_counts, tuple(new_accs)
 
+    # -- the sort-merge route, for capacities above agg_max_groups() --
+    @staticmethod
+    def _seg_scan(vals, start, op, span=None):
+        """Segmented inclusive scan (the JAX core's `_seg_scan`, an
+        `associative_scan`): `start` marks segment heads, and each row
+        ends holding `op` ("add", "min" or "max") over its segment up to
+        itself, so a segment's last row holds its reduction.  `vals` is
+        (n,) or (n, k), k columns scanned together.
+
+        Hillis-Steele doubling as torch ops: the step of distance d
+        combines row i - d into row i unless a head lies between them.
+        Which rows combine is fixed by n and the heads, so f64 results
+        are bit-identical from run to run (no atomics).  `span`, at
+        least the longest segment, stops the doubling once every row
+        has seen its head; the steps it skips would change nothing."""
+        fn = _SCAN_OPS[op]
+        flags = start
+        d = 1
+        while d < (vals.shape[0] if span is None else span):
+            f = flags[d:] if vals.dim() == 1 else flags[d:, None]
+            vals = torch.cat([vals[:d], torch.where(f, vals[d:], fn(vals[:-d], vals[d:]))])
+            flags = torch.cat([flags[:d], flags[d:] | flags[:-d]])
+            d *= 2
+        return vals
+
+    def _sm_contribs(self, env, capacity, mask, ids, str_aux, num_groups):
+        """Per-batch contribution columns of the sort-merge combine (the
+        JAX core's `_sm_contribs`): (batch keys, [row count, one per
+        non-aliased slot...], payload_of).  A dead row keys as
+        `num_groups`: it still sorts after every live id, and keeps the
+        keys within the digits the state's ids need, so the radix sort
+        runs no pass for the high digits (int64.max, the JAX package's
+        sentinel, would make all 8 vary)."""
+        inputs = self._slot_inputs(env, capacity, mask)
+        batch_keys = torch.where(mask, ids.to(torch.int64), num_groups)
+        contribs = [mask.to(torch.int64)]  # row count
+        payload_of: dict[int, int] = {}
+        for i, (sl, (v, ok), acc_dtype) in enumerate(
+                zip(self.slots, inputs, self.acc_dtypes)):
+            if sl.kind == "cnt" and ok is mask:
+                continue  # aliases the row count payload
+            if sl.is_string:
+                # lexicographic ranks under the batch's dictionary version
+                ranks, _ = str_aux[i]
+                cap = ranks.shape[0]
+                r = torch.index_select(ranks, 0, v.to(torch.int32).clamp(0, cap - 1))
+                contrib = torch.where(ok, r, self._rank_sentinel(sl.kind))
+            elif sl.kind == "sum":
+                contrib = torch.where(ok, v, 0).to(acc_dtype)
+            elif sl.kind == "cnt":
+                contrib = ok.to(torch.int64)
+            else:
+                img = v.to(acc_dtype)
+                if _flips(sl):
+                    img = torch.bitwise_xor(img, -(1 << 63))
+                contrib = torch.where(ok, img, self._device_identity(sl))
+            payload_of[i] = len(contribs)
+            contribs.append(contrib)
+        return batch_keys, contribs, payload_of
+
+    def _sortmerge_update(self, env, capacity, mask, ids, counts, accs,
+                          str_aux=()):
+        """High-cardinality route (G > agg_max_groups()): the grouped
+        reduce would keep a partial per (block, group) and read the rows
+        once per tile of groups, so instead every batch merges into the
+        dense state by one sort (the JAX core's `_sortmerge_update`)."""
+        batch_keys, contribs, payload_of = self._sm_contribs(
+            env, capacity, mask, ids, str_aux, counts.shape[0]
+        )
+        return self._sm_combine(counts, accs, batch_keys, contribs, payload_of, str_aux)
+
+    def _sm_combine(self, counts, accs, batch_keys, contribs, payload_of,
+                    str_aux=()):
+        """Merge contributions into the dense state (the JAX core's
+        `_sm_combine`).
+
+        Keys are arange(G) followed by the batch keys, and the payloads
+        are in the same order, state codes turned into ranks on entry.
+        One stable radix argsort (`sort_kernel.argsort_i64`) groups each
+        id's rows with its state row first, so the state rows are the
+        segment heads.  Every id in [0, G) appears, so `searchsorted`
+        finds each group's rows without a second sort; one host read
+        brings the longest segment (the scans' doubling steps) and the
+        end of the live rows (dead rows key as G and are never
+        gathered).  Integer sums and counts reduce exactly as cumsum
+        differences; float sums, MIN and MAX by `_seg_scan`.  Payloads
+        of one (op, dtype) are gathered and scanned as one (n, k)
+        tensor."""
+        G = counts.shape[0]
+        groups = torch.arange(G, dtype=torch.int64, device=counts.device)
+        keys = torch.cat([groups, batch_keys])
+        perm = sort_kernel.argsort_i64(keys)
+        skeys = torch.index_select(keys, 0, perm)
+        left = torch.searchsorted(skeys, groups)
+        right = torch.searchsorted(skeys, groups, right=True)
+        span, live_end = torch.stack([(right - left).max(), right[-1]]).tolist()
+        perm = perm[:live_end]
+        heads = perm < G
+
+        # payload columns: row count first, then one per non-aliased slot
+        payloads = [(counts, "add")]
+        for i, (sl, acc) in enumerate(zip(self.slots, accs)):
+            if i not in payload_of:
+                continue
+            if sl.is_string:
+                payloads.append((self._codes_to_ranks(sl.kind, acc, str_aux[i]),
+                                 "min" if sl.kind == "smin" else "max"))
+            else:
+                payloads.append((acc, "add" if sl.kind in ("sum", "cnt") else sl.kind))
+        by_op: dict[tuple, list[int]] = {}
+        for p, (state, op) in enumerate(payloads):
+            by_op.setdefault((op, state.dtype), []).append(p)
+        reduced = [None] * len(payloads)
+        for (op, dtype), ps in by_op.items():
+            cols = torch.cat([torch.stack([payloads[p][0] for p in ps], 1),
+                              torch.stack([contribs[p] for p in ps], 1)])
+            svals = torch.index_select(cols, 0, perm)
+            if op == "add" and not dtype.is_floating_point:
+                # integer sums wrap mod 2^64 exactly, in any order
+                cs = torch.cat([svals.new_zeros((1, len(ps))), torch.cumsum(svals, 0)])
+                out = torch.index_select(cs, 0, right) - torch.index_select(cs, 0, left)
+            else:
+                out = torch.index_select(self._seg_scan(svals, heads, op, span), 0,
+                                         right - 1)
+            for j, p in enumerate(ps):
+                reduced[p] = out[:, j]
+
+        new_counts = reduced[0]
+        new_accs = []
+        for i, (sl, acc) in enumerate(zip(self.slots, accs)):
+            p = payload_of.get(i)
+            if p is None:  # cnt aliased to the row count
+                new_accs.append(acc + (new_counts - counts))
+            elif sl.is_string:
+                new_accs.append(self._ranks_to_codes(sl.kind, reduced[p], str_aux[i]))
+            else:
+                new_accs.append(reduced[p])
+        return new_counts, tuple(new_accs)
+
 
 class AggregateRelation(Relation):
     """Executes [Selection +] Aggregate over a child relation; emits a
@@ -780,16 +928,10 @@ class AggregateRelation(Relation):
         """Accumulator capacity for the observed group count: the next
         power of two, never shrinking.  The JAX package jumps 4x past 64
         groups because each capacity compiles a new sort-merge kernel;
-        eager torch compiles nothing per capacity, so growth stays
-        tight and Q1 (4 groups) keeps a capacity of 8."""
-        needed = max(group_capacity(max(self.encoder.num_groups, 1)), current)
-        if needed > agg_max_groups():
-            raise NotSupportedError(
-                f"GROUP BY with {self.encoder.num_groups} groups needs the "
-                f"sort-merge route above agg_max_groups()={agg_max_groups()} "
-                "(ROADMAP queue 1: sort-merge route for G > 8192)"
-            )
-        return needed
+        eager torch compiles nothing per capacity, and the sort-merge
+        route's work per batch grows with G, so growth stays tight and
+        Q1 (4 groups) keeps a capacity of 8."""
+        return max(group_capacity(max(self.encoder.num_groups, 1)), current)
 
     def accumulate(self):
         """Run the scan, returning the device accumulator state."""

@@ -48,8 +48,8 @@ _LOCK = threading.Lock()
 
 def agg_max_groups() -> int:
     """Largest group capacity the grouped-reduce kernel serves; above
-    it the sort-merge route would take the job (not ported yet, so the
-    aggregate raises)."""
+    it the aggregate takes its sort-merge route, through the radix-sort
+    kernel."""
     return int(os.environ.get("DATAFUSION_TPU_PALLAS_AGG_GROUPS", 8192))
 
 

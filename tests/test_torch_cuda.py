@@ -14,7 +14,10 @@ past one tile and with every row dead, the join build
 (row, count and its duplicate flag against `count.max() > 1`) and the
 radix argsort exactly, each bit-identical when run twice.  The
 engine on cuda:0 is held against the engine on the CPU: a GROUP BY
-(rtol 1e-9), a join chain and full sorts (rows and order exactly).
+(rtol 1e-9), a join chain and full sorts (rows and order exactly), and
+the sort-merge route above `agg_max_groups()` (its state: ints exactly,
+f64 within rtol 1e-12, f64 bit-identical when run twice, one radix-sort
+launch a batch).
 """
 
 from __future__ import annotations
@@ -422,3 +425,85 @@ def test_csv_scan_on_card_matches_the_cpu(dev):
         ctx.register_csv("cities", path, schema, has_header=False)
         out.append(tdf.collect(ctx.sql(sql)).to_rows())
     assert out[0] == out[1] and len(out[0]) == 18
+
+
+# ------------------------------------------------------------ sort-merge route
+
+HIGH_CARD_SQL = ("SELECT k, SUM(v), AVG(v), MIN(i), MAX(i), MIN(v), MAX(u), COUNT(1) "
+                 "FROM t GROUP BY k")
+
+
+def _high_card_table(groups, n=400_000, seed=7, batch_rows=1 << 17):
+    """int64 key over `groups` values, f64 v (with NULLs), int64 i and
+    UInt64 u around 2^63."""
+    rng = np.random.default_rng(seed)
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", D.INT64, False), tdf.Field("v", D.FLOAT64, True),
+                         tdf.Field("i", D.INT64, False), tdf.Field("u", D.UINT64, False)])
+    cols = [rng.integers(0, groups, n), rng.uniform(0, 1e3, n),
+            rng.integers(-(10**12), 10**12, n),
+            (np.uint64(1 << 63) + rng.integers(-(1 << 40), 1 << 40, n).astype(np.uint64))]
+    valid = rng.random(n) > 0.05
+    return schema, [tdf.make_host_batch(schema, [c[lo:lo + batch_rows] for c in cols],
+                                        [None, valid[lo:lo + batch_rows], None, None])
+                    for lo in range(0, n, batch_rows)]
+
+
+def _accumulated_state(device, schema, batches):
+    """The aggregate's state after the scan, on the host, and the
+    launches it made."""
+    ctx = tdf.ExecutionContext(device=device)
+    ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+    rel = ctx.sql(HIGH_CARD_SQL)
+    port_cuda.reset_launch_counts()
+    counts, accs = rel.accumulate()
+    torch.cuda.synchronize()
+    return counts.cpu(), [a.cpu() for a in accs], port_cuda.launch_counts()
+
+
+@pytest.mark.parametrize("groups", [20_000, 131_072])
+def test_sortmerge_update_on_card_matches_the_cpu(dev, groups):
+    schema, batches = _high_card_table(groups)
+    cpu_counts, cpu_accs, _ = _accumulated_state("cpu", schema, batches)
+    counts, accs, launches = _accumulated_state(dev, schema, batches)
+    assert counts.shape[0] > port_cuda.agg_max_groups()
+    # every batch holds more than 8192 groups: one radix sort a batch,
+    # no grouped reduce
+    assert launches["sort_kernel"] == len(batches) and launches["hash_agg"] == 0
+    assert torch.equal(counts, cpu_counts)
+    for got, want in zip(accs, cpu_accs):
+        if want.dtype.is_floating_point:
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
+        else:
+            assert torch.equal(got, want)
+
+
+def test_sortmerge_f64_sums_bit_identical_on_rerun(dev):
+    schema, batches = _high_card_table(131_072, seed=8)
+    _, first, _ = _accumulated_state(dev, schema, batches)
+    _, second, _ = _accumulated_state(dev, schema, batches)
+    for a, b in zip(first, second):
+        if a.dtype == torch.float64:
+            assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+        else:
+            assert torch.equal(a, b)
+
+
+def test_high_cardinality_query_launches_the_sort_kernel(dev):
+    schema, batches = _high_card_table(100_000, seed=9)
+    rows = {}
+    for device in ("cpu", dev):
+        ctx = tdf.ExecutionContext(device=device)
+        ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+        port_cuda.reset_launch_counts()
+        rows[str(device)] = sorted(tdf.collect(ctx.sql(HIGH_CARD_SQL)).to_rows(), key=repr)
+        sorts = port_cuda.launch_counts()["sort_kernel"]
+        assert sorts == (len(batches) if str(device) != "cpu" else 0)
+    got, want = rows[str(dev)], rows["cpu"]
+    assert len(got) == len(want) > 90_000
+    for g, w in zip(got, want):
+        for gv, wv in zip(g, w):
+            if isinstance(wv, float):
+                assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
+            else:
+                assert gv == wv, (g, w)
