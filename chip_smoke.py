@@ -24,8 +24,13 @@ which raises on failure:
      one tile of a pass), 2^18, 1,000,000, 6,000,000}, 1 to 3 keys,
      tie-heavy keys, int64.min and int64.max, and the f64 images of
      +-NaN, +-0.0 and +-inf: exactly, and bit-identical when run twice.
+   The grouped reduce also at the batch-group fold's shapes (Q1's 46
+   batches of 131,072 rows in one call, config 2's 8 of 524,288), the
+   radix argsort at the fold's sort-merge and TopK shapes (G + a group's
+   rows; config 4's 4,000,000 rows), each against its plain version.
    Then kernel, plain and library times at the main path's shapes
-   (library: `scatter_reduce_`, alone and with the fill, mask and cast
+   (the fold's shapes among them; library: `scatter_reduce_`, alone and
+   with the fill, mask and cast
    the kernel's function needs, and the grouped reduce's phases from a
    build with DF_AGG_PHASE_CLOCKS; the build's `torch.full`,
    `scatter_reduce_("amax")`, `torch.zeros`, `index_add_` and the
@@ -48,7 +53,7 @@ which raises on failure:
 4. The GROUP BY of bench config 2 over 4,000,000 rows with 16 and with
    4096 groups, checked the same way, each with its device and host
    profile; then above agg_max_groups(), through the sort-merge route
-   (one radix-sort launch a batch, no grouped reduce): config 2's
+   (one radix-sort launch a batch group, no grouped reduce): config 2's
    100,000 groups (with its profile, and its f64 columns bit-identical
    over two more warm runs) and the cache config's 10,000 groups over
    2,000,000 rows.
@@ -82,16 +87,34 @@ which raises on failure:
    4,000,000 rows in batches of 2^19, its four queries, a key of 16
    distinct values (LIMIT 1000) and an f64 key with -0.0, +0.0, NaN and
    NULLs, each against a stable np.lexsort, rows and order exactly;
-   each launches the sort kernel once per batch.
+   each launches the sort kernel once per batch group.
 10. UInt8 to UInt64 columns (UInt64 at and above 2^63) on the card: MIN,
    MAX and SUM under a WHERE, grouped, and a filter alone, against
    numpy.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
-runs only).
+runs only), with the peak device memory of its first warm run.
+
+The batch-group fold (exec/fused.py) folds each scan of the main path
+into one group (at most DATAFUSION_TPU_FUSE_GROUP = 256 batches): the
+aggregate launches the grouped reduce once per slot per group (Q1 6, config
+2 at 16 and 4096 groups 5, Q5 2, Q12 1) or the sort once per group
+(config 2 at 100,000 groups, the cache shape, Q3, Q10: 1), and each
+TopK query sorts once.  The fold A/B runs Q1, config 2 at 16, 4096 and
+100,000 groups, the cache shape and the six TopK queries once more
+under DATAFUSION_TPU_FUSE=0, which must give the same rows (ints,
+strings and order exactly, f64 within rtol 1e-9) with one launch per
+slot per batch (Q1 276, config 2 40) or one sort per batch (8, 4 and 8
+per TopK query), and prints both p50s on a `fold_ab` line.  The
+prefetch A/B runs Q1, the SF-1 filter/project and config 2 (16 groups)
+warm under DATAFUSION_TPU_PREFETCH=1 (the staged prefetch threads; an
+in-memory scan runs serial by default), and config 1 cold three times
+interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
+scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
+and Q10 stay out of both (8 to 17 s a run).
 
 The main path (phases 3 to 10) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
-have launched the kernels of its path.  The second-to-last lines are
+have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the package beside this script.
@@ -99,6 +122,7 @@ without a CUDA device or without the package beside this script.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -146,15 +170,39 @@ def log(*a):
     print(*a, flush=True)
 
 
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them; every time the script prints stands beside it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def fold_groups(nb: int) -> int:
+    """The batch groups a scan of `nb` batches folds into, at the
+    default DATAFUSION_TPU_FUSE_GROUP (one group for every scan here)."""
+    from datafusion_tpu_torch.exec.fused import fuse_group_max
+
+    return -(-nb // fuse_group_max())
+
+
+def expect_launches(rep, label, **want):
+    """The cold run launched each named kernel exactly as often as `want`
+    says."""
+    got = {k: rep["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {rep['launches']}, want {want}")
+
+
 # ------------------------------------------------------------ phase 1
 
 
 def phase_build(cuda_mod, torch):
     secs = cuda_mod.build_all()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"build: {secs:.2f} s (nvcc, sm_90a)")
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     log(f"nvidia-smi: {smi}")
@@ -185,33 +233,40 @@ def _case_inputs(torch, kind, dtype, n, g, gen, dev):
     return ids, vals, live
 
 
+# (N, G) of the grouped reduce: batches of Q1 and config 2, the SF-1
+# lineitem in one call, and the batch-group fold's shapes: Q1's 46
+# batches of 131,072 rows in one group, config 2's 8 of 524,288
+PARITY_SHAPES = ([(n, g) for n in (131_072, 524_288, 6_000_000)
+                  for g in (4, 8, 16, 4096, 8192)]
+                 + [(46 * 131_072, 8), (46 * 131_072, 4096), (8 * 524_288, 16)])
+
+
 def phase_kernel_parity(torch, hash_agg, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     max_abs_err = 0.0
     checked = 0
-    for n in (131_072, 524_288, 6_000_000):
-        for g in (4, 8, 16, 4096, 8192):
-            for kind, dtype in CASES:
-                ids, vals, live = _case_inputs(torch, kind, dtype, n, g, gen, dev)
-                got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
-                torch.cuda.synchronize()
-                want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
-                label = f"{kind}/{dtype} N={n} G={g}"
-                if vals.dtype.is_floating_point:
-                    torch.testing.assert_close(got, want, rtol=1e-12, atol=0,
-                                               equal_nan=True, msg=label)
-                    fin = torch.isfinite(want)
-                    if fin.any():
-                        err = (got[fin] - want[fin]).abs().max().item()
-                        max_abs_err = max(max_abs_err, err)
-                    again = hash_agg.grouped_reduce(ids, vals, live, g, kind)
-                    if not torch.equal(got.view(torch.int64), again.view(torch.int64)):
-                        raise AssertionError(f"{label}: f64 result not bit-identical on rerun")
-                else:
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{label}: ints differ")
-                checked += 1
+    for n, g in PARITY_SHAPES:
+        for kind, dtype in CASES:
+            ids, vals, live = _case_inputs(torch, kind, dtype, n, g, gen, dev)
+            got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+            torch.cuda.synchronize()
+            want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
+            label = f"{kind}/{dtype} N={n} G={g}"
+            if vals.dtype.is_floating_point:
+                torch.testing.assert_close(got, want, rtol=1e-12, atol=0,
+                                           equal_nan=True, msg=label)
+                fin = torch.isfinite(want)
+                if fin.any():
+                    err = (got[fin] - want[fin]).abs().max().item()
+                    max_abs_err = max(max_abs_err, err)
+                again = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+                if not torch.equal(got.view(torch.int64), again.view(torch.int64)):
+                    raise AssertionError(f"{label}: f64 result not bit-identical on rerun")
+            else:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{label}: ints differ")
+            checked += 1
     torch.cuda.synchronize()
     log(f"kernel parity: {checked} cases ok (ints exact, f64 rtol 1e-12, "
         f"f64 bitwise on rerun), max_abs_err {max_abs_err!r}")
@@ -260,7 +315,10 @@ def _device_ms(torch, fn, reps=50):
 # (N, G, where): the main path's shapes of the grouped reduce
 AGG_SHAPES = ((131_072, 8, "Q1 batch"), (524_288, 16, "config 2, 16 groups"),
               (524_288, 4096, "config 2, 4096 groups"),
-              (524_288, 8192, "8192 groups, the default capacity"))
+              (524_288, 8192, "8192 groups, the default capacity"),
+              (46 * 131_072, 8, "Q1 batch group: 46 batches"),
+              (8 * 524_288, 16, "config 2 batch group, 16 groups: 8 batches"),
+              (8 * 524_288, 4096, "config 2 batch group, 4096 groups: 8 batches"))
 
 
 def _agg_timing_inputs(torch, n, g, gen, dev):
@@ -333,6 +391,8 @@ def phase_kernel_timing(torch, hash_agg, cuda_mod, dev):
                                        hash_agg.geometry(n, g, 8, *hash_agg._limits(
                                            torch.cuda.current_device())))))
         out.append(entry)
+    for entry in out:
+        entry["card"] = card()
     log("kernel_shapes: " + json.dumps(out))
     return out
 
@@ -612,6 +672,11 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
         live = torch.rand(rows, generator=gen, device=dev) < live_share
         return torch.cat([torch.arange(groups, device=dev), torch.where(live, ids, groups)])
 
+    # a TopK merge of config 4 at the default fold: its 8 batches, one
+    # group, with no state before it
+    s_all = ~_f64_images(torch, torch.rand(TOPK_ROWS, generator=gen, device=dev,
+                                           dtype=torch.float64) * 1e6)
+    b_all = torch.randint(0, 1 << 40, (TOPK_ROWS,), generator=gen, device=dev)
     for ops, where in (([a, b], "config 4b, f64 image + int64"),
                        ([mode, okey], "lineitem sort, shipmode + ~orderkey"),
                        ([s_img], "TopK merge, ORDER BY s DESC LIMIT 100"),
@@ -619,8 +684,20 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
                        ([sortmerge_keys(131_072, 1 << 19, 100_000, 1.0)],
                         "sort-merge, config 2 at 100,000 groups: G=131,072 + 524,288"),
                        ([sortmerge_keys(1 << 21, 1 << 17, 1_470_000, 0.2)],
-                        "sort-merge, Q3 SF-1: G=2,097,152 + 131,072, 80 % dead")):
+                        "sort-merge, Q3 SF-1: G=2,097,152 + 131,072, 80 % dead"),
+                       ([sortmerge_keys(131_072, 8 << 19, 100_000, 1.0)],
+                        "sort-merge batch group, config 2 at 100,000 groups: "
+                        "G=131,072 + 8 x 524,288"),
+                       ([sortmerge_keys(1 << 21, 46 << 17, 1_470_000, 0.2)],
+                        "sort-merge batch group, Q3 SF-1: G=2,097,152 + 46 x 131,072, "
+                        "80 % dead"),
+                       ([s_all], "TopK batch group, ORDER BY s DESC LIMIT 100: 8 batches"),
+                       ([s_all, b_all],
+                        "TopK batch group, ORDER BY a DESC, b LIMIT 100: 8 batches")):
         n = ops[0].shape[0]
+        if not torch.equal(sort_kernel.argsort_multi(ops),
+                           sort_kernel.argsort_multi_torch(ops)):
+            raise AssertionError(f"argsort at n={n} ({where}) differs from its plain version")
         kern = _time_ms(torch, lambda: sort_kernel.argsort_multi(ops), reps=20)
         plain = _time_ms(torch, lambda: sort_kernel.argsort_multi_torch(ops), reps=20)
 
@@ -639,6 +716,7 @@ def phase_new_kernel_timing(torch, hash_build, sort_kernel, dev):
                      kernel_launches_per_call=1 + sum(passes))
         sorts.append(entry)
     out["sort_kernel"] = sorts
+    out["card"] = card()
     log("new_kernel_shapes: " + json.dumps(out))
     return out
 
@@ -665,7 +743,7 @@ def _route_update(tdf, dev, groups, rows):
     rel = ctx.sql(CONFIG2)
     core = rel.core
     (batch,) = list(src.batches())
-    ids = rel._group_ids(batch)
+    ids, _ = rel._group_ids(batch)
     data, validity, mask = device_inputs(subset_view(batch, core.used_cols), dev)
     aux = compute_aux_values(core.aux_specs, batch, {}, dev)
     str_aux = rel._compute_str_aux(batch)
@@ -676,8 +754,8 @@ def _route_update(tdf, dev, groups, rows):
                       torch.where(live, ids.long(), groups)])
 
     def update():
-        return core.update(data, validity, aux, batch.num_rows, mask, ids, state,
-                           str_aux, params, dev)
+        return core.fused_group([(data, validity, batch.num_rows, mask, ids)], state,
+                                aux, str_aux, params)
 
     return update, keys
 
@@ -739,7 +817,7 @@ def phase_route_timing(tdf, torch, sort_kernel, dev):
                      compaction_searchsorted_device_ms=_profiled(torch, by_searchsorted),
                      compaction_second_sort_device_ms=_profiled(torch, by_second_sort))
         out.append(entry)
-    log("route_timing: " + json.dumps(out))
+    log("route_timing: " + json.dumps({"card": card(), "shapes": out}))
     return out
 
 
@@ -832,8 +910,10 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",),
               warm_runs=WARM_RUNS):
     """One cold run with the launch counters reset just before and read
     just after, then `warm_runs` timed runs.  Every kernel in `needs`
-    must have launched in the cold run.  Returns (result, report,
-    relation)."""
+    must have launched in the cold run.  `peak_warm_mb`: the device
+    memory allocated at its peak during the first warm run
+    (`torch.cuda.max_memory_allocated`, the tables' cached device copies
+    included).  Returns (result, report, relation)."""
     cuda_mod.reset_launch_counts()
     t0 = time.perf_counter()
     rel = ctx.sql(sql)
@@ -845,19 +925,86 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",),
         if launches[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched")
     times = []
-    for _ in range(warm_runs):
+    peak = None
+    for i in range(warm_runs):
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tdf.collect(ctx.sql(sql))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 2**20
     p50 = float(np.median(times))
     report = {
         "query": label, "rows": rows, "cold_ms": cold, "p50_ms": p50,
         "warm_ms": times, "rows_per_s": rows / (p50 / 1e3),
-        "launches": launches,
+        "launches": launches, "peak_warm_mb": peak, "card": card(),
     }
     log(f"{label}: " + json.dumps(report))
     return table, report, rel
+
+
+def assert_same_tables(got, want, label, key_cols=1, ordered=False):
+    """Two results of one query: the same rows, ints, strings and NULLs
+    exactly and f64 within rtol 1e-9; in the same order when `ordered`,
+    else after ordering both by their first `key_cols` columns."""
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{label}: {got.num_rows} rows against {want.num_rows}")
+
+    def columns(t):
+        cols = [np.asarray(c) for c in t.columns]
+        valid = [np.ones(t.num_rows, bool) if v is None else np.asarray(v)
+                 for v in t.validity]
+        if not ordered:
+            keys = [c.astype(str) if c.dtype == object else c for c in cols[:key_cols]]
+            order = np.lexsort(keys[::-1])
+            cols, valid = [c[order] for c in cols], [v[order] for v in valid]
+        return cols, valid
+
+    (g, gv), (w, wv) = columns(got), columns(want)
+    for i in range(len(w)):
+        if not np.array_equal(gv[i], wv[i]):
+            raise AssertionError(f"{label}: column {i} NULLs differ")
+        a, b = g[i][wv[i]], w[i][wv[i]]
+        same = (np.allclose(a, b, rtol=1e-9, atol=0.0, equal_nan=True)
+                if b.dtype.kind == "f" else np.array_equal(a, b))
+        if not same:
+            raise AssertionError(f"{label}: column {i} differs")
+
+
+def ab_run(tdf, cuda_mod, torch, ctx, sql, label, rows, base, knob, needs=(),
+           want_launches=None, key_cols=1, ordered=False):
+    """The query once more (cold, then warm runs) with the environment
+    variable `knob` set against its default: DATAFUSION_TPU_FUSE=0 (the
+    per-batch path: one update or one TopK merge a batch) or
+    DATAFUSION_TPU_PREFETCH=1 (the staged prefetch threads, over these
+    in-memory scans).  Its rows
+    must equal `base`'s, the default run's (table, report), and its cold
+    run must launch `want_launches`.  Prints both p50s on one line
+    beside the card."""
+    value = "0" if knob == FUSE_KNOB else "1"
+    tag = f"{knob}_{value}"
+    os.environ[knob] = value
+    try:
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, sql, f"{label}_{tag}",
+                                  rows, needs=needs)
+    finally:
+        del os.environ[knob]
+    if want_launches is not None:
+        expect_launches(rep, f"{label} with {knob}={value}", **want_launches)
+    assert_same_tables(table, base[0], f"{label} with {knob}={value}", key_cols, ordered)
+    kind = "fold_ab" if knob == FUSE_KNOB else "prefetch_ab"
+    log(f"{kind}: " + json.dumps({
+        "query": label, "default_p50_ms": base[1]["p50_ms"], f"{tag}_p50_ms": rep["p50_ms"],
+        "default_launches": base[1]["launches"], f"{tag}_launches": rep["launches"],
+        "default_peak_warm_mb": base[1]["peak_warm_mb"],
+        f"{tag}_peak_warm_mb": rep["peak_warm_mb"], "card": card()}))
+    return rep
+
+
+FUSE_KNOB = "DATAFUSION_TPU_FUSE"
+PREFETCH_KNOB = "DATAFUSION_TPU_PREFETCH"
 
 
 def q1_profile(tdf, torch, ctx, p50_ms):
@@ -896,6 +1043,7 @@ def q1_profile(tdf, torch, ctx, p50_ms):
         "host_encode_ms": encode_ms,
         "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in by_kernel[:8]],
     }
+    out["card"] = card()
     log("q1_profile: " + json.dumps(out))
     return out
 
@@ -1000,6 +1148,7 @@ def query_profile(tdf, torch, ctx, sql, label, p50_ms, top=8):
         key=lambda t: -t[1],
     )
     out["top_host_self"] = [{"fn": f[:70], "ms": ms, "calls": n} for f, ms, n in rows[:top]]
+    out["card"] = card()
     log(f"profile_{label}: " + json.dumps(out))
     return out
 
@@ -1012,10 +1161,10 @@ CACHE_ROWS = 2_000_000  # benchmarks/suite.py's cache config (BENCH_CACHE_ROWS)
 def phase_high_cardinality(tdf, cuda_mod, torch, ctx, smi):
     """Config 2's high_100k leg (100,000 groups over 4,000,000 rows) and
     the cache config's shape (10,000 groups over 2,000,000 rows), both
-    above agg_max_groups(): every batch takes the sort-merge route, one
-    radix-sort launch a batch and no grouped reduce.  Then two more warm
-    runs of the 100,000-group query, whose f64 columns must be
-    bit-identical."""
+    above agg_max_groups(): the sort-merge route, one radix-sort launch
+    a batch group and no grouped reduce; under DATAFUSION_TPU_FUSE=0 one
+    a batch.  Then two more warm runs of the 100,000-group query, whose
+    f64 columns must be bit-identical."""
     reports = []
     for groups, rows, label in ((100_000, CONFIG2_ROWS, "config2_groupby_100000"),
                                 (10_000, CACHE_ROWS, "cache_config_groupby_10000")):
@@ -1024,11 +1173,12 @@ def phase_high_cardinality(tdf, cuda_mod, torch, ctx, smi):
         nb = len(list(src.batches()))
         table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, CONFIG2, label, rows,
                                   needs=("sort_kernel",))
-        if rep["launches"]["sort_kernel"] != nb or rep["launches"]["hash_agg"] != 0:
-            raise AssertionError(f"{label}: launches {rep['launches']}, want one sort a "
-                                 f"batch ({nb}) and no grouped reduce")
+        # one sort a batch group, no grouped reduce
+        expect_launches(rep, label, sort_kernel=fold_groups(nb), hash_agg=0)
         assert_grouped(table, config2_columns(cols, groups), label)
         log(f"{label}: rows match the numpy oracle ({table.num_rows} groups; {smi})")
+        ab_run(tdf, cuda_mod, torch, ctx, CONFIG2, label, rows, (table, rep), FUSE_KNOB,
+               needs=("sort_kernel",), want_launches={"sort_kernel": nb, "hash_agg": 0})
         rep["card"] = smi
         if groups == 100_000:
             query_profile(tdf, torch, ctx, CONFIG2, label, rep["p50_ms"])
@@ -1152,6 +1302,8 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
     table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q5, "tpch_q5_sf1", SF1_ROWS,
                                 needs=("hash_agg", "hash_build"))
     assert_rows(table, q5_oracle(cols), "Q5")
+    nb = fold_groups(len(list(ctx.datasources["lineitem"].batches())))
+    expect_launches(rep, "Q5", hash_agg=2 * nb)  # the row count and one sum
     routes = join_routes(rel)
     if rep["launches"]["hash_build"] != 3 or routes != [True, True, True]:
         raise AssertionError(f"Q5: build launches {rep['launches']['hash_build']}, "
@@ -1166,6 +1318,7 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
         raise AssertionError(f"Q12: {table.to_rows()} != {q12_oracle(cols)}")
     if rep["launches"]["hash_build"] != 1 or join_routes(rel) != [True]:
         raise AssertionError("Q12: the orders build should launch the kernel once, dense")
+    expect_launches(rep, "Q12", hash_agg=nb, sort_kernel=1)  # the row count; ORDER BY
     log(f"Q12 rows and order match the numpy oracle ({table.num_rows} ship modes); "
         "orders build dense")
     query_profile(tdf, torch, ctx, Q12, "tpch_q12_order_by_sf1", rep["p50_ms"])
@@ -1182,6 +1335,7 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
         raise AssertionError(f"Q12 (host index): {table.to_rows()} != {q12_oracle(cols)}")
     if host_rep["launches"]["hash_build"] != 0 or join_routes(rel) != [False]:
         raise AssertionError("Q12 (host index): the orders build should take the host index")
+    expect_launches(host_rep, "Q12 (host index)", hash_agg=nb, sort_kernel=1)
     log("Q12 through the host index matches the numpy oracle")
     reports.append(host_rep)
     return reports, cols
@@ -1249,6 +1403,8 @@ def phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, cols, smi):
                                     needs=("sort_kernel", "hash_build"))
         assert_grouped(table, want, label)
         routes = join_routes(rel)
+        expect_launches(rep, label, hash_agg=0, sort_kernel=fold_groups(
+            len(list(ctx.datasources["lineitem"].batches()))))
         if rep["launches"]["hash_build"] != builds or not all(routes):
             raise AssertionError(f"{label}: build launches {rep['launches']['hash_build']}, "
                                  f"dense routes {routes} (want {builds}, every join dense)")
@@ -1406,6 +1562,24 @@ def phase_csv(tdf, cuda_mod, torch, smi):
            "native_build_s": build_s, "launches": launches}
     log("config1_csv_scan_filter: " + json.dumps(rep))
     log(f"config 1 rows match the numpy oracle ({table.num_rows} rows)")
+    # the default, the staged prefetch threads (the parse of the next
+    # batch beside the host prep of this one), against the serial path:
+    # three cold runs each, interleaved
+    ab = {"default": [], f"{PREFETCH_KNOB}_0": []}
+    for _ in range(3):
+        os.environ[PREFETCH_KNOB] = "0"
+        try:
+            serial, serial_ms = cold()
+        finally:
+            del os.environ[PREFETCH_KNOB]
+        assert_same_tables(serial, table, "config 1 without prefetch", ordered=True)
+        ab[f"{PREFETCH_KNOB}_0"].append(serial_ms)
+        ab["default"].append(cold()[1])
+    log("prefetch_ab: " + json.dumps({
+        "query": "config1_csv_scan_filter", "interleaved_cold_ms": ab,
+        "default_cold_p50_ms": float(np.median(ab["default"])),
+        f"{PREFETCH_KNOB}_0_cold_p50_ms": float(np.median(ab[f"{PREFETCH_KNOB}_0"])),
+        "card": card()}))
     # the reference's own example (examples/csv_sql.rs)
     uk = os.path.join(here, "test", "data", "uk_cities.csv")
     ctx = tdf.ExecutionContext()
@@ -1445,6 +1619,8 @@ def phase_filter_project(tdf, cuda_mod, torch, ctx, cols, dates, smi):
     log(f"SF-1 filter/project rows match the numpy oracle ({table.num_rows} rows; "
         f"{smi})")
     rep["card"] = smi
+    ab_run(tdf, cuda_mod, torch, ctx, SF1_FILTER_PROJECT, "lineitem_filter_project_sf1",
+           SF1_ROWS, (table, rep), PREFETCH_KNOB, ordered=True)
     query_profile(tdf, torch, ctx, SF1_FILTER_PROJECT, "lineitem_filter_project_sf1",
                   rep["p50_ms"])
     return rep
@@ -1517,9 +1693,7 @@ def phase_topk(tdf, cuda_mod, torch, ctx, smi):
     for label, sql, cols, order in topk_cases(c):
         table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, sql, label, TOPK_ROWS,
                                   needs=("sort_kernel",))
-        if rep["launches"]["sort_kernel"] != nb:
-            raise AssertionError(f"{label}: {rep['launches']['sort_kernel']} sort launches, "
-                                 f"one per batch is {nb}")
+        expect_launches(rep, label, sort_kernel=fold_groups(nb))  # one a batch group
         for i, col in enumerate(cols):
             got = np.asarray(table.columns[i])
             want = col[order]
@@ -1535,6 +1709,8 @@ def phase_topk(tdf, cuda_mod, torch, ctx, smi):
                 raise AssertionError(f"{label}: rows or order differ from np.lexsort")
         rep["card"] = smi
         log(f"{label}: rows and order match a stable np.lexsort ({table.num_rows} rows)")
+        ab_run(tdf, cuda_mod, torch, ctx, sql, label, TOPK_ROWS, (table, rep), FUSE_KNOB,
+               needs=("sort_kernel",), want_launches={"sort_kernel": nb}, ordered=True)
         if label == "topk_a_desc_b":
             query_profile(tdf, torch, ctx, sql, label, rep["p50_ms"])
         reports.append(rep)
@@ -1643,9 +1819,17 @@ def main() -> int:
     log(f"lineitem SF-1 generated in {time.perf_counter() - t0:.1f} s "
         f"({len(list(src.batches()))} batches of {ctx.batch_size} rows)")
     ctx.register_datasource("lineitem", src)
+    nb = len(list(src.batches()))
     table, q1, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, "tpch_q1_sf1", SF1_ROWS)
     assert_rows(table, q1_oracle(cols, dates), "Q1")
+    # one grouped reduce per slot (the row count and 5 sums) per batch group
+    expect_launches(q1, "Q1", hash_agg=6 * fold_groups(nb))
     log(f"Q1 rows match the numpy oracle ({table.num_rows} groups)")
+    ab_run(tdf, cuda_mod, torch, ctx, Q1, "tpch_q1_sf1", SF1_ROWS, (table, q1), FUSE_KNOB,
+           needs=("hash_agg",), want_launches={"hash_agg": 6 * nb}, key_cols=2)
+    ab_run(tdf, cuda_mod, torch, ctx, Q1, "tpch_q1_sf1", SF1_ROWS, (table, q1),
+           PREFETCH_KNOB, needs=("hash_agg",),
+           want_launches={"hash_agg": 6 * fold_groups(nb)}, key_cols=2)
     try:
         q1_profile(tdf, torch, ctx, q1["p50_ms"])
     except RuntimeError as e:  # the profiler is a measurement aid only
@@ -1656,10 +1840,19 @@ def main() -> int:
     for groups in (16, 4096):
         src, cols = groupby_table(tdf, groups)
         ctx.register_datasource("t", src)
-        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, CONFIG2,
-                                  f"config2_groupby_{groups}", CONFIG2_ROWS)
+        label = f"config2_groupby_{groups}"
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, CONFIG2, label, CONFIG2_ROWS)
         assert_rows(table, config2_oracle(cols, groups), f"config 2 G={groups}")
+        # the row count, SUM(v1), SUM(v2), MIN(v3), MAX(v3)
+        nb = len(list(src.batches()))
+        expect_launches(rep, label, hash_agg=5 * fold_groups(nb))
         log(f"config 2 ({groups} groups) rows match the numpy oracle")
+        ab_run(tdf, cuda_mod, torch, ctx, CONFIG2, label, CONFIG2_ROWS, (table, rep),
+               FUSE_KNOB, needs=("hash_agg",), want_launches={"hash_agg": 5 * nb})
+        if groups == 16:
+            ab_run(tdf, cuda_mod, torch, ctx, CONFIG2, label, CONFIG2_ROWS, (table, rep),
+                   PREFETCH_KNOB, needs=("hash_agg",),
+                   want_launches={"hash_agg": 5 * fold_groups(nb)})
         query_profile(tdf, torch, ctx, CONFIG2, f"config2_groupby_{groups}", rep["p50_ms"])
         reports.append(rep)
         del src, cols
@@ -1680,7 +1873,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         _kernel_line("hash_agg.grouped_reduce", "datafusion_tpu_torch/csrc/hash_agg.cu",
                      "datafusion_tpu/exec/pallas/hash_agg.py:95", launched("hash_agg"),
-                     agg_err, shapes[0]),
+                     agg_err, next(e for e in shapes if "Q1 batch group" in e["shape"])),
         _kernel_line("hash_build.build_slot_table",
                      "datafusion_tpu_torch/csrc/hash_build.cu",
                      "datafusion_tpu/exec/pallas/hash_build.py:70",

@@ -15,25 +15,33 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   whose argument has no validity aliases the row count.  TPC-H Q1's 8
   aggregates touch 5 sum slots.
 - **Accumulation (device)**: per batch, the used columns cross to the
-  device and the predicate and slot arguments evaluate as torch ops.
-  The slots then take one of two routes by group capacity G (the JAX
-  core's `_kernel`, less its dense one-hot route for G <= 64, which
-  the grouped-reduce kernel serves on Hopper):
+  device; per *batch group* (the batch-group fold, `exec/fused.py`: up
+  to `fuse_group_max()` batches with one structure and one set of
+  dictionary tables) the batches concatenate along rows, and the
+  predicate and slot arguments evaluate once over the group as torch
+  ops (`fused_group`).  The slots then take one of two routes by group
+  capacity G (the JAX core's `_kernel`, less its dense one-hot route
+  for G <= 64, which the grouped-reduce kernel serves on Hopper):
   - G <= `agg_max_groups()` (8192): each slot is one launch of the
-    hand-written grouped-reduce kernel (`exec/cuda/hash_agg.py`);
+    hand-written grouped-reduce kernel (`exec/cuda/hash_agg.py`) over
+    the group's rows;
   - above it, sort-merge (`_sortmerge_update`): the dense state
-    (implicit keys 0..G-1) and the batch rows are argsorted by group id
-    in one launch of the hand-written radix sort
+    (implicit keys 0..G-1) and the group's rows are argsorted by group
+    id in one launch of the hand-written radix sort
     (`exec/cuda/sort_kernel.py`), runs of equal ids reduce by segmented
     scans, and each group's total is read back into the dense layout.
   Both routes keep one state layout, so a scan that grows past 8192
-  groups switches route and keeps its state.
+  groups switches route and keeps its state.  DATAFUSION_TPU_FUSE=0
+  updates once per batch.
+- **Prefetch** (`exec/prefetch.py`, over a CSV scan on a CUDA device): one thread
+  pulls batches, a second encodes group ids, builds the aux tables and
+  copies the used columns, while the consumer dispatches.
 - **Finalization**: one device-to-host copy of the state; AVG =
   SUM/COUNT on the host; groups observed only in filtered-out rows
   (count 0) are dropped.
 
-Not ported yet (ROADMAP queue 1): the batch-group fold and megabatch,
-host-split placement, cost presizing and the prefetch pipeline.
+Not ported yet (ROADMAP queue 1): the serving megabatch, host-split
+placement and cost presizing.
 
 Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
 internally, UInt64 in the output (planner contract); MIN/MAX keep the
@@ -54,15 +62,19 @@ from datafusion_tpu_torch.exec.batch import (
     StringDictionary,
     bucket_capacity,
     device_inputs,
+    dict_versions,
     host_array,
     make_host_batch,
     param_tensors,
+    pin_dict_versions,
     subset_view,
     to_device,
     to_host,
 )
 from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg, sort_kernel
 from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
+from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled, iter_groups
+from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
 
@@ -591,24 +603,54 @@ class _AggregateCore:
         )
         return grow(counts, 0), new_accs
 
-    def update(self, cols, valids, aux, num_rows, base_mask, ids, state,
-               str_aux, params, device):
-        """Fold one batch into the state (the JAX core's `_kernel`)."""
+    def fused_group(self, entries, state, aux, str_aux, params):
+        """Fold a batch group into the state in one pass (the JAX core's
+        `_fused_group`).  `entries` are per-batch (cols, valids, num_rows,
+        mask|None, ids) with one `exec/fused.entry_signature`; `aux` and
+        `str_aux` are the group's shared tables.
+
+        The entries concatenate along rows: every column, validity and
+        id, and each entry's live mask (`arange(capacity) < num_rows`,
+        ANDed with its own mask).  The predicate and the slot arguments
+        then evaluate once over the group, and the slots take the route
+        of the state's capacity G: one grouped-reduce launch per slot
+        for G <= `agg_max_groups()`, else one sort-merge combine (one
+        radix sort over G + the group's rows, one host read).  A group
+        of one entry is the per-batch update: nothing concatenates."""
+        counts, accs = state
+        device = counts.device
+        if len(entries) == 1:
+            cols, valids, num_rows, base_mask, ids = entries[0]
+            live = self._live_rows(cols, num_rows, base_mask, ids, device)
+        else:
+            cols = tuple(torch.cat(c) for c in zip(*(e[0] for e in entries)))
+            valids = tuple(None if v[0] is None else torch.cat(v)
+                           for v in zip(*(e[1] for e in entries)))
+            live = torch.cat([self._live_rows(c, n, m, i, device)
+                              for c, _, n, m, i in entries])
+            ids = torch.cat([e[4] for e in entries])
         env = Env(cols, valids, aux, device, self.col_map, params)
-        capacity = cols[0].shape[0] if cols else ids.shape[0]
-        mask = torch.arange(capacity, dtype=torch.int32, device=device) < num_rows
-        if base_mask is not None:
-            mask = mask & base_mask
+        capacity = live.shape[0]
+        mask = live
         if self._pred_fn is not None:
             pv, pvalid = self._pred_fn(env)
             pv = pv.expand(capacity)
             if pvalid is not None:
                 pv = pv & pvalid.expand(capacity)
             mask = mask & pv
-        counts, accs = state
         if counts.shape[0] <= agg_max_groups():
             return self._kernel_update(env, capacity, mask, ids, counts, accs, str_aux)
         return self._sortmerge_update(env, capacity, mask, ids, counts, accs, str_aux)
+
+    @staticmethod
+    def _live_rows(cols, num_rows, base_mask, ids, device):
+        """One batch's live mask: its first `num_rows` rows, ANDed with
+        its selection mask."""
+        capacity = cols[0].shape[0] if cols else ids.shape[0]
+        mask = torch.arange(capacity, dtype=torch.int32, device=device) < num_rows
+        if base_mask is not None:
+            mask = mask & base_mask
+        return mask
 
     def _slot_inputs(self, env, capacity, mask):
         """(value, ok-mask) per slot, masking padding/filtered/null
@@ -893,7 +935,8 @@ class AggregateRelation(Relation):
 
     def _compute_str_aux(self, batch: RecordBatch):
         """(ranks, rank->code) tensor pair per string min/max slot,
-        padded to a bucketed capacity, cached per dictionary version."""
+        padded to a bucketed capacity, cached per dictionary version
+        (the one pinned on the batch, `batch.dict_versions`)."""
         out = []
         for k, sl in enumerate(self.slots):
             if not sl.is_string:
@@ -905,10 +948,11 @@ class AggregateRelation(Relation):
                     f"column {sl.arg_index} has no dictionary for {sl.kind}"
                 )
             self._str_dicts[k] = d
-            key = (k, d.version)
+            version = dict_versions(batch)[sl.arg_index]
+            key = (k, version)
             hit = self._str_aux_cache.get(key)
             if hit is None:
-                ranks = d.sort_ranks().astype(np.int32)
+                ranks = d.sort_ranks(version).astype(np.int32)
                 order = np.argsort(ranks).astype(np.int32)  # rank -> code
                 cap = bucket_capacity(max(len(ranks), 1))
                 pr = np.zeros(cap, np.int32)
@@ -924,56 +968,106 @@ class AggregateRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
-    def _pick_capacity(self, current: int) -> int:
-        """Accumulator capacity for the observed group count: the next
+    @staticmethod
+    def _pick_capacity(n_groups: int, current: int) -> int:
+        """Accumulator capacity for `n_groups` encoded groups: the next
         power of two, never shrinking.  The JAX package jumps 4x past 64
         groups because each capacity compiles a new sort-merge kernel;
         eager torch compiles nothing per capacity, and the sort-merge
-        route's work per batch grows with G, so growth stays tight and
-        Q1 (4 groups) keeps a capacity of 8."""
-        return max(group_capacity(max(self.encoder.num_groups, 1)), current)
+        route's work grows with G, so growth stays tight and Q1 (4
+        groups) keeps a capacity of 8."""
+        return max(group_capacity(max(n_groups, 1)), current)
 
     def accumulate(self):
-        """Run the scan, returning the device accumulator state."""
+        """Run the scan, returning the device accumulator state.
+
+        Prepared batches (group ids, aux tables, device inputs) buffer
+        into a chunk of up to `fuse_group_max()` batches; the capacity is
+        picked once the whole chunk is encoded, so every id fits and the
+        route is chosen once per chunk, and each batch group of the chunk
+        (`exec/fused.iter_groups`) folds in one `fused_group` pass.  With
+        DATAFUSION_TPU_FUSE=0 the chunk is one batch: one update per
+        batch.  Over a CSV scan on a CUDA device the host prep runs
+        ahead on the prefetch threads (`exec/prefetch.staged_pipeline`)."""
         core = self.core
         device = self.device
         params = param_tensors(self._param_values, device)
+        batches = self.child.batches()
+        if pipeline_enabled(device, self.child):
+            batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
+        chunk_max = fuse_group_max() if fusion_enabled() else 1
         state = None
         capacity = 0
-        for batch in self.child.batches():
-            for idx in self.key_cols:
-                if batch.dicts[idx] is not None:
-                    self._key_dicts[idx] = batch.dicts[idx]
-            ids = self._group_ids(batch)
-            aux = compute_aux_values(core.aux_specs, batch, self._aux_cache, device)
-            str_aux = self._compute_str_aux(batch)
-            data, validity, mask = device_inputs(
-                subset_view(batch, core.used_cols), device
-            )
-            # capacity picked AFTER the batch's keys are encoded, so
-            # every id in the batch fits the accumulator
-            needed = self._pick_capacity(capacity)
+        chunk: list = []
+
+        def flush():
+            nonlocal state, capacity
+            # sized from the group count recorded when the chunk's last
+            # batch was encoded: the encoder itself may already be
+            # batches ahead on the prefetch thread
+            needed = self._pick_capacity(chunk[-1][1], capacity)
             if state is None:
                 state = core._init_state(needed, device)
             elif needed > capacity:
                 state = core._grow_state(state, needed)
             capacity = needed
-            state = core.update(
-                data, validity, aux, batch.num_rows, mask, ids, state,
-                str_aux, params, device,
+            entries = [e for e, _, _ in chunk]
+            shareds = [sh for _, _, sh in chunk]
+            for idxs, (aux, str_aux) in iter_groups(entries, shareds):
+                state = core.fused_group([entries[i] for i in idxs], state, aux,
+                                         str_aux, params)
+            chunk.clear()
+
+        for batch in batches:
+            for idx in self.key_cols:
+                if batch.dicts[idx] is not None:
+                    self._key_dicts[idx] = batch.dicts[idx]
+            ids, n_groups = self._group_ids(batch)
+            aux, str_aux = self._aux(batch)
+            data, validity, mask = device_inputs(
+                subset_view(batch, core.used_cols), device
             )
+            chunk.append(((data, validity, batch.num_rows, mask, ids), n_groups,
+                          (aux, str_aux)))
+            if len(chunk) >= chunk_max:
+                flush()
+        if chunk:
+            flush()
         if state is None:
             state = core._init_state(group_capacity(1), device)
         return state
 
-    def _group_ids(self, batch: RecordBatch) -> torch.Tensor:
-        """Dense group ids for one batch as an int32 tensor on the
-        device.  Cached on the batch (keyed by this relation's encoder)
-        so a re-scanned in-memory batch skips the encode and the copy
-        when the same relation scans it again."""
-        hit = batch.cache.get("group_ids")
+    def _aux(self, batch: RecordBatch):
+        """(aux, str_aux) of one batch: the tables the prefetch stage
+        pinned on it for this relation, else built here."""
+        hit = batch.cache.get("staged_aux")
         if hit is not None and hit[0] is self.encoder:
             return hit[1]
+        return self._tables(batch)
+
+    def _tables(self, batch: RecordBatch):
+        aux = tuple(compute_aux_values(self.core.aux_specs, batch, self._aux_cache,
+                                       self.device))
+        return aux, self._compute_str_aux(batch)
+
+    def _stage(self, batch: RecordBatch) -> None:
+        """The host prep of one batch on the prefetch thread: the
+        group-id encode and its copy, the aux and string-rank tables
+        (pinned on the batch under this relation's encoder, as the
+        group ids are) and the used columns' copies."""
+        self._group_ids(batch)
+        batch.cache["staged_aux"] = (self.encoder, self._tables(batch))
+        device_inputs(subset_view(batch, self.core.used_cols), self.device)
+
+    def _group_ids(self, batch: RecordBatch):
+        """Dense group ids for one batch as an int32 tensor on the
+        device, and the number of groups the encoder knew right after
+        encoding it.  Cached on the batch (keyed by this relation's
+        encoder) so a re-scanned in-memory batch skips the encode and
+        the copy when the same relation scans it again."""
+        hit = batch.cache.get("group_ids")
+        if hit is not None and hit[0] is self.encoder:
+            return hit[1], hit[2]
         if self.key_cols:
             # a key column on the device (a join's gathered payload)
             # crosses to the host for the encoder
@@ -989,10 +1083,11 @@ class AggregateRelation(Relation):
         else:
             ids_np = np.zeros(batch.capacity, dtype=np.int32)
         ids = to_device(ids_np, self.device)
+        n_groups = self.encoder.num_groups
         # one slot per batch: another query's encoder overwrites it, so
         # a long-lived batch holds at most one ids tensor
-        batch.cache["group_ids"] = (self.encoder, ids)
-        return ids
+        batch.cache["group_ids"] = (self.encoder, ids, n_groups)
+        return ids, n_groups
 
     @staticmethod
     def _numeric_output(s: AggregateSpec, sums, cnts, live_counts):

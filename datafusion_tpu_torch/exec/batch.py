@@ -45,7 +45,11 @@ class StringDictionary:
 
     `version` (== len) keys the host-side caches derived from the
     dictionary: comparison lookup tables and sort-rank tables are
-    recomputed only when the dictionary has grown.
+    recomputed only when the dictionary has grown.  Those tables can be
+    built over the first `n` strings alone (the dictionary as it stood
+    at version `n`), so a thread that stages a batch while a reader
+    still appends builds the same table as a serial scan would
+    (`dict_versions`).
     """
 
     __slots__ = ("values", "index", "cmp_cache")
@@ -69,9 +73,11 @@ class StringDictionary:
             self.index[s] = code
         return code
 
-    def code_of(self, s: str) -> int:
-        """Code for `s`, or -1 if absent (a -1 never equals any row)."""
-        return self.index.get(s, -1)
+    def code_of(self, s: str, n: Optional[int] = None) -> int:
+        """Code for `s` among the first `n` strings (all by default), or
+        -1 if absent (a -1 never equals any row)."""
+        code = self.index.get(s, -1)
+        return code if n is None or code < n else -1
 
     def encode(self, strings) -> np.ndarray:
         """Encode a sequence of python strings (None for null) to int32
@@ -93,15 +99,16 @@ class StringDictionary:
         arr = np.asarray(self.values, dtype=object)
         return arr[codes]
 
-    def compare_table(self, op, literal: str) -> np.ndarray:
-        """Bool table t where t[code] == (values[code] <op> literal).
+    def compare_table(self, op, literal: str, n: Optional[int] = None) -> np.ndarray:
+        """Bool table t where t[code] == (values[code] <op> literal), over
+        the first `n` strings (all by default).
 
         Ordered comparisons on dictionary codes are meaningless (codes
         are append-ordered), so the host materializes this table and
         the device gathers from it.  Lexicographic order means ISO
         dates compare chronologically (the TPC-H shipdate filter).
         """
-        vals = self.values
+        vals = self.values if n is None else self.values[:n]
         if op == "<":
             return np.array([v < literal for v in vals], dtype=bool)
         if op == "<=":
@@ -112,9 +119,11 @@ class StringDictionary:
             return np.array([v >= literal for v in vals], dtype=bool)
         raise ExecutionError(f"unsupported string comparison {op!r}")
 
-    def sort_ranks(self) -> np.ndarray:
-        """rank[code] = position of values[code] in sorted order."""
-        order = np.argsort(np.asarray(self.values, dtype=object), kind="stable")
+    def sort_ranks(self, n: Optional[int] = None) -> np.ndarray:
+        """rank[code] = position of values[code] in sorted order, over
+        the first `n` strings (all by default)."""
+        vals = self.values if n is None else self.values[:n]
+        order = np.argsort(np.asarray(vals, dtype=object), kind="stable")
         ranks = np.empty(len(order), dtype=np.int32)
         ranks[order] = np.arange(len(order), dtype=np.int32)
         return ranks
@@ -158,6 +167,36 @@ class RecordBatch:
     @property
     def capacity(self) -> int:
         return int(self.data[0].shape[0]) if self.data else 0
+
+
+def dict_versions(batch: RecordBatch) -> tuple:
+    """Each column's dictionary version for tables built for this batch
+    (None for a column without a dictionary): the versions pinned on
+    the batch, else the dictionaries' own."""
+    pinned = batch.cache.get("dict_versions")
+    if pinned is not None:
+        return pinned
+    return tuple(None if d is None else d.version for d in batch.dicts)
+
+
+def pin_dict_versions(batch: RecordBatch, versions=None) -> None:
+    """Pin on the batch the version of each of its dictionaries:
+    `versions` where an operator carries them over from its input,
+    else the dictionaries' versions now, unless the batch has them.
+
+    A reader appends to its dictionaries while later batches parse, and
+    the prefetch threads (`exec/prefetch.staged_pipeline`) build a
+    batch's tables while the reader runs ahead.  Tables built at the
+    versions pinned where the batch left its source are the ones a
+    serial scan builds, so the tables' identities, and with them the
+    fold's batch groups and its float sums, do not depend on thread
+    timing.  The CSV reader pins each batch it yields; operators that
+    hand a dictionary on (the pipeline, the join) carry the pins."""
+    if versions is not None:
+        if any(v is not None for v in versions):
+            batch.cache["dict_versions"] = tuple(versions)
+    elif "dict_versions" not in batch.cache and any(d is not None for d in batch.dicts):
+        batch.cache["dict_versions"] = dict_versions(batch)
 
 
 # host unsigned dtypes and their device containers (DataType.torch_dtype):

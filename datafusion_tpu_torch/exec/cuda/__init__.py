@@ -17,7 +17,9 @@ the source and the flags (an edited source rebuilds), and loaded with
 There is no probe and no switch that turns a kernel off: a wrapper given
 a CUDA tensor launches its kernel or raises; given a CPU tensor it runs
 the kernel's plain PyTorch version.  Each wrapper module counts its
-launches in a plain int, `LAUNCHES`, read and reset here.
+launches in a plain int, `LAUNCHES`, read and reset here, and bumped
+under `COUNT_LOCK` (the prefetch threads launch too: a join's build runs
+on the thread that pulls the scan).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ SOURCES = ("hash_agg", "hash_build", "sort_kernel")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+COUNT_LOCK = threading.Lock()
 
 
 def agg_max_groups() -> int:
@@ -138,5 +141,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.LAUNCHES = 0
+    with COUNT_LOCK:
+        for mod in _modules().values():
+            mod.LAUNCHES = 0

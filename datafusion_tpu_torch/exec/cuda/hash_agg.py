@@ -204,7 +204,8 @@ def _launch(ids, vals, live, num_groups: int, kind: str):
         _cuda.raw_stream(dev))
     if rc != 0:
         raise ExecutionError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
     return buf.resize_(num_groups)
 
 

@@ -110,7 +110,8 @@ def _launch(pos, live, num_slots: int):
             row.data_ptr(), count.data_ptr(), _cuda.raw_stream(dev))
     if rc != 0:
         raise ExecutionError(f"build_slot_table kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
     return row, count[:num_slots], count[num_slots]
 
 

@@ -153,7 +153,8 @@ def _launch(ops):
         if rc != 0:
             raise ExecutionError(f"argsort kernel launch failed: CUDA error {rc}")
         perm = idx_b if in_b.value else idx_a
-    LAUNCHES += 1
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
     if perm is None:
         return torch.arange(n, dtype=torch.int32, device=dev)
     return perm

@@ -18,7 +18,11 @@ from datafusion_tpu_torch.exec.batch import RecordBatch
 
 
 class DataSource:
-    """Base: schema + re-iterable batches."""
+    """Base: schema + re-iterable batches.  `parses`: whether `batches`
+    parses its input as it reads, work the prefetch threads can run
+    ahead of the consumer (`exec/prefetch.pipeline_enabled`)."""
+
+    parses = False
 
     @property
     def schema(self) -> Schema:
@@ -67,6 +71,8 @@ class CsvDataSource(DataSource):
     """A CSV file (reference `datasource.rs:31-50`), read by the native
     parser.  `schema` is the projected schema; re-scans parse the file
     again and keep the reader's dictionaries, so codes are stable."""
+
+    parses = True
 
     def __init__(
         self,

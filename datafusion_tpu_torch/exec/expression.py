@@ -38,7 +38,12 @@ import torch
 
 from datafusion_tpu_torch.datatypes import DataType, Schema, get_supertype
 from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
-from datafusion_tpu_torch.exec.batch import RecordBatch, bucket_capacity, to_device
+from datafusion_tpu_torch.exec.batch import (
+    RecordBatch,
+    bucket_capacity,
+    dict_versions,
+    to_device,
+)
 from datafusion_tpu_torch.plan.expr import (
     AggregateFunction,
     BinaryExpr,
@@ -519,8 +524,10 @@ def compute_aux_values(
     `device`.
 
     Cached by (spec index, dictionary version): tables are recomputed
-    and shipped only when a dictionary has grown.  Tables are padded to
-    a bucketed capacity, as the JAX package pads them.
+    and shipped only when a dictionary has grown.  The version is the
+    one pinned on the batch as it left its source, if any
+    (`batch.dict_versions`).  Tables are padded to a bucketed capacity,
+    as the JAX package pads them.
     """
     out = []
     for i, spec in enumerate(specs):
@@ -529,16 +536,17 @@ def compute_aux_values(
             raise ExecutionError(
                 f"column {spec.column} has no dictionary (not a Utf8 column?)"
             )
-        key = (i, d.version)
+        version = dict_versions(batch)[spec.column]
+        key = (i, version)
         hit = cache.get(key)
         if hit is not None:
             out.append(hit)
             continue
         if spec.kind == "eq_code":
-            val = torch.tensor(d.code_of(spec.literal), dtype=torch.int32,
+            val = torch.tensor(d.code_of(spec.literal, version), dtype=torch.int32,
                                device=device)
         else:
-            table = d.compare_table(spec.op, spec.literal)
+            table = d.compare_table(spec.op, spec.literal, version)
             padded = np.zeros(bucket_capacity(max(len(table), 1)), dtype=bool)
             padded[: len(table)] = table
             val = to_device(padded, device)

@@ -1,28 +1,48 @@
-"""Plan-chain collapse for the fused passes.
+"""Fused passes: plan-chain collapse and the batch-group fold.
 
-The counterpart of the plan rewrites in the JAX package's
-`exec/fused.py`.  Projection expressions inline into the consumer
-(`substitute_columns`) and stacked Selections AND together
-(`flatten_chain`), so:
+The counterpart of the JAX package's `exec/fused.py`.  Two layers, both
+behind ``DATAFUSION_TPU_FUSE`` (default on; ``=0`` turns both off):
 
-- an Aggregate over a filter/project chain lowers to ONE
-  `AggregateRelation` (`rewrite_aggregate`);
-- a Sort/Limit over a filter and column-projection chain lowers to ONE
-  `SortRelation` that filters, sorts and projects in a single pass
-  (`rewrite_sort`);
-- a deeper filter/project chain lowers to ONE `PipelineRelation`
-  (exec/context.py).
+- **Plan-chain collapse**: projection expressions inline into the
+  consumer (`substitute_columns`) and stacked Selections AND together
+  (`flatten_chain`), so
+  - an Aggregate over a filter/project chain lowers to ONE
+    `AggregateRelation` (`rewrite_aggregate`);
+  - a Sort/Limit over a filter and column-projection chain lowers to
+    ONE `SortRelation` that filters, sorts and projects in a single
+    pass (`rewrite_sort`);
+  - a deeper filter/project chain lowers to ONE `PipelineRelation`
+    (exec/context.py).
+  With ``DATAFUSION_TPU_FUSE=0`` the plan lowers node by node, to the
+  same rows.
 
-``DATAFUSION_TPU_FUSE=0`` turns every collapse off: the plan then
-lowers node by node, to the same rows.  The JAX package's batch-group
-fold (one launch over a group of batches) is not ported (ROADMAP queue
-1, item 5).
+- **Batch-group fold**: the state-carrying operators (aggregate, TopK)
+  and the pipeline collect a scan's per-batch inputs and run a whole
+  *batch group* as one pass: a run of up to `fuse_group_max()` batches
+  (`pipeline_group_max()` for the pipeline) whose entries share one
+  `entry_signature` and one `shared_signature` (`iter_groups`).  On the
+  H100 a group's entries are **concatenated along rows**, where the JAX
+  package stacks them for a `lax.scan`, so rows need not match from
+  batch to batch: the grouped reduce runs once per slot over the
+  group's rows, the sort-merge aggregate and the TopK sort once per
+  group.  The signature is an entry's structure (which validities and
+  masks are None, and the dtypes) and the identity of the shared aux
+  and string-rank tensors, so a dictionary that grows mid-scan starts a
+  new group.  With ``DATAFUSION_TPU_FUSE=0`` every operator updates once
+  per batch, as before the fold.
+
+  The JAX package's `pad_group`, its group-size ladder and
+  `stack_entries` are not ported: they exist to bound XLA recompiles
+  (one program per ladder rung), eager torch compiles nothing per group
+  size, and padding would only add identity rows to the concatenation.
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
+
+import torch
 
 from datafusion_tpu_torch.plan.expr import (
     AggregateFunction,
@@ -41,8 +61,69 @@ from datafusion_tpu_torch.plan.expr import (
 
 def fusion_enabled() -> bool:
     """The escape hatch: DATAFUSION_TPU_FUSE=0 lowers every plan node
-    by itself."""
+    by itself and runs every operator once per batch."""
     return os.environ.get("DATAFUSION_TPU_FUSE", "1") != "0"
+
+
+def fuse_group_max() -> int:
+    """Max batches folded into one pass of the aggregate or the TopK
+    (`DATAFUSION_TPU_FUSE_GROUP`, 256): bounds how many batches' device
+    inputs a group holds at once."""
+    return max(1, int(os.environ.get("DATAFUSION_TPU_FUSE_GROUP", "256")))
+
+
+def pipeline_group_max() -> int:
+    """Max batches per pipeline (filter/project) pass
+    (`DATAFUSION_TPU_FUSE_PIPELINE`, default `fuse_batch_count()`).
+    Smaller than the aggregate's group: the pipeline yields its
+    outputs, so grouping trades first-batch latency for passes."""
+    from datafusion_tpu_torch.exec.kernels import fuse_batch_count
+
+    v = os.environ.get("DATAFUSION_TPU_FUSE_PIPELINE")
+    return max(1, int(v)) if v else fuse_batch_count()
+
+
+# -- batch-group collection ----------------------------------------------
+
+
+def entry_signature(entry) -> tuple:
+    """Hashable structure of a prepared per-batch entry: nested tuples
+    and lists walked in order, a tensor by its dtype (not its length:
+    a group concatenates rows), None as itself, a Python number by its
+    type.  Entries with one signature concatenate leaf by leaf."""
+    if isinstance(entry, (tuple, list)):
+        return tuple(entry_signature(e) for e in entry)
+    if entry is None:
+        return None
+    if isinstance(entry, torch.Tensor):
+        return ("tensor", entry.dtype)
+    return (type(entry).__name__,)
+
+
+def shared_signature(shared) -> tuple:
+    """Identity of a group's shared (not concatenated) inputs: the aux
+    and string-rank tensors.  They are cached per dictionary version, so
+    a batch whose dictionary grew gets fresh tensors and starts a new
+    group."""
+    if isinstance(shared, (tuple, list)):
+        return tuple(shared_signature(s) for s in shared)
+    return None if shared is None else id(shared)
+
+
+def iter_groups(entries, shareds):
+    """Split a chunk of (entry, shared) pairs into maximal consecutive
+    runs with one signature; yields (indices, shared) per group."""
+    start = 0
+    cur = None
+    for i, (e, s) in enumerate(zip(entries, shareds)):
+        sig = (entry_signature(e), shared_signature(s))
+        if cur is None:
+            cur = sig
+        elif sig != cur:
+            yield list(range(start, i)), shareds[start]
+            start, cur = i, sig
+    if cur is not None:
+        yield list(range(start, len(entries))), shareds[start]
 
 
 # -- plan-chain collapse --------------------------------------------------

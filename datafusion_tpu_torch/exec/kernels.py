@@ -118,6 +118,15 @@ def parameterize_exprs(exprs):
     return fps, slot_by_id, tuple(values)
 
 
+def fuse_batch_count() -> int:
+    """Batches the pipeline folds into one device pass by default
+    (`DATAFUSION_TPU_FUSE_BATCHES`, 16; the JAX package's knob, read the
+    same way).  Only `exec/fused.pipeline_group_max` reads it, as the
+    default of DATAFUSION_TPU_FUSE_PIPELINE: the pair of knobs for one
+    number exists only to mirror the JAX package's names."""
+    return max(1, int(os.environ.get("DATAFUSION_TPU_FUSE_BATCHES", "16")))
+
+
 def schema_fingerprint(schema) -> tuple:
     """Hashable image of a schema as cores see it (positional dtypes +
     nullability; names ride along for dictionary wiring)."""

@@ -2,10 +2,15 @@
 
 The counterpart of the JAX package's `exec/relation.py`: a volcano-
 style pull iterator of RecordBatches.  A scan -> filter -> project
-fragment runs as one `PipelineRelation`: per batch, one pass of torch
-ops on the device evaluates the predicate into a selection mask that
-rides the batch (rows are not gathered) and computes the projected
-expressions beside it.  Only the columns those expressions read cross
+fragment runs as one `PipelineRelation`: per batch group (up to
+`exec/fused.pipeline_group_max()` batches of one structure and one set
+of dictionary tables, concatenated along rows; one batch with
+DATAFUSION_TPU_FUSE=0), one pass of torch ops on the device evaluates
+the predicate into a selection mask that rides each batch (rows are not
+gathered) and computes the projected expressions beside it; each input
+batch gets its own output batch, views of the group's outputs.  Over a
+CSV scan on a CUDA device the batches' host prep runs ahead on the
+prefetch threads (`exec/prefetch.py`).  Only the columns those expressions read cross
 to the device; column projections pass through on the host untouched,
 Utf8 columns with their dictionaries; the mask and the computed
 columns come back when `collect` pulls them.
@@ -27,10 +32,19 @@ from datafusion_tpu_torch.exec.batch import (
     RecordBatch,
     StringDictionary,
     device_inputs,
+    dict_versions,
     param_tensors,
+    pin_dict_versions,
     subset_view,
 )
 from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
+from datafusion_tpu_torch.exec.fused import (
+    entry_signature,
+    fusion_enabled,
+    pipeline_group_max,
+    shared_signature,
+)
+from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.plan.expr import Column, Expr
 
 
@@ -171,19 +185,29 @@ class _PipelineCore:
             ),
         )
 
-    def run(self, cols, valids, aux, num_rows, base_mask, params, device):
-        """One batch's device pass: (computed columns, their validity,
-        selection mask), each of the batch's capacity."""
-        env = Env(cols, valids, aux, device, self.col_map, params)
-        if cols:
-            capacity = cols[0].shape[0]
-        elif base_mask is not None:
-            capacity = base_mask.shape[0]  # a zero-column EmptyRelation batch
+    def run_group(self, entries, aux, params, device):
+        """One device pass over a batch group: `entries` are per-batch
+        (cols, valids, num_rows, mask|None) with one
+        `exec/fused.entry_signature`, concatenated along rows with each
+        one's live mask (`arange(capacity) < num_rows`, ANDed with its
+        mask); the predicate and the projections evaluate once over the
+        group.  Returns per-batch (computed columns, their validity,
+        selection mask): views of the group's outputs at each batch's
+        rows and capacity.  A group of one entry concatenates nothing."""
+        caps = [self._capacity(c, m) for c, _, _, m in entries]
+        live = [torch.arange(cap, dtype=torch.int32, device=device) < n
+                for cap, (_, _, n, _) in zip(caps, entries)]
+        live = [lv if m is None else lv & m for lv, (_, _, _, m) in zip(live, entries)]
+        if len(entries) == 1:
+            cols, valids = entries[0][0], entries[0][1]
+            mask = live[0]
         else:
-            capacity = 1
-        mask = torch.arange(capacity, dtype=torch.int32, device=device) < num_rows
-        if base_mask is not None:
-            mask = mask & base_mask
+            cols = tuple(torch.cat(c) for c in zip(*(e[0] for e in entries)))
+            valids = tuple(None if v[0] is None else torch.cat(v)
+                           for v in zip(*(e[1] for e in entries)))
+            mask = torch.cat(live)
+        capacity = mask.shape[0]
+        env = Env(cols, valids, aux, device, self.col_map, params)
         if self.pred_fn is not None:
             pv, pvalid = self.pred_fn(env)
             pv = pv.expand(capacity)
@@ -191,16 +215,29 @@ class _PipelineCore:
                 # SQL: a NULL predicate drops the row
                 pv = pv & pvalid.expand(capacity)
             mask = mask & pv
-        if self.proj_fns is None:
-            return [], [], mask
         out_cols, out_valids = [], []
-        for f in self.proj_fns:
+        for f in self.proj_fns or []:
             if f is None:
                 continue
             v, valid = f(env)
             out_cols.append(_full(v, capacity))
             out_valids.append(None if valid is None else _full(valid, capacity))
-        return out_cols, out_valids, mask
+        if len(entries) == 1:
+            return [(out_cols, out_valids, mask)]
+        split = [torch.split(c, caps) for c in out_cols]
+        split_valids = [None if v is None else torch.split(v, caps) for v in out_valids]
+        return [([c[j] for c in split],
+                 [None if v is None else v[j] for v in split_valids],
+                 m)
+                for j, m in enumerate(torch.split(mask, caps))]
+
+    @staticmethod
+    def _capacity(cols, base_mask) -> int:
+        if cols:
+            return cols[0].shape[0]
+        if base_mask is not None:
+            return base_mask.shape[0]  # a zero-column EmptyRelation batch
+        return 1
 
 
 def _full(t: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -213,7 +250,7 @@ def _full(t: torch.Tensor, capacity: int) -> torch.Tensor:
 
 class PipelineRelation(Relation):
     """[filter +] [projection] over a child relation, one device pass
-    per batch.  The core is shared process-wide by plan fingerprint
+    per batch group.  The core is shared process-wide by plan fingerprint
     (`_PipelineCore.build`); each relation carries its own literal
     values and host-evaluated projections."""
 
@@ -253,40 +290,96 @@ class PipelineRelation(Relation):
     def batches(self) -> Iterator[RecordBatch]:
         core = self.core
         dev = self.device
-        params = param_tensors(self._params, dev) if core.needs_kernel else ()
-        # a pure column selection yields one stable output batch per
-        # child batch, so a re-scanned in-memory source hands the
-        # operators above it the same batch objects (and with them the
-        # device copies cached on them); pinned by relation when host
-        # projections carry this query's literals, else by core
-        pin = self if core.host_proj else core
-        for batch in self.child.batches():
-            if core.needs_kernel:
-                aux = compute_aux_values(core.aux_specs, batch, self._aux_cache, dev)
-                data, validity, mask_in = device_inputs(
-                    subset_view(batch, core.used_cols), dev
-                )
-                cols, valids, mask = core.run(
-                    data, validity, aux, batch.num_rows, mask_in, params, dev
-                )
-            else:
-                hit = batch.cache.get("pipeline_out")
-                if hit is not None and hit[0] is pin:
-                    yield hit[1]
-                    continue
-                cols, valids, mask = [], [], batch.mask
-            if core.proj_fns is None:
-                # filter only: the input columns, untouched
-                out_cols, out_valids, dicts = batch.data, batch.validity, batch.dicts
-            else:
-                out_cols, out_valids, dicts = self._assemble(batch, cols, valids)
-            out = RecordBatch(
-                self._schema, list(out_cols), list(out_valids), list(dicts),
-                num_rows=batch.num_rows, mask=mask,
+        batches = self.child.batches()
+        if not core.needs_kernel:
+            yield from self._passthrough(batches)
+            return
+        if pipeline_enabled(dev, self.child):
+            batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
+        params = param_tensors(self._params, dev)
+        group_max = pipeline_group_max() if fusion_enabled() else 1
+        group: list = []  # (batch, entry, aux)
+        sig = None
+        for batch in batches:
+            aux = self._aux(batch)
+            data, validity, mask_in = device_inputs(
+                subset_view(batch, core.used_cols), dev
             )
-            if not core.needs_kernel:
-                batch.cache["pipeline_out"] = (pin, out)
+            entry = (data, validity, batch.num_rows, mask_in)
+            entry_sig = (entry_signature(entry), shared_signature(aux))
+            if group and (entry_sig != sig or len(group) >= group_max):
+                yield from self._run_group(group, params)
+            sig = entry_sig
+            group.append((batch, entry, aux))
+        if group:
+            yield from self._run_group(group, params)
+
+    def _run_group(self, group, params) -> Iterator[RecordBatch]:
+        """One device pass over a batch group, then one output batch per
+        input batch, with its boundaries, `num_rows` and mask."""
+        outs = self.core.run_group([e for _, e, _ in group], group[0][2], params,
+                                   self.device)
+        for (batch, _, _), (cols, valids, mask) in zip(group, outs):
+            yield self._output(batch, cols, valids, mask)
+        group.clear()
+
+    def _passthrough(self, batches) -> Iterator[RecordBatch]:
+        """A pure column selection: no device pass.  It yields one stable
+        output batch per child batch, so a re-scanned in-memory source
+        hands the operators above it the same batch objects (and with
+        them the device copies cached on them); pinned by relation when
+        host projections carry this query's literals, else by core."""
+        pin = self if self.core.host_proj else self.core
+        for batch in batches:
+            hit = batch.cache.get("pipeline_out")
+            if hit is not None and hit[0] is pin:
+                yield hit[1]
+                continue
+            out = self._output(batch, [], [], batch.mask)
+            batch.cache["pipeline_out"] = (pin, out)
             yield out
+
+    def _output(self, batch, cols, valids, mask) -> RecordBatch:
+        """The output batch of one input batch; the dictionary versions
+        pinned on the input carry over to the columns that pass through
+        (`batch.pin_dict_versions`)."""
+        if self.core.proj_fns is None:
+            # filter only: the input columns, untouched
+            out_cols, out_valids, dicts = batch.data, batch.validity, batch.dicts
+            versions = dict_versions(batch)
+        else:
+            out_cols, out_valids, dicts = self._assemble(batch, cols, valids)
+            pinned = dict_versions(batch)
+            versions = [
+                pinned[self.core.identity_proj[j]] if j in self.core.identity_proj
+                else None if d is None else d.version
+                for j, d in enumerate(dicts)
+            ]
+        out = RecordBatch(
+            self._schema, list(out_cols), list(out_valids), list(dicts),
+            num_rows=batch.num_rows, mask=mask,
+        )
+        pin_dict_versions(out, versions)
+        return out
+
+    def _aux(self, batch):
+        """The batch's aux tables: the ones the prefetch stage pinned on
+        it for this relation, else built here."""
+        hit = batch.cache.get("staged_aux")
+        if hit is not None and hit[0] is self:
+            return hit[1]
+        return self._tables(batch)
+
+    def _tables(self, batch):
+        return tuple(compute_aux_values(self.core.aux_specs, batch, self._aux_cache,
+                                        self.device))
+
+    def _stage(self, batch) -> None:
+        """The host prep of one batch on the prefetch thread: its aux
+        tables (pinned on the batch for this relation) and the copies
+        of the columns the pass reads."""
+        batch.cache["staged_aux"] = (self, self._tables(batch))
+        device_inputs(subset_view(batch, self.core.used_cols), self.device)
 
     def _assemble(self, batch, dev_cols, dev_valids):
         """Interleave the column passthroughs (the input arrays, exact),

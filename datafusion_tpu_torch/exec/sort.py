@@ -35,17 +35,20 @@ Key transforms:
 
 **Streaming TopK** (`ORDER BY ... LIMIT k`, 0 < k <= TOPK_MAX): the
 device holds a state of at most k rows, their key operands and their
-global row ids.  Per batch, the live rows' key operands are built on
-the host as above, cross to the device, and follow the state's; one
-radix argsort of the concatenation keeps the first k.  The sort is
-stable and the state comes first, so ties keep ascending row order, as
-the JAX package's `lax.top_k` keeps them; `torch.topk` does not, and
-the port never calls it.  Payload columns never cross: the host keeps
-the rows of the batches that still hold survivors (it pulls the k row
-ids after each merge) and gathers the output from them, bit-exact.  A
-Utf8 key's ranks change when its dictionary grows, and a key's first
-NULL adds its dead operand, so the state's key operands are rebuilt
-from the kept rows then.
+global row ids.  Per batch group (the batch-group fold: up to
+`exec/fused.fuse_group_max()` batches; one with DATAFUSION_TPU_FUSE=0),
+the live rows' key operands of every batch of the group are built on
+the host as above, in scan order, cross to the device, and follow the
+state's; one radix argsort of the concatenation keeps the first k.  The
+sort is stable, the state comes first and the rows keep scan order, so
+ties keep ascending row order, as the JAX package's `lax.top_k` keeps
+them; `torch.topk` does not, and the port never calls it.  Payload
+columns never cross: the host keeps the rows of the batches that still
+hold survivors (it pulls the k row ids once per group) and gathers the
+output from them, bit-exact.  A Utf8 key's ranks change when its
+dictionary grows, and a key's first NULL adds its dead operand, so the
+state's key operands are rebuilt from the kept rows where a group
+brings either.
 
 `LimitRelation` over anything but a Sort stops pulling batches once it
 has its rows.  Not ported (ROADMAP queue 1): the host-routed run sort
@@ -66,11 +69,13 @@ from datafusion_tpu_torch.errors import NotSupportedError
 from datafusion_tpu_torch.exec.batch import (
     RecordBatch,
     bucket_capacity,
+    dict_versions,
     make_host_batch,
     to_device,
     to_host,
 )
 from datafusion_tpu_torch.exec.cuda import sort_kernel
+from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled
 from datafusion_tpu_torch.exec.materialize import compact_batch
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.plan.expr import Column, SortExpr
@@ -250,18 +255,22 @@ class SortRelation(Relation):
             for kp in self._key_plans
         )
 
-    def _host_keys(self, columns, validity, dicts, dead=None) -> list[np.ndarray]:
+    def _host_keys(self, columns, validity, dicts, dead=None, ranks=None) -> list[np.ndarray]:
         """int64 operands, key 0 most significant: each key's dead flag
         where `dead` (a bool a key, None: every key) asks for it, then
         its value image.  A key left without its flag must hold no NULL
-        in these rows."""
+        in these rows.  A Utf8 key's codes map through `ranks[column]`
+        where given, else through its dictionary's ranks now."""
         keys = []
         for j, kp in enumerate(self._key_plans):
             idx = kp.index
             vals = columns[idx]
             if kp.kind == "str":
                 d = dicts[idx]
-                vals = d.sort_ranks()[vals] if d is not None else vals
+                if ranks is not None and idx in ranks:
+                    vals = ranks[idx][vals]
+                elif d is not None:
+                    vals = d.sort_ranks()[vals]
                 kind = "i"
             elif kp.kind == "u64":
                 vals = (
@@ -483,6 +492,60 @@ class SortRelation(Relation):
         versions = None
         dead = (False,) * len(self._key_plans)  # keys with a dead operand
         base = 0
+        group_max = fuse_group_max() if fusion_enabled() else 1
+        # the group's batches: (columns, validity) of their live rows,
+        # only the columns needed, their row count and their dictionary
+        # versions (`batch.dict_versions`)
+        group: list = []
+
+        def merge():
+            """One radix argsort of the state and the group's live rows
+            (in scan order, so ties keep ascending row order), one read
+            of the k row ids, then the held batches pruned.  Each batch's
+            key operands are built and copied on their own (its arrays
+            stay cache-sized on the host) and concatenate on the device."""
+            nonlocal state_ops, state_ids, rows, versions, dead, base
+            n = sum(g[2] for g in group)
+            # one prefix of each Utf8 key's dictionary for the whole
+            # merge: the largest version pinned on the group's batches,
+            # which holds every code of the group and of the state (a
+            # reader on the prefetch threads may append meanwhile, and
+            # ranks read at two moments would rank one string twice)
+            now = tuple(max(g[3][i] or 0 for g in group) for i in str_keys)
+            ranks = {i: dicts[i].sort_ranks(v) for i, v in zip(str_keys, now)
+                     if dicts[i] is not None}
+            seen = dead
+            for _, bvalids, _, _ in group:
+                seen = tuple(a or b for a, b in zip(seen, self._null_keys(bvalids)))
+            if state_ops is not None and (now != versions or seen != dead):
+                # a grown dictionary re-ranks its strings, a key's first
+                # NULL adds its dead operand: rebuild the state's
+                # operands from its rows
+                scols, svalids = self._gather(held, rows, len(in_schema))
+                state_ops = [to_device(o, dev) for o in
+                             self._host_keys(scols, svalids, dicts, seen, ranks)]
+            versions, dead = now, seen
+            parts = [[to_device(o, dev)
+                      for o in self._host_keys(bcols, bvalids, dicts, dead, ranks)]
+                     for bcols, bvalids, _, _ in group]
+            if state_ops is not None:
+                parts.insert(0, state_ops)
+            ops = [p[0] if len(parts) == 1 else torch.cat(p) for p in zip(*parts)]
+            ids = torch.arange(base, base + n, dtype=torch.int64, device=dev)
+            if state_ids is not None:
+                ids = torch.cat([state_ids, ids])
+            keep = sort_kernel.argsort_multi(ops)[:k]
+            state_ops = [o.index_select(0, keep) for o in ops]
+            state_ids = ids.index_select(0, keep)
+            for bcols, bvalids, bn, _ in group:
+                held[base] = (bcols, bvalids)
+                base += bn
+            group.clear()
+            rows = to_host(state_ids)
+            owners = set(self._owner(held, rows).tolist())
+            for b in [b for b in held if b not in owners]:
+                del held[b]
+
         for batch in self.child.batches():
             for i, d in enumerate(batch.dicts):
                 if d is not None:
@@ -490,32 +553,13 @@ class SortRelation(Relation):
             cols, valids, _, n = compact_batch(self._pred_batch(batch))
             if n == 0:
                 continue
-            now = tuple(dicts[i].version if dicts[i] is not None else 0
-                        for i in str_keys)
-            seen = tuple(a or b for a, b in zip(dead, self._null_keys(valids)))
-            if state_ops is not None and (now != versions or seen != dead):
-                # a grown dictionary re-ranks its strings, a key's first
-                # NULL adds its dead operand: rebuild the state's
-                # operands from its rows
-                scols, svalids = self._gather(held, rows, len(in_schema))
-                state_ops = [to_device(o, dev)
-                             for o in self._host_keys(scols, svalids, dicts, seen)]
-            versions, dead = now, seen
-            ops = [to_device(o, dev) for o in self._host_keys(cols, valids, dicts, dead)]
-            ids = to_device(np.arange(base, base + n, dtype=np.int64), dev)
-            if state_ops is not None:
-                ops = [torch.cat([s, o]) for s, o in zip(state_ops, ops)]
-                ids = torch.cat([state_ids, ids])
-            keep = sort_kernel.argsort_multi(ops)[:k]
-            state_ops = [o.index_select(0, keep) for o in ops]
-            state_ids = ids.index_select(0, keep)
-            held[base] = ([c if i in needed else None for i, c in enumerate(cols)],
-                          [v if i in needed else None for i, v in enumerate(valids)])
-            base += n
-            rows = to_host(state_ids)
-            owners = set(self._owner(held, rows).tolist())
-            for b in [b for b in held if b not in owners]:
-                del held[b]
+            group.append(([c if i in needed else None for i, c in enumerate(cols)],
+                          [v if i in needed else None for i, v in enumerate(valids)], n,
+                          dict_versions(batch)))
+            if len(group) >= group_max:
+                merge()
+        if group:
+            merge()
         if state_ids is None:
             yield self._empty_result(in_schema, dicts)
             return

@@ -50,7 +50,9 @@ from datafusion_tpu_torch.errors import NotSupportedError
 from datafusion_tpu_torch.exec.batch import (
     RecordBatch,
     device_inputs,
+    dict_versions,
     make_host_batch,
+    pin_dict_versions,
     to_device,
 )
 from datafusion_tpu_torch.exec.cuda import hash_build
@@ -84,8 +86,8 @@ class JoinBuildArtifact:
     host path the `HashIndex` and on the dense path the device-resident
     slot table and payload columns the probe gathers from."""
 
-    __slots__ = ("cols", "valids", "dicts", "n_rows", "index", "dense",
-                 "kmin", "num_slots", "dev_slot_row", "dev_cols",
+    __slots__ = ("cols", "valids", "dicts", "versions", "n_rows", "index",
+                 "dense", "kmin", "num_slots", "dev_slot_row", "dev_cols",
                  "dev_valids")
 
     def __init__(self):
@@ -149,6 +151,9 @@ class HashJoinRelation(Relation):
         cols, valids, dicts, n = collect_columns(self.right)
         art = JoinBuildArtifact()
         art.cols, art.valids, art.dicts, art.n_rows = cols, valids, dicts, n
+        # the build side is read to its end: its dictionaries' versions
+        # now are the ones every output batch's tables are built at
+        art.versions = tuple(None if d is None else d.version for d in dicts)
         if not self._try_dense(art):
             r_keys = [k for _, k in self.on]
             art.index = _core.HashIndex(
@@ -226,7 +231,7 @@ class HashJoinRelation(Relation):
                 art.dev_cols, art.dev_valids, art.kmin, art.num_slots,
                 self.join_type,
             )
-            yield RecordBatch(
+            out = RecordBatch(
                 self._schema,
                 list(data) + list(gath),
                 list(validity) + list(gval),
@@ -234,6 +239,8 @@ class HashJoinRelation(Relation):
                 num_rows=batch.num_rows,
                 mask=out_mask,
             )
+            pin_dict_versions(out, dict_versions(batch) + art.versions)
+            yield out
 
     def _host_batches(self, art: JoinBuildArtifact):
         from datafusion_tpu_torch.exec.materialize import compact_batch
@@ -255,7 +262,9 @@ class HashJoinRelation(Relation):
                 cols, valids, art.cols, art.valids, lidx, ridx,
                 self.join_type,
             )
-            yield make_host_batch(
+            out = make_host_batch(
                 self._schema, out_cols, out_valids,
                 list(dicts) + list(art.dicts),
             )
+            pin_dict_versions(out, dict_versions(batch) + art.versions)
+            yield out

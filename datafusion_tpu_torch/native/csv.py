@@ -19,7 +19,12 @@ import numpy as np
 
 from datafusion_tpu_torch.datatypes import DataType, Schema
 from datafusion_tpu_torch.errors import IoError
-from datafusion_tpu_torch.exec.batch import RecordBatch, StringDictionary, make_host_batch
+from datafusion_tpu_torch.exec.batch import (
+    RecordBatch,
+    StringDictionary,
+    make_host_batch,
+    pin_dict_versions,
+)
 from datafusion_tpu_torch.native import load_library
 
 # the parser's column type codes (datafusion_native.cpp ColType)
@@ -116,7 +121,9 @@ class NativeCsvReader:
                             arr[~valid] = 0
                     cols.append(arr)
                     valids.append(valid)
-                yield make_host_batch(self.out_schema, cols, valids, list(self.dicts))
+                batch = make_host_batch(self.out_schema, cols, valids, list(self.dicts))
+                pin_dict_versions(batch)  # before the next batch grows them
+                yield batch
         finally:
             lib.dtf_csv_close(handle)
 

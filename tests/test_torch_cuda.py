@@ -17,7 +17,9 @@ engine on cuda:0 is held against the engine on the CPU: a GROUP BY
 (rtol 1e-9), a join chain and full sorts (rows and order exactly), and
 the sort-merge route above `agg_max_groups()` (its state: ints exactly,
 f64 within rtol 1e-12, f64 bit-identical when run twice, one radix-sort
-launch a batch).
+launch a batch group).  The kernels also run at the batch-group fold's
+shapes (a group's rows in one launch), and the fold launches the grouped
+reduce once per slot per group (DATAFUSION_TPU_FUSE=0: per batch).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import datafusion_tpu_torch as tdf
 from datafusion_tpu_torch.exec import cuda as port_cuda
 from datafusion_tpu_torch.exec.cuda import hash_agg, hash_build, sort_kernel
+from datafusion_tpu_torch.exec.fused import fuse_group_max
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +79,23 @@ def test_kernel_matches_plain_version(dev, kind, dtype, n, g):
     before = hash_agg.LAUNCHES
     got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
     assert hash_agg.LAUNCHES == before + 1
+    want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
+    if dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
+        again = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+        assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    else:
+        assert torch.equal(got, want)
+
+
+# the batch-group fold's shapes: Q1's 46 batches of 131,072 rows and
+# config 2's 8 of 524,288 in one launch
+@pytest.mark.parametrize("n,g", [(46 * 131_072, 8), (46 * 131_072, 4096),
+                                 (8 * 524_288, 16)])
+@pytest.mark.parametrize("kind,dtype", CASES)
+def test_kernel_matches_plain_version_at_a_batch_group(dev, kind, dtype, n, g):
+    ids, vals, live = _inputs(kind, dtype, n, g, dev, seed=n + g)
+    got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
     want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
     if dtype.is_floating_point:
         torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
@@ -229,6 +249,23 @@ def test_argsort_kernel_matches_plain_version(dev, n, keys):
     assert torch.equal(got, sort_kernel.argsort_multi(ops))
 
 
+# the sort-merge aggregate at a batch group: arange(G), then the group's
+# ids with dead rows keyed G; config 2 at 100,000 groups (8 batches of
+# 524,288) and Q3 at SF-1 (46 batches of 131,072, 80 % dead)
+@pytest.mark.parametrize("groups,rows,used,live_share", [
+    (131_072, 8 * 524_288, 100_000, 1.0), (1 << 21, 46 * 131_072, 1_470_000, 0.2)])
+def test_argsort_kernel_matches_plain_version_at_a_batch_group(dev, groups, rows, used,
+                                                               live_share):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(groups)
+    ids = torch.randint(0, used, (rows,), generator=gen, device=dev)
+    live = torch.rand(rows, generator=gen, device=dev) < live_share
+    keys = torch.cat([torch.arange(groups, device=dev), torch.where(live, ids, groups)])
+    got = sort_kernel.argsort_i64(keys)
+    want = sort_kernel.argsort_multi_torch([keys])
+    assert got.numel() == groups + rows and torch.equal(got, want)
+
+
 def test_argsort_kernel_rejects_non_contiguous_input(dev):
     keys = torch.arange(16, device=dev)
     with pytest.raises(tdf.ExecutionError):
@@ -371,7 +408,7 @@ SLICE6 = [
     ("SELECT i, f + 1, tag FROM t WHERE i > 3 AND f < 0.5", False, ()),
     ("SELECT tag, i * 2, f / 3 FROM t WHERE tag > 'w150' OR f IS NULL", False, ()),
     ("SELECT 1 + 2", False, ()),
-    # TopK: one launch of the radix sort per batch
+    # TopK: one launch of the radix sort per batch group
     ("SELECT seq, f FROM t ORDER BY f DESC LIMIT 100", True, ("sort_kernel",)),
     ("SELECT seq, tag, i FROM t ORDER BY tag, i DESC LIMIT 1000", True, ("sort_kernel",)),
     ("SELECT seq, d FROM t WHERE c > 100 ORDER BY d LIMIT 37", True, ("sort_kernel",)),
@@ -396,7 +433,7 @@ def test_slice6_queries_on_card_match_the_cpu(dev, sql, ordered, needs):
         for name in needs:
             assert (counts[name] > 0) == (str(device) != "cpu")
         if "LIMIT" in sql and str(device) != "cpu":
-            assert counts["sort_kernel"] == len(batches)
+            assert counts["sort_kernel"] == -(-len(batches) // fuse_group_max())
         rows[str(device)] = got if ordered else sorted(got, key=repr)
     got, want = rows[str(dev)], rows["cpu"]
     assert len(got) == len(want) > 0
@@ -425,6 +462,63 @@ def test_csv_scan_on_card_matches_the_cpu(dev):
         ctx.register_csv("cities", path, schema, has_header=False)
         out.append(tdf.collect(ctx.sql(sql)).to_rows())
     assert out[0] == out[1] and len(out[0]) == 18
+
+
+def _rows_match(got, want):
+    """Rows equal: ints and strings exactly, floats within rtol 1e-9."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                assert x == pytest.approx(y, rel=1e-9, abs=0.0), (g, w)
+            else:
+                assert x == y, (g, w)
+
+
+def test_csv_scans_on_card_stage_by_default_and_match_the_cpu(dev, tmp_path, monkeypatch):
+    """Over a CSV scan on the card the aggregate and the pipeline run
+    their host prep on the prefetch threads by default
+    (`prefetch.pipeline_enabled`), while the reader grows its dictionary
+    in every batch; an aggregate with a string compare and a string MIN,
+    and a TopK on a Utf8 key over a computed projection, give the CPU's
+    rows and order."""
+    import threading
+
+    from datafusion_tpu_torch.exec.aggregate import AggregateRelation
+    from datafusion_tpu_torch.exec.relation import PipelineRelation
+
+    rng = np.random.default_rng(5)
+    letters = np.array(list("abcdefghij"))
+    words, lines = [], ["k,s,v"]
+    for _ in range(8):
+        words += ["".join(rng.choice(letters, 3)) for _ in range(40)]
+        for _ in range(2048):
+            lines.append(f"{rng.integers(0, 50)},{words[rng.integers(0, len(words))]},"
+                         f"{rng.normal() * 10:.6f}")
+    path = tmp_path / "grow.csv"
+    path.write_text("\n".join(lines) + "\n")
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", D.INT64, False), tdf.Field("s", D.UTF8, False),
+                         tdf.Field("v", D.FLOAT64, False)])
+    staged = []
+    for cls in (AggregateRelation, PipelineRelation):
+        def spy(self, batch, real=cls._stage):
+            staged.append(threading.current_thread().name)
+            return real(self, batch)
+        monkeypatch.setattr(cls, "_stage", spy)
+    monkeypatch.delenv("DATAFUSION_TPU_PREFETCH", raising=False)
+    for sql, ordered in (
+            ("SELECT k, SUM(v), MIN(s), COUNT(1) FROM t WHERE s > 'cde' GROUP BY k", False),
+            ("SELECT s, k, v * 2 FROM t WHERE v > -5.0 ORDER BY s DESC, k LIMIT 300", True)):
+        out = []
+        for device in ("cpu", dev):
+            ctx = tdf.ExecutionContext(device=device, batch_size=2048)
+            ctx.register_csv("t", str(path), schema, has_header=True)
+            rows = tdf.collect(ctx.sql(sql)).to_rows()
+            out.append(rows if ordered else sorted(rows))
+        _rows_match(out[1], out[0])
+        assert len(out[0]) > 40
+    assert staged and set(staged) == {"df-torch-prefetch"}
 
 
 # ------------------------------------------------------------ sort-merge route
@@ -467,15 +561,67 @@ def test_sortmerge_update_on_card_matches_the_cpu(dev, groups):
     cpu_counts, cpu_accs, _ = _accumulated_state("cpu", schema, batches)
     counts, accs, launches = _accumulated_state(dev, schema, batches)
     assert counts.shape[0] > port_cuda.agg_max_groups()
-    # every batch holds more than 8192 groups: one radix sort a batch,
-    # no grouped reduce
-    assert launches["sort_kernel"] == len(batches) and launches["hash_agg"] == 0
+    # the scan is one batch group above 8192 groups: one radix sort, no
+    # grouped reduce
+    assert launches["sort_kernel"] == 1 and launches["hash_agg"] == 0
     assert torch.equal(counts, cpu_counts)
     for got, want in zip(accs, cpu_accs):
         if want.dtype.is_floating_point:
             torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
         else:
             assert torch.equal(got, want)
+
+
+def test_sortmerge_one_batch_a_fold_sorts_once_a_batch(dev, monkeypatch):
+    schema, batches = _high_card_table(20_000)
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", "1")
+    cpu_counts, _, _ = _accumulated_state("cpu", schema, batches)
+    counts, _, launches = _accumulated_state(dev, schema, batches)
+    assert launches["sort_kernel"] == len(batches) and launches["hash_agg"] == 0
+    assert torch.equal(counts, cpu_counts)
+
+
+@pytest.mark.parametrize("fuse,slot_launches", [(None, 5), ("0", 5 * 8)])
+def test_grouped_reduce_launches_once_a_slot_a_group(dev, monkeypatch, fuse, slot_launches):
+    """Config 2's SELECT list over 8 batches: the fold launches the
+    grouped reduce once per slot (the row count and 4 slots) for the
+    scan, DATAFUSION_TPU_FUSE=0 once per slot per batch; the rows match
+    the CPU's and the fold's f64 sums are bit-identical over two runs
+    with the prefetch threads on."""
+    rng = np.random.default_rng(12)
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", D.INT64, False), tdf.Field("v1", D.FLOAT64, False),
+                         tdf.Field("v2", D.FLOAT64, False), tdf.Field("v3", D.INT64, False)])
+    n = 8 * 65_536
+    cols = [rng.integers(0, 4096, n), rng.uniform(0, 1e3, n), rng.uniform(-1, 1, n),
+            rng.integers(-(10**9), 10**9, n)]
+    batches = [tdf.make_host_batch(schema, [c[lo:lo + 65_536] for c in cols])
+               for lo in range(0, n, 65_536)]
+    sql = "SELECT k, SUM(v1), AVG(v2), MIN(v3), MAX(v3), COUNT(1) FROM t GROUP BY k"
+    if fuse is not None:
+        monkeypatch.setenv("DATAFUSION_TPU_FUSE", fuse)
+    out = {}
+    for device in ("cpu", dev, dev):
+        ctx = tdf.ExecutionContext(device=device)
+        ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+        port_cuda.reset_launch_counts()
+        table = tdf.collect(ctx.sql(sql))
+        if str(device) != "cpu":
+            assert port_cuda.launch_counts()["hash_agg"] == slot_launches
+            if str(device) in out:
+                for i in (1, 2):
+                    assert np.array_equal(np.asarray(table.columns[i]).view(np.int64),
+                                          np.asarray(out[str(device)].columns[i])
+                                          .view(np.int64))
+        out[str(device)] = table
+    got, want = (sorted(out[k].to_rows()) for k in (str(dev), "cpu"))
+    assert len(got) == len(want) == 4096
+    for g, w in zip(got, want):
+        for gv, wv in zip(g, w):
+            if isinstance(wv, float):
+                assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
+            else:
+                assert gv == wv, (g, w)
 
 
 def test_sortmerge_f64_sums_bit_identical_on_rerun(dev):
@@ -498,7 +644,7 @@ def test_high_cardinality_query_launches_the_sort_kernel(dev):
         port_cuda.reset_launch_counts()
         rows[str(device)] = sorted(tdf.collect(ctx.sql(HIGH_CARD_SQL)).to_rows(), key=repr)
         sorts = port_cuda.launch_counts()["sort_kernel"]
-        assert sorts == (len(batches) if str(device) != "cpu" else 0)
+        assert sorts == (1 if str(device) != "cpu" else 0)  # one batch group
     got, want = rows[str(dev)], rows["cpu"]
     assert len(got) == len(want) > 90_000
     for g, w in zip(got, want):

@@ -516,6 +516,14 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert rows.num_rows == 18, rows.num_rows\n"
         "top = t.collect(ctx.sql('SELECT k, v FROM t ORDER BY v DESC LIMIT 2')).to_rows()\n"
         "assert top == [(0, 9.0), (2, 8.0)], top\n"
+        # the staged prefetch threads (exec/prefetch.py), forced on
+        "import os\n"
+        "os.environ['DATAFUSION_TPU_PREFETCH'] = '1'\n"
+        "rows = sorted(t.collect(ctx.sql('SELECT k, SUM(v) FROM t GROUP BY k')).to_rows())\n"
+        "assert rows == [(0, 18.0), (1, 12.0), (2, 15.0)], rows\n"
+        "rows = t.collect(ctx.sql('SELECT city, lat + lng FROM c WHERE lat > 51.0 AND lat < 53'))\n"
+        "assert rows.num_rows == 18, rows.num_rows\n"
+        "assert 'datafusion_tpu_torch.exec.prefetch' in sys.modules\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

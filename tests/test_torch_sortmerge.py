@@ -86,7 +86,7 @@ def routes(monkeypatch):
 
 def assert_sortmerge_ran(routes, kernel_too=False):
     """The sort-merge route ran, one argsort per update, on the keys
-    arange(G) and then the batch's ids, a dead row keyed as G."""
+    arange(G) and then the batch group's ids, a dead row keyed as G."""
     assert routes.sortmerge
     assert len(routes.sort_keys) == len(routes.sortmerge)
     assert (routes.kernel > 0) == kernel_too
@@ -266,21 +266,37 @@ def test_where_that_filters_whole_groups_out(routes, monkeypatch):
     assert_sortmerge_ran(routes)
 
 
-def test_capacity_crossing_the_threshold_mid_scan(routes, monkeypatch):
-    # ascending keys: the first batches hold under 256 groups (the
-    # grouped reduce), later ones more (sort-merge on the same state)
-    monkeypatch.setenv(ROUTE_ENV, "256")
+def _ascending_keys_table():
     rng = np.random.default_rng(13)
     n = 16_384
     cols = [np.sort(rng.integers(0, 2000, n)), rng.uniform(0.0, 1000.0, n),
             rng.uniform(-1.0, 1.0, n), rng.integers(1, 10**6, n)]
-    src = jax_table([("k", T.INT64, False), ("v1", T.FLOAT64, False),
-                     ("v2", T.FLOAT64, False), ("v3", T.INT64, False)], cols,
-                    batch_rows=1024)
-    want, got = run_both(src, CONFIG2)
+    return jax_table([("k", T.INT64, False), ("v1", T.FLOAT64, False),
+                      ("v2", T.FLOAT64, False), ("v3", T.INT64, False)], cols,
+                     batch_rows=1024)
+
+
+def test_capacity_crossing_the_threshold_mid_scan(routes, monkeypatch):
+    # ascending keys, two batches a fold: the first chunks hold under
+    # 256 groups (the grouped reduce), later ones more (sort-merge on
+    # the same state)
+    monkeypatch.setenv(ROUTE_ENV, "256")
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", "2")
+    want, got = run_both(_ascending_keys_table(), CONFIG2)
     rows = assert_same(got, want, ordered=False)
     assert min(r[3] for r in rows) > 0  # MIN over grown slots starts at the identity
     assert_sortmerge_ran(routes, kernel_too=True)
+    assert len(routes.sortmerge) == 7  # chunks 2 to 8 (1024-row batches)
+
+
+def test_default_fold_sizes_the_whole_scan_at_once(routes, monkeypatch):
+    # the same scan in one chunk: its capacity (2048) is picked once the
+    # chunk is encoded, so the whole scan folds into one sort-merge
+    monkeypatch.setenv(ROUTE_ENV, "256")
+    want, got = run_both(_ascending_keys_table(), CONFIG2)
+    assert_same(got, want, ordered=False)
+    assert_sortmerge_ran(routes)
+    assert routes.sortmerge == [2048] and routes.sort_keys[0].numel() == 2048 + 16_384
 
 
 @pytest.mark.parametrize("sql", [CONFIG2, "SELECT SUM(v1), MIN(v3), COUNT(1) FROM t"])
@@ -345,25 +361,32 @@ Q10 = ("SELECT c_custkey, n_name, "
 
 
 # SF 0.01.  Q3's WHERE runs in the aggregate, after the joins, so it
-# encodes every order that has lines (14,717 groups): at the default
-# threshold its scan crosses 8192 groups after the first batch and
-# switches route.  Q10's 1,501 groups stay on the grouped reduce there.
-@pytest.mark.parametrize("sql,threshold,kernel,sortmerge,min_groups", [
-    (Q3, "64", False, True, 2000), (Q3, None, True, True, 2000),
-    (Q10, "64", False, True, 1000), (Q10, None, True, False, 1000),
-], ids=["q3-64", "q3-default", "q10-64", "q10-default"])
-def test_tpch_q3_q10(tpch, routes, monkeypatch, sql, threshold, kernel,  # noqa: F811
-                     sortmerge, min_groups):
+# encodes every order that has lines (14,717 groups).  At the default
+# threshold and fold its scan is one chunk, sized once it is encoded:
+# sort-merge only; a fold of one batch crosses 8192 groups after the
+# first batch and switches route.  Q10's 1,501 groups stay on the
+# grouped reduce there.
+@pytest.mark.parametrize("sql,threshold,fuse_group,kernel,sortmerge,min_groups", [
+    (Q3, "64", None, False, True, 2000), (Q3, None, None, False, True, 2000),
+    (Q3, None, "1", True, True, 2000),
+    (Q10, "64", None, False, True, 1000), (Q10, None, None, True, False, 1000),
+], ids=["q3-64", "q3-default", "q3-default-fold1", "q10-64", "q10-default"])
+def test_tpch_q3_q10(tpch, routes, monkeypatch, sql, threshold,  # noqa: F811
+                     fuse_group, kernel, sortmerge, min_groups):
     # the shapes of benchmarks/suite.py config_joins over the TPC-H-lite
     # star schema of benchmarks/data.py
     if threshold is not None:
         monkeypatch.setenv(ROUTE_ENV, threshold)
+    if fuse_group is not None:
+        monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", fuse_group)
     want, got, _ = run_joins(tpch, sql)
     assert got.num_rows > min_groups
     assert_same(got, want, ordered=False)
     assert (routes.kernel > 0) == kernel and bool(routes.sortmerge) == sortmerge
     if sortmerge:
         assert_sortmerge_ran(routes, kernel_too=kernel)
+        if fuse_group is None:
+            assert len(routes.sortmerge) == 1  # the whole scan, one sort
 
 
 def test_high_cardinality_group_by_no_longer_raises(monkeypatch):

@@ -5,10 +5,11 @@ The same SQL on the same numpy-seeded tables runs through both packages
 with `device="cpu"`.  Rows and their order match exactly: every table
 carries a unique `tag` column, so a tie broken differently, or a -0.0
 placed on the other side of a +0.0, shows as a different tag.  The
-port's TopK merges each batch into a state of k rows through the
-radix argsort (`sort_kernel.argsort_multi`, its plain version on the
-CPU); `torch.topk`, whose tie order differs from `lax.top_k`'s, is
-never called.
+port's TopK merges each batch group (up to DATAFUSION_TPU_FUSE_GROUP
+batches, 256 by default; one batch a merge at 1) into a state of k
+rows through the radix argsort (`sort_kernel.argsort_multi`, its plain
+version on the CPU); `torch.topk`, whose tie order differs from
+`lax.top_k`'s, is never called.
 
 Cases, after tests/test_sort.py and
 tests/test_kernels.py::TestSortSemantics: stability under heavy ties,
@@ -80,6 +81,16 @@ def _mixed(n=6000, seed=47, batch_rows=2048, nulls=False):
 def test_keys_directions_and_k(merges, order, k):
     rows, rel = run(_mixed(), f"SELECT s, f, i, tag FROM t ORDER BY {order} LIMIT {k}")
     assert isinstance(rel, SortRelation) and len(rows) == k
+    assert len(merges) == 1  # the scan's 3 batches fold into one merge
+
+
+@pytest.mark.parametrize("order", ["i", "i DESC", "f", "f DESC", "s", "s DESC",
+                                   "s, f DESC, i", "i DESC, s, f"])
+@pytest.mark.parametrize("k", [1, 7, 100, 1000])
+def test_keys_directions_and_k_one_batch_a_merge(merges, monkeypatch, order, k):
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", "1")
+    rows, rel = run(_mixed(), f"SELECT s, f, i, tag FROM t ORDER BY {order} LIMIT {k}")
+    assert isinstance(rel, SortRelation) and len(rows) == k
     assert len(merges) == 3  # one merge per batch of 2048 rows
 
 
@@ -93,17 +104,38 @@ def test_null_keys_sort_last(merges, order):
 
 
 @pytest.mark.parametrize("order,width", [
-    # operands a merge: one value image a key, and a key's dead flag
-    # from the first batch that holds a NULL in it (i: batch 2, f: 4)
-    ("f DESC", [1, 1, 1, 1, 2, 2]),
-    ("x", [1] * 6),
-    ("i, f", [2, 2, 3, 3, 4, 4]),
-    ("x DESC, i", [2, 2, 3, 3, 3, 3]),
+    # operands of the one merge of the scan: a key's dead flag, since
+    # the group holds a NULL in i (batch 2) and in f (batch 4)
+    ("f DESC", [2]),
+    ("x", [1]),
+    ("i, f", [4]),
+    ("x DESC, i", [3]),
 ])
 def test_key_operands_follow_the_nulls_seen(monkeypatch, order, width):
-    """A key crosses as its value image alone until a batch brings its
-    first NULL; the state's operands are then rebuilt with the key's
+    """A key crosses as its value image alone until a batch group brings
+    its first NULL; the state's operands are then rebuilt with the key's
     dead flag, and the rows still match.  NaN shares the value image."""
+    _key_operands(monkeypatch, order, width)
+
+
+@pytest.mark.parametrize("fuse_group,order,width", [
+    # operands a merge: one value image a key, and a key's dead flag
+    # from the first group that holds a NULL in it (i: batch 2, f: 4)
+    ("1", "f DESC", [1, 1, 1, 1, 2, 2]),
+    ("1", "x", [1] * 6),
+    ("1", "i, f", [2, 2, 3, 3, 4, 4]),
+    ("1", "x DESC, i", [2, 2, 3, 3, 3, 3]),
+    ("2", "f DESC", [1, 1, 2]),
+    ("2", "x", [1, 1, 1]),
+    ("2", "i, f", [2, 3, 4]),
+    ("2", "x DESC, i", [2, 3, 3]),
+])
+def test_key_operands_rebuild_where_a_group_starts(monkeypatch, fuse_group, order, width):
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", fuse_group)
+    _key_operands(monkeypatch, order, width)
+
+
+def _key_operands(monkeypatch, order, width):
     n, b = 6 * 1024, 1024
     rng = np.random.default_rng(5)
     f = rng.normal(size=n).round(1)
@@ -223,7 +255,7 @@ def test_k_at_and_past_topk_max(merges, k):
     rows, _ = run(src, f"SELECT a, tag FROM t ORDER BY a DESC LIMIT {k}")
     assert len(rows) == k
     # the TopK merges once per batch; the full sort sorts one run
-    assert len(merges) == (5 if k == TOPK_MAX else 1)
+    assert len(merges) == 1  # the TopK's 5 batches fold into one merge
 
 
 def test_empty_input_and_no_survivors(merges):
@@ -234,9 +266,24 @@ def test_empty_input_and_no_survivors(merges):
     assert merges == []
 
 
-def test_state_keeps_only_batches_that_hold_survivors():
-    """The host holds O(k + batch) rows: after a scan whose top rows all
-    sit in the last batch, only that batch is held."""
+def test_state_keeps_only_batches_that_hold_survivors(monkeypatch):
+    """The host holds O(k + batch) rows at one batch a merge: after a
+    scan whose top rows all sit in the last batch, only that batch is
+    held."""
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", "1")
+    assert max(_held_sizes()) <= 2
+
+
+def test_held_batches_are_pruned_per_group(monkeypatch):
+    """At 4 batches a merge the host holds at most one group besides the
+    batches of the survivors, and after the last merge only the batch
+    of the survivors."""
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE_GROUP", "4")
+    sizes = _held_sizes()
+    assert max(sizes) <= 5 and sizes[-1] == 1
+
+
+def _held_sizes():
     n = 20_000
     src = jax_table([("a", T.INT64, False), ("tag", T.INT64, False)],
                     [np.arange(n), np.arange(n)], batch_rows=1000)
@@ -255,4 +302,4 @@ def test_state_keeps_only_batches_that_hold_survivors():
     finally:
         SortRelation._owner = staticmethod(real)
     assert [r[0] for r in rows] == list(range(n - 1, n - 11, -1))
-    assert max(held_sizes) <= 2
+    return held_sizes
