@@ -91,6 +91,23 @@ which raises on failure:
 10. UInt8 to UInt64 columns (UInt64 at and above 2^63) on the card: MIN,
    MAX and SUM under a WHERE, grouped, and a filter alone, against
    numpy.
+11. Serving (datafusion_tpu_torch/serve.py).  First the grouped reduce's
+   query axis (`grouped_reduce_multi`) against its plain version and
+   against Q solo launches, bit for bit, at Q1's group shape (Q = 1, 8,
+   16), config 2's (G = 16 and 4096, Q = 4) and for MIN and MAX with
+   NaN, with its times against Q solo launches and one `scatter_reduce_`
+   over offset ids (`query_axis_timing` lines; right after phase 2).
+   Then, after phase 8, a Server(workers=2, window_s=0.01,
+   megabatch_max=16) over the SF-1 lineitem: 8 closed-loop clients with
+   4 Q1-shaped queries each (32 l_shipdate cutoffs; a warm-up round,
+   then the measured one: no byte copied to the device, fewer
+   grouped-reduce launches than queries, every answer its solo answer
+   bit for bit and the numpy oracle within rtol 1e-9), the TopK lane
+   (LIMIT 10, 100, 1000 at once: fewer sort launches than queries) and
+   the pipeline lane (8 l_discount literals), each answer its solo
+   answer exactly; eviction under a DATAFUSION_TPU_HBM_BYTES cap and an
+   `hbm` shed.  After phase 5, Q12 served 4 times: one build launch, 3
+   reuses of the pinned build.  Each lane prints a `serve:` line.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.
 
@@ -433,8 +450,8 @@ def _agg_phase_split(torch, hash_agg, cuda_mod, lib, ids, vals, live, g):
     buf = torch.empty(g * (1 + blocks), dtype=torch.float64, device=vals.device)
     for _ in range(3):
         rc = lib.df_grouped_reduce(
-            5, 0, ids.data_ptr(), vals.data_ptr(), live.data_ptr(), n, g, tile_g, warps,
-            lane_parts, blocks, chunk_rows, fold_lanes, buf.data_ptr(),
+            5, 0, ids.data_ptr(), vals.data_ptr(), 0, live.data_ptr(), n, 1, g, tile_g,
+            warps, lane_parts, blocks, chunk_rows, fold_lanes, buf.data_ptr(),
             cuda_mod.raw_stream(vals.device))
         if rc != 0:
             raise RuntimeError(f"phase-clock build: CUDA error {rc}")
@@ -870,8 +887,8 @@ def lineitem_sf1(tdf, batch_rows):
     return tdf.MemoryDataSource(schema, batches), c, dates
 
 
-def q1_oracle(c, dates):
-    keep = c["ship"] <= dates.index("1998-09-02")
+def q1_oracle(c, dates, cutoff="1998-09-02"):
+    keep = c["ship"] <= dates.index(cutoff)
     key = (c["flag"] * 2 + c["status"])[keep]
     qty, price = c["qty"][keep], c["price"][keep]
     disc, tax = c["disc"][keep], c["tax"][keep]
@@ -1779,6 +1796,417 @@ def phase_unsigned(tdf, cuda_mod, torch, ctx, smi):
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 11
+
+# the grouped reduce's query axis: (N, G, Q, values per query, where)
+QUERY_AXIS_SHAPES = ((46 * 131_072, 8, 1, False, "Q1 batch group"),
+                     (46 * 131_072, 8, 8, False, "Q1 batch group"),
+                     (46 * 131_072, 8, 16, False, "Q1 batch group"),
+                     (8 * 524_288, 16, 4, True, "config 2 batch group, 16 groups"),
+                     (8 * 524_288, 4096, 4, True, "config 2 batch group, 4096 groups"))
+
+
+def _query_axis_inputs(torch, n, g, q, per_query, gen, dev, kind="sum"):
+    ids = torch.randint(-1, g + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    live = torch.rand((q, n), generator=gen, device=dev) > 0.3
+    shape = (q, n) if per_query else (n,)
+    lo = 0.0 if kind == "sum" else -1e3
+    vals = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * (1e3 - lo) + lo
+    if kind != "sum":
+        vals[torch.rand(shape, generator=gen, device=dev) < 1e-4] = float("nan")
+    return ids, vals, live
+
+
+def _check_query_axis(torch, hash_agg, ids, vals, live, g, kind, label):
+    """One query-axis launch against its plain version (rtol 1e-12) and
+    against Q solo launches, bit for bit.  Returns the largest absolute
+    difference from the plain version."""
+    got = hash_agg.grouped_reduce_multi(ids, vals, live, g, kind)
+    want = hash_agg.grouped_reduce_multi_torch(ids, vals, live, g, kind)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True, msg=label)
+    for j in range(live.shape[0]):
+        solo = hash_agg.grouped_reduce(ids, vals if vals.dim() == 1 else vals[j].contiguous(),
+                                       live[j].contiguous(), g, kind)
+        if not torch.equal(got[j].view(torch.int64), solo.view(torch.int64)):
+            raise AssertionError(f"{label}: query {j} differs from its solo launch")
+    fin = torch.isfinite(want)
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def phase_query_axis(torch, hash_agg, dev):
+    """The grouped reduce's query axis on the card: parity at Q1's group
+    shape (Q = 1, 8, 16), config 2's (G = 16 and 4096, Q = 4; values per
+    query) and for MIN and MAX with NaN, each query bit for bit against
+    its solo launch; then the times of one launch against Q solo
+    launches, its plain version and one `scatter_reduce_` over the
+    offset ids q * G + id on Q x N rows (dead rows keyed Q * G, one slot
+    past the result), with its byte bound: the ids once, the values
+    (once when shared) and Q live masks, Q * G results."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(909)
+    err = 0.0
+    for n, g, q, per_query, where in QUERY_AXIS_SHAPES:
+        ids, vals, live = _query_axis_inputs(torch, n, g, q, per_query, gen, dev)
+        err = max(err, _check_query_axis(torch, hash_agg, ids, vals, live, g, "sum",
+                                         f"sum N={n} G={g} Q={q}"))
+    for kind in ("min", "max"):
+        ids, vals, live = _query_axis_inputs(torch, 1_000_000, 4096, 4, True, gen, dev, kind)
+        err = max(err, _check_query_axis(torch, hash_agg, ids, vals, live, 4096, kind,
+                                         f"{kind} with NaN"))
+    log(f"query axis parity: {len(QUERY_AXIS_SHAPES) + 2} shapes, every query bit for bit "
+        f"its solo launch, plain within rtol 1e-12, max_abs_err {err!r}")
+    entries = []
+    for n, g, q, per_query, where in QUERY_AXIS_SHAPES:
+        ids, vals, live = _query_axis_inputs(torch, n, g, q, per_query, gen, dev)
+
+        def kern():
+            return hash_agg.grouped_reduce_multi(ids, vals, live, g, "sum")
+
+        def solos():
+            for j in range(q):
+                hash_agg.grouped_reduce(ids, vals if not per_query else vals[j], live[j], g,
+                                        "sum")
+
+        rows = live.reshape(-1)
+        offset = (torch.arange(q, device=dev, dtype=torch.int64)[:, None] * g
+                  + ids.long()[None, :])
+        idx = torch.where(live & (ids >= 0)[None, :] & (ids < g)[None, :], offset,
+                          q * g).reshape(-1)
+        flat = vals.expand(q, n).reshape(-1).contiguous()
+        out = torch.zeros(q * g + 1, dtype=torch.float64, device=dev)
+
+        def library():
+            out.zero_().scatter_reduce_(0, idx, flat, "sum")
+
+        kern_ms = _time_ms(torch, kern, reps=50)
+        solo_ms = _time_ms(torch, solos, reps=20)
+        plain_ms = _time_ms(torch, lambda: hash_agg.grouped_reduce_multi_torch(
+            ids, vals, live, g, "sum"), reps=5)
+        lib_ms = _time_ms(torch, library, reps=20)
+        nbytes = 4 * n + vals.numel() * 8 + rows.numel() + q * g * 8
+        entry = _kernel_entry(f"{where}: N={n}, G={g}, Q={q}, f64 sum, "
+                              f"{'values per query' if per_query else 'shared values'}",
+                              kern_ms, plain_ms, lib_ms, _profiled(torch, kern), nbytes)
+        entry.update({"solo_launches_ms": solo_ms,
+                      "solo_launches_device_ms": _profiled(torch, solos),
+                      "library_device_ms": _profiled(torch, library), "card": card()})
+        log("query_axis_timing: " + json.dumps(entry))
+        entries.append(entry)
+    return err, entries
+
+
+def assert_same_bits(got, want, label, key_cols=1, ordered=False):
+    """Two results of one query, every column and validity mask byte for
+    byte (f64 bit for bit), after ordering both by their first
+    `key_cols` columns unless `ordered`."""
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{label}: {got.num_rows} rows against {want.num_rows}")
+
+    def columns(t):
+        cols = [np.asarray(c) for c in t.columns]
+        valid = [None if v is None else np.asarray(v) for v in t.validity]
+        if not ordered:
+            keys = [c.astype(str) if c.dtype == object else c for c in cols[:key_cols]]
+            order = np.lexsort(keys[::-1])
+            cols = [c[order] for c in cols]
+            valid = [None if v is None else v[order] for v in valid]
+        return cols, valid
+
+    (g, gv), (w, wv) = columns(got), columns(want)
+    for i in range(len(w)):
+        same_valid = (gv[i] is None) == (wv[i] is None) and (
+            gv[i] is None or np.array_equal(gv[i], wv[i]))
+        if not same_valid:
+            raise AssertionError(f"{label}: column {i} NULLs differ")
+        if g[i].dtype == object:
+            same = np.array_equal(g[i], w[i])
+        else:
+            same = g[i].dtype == w[i].dtype and g[i].tobytes() == w[i].tobytes()
+        if not same:
+            raise AssertionError(f"{label}: column {i} not bit for bit its solo answer")
+
+
+def _serve_clients(srv, per_client, timeout=600.0):
+    """Closed-loop clients, one thread each: client i submits its queries
+    `per_client[i]` one after another, each once the last has answered.
+    Returns ({sql: table}, per-query latencies in ms, wall seconds)."""
+    import threading
+
+    results, lat, errors = {}, [], []
+    lock = threading.Lock()
+    start = threading.Barrier(len(per_client))
+
+    def client(sqls):
+        try:
+            start.wait(timeout)
+            for sql in sqls:
+                t0 = time.perf_counter()
+                table = srv.submit(sql).result(timeout=timeout)
+                with lock:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    results[sql] = table
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(sqls,)) for sqls in per_client]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout + 60)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a serving client did not finish")
+    return results, lat, wall
+
+
+SERVE_TOPK = ("SELECT l_returnflag, l_extendedprice, l_quantity FROM lineitem "
+              "ORDER BY l_extendedprice DESC LIMIT {}")
+SERVE_PIPELINE = ("SELECT l_returnflag, l_quantity, l_extendedprice * (1 - l_discount) "
+                  "FROM lineitem WHERE l_shipdate <= '1998-09-02' AND l_discount > {}")
+
+
+def phase_serve(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi):
+    """The serving front door over the SF-1 lineitem (6,000,000 rows in
+    memory), pinned by a Server(workers=2, window_s=0.01,
+    megabatch_max=16) over a context of its own:
+
+    - aggregate lane: 8 closed-loop clients, 4 Q1-shaped queries each,
+      32 distinct l_shipdate cutoffs; a warm-up round pins the table and
+      encodes, then the measured round (launch counters reset just
+      before, read just after) must copy nothing to the device
+      (`h2d.bytes`) and launch the grouped reduce less than once per
+      query; every answer equals its solo run bit for bit and the numpy
+      oracle within rtol 1e-9; then the same 32 queries back to back
+      without a server;
+    - TopK lane: LIMIT 10, 100 and 1000 from 3 concurrent clients, each
+      its solo answer exactly, less than one sort launch per query;
+    - pipeline lane: the SF-1 filter/project with 8 l_discount literals
+      from 8 concurrent clients, each its solo answer exactly;
+    - eviction: two 1,000,000-row tables under a DATAFUSION_TPU_HBM_BYTES
+      cap that holds one; the second evicts the first, and a third
+      table under a cap nothing fits sheds `hbm`.
+    `admitted + shed == submitted` on every server."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    def counts():
+        snap = METRICS.snapshot()
+        return snap["counts"], snap["timings_s"]
+
+    ctx = tdf.ExecutionContext()
+    ctx.register_datasource("lineitem", src)
+    cutoffs = [dates[dates.index("1998-09-02") - 7 * i] for i in range(32)]
+    sqls = [Q1.replace("1998-09-02", c) for c in cutoffs]
+    per_client = [sqls[4 * i:4 * i + 4] for i in range(8)]
+    reports = []
+    srv = ctx.serve(workers=2, window_s=0.01, megabatch_max=16)
+    try:
+        t0 = time.perf_counter()
+        _serve_clients(srv, per_client)
+        log(f"serve aggregate lane: warm-up round (pins, encodes) "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        c0, t0_ = counts()
+        cuda_mod.reset_launch_counts()
+        served, lat, wall = _serve_clients(srv, per_client)
+        launches = cuda_mod.launch_counts()
+        multi = hash_agg.MULTI_LAUNCHES
+        c1, t1_ = counts()
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    if srv.admitted + srv.shed != srv.submitted or srv.shed:
+        raise AssertionError(f"serve: admitted {srv.admitted} + shed {srv.shed} != "
+                             f"submitted {srv.submitted}")
+    h2d = c1.get("h2d.bytes", 0) - c0.get("h2d.bytes", 0)
+    encode_ms = (t1_.get("agg.host_encode", 0.0) - t0_.get("agg.host_encode", 0.0)) * 1e3
+    mega_q = c1.get("serve.megabatch_queries", 0) - c0.get("serve.megabatch_queries", 0)
+    if multi <= 0:
+        raise AssertionError("serve aggregate lane: the query axis was not launched")
+    if h2d != 0:
+        raise AssertionError(f"serve aggregate lane: warm round copied {h2d} bytes")
+    if launches["hash_agg"] >= len(sqls):
+        raise AssertionError(f"serve aggregate lane: {launches['hash_agg']} grouped-reduce "
+                             f"launches for {len(sqls)} queries")
+    # the same 32 queries back to back without a server, which are also
+    # each query's solo answer
+    t0 = time.perf_counter()
+    solo = {sql: tdf.collect(ctx.sql(sql)) for sql in sqls}
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    for sql, cutoff in zip(sqls, cutoffs):
+        assert_same_bits(served[sql], solo[sql], f"served Q1 <= {cutoff}", key_cols=2)
+        assert_rows(served[sql], q1_oracle(cols, dates, cutoff), f"served Q1 <= {cutoff}")
+    agg = {
+        "lane": "aggregate", "queries": len(sqls), "clients": 8,
+        "served_queries_per_s": len(sqls) / wall,
+        "sequential_queries_per_s": len(sqls) / seq_wall,
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "launches": launches, "query_axis_launches": multi,
+        "grouped_reduce_launches_per_query": launches["hash_agg"] / len(sqls),
+        "megabatches": c1.get("serve.megabatches", 0) - c0.get("serve.megabatches", 0),
+        "megabatched_queries": mega_q, "h2d_bytes": h2d,
+        "host_encode_ms_per_query": encode_ms / len(sqls),
+        "pinned_bytes": stats["pinned_bytes"], "server_p50_s": stats.get("p50_s"),
+        "card": card(),
+    }
+    log("serve: " + json.dumps(agg))
+    reports.append(agg)
+
+    # TopK lane: one query per client, all at once
+    topk_sqls = [SERVE_TOPK.format(k) for k in (10, 100, 1000)]
+    srv = ctx.serve(workers=2, window_s=0.01, megabatch_max=16)
+    try:
+        _serve_clients(srv, [[s] for s in topk_sqls])
+        c0, _ = counts()
+        cuda_mod.reset_launch_counts()
+        served, lat, wall = _serve_clients(srv, [[s] for s in topk_sqls])
+        launches = cuda_mod.launch_counts()
+        c1, _ = counts()
+    finally:
+        srv.stop()
+    if srv.admitted + srv.shed != srv.submitted:
+        raise AssertionError("serve TopK lane: admitted + shed != submitted")
+    if not 0 < launches["sort_kernel"] < len(topk_sqls):
+        raise AssertionError(f"serve TopK lane: {launches['sort_kernel']} sort launches for "
+                             f"{len(topk_sqls)} queries")
+    for sql in topk_sqls:
+        assert_same_bits(served[sql], tdf.collect(ctx.sql(sql)), sql[-10:], ordered=True)
+    topk = {"lane": "topk", "queries": len(topk_sqls), "launches": launches,
+            "sort_launches_per_query": launches["sort_kernel"] / len(topk_sqls),
+            "megabatches": c1.get("serve.megabatches", 0) - c0.get("serve.megabatches", 0),
+            "megabatched_queries": c1.get("serve.megabatch_queries", 0)
+            - c0.get("serve.megabatch_queries", 0),
+            "p50_ms": float(np.percentile(lat, 50)), "wall_ms": wall * 1e3, "card": card()}
+    log("serve: " + json.dumps(topk))
+    reports.append(topk)
+
+    # pipeline lane: 8 l_discount literals from 8 concurrent clients
+    pipe_sqls = [SERVE_PIPELINE.format(f"{0.01 * i:.2f}") for i in range(8)]
+    srv = ctx.serve(workers=2, window_s=0.01, megabatch_max=16)
+    try:
+        c0, _ = counts()
+        cuda_mod.reset_launch_counts()
+        served, lat, wall = _serve_clients(srv, [[s] for s in pipe_sqls])
+        launches = cuda_mod.launch_counts()
+        c1, _ = counts()
+    finally:
+        srv.stop()
+    if srv.admitted + srv.shed != srv.submitted:
+        raise AssertionError("serve pipeline lane: admitted + shed != submitted")
+    t0 = time.perf_counter()
+    for sql in pipe_sqls:
+        assert_same_bits(served[sql], tdf.collect(ctx.sql(sql)), sql[-20:], ordered=True)
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    pipe = {"lane": "pipeline", "queries": len(pipe_sqls), "launches": launches,
+            "megabatches": c1.get("serve.megabatches", 0) - c0.get("serve.megabatches", 0),
+            "megabatched_queries": c1.get("serve.megabatch_queries", 0)
+            - c0.get("serve.megabatch_queries", 0),
+            "passes": c1.get("serve.megabatch_launches", 0)
+            - c0.get("serve.megabatch_launches", 0),
+            "p50_ms": float(np.percentile(lat, 50)), "wall_ms": wall * 1e3,
+            "sequential_with_checks_ms": seq_ms, "card": card()}
+    log("serve: " + json.dumps(pipe))
+    reports.append(pipe)
+
+    reports.append(_serve_eviction(tdf, torch, cuda_mod))
+    return reports
+
+
+def _serve_eviction(tdf, torch, cuda_mod):
+    """Two 1,000,000-row tables under a DATAFUSION_TPU_HBM_BYTES cap
+    that holds one of them; then a cap nothing fits under."""
+    import gc
+
+    from datafusion_tpu_torch.errors import QueryShedError
+    from datafusion_tpu_torch.obs.device import LEDGER
+    from datafusion_tpu_torch.serve import PinnedSource
+
+    ctx = tdf.ExecutionContext()
+    tables = {}
+    for name, groups in (("a", 16), ("b", 4096), ("c", 16)):
+        src, cols = groupby_table(tdf, groups, rows=1_000_000)
+        ctx.register_datasource(name, src)
+        tables[name] = (cols, groups)
+    sql = CONFIG2.replace("FROM t", "FROM {}")
+    gc.collect()
+    cuda_mod.reset_launch_counts()
+    srv = ctx.serve(workers=2, window_s=0.01, megabatch_max=16)
+    shed = None
+    try:
+        got_a = srv.submit(sql.format("a")).result(timeout=600)
+        if "table:a" not in LEDGER.pins_snapshot():
+            raise AssertionError("serve eviction: table a was not pinned")
+        est_b = PinnedSource(ctx.datasources["b"], "b").estimated_bytes()
+        cap = LEDGER.live_bytes() + est_b // 2
+        os.environ["DATAFUSION_TPU_HBM_BYTES"] = str(cap)
+        got_b = srv.submit(sql.format("b")).result(timeout=600)
+        pins_b = sorted(LEDGER.pins_snapshot())
+        if "table:b" not in pins_b or "table:a" in pins_b:
+            raise AssertionError(f"serve eviction: pins {pins_b} after b")
+        os.environ["DATAFUSION_TPU_HBM_BYTES"] = "1000"
+        try:
+            srv.submit(sql.format("c"))
+        except QueryShedError as e:
+            shed = e.reason
+        pins_c = sorted(LEDGER.pins_snapshot())
+    finally:
+        os.environ.pop("DATAFUSION_TPU_HBM_BYTES", None)
+        srv.stop()
+    if shed != "hbm":
+        raise AssertionError(f"serve eviction: table c was not shed for hbm ({shed})")
+    if srv.admitted + srv.shed != srv.submitted or (srv.admitted, srv.shed) != (2, 1):
+        raise AssertionError(f"serve eviction: admitted {srv.admitted}, shed {srv.shed}, "
+                             f"submitted {srv.submitted}")
+    for name, got in (("a", got_a), ("b", got_b)):
+        cols, groups = tables[name]
+        assert_grouped(got, config2_columns(cols, groups), f"served config 2 over {name}")
+    rep = {"lane": "eviction", "cap_bytes": cap, "table_bytes": est_b,
+           "pins_after_b": pins_b, "pins_after_c": pins_c, "shed": shed,
+           "launches": cuda_mod.launch_counts(), "card": card()}
+    log("serve: " + json.dumps(rep))
+    return rep
+
+
+def phase_serve_joins(tdf, cuda_mod, torch, ctx, cols):
+    """Q12 over the SF-1 star schema through a Server, 4 times (once,
+    then 3 at once): the orders build launches the build kernel once and
+    the other 3 probe its pin (`join.build.reuse`); answers equal the
+    numpy oracle."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    sctx = tdf.ExecutionContext()
+    for name in ("lineitem", "orders"):
+        sctx.register_datasource(name, ctx.datasources[name])
+    cuda_mod.reset_launch_counts()
+    reuse0 = METRICS.snapshot()["counts"].get("join.build.reuse", 0)
+    srv = sctx.serve(workers=2, window_s=0.01, megabatch_max=16)
+    try:
+        first, lat0, _ = _serve_clients(srv, [[Q12]])
+        rest = []
+        for _ in range(3):
+            rest.append(srv.submit(Q12))
+        tables = [first[Q12]] + [t.result(timeout=600) for t in rest]
+    finally:
+        srv.stop()
+    launches = cuda_mod.launch_counts()
+    reuse = METRICS.snapshot()["counts"].get("join.build.reuse", 0) - reuse0
+    for t in tables:
+        if t.to_rows() != q12_oracle(cols):
+            raise AssertionError("served Q12 differs from the numpy oracle")
+    if launches["hash_build"] != 1 or reuse != 3:
+        raise AssertionError(f"served Q12: {launches['hash_build']} builds, {reuse} reuses "
+                             "(want 1 and 3)")
+    if srv.admitted + srv.shed != srv.submitted:
+        raise AssertionError("served Q12: admitted + shed != submitted")
+    rep = {"lane": "join", "query": "Q12", "submitted": 4, "launches": launches,
+           "build_reuse": reuse, "first_ms": lat0[0], "card": card()}
+    log("serve: " + json.dumps(rep))
+    return rep
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1812,6 +2240,7 @@ def main() -> int:
     shapes = phase_kernel_timing(torch, hash_agg, cuda_mod, dev)
     new_shapes = phase_new_kernel_timing(torch, hash_build, sort_kernel, dev)
     phase_route_timing(tdf, torch, sort_kernel, dev)
+    axis_err, axis_shapes = phase_query_axis(torch, hash_agg, dev)
 
     ctx = tdf.ExecutionContext()  # cuda:0
     t0 = time.perf_counter()
@@ -1835,6 +2264,8 @@ def main() -> int:
     except RuntimeError as e:  # the profiler is a measurement aid only
         log(f"profiler unavailable: {e}")
     reports = [q1, phase_filter_project(tdf, cuda_mod, torch, ctx, cols, dates, smi)]
+    serve_reports = phase_serve(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi)
+    reports += serve_reports
     del src, cols
 
     for groups in (16, 4096):
@@ -1860,6 +2291,7 @@ def main() -> int:
 
     join_reports, star_cols = phase_joins(tdf, cuda_mod, torch, ctx)
     reports += join_reports
+    reports.append(phase_serve_joins(tdf, cuda_mod, torch, ctx, star_cols))
     reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
     del star_cols
@@ -1874,6 +2306,10 @@ def main() -> int:
         _kernel_line("hash_agg.grouped_reduce", "datafusion_tpu_torch/csrc/hash_agg.cu",
                      "datafusion_tpu/exec/pallas/hash_agg.py:95", launched("hash_agg"),
                      agg_err, next(e for e in shapes if "Q1 batch group" in e["shape"])),
+        _kernel_line("hash_agg.grouped_reduce_multi", "datafusion_tpu_torch/csrc/hash_agg.cu",
+                     "datafusion_tpu/exec/pallas/hash_agg.py:95",
+                     sum(r.get("query_axis_launches", 0) for r in serve_reports), axis_err,
+                     next(e for e in axis_shapes if "Q=8" in e["shape"])),
         _kernel_line("hash_build.build_slot_table",
                      "datafusion_tpu_torch/csrc/hash_build.cu",
                      "datafusion_tpu/exec/pallas/hash_build.py:70",

@@ -50,6 +50,17 @@
 // same two phases as two ordinary launches, on the device or per call,
 // at every shape measured (PERF.md).
 //
+// The query axis: one launch serves Q queries that share the rows' ids,
+// each with its own live mask and either shared or its own values, at the
+// geometry of one query (a solo call is Q = 1).  Each block runs the
+// partials phase once per query over the same row chunk (the ids are
+// read again per query, from L2 where they fit), writing query q's
+// partials to its own slice of the scratch; one grid barrier; then the
+// fold once per query.  Every query's combines happen in the order of a
+// Q = 1 launch on the same rows, so each query's result is bit-identical
+// to its own solo call.  Bound: the ids once, each query's live mask and
+// values, and Q * G outputs; this simple form reads the ids Q times.
+//
 // Every float combine happens in an order fixed by the launch geometry
 // (hash_agg.geometry: N, G, the type's size and the card's SM count and
 // shared memory) and the data, and there are no float atomics, so f64
@@ -437,21 +448,30 @@ __device__ __forceinline__ void fold(const T* scratch, int32_t chunks,
   }
 }
 
-// out: G values, then the gridDim.x * G partials.  The launch must be
+// Query q reads vals + q * vals_stride (a stride of 0 shares one value
+// column) and live + q * n, and writes its result to out[q * G ..] and
+// its partials to the scratch after the Q results.  The launch must be
 // cooperative (every block resident) for the grid barrier.
 template <int K, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 reduce_kernel(const int32_t* __restrict__ ids, const T* __restrict__ vals,
-              const uint8_t* __restrict__ live, int64_t n, int32_t num_groups,
-              int32_t tile_g, int32_t warps, int32_t lane_parts, int64_t chunk_rows,
-              int32_t fold_lanes, T* out) {
+              int64_t vals_stride, const uint8_t* __restrict__ live, int64_t n,
+              int32_t queries, int32_t num_groups, int32_t tile_g, int32_t warps,
+              int32_t lane_parts, int64_t chunk_rows, int32_t fold_lanes, T* out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* scratch = out + num_groups;
-  partials<K, T>(ids, vals, live, n, num_groups, tile_g, warps, lane_parts != 0,
-                 chunk_rows, scratch, reinterpret_cast<T*>(smem_raw));
+  const int64_t slice = static_cast<int64_t>(gridDim.x) * num_groups;
+  T* scratch = out + static_cast<int64_t>(queries) * num_groups;
+  for (int32_t q = 0; q < queries; ++q) {
+    partials<K, T>(ids, vals + q * vals_stride, live + q * n, n, num_groups, tile_g, warps,
+                   lane_parts != 0, chunk_rows, scratch + q * slice,
+                   reinterpret_cast<T*>(smem_raw));
+  }
   cg::this_grid().sync();
   phase_clock(4);
-  fold<K, T>(scratch, gridDim.x, num_groups, fold_lanes, out);
+  for (int32_t q = 0; q < queries; ++q) {
+    fold<K, T>(scratch + q * slice, gridDim.x, num_groups, fold_lanes,
+               out + static_cast<int64_t>(q) * num_groups);
+  }
   phase_clock(5);
 }
 
@@ -489,9 +509,9 @@ cudaError_t most_static_smem(size_t* most) {
 }
 
 template <int K, typename T>
-int launch(const void* ids, const void* vals, const void* live, long long n,
-           int num_groups, int tile_g, int warps, int lane_parts, int blocks,
-           long long chunk_rows, int fold_lanes, void* out, cudaStream_t stream) {
+int launch(const void* ids, const void* vals, long long vals_stride, const void* live,
+           long long n, int queries, int num_groups, int tile_g, int warps, int lane_parts,
+           int blocks, long long chunk_rows, int fold_lanes, void* out, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory a kernel must opt in: once per
   // instantiation, to the device's limit
   static const cudaError_t opted =
@@ -499,8 +519,10 @@ int launch(const void* ids, const void* vals, const void* live, long long n,
   if (opted != cudaSuccess) return static_cast<int>(opted);
   const int32_t* ids_p = static_cast<const int32_t*>(ids);
   const T* vals_p = static_cast<const T*>(vals);
+  int64_t stride = vals_stride;
   const uint8_t* live_p = static_cast<const uint8_t*>(live);
   int64_t n64 = n;
+  int32_t qs = queries;
   int32_t groups = num_groups;
   int32_t tile = tile_g;
   int32_t owners = warps;
@@ -510,29 +532,29 @@ int launch(const void* ids, const void* vals, const void* live, long long n,
   T* out_p = static_cast<T*>(out);
   const size_t smem = static_cast<size_t>(warps) * tile_g *
                       (lane_parts ? 32 * sizeof(T) : sizeof(T) + 1);
-  void* args[] = {&ids_p, &vals_p, &live_p, &n64, &groups, &tile, &owners, &by_lane,
-                  &rows, &lanes, &out_p};
+  void* args[] = {&ids_p, &vals_p, &stride, &live_p, &n64, &qs, &groups, &tile, &owners,
+                  &by_lane, &rows, &lanes, &out_p};
   // fails (and is reported) if the grid is not resident all at once
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&reduce_kernel<K, T>), dim3(blocks), dim3(kMaxThreads),
-      args, smem, stream));
+      reinterpret_cast<const void*>(&reduce_kernel<K, T>), dim3(blocks),
+      dim3(kMaxThreads), args, smem, stream));
 }
 
 template <typename T>
-int launch_kind(int kind, const void* ids, const void* vals, const void* live,
-                long long n, int num_groups, int tile_g, int warps, int lane_parts,
-                int blocks, long long chunk_rows, int fold_lanes, void* out,
-                cudaStream_t stream) {
+int launch_kind(int kind, const void* ids, const void* vals, long long vals_stride,
+                const void* live, long long n, int queries, int num_groups, int tile_g,
+                int warps, int lane_parts, int blocks, long long chunk_rows, int fold_lanes,
+                void* out, cudaStream_t stream) {
   switch (kind) {
     case kSum:
-      return launch<kSum, T>(ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks,
-                             chunk_rows, fold_lanes, out, stream);
+      return launch<kSum, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
+                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
     case kMin:
-      return launch<kMin, T>(ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks,
-                             chunk_rows, fold_lanes, out, stream);
+      return launch<kMin, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
+                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
     case kMax:
-      return launch<kMax, T>(ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks,
-                             chunk_rows, fold_lanes, out, stream);
+      return launch<kMax, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
+                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
     default:
       return -1;
   }
@@ -576,31 +598,32 @@ extern "C" int df_grouped_reduce_limits(int* sms, int* smem) {
 }
 
 // dtype: 0 int8, 1 int16, 2 int32, 3 int64, 4 float32, 5 float64.
-// kind: 0 sum, 1 min, 2 max.  The geometry (tile_g, warps, lane_parts,
-// blocks, chunk_rows, fold_lanes) is hash_agg.geometry's: warps <= 8 of
-// a block's 8 own a partial that fits the shared memory
-// df_grouped_reduce_limits reports (tile_g * 32 values with lane_parts,
-// else tile_g values and tile_g bytes),
-// chunk_rows is a multiple of warps * 32, blocks * chunk_rows >= n, and
-// fold_lanes is a power of two <= 32.  out holds (1 + blocks) *
-// num_groups values of the dtype: the result, then the partials.  One
-// cooperative launch.  Returns the launch's CUDA error (a grid that
-// cannot be resident at once is one), or -1 for a dtype or kind it does
-// not know.
-extern "C" int df_grouped_reduce(int dtype, int kind, const void* ids,
-                                 const void* vals, const void* live,
-                                 long long n, int num_groups, int tile_g,
-                                 int warps, int lane_parts, int blocks,
-                                 long long chunk_rows, int fold_lanes, void* out,
-                                 void* stream) {
+// kind: 0 sum, 1 min, 2 max.  Q = `queries` reductions over one set of
+// ids.  vals holds one column (vals_stride 0) or Q columns of n values
+// (vals_stride n); live holds Q masks of n bytes.  The geometry (tile_g,
+// warps, lane_parts, blocks, chunk_rows, fold_lanes) is
+// hash_agg.geometry's for (n, num_groups): warps <= 8 of a block's 8 own
+// a partial that fits the shared memory df_grouped_reduce_limits reports
+// (tile_g * 32 values with lane_parts, else tile_g values and tile_g
+// bytes), chunk_rows is a multiple of warps * 32, blocks * chunk_rows >=
+// n, and fold_lanes is a power of two <= 32.  out holds
+// Q * (1 + blocks) * num_groups values of the dtype: the Q results, then
+// the partials.  One cooperative launch.  Returns the launch's CUDA
+// error (a grid that cannot be resident at once is one), or -1 for a
+// dtype or kind it does not know.
+extern "C" int df_grouped_reduce(int dtype, int kind, const void* ids, const void* vals,
+                                 long long vals_stride, const void* live, long long n,
+                                 int queries, int num_groups, int tile_g, int warps,
+                                 int lane_parts, int blocks, long long chunk_rows,
+                                 int fold_lanes, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_kind<int8_t>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 1: return launch_kind<int16_t>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 2: return launch_kind<int32_t>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 3: return launch_kind<int64_t>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 4: return launch_kind<float>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 5: return launch_kind<double>(kind, ids, vals, live, n, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 0: return launch_kind<int8_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 1: return launch_kind<int16_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 2: return launch_kind<int32_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 3: return launch_kind<int64_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 4: return launch_kind<float>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 5: return launch_kind<double>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
     default: return -1;
   }
 }

@@ -36,12 +36,22 @@ The counterpart of the JAX package's `exec/aggregate.py`:
 - **Prefetch** (`exec/prefetch.py`, over a CSV scan on a CUDA device): one thread
   pulls batches, a second encodes group ids, builds the aux tables and
   copies the used columns, while the consumer dispatches.
+- **Cross-query megabatch** (serve.py's aggregate lane,
+  `run_aggregate_megabatch`): N queries whose cores agree but for their
+  literals (`_AggregateCore.mega_key`) scan one table once.  Per batch
+  group each query's predicate gives its live mask, the ids are shared,
+  a slot's values are evaluated once per distinct set of the literal
+  values they read, and each slot makes ONE launch of the grouped
+  reduce's query axis (`hash_agg.grouped_reduce_multi`) for all N
+  (`_AggregateCore.multi_fused_group`); above `agg_max_groups()` each
+  query's sort-merge update runs in turn over the shared scan.  Each
+  query's state is bit-identical to its solo run's.
 - **Finalization**: one device-to-host copy of the state; AVG =
   SUM/COUNT on the host; groups observed only in filtered-out rows
   (count 0) are dropped.
 
-Not ported yet (ROADMAP queue 1): the serving megabatch, host-split
-placement and cost presizing.
+Not ported yet (ROADMAP queue 1): host-split placement and cost
+presizing.
 
 Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
 internally, UInt64 in the output (planner contract); MIN/MAX keep the
@@ -50,6 +60,7 @@ argument dtype.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -77,6 +88,7 @@ from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled, iter
 from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 
 _SCAN_OPS = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
@@ -464,7 +476,7 @@ class _AggregateCore:
     operator tree for an identical GROUP BY reuses the built core."""
 
     def __init__(self, in_schema, group_expr, aggr_expr, predicate, functions,
-                 param_slots=None):
+                 param_slots=None, mega_key=None):
         for g in group_expr:
             if not isinstance(g, Column):
                 raise NotSupportedError(f"GROUP BY supports column references, got {g!r}")
@@ -492,6 +504,13 @@ class _AggregateCore:
         self.used_cols = sorted(used)
         self.col_map = {c: i for i, c in enumerate(self.used_cols)}
         self.acc_dtypes = [_torch_acc_dtype(sl.acc_dtype) for sl in self.slots]
+        # the runtime parameters each slot's argument reads, and the
+        # signature cores share when they differ at most in their
+        # predicate's string literals (the serving megabatch's key)
+        from datafusion_tpu_torch.exec.kernels import param_slots_of
+
+        self.slot_params = [param_slots_of(sl.arg, param_slots or {}) for sl in self.slots]
+        self.mega_key = mega_key
 
     @staticmethod
     def param_exprs(predicate, aggr_expr):
@@ -505,6 +524,7 @@ class _AggregateCore:
             functions_fingerprint,
             parameterize_exprs,
             schema_fingerprint,
+            wildcard_strings,
         )
 
         elig = _AggregateCore.param_exprs(predicate, aggr_expr)
@@ -518,11 +538,12 @@ class _AggregateCore:
             fps[0] if n_pred else None,
             functions_fingerprint(functions),
         )
+        mega_key = key[:4] + (wildcard_strings(key[4]),) + key[5:]
         return cached_kernel(
             key,
             lambda: _AggregateCore(
                 in_schema, group_expr, aggr_expr, predicate, functions,
-                slot_by_id,
+                slot_by_id, mega_key,
             ),
         )
 
@@ -605,9 +626,10 @@ class _AggregateCore:
 
     def fused_group(self, entries, state, aux, str_aux, params):
         """Fold a batch group into the state in one pass (the JAX core's
-        `_fused_group`).  `entries` are per-batch (cols, valids, num_rows,
-        mask|None, ids) with one `exec/fused.entry_signature`; `aux` and
-        `str_aux` are the group's shared tables.
+        `_fused_group`): `multi_fused_group` for this one query.
+        `entries` are per-batch (cols, valids, num_rows, mask|None, ids)
+        with one `exec/fused.entry_signature`; `aux` and `str_aux` are
+        the group's shared tables.
 
         The entries concatenate along rows: every column, validity and
         id, and each entry's live mask (`arange(capacity) < num_rows`,
@@ -617,30 +639,151 @@ class _AggregateCore:
         for G <= `agg_max_groups()`, else one sort-merge combine (one
         radix sort over G + the group's rows, one host read).  A group
         of one entry is the per-batch update: nothing concatenates."""
-        counts, accs = state
-        device = counts.device
+        return self.multi_fused_group(entries, [state], str_aux,
+                                      [(self._pred_fn, aux, params, None)])[0]
+
+    def _group_rows(self, entries, device):
+        """A batch group's (cols, valids, live, ids): its entries
+        concatenated along rows, each with its live mask; one entry is
+        taken as it is."""
         if len(entries) == 1:
             cols, valids, num_rows, base_mask, ids = entries[0]
-            live = self._live_rows(cols, num_rows, base_mask, ids, device)
-        else:
-            cols = tuple(torch.cat(c) for c in zip(*(e[0] for e in entries)))
-            valids = tuple(None if v[0] is None else torch.cat(v)
-                           for v in zip(*(e[1] for e in entries)))
-            live = torch.cat([self._live_rows(c, n, m, i, device)
-                              for c, _, n, m, i in entries])
-            ids = torch.cat([e[4] for e in entries])
-        env = Env(cols, valids, aux, device, self.col_map, params)
+            return cols, valids, self._live_rows(cols, num_rows, base_mask, ids, device), ids
+        cols = tuple(torch.cat(c) for c in zip(*(e[0] for e in entries)))
+        valids = tuple(None if v[0] is None else torch.cat(v)
+                       for v in zip(*(e[1] for e in entries)))
+        live = torch.cat([self._live_rows(c, n, m, i, device) for c, _, n, m, i in entries])
+        return cols, valids, live, torch.cat([e[4] for e in entries])
+
+    @staticmethod
+    def _masked(pred_fn, env, live):
+        """`live` ANDed with the predicate (a NULL drops the row)."""
+        if pred_fn is None:
+            return live
         capacity = live.shape[0]
-        mask = live
-        if self._pred_fn is not None:
-            pv, pvalid = self._pred_fn(env)
-            pv = pv.expand(capacity)
-            if pvalid is not None:
-                pv = pv & pvalid.expand(capacity)
-            mask = mask & pv
-        if counts.shape[0] <= agg_max_groups():
-            return self._kernel_update(env, capacity, mask, ids, counts, accs, str_aux)
-        return self._sortmerge_update(env, capacity, mask, ids, counts, accs, str_aux)
+        pv, pvalid = pred_fn(env)
+        pv = pv.expand(capacity)
+        if pvalid is not None:
+            pv = pv & pvalid.expand(capacity)
+        return live & pv
+
+    def multi_fused_group(self, entries, states, str_aux, members):
+        """Fold one batch group into N queries' states at once: the
+        serving megabatch (the JAX core's `_multi_fused_group`).
+        `members` holds one (pred_fn, aux, params, values) per query:
+        its predicate closure (its own core's: cores of one `mega_key`
+        differ at most in the strings a predicate compares against),
+        its aux tables, its runtime parameters as tensors and as numpy
+        values (read only when there are several queries).  The entries
+        concatenate once; each query's predicate gives its live mask
+        over the shared ids.  Up to `agg_max_groups()` every slot is one
+        launch of the grouped reduce's query axis for all N queries
+        (`_kernel_update`); above it each query's sort-merge update runs
+        in turn.  Each query's new state is bit-identical to its own
+        `fused_group` on the same entries."""
+        counts0 = states[0][0]
+        device = counts0.device
+        cols, valids, live, ids = self._group_rows(entries, device)
+        capacity = live.shape[0]
+        envs = [Env(cols, valids, aux, device, self.col_map, params)
+                for _, aux, params, _ in members]
+        masks = [self._masked(m[0], env, live) for m, env in zip(members, envs)]
+        if counts0.shape[0] <= agg_max_groups():
+            return self._kernel_update(envs, capacity, masks, ids, states, str_aux,
+                                       [m[3] for m in members])
+        return [self._sortmerge_update(env, capacity, mask, ids, st[0], st[1], str_aux)
+                for env, mask, st in zip(envs, masks, states)]
+
+    def _slot_values(self, sl, v, valid, acc_dtype, str_aux_i, capacity):
+        """One slot's per-row kernel values: a NULL row carries the
+        identity (a rank sentinel for a string); rows a live mask drops
+        are never read by the kernel, so they need no mask here."""
+        v = v.expand(capacity)
+        if valid is not None:
+            valid = valid.expand(capacity)
+        if sl.is_string:
+            ranks, _ = str_aux_i
+            cap = ranks.shape[0]
+            out = torch.index_select(ranks, 0, v.to(torch.int32).clamp(0, cap - 1))
+            ident = self._rank_sentinel(sl.kind)
+        elif sl.kind == "sum":
+            out = v if valid is None else torch.where(valid, v, 0)
+            return out.to(acc_dtype).contiguous()
+        elif sl.kind == "cnt":
+            return valid.to(torch.int64).contiguous()
+        else:
+            out = v.to(acc_dtype)
+            if _flips(sl):
+                out = torch.bitwise_xor(out, -(1 << 63))
+            ident = self._device_identity(sl)
+        return (out if valid is None else torch.where(valid, out, ident)).contiguous()
+
+    def _kernel_update(self, envs, capacity, masks, ids, states, str_aux, values):
+        """Every slot through the grouped-reduce kernel (the JAX core's
+        `_pallas_update`, and its `_multi_fused_group` for N queries):
+        the row count and every slot not aliased to it in ONE launch of
+        the kernel's query axis each, query q's rows live where
+        `masks[q]` holds.  A solo query is the call with one of each.
+        `values[q]` are query q's parameter values: with several
+        queries, a slot's values are evaluated once per distinct tuple
+        of the parameter values its argument reads (once, when it reads
+        none) and shared by the queries of that tuple."""
+        G = states[0][0].shape[0]
+        single = len(envs) == 1
+        live = masks[0] if single else torch.stack(masks)
+
+        def red(vals, kind):
+            """One launch for every query; its result per query."""
+            if single:
+                return (hash_agg.grouped_reduce(ids, vals, live, G, kind),)
+            return hash_agg.grouped_reduce_multi(ids, vals, live, G, kind).unbind(0)
+
+        d_counts = red(torch.ones(capacity, dtype=torch.int64, device=ids.device), "sum")
+        new_counts = [st[0] + d_counts[q] for q, st in enumerate(states)]
+        new_accs = [[] for _ in states]
+        for i, (sl, acc_dtype) in enumerate(zip(self.slots, self.acc_dtypes)):
+            by_values: dict = {}
+            per_query = []
+            for q, env in enumerate(envs):
+                vk = () if single else tuple(
+                    np.asarray(values[q][j]).tobytes() for j in self.slot_params[i])
+                hit = by_values.get(vk)
+                if hit is None:
+                    hit = by_values[vk] = sl.fn(env)
+                per_query.append(hit)
+            aliased = sl.kind == "cnt" and per_query[0][1] is None
+            if aliased:
+                for q, st in enumerate(states):
+                    new_accs[q].append(st[1][i] + d_counts[q])
+                continue
+            cols = {}
+            for v, valid in per_query:
+                if id(v) not in cols:
+                    cols[id(v)] = self._slot_values(sl, v, valid, acc_dtype,
+                                                    str_aux[i] if sl.is_string else None,
+                                                    capacity)
+            if len(cols) == 1:
+                vals = next(iter(cols.values()))
+            else:
+                vals = torch.stack([cols[id(v)] for v, _ in per_query])
+            if sl.is_string:
+                kind = "min" if sl.kind == "smin" else "max"
+            elif sl.kind in ("sum", "cnt"):
+                kind = "sum"
+            else:
+                kind = sl.kind
+            r = red(vals, kind)
+            for q, st in enumerate(states):
+                acc = st[1][i]
+                if sl.is_string:
+                    new_accs[q].append(self._string_combine(sl.kind, acc, r[q], str_aux[i]))
+                elif kind == "sum":
+                    new_accs[q].append(acc + r[q])
+                elif sl.kind == "min":
+                    new_accs[q].append(torch.minimum(acc, r[q]))
+                else:
+                    new_accs[q].append(torch.maximum(acc, r[q]))
+        return [(c, tuple(a)) for c, a in zip(new_counts, new_accs)]
 
     @staticmethod
     def _live_rows(cols, num_rows, base_mask, ids, device):
@@ -655,7 +798,8 @@ class _AggregateCore:
     def _slot_inputs(self, env, capacity, mask):
         """(value, ok-mask) per slot, masking padding/filtered/null
         rows.  `ok is mask` when the argument has no validity — the
-        update uses that identity to alias the row-count reduction."""
+        sort-merge contributions use that identity to alias the row
+        count."""
         out = []
         for sl in self.slots:
             v, valid = sl.fn(env)
@@ -706,49 +850,6 @@ class _AggregateCore:
         else:
             best = torch.maximum(batch_best_rank, old_rank)
         return cls._ranks_to_codes(kind, best, str_aux_k)
-
-    def _kernel_update(self, env, capacity, mask, ids, counts, accs,
-                       str_aux=()):
-        """Every slot through the grouped-reduce kernel (the JAX core's
-        `_pallas_update`).  Dead rows carry the identity and `mask` is
-        the kernel's live mask, exactly as there."""
-        G = counts.shape[0]
-        inputs = self._slot_inputs(env, capacity, mask)
-
-        def red(vals, kind):
-            return hash_agg.grouped_reduce(ids, vals.contiguous(), mask, G, kind)
-
-        d_counts = red(mask.to(torch.int64), "sum")
-        new_counts = counts + d_counts
-        new_accs = []
-        for i, (sl, (v, ok), acc) in enumerate(zip(self.slots, inputs, accs)):
-            if sl.kind == "cnt" and ok is mask:
-                new_accs.append(acc + d_counts)
-            elif sl.is_string:
-                ranks, _ = str_aux[i]
-                cap = ranks.shape[0]
-                r = torch.index_select(ranks, 0, v.to(torch.int32).clamp(0, cap - 1))
-                contrib = torch.where(ok, r, self._rank_sentinel(sl.kind))
-                best = red(contrib, "min" if sl.kind == "smin" else "max")
-                new_accs.append(
-                    self._string_combine(sl.kind, acc, best, str_aux[i])
-                )
-            elif sl.kind == "sum":
-                new_accs.append(
-                    acc + red(torch.where(ok, v, 0).to(acc.dtype), "sum")
-                )
-            elif sl.kind == "cnt":
-                new_accs.append(acc + red(ok.to(torch.int64), "sum"))
-            else:
-                img = v.to(acc.dtype)
-                if _flips(sl):
-                    img = torch.bitwise_xor(img, -(1 << 63))
-                r = red(torch.where(ok, img, self._device_identity(sl)), sl.kind)
-                new_accs.append(
-                    torch.minimum(acc, r) if sl.kind == "min"
-                    else torch.maximum(acc, r)
-                )
-        return new_counts, tuple(new_accs)
 
     # -- the sort-merge route, for capacities above agg_max_groups() --
     @staticmethod
@@ -890,6 +991,31 @@ class _AggregateCore:
         return new_counts, tuple(new_accs)
 
 
+def _pull_parts(parts) -> list:
+    """Tensors on the host in ONE device-to-host copy: every tensor is
+    viewed as bytes and concatenated on the device first."""
+    blob = torch.cat([p.contiguous().view(-1).view(torch.uint8) for p in parts]).cpu().numpy()
+    host = []
+    off = 0
+    for p in parts:
+        np_dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
+        nbytes = p.numel() * np_dtype.itemsize
+        host.append(blob[off:off + nbytes].view(np_dtype))
+        off += nbytes
+    return host
+
+
+class _HostState:
+    """An accumulator state already pulled to the host: the live
+    prefix's counts and per-slot arrays."""
+
+    __slots__ = ("counts", "accs")
+
+    def __init__(self, counts, accs):
+        self.counts = counts
+        self.accs = list(accs)
+
+
 class AggregateRelation(Relation):
     """Executes [Selection +] Aggregate over a child relation; emits a
     single result batch.
@@ -932,6 +1058,21 @@ class AggregateRelation(Relation):
         self._key_dicts: dict[int, StringDictionary] = {}
         self._str_dicts: dict[int, StringDictionary] = {}
         self._str_aux_cache: dict = {}
+        # serializes the encoder's mutation: the prefetch thread and,
+        # over a served table, every relation sharing its encoder
+        # (`adopt_shared`) encode through it
+        self._ids_lock = threading.Lock()
+
+    def adopt_shared(self, entry: dict) -> None:
+        """Take a served table's cross-query state (serve.py,
+        `PinnedSource.shared_state_for`): its encoder and lock, which
+        key the ids cached on the table's batches, so ids encoded and
+        copied by any earlier query replay for this one, and its caches
+        of aux and string-rank tables."""
+        self.encoder = entry["encoder"]
+        self._ids_lock = entry["lock"]
+        self._aux_cache = entry["aux"]
+        self._str_aux_cache = entry["str_aux"]
 
     def _compute_str_aux(self, batch: RecordBatch):
         """(ranks, rank->code) tensor pair per string min/max slot,
@@ -988,61 +1129,74 @@ class AggregateRelation(Relation):
         (`exec/fused.iter_groups`) folds in one `fused_group` pass.  With
         DATAFUSION_TPU_FUSE=0 the chunk is one batch: one update per
         batch.  Over a CSV scan on a CUDA device the host prep runs
-        ahead on the prefetch threads (`exec/prefetch.staged_pipeline`)."""
+        ahead on the prefetch threads (`exec/prefetch.staged_pipeline`).
+        A state the serving megabatch computed for this relation
+        (`run_aggregate_megabatch`) is returned without a scan."""
+        injected = self.__dict__.pop("_injected_state", None)
+        if injected is not None:
+            return injected
         core = self.core
         device = self.device
         params = param_tensors(self._param_values, device)
         batches = self.child.batches()
         if pipeline_enabled(device, self.child):
             batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
-        chunk_max = fuse_group_max() if fusion_enabled() else 1
         state = None
+        for capacity, entries, (aux, str_aux) in self._batch_groups(batches, self._aux):
+            if state is None:
+                state = core._init_state(capacity, device)
+            elif capacity > state[0].shape[0]:
+                state = core._grow_state(state, capacity)
+            state = core.fused_group(entries, state, aux, str_aux, params)
+        if state is None:
+            state = core._init_state(group_capacity(1), device)
+        return state
+
+    def _batch_groups(self, batches, tables):
+        """The scan as (capacity, entries, shared tables) per batch group:
+        each batch's group ids, `tables(batch)` and the copies of its used
+        columns buffer into a chunk of up to `fuse_group_max()` batches;
+        once a chunk is encoded the capacity is picked for all of it, so
+        every id fits, and the chunk splits into batch groups
+        (`exec/fused.iter_groups`)."""
+        chunk_max = fuse_group_max() if fusion_enabled() else 1
         capacity = 0
         chunk: list = []
 
-        def flush():
-            nonlocal state, capacity
+        def groups():
+            nonlocal capacity
             # sized from the group count recorded when the chunk's last
             # batch was encoded: the encoder itself may already be
             # batches ahead on the prefetch thread
-            needed = self._pick_capacity(chunk[-1][1], capacity)
-            if state is None:
-                state = core._init_state(needed, device)
-            elif needed > capacity:
-                state = core._grow_state(state, needed)
-            capacity = needed
+            capacity = self._pick_capacity(chunk[-1][1], capacity)
             entries = [e for e, _, _ in chunk]
             shareds = [sh for _, _, sh in chunk]
-            for idxs, (aux, str_aux) in iter_groups(entries, shareds):
-                state = core.fused_group([entries[i] for i in idxs], state, aux,
-                                         str_aux, params)
+            out = [(capacity, [entries[i] for i in idxs], shared)
+                   for idxs, shared in iter_groups(entries, shareds)]
             chunk.clear()
+            return out
 
         for batch in batches:
             for idx in self.key_cols:
                 if batch.dicts[idx] is not None:
                     self._key_dicts[idx] = batch.dicts[idx]
             ids, n_groups = self._group_ids(batch)
-            aux, str_aux = self._aux(batch)
+            shared = tables(batch)
             data, validity, mask = device_inputs(
-                subset_view(batch, core.used_cols), device
+                subset_view(batch, self.core.used_cols), self.device
             )
-            chunk.append(((data, validity, batch.num_rows, mask, ids), n_groups,
-                          (aux, str_aux)))
+            chunk.append(((data, validity, batch.num_rows, mask, ids), n_groups, shared))
             if len(chunk) >= chunk_max:
-                flush()
+                yield from groups()
         if chunk:
-            flush()
-        if state is None:
-            state = core._init_state(group_capacity(1), device)
-        return state
+            yield from groups()
 
     def _aux(self, batch: RecordBatch):
         """(aux, str_aux) of one batch: the tables the prefetch stage
-        pinned on it for this relation, else built here."""
+        pinned on it from this relation's caches, else built here."""
         hit = batch.cache.get("staged_aux")
-        if hit is not None and hit[0] is self.encoder:
-            return hit[1]
+        if hit is not None and hit[0] is self._aux_cache and hit[1] is self._str_aux_cache:
+            return hit[2]
         return self._tables(batch)
 
     def _tables(self, batch: RecordBatch):
@@ -1056,7 +1210,8 @@ class AggregateRelation(Relation):
         (pinned on the batch under this relation's encoder, as the
         group ids are) and the used columns' copies."""
         self._group_ids(batch)
-        batch.cache["staged_aux"] = (self.encoder, self._tables(batch))
+        batch.cache["staged_aux"] = (self._aux_cache, self._str_aux_cache,
+                                     self._tables(batch))
         device_inputs(subset_view(batch, self.core.used_cols), self.device)
 
     def _group_ids(self, batch: RecordBatch):
@@ -1064,7 +1219,16 @@ class AggregateRelation(Relation):
         device, and the number of groups the encoder knew right after
         encoding it.  Cached on the batch (keyed by this relation's
         encoder) so a re-scanned in-memory batch skips the encode and
-        the copy when the same relation scans it again."""
+        the copy when a relation with the same encoder scans it again.
+        The encode runs under `_ids_lock` and counts in the
+        `agg.host_encode` timer."""
+        hit = batch.cache.get("group_ids")
+        if hit is not None and hit[0] is self.encoder:
+            return hit[1], hit[2]
+        with self._ids_lock, METRICS.timer("agg.host_encode"):
+            return self._group_ids_locked(batch)
+
+    def _group_ids_locked(self, batch: RecordBatch):
         hit = batch.cache.get("group_ids")
         if hit is not None and hit[0] is self.encoder:
             return hit[1], hit[2]
@@ -1156,24 +1320,20 @@ class AggregateRelation(Relation):
             out_dicts.append(self._key_dicts.get(idx))
         return out_cols, out_valid, out_dicts
 
+    def _state_cut(self, state) -> int:
+        """Rows of the state that can hold a group: its live prefix."""
+        n_groups = self.encoder.num_groups if self.key_cols else 1
+        return min(group_capacity(n_groups), state[0].shape[0])
+
     def _pull_state(self, state):
         """The state's live prefix on the host, in ONE device-to-host
-        copy: every array is viewed as bytes and concatenated on the
-        device first.  Returns (counts, per-slot host arrays)."""
+        copy (`_pull_parts`).  Returns (counts, per-slot host arrays); a
+        state the serving megabatch already pulled passes through."""
+        if isinstance(state, _HostState):
+            return state.counts, state.accs
         counts, accs = state
-        n_groups = self.encoder.num_groups if self.key_cols else 1
-        cut = min(group_capacity(n_groups), counts.shape[0])
-        parts = [counts[:cut]] + [a[:cut] for a in accs]
-        blob = torch.cat(
-            [p.contiguous().view(-1).view(torch.uint8) for p in parts]
-        ).cpu().numpy()
-        host = []
-        off = 0
-        for p in parts:
-            np_dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
-            nbytes = cut * np_dtype.itemsize
-            host.append(blob[off:off + nbytes].view(np_dtype))
-            off += nbytes
+        cut = self._state_cut(state)
+        host = _pull_parts([counts[:cut]] + [a[:cut] for a in accs])
         return host[0], host[1:]
 
     def finalize(self, state) -> RecordBatch:
@@ -1201,3 +1361,65 @@ class AggregateRelation(Relation):
 
     def batches(self) -> Iterator[RecordBatch]:
         yield self.finalize(self.accumulate())
+
+
+def run_aggregate_megabatch(rels: list) -> None:
+    """ONE scan, N aggregate queries: the serving megabatch's aggregate
+    lane (the loop of the JAX package's `Server._run_megabatch`).
+
+    Preconditions (serve.py `_mega_key`): the relations' cores share one
+    `mega_key`, the relations scan one table and share one encoder (a
+    served table's, `AggregateRelation.adopt_shared`).  The scan is the
+    leader's `accumulate`, with the same chunks, capacities and batch
+    groups: each group folds into every query's state in one
+    `multi_fused_group` (one query-axis launch per slot).  A group's
+    boundaries follow every query's aux tables together; cores of one
+    `mega_key` build theirs over the same columns, so the boundaries
+    are each query's own.  Each relation gets its state as
+    `_injected_state`, which its `accumulate` returns, and the leader's
+    key dictionaries.  Every query's state is pulled to the host in one
+    copy, so its finalize is host work only."""
+    leader = rels[0]
+    core = leader.core
+    device = leader.device
+    members = [(r.core._pred_fn, param_tensors(r._param_values, device), r._param_values)
+               for r in rels]
+
+    def tables(batch):
+        """Every query's aux tables (built once per cache: queries of one
+        core share theirs) and the string-rank tables, which depend on
+        the slots alone."""
+        by_cache: dict = {}
+        for r in rels:
+            if id(r._aux_cache) not in by_cache:
+                by_cache[id(r._aux_cache)] = r._aux(batch)
+        per = [by_cache[id(r._aux_cache)] for r in rels]
+        return tuple(aux for aux, _ in per), per[0][1]
+
+    states = None
+    for capacity, entries, (auxes, str_aux) in leader._batch_groups(leader.child.batches(),
+                                                                     tables):
+        if states is None:
+            states = [r.core._init_state(capacity, device) for r in rels]
+        elif capacity > states[0][0].shape[0]:
+            states = [r.core._grow_state(st, capacity) for r, st in zip(rels, states)]
+        states = core.multi_fused_group(
+            entries, states, str_aux,
+            [(pred, aux, params, values) for (pred, params, values), aux in zip(members, auxes)])
+        METRICS.add("serve.megabatch_launches")
+        METRICS.add("serve.megabatch_batches", len(entries))
+    if states is None:
+        states = [r.core._init_state(group_capacity(1), device) for r in rels]
+    METRICS.add("serve.megabatch_queries", len(rels))
+    # every query's live prefix crosses to the host in ONE copy, so each
+    # query's finalize is host work only
+    cuts = [r._state_cut(st) for r, st in zip(rels, states)]
+    pulled = _pull_parts([p for (counts, accs), cut in zip(states, cuts)
+                          for p in [counts[:cut], *(a[:cut] for a in accs)]])
+    per = 1 + len(core.slots)
+    for i, r in enumerate(rels):
+        if r is not leader:
+            r._key_dicts.update(leader._key_dicts)
+            r._str_dicts.update(leader._str_dicts)
+        host = pulled[i * per:(i + 1) * per]
+        r._injected_state = _HostState(host[0], host[1:])

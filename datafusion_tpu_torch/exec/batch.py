@@ -28,6 +28,7 @@ import torch
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.errors import ExecutionError
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 MIN_CAPACITY = 1024
 
@@ -236,8 +237,14 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     their device dtype, `device_array`).  On a CUDA device the copy
     goes through pinned memory and is asynchronous on the current
     stream (the pinned buffer stays reserved by PyTorch's host
-    allocator until the copy has run); on the CPU it is a view."""
+    allocator until the copy has run); on the CPU it is a view.
+
+    Every call counts one `device.h2d.transfers` and its bytes in
+    `h2d.bytes` (utils/metrics.py), on the CPU too, where the copy is
+    a view, so a test there sees what a run on the card would send."""
     t = torch.from_numpy(np.ascontiguousarray(device_array(np.asarray(arr))))
+    METRICS.add("device.h2d.transfers")
+    METRICS.add("h2d.bytes", t.numel() * t.element_size())
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)

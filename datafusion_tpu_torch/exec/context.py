@@ -25,8 +25,14 @@ projects.
 
 What raises NotSupportedError: statements other than SELECT (DDL,
 EXPLAIN), result caching, a `host_fn` UDF in a WHERE predicate, GROUP
-BY keys that are not columns, more groups than `agg_max_groups()`, and
-any other plan node (ROADMAP queue 1).
+BY keys that are not columns, and any other plan node (ROADMAP queue
+1).
+
+Every plan `execute` lowers counts `queries_admitted`
+(utils/metrics.py).  `serve()` starts the serving front door over the
+context (serve.py); a plan it lowers with `build_pins` pins each join's
+build side in the device ledger under `_build_key` (join/relation.py).
+Without a server nothing pins.
 
 Device selection: `device=None` means `cuda:0`, and the context raises
 ExecutionError when no CUDA device is available — it never carries on
@@ -36,6 +42,9 @@ for the CPU.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -65,11 +74,13 @@ from datafusion_tpu_torch.plan.logical import (
     Selection,
     Sort,
     TableScan,
+    scan_tables,
 )
 from datafusion_tpu_torch.sql import ast
 from datafusion_tpu_torch.sql.optimizer import push_down_projection
 from datafusion_tpu_torch.sql.parser import parse_sql
 from datafusion_tpu_torch.sql.planner import SqlToRel
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 
 class _ContextSchemaProvider:
@@ -101,6 +112,10 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ExecutionError(f"unsupported device {dev}")
     return dev
+
+
+# the `build_pins` of the plan `execute` lowers on this thread
+_LOWERING = threading.local()
 
 
 class ExecutionContext:
@@ -183,8 +198,51 @@ class ExecutionContext:
         plan = SqlToRel(_ContextSchemaProvider(self)).sql_to_rel(stmt)
         return push_down_projection(plan)
 
-    def execute(self, plan: LogicalPlan) -> Relation:
-        """Map a logical plan onto operators (reference `context.rs:103`)."""
+    def serve(self, **kwargs):
+        """A started serving front door over this context
+        (`serve.Server`: admission, pinned tables, megabatching); stop it
+        with `stop()` or use it as a context manager."""
+        from datafusion_tpu_torch.serve import Server
+
+        return Server(self, **kwargs).start()
+
+    def execute(self, plan: LogicalPlan, build_pins: Optional[set] = None) -> Relation:
+        """Map a logical plan onto operators (reference `context.rs:103`).
+        Counts `queries_admitted` once per plan.  With `build_pins` (a
+        set; the serving path passes one) each join of the plan pins its
+        build under `_build_key` and the key is added to the set, so the
+        caller can release the pins; without it nothing pins."""
+        METRICS.add("queries_admitted")
+        _LOWERING.build_pins = build_pins
+        try:
+            return self._lower(plan)
+        finally:
+            _LOWERING.build_pins = None
+
+    def _build_key(self, plan: Join) -> Optional[str]:
+        """The fingerprint a join's build side pins under: its plan, the
+        data identity of every table it scans (`DataSource.data_identity`:
+        never the name alone), the join keys, the device and the dense
+        window (which decides the artifact's route).  None when the
+        plan has no wire form (no pin)."""
+        from datafusion_tpu_torch.join.relation import _dense_max_slots
+
+        try:
+            body = plan.right.to_json()
+        except NotImplementedError:
+            return None
+        tables = []
+        for t in scan_tables(plan.right):
+            ds = self.datasources.get(t)
+            tables.append([t, None if ds is None else repr(ds.data_identity)])
+        udfs = sorted((n, id(fm.torch_fn), id(fm.host_fn))
+                      for n, fm in self.functions.items())
+        text = json.dumps([body, tables, [list(p) for p in plan.on], str(self.device),
+                           _dense_max_slots(), repr(udfs)],
+                          sort_keys=True, default=repr)
+        return "join:" + hashlib.sha256(text.encode()).hexdigest()[:32]
+
+    def _lower(self, plan: LogicalPlan) -> Relation:
         fns = self._torch_functions()
         if fused.fusion_enabled():
             rel = self._execute_fused(plan, fns)
@@ -201,16 +259,16 @@ class ExecutionContext:
             return _EmptyRelationExec()
         if isinstance(plan, Selection):
             return PipelineRelation(
-                self.execute(plan.input), plan.expr, None, plan.schema,
+                self._lower(plan.input), plan.expr, None, plan.schema,
                 self.device, functions=fns,
             )
         if isinstance(plan, Projection):
             # Projection(Selection(x)): one pipeline filters and projects
             if isinstance(plan.input, Selection):
-                child = self.execute(plan.input.input)
+                child = self._lower(plan.input.input)
                 pred = plan.input.expr
             else:
-                child = self.execute(plan.input)
+                child = self._lower(plan.input)
                 pred = None
             return PipelineRelation(
                 child, pred, plan.expr, plan.schema, self.device,
@@ -220,10 +278,10 @@ class ExecutionContext:
             # Aggregate(Selection(x)): the predicate runs inside the
             # aggregate operator
             if isinstance(plan.input, Selection):
-                child = self.execute(plan.input.input)
+                child = self._lower(plan.input.input)
                 pred = plan.input.expr
             else:
-                child = self.execute(plan.input)
+                child = self._lower(plan.input)
                 pred = None
             return AggregateRelation(
                 child, plan.group_expr, plan.aggr_expr, plan.schema,
@@ -231,21 +289,26 @@ class ExecutionContext:
             )
         if isinstance(plan, Sort):
             return SortRelation(
-                self.execute(plan.input), plan.expr, plan.schema, self.device
+                self._lower(plan.input), plan.expr, plan.schema, self.device
             )
         if isinstance(plan, Limit):
             if isinstance(plan.input, Sort):
                 # the sort slices its permutation directly, or keeps a
                 # top-k state
                 return SortRelation(
-                    self.execute(plan.input.input), plan.input.expr,
+                    self._lower(plan.input.input), plan.input.expr,
                     plan.schema, self.device, limit=plan.limit,
                 )
-            return LimitRelation(self.execute(plan.input), plan.limit, plan.schema)
+            return LimitRelation(self._lower(plan.input), plan.limit, plan.schema)
         if isinstance(plan, Join):
+            pins = getattr(_LOWERING, "build_pins", None)
+            key = None if pins is None else self._build_key(plan)
+            if key is not None:
+                pins.add(key)
             return HashJoinRelation(
-                self.execute(plan.left), self.execute(plan.right),
+                self._lower(plan.left), self._lower(plan.right),
                 plan.on, plan.join_type, plan.schema, self.device,
+                build_key=key,
             )
         raise NotSupportedError(
             f"plan node {type(plan).__name__} is not ported yet (ROADMAP queue 1)"
@@ -269,7 +332,7 @@ class ExecutionContext:
                 return None
             try:
                 return AggregateRelation(
-                    self.execute(base), group_expr, aggr_expr, plan.schema,
+                    self._lower(base), group_expr, aggr_expr, plan.schema,
                     self.device, predicate=pred, functions=fns,
                 )
             except (NotSupportedError, PlanError):
@@ -288,7 +351,7 @@ class ExecutionContext:
             if pred is not None and contains_host_fn(pred, self.functions):
                 return None
             return PipelineRelation(
-                self.execute(base), pred, proj, plan.schema, self.device,
+                self._lower(base), pred, proj, plan.schema, self.device,
                 functions=fns, function_metas=self.functions,
             )
 
@@ -303,6 +366,6 @@ class ExecutionContext:
             return None
         base, keys, pred, out_cols = hit
         return SortRelation(
-            self.execute(base), keys, plan.schema, self.device, limit=limit,
+            self._lower(base), keys, plan.schema, self.device, limit=limit,
             predicate=pred, output_cols=out_cols,
         )

@@ -136,7 +136,9 @@ def _modules():
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
+    """Launches of each kernel since the last reset (the grouped
+    reduce's query-axis launches count under `hash_agg`, and alone in
+    `hash_agg.MULTI_LAUNCHES`)."""
     return {name: mod.LAUNCHES for name, mod in _modules().items()}
 
 
@@ -144,3 +146,4 @@ def reset_launch_counts() -> None:
     with COUNT_LOCK:
         for mod in _modules().values():
             mod.LAUNCHES = 0
+        _modules()["hash_agg"].MULTI_LAUNCHES = 0

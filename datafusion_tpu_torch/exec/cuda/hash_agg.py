@@ -16,7 +16,17 @@ bit-identical from run to run.  The source says more.
 
 `grouped_reduce` takes the kernel for a CUDA tensor and the plain
 version, `grouped_reduce_torch`, for a CPU tensor; there is no other
-route.  `LAUNCHES` counts the kernel's launches.
+route.
+
+The kernel has a query axis, which the serving megabatch needs:
+`grouped_reduce_multi` runs Q queries over one set of ids, each with its
+own live mask and either one shared value column or its own, in one
+cooperative launch at the geometry of one query, so each query's result
+is bit-identical to its own `grouped_reduce` on the same rows.  A solo
+call is the launch with Q = 1: one kernel, one launch site (`_launch`).
+Its plain version, `grouped_reduce_multi_torch`, is one reduction over
+the offset ids q * G + id.  `LAUNCHES` counts every launch;
+`MULTI_LAUNCHES` counts those that served more than one query.
 """
 
 from __future__ import annotations
@@ -30,9 +40,13 @@ from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.exec import cuda as _cuda
 
 LAUNCHES = 0
+MULTI_LAUNCHES = 0
 
 MAX_WARPS = 8  # warps of a block; up to all of them own a partial in shared memory
 ITEMS = 16  # 32-row steps a warp loads before it folds any (csrc kItems)
+# queries of one query-axis launch: its scratch holds Q x blocks x G
+# partials (32 x 132 x 8192 f64 are 277 MB); a wider call launches again
+MAX_QUERIES = 32
 
 _DTYPE_CODES = {
     torch.int8: 0,
@@ -156,9 +170,9 @@ def _library():
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -177,38 +191,6 @@ def _limits(index: int) -> tuple[int, int]:
     return lim
 
 
-def _launch(ids, vals, live, num_groups: int, kind: str):
-    """Run the kernel on the inputs' device: one cooperative launch."""
-    global LAUNCHES
-    dtype = _DTYPE_CODES.get(vals.dtype)
-    if dtype is None:
-        raise ExecutionError(f"grouped_reduce kernel does not take {vals.dtype}")
-    if not (ids.is_contiguous() and vals.is_contiguous() and live.is_contiguous()):
-        raise ExecutionError("grouped_reduce kernel needs contiguous ids, vals and live")
-    dev = vals.device
-    current = torch.cuda.current_device()
-    if dev.index is not None and dev.index != current:
-        with torch.cuda.device(dev):
-            return _launch(ids, vals, live, num_groups, kind)
-    n = ids.shape[0]
-    lib = _library()
-    warps, tile_g, lane_parts, blocks, chunk_rows, fold_lanes = geometry(
-        n, num_groups, vals.element_size(), *_limits(current))
-    # the result, then one row of partials per block: one allocation.
-    # resize_ to the result's length keeps the storage and, unlike a
-    # view, makes no second tensor on the host
-    buf = torch.empty((1 + blocks) * num_groups, dtype=vals.dtype, device=dev)
-    rc = lib.df_grouped_reduce(
-        dtype, _KINDS[kind], ids.data_ptr(), vals.data_ptr(), live.data_ptr(), n,
-        num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, buf.data_ptr(),
-        _cuda.raw_stream(dev))
-    if rc != 0:
-        raise ExecutionError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
-    with _cuda.COUNT_LOCK:
-        LAUNCHES += 1
-    return buf.resize_(num_groups)
-
-
 def grouped_reduce(ids, vals, live, num_groups: int, kind: str):
     """Per-group reduction of `vals` by dense int32 `ids`.  `live`
     masks rows out; ids outside [0, num_groups) contribute nothing;
@@ -220,3 +202,100 @@ def grouped_reduce(ids, vals, live, num_groups: int, kind: str):
     if ids.device.type != "cuda":
         raise ExecutionError(f"grouped_reduce runs on cuda or cpu, not {ids.device}")
     return _launch(ids, vals, live, num_groups, kind)
+
+
+def _check_multi(ids, vals, live, num_groups: int, kind: str) -> None:
+    if kind not in _KINDS:
+        raise ValueError(f"unknown reduce kind {kind!r}")
+    if not isinstance(num_groups, int) or num_groups < 1:
+        raise ValueError(f"num_groups must be a positive int, got {num_groups!r}")
+    tensor = torch.Tensor
+    if not (isinstance(ids, tensor) and isinstance(vals, tensor) and isinstance(live, tensor)
+            and ids.dim() == 1 and live.dim() == 2 and vals.dim() in (1, 2)):
+        raise ValueError("ids must be [N], vals [N] or [Q, N] and live [Q, N]")
+    n = ids.shape[0]
+    q = live.shape[0]
+    if live.shape[1] != n or vals.shape[-1] != n or (vals.dim() == 2 and vals.shape[0] != q):
+        raise ValueError(f"ids {tuple(ids.shape)}, vals {tuple(vals.shape)} and live "
+                         f"{tuple(live.shape)} do not agree")
+    dev = ids.device
+    if vals.device != dev or live.device != dev:
+        raise ValueError(f"ids, vals and live are on {dev}, {vals.device} and {live.device}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32, got {ids.dtype}")
+    if live.dtype != torch.bool:
+        raise ValueError(f"live must be bool, got {live.dtype}")
+
+
+def grouped_reduce_multi_torch(ids, vals, live, num_groups: int, kind: str):
+    """Plain PyTorch version of the query axis: query q's rows keyed
+    q * G + id in one reduction over Q x N rows.  Returns [Q, G]."""
+    _check_multi(ids, vals, live, num_groups, kind)
+    q, n = live.shape
+    out = torch.full((q * num_groups,), _identity(kind, vals.dtype),
+                     dtype=vals.dtype, device=vals.device)
+    sel = (live & ((ids >= 0) & (ids < num_groups))).reshape(-1)
+    offset = torch.arange(q, dtype=torch.int64, device=ids.device)[:, None] * num_groups
+    idx = (ids.long()[None, :] + offset).reshape(-1)[sel]
+    v = vals.expand(q, n).reshape(-1)[sel]
+    if kind == "sum":
+        out.index_add_(0, idx, v)
+    else:
+        out.scatter_reduce_(0, idx, v, "amin" if kind == "min" else "amax")
+    return out.view(q, num_groups)
+
+
+def _launch(ids, vals, live, num_groups: int, kind: str):
+    """Run the kernel on the inputs' device: one cooperative launch for
+    one query (`live` [N]; returns [G]) or for the Q = live.shape[0]
+    queries of `live` [Q, N] (at most MAX_QUERIES; returns [Q, G])."""
+    global LAUNCHES, MULTI_LAUNCHES
+    dtype = _DTYPE_CODES.get(vals.dtype)
+    if dtype is None:
+        raise ExecutionError(f"grouped_reduce kernel does not take {vals.dtype}")
+    if not (ids.is_contiguous() and vals.is_contiguous() and live.is_contiguous()):
+        raise ExecutionError("grouped_reduce kernel needs contiguous ids, vals and live")
+    dev = vals.device
+    current = torch.cuda.current_device()
+    if dev.index is not None and dev.index != current:
+        with torch.cuda.device(dev):
+            return _launch(ids, vals, live, num_groups, kind)
+    q = 1 if live.dim() == 1 else live.shape[0]
+    n = ids.shape[0]
+    lib = _library()
+    warps, tile_g, lane_parts, blocks, chunk_rows, fold_lanes = geometry(
+        n, num_groups, vals.element_size(), *_limits(current))
+    # the Q results, then Q rows of partials per block: one allocation
+    buf = torch.empty(q * (1 + blocks) * num_groups, dtype=vals.dtype, device=dev)
+    rc = lib.df_grouped_reduce(
+        dtype, _KINDS[kind], ids.data_ptr(), vals.data_ptr(), n if vals.dim() == 2 else 0,
+        live.data_ptr(), n, q, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows,
+        fold_lanes, buf.data_ptr(), _cuda.raw_stream(dev))
+    if rc != 0:
+        raise ExecutionError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
+        MULTI_LAUNCHES += int(q > 1)
+    out = buf.resize_(q * num_groups)
+    return out if live.dim() == 1 else out.view(q, num_groups)
+
+
+def grouped_reduce_multi(ids, vals, live, num_groups: int, kind: str):
+    """Q grouped reductions over one set of dense int32 `ids` [N]:
+    query q reduces `vals[q]` (or the shared `vals` [N]) over the rows
+    `live[q]` keeps, with `grouped_reduce`'s semantics.  Returns a
+    [Q, num_groups] tensor of vals.dtype; on a CUDA device each row is
+    bit-identical to that query's own `grouped_reduce`.  A call of more
+    than MAX_QUERIES queries launches once per MAX_QUERIES."""
+    _check_multi(ids, vals, live, num_groups, kind)
+    if ids.device.type == "cpu":
+        return grouped_reduce_multi_torch(ids, vals, live, num_groups, kind)
+    if ids.device.type != "cuda":
+        raise ExecutionError(f"grouped_reduce_multi runs on cuda or cpu, not {ids.device}")
+    q = live.shape[0]
+    if q <= MAX_QUERIES:
+        return _launch(ids, vals, live, num_groups, kind)
+    parts = [_launch(ids, vals if vals.dim() == 1 else vals[lo:lo + MAX_QUERIES],
+                     live[lo:lo + MAX_QUERIES], num_groups, kind)
+             for lo in range(0, q, MAX_QUERIES)]
+    return torch.cat(parts)

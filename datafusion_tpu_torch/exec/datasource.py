@@ -11,18 +11,47 @@ card's machine lacks, and wait for their slice (ROADMAP queue 1, item
 
 from __future__ import annotations
 
+import itertools
+import os
 from typing import Iterator, Optional, Sequence
+
+import numpy as np
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.exec.batch import RecordBatch
 
+# identities of in-memory sources: never reused in a process (an id()
+# is, once its object is collected), so a fingerprint holding one
+# cannot match another table's data
+_SOURCE_IDS = itertools.count(1)
+
+
+def host_bytes(batches) -> int:
+    """Bytes of the numpy columns and validity of `batches`."""
+    total = 0
+    for b in batches:
+        for arr in list(b.data) + list(b.validity):
+            if isinstance(arr, np.ndarray):
+                total += arr.nbytes
+    return total
+
 
 class DataSource:
-    """Base: schema + re-iterable batches.  `parses`: whether `batches`
-    parses its input as it reads, work the prefetch threads can run
-    ahead of the consumer (`exec/prefetch.pipeline_enabled`)."""
+    """Base: schema + re-iterable batches.
+
+    - `parses`: whether `batches` parses its input as it reads, work the
+      prefetch threads can run ahead of the consumer
+      (`exec/prefetch.pipeline_enabled`);
+    - `data_version`: bumped when the data changes (no port source
+      appends yet: 0);
+    - `estimated_bytes()`: what the table would occupy pinned on the
+      device (0 when unknown: admission never sheds for it);
+    - `data_identity`: a hashable identity of the data itself, which a
+      fingerprint of a result built from it holds (serve.py's pins,
+      join/relation.py's pinned builds)."""
 
     parses = False
+    data_version = 0
 
     @property
     def schema(self) -> Schema:
@@ -34,6 +63,15 @@ class DataSource:
     def with_projection(self, projection: Sequence[int]) -> "DataSource":
         raise NotImplementedError
 
+    def estimated_bytes(self) -> int:
+        return 0
+
+    @property
+    def data_identity(self) -> tuple:
+        ident = self.__dict__.get("_identity")
+        if ident is None:
+            ident = self.__dict__["_identity"] = next(_SOURCE_IDS)
+        return (type(self).__name__, ident, self.data_version)
 
 class MemoryDataSource(DataSource):
     """In-memory source over prebuilt RecordBatches.  Re-scans hand out
@@ -50,6 +88,9 @@ class MemoryDataSource(DataSource):
 
     def batches(self) -> Iterator[RecordBatch]:
         return iter(self._batches)
+
+    def estimated_bytes(self) -> int:
+        return host_bytes(self._batches)
 
     def with_projection(self, projection: Sequence[int]) -> "DataSource":
         out_schema = self._schema.select(list(projection))
@@ -98,6 +139,24 @@ class CsvDataSource(DataSource):
 
     def batches(self) -> Iterator[RecordBatch]:
         return self._reader.batches()
+
+    def estimated_bytes(self) -> int:
+        try:
+            return os.path.getsize(self.path)
+        except OSError:
+            return 0
+
+    @property
+    def data_identity(self) -> tuple:
+        """The source's own identity (its reader's dictionaries code the
+        strings) and the file's size and modification time: a file
+        rewritten in place is other data."""
+        try:
+            st = os.stat(self.path)
+            stamp = (st.st_size, st.st_mtime_ns)
+        except OSError:
+            stamp = None
+        return super().data_identity + (stamp,)
 
     def with_projection(self, projection: Sequence[int]) -> "CsvDataSource":
         return CsvDataSource(self.path, self.table_schema, self.has_header,

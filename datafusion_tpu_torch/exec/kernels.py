@@ -118,6 +118,39 @@ def parameterize_exprs(exprs):
     return fps, slot_by_id, tuple(values)
 
 
+def param_slots_of(expr, param_slots: dict) -> tuple:
+    """The runtime parameter slots `expr` reads (sorted): its literals
+    that `param_slots` (parameterize_exprs' `slot_by_id`) maps."""
+    from datafusion_tpu_torch.plan.expr import Literal
+
+    found: set = set()
+    stack = [expr]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, Literal):
+            slot = param_slots.get(id(e))
+            if slot is not None:
+                found.add(slot)
+            continue
+        for name in ("expr", "left", "right"):
+            child = getattr(e, name, None)
+            if child is not None and not isinstance(child, (str, int)):
+                stack.append(child)
+        stack.extend(getattr(e, "args", None) or ())
+    return tuple(sorted(found))
+
+
+def wildcard_strings(fp):
+    """A fingerprint with every string literal's value taken out: cores
+    whose fingerprints agree under it differ at most in the strings
+    their predicates compare against (serve.py's aggregate lane)."""
+    if isinstance(fp, tuple):
+        if len(fp) == 2 and fp[0] == "strlit":
+            return ("strlit",)
+        return tuple(wildcard_strings(f) for f in fp)
+    return fp
+
+
 def fuse_batch_count() -> int:
     """Batches the pipeline folds into one device pass by default
     (`DATAFUSION_TPU_FUSE_BATCHES`, 16; the JAX package's knob, read the

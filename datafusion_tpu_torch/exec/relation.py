@@ -15,6 +15,12 @@ to the device; column projections pass through on the host untouched,
 Utf8 columns with their dictionaries; the mask and the computed
 columns come back when `collect` pulls them.
 
+The serving megabatch's pipeline lane (`run_pipeline_megabatch`): N
+relations over one core and one table scan once, and each batch group
+runs all N queries' predicates and projections in one pass
+(`_PipelineCore.run_group_multi`); each relation then replays its own
+output batches.
+
 Relations that raise NotSupportedError here: a `PipelineRelation`
 whose predicate calls a host-only function (`host_fn` UDF).
 """
@@ -194,42 +200,54 @@ class _PipelineCore:
         group.  Returns per-batch (computed columns, their validity,
         selection mask): views of the group's outputs at each batch's
         rows and capacity.  A group of one entry concatenates nothing."""
+        return self.run_group_multi(entries, aux, [params], device)[0]
+
+    def run_group_multi(self, entries, aux, params_list, device):
+        """`run_group` for N queries of this core at once (the serving
+        megabatch): the group's entries concatenate once, then each
+        query's predicate and projections evaluate under its own
+        parameters.  Returns, per query, what `run_group` returns."""
         caps = [self._capacity(c, m) for c, _, _, m in entries]
         live = [torch.arange(cap, dtype=torch.int32, device=device) < n
                 for cap, (_, _, n, _) in zip(caps, entries)]
         live = [lv if m is None else lv & m for lv, (_, _, _, m) in zip(live, entries)]
         if len(entries) == 1:
             cols, valids = entries[0][0], entries[0][1]
-            mask = live[0]
+            base = live[0]
         else:
             cols = tuple(torch.cat(c) for c in zip(*(e[0] for e in entries)))
             valids = tuple(None if v[0] is None else torch.cat(v)
                            for v in zip(*(e[1] for e in entries)))
-            mask = torch.cat(live)
-        capacity = mask.shape[0]
-        env = Env(cols, valids, aux, device, self.col_map, params)
-        if self.pred_fn is not None:
-            pv, pvalid = self.pred_fn(env)
-            pv = pv.expand(capacity)
-            if pvalid is not None:
-                # SQL: a NULL predicate drops the row
-                pv = pv & pvalid.expand(capacity)
-            mask = mask & pv
-        out_cols, out_valids = [], []
-        for f in self.proj_fns or []:
-            if f is None:
+            base = torch.cat(live)
+        capacity = base.shape[0]
+        out = []
+        for params in params_list:
+            env = Env(cols, valids, aux, device, self.col_map, params)
+            mask = base
+            if self.pred_fn is not None:
+                pv, pvalid = self.pred_fn(env)
+                pv = pv.expand(capacity)
+                if pvalid is not None:
+                    # SQL: a NULL predicate drops the row
+                    pv = pv & pvalid.expand(capacity)
+                mask = mask & pv
+            out_cols, out_valids = [], []
+            for f in self.proj_fns or []:
+                if f is None:
+                    continue
+                v, valid = f(env)
+                out_cols.append(_full(v, capacity))
+                out_valids.append(None if valid is None else _full(valid, capacity))
+            if len(entries) == 1:
+                out.append([(out_cols, out_valids, mask)])
                 continue
-            v, valid = f(env)
-            out_cols.append(_full(v, capacity))
-            out_valids.append(None if valid is None else _full(valid, capacity))
-        if len(entries) == 1:
-            return [(out_cols, out_valids, mask)]
-        split = [torch.split(c, caps) for c in out_cols]
-        split_valids = [None if v is None else torch.split(v, caps) for v in out_valids]
-        return [([c[j] for c in split],
-                 [None if v is None else v[j] for v in split_valids],
-                 m)
-                for j, m in enumerate(torch.split(mask, caps))]
+            split = [torch.split(c, caps) for c in out_cols]
+            split_valids = [None if v is None else torch.split(v, caps) for v in out_valids]
+            out.append([([c[j] for c in split],
+                         [None if v is None else v[j] for v in split_valids],
+                         m)
+                        for j, m in enumerate(torch.split(mask, caps))])
+        return out
 
     @staticmethod
     def _capacity(cols, base_mask) -> int:
@@ -288,6 +306,10 @@ class PipelineRelation(Relation):
         return self._schema
 
     def batches(self) -> Iterator[RecordBatch]:
+        injected = self.__dict__.pop("_injected_batches", None)
+        if injected is not None:
+            yield from injected  # the serving megabatch ran this query
+            return
         core = self.core
         dev = self.device
         batches = self.child.batches()
@@ -297,31 +319,34 @@ class PipelineRelation(Relation):
         if pipeline_enabled(dev, self.child):
             batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
         params = param_tensors(self._params, dev)
+        for group in self._batch_groups(batches):
+            # one device pass, then one output batch per input batch,
+            # with its boundaries, `num_rows` and mask
+            outs = core.run_group([e for _, e, _ in group], group[0][2], params, dev)
+            for (batch, _, _), (cols, valids, mask) in zip(group, outs):
+                yield self._output(batch, cols, valids, mask)
+
+    def _batch_groups(self, batches):
+        """The scan's batch groups: runs of up to `pipeline_group_max()`
+        batches of one entry and aux-table signature, each a list of
+        (batch, entry, aux) with the copies of its used columns."""
         group_max = pipeline_group_max() if fusion_enabled() else 1
-        group: list = []  # (batch, entry, aux)
+        group: list = []
         sig = None
         for batch in batches:
             aux = self._aux(batch)
             data, validity, mask_in = device_inputs(
-                subset_view(batch, core.used_cols), dev
+                subset_view(batch, self.core.used_cols), self.device
             )
             entry = (data, validity, batch.num_rows, mask_in)
             entry_sig = (entry_signature(entry), shared_signature(aux))
             if group and (entry_sig != sig or len(group) >= group_max):
-                yield from self._run_group(group, params)
+                yield group
+                group = []
             sig = entry_sig
             group.append((batch, entry, aux))
         if group:
-            yield from self._run_group(group, params)
-
-    def _run_group(self, group, params) -> Iterator[RecordBatch]:
-        """One device pass over a batch group, then one output batch per
-        input batch, with its boundaries, `num_rows` and mask."""
-        outs = self.core.run_group([e for _, e, _ in group], group[0][2], params,
-                                   self.device)
-        for (batch, _, _), (cols, valids, mask) in zip(group, outs):
-            yield self._output(batch, cols, valids, mask)
-        group.clear()
+            yield group
 
     def _passthrough(self, batches) -> Iterator[RecordBatch]:
         """A pure column selection: no device pass.  It yields one stable
@@ -429,3 +454,31 @@ class PipelineRelation(Relation):
             )
             dicts.append(d)
         return cols, valids, dicts
+
+
+def run_pipeline_megabatch(rels: list) -> None:
+    """ONE scan, N filter/project queries: the serving megabatch's
+    pipeline lane (the JAX package's `run_pipeline_megabatch`).
+    Preconditions (serve.py `_mega_key`): the relations share one core
+    (their literals are parameters) and scan one table, and the core
+    has device work.  The batch groups are a solo scan's; each runs
+    every query in one `run_group_multi` over inputs copied once.  Each
+    relation gets its output batches as `_injected_batches`, which its
+    `batches()` replays."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    leader = rels[0]
+    dev = leader.device
+    params_list = [param_tensors(r._params, dev) for r in rels]
+    outs: list[list] = [[] for _ in rels]
+    for group in leader._batch_groups(leader.child.batches()):
+        per_query = leader.core.run_group_multi([e for _, e, _ in group], group[0][2],
+                                                params_list, dev)
+        for r, out, res in zip(rels, outs, per_query):
+            for (batch, _, _), (cols, valids, mask) in zip(group, res):
+                out.append(r._output(batch, cols, valids, mask))
+        METRICS.add("serve.megabatch_launches")
+        METRICS.add("serve.megabatch_batches", len(group))
+    METRICS.add("serve.megabatch_queries", len(rels))
+    for r, out in zip(rels, outs):
+        r._injected_batches = out

@@ -79,6 +79,7 @@ from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled
 from datafusion_tpu_torch.exec.materialize import compact_batch
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.plan.expr import Column, SortExpr
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 # LIMIT at or below this rides the streaming TopK in the JAX package;
 # above it the query is effectively a full sort and takes the run path.
@@ -478,7 +479,27 @@ class SortRelation(Relation):
 
     # -- streaming TopK --
     def _topk_batches(self) -> Iterator[RecordBatch]:
-        k = self.limit
+        """The TopK's one output batch: this query's first `limit` rows
+        of the scan's state (`_topk_scan`), or of the state the serving
+        megabatch kept for several queries at once
+        (`run_topk_megabatch`), gathered from the held batches."""
+        injected = self.__dict__.pop("_injected_topk", None)
+        held, rows, dicts = injected if injected is not None else self._topk_scan(self.limit)
+        in_schema = self.child.schema
+        if rows is None:
+            yield self._empty_result(in_schema, dicts)
+            return
+        cols, valids = self._gather(held, rows[:self.limit], len(in_schema))
+        yield make_host_batch(
+            self._schema, [cols[i] for i in self._out_cols],
+            [valids[i] for i in self._out_cols], [dicts[i] for i in self._out_cols],
+        )
+
+    def _topk_scan(self, k: int):
+        """The streaming TopK's scan at capacity `k`: returns (held
+        batches, the state's global row ids in order or None for no
+        rows, the dictionaries).  `_merges` counts its sorts."""
+        self._merges = 0
         dev = self.device
         in_schema = self.child.schema
         dicts = [None] * len(in_schema)
@@ -535,6 +556,7 @@ class SortRelation(Relation):
             if state_ids is not None:
                 ids = torch.cat([state_ids, ids])
             keep = sort_kernel.argsort_multi(ops)[:k]
+            self._merges += 1
             state_ops = [o.index_select(0, keep) for o in ops]
             state_ids = ids.index_select(0, keep)
             for bcols, bvalids, bn, _ in group:
@@ -560,14 +582,7 @@ class SortRelation(Relation):
                 merge()
         if group:
             merge()
-        if state_ids is None:
-            yield self._empty_result(in_schema, dicts)
-            return
-        cols, valids = self._gather(held, rows, len(in_schema))
-        yield make_host_batch(
-            self._schema, [cols[i] for i in self._out_cols],
-            [valids[i] for i in self._out_cols], [dicts[i] for i in self._out_cols],
-        )
+        return held, (None if state_ids is None else rows), dicts
 
     @staticmethod
     def _owner(held: dict, rows: np.ndarray) -> np.ndarray:
@@ -634,3 +649,24 @@ class LimitRelation(Relation):
             )
             if remaining <= 0:
                 return
+
+
+def run_topk_megabatch(rels: list) -> None:
+    """ONE scan, N TopK queries that differ only in their LIMIT: the
+    serving megabatch's TopK lane (the JAX package's
+    `run_topk_megabatch`).  Preconditions (serve.py `_mega_key`): the
+    relations sort one table by the same keys, with no fused predicate
+    and the same output columns.
+
+    One state of the largest member's k is kept (`_topk_scan`): one
+    radix-sort merge per batch group for all N.  The state orders rows
+    by (key, row) with ties in ascending row order, so each query's
+    first k rows of it are exactly its solo answer.  Each relation gets
+    the held batches and the row ids as `_injected_topk`; its
+    `batches()` then gathers its own prefix."""
+    leader = max(rels, key=lambda r: r.limit)
+    held, rows, dicts = leader._topk_scan(leader.limit)
+    METRICS.add("serve.megabatch_launches", leader._merges)
+    METRICS.add("serve.megabatch_queries", len(rels))
+    for r in rels:
+        r._injected_topk = (held, rows, dicts)

@@ -31,10 +31,21 @@ relation; probe batches stream through one of two paths:
   wide key ranges).  `core.HashIndex`, built only for this path,
   CSR-expands matches per batch.
 
-Not ported (ROADMAP queue 1, "join build pins"): pinning the artifact
-in the device ledger under the build subtree's fingerprint, per-client
-attribution and the cost store's build-side observation.  A warm query
-therefore builds again.
+**Build pins** (the JAX package's `_build_artifact`): in a plan a
+`serve.Server` lowers (`ExecutionContext.execute(build_pins=...)`), a
+built artifact of at most `DATAFUSION_TPU_JOIN_PIN_MAX` bytes (64 MB)
+is pinned in the device ledger (`obs/device.LEDGER`, owner
+`join.build`) under the build subtree's fingerprint, `join:<fp>`
+(`ExecutionContext._build_key`), and a later served query with the same
+build side probes it (`join.build.reuse`) instead of building again;
+the server unpins its builds when it stops.  A plain `ctx.sql` pins
+nothing and builds each time, as before serving was ported (the JAX
+package pins in every context).  The fingerprint holds the identity of the
+data of every table the build side scans (`DataSource.data_identity`),
+so two contexts that register different in-memory tables under one
+name never probe each other's build, as they do in the JAX package
+(ROADMAP queue 3).  Not ported: per-client attribution and the cost
+store's build-side observation.
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ from datafusion_tpu_torch.exec.batch import (
 from datafusion_tpu_torch.exec.cuda import hash_build
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.join import core as _core
+from datafusion_tpu_torch.obs.device import LEDGER
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 
 def _dense_max_slots() -> int:
@@ -65,6 +78,12 @@ def _dense_max_slots() -> int:
     (sparse/huge key ranges) the host index keeps the job.  2^26 by
     default (the module docstring says why not the JAX package's 2^20)."""
     return int(os.environ.get("DATAFUSION_TPU_JOIN_DENSE_SLOTS", 1 << 26))
+
+
+def _pin_max_bytes() -> int:
+    """Largest build artifact the ledger pins (dimension tables are
+    small; a fact-side build must not hold device memory)."""
+    return int(os.environ.get("DATAFUSION_TPU_JOIN_PIN_MAX", 64 << 20))
 
 
 def _is_utf8_field(field) -> bool:
@@ -88,7 +107,7 @@ class JoinBuildArtifact:
 
     __slots__ = ("cols", "valids", "dicts", "versions", "n_rows", "index",
                  "dense", "kmin", "num_slots", "dev_slot_row", "dev_cols",
-                 "dev_valids")
+                 "dev_valids", "nbytes")
 
     def __init__(self):
         self.dense = False
@@ -126,13 +145,15 @@ class HashJoinRelation(Relation):
     """INNER / LEFT OUTER equi-join of two child relations."""
 
     def __init__(self, left: Relation, right: Relation, on, join_type: str,
-                 schema: Schema, device: torch.device):
+                 schema: Schema, device: torch.device,
+                 build_key: Optional[str] = None):
         self.left = left
         self.right = right
         self.on = [(int(l), int(r)) for l, r in on]
         self.join_type = join_type
         self._schema = schema
         self.device = device
+        self.build_key = build_key  # the pin's fingerprint; None: no pin
         self._artifact: Optional[JoinBuildArtifact] = None
 
     @property
@@ -141,9 +162,22 @@ class HashJoinRelation(Relation):
 
     # -- build ---------------------------------------------------------
     def _build_artifact(self) -> JoinBuildArtifact:
-        if self._artifact is None:
-            self._artifact = self._materialize_build()
-        return self._artifact
+        """The build side: the artifact pinned under `build_key` if
+        there is one, else built here and pinned."""
+        if self._artifact is not None:
+            return self._artifact
+        fp = self.build_key
+        if fp is not None:
+            art = LEDGER.pinned(fp)
+            if art is not None:
+                METRICS.add("join.build.reuse")
+                self._artifact = art
+                return art
+        art = self._materialize_build()
+        if fp is not None and art.nbytes <= _pin_max_bytes():
+            LEDGER.pin(fp, art.nbytes, owner="join.build", artifact=art)
+        self._artifact = art
+        return art
 
     def _materialize_build(self) -> JoinBuildArtifact:
         from datafusion_tpu_torch.exec.materialize import collect_columns
@@ -151,6 +185,9 @@ class HashJoinRelation(Relation):
         cols, valids, dicts, n = collect_columns(self.right)
         art = JoinBuildArtifact()
         art.cols, art.valids, art.dicts, art.n_rows = cols, valids, dicts, n
+        art.nbytes = sum(int(c.nbytes) for c in cols) + sum(
+            int(v.nbytes) for v in valids if v is not None)
+        METRICS.add("join.build.rows", n)
         # the build side is read to its end: its dictionaries' versions
         # now are the ones every output batch's tables are built at
         art.versions = tuple(None if d is None else d.version for d in dicts)

@@ -358,3 +358,16 @@ _PLAN_DECODERS = {
         Schema.from_json(b["schema"]),
     ),
 }
+
+
+def scan_tables(plan: LogicalPlan) -> list[str]:
+    """The names of the tables `plan` scans, each once, in plan order."""
+    out: list[str] = []
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, TableScan):
+            if node.table_name not in out:
+                out.append(node.table_name)
+        stack.extend(reversed(list(node.children())))
+    return out

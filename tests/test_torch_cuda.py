@@ -653,3 +653,138 @@ def test_high_cardinality_query_launches_the_sort_kernel(dev):
                 assert np.isclose(gv, wv, rtol=1e-9, atol=0.0), (g, w)
             else:
                 assert gv == wv, (g, w)
+
+
+# ------------------------------------ slice 9: the query axis and serving
+
+
+def _bits_equal(a, b):
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int64 if a.element_size() == 8 else torch.int32),
+                           b.view(torch.int64 if b.element_size() == 8 else torch.int32))
+    return torch.equal(a, b)
+
+
+# Q1's group (46 x 131,072 rows, G = 8), config 2's (8 x 524,288 rows,
+# G = 16 and 4096), a G past one tile of shared memory, and small shapes
+@pytest.mark.parametrize("n,g,q", [(46 * 131_072, 8, 16), (8 * 524_288, 4096, 4),
+                                   (8 * 524_288, 16, 4), (70001, 32768, 3),
+                                   (1000, 8, 1), (70001, 200, 5)])
+@pytest.mark.parametrize("kind,dtype", CASES)
+@pytest.mark.parametrize("shared", [True, False])
+def test_query_axis_matches_solo_launches_bit_for_bit(dev, kind, dtype, n, g, q, shared):
+    """Each query of one query-axis launch equals its own solo launch
+    bit for bit, and its plain version (ints exactly, f64 within rtol
+    1e-12)."""
+    ids, vals, _ = _inputs(kind, dtype, n, g, dev, seed=n + g + q)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(q)
+    live = torch.rand((q, n), generator=gen, device=dev) > 0.2
+    if not shared:
+        vals = torch.stack([vals.roll(j) for j in range(q)])
+    before = (hash_agg.LAUNCHES, hash_agg.MULTI_LAUNCHES)
+    got = hash_agg.grouped_reduce_multi(ids, vals, live, g, kind)
+    # one launch; it counts as a query-axis launch when it serves several
+    assert (hash_agg.LAUNCHES, hash_agg.MULTI_LAUNCHES) == (before[0] + 1,
+                                                           before[1] + (q > 1))
+    want = hash_agg.grouped_reduce_multi_torch(ids, vals, live, g, kind)
+    for j in range(q):
+        solo = hash_agg.grouped_reduce(ids, vals if shared else vals[j].contiguous(),
+                                       live[j].contiguous(), g, kind)
+        assert _bits_equal(got[j], solo), j
+    if dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_query_axis_wider_than_one_launch(dev, monkeypatch):
+    monkeypatch.setattr(hash_agg, "MAX_QUERIES", 4)
+    ids, vals, _ = _inputs("sum", torch.float64, 100_000, 64, dev)
+    live = torch.rand((10, 100_000), device=dev) > 0.5
+    before = hash_agg.MULTI_LAUNCHES
+    got = hash_agg.grouped_reduce_multi(ids, vals, live, 64, "sum")
+    assert hash_agg.MULTI_LAUNCHES == before + 3
+    for j in range(10):
+        assert _bits_equal(got[j], hash_agg.grouped_reduce(ids, vals, live[j].contiguous(),
+                                                           64, "sum"))
+
+
+def _serve_table(rows=200_000, batch_rows=1 << 15, seed=11):
+    rng = np.random.default_rng(seed)
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", D.UTF8, False), tdf.Field("v", D.FLOAT64, False),
+                         tdf.Field("d", D.UTF8, False)])
+    dk, dd = tdf.StringDictionary(), tdf.StringDictionary()
+    days = [f"2020-01-{i:02d}" for i in range(1, 29)]
+    for s in days:
+        dd.add(s)
+    batches = []
+    for lo in range(0, rows, batch_rows):
+        n = min(batch_rows, rows - lo)
+        batches.append(tdf.make_host_batch(schema, [
+            dk.encode([f"g{j}" for j in rng.integers(0, 40, n)]),
+            rng.uniform(0, 1e3, n), rng.integers(0, 28, n).astype(np.int32)],
+            None, [dk, None, dd]))
+    return schema, batches, days
+
+
+def test_served_megabatch_on_card_equals_solo_bit_for_bit(dev):
+    """Distinct string cutoffs megabatch on the card: one query-axis
+    launch per slot per batch group, each answer its solo answer bit
+    for bit, and a warm round copies nothing to the device."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    schema, batches, days = _serve_table()
+    ctx = tdf.ExecutionContext(device=dev)
+    ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+    sqls = [f"SELECT k, SUM(v), MIN(v), COUNT(1) FROM t WHERE d <= '{days[3 * i]}' GROUP BY k"
+            for i in range(8)]
+    solo = [tdf.collect(ctx.sql(s)) for s in sqls]
+    srv = ctx.serve(workers=1, window_s=0.2, megabatch_max=16)
+    try:
+        for round_ in range(2):
+            h2d = METRICS.snapshot()["counts"].get("h2d.bytes", 0)
+            port_cuda.reset_launch_counts()
+            tickets = [srv.submit(s) for s in sqls]
+            got = [t.result(timeout=120) for t in tickets]
+            if round_ == 1:
+                assert METRICS.snapshot()["counts"].get("h2d.bytes", 0) == h2d
+                assert hash_agg.MULTI_LAUNCHES == 3  # rows, SUM, MIN: one batch group
+            for g_, w in zip(got, solo):
+                order_g = np.argsort(np.asarray(g_.columns[0]).astype(str))
+                order_w = np.argsort(np.asarray(w.columns[0]).astype(str))
+                for cg, cw in zip(g_.columns, w.columns):
+                    assert np.asarray(cg)[order_g].tobytes() == np.asarray(cw)[order_w].tobytes()
+    finally:
+        srv.stop()
+    assert srv.admitted + srv.shed == srv.submitted
+
+
+def test_repeated_join_launches_the_build_kernel_once(dev):
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    rng = np.random.default_rng(12)
+    D = tdf.DataType
+    ls = tdf.Schema([tdf.Field("k", D.INT64, False), tdf.Field("v", D.INT64, False)])
+    rs = tdf.Schema([tdf.Field("rk", D.INT64, False), tdf.Field("w", D.INT64, False)])
+    keys = rng.permutation(100_000).astype(np.int64)
+    probe = rng.integers(0, 100_000, 300_000).astype(np.int64)
+    ctx = tdf.ExecutionContext(device=dev)
+    ctx.register_datasource("l", tdf.MemoryDataSource(ls, [tdf.make_host_batch(
+        ls, [probe, np.arange(300_000)])]))
+    ctx.register_datasource("r", tdf.MemoryDataSource(rs, [tdf.make_host_batch(
+        rs, [keys, np.arange(100_000)])]))
+    sql = "SELECT SUM(w), COUNT(1) FROM l JOIN r ON l.k = r.rk"
+    reuse0 = METRICS.snapshot()["counts"].get("join.build.reuse", 0)
+    port_cuda.reset_launch_counts()
+    srv = ctx.serve(workers=1, window_s=0.001)  # the serving path pins builds
+    try:
+        rows = [srv.submit(sql).result(timeout=120).to_rows() for _ in range(4)]
+    finally:
+        srv.stop()
+    assert port_cuda.launch_counts()["hash_build"] == 1
+    assert METRICS.snapshot()["counts"].get("join.build.reuse", 0) - reuse0 == 3
+    inv = np.empty(100_000, np.int64)
+    inv[keys] = np.arange(100_000)
+    assert all(r == [(int(inv[probe].sum()), 300_000)] for r in rows)

@@ -480,6 +480,18 @@ def _port_sources():
     ]
 
 
+@pytest.mark.parametrize("module", ["serve.py", "utils/metrics.py", "utils/deadline.py",
+                                    "utils/eventloop.py", "obs/device.py", "obs/recorder.py"])
+def test_serving_modules_are_the_ports_own(module):
+    """The serving slice's modules are the port's own copies: scanned by
+    the import check below, and none names the JAX package."""
+    path = REPO / "datafusion_tpu_torch" / module
+    assert path in _port_sources()
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", text,
+                         re.MULTILINE)
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     bad = re.compile(
         r"^\s*(import|from)\s+jax\b|\bdatafusion_tpu\.|"
@@ -524,8 +536,20 @@ def test_port_imports_and_runs_with_jax_blocked():
         "rows = t.collect(ctx.sql('SELECT city, lat + lng FROM c WHERE lat > 51.0 AND lat < 53'))\n"
         "assert rows.num_rows == 18, rows.num_rows\n"
         "assert 'datafusion_tpu_torch.exec.prefetch' in sys.modules\n"
+        # the serving front door and its utilities: a served query
+        "os.environ['DATAFUSION_TPU_PREFETCH'] = '0'\n"
+        "srv = ctx.serve(workers=1, window_s=0.005)\n"
+        "rows = sorted(srv.submit('SELECT k, SUM(v) FROM t GROUP BY k').result(timeout=60)"
+        ".to_rows())\n"
+        "srv.stop()\n"
+        "assert rows == [(0, 18.0), (1, 12.0), (2, 15.0)], rows\n"
+        "for name in ('serve', 'utils.metrics', 'utils.deadline', 'utils.eventloop',"
+        " 'obs.device', 'obs.recorder'):\n"
+        "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
+        "assert not any(m == 'datafusion_tpu' or m.startswith('datafusion_tpu.')"
+        " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
