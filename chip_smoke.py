@@ -7,8 +7,8 @@ No setup step: the CUDA kernels build from the checkout's sources on
 first use (one nvcc per source, all started together).  Phases, each of
 which raises on failure:
 
-1. Build and device: nvcc build seconds, the card's name and power
-   limit.
+1. Build and device: nvcc build seconds (and the native library's g++
+   build beside it), the card's name and power limit.
 2. Kernel parity on the card, each kernel against its plain PyTorch
    version:
    - the grouped reduce, for every (kind, dtype) the aggregate sends, at
@@ -107,7 +107,21 @@ which raises on failure:
    the pipeline lane (8 l_discount literals), each answer its solo
    answer exactly; eviction under a DATAFUSION_TPU_HBM_BYTES cap and an
    `hbm` shed.  After phase 5, Q12 served 4 times: one build launch, 3
-   reuses of the pinned build.  Each lane prints a `serve:` line.
+   reuses of the pinned build.  Each lane prints a `serve:` line; the
+   aggregate lane's carries the static verifier's host ms a query
+   (`verify_ms_per_query`, run at submit on the client's thread).
+12. The console (after phase 6): the reference's smoketest through
+   `cli.main(["--script", ...])` against test/data/smoketest-expected.txt
+   under the golden rule; Q1 at SF-1 through a console script over the
+   phase-3 lineitem written as CSV (CREATE EXTERNAL TABLE, Q1 cold, Q1
+   warm: 6 grouped-reduce launches a batch group); Q12 at SF-1 through
+   a console script over the phase-5 orders and lineitem written as CSV
+   (1 dense build launch, 1 sort launch); Q1 through the DataFrame API
+   over the in-memory lineitem (SQL Q1's rows and launches, both p50s);
+   EXPLAIN and EXPLAIN VERIFY of Q1, and a computed GROUP BY key that
+   raises PlanVerificationError before any launch; an NDJSON table
+   (test/data/example1.ndjson) grouped through the console against
+   json.loads of the file.  `console_*` and `dataframe_q1` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.
 
@@ -129,7 +143,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10) runs each query with the launch counters
+The main path (phases 3 to 10 and 12) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -218,9 +232,23 @@ def expect_launches(rep, label, **want):
 
 
 def phase_build(cuda_mod, torch):
-    secs = cuda_mod.build_all()
+    """The kernels (one nvcc per source) and, beside them, the native
+    library of the CSV parser and the SQL front-end (g++)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from datafusion_tpu_torch import native
+
+    def native_build():
+        t0 = time.perf_counter()
+        native.load_library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as ex:
+        native_s = ex.submit(native_build)
+        secs = cuda_mod.build_all()
+        native_s = native_s.result()
     smi = card()
-    log(f"build: {secs:.2f} s (nvcc, sm_90a)")
+    log(f"build: {secs:.2f} s (nvcc, sm_90a); native library (g++) {native_s:.2f} s")
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     log(f"nvidia-smi: {smi}")
     return smi
@@ -1532,19 +1560,14 @@ def phase_csv(tdf, cuda_mod, torch, smi):
     reference example over test/data/uk_cities.csv."""
     import csv
 
-    from datafusion_tpu_torch import native
-
     here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    native.load_library()
-    build_s = time.perf_counter() - t0
     out_dir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"cities_{CONFIG1_ROWS}.csv")
     t0 = time.perf_counter()
     city, lat, lng = write_cities_csv(path, CONFIG1_ROWS)
     log(f"cities CSV ({CONFIG1_ROWS} rows, {os.path.getsize(path)} bytes) written in "
-        f"{time.perf_counter() - t0:.1f} s; native CSV library ready in {build_s:.2f} s")
+        f"{time.perf_counter() - t0:.1f} s")
     D = tdf.DataType
     schema = tdf.Schema([tdf.Field("city", D.UTF8, False), tdf.Field("lat", D.FLOAT64, False),
                          tdf.Field("lng", D.FLOAT64, False)])
@@ -1576,7 +1599,7 @@ def phase_csv(tdf, cuda_mod, torch, smi):
     rep = {"query": "config1_csv_scan_filter", "rows": CONFIG1_ROWS, "card": smi,
            "rows_out": int(keep.sum()), "warmup_cold_ms": warmup_ms, "cold_ms": times,
            "p50_ms": p50, "rows_per_s": CONFIG1_ROWS / (p50 / 1e3), "scan_only_ms": scan_ms,
-           "native_build_s": build_s, "launches": launches}
+           "launches": launches}
     log("config1_csv_scan_filter: " + json.dumps(rep))
     log(f"config 1 rows match the numpy oracle ({table.num_rows} rows)")
     # the default, the staged prefetch threads (the parse of the next
@@ -2049,6 +2072,8 @@ def phase_serve(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi):
         "megabatches": c1.get("serve.megabatches", 0) - c0.get("serve.megabatches", 0),
         "megabatched_queries": mega_q, "h2d_bytes": h2d,
         "host_encode_ms_per_query": encode_ms / len(sqls),
+        "verify_ms_per_query": (t1_.get("verify", 0.0) - t0_.get("verify", 0.0)) * 1e3
+        / len(sqls),
         "pinned_bytes": stats["pinned_bytes"], "server_p50_s": stats.get("p50_s"),
         "card": card(),
     }
@@ -2207,6 +2232,327 @@ def phase_serve_joins(tdf, cuda_mod, torch, ctx, cols):
     return rep
 
 
+# ------------------------------------------------------------ phase 12
+
+
+def golden_lines(text):
+    """The reference smoketest's golden rule (its own copy of
+    tests/test_cli.py's): the banner and blank lines dropped, trailing
+    spaces stripped, lines holding "seconds" ignored."""
+    return [line.rstrip() for line in text.splitlines()
+            if line.strip() and "seconds" not in line and line != "DataFusion Console"]
+
+
+class PrintedRows:
+    """The tab-separated rows a console printed, typed by `kinds` (str,
+    float or int per column), for `assert_rows`."""
+
+    def __init__(self, text, kinds):
+        self.rows = [tuple(k(v) for k, v in zip(kinds, line.split("\t")))
+                     for line in text.splitlines() if "\t" in line]
+
+    def to_rows(self):
+        return self.rows
+
+
+def write_csv(path, header, columns):
+    """`columns` (numpy arrays, strings as str arrays) as one CSV with a
+    header, floats in their shortest round-trip form."""
+    fmt = ",".join("{!r}" if c.dtype.kind == "f" else "{}" for c in columns) + "\n"
+    fmt = fmt.format
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(",".join(header) + "\n")
+        for lo in range(0, len(columns[0]), 1 << 18):
+            f.write("".join(map(fmt, *(c[lo:lo + (1 << 18)].tolist() for c in columns))))
+    os.replace(tmp, path)
+
+
+def run_console(tdf, cuda_mod, torch, console, script_path, sql_text):
+    """One console script (`cli.run_script`) with the launch counters set
+    to 0 just before and read just after.  Returns (printed text, ms,
+    launches); any `Error:` line fails."""
+    import io
+
+    from datafusion_tpu_torch.cli import run_script
+
+    with open(script_path, "w") as f:
+        f.write(sql_text)
+    console.out = io.StringIO()
+    cuda_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_script(console, script_path)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = cuda_mod.launch_counts()
+    text = console.out.getvalue()
+    errors = [line for line in text.splitlines() if line.startswith("Error")]
+    if errors:
+        raise AssertionError(f"console: {errors}")
+    return text, ms, launches
+
+
+LINEITEM_DDL = ("CREATE EXTERNAL TABLE lineitem (l_returnflag VARCHAR(1), "
+                "l_linestatus VARCHAR(1), l_quantity DOUBLE, l_extendedprice DOUBLE, "
+                "l_discount DOUBLE, l_tax DOUBLE, l_shipdate VARCHAR(10)) "
+                "STORED AS CSV WITH HEADER ROW LOCATION '{}';\n")
+STAR_DDL = ("CREATE EXTERNAL TABLE orders (o_orderkey BIGINT, o_custkey BIGINT, "
+            "o_orderdate VARCHAR(10), o_shippriority BIGINT) STORED AS CSV WITH HEADER ROW "
+            "LOCATION '{}';\n"
+            "CREATE EXTERNAL TABLE lineitem (l_orderkey BIGINT, l_quantity BIGINT, "
+            "l_extendedprice DOUBLE, l_discount DOUBLE, l_shipmode BIGINT) STORED AS CSV "
+            "WITH HEADER ROW LOCATION '{}';\n")
+Q1_KINDS = (str, str) + (float,) * 7 + (int,)
+BAD_GROUP_BY = "SELECT l_returnflag, COUNT(1) FROM lineitem GROUP BY l_quantity % 3"
+NDJSON_SQL = "SELECT b, COUNT(1), SUM(c), MAX(a) FROM j GROUP BY b"
+
+
+def q1_dataframe(tdf, df):
+    """TPC-H Q1 through the DataFrame API: the same eight aggregates."""
+    f, lit, c = tdf.f, tdf.lit, df.col
+    disc_price = c("l_extendedprice") * (lit(1.0) - c("l_discount"))
+    charge = disc_price * (lit(1.0) + c("l_tax"))
+    return (df.filter(c("l_shipdate").lt_eq(lit("1998-09-02")))
+            .aggregate(["l_returnflag", "l_linestatus"],
+                       [f.sum(c("l_quantity")), f.sum(c("l_extendedprice")),
+                        f.sum(disc_price), f.sum(charge), f.avg(c("l_quantity")),
+                        f.avg(c("l_extendedprice")), f.avg(c("l_discount")), f.count()]))
+
+
+def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
+    """The console and the rest of the SQL front door on cuda:0
+    (datafusion_tpu_torch/cli.py, exec/context.py, dataframe.py,
+    analysis/verify.py, io/readers.py):
+
+    1. the reference's smoketest through `cli.main(["--script", ...])`,
+       its output equal to test/data/smoketest-expected.txt under the
+       golden rule;
+    2. TPC-H Q1 at SF-1 through a console script: the lineitem columns
+       of phase 3 written as one CSV with a header, CREATE EXTERNAL
+       TABLE, then Q1 (cold), then Q1 once more (warm); rows equal to
+       `q1_oracle`, 6 grouped-reduce launches a batch group;
+    3. Q12 at SF-1 through a console script over star_sf1's orders and
+       lineitem written as CSV: rows and order equal to `q12_oracle`, 1
+       build launch (dense) and 1 sort launch;
+    4. Q1 through the DataFrame API over the in-memory SF-1 lineitem,
+       equal to `q1_oracle` with SQL Q1's launches; both p50s from warm
+       runs in turns;
+    5. EXPLAIN and EXPLAIN VERIFY of Q1 give their result types, and a
+       computed GROUP BY key raises PlanVerificationError before any
+       launch;
+    6. an NDJSON table (test/data/example1.ndjson) by DDL and a GROUP BY
+       over it through the console, equal to a numpy oracle over
+       json.loads of the file.
+    Returns the reports whose launches the `kernels` line counts."""
+    import gc
+    import io
+    from contextlib import redirect_stdout
+
+    from datafusion_tpu_torch import cli
+    from datafusion_tpu_torch.errors import PlanVerificationError
+
+    gc.collect()
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(here, "test", "data")
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    reports = []
+
+    # 1. the reference's smoketest, its fixtures at this checkout
+    with open(os.path.join(data, "smoketest.sql")) as f:
+        sql = f.read().replace("'/test/data/", f"'{data}/")
+    script = os.path.join(out_dir, "smoketest.sql")
+    with open(script, "w") as f:
+        f.write(sql)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = cli.main(["--script", script])
+    smoke_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(data, "smoketest-expected.txt")) as f:
+        want = golden_lines(f.read())
+    if rc != 0 or golden_lines(buf.getvalue()) != want:
+        raise AssertionError(f"console smoketest (rc {rc}) differs from the golden output:\n"
+                             + buf.getvalue()[:2000])
+    if not buf.getvalue().startswith("DataFusion Console"):
+        raise AssertionError("console smoketest: no banner")
+    log(f"console smoketest matches test/data/smoketest-expected.txt "
+        f"({len(want)} lines, {smoke_ms:.3f} ms; {smi})")
+
+    # 2. Q1 at SF-1 through the console, over a CSV lineitem
+    path = os.path.join(out_dir, f"lineitem_q1_{SF1_ROWS}.csv")
+    t0 = time.perf_counter()
+    write_csv(path, ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                     "l_discount", "l_tax", "l_shipdate"],
+              [np.array(["A", "N", "R"])[cols["flag"]], np.array(["F", "O"])[cols["status"]],
+               cols["qty"], cols["price"], cols["disc"], cols["tax"],
+               np.array(dates)[cols["ship"]]])
+    write_s = time.perf_counter() - t0
+    console = cli.Console(cli.make_context())
+    text, cold_ms, launches = run_console(tdf, cuda_mod, torch, console,
+                                          os.path.join(out_dir, "q1.sql"),
+                                          LINEITEM_DDL.format(path) + Q1 + ";\n")
+    assert_rows(PrintedRows(text, Q1_KINDS), q1_oracle(cols, dates), "console Q1")
+    nb = -(-SF1_ROWS // console.ctx.batch_size)
+    rep = {"query": "console_tpch_q1_sf1_csv", "rows": SF1_ROWS, "launches": launches}
+    expect_launches(rep, "console Q1", hash_agg=6 * fold_groups(nb))
+    warm_text, warm_ms, warm_launches = run_console(tdf, cuda_mod, torch, console,
+                                                    os.path.join(out_dir, "q1_warm.sql"),
+                                                    Q1 + ";\n")
+    if PrintedRows(warm_text, Q1_KINDS).rows != PrintedRows(text, Q1_KINDS).rows:
+        raise AssertionError("console Q1: the warm run printed other rows")
+    reader = console.ctx.datasources["lineitem"]
+    t0 = time.perf_counter()
+    for _ in reader.batches():
+        pass
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    rep.update({"csv_bytes": os.path.getsize(path), "csv_write_s": write_s,
+                "cold_ms": cold_ms, "warm_ms": warm_ms, "warm_launches": warm_launches,
+                "scan_only_ms": scan_ms, "parse_share_of_warm": scan_ms / warm_ms,
+                "card": card()})
+    log("console_q1: " + json.dumps(rep))
+    log(f"console Q1 over a CSV lineitem matches the numpy oracle ({nb} batches)")
+    reports.append(rep)
+    del console, reader
+
+    # 3. Q12 at SF-1 through the console, over CSV orders and lineitem
+    orders_path = os.path.join(out_dir, "orders_q12.csv")
+    lineitem_path = os.path.join(out_dir, "lineitem_q12.csv")
+    d_date = np.array([f"1995-{m:02d}-{d:02d}" for m in range(1, 13) for d in range(1, 29)])
+    t0 = time.perf_counter()
+    n_orders = len(star["o_custkey"])
+    write_csv(orders_path, ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+              [np.arange(n_orders), star["o_custkey"], d_date[star["o_date"]],
+               star["o_shippriority"]])
+    write_csv(lineitem_path, ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+                              "l_shipmode"],
+              [star["l_orderkey"], star["l_quantity"], star["l_extendedprice"],
+               star["l_discount"], star["l_shipmode"]])
+    write_s = time.perf_counter() - t0
+    console = cli.Console(cli.make_context())
+    text, cold_ms, launches = run_console(
+        tdf, cuda_mod, torch, console, os.path.join(out_dir, "q12.sql"),
+        STAR_DDL.format(orders_path, lineitem_path) + Q12 + ";\n")
+    got = PrintedRows(text, (int, int)).rows
+    if got != q12_oracle(star):
+        raise AssertionError(f"console Q12: {got} != {q12_oracle(star)}")
+    nb = -(-len(star["l_orderkey"]) // console.ctx.batch_size)
+    rep = {"query": "console_tpch_q12_sf1_csv", "rows": len(star["l_orderkey"]),
+           "launches": launches}
+    expect_launches(rep, "console Q12", hash_build=1, sort_kernel=1,
+                    hash_agg=fold_groups(nb))
+    t0 = time.perf_counter()
+    rel = console.ctx.sql(Q12)
+    if tdf.collect(rel).to_rows() != got or join_routes(rel) != [True]:
+        raise AssertionError("console Q12: a second run differs or the orders build "
+                             "is not dense")
+    torch.cuda.synchronize()
+    rep.update({"csv_write_s": write_s, "cold_ms": cold_ms,
+                "warm_ms": (time.perf_counter() - t0) * 1e3, "card": card()})
+    log("console_q12: " + json.dumps(rep))
+    log("console Q12 rows and order match the numpy oracle; orders build dense")
+    reports.append(rep)
+    del console, rel
+
+    # 4. Q1 through the DataFrame API, beside SQL Q1, over the in-memory lineitem
+    ctx = cli.make_context()
+    ctx.register_datasource("lineitem", src)
+    nb = len(list(src.batches()))
+    table, sql_rep, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, "console_ctx_tpch_q1_sf1",
+                                  SF1_ROWS)
+    frame = q1_dataframe(tdf, ctx.table("lineitem"))
+    cuda_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    df_table = frame.collect()
+    torch.cuda.synchronize()
+    df_cold = (time.perf_counter() - t0) * 1e3
+    df_launches = cuda_mod.launch_counts()
+    assert_rows(df_table, q1_oracle(cols, dates), "DataFrame Q1")
+
+    def timed(run):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # warm runs in turns (SQL, DataFrame, DataFrame, SQL, ...): the host
+    # clock drifts over a process, so only interleaved p50s compare
+    runs = {"sql": lambda: tdf.collect(ctx.sql(Q1)), "dataframe": frame.collect}
+    times = {"sql": [], "dataframe": []}
+    for turn in range(2 * WARM_RUNS + 1):
+        for name in (("sql", "dataframe") if turn % 2 == 0 else ("dataframe", "sql")):
+            times[name].append(timed(runs[name]))
+    rep = {"query": "dataframe_tpch_q1_sf1", "rows": SF1_ROWS, "launches": df_launches,
+           "cold_ms": df_cold, "warm_ms": times["dataframe"],
+           "p50_ms": float(np.median(times["dataframe"])),
+           "sql_warm_ms": times["sql"], "sql_p50_ms": float(np.median(times["sql"])),
+           "sql_launches": sql_rep["launches"], "card": card()}
+    expect_launches(rep, "DataFrame Q1", hash_agg=6 * fold_groups(nb))
+    if df_launches != sql_rep["launches"]:
+        raise AssertionError(f"DataFrame Q1 launches {df_launches}, SQL Q1 "
+                             f"{sql_rep['launches']}")
+    log("dataframe_q1: " + json.dumps(rep))
+    log("DataFrame Q1 matches the numpy oracle with SQL Q1's launches")
+    reports += [sql_rep, rep]
+
+    # 5. EXPLAIN, EXPLAIN VERIFY and the verifier on the card's context
+    if not isinstance(ctx.sql("EXPLAIN " + Q1), tdf.ExplainResult):
+        raise AssertionError("EXPLAIN Q1 did not return an ExplainResult")
+    verified = ctx.sql("EXPLAIN VERIFY " + Q1)
+    if not isinstance(verified, tdf.ExplainVerifyResult) or not verified.ok:
+        raise AssertionError(f"EXPLAIN VERIFY Q1: {verified!r}")
+    cuda_mod.reset_launch_counts()
+    try:
+        ctx.sql(BAD_GROUP_BY)
+    except PlanVerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a computed GROUP BY key was not rejected")
+    if any(cuda_mod.launch_counts().values()):
+        raise AssertionError(f"the rejected plan launched {cuda_mod.launch_counts()}")
+    log(f"EXPLAIN and EXPLAIN VERIFY of Q1 ok; {BAD_GROUP_BY!r} rejected before any "
+        f"launch: {rejected}")
+    # Parquet needs pyarrow, which the card's machine may lack: then an
+    # IoError names it
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        try:
+            ctx.sql(f"CREATE EXTERNAL TABLE p STORED AS PARQUET "
+                    f"LOCATION '{data}/uk_cities.parquet'")
+        except tdf.IoError as e:
+            if "pyarrow" not in str(e):
+                raise
+            log(f"Parquet without pyarrow: IoError ({e})")
+        else:
+            raise AssertionError("a Parquet table registered without pyarrow")
+    del ctx
+
+    # 6. an NDJSON table through the console
+    console = cli.Console(cli.make_context())
+    ndjson = os.path.join(data, "example1.ndjson")
+    text, ms, launches = run_console(
+        tdf, cuda_mod, torch, console, os.path.join(out_dir, "ndjson.sql"),
+        f"CREATE EXTERNAL TABLE j (a BIGINT, b VARCHAR, c DOUBLE) STORED AS NDJSON "
+        f"LOCATION '{ndjson}';\n{NDJSON_SQL};\n")
+    with open(ndjson) as f:
+        objs = [json.loads(line) for line in f if line.strip()]
+    keys = sorted({o["b"] for o in objs})
+    want = [(k, sum(1 for o in objs if o["b"] == k),
+             float(np.sum([o["c"] for o in objs if o["b"] == k])),
+             max(o["a"] for o in objs if o["b"] == k)) for k in keys]
+    got = sorted(PrintedRows(text, (str, int, float, int)).rows)
+    if got != want:
+        raise AssertionError(f"console NDJSON: {got} != {want}")
+    rep = {"query": "console_ndjson_groupby", "rows": len(objs), "launches": launches,
+           "cold_ms": ms, "card": card()}
+    if launches["hash_agg"] <= 0:
+        raise AssertionError(f"console NDJSON: launches {launches}")
+    log("console_ndjson: " + json.dumps(rep))
+    reports.append(rep)
+    return reports
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2266,6 +2612,7 @@ def main() -> int:
     reports = [q1, phase_filter_project(tdf, cuda_mod, torch, ctx, cols, dates, smi)]
     serve_reports = phase_serve(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi)
     reports += serve_reports
+    li_src, li_cols = src, cols  # phase 12's DataFrame Q1 and console Q1
     del src, cols
 
     for groups in (16, 4096):
@@ -2294,7 +2641,8 @@ def main() -> int:
     reports.append(phase_serve_joins(tdf, cuda_mod, torch, ctx, star_cols))
     reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
-    del star_cols
+    reports += phase_console(tdf, cuda_mod, torch, li_src, li_cols, dates, star_cols, smi)
+    del star_cols, li_src, li_cols
     reports.append(phase_csv(tdf, cuda_mod, torch, smi))
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)

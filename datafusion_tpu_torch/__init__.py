@@ -15,6 +15,13 @@ Entry points run on `cuda:0` unless the caller asks for the CPU:
     ctx.register_datasource("t", MemoryDataSource(schema, batches))
     ctx.register_csv("cities", "test/data/uk_cities.csv", schema, has_header=False)
     table = collect(ctx.sql("SELECT k, SUM(v) FROM t GROUP BY k"))
+    ctx.sql("CREATE EXTERNAL TABLE p (id INT) STORED AS CSV WITH HEADER ROW "
+            "LOCATION 'test/data/people.csv'")       # -> DdlResult
+    ctx.sql_collect("EXPLAIN VERIFY SELECT id FROM p")  # -> ExplainVerifyResult
+    df = ctx.table("t").filter(...).aggregate([...], [f.sum(...)])
+
+The console: `python -m datafusion_tpu_torch.cli [--script FILE]
+[--device cpu]`.
 """
 
 from datafusion_tpu_torch.errors import (
@@ -61,9 +68,16 @@ from datafusion_tpu_torch.plan.logical import (
     TableScan,
 )
 from datafusion_tpu_torch.exec.batch import StringDictionary, make_host_batch
-from datafusion_tpu_torch.exec.context import ExecutionContext
-from datafusion_tpu_torch.exec.datasource import CsvDataSource, MemoryDataSource
+from datafusion_tpu_torch.exec.context import DdlResult, ExecutionContext, ExplainResult
+from datafusion_tpu_torch.exec.datasource import (
+    CsvDataSource,
+    MemoryDataSource,
+    NdJsonDataSource,
+    ParquetDataSource,
+)
 from datafusion_tpu_torch.exec.materialize import ResultTable, collect
+from datafusion_tpu_torch.analysis.verify import ExplainVerifyResult
+from datafusion_tpu_torch.dataframe import DataFrame, f, lit
 
 __version__ = "0.1.0"
 
@@ -104,8 +118,16 @@ __all__ = [
     "TableScan",
     "EmptyRelation",
     "ExecutionContext",
+    "DdlResult",
+    "ExplainResult",
+    "ExplainVerifyResult",
+    "DataFrame",
+    "f",
+    "lit",
     "MemoryDataSource",
     "CsvDataSource",
+    "NdJsonDataSource",
+    "ParquetDataSource",
     "ResultTable",
     "StringDictionary",
     "collect",

@@ -96,6 +96,16 @@ class StringDictionary:
         codes[isnull] = 0
         return codes
 
+    def merge_codes(self, codes: np.ndarray, values: Sequence[str]) -> np.ndarray:
+        """Remap codes expressed in a local dictionary `values` (a
+        pyarrow per-batch dictionary) into this global dictionary."""
+        lut = np.fromiter(
+            (self.add(v) for v in values), dtype=np.int32, count=len(values)
+        )
+        if len(lut) == 0:
+            return codes.astype(np.int32)
+        return lut[codes].astype(np.int32)
+
     def decode(self, codes: np.ndarray) -> np.ndarray:
         arr = np.asarray(self.values, dtype=object)
         return arr[codes]

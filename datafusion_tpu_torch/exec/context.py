@@ -23,10 +23,21 @@ ONE PipelineRelation, and a [Limit](Sort) over a filter and
 column-projection chain into ONE SortRelation that filters, sorts and
 projects.
 
-What raises NotSupportedError: statements other than SELECT (DDL,
-EXPLAIN), result caching, a `host_fn` UDF in a WHERE predicate, GROUP
-BY keys that are not columns, and any other plan node (ROADMAP queue
-1).
+Statements: SELECT lowers and runs lazily; CREATE EXTERNAL TABLE (CSV,
+NDJSON, Parquet) registers a table and returns a `DdlResult`; EXPLAIN
+returns an `ExplainResult` (the plan's text) and EXPLAIN VERIFY an
+`ExplainVerifyResult` (the verifier's report), neither executing.
+`sql_collect` materializes a SELECT.  `table(name)` gives a DataFrame
+(dataframe.py).
+
+Every plan `execute` lowers passes the static verifier first
+(analysis/verify.py, `DATAFUSION_TPU_VERIFY`, default on): an unknown
+column, a mistyped expression, a computed GROUP BY or ORDER BY key
+raises `PlanVerificationError` before any operator is built.
+
+What raises NotSupportedError: EXPLAIN ANALYZE (ROADMAP queue 1, item
+13), CREATE MATERIALIZED VIEW (item 11.2), result caching, a `host_fn`
+UDF in a WHERE predicate, and any other plan node (ROADMAP queue 1).
 
 Every plan `execute` lowers counts `queries_admitted`
 (utils/metrics.py).  `serve()` starts the serving front door over the
@@ -45,15 +56,22 @@ from __future__ import annotations
 import hashlib
 import json
 import threading
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
+from datafusion_tpu_torch.analysis import verify as _averify
 from datafusion_tpu_torch.datatypes import DataType, Field, Schema
 from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError, PlanError
 from datafusion_tpu_torch.exec import fused
 from datafusion_tpu_torch.exec.aggregate import AggregateRelation
-from datafusion_tpu_torch.exec.datasource import CsvDataSource, DataSource
+from datafusion_tpu_torch.exec.datasource import (
+    CsvDataSource,
+    DataSource,
+    NdJsonDataSource,
+    ParquetDataSource,
+)
+from datafusion_tpu_torch.exec.materialize import ResultTable, collect
 from datafusion_tpu_torch.exec.hostfn import contains_host_fn
 from datafusion_tpu_torch.exec.relation import (
     DataSourceRelation,
@@ -79,8 +97,28 @@ from datafusion_tpu_torch.plan.logical import (
 from datafusion_tpu_torch.sql import ast
 from datafusion_tpu_torch.sql.optimizer import push_down_projection
 from datafusion_tpu_torch.sql.parser import parse_sql
-from datafusion_tpu_torch.sql.planner import SqlToRel
+from datafusion_tpu_torch.sql.planner import SqlToRel, convert_data_type
 from datafusion_tpu_torch.utils.metrics import METRICS
+
+
+class DdlResult:
+    """Outcome of a DDL statement (CREATE EXTERNAL TABLE)."""
+
+    def __init__(self, message: str):
+        self.message = message
+
+    def __repr__(self):
+        return self.message
+
+
+class ExplainResult:
+    """`EXPLAIN <stmt>`: the optimized logical plan (not executed)."""
+
+    def __init__(self, plan: LogicalPlan):
+        self.plan = plan
+
+    def __repr__(self):
+        return repr(self.plan)
 
 
 class _ContextSchemaProvider:
@@ -155,6 +193,15 @@ class ExecutionContext:
             name, CsvDataSource(path, schema, has_header, self.batch_size)
         )
 
+    def register_parquet(self, name: str, path: str, schema: Optional[Schema] = None):
+        """Register a Parquet file (through pyarrow, io/readers.py); with
+        no `schema` the file's metadata gives it."""
+        self.register_datasource(name, ParquetDataSource(path, schema, self.batch_size))
+
+    def register_ndjson(self, name: str, path: str, schema: Schema) -> None:
+        """Register a newline-delimited JSON file (io/readers.py)."""
+        self.register_datasource(name, NdJsonDataSource(path, schema, self.batch_size))
+
     def register_udf(
         self,
         name: str,
@@ -183,20 +230,79 @@ class ExecutionContext:
     def _torch_functions(self) -> dict[str, Callable]:
         return {name: fm.torch_fn for name, fm in self.functions.items() if fm.torch_fn}
 
+    def table(self, name: str):
+        """A DataFrame over a registered datasource (the programmatic
+        twin of `FROM name`)."""
+        from datafusion_tpu_torch.dataframe import DataFrame
+
+        ds = self.datasources.get(name)
+        if ds is None:
+            raise ExecutionError(f"No datasource registered as {name!r}")
+        return DataFrame(self, TableScan("default", name, ds.schema))
+
     # -- entry points --
-    def sql(self, sql_text: str) -> Relation:
+    def sql(self, sql_text: str) -> Union[Relation, DdlResult, ExplainResult]:
         """Parse, plan, optimize, build the operator tree (lazy — no
-        data is read until batches are pulled)."""
-        stmt = parse_sql(sql_text)
-        if not isinstance(stmt, ast.SqlSelect):
+        data is read until batches are pulled).  DDL registers its table
+        and EXPLAIN renders its plan at once."""
+        with METRICS.timer("parse"):
+            stmt = parse_sql(sql_text)
+        if isinstance(stmt, ast.SqlCreateExternalTable):
+            return self._execute_ddl(stmt)
+        if isinstance(stmt, ast.SqlCreateMaterializedView):
             raise NotSupportedError(
-                f"{type(stmt).__name__} is not ported yet (ROADMAP queue 1)"
+                "CREATE MATERIALIZED VIEW is not ported yet (ROADMAP queue 1, "
+                "item 11.2: ingest and the view fold)"
             )
+        if isinstance(stmt, ast.SqlExplain):
+            if stmt.analyze:
+                raise NotSupportedError(
+                    "EXPLAIN ANALYZE is not ported yet (ROADMAP queue 1, item 13: "
+                    "control plane and observability)"
+                )
+            plan = self._plan(stmt.stmt)
+            if stmt.verify:
+                # type-checks the plan WITHOUT executing it
+                with METRICS.timer("verify"):
+                    report = _averify.verify_plan(plan, functions=self.functions)
+                return _averify.ExplainVerifyResult(plan, report)
+            return ExplainResult(plan)
         return self.execute(self._plan(stmt))
 
+    def sql_collect(self, sql_text: str) -> Union[ResultTable, DdlResult, ExplainResult]:
+        """`sql`, with a SELECT's rows materialized on the host."""
+        out = self.sql(sql_text)
+        if isinstance(out, Relation):
+            with METRICS.timer("collect"):
+                return collect(out)
+        return out
+
     def _plan(self, stmt: ast.SqlNode) -> LogicalPlan:
-        plan = SqlToRel(_ContextSchemaProvider(self)).sql_to_rel(stmt)
-        return push_down_projection(plan)
+        with METRICS.timer("plan"):
+            plan = SqlToRel(_ContextSchemaProvider(self)).sql_to_rel(stmt)
+        with METRICS.timer("optimize"):
+            return push_down_projection(plan)
+
+    def _execute_ddl(self, stmt: ast.SqlCreateExternalTable) -> DdlResult:
+        if stmt.columns:
+            schema = Schema([
+                Field(c.name, convert_data_type(c.data_type), c.allow_null)
+                for c in stmt.columns
+            ])
+        elif stmt.file_type == ast.FileType.Parquet:
+            schema = None  # inferred from file metadata
+        else:
+            raise PlanError(
+                f"CREATE EXTERNAL TABLE ... STORED AS {stmt.file_type.value} "
+                "requires an explicit column list"
+            )
+        if stmt.file_type == ast.FileType.CSV:
+            self.register_csv(stmt.name, stmt.location, schema, stmt.header_row)
+        elif stmt.file_type == ast.FileType.NdJson:
+            self.register_ndjson(stmt.name, stmt.location, schema)
+        else:
+            self.register_parquet(stmt.name, stmt.location, schema)
+        return DdlResult(f"Registered table {stmt.name}")
 
     def serve(self, **kwargs):
         """A started serving front door over this context
@@ -206,18 +312,33 @@ class ExecutionContext:
 
         return Server(self, **kwargs).start()
 
-    def execute(self, plan: LogicalPlan, build_pins: Optional[set] = None) -> Relation:
+    def execute(self, plan: LogicalPlan, build_pins: Optional[set] = None,
+                verified: bool = False) -> Relation:
         """Map a logical plan onto operators (reference `context.rs:103`).
-        Counts `queries_admitted` once per plan.  With `build_pins` (a
-        set; the serving path passes one) each join of the plan pins its
-        build under `_build_key` and the key is added to the set, so the
-        caller can release the pins; without it nothing pins."""
+        Counts `queries_admitted` once per plan.  The plan passes the
+        static verifier first (`_verify`) unless `verified` says its
+        caller ran it (the serving path verifies at submit).  With
+        `build_pins` (a set; the serving path passes one) each join of
+        the plan pins its build under `_build_key` and the key is added
+        to the set, so the caller can release the pins; without it
+        nothing pins."""
         METRICS.add("queries_admitted")
+        if not verified:
+            self._verify(plan)
         _LOWERING.build_pins = build_pins
         try:
             return self._lower(plan)
         finally:
             _LOWERING.build_pins = None
+
+    def _verify(self, plan: LogicalPlan) -> None:
+        """Static verification of a plan before it is lowered
+        (DATAFUSION_TPU_VERIFY=0 skips it); raises
+        PlanVerificationError."""
+        if not _averify.verify_enabled():
+            return
+        with METRICS.timer("verify"):
+            _averify.check_plan(plan, functions=self.functions)
 
     def _build_key(self, plan: Join) -> Optional[str]:
         """The fingerprint a join's build side pins under: its plan, the

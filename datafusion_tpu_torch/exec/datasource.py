@@ -1,12 +1,11 @@
-"""DataSource protocol and the in-memory source.
+"""DataSource protocol, the in-memory source and the file sources.
 
 Mirrors the JAX package's `exec/datasource.py`.  A DataSource is
 re-iterable (each `batches()` call restarts the scan) and
-projection-aware.  The in-memory source and the CSV source (over the
-native C++ parser, datafusion_tpu_torch/native) are ported; the NDJSON
-and Parquet sources read through pyarrow in the JAX package, which the
-card's machine lacks, and wait for their slice (ROADMAP queue 1, item
-9).
+projection-aware.  Sources: in memory, CSV (over the native C++
+parser, datafusion_tpu_torch/native), NDJSON and Parquet
+(io/readers.py; Parquet needs pyarrow, which the card's machine lacks:
+there it raises IoError).
 """
 
 from __future__ import annotations
@@ -108,12 +107,42 @@ class MemoryDataSource(DataSource):
         return MemoryDataSource(out_schema, projected)
 
 
-class CsvDataSource(DataSource):
-    """A CSV file (reference `datasource.rs:31-50`), read by the native
-    parser.  `schema` is the projected schema; re-scans parse the file
-    again and keep the reader's dictionaries, so codes are stable."""
+class FileDataSource(DataSource):
+    """A file read through a reader that keeps its own dictionaries.
+    `schema` is the projected schema; re-scans read the file again and
+    keep the reader's dictionaries, so codes are stable."""
 
     parses = True
+
+    @property
+    def schema(self) -> Schema:
+        return self._reader.out_schema
+
+    def batches(self) -> Iterator[RecordBatch]:
+        return self._reader.batches()
+
+    def estimated_bytes(self) -> int:
+        try:
+            return os.path.getsize(self.path)
+        except OSError:
+            return 0
+
+    @property
+    def data_identity(self) -> tuple:
+        """The source's own identity (its reader's dictionaries code the
+        strings), the file's path, size and modification time: a file
+        rewritten in place is other data."""
+        try:
+            st = os.stat(self.path)
+            stamp = (st.st_size, st.st_mtime_ns)
+        except OSError:
+            stamp = None
+        return super().data_identity + (self.path, stamp)
+
+
+class CsvDataSource(FileDataSource):
+    """A CSV file (reference `datasource.rs:31-50`), read by the native
+    parser."""
 
     def __init__(
         self,
@@ -133,31 +162,51 @@ class CsvDataSource(DataSource):
         self._reader = NativeCsvReader(path, schema, has_header, batch_size,
                                        self.projection)
 
-    @property
-    def schema(self) -> Schema:
-        return self._reader.out_schema
-
-    def batches(self) -> Iterator[RecordBatch]:
-        return self._reader.batches()
-
-    def estimated_bytes(self) -> int:
-        try:
-            return os.path.getsize(self.path)
-        except OSError:
-            return 0
-
-    @property
-    def data_identity(self) -> tuple:
-        """The source's own identity (its reader's dictionaries code the
-        strings) and the file's size and modification time: a file
-        rewritten in place is other data."""
-        try:
-            st = os.stat(self.path)
-            stamp = (st.st_size, st.st_mtime_ns)
-        except OSError:
-            stamp = None
-        return super().data_identity + (stamp,)
-
     def with_projection(self, projection: Sequence[int]) -> "CsvDataSource":
         return CsvDataSource(self.path, self.table_schema, self.has_header,
                              self.batch_size, projection)
+
+
+class NdJsonDataSource(FileDataSource):
+    """A newline-delimited JSON file (io/readers.NdJsonReader)."""
+
+    def __init__(
+        self,
+        path: str,
+        schema: Schema,
+        batch_size: int = 131072,
+        projection: Optional[Sequence[int]] = None,
+    ):
+        from datafusion_tpu_torch.io.readers import NdJsonReader
+
+        self.path = path
+        self.table_schema = schema
+        self.batch_size = batch_size
+        self.projection = list(projection) if projection is not None else None
+        self._reader = NdJsonReader(path, schema, batch_size, self.projection)
+
+    def with_projection(self, projection: Sequence[int]) -> "NdJsonDataSource":
+        return NdJsonDataSource(self.path, self.table_schema, self.batch_size, projection)
+
+
+class ParquetDataSource(FileDataSource):
+    """A Parquet file (io/readers.ParquetReader); with no `schema` the
+    file's metadata gives it."""
+
+    def __init__(
+        self,
+        path: str,
+        schema: Optional[Schema] = None,
+        batch_size: int = 131072,
+        projection: Optional[Sequence[int]] = None,
+    ):
+        from datafusion_tpu_torch.io.readers import ParquetReader, infer_parquet_schema
+
+        self.path = path
+        self.table_schema = schema if schema is not None else infer_parquet_schema(path)
+        self.batch_size = batch_size
+        self.projection = list(projection) if projection is not None else None
+        self._reader = ParquetReader(path, self.table_schema, batch_size, self.projection)
+
+    def with_projection(self, projection: Sequence[int]) -> "ParquetDataSource":
+        return ParquetDataSource(self.path, self.table_schema, self.batch_size, projection)

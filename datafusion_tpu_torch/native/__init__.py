@@ -1,16 +1,21 @@
-"""ctypes bindings for the CSV parser of the C++ native runtime.
+"""ctypes bindings for the C++ native runtime: the CSV parser and the
+SQL front-end.
 
-The counterpart of the JAX package's `native/__init__.py`, for the
-`dtf_csv_*` symbols only.  The source, `native/datafusion_native.cpp`
-at the root of the checkout, is compiled on first use with
+The counterpart of the JAX package's `native/__init__.py`.  The
+sources at the root of the checkout, `native/datafusion_native.cpp`
+(the `dtf_csv_*` symbols) and `native/sql_frontend.cpp` (`dtf_parse_sql`,
+`dtf_plan_roundtrip`, `dtf_plan_repr`, `dtf_free`), are compiled into
+one library on first use, as `native/Makefile` does:
 
-    g++ -O3 -std=c++17 -fPIC -shared native/datafusion_native.cpp
+    g++ -O3 -std=c++17 -fPIC -shared native/datafusion_native.cpp native/sql_frontend.cpp
 
 into `build/native/<hash>/libdatafusion_native.so`, keyed by a hash of
-the source and the flags (an edited source rebuilds).  `native/` itself
-is never written.  The compiler is `$CXX`, else `g++`.  A missing
-compiler or a failed build raises IoError with the compiler's message;
-there is no other parser to fall back on.
+both sources and the flags (an edited source rebuilds).  `native/`
+itself is never written.  The compiler is `$CXX`, else `g++`.  A
+missing compiler or a failed build raises IoError with the compiler's
+message; there is no other CSV parser to fall back on
+(`DATAFUSION_TPU_NATIVE=0` selects the Python SQL parser, see
+`sql/parser.parse_sql`).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from datafusion_tpu_torch.errors import IoError
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "datafusion_native.cpp"
+SOURCES = (SOURCE, REPO / "native" / "sql_frontend.cpp")
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 LIB_NAME = "libdatafusion_native.so"
@@ -40,17 +46,19 @@ def _compiler(cxx: Optional[str]) -> str:
     name = cxx or os.environ.get("CXX") or "g++"
     path = shutil.which(name)
     if path is None:
-        raise IoError(f"no C++ compiler {name!r}: the native CSV parser cannot be built")
+        raise IoError(f"no C++ compiler {name!r}: the native library cannot be built")
     return path
 
 
 def library_path(build_dir: Optional[Path] = None) -> Path:
-    """Where the library for the current source and flags lives."""
-    try:
-        src = SOURCE.read_bytes()
-    except OSError as e:
-        raise IoError(f"cannot read {SOURCE}: {e}") from e
-    key = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in SOURCES:
+        try:
+            digest.update(path.read_bytes())
+        except OSError as e:
+            raise IoError(f"cannot read {path}: {e}") from e
+    key = digest.hexdigest()[:16]
     return Path(build_dir or BUILD_DIR) / key / LIB_NAME
 
 
@@ -67,15 +75,15 @@ def build_library(build_dir: Optional[Path] = None, cxx: Optional[str] = None) -
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         proc = subprocess.run(
-            [compiler, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [compiler, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
             capture_output=True, text=True, timeout=300,
         )
     except (OSError, subprocess.SubprocessError) as e:
-        raise IoError(f"native CSV parser build failed: {e}") from e
+        raise IoError(f"native library build failed: {e}") from e
     if proc.returncode != 0 or not tmp.exists():
         tmp.unlink(missing_ok=True)
         raise IoError(
-            f"native CSV parser build failed ({compiler}, exit {proc.returncode}):\n"
+            f"native library build failed ({compiler}, exit {proc.returncode}):\n"
             f"{proc.stderr or proc.stdout}"
         )
     os.replace(tmp, out)
@@ -106,11 +114,19 @@ def _configure(lib) -> None:
     ]
     lib.dtf_csv_close.restype = None
     lib.dtf_csv_close.argtypes = [ctypes.c_void_p]
+    # the SQL front-end: restype c_void_p (not c_char_p) so the malloc'd
+    # string survives for string_at and dtf_free
+    for fn in ("dtf_parse_sql", "dtf_plan_roundtrip", "dtf_plan_repr"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_void_p
+        f.argtypes = [ctypes.c_char_p]
+    lib.dtf_free.restype = None
+    lib.dtf_free.argtypes = [ctypes.c_void_p]
 
 
 def load_library():
-    """The loaded library with the CSV entry points declared, built
-    first if needed."""
+    """The loaded library with its entry points declared, built first
+    if needed."""
     global _LIB
     if _LIB is None:
         with _LOCK:

@@ -434,8 +434,9 @@ class Server:
     def submit(self, sql: str, deadline_s: Optional[float] = None,
                client_id: Optional[str] = None) -> Ticket:
         """Admit one SELECT.  Returns a `Ticket`; raises `QueryShedError`
-        when admission refuses it.  A statement that does not plan
-        raises its error and counts on neither side of
+        when admission refuses it.  The plan passes the static verifier
+        here, on the caller's thread.  A statement that does not plan or
+        verify raises its error and counts on neither side of
         `admitted + shed == submitted`."""
         from datafusion_tpu_torch.sql import ast
         from datafusion_tpu_torch.sql.parser import parse_sql
@@ -449,6 +450,7 @@ class Server:
             raise NotSupportedError(
                 f"{type(stmt).__name__} is not ported yet (ROADMAP queue 1)")
         plan = self.ctx._plan(stmt)
+        self.ctx._verify(plan)  # on the caller's thread, before admission
         with self._lock:
             self.submitted += 1
         if self._closed:
@@ -645,7 +647,8 @@ class Server:
                         for tbl in scan_tables(t.plan):
                             self._ensure_resident(tbl)
                     with deadline_scope(t.deadline):
-                        t._rel = self.ctx.execute(t.plan, build_pins=self._build_pins)
+                        t._rel = self.ctx.execute(t.plan, build_pins=self._build_pins,
+                                                  verified=True)
                     executed.append(t)
                 except BaseException as e:  # noqa: BLE001 — delivered to the client
                     t._fail(e)

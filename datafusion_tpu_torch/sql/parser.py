@@ -49,6 +49,13 @@ _RESERVED_STOP = {
     "JOIN", "ON", "INNER", "LEFT", "OUTER",
 }
 
+# multi-relation FROM is a Python-front-end extension: the C++ parser
+# raises on JOIN grammar (it never returns None for ASCII input), so
+# statements containing the keyword route straight to this parser.  A
+# false positive ('JOIN' inside a string literal) is harmless — the
+# Python parser implements the full grammar.
+_HAS_JOIN = re.compile(r"\bJOIN\b", re.IGNORECASE)
+
 _TYPE_WORDS = {
     "BOOLEAN": ast.SqlType.Boolean,
     "BOOL": ast.SqlType.Boolean,
@@ -381,9 +388,14 @@ def parse_sql(sql: str) -> ast.SqlNode:
     """Parse one SQL statement (reference `DFParser::parse_sql`,
     `dfparser.rs:74`).
 
-    This port parses in pure Python; the JAX package's C++ front-end
-    (`native/sql_frontend.cpp`) implements the same grammar.
+    The C++ front-end (`native/sql_frontend.cpp`, built on first use
+    into the native library) parses by default, as in the JAX package;
+    this Python parser takes JOIN queries, non-ASCII text and every
+    statement under DATAFUSION_TPU_NATIVE=0.  Both implement the
+    identical grammar (tests/test_torch_native_frontend.py).
     """
+    from datafusion_tpu_torch.native.sqlfront import native_parse_sql
+
     # EXPLAIN ANALYZE / EXPLAIN VERIFY are Python-side extensions (the
     # C++ front-end's grammar stops at plain EXPLAIN): strip the prefix
     # here and wrap, so both front-ends accept them identically
@@ -406,6 +418,12 @@ def parse_sql(sql: str) -> ast.SqlNode:
             raise ParserError(
                 "CREATE MATERIALIZED VIEW requires AS SELECT ...")
         return ast.SqlCreateMaterializedView(m.group(1), query, query_sql)
+    # multi-relation FROM (JOIN) is Python-front-end-only grammar
+    if _HAS_JOIN.search(sql):
+        return Parser(sql).parse_statement()
+    node = native_parse_sql(sql)
+    if node is not None:
+        return node
     return Parser(sql).parse_statement()
 
 

@@ -2,7 +2,7 @@
 
 The counterpart of the JAX package's `utils/metrics.py`: `METRICS`, one
 process-wide registry of named counters (`add`) and stage timings
-(`timer`).  The counters the serving front door asserts on:
+(`timer`, `timed_iter`).  The counters the serving front door asserts on:
 
 - `device.h2d.transfers` and `h2d.bytes`: every host-to-device copy of
   a column, a mask, group ids or an aux table (`exec/batch.to_device`);
@@ -43,9 +43,31 @@ class Metrics:
             with self._lock:
                 self.timings[name] += dt
 
+    def timed_iter(self, name: str, it):
+        """Wrap a generator so time spent producing items (a reader's
+        parse) accrues to `name`, while the consumer's time does not."""
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.timings[name] += dt
+            yield item
+
     def add(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counts[name] += n
+
+    def reset(self) -> None:
+        """Clear every timing and counter (the console's `\\timing`
+        shows one statement's)."""
+        with self._lock:
+            self.timings.clear()
+            self.counts.clear()
 
     def snapshot(self) -> dict:
         with self._lock:

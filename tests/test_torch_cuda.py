@@ -788,3 +788,50 @@ def test_repeated_join_launches_the_build_kernel_once(dev):
     inv = np.empty(100_000, np.int64)
     inv[keys] = np.arange(100_000)
     assert all(r == [(int(inv[probe].sum()), 300_000)] for r in rows)
+
+
+def test_console_on_the_card_runs_ddl_and_a_group_by(dev, tmp_path):
+    """`python -m datafusion_tpu_torch.cli --device cuda` on the card: a
+    CREATE EXTERNAL TABLE over CSV and a GROUP BY, the same text as the
+    console on the CPU, with the grouped reduce launched."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csv = tmp_path / "t.csv"
+    rng = np.random.default_rng(3)
+    keys, vals = rng.integers(0, 7, 5000), rng.integers(-50, 50, 5000)
+    csv.write_text("k,v\n" + "".join(f"{k},{v}\n" for k, v in zip(keys, vals)))
+    script = tmp_path / "s.sql"
+    script.write_text(
+        f"CREATE EXTERNAL TABLE t (k BIGINT, v BIGINT) STORED AS CSV WITH HEADER ROW "
+        f"LOCATION '{csv}';\n"
+        "SELECT k, SUM(v), COUNT(1) FROM t GROUP BY k;\n"
+    )
+    out = {}
+    for device in ("cuda", "cpu"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "datafusion_tpu_torch.cli", "--device", device,
+             "--script", str(script)],
+            capture_output=True, text=True, timeout=600, cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo, HOME=str(tmp_path)),
+        )
+        assert proc.returncode == 0, proc.stderr
+        assert "Error" not in proc.stdout, proc.stdout
+        out[device] = sorted(line for line in proc.stdout.splitlines()
+                             if "\t" in line)
+    want = sorted(f"{k}\t{int(vals[keys == k].sum())}\t{int((keys == k).sum())}"
+                  for k in np.unique(keys))
+    assert out["cuda"] == out["cpu"] == want
+
+    from datafusion_tpu_torch.cli import Console, make_context
+    import io
+
+    port_cuda.reset_launch_counts()
+    text = io.StringIO()
+    console = Console(make_context("cuda"), out=text)
+    for stmt in script.read_text().split(";")[:2]:
+        console.execute(stmt)
+    assert port_cuda.launch_counts()["hash_agg"] > 0
+    assert sorted(line for line in text.getvalue().splitlines() if "\t" in line) == want

@@ -401,10 +401,13 @@ def test_unported_plan_nodes_raise_not_supported():
     tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
     # filters, projections, sorts and the TopK are ported now
     # (tests/test_torch_pipeline.py, test_torch_sort.py,
-    # test_torch_topk.py); EXPLAIN and a computed ORDER BY key are not
+    # test_torch_topk.py), and EXPLAIN (tests/test_torch_native_frontend.py);
+    # a computed ORDER BY key fails the verifier (PlanVerificationError, a
+    # NotSupportedError, as in the JAX package), and EXPLAIN ANALYZE waits
+    # for the observability slice
     for sql in ("SELECT k, v1 FROM t ORDER BY v1 + 1 LIMIT 5",
                 "SELECT k FROM t ORDER BY k * 2",
-                "EXPLAIN SELECT k FROM t"):
+                "EXPLAIN ANALYZE SELECT k FROM t"):
         with pytest.raises(tdf.NotSupportedError):
             tctx.sql(sql)
     with pytest.raises(tdf.NotSupportedError):
@@ -492,6 +495,18 @@ def test_serving_modules_are_the_ports_own(module):
                          re.MULTILINE)
 
 
+@pytest.mark.parametrize("module", ["cli.py", "dataframe.py", "analysis/verify.py",
+                                    "io/readers.py", "io/io_thread.py", "native/sqlfront.py"])
+def test_front_door_modules_are_the_ports_own(module):
+    """The console slice's modules are the port's own copies: scanned by
+    the import check below, and none names the JAX package."""
+    path = REPO / "datafusion_tpu_torch" / module
+    assert path in _port_sources()
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", text,
+                         re.MULTILINE)
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     bad = re.compile(
         r"^\s*(import|from)\s+jax\b|\bdatafusion_tpu\.|"
@@ -545,6 +560,24 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert rows == [(0, 18.0), (1, 12.0), (2, 15.0)], rows\n"
         "for name in ('serve', 'utils.metrics', 'utils.deadline', 'utils.eventloop',"
         " 'obs.device', 'obs.recorder'):\n"
+        "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
+        # the console slice: DDL, EXPLAIN VERIFY, NDJSON, the DataFrame and
+        # the console, with the native SQL front-end
+        "from datafusion_tpu_torch.cli import Console, make_context\n"
+        "import io\n"
+        "out = io.StringIO()\n"
+        "con = Console(make_context('cpu'), out=out)\n"
+        "con.execute(\"CREATE EXTERNAL TABLE j (a BIGINT, b VARCHAR, c DOUBLE) STORED AS NDJSON "
+        "LOCATION 'test/data/example1.ndjson'\")\n"
+        "con.execute('SELECT b, SUM(c) FROM j GROUP BY b')\n"
+        "con.execute('EXPLAIN VERIFY SELECT a FROM j')\n"
+        "assert 'this is a string\\t12.34' in out.getvalue(), out.getvalue()\n"
+        "assert 'plan verified: OK' in out.getvalue(), out.getvalue()\n"
+        "df = ctx.table('t')\n"
+        "rows = sorted(df.aggregate(['k'], [t.f.sum(df.col('v'))]).collect().to_rows())\n"
+        "assert rows == [(0, 18.0), (1, 12.0), (2, 15.0)], rows\n"
+        "for name in ('cli', 'dataframe', 'analysis.verify', 'io.readers', 'io.io_thread',"
+        " 'native.sqlfront'):\n"
         "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
