@@ -122,6 +122,17 @@ which raises on failure:
    raises PlanVerificationError before any launch; an NDJSON table
    (test/data/example1.ndjson) grouped through the console against
    json.loads of the file.  `console_*` and `dataframe_q1` lines.
+13. Per-query observability (after phase 7, `phase_explain`): EXPLAIN
+   ANALYZE of Q1 at SF-1 (rows against `q1_oracle`, 6 grouped-reduce
+   launches, "execute" from CUDA events above 0 and within the wall, the
+   report printed), Q1's warm p50 plain, under EXPLAIN ANALYZE with the
+   host profiler and without it, in turns (`explain_cost`), EXPLAIN
+   ANALYZE of Q10 (rows against `q10_columns`, the host profile's top
+   frames per phase), config 1 cold under a profiler capture with the
+   decode phase split between `dtf_csv_next` and the bridge's Python
+   (`config1_parse_split`), `utils/profiling.trace` over one Q1 run (its
+   grouped-reduce kernel events) and the console's `\\hbm` report beside
+   `torch.cuda.memory_allocated()`.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.
 
@@ -143,7 +154,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12) runs each query with the launch counters
+The main path (phases 3 to 10, 12 and 13) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -154,6 +165,7 @@ without a CUDA device or without the package beside this script.
 from __future__ import annotations
 
 import functools
+import io
 import json
 import os
 import subprocess
@@ -1584,8 +1596,8 @@ def phase_csv(tdf, cuda_mod, torch, smi):
     table, warmup_ms = cold()
     launches = cuda_mod.launch_counts()
     keep = (lat > 51.0) & (lat < 53.0)
-    want = [city[keep], lat[keep], lng[keep], lat[keep] + lng[keep]]
-    for i, w in enumerate(want):
+    oracle = [city[keep], lat[keep], lng[keep], lat[keep] + lng[keep]]
+    for i, w in enumerate(oracle):
         if not np.array_equal(np.asarray(table.columns[i]), w):
             raise AssertionError(f"config 1: column {i} differs from the oracle")
     times = [cold()[1] for _ in range(3)]
@@ -1631,7 +1643,7 @@ def phase_csv(tdf, cuda_mod, torch, smi):
     if got != want or len(got) != 18:
         raise AssertionError(f"uk_cities: {len(got)} rows differ from the file's parse")
     log("uk_cities example: 18 rows match a parse of the file")
-    return rep
+    return rep, (path, schema, oracle)
 
 
 # ------------------------------------------------------------ phase 8
@@ -2553,6 +2565,192 @@ def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
     return reports
 
 
+# ------------------------------------------------------------ phase 13
+
+# the CSV bridge's Python frames that split a cold scan's decode phase
+# with the native parse (native/csv.py): a sample whose stack holds one
+# of them is the bridge's; the rest of the reader generator's samples
+# wait in `dtf_csv_next` (a C call adds no Python frame of its own)
+CSV_BRIDGE = ("_view", "_grow_lut", "make_host_batch")
+EXPLAIN_TURNS = 7
+
+
+def _frame_name(label: str) -> str:
+    return label.split(" (", 1)[0]
+
+
+def csv_parse_split(report) -> dict:
+    """The decode phase's samples of a profiled CSV scan: the bridge's
+    Python frames (`CSV_BRIDGE`), the frame that calls `dtf_csv_next`
+    (the reader generator `_batches` of native/csv.py at the leaf), and
+    the rest."""
+    split = {"dtf_csv_next": 0, **{f: 0 for f in CSV_BRIDGE}, "other": 0}
+    for (_tid, phase, frames), n in report.stacks.items():
+        if phase != "decode":
+            continue
+        names = [_frame_name(f) for f in frames]
+        hit = next((f for f in CSV_BRIDGE if f in names), None)
+        if hit is not None:
+            split[hit] += n
+        elif frames and frames[-1].startswith("_batches (native/csv.py"):
+            split["dtf_csv_next"] += n
+        else:
+            split["other"] += n
+    return split
+
+
+def phase_explain(tdf, cuda_mod, torch, star_ctx, li_src, li_cols, dates, star, cities, smi):
+    """Per-query observability on cuda:0 (obs/explain.py, obs/device.py,
+    obs/profiler.py, utils/profiling.py):
+
+    1. EXPLAIN ANALYZE of Q1 at SF-1 over the phase-3 lineitem: rows
+       equal to `q1_oracle`, the fold's 6 grouped-reduce launches, the
+       phase bar's "execute" (CUDA events under profile_sync) above 0
+       and within the wall; the report printed;
+    2. Q1's warm p50 plain, under EXPLAIN ANALYZE with the host profiler
+       and without it (DATAFUSION_TPU_PROFILE_EXPLAIN=0): EXPLAIN_TURNS
+       runs each, in turns; no gate: what the trace costs;
+    3. EXPLAIN ANALYZE of Q10 at SF-1 (the encoder's general path):
+       rows equal to `q10_columns`, 3 dense builds and 1 sort, the host
+       profile's top frames per phase;
+    4. bench config 1 cold (phase 7's CSV) under a profiler capture: the
+       decode phase's samples split between the frame that calls
+       `dtf_csv_next` and the bridge's `_view`, `_grow_lut` and
+       `make_host_batch` (`csv_parse_split`);
+    5. `utils/profiling.trace` over one Q1 run: the written Chrome trace
+       holds the grouped reduce's kernel events;
+    6. the console's `\\hbm` report after Q1, beside
+       `torch.cuda.memory_allocated()`."""
+    from datafusion_tpu_torch.obs import profiler
+    from datafusion_tpu_torch.obs.device import LEDGER
+    from datafusion_tpu_torch.utils.profiling import trace
+
+    reports = []
+    ctx = tdf.ExecutionContext(batch_size=star_ctx.batch_size)
+    ctx.register_datasource("lineitem", li_src)
+    nb = len(list(li_src.batches()))
+
+    def explain(c, sql, label, needs):
+        cuda_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = c.sql("EXPLAIN ANALYZE " + sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = cuda_mod.launch_counts()
+        for name in needs:
+            if launches[name] <= 0:
+                raise AssertionError(f"{label}: kernel {name} was not launched")
+        if not 0 < res.phases["execute"] <= res.wall_s:
+            raise AssertionError(f"{label}: execute {res.phases['execute']} s outside "
+                                 f"(0, wall {res.wall_s} s]")
+        for line in res.report().splitlines():
+            log(f"{label} | {line}")
+        rep = {"query": label, "rows": SF1_ROWS, "cold_ms": ms, "launches": launches,
+               "wall_ms": res.wall_s * 1e3,
+               "phase_ms": {k: v * 1e3 for k, v in res.phases.items()},
+               "counters": res.counters, "hbm": res.hbm, "card": smi}
+        log(f"{label}: " + json.dumps(rep))
+        return res, rep
+
+    # 1. Q1
+    res, rep = explain(ctx, Q1, "explain_tpch_q1_sf1", ("hash_agg",))
+    assert_rows(res.result, q1_oracle(li_cols, dates), "EXPLAIN ANALYZE Q1")
+    expect_launches(rep, "EXPLAIN ANALYZE Q1", hash_agg=6 * fold_groups(nb))
+    reports.append(rep)
+
+    # 6. \hbm after Q1
+    from datafusion_tpu_torch.cli import Console
+
+    out = io.StringIO()
+    Console(ctx, out=out).handle_command("\\hbm")
+    for line in out.getvalue().splitlines():
+        log(f"hbm | {line}")
+    log("hbm: " + json.dumps({"ledger_live_bytes": LEDGER.buffer_bytes(),
+                              "ledger_peak_bytes": LEDGER.peak_bytes(),
+                              "cuda_memory_allocated": torch.cuda.memory_allocated(),
+                              "card": smi}))
+
+    # 2. the trace's cost on Q1, in turns
+    def plain():
+        tdf.collect(ctx.sql(Q1))
+
+    def traced():
+        ctx.sql("EXPLAIN ANALYZE " + Q1)
+
+    def traced_no_profile():
+        os.environ["DATAFUSION_TPU_PROFILE_EXPLAIN"] = "0"
+        try:
+            ctx.sql("EXPLAIN ANALYZE " + Q1)
+        finally:
+            del os.environ["DATAFUSION_TPU_PROFILE_EXPLAIN"]
+
+    runs = {"plain": plain, "explain_profiled": traced, "explain_unprofiled": traced_no_profile}
+    times = {k: [] for k in runs}
+    names = list(runs)
+    for turn in range(EXPLAIN_TURNS):
+        for name in names[turn % 3:] + names[:turn % 3]:
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    log("explain_cost: " + json.dumps({
+        "query": "tpch_q1_sf1", "warm_ms": times,
+        **{f"{k}_p50_ms": float(np.median(v)) for k, v in times.items()}, "card": smi}))
+
+    # 3. Q10 over the star schema
+    res, rep = explain(star_ctx, Q10, "explain_tpch_q10_sf1", ("hash_build", "sort_kernel"))
+    assert_grouped(res.result, q10_columns(star), "EXPLAIN ANALYZE Q10")
+    if rep["launches"]["hash_build"] != 3:
+        raise AssertionError(f"EXPLAIN ANALYZE Q10: launches {rep['launches']}")
+    prof = res.host_profile
+    if prof is None or not prof.samples:
+        raise AssertionError("EXPLAIN ANALYZE Q10 took no host samples")
+    log("explain_q10_profile: " + json.dumps({
+        "summary": prof.summary(), "phases": prof.by_phase(6), "card": smi}))
+    reports.append(rep)
+
+    # 4. config 1 cold under the profiler
+    path, schema, want = cities
+    cuda_mod.reset_launch_counts()
+    with profiler.profile(name="config1_cold") as cap:
+        c1 = tdf.ExecutionContext(batch_size=1 << 19)
+        c1.register_csv("cities", path, schema, has_header=True)
+        t0 = time.perf_counter()
+        table = tdf.collect(c1.sql(CITIES_SQL))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    for i, w in enumerate(want):
+        got = np.asarray(table.columns[i])
+        if not np.array_equal(got, w):
+            raise AssertionError(f"config 1 profiled: column {i} differs from the oracle "
+                                 f"({len(got)} rows, oracle {len(w)})")
+    report = cap.report()
+    split = csv_parse_split(report)
+    log("config1_parse_split: " + json.dumps({
+        "query": "config1_csv_scan_filter", "cold_ms": ms, "summary": report.summary(),
+        "phase_samples": report.phase_samples(), "decode_split": split,
+        "decode_top_frames": report.top_frames(8, "decode"), "card": smi}))
+    if not split["dtf_csv_next"]:
+        raise AssertionError(f"config 1 profile: no sample in dtf_csv_next {split}")
+
+    # 5. utils/profiling.trace over one Q1 run
+    here = os.path.dirname(os.path.abspath(__file__))
+    trace_dir = os.path.join(here, "build", "chip_smoke", "q1_trace")
+    with trace(trace_dir):
+        tdf.collect(ctx.sql(Q1))
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    reduce_events = [e for e in kernels if "reduce_kernel" in e.get("name", "")]
+    log("profiling_trace: " + json.dumps({
+        "query": "tpch_q1_sf1", "events": len(events), "kernel_events": len(kernels),
+        "reduce_kernel_events": len(reduce_events),
+        "reduce_kernel_us": sum(e.get("dur", 0) for e in reduce_events), "card": smi}))
+    if not reduce_events:
+        raise AssertionError("utils/profiling.trace: no grouped-reduce kernel event")
+    return reports
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2642,8 +2840,11 @@ def main() -> int:
     reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
     reports += phase_console(tdf, cuda_mod, torch, li_src, li_cols, dates, star_cols, smi)
+    csv_rep, cities = phase_csv(tdf, cuda_mod, torch, smi)
+    reports.append(csv_rep)
+    reports += phase_explain(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,
+                             cities, smi)
     del star_cols, li_src, li_cols
-    reports.append(phase_csv(tdf, cuda_mod, torch, smi))
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)
 

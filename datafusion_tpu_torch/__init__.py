@@ -18,6 +18,7 @@ Entry points run on `cuda:0` unless the caller asks for the CPU:
     ctx.sql("CREATE EXTERNAL TABLE p (id INT) STORED AS CSV WITH HEADER ROW "
             "LOCATION 'test/data/people.csv'")       # -> DdlResult
     ctx.sql_collect("EXPLAIN VERIFY SELECT id FROM p")  # -> ExplainVerifyResult
+    print(ctx.sql("EXPLAIN ANALYZE SELECT id FROM p"))  # -> ExplainAnalyzeResult
     df = ctx.table("t").filter(...).aggregate([...], [f.sum(...)])
 
 The console: `python -m datafusion_tpu_torch.cli [--script FILE]
@@ -77,6 +78,7 @@ from datafusion_tpu_torch.exec.datasource import (
 )
 from datafusion_tpu_torch.exec.materialize import ResultTable, collect
 from datafusion_tpu_torch.analysis.verify import ExplainVerifyResult
+from datafusion_tpu_torch.obs.explain import ExplainAnalyzeResult
 from datafusion_tpu_torch.dataframe import DataFrame, f, lit
 
 __version__ = "0.1.0"
@@ -121,6 +123,7 @@ __all__ = [
     "DdlResult",
     "ExplainResult",
     "ExplainVerifyResult",
+    "ExplainAnalyzeResult",
     "DataFrame",
     "f",
     "lit",

@@ -3,17 +3,18 @@
 A banner, script mode (`--script file.sql`, statements accumulate
 until `;`), an interactive REPL with `datafusion>` / `>` continuation
 prompts and `quit`/`exit`, per-query wall-clock timing, DDL, result
-rows, EXPLAIN / EXPLAIN VERIFY plans, and the `ST_Point`/`ST_AsText`
-geo UDFs the reference's golden smoketest expects
+rows, EXPLAIN / EXPLAIN VERIFY plans, EXPLAIN ANALYZE reports (also as
+`\\explain <sql>`), the device ledger's report (`\\hbm`), and the
+`ST_Point`/`ST_AsText` geo UDFs the reference's golden smoketest expects
 (`test/data/smoketest.sql`, `test/data/smoketest-expected.txt`).
 
 Run: ``python -m datafusion_tpu_torch.cli [--script FILE] [--device cpu]``
 
 The console runs on `cuda:0` unless `--device` names another device
 (`cpu` only when asked).  The `top` and `debug-bundle` modes and the
-commands `\\explain \\cache \\cluster \\top \\hbm \\ingest \\cost \\append`
-need planes that are not ported yet: each prints an error naming its
-ROADMAP item, and the console carries on.
+commands `\\cache \\cluster \\top \\ingest \\cost \\append` need planes
+that are not ported yet: each prints an error naming its ROADMAP item,
+and the console carries on.
 """
 
 from __future__ import annotations
@@ -30,16 +31,14 @@ from datafusion_tpu_torch.sql.parser import split_statements, split_statements_p
 # console commands and modes that wait for an unported plane, with the
 # ROADMAP item that ports it
 _UNPORTED = {
-    "\\explain": "EXPLAIN ANALYZE, ROADMAP queue 1 item 13",
     "\\cache": "the result cache, ROADMAP queue 1 item 11.3",
-    "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13",
-    "\\top": "fleet telemetry, ROADMAP queue 1 item 13",
-    "\\hbm": "the device-memory report, ROADMAP queue 1 item 13",
+    "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2",
+    "\\top": "fleet telemetry, ROADMAP queue 1 item 13.2",
     "\\ingest": "ingest, ROADMAP queue 1 item 11.2",
     "\\cost": "the cost store, ROADMAP queue 1 item 11.4",
     "\\append": "ingest, ROADMAP queue 1 item 11.2",
-    "top": "fleet telemetry, ROADMAP queue 1 item 13",
-    "debug-bundle": "debug bundles, ROADMAP queue 1 item 13",
+    "top": "fleet telemetry, ROADMAP queue 1 item 13.2",
+    "debug-bundle": "debug bundles, ROADMAP queue 1 item 13.2",
 }
 
 
@@ -100,10 +99,27 @@ class Console:
 
     def handle_command(self, line: str) -> bool:
         """Backslash console commands; True when `line` was one."""
-        cmd = line.strip().lower()
+        stripped = line.strip()
+        cmd = stripped.lower()
         if cmd == "\\timing":
             self.timing = not self.timing
             self._print(f"Timing is {'on' if self.timing else 'off'}.")
+            return True
+        if cmd == "\\explain" or cmd.startswith("\\explain "):
+            # \explain SELECT ...: EXPLAIN ANALYZE, the annotated
+            # operator tree and span timeline (obs/explain.py)
+            arg = stripped[len("\\explain"):].strip().rstrip(";").strip()
+            if not arg:
+                self._print("Usage: \\explain <sql statement>")
+            else:
+                self.execute(f"EXPLAIN ANALYZE {arg}")
+            return True
+        if cmd == "\\hbm":
+            # the device ledger: live and peak bytes by device and
+            # owner, and the pins (obs/device.py)
+            from datafusion_tpu_torch.obs.device import LEDGER
+
+            self._print(LEDGER.report_text())
             return True
         name = cmd.split(None, 1)[0] if cmd else ""
         if name in _UNPORTED and name.startswith("\\"):
@@ -132,13 +148,15 @@ class Console:
         from datafusion_tpu_torch.analysis.verify import ExplainVerifyResult
         from datafusion_tpu_torch.exec.context import ExplainResult
         from datafusion_tpu_torch.exec.materialize import ResultTable
+        from datafusion_tpu_torch.obs.explain import ExplainAnalyzeResult
 
         if isinstance(result, ResultTable):
             for row in result.to_rows():
                 self._print("\t".join("NULL" if v is None else str(v) for v in row))
-        elif isinstance(result, (ExplainResult, ExplainVerifyResult)):
-            # the plan tree (EXPLAIN) or the inferred-schema report
-            # (EXPLAIN VERIFY)
+        elif isinstance(result, (ExplainResult, ExplainAnalyzeResult, ExplainVerifyResult)):
+            # the plan tree (EXPLAIN), the annotated operator tree and
+            # span timeline (EXPLAIN ANALYZE, \explain) or the
+            # inferred-schema report (EXPLAIN VERIFY)
             self._print(repr(result))
         # "seconds" keeps this line inside the golden diff's -I filter
         self._print(f"Query executed in {elapsed:.3f} seconds")

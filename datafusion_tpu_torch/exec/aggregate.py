@@ -87,8 +87,11 @@ from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_
 from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled, iter_groups
 from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.exec.relation import Relation
+from datafusion_tpu_torch.obs.device import LEDGER
+from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
 from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
 from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.retry import device_call
 
 
 _SCAN_OPS = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
@@ -653,7 +656,7 @@ class _AggregateCore:
         valids = tuple(None if v[0] is None else torch.cat(v)
                        for v in zip(*(e[1] for e in entries)))
         live = torch.cat([self._live_rows(c, n, m, i, device) for c, _, n, m, i in entries])
-        return cols, valids, live, torch.cat([e[4] for e in entries])
+        return LEDGER.adopt((cols, valids, live, torch.cat([e[4] for e in entries])), "fold")
 
     @staticmethod
     def _masked(pred_fn, env, live):
@@ -994,7 +997,7 @@ class _AggregateCore:
 def _pull_parts(parts) -> list:
     """Tensors on the host in ONE device-to-host copy: every tensor is
     viewed as bytes and concatenated on the device first."""
-    blob = torch.cat([p.contiguous().view(-1).view(torch.uint8) for p in parts]).cpu().numpy()
+    blob = to_host(torch.cat([p.contiguous().view(-1).view(torch.uint8) for p in parts]))
     host = []
     off = 0
     for p in parts:
@@ -1039,6 +1042,7 @@ class AggregateRelation(Relation):
         self.child = child
         self._schema = out_schema
         self.device = device
+        self.predicate = predicate
         self.core = _AggregateCore.build(
             child.schema, list(group_expr), list(aggr_expr), predicate,
             functions,
@@ -1109,6 +1113,10 @@ class AggregateRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
+    def op_label(self) -> str:
+        return (f"Aggregate[keys={len(self.key_cols)}, slots={len(self.slots)}"
+                + (", filtered" if self.predicate is not None else "") + "]")
+
     @staticmethod
     def _pick_capacity(n_groups: int, current: int) -> int:
         """Accumulator capacity for `n_groups` encoded groups: the next
@@ -1138,7 +1146,7 @@ class AggregateRelation(Relation):
         core = self.core
         device = self.device
         params = param_tensors(self._param_values, device)
-        batches = self.child.batches()
+        batches = iter_stats(self.child)
         if pipeline_enabled(device, self.child):
             batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
         state = None
@@ -1147,7 +1155,16 @@ class AggregateRelation(Relation):
                 state = core._init_state(capacity, device)
             elif capacity > state[0].shape[0]:
                 state = core._grow_state(state, capacity)
-            state = core.fused_group(entries, state, aux, str_aux, params)
+            with METRICS.timer("execute.aggregate"), op_timer(self):
+                if len(entries) > 1:
+                    METRICS.add("fused.groups")
+                    METRICS.add("fused.group_batches", len(entries))
+                state = device_call(core.fused_group, entries, state, aux, str_aux, params,
+                                    _tag="agg.group" if len(entries) > 1 else "agg",
+                                    _device=device)
+            if self._op_stats is not None:
+                self.stats.attrs["fused_batches"] = (
+                    self.stats.attrs.get("fused_batches", 0) + len(entries))
         if state is None:
             state = core._init_state(group_capacity(1), device)
         return state
@@ -1225,7 +1242,7 @@ class AggregateRelation(Relation):
         hit = batch.cache.get("group_ids")
         if hit is not None and hit[0] is self.encoder:
             return hit[1], hit[2]
-        with self._ids_lock, METRICS.timer("agg.host_encode"):
+        with self._ids_lock:
             return self._group_ids_locked(batch)
 
     def _group_ids_locked(self, batch: RecordBatch):
@@ -1243,10 +1260,11 @@ class AggregateRelation(Relation):
                 None if batch.validity[idx] is None else to_host(batch.validity[idx])
                 for idx in self.key_cols
             ]
-            ids_np = self.encoder.encode(key_cols, key_valids)
+            with METRICS.timer("agg.host_encode"):
+                ids_np = self.encoder.encode(key_cols, key_valids)
         else:
             ids_np = np.zeros(batch.capacity, dtype=np.int32)
-        ids = to_device(ids_np, self.device)
+        ids = to_device(ids_np, self.device, owner="group_ids")
         n_groups = self.encoder.num_groups
         # one slot per batch: another query's encoder overwrites it, so
         # a long-lived batch holds at most one ids tensor
@@ -1397,15 +1415,17 @@ def run_aggregate_megabatch(rels: list) -> None:
         return tuple(aux for aux, _ in per), per[0][1]
 
     states = None
-    for capacity, entries, (auxes, str_aux) in leader._batch_groups(leader.child.batches(),
+    for capacity, entries, (auxes, str_aux) in leader._batch_groups(iter_stats(leader.child),
                                                                      tables):
         if states is None:
             states = [r.core._init_state(capacity, device) for r in rels]
         elif capacity > states[0][0].shape[0]:
             states = [r.core._grow_state(st, capacity) for r, st in zip(rels, states)]
-        states = core.multi_fused_group(
-            entries, states, str_aux,
-            [(pred, aux, params, values) for (pred, params, values), aux in zip(members, auxes)])
+        with METRICS.timer("execute.aggregate"), op_timer(leader):
+            states = device_call(
+                core.multi_fused_group, entries, states, str_aux,
+                [(pred, aux, params, values) for (pred, params, values), aux in zip(members, auxes)],
+                _tag="serve.megabatch", _device=device)
         METRICS.add("serve.megabatch_launches")
         METRICS.add("serve.megabatch_batches", len(entries))
     if states is None:

@@ -21,6 +21,7 @@ ported (ROADMAP queue 1, "wire codec").
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,7 +29,8 @@ import torch
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.errors import ExecutionError
-from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.obs.device import LEDGER, note_h2d, profile_sync_active, record_d2h
+from datafusion_tpu_torch.utils.metrics import stage_enter, stage_exit
 
 MIN_CAPACITY = 1024
 
@@ -242,31 +244,48 @@ def host_array(arr: np.ndarray, np_dtype) -> np.ndarray:
     return arr.astype(np_dtype)
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(arr: np.ndarray, device: torch.device, owner: str = "batch") -> torch.Tensor:
     """One host array as a tensor on `device` (unsigned columns in
     their device dtype, `device_array`).  On a CUDA device the copy
     goes through pinned memory and is asynchronous on the current
     stream (the pinned buffer stays reserved by PyTorch's host
-    allocator until the copy has run); on the CPU it is a view.
+    allocator until the copy has run; inside `obs/device.profile_sync`
+    the copy is waited for, so the `h2d` phase is the copy's time); on
+    the CPU it is a view.
 
     Every call counts one `device.h2d.transfers` and its bytes in
     `h2d.bytes` (utils/metrics.py), on the CPU too, where the copy is
-    a view, so a test there sees what a run on the card would send."""
+    a view, so a test there sees what a run on the card would send; the
+    tensor registers in the device ledger under `owner`."""
     t = torch.from_numpy(np.ascontiguousarray(device_array(np.asarray(arr))))
-    METRICS.add("device.h2d.transfers")
-    METRICS.add("h2d.bytes", t.numel() * t.element_size())
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    tok = stage_enter("h2d.dispatch")
+    t0 = time.perf_counter()
+    try:
+        if device.type != "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+            if profile_sync_active():
+                torch.cuda.current_stream(device).synchronize()
+    finally:
+        stage_exit(tok)
+    note_h2d(t.numel() * t.element_size(), time.perf_counter() - t0)
+    LEDGER.adopt(t, owner)
+    return t
 
 
 def to_host(x, np_dtype=None) -> np.ndarray:
     """A column, validity or mask as a numpy array, whether it is a
-    host array or a tensor on any device (one device-to-host copy).
-    With `np_dtype`, a device tensor of an unsigned column comes back
-    in that dtype (`host_array`)."""
+    host array or a tensor on any device (one device-to-host copy,
+    counted in `d2h.bytes` and the `d2h.wait` timer).  With
+    `np_dtype`, a device tensor of an unsigned column comes back in
+    that dtype (`host_array`)."""
     if isinstance(x, torch.Tensor):
-        out = x.cpu().numpy()
+        tok = stage_enter("d2h.wait")
+        t0 = time.perf_counter()
+        try:
+            out = x.cpu().numpy()
+        finally:
+            stage_exit(tok)
+        record_d2h(out.nbytes, time.perf_counter() - t0)
         return out if np_dtype is None else host_array(out, np_dtype)
     return np.asarray(x)
 

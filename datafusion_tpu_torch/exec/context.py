@@ -26,7 +26,10 @@ projects.
 Statements: SELECT lowers and runs lazily; CREATE EXTERNAL TABLE (CSV,
 NDJSON, Parquet) registers a table and returns a `DdlResult`; EXPLAIN
 returns an `ExplainResult` (the plan's text) and EXPLAIN VERIFY an
-`ExplainVerifyResult` (the verifier's report), neither executing.
+`ExplainVerifyResult` (the verifier's report), neither executing;
+EXPLAIN ANALYZE runs the query and returns an
+`obs/explain.ExplainAnalyzeResult` (rows, the annotated operator tree,
+phases, spans).
 `sql_collect` materializes a SELECT.  `table(name)` gives a DataFrame
 (dataframe.py).
 
@@ -35,9 +38,9 @@ Every plan `execute` lowers passes the static verifier first
 column, a mistyped expression, a computed GROUP BY or ORDER BY key
 raises `PlanVerificationError` before any operator is built.
 
-What raises NotSupportedError: EXPLAIN ANALYZE (ROADMAP queue 1, item
-13), CREATE MATERIALIZED VIEW (item 11.2), result caching, a `host_fn`
-UDF in a WHERE predicate, and any other plan node (ROADMAP queue 1).
+What raises NotSupportedError: CREATE MATERIALIZED VIEW (ROADMAP queue
+1, item 11.2), result caching, a `host_fn` UDF in a WHERE predicate,
+and any other plan node (ROADMAP queue 1).
 
 Every plan `execute` lowers counts `queries_admitted`
 (utils/metrics.py).  `serve()` starts the serving front door over the
@@ -255,12 +258,13 @@ class ExecutionContext:
                 "item 11.2: ingest and the view fold)"
             )
         if isinstance(stmt, ast.SqlExplain):
-            if stmt.analyze:
-                raise NotSupportedError(
-                    "EXPLAIN ANALYZE is not ported yet (ROADMAP queue 1, item 13: "
-                    "control plane and observability)"
-                )
             plan = self._plan(stmt.stmt)
+            if stmt.analyze:
+                # runs the query under a trace session and annotates the
+                # operator tree with what it measured (obs/explain.py)
+                from datafusion_tpu_torch.obs.explain import explain_analyze
+
+                return explain_analyze(self, plan)
             if stmt.verify:
                 # type-checks the plan WITHOUT executing it
                 with METRICS.timer("verify"):
@@ -268,6 +272,14 @@ class ExecutionContext:
                 return _averify.ExplainVerifyResult(plan, report)
             return ExplainResult(plan)
         return self.execute(self._plan(stmt))
+
+    def metrics_text(self) -> str:
+        """The engine's counters, stage timings and gauges
+        (utils/metrics.METRICS) in the Prometheus text exposition format
+        (obs/export.prometheus_text)."""
+        from datafusion_tpu_torch.obs.export import prometheus_text
+
+        return prometheus_text()
 
     def sql_collect(self, sql_text: str) -> Union[ResultTable, DdlResult, ExplainResult]:
         """`sql`, with a SELECT's rows materialized on the host."""
@@ -452,12 +464,14 @@ class ExecutionContext:
             if any(contains_host_fn(e, self.functions) for e in checked):
                 return None
             try:
-                return AggregateRelation(
+                rel = AggregateRelation(
                     self._lower(base), group_expr, aggr_expr, plan.schema,
                     self.device, predicate=pred, functions=fns,
                 )
             except (NotSupportedError, PlanError):
                 return None  # an inlined shape the aggregate can't take
+            rel._fused_chain = "filter+project+aggregate"  # EXPLAIN ANALYZE's marker
+            return rel
 
         if isinstance(plan, (Selection, Projection)):
             flat = fused.flatten_chain(plan)
@@ -471,10 +485,12 @@ class ExecutionContext:
                 return None
             if pred is not None and contains_host_fn(pred, self.functions):
                 return None
-            return PipelineRelation(
+            rel = PipelineRelation(
                 self._lower(base), pred, proj, plan.schema, self.device,
                 functions=fns, function_metas=self.functions,
             )
+            rel._fused_chain = f"{n}-node chain"
+            return rel
 
         limit = None
         sort = plan
@@ -486,7 +502,9 @@ class ExecutionContext:
         if hit is None:
             return None
         base, keys, pred, out_cols = hit
-        return SortRelation(
+        rel = SortRelation(
             self._lower(base), keys, plan.schema, self.device, limit=limit,
             predicate=pred, output_cols=out_cols,
         )
+        rel._fused_chain = "filter+project+sort"
+        return rel

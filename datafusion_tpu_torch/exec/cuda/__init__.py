@@ -105,16 +105,26 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
+    """The loaded kernel library `name`, built first if needed.  A build
+    counts in the `compile.nvcc` timer and in the ambient operator's
+    `compile_s` (the "compile" phase of EXPLAIN ANALYZE)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             out, proc, tmp = _start_build(name)
             _finish_build(name, out, proc, tmp)
             lib = _LIBS[name] = ctypes.CDLL(str(out))
+            if proc is not None:
+                from datafusion_tpu_torch.obs.stats import record_compile
+                from datafusion_tpu_torch.utils.metrics import METRICS
+
+                seconds = time.perf_counter() - t0
+                METRICS.observe("compile.nvcc", seconds)
+                record_compile(seconds)
     return lib
 
 

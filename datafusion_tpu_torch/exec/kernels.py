@@ -14,6 +14,8 @@ import os
 from collections import OrderedDict
 from typing import Callable
 
+from datafusion_tpu_torch.utils.metrics import METRICS
+
 # LRU-bounded: string literals stay in fingerprints, so a long-running
 # process must not pin every variant forever
 _MAX_CORES = int(os.environ.get("DATAFUSION_TPU_KERNEL_CACHE_SIZE", 256))
@@ -22,13 +24,17 @@ _REGISTRY: OrderedDict = OrderedDict()
 
 def cached_kernel(key, build: Callable):
     """The cached core for `key`, building it on first use;
-    least-recently-used cores evict past the registry bound."""
+    least-recently-used cores evict past the registry bound.  Counts
+    `kernel_cache.hits` and `kernel_cache.misses` (EXPLAIN ANALYZE's
+    per-query cache line: a repeated query shows no miss)."""
     hit = _REGISTRY.get(key)
     if hit is None:
+        METRICS.add("kernel_cache.misses")
         hit = _REGISTRY[key] = build()
         while len(_REGISTRY) > _MAX_CORES:
             _REGISTRY.popitem(last=False)
     else:
+        METRICS.add("kernel_cache.hits")
         _REGISTRY.move_to_end(key)
     return hit
 

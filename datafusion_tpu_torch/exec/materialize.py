@@ -88,8 +88,9 @@ class ResultTable:
         return list(zip(*cols)) if cols else []
 
 
-def collect_columns(relation):
-    """Pull every batch of a Relation and concatenate live rows on host.
+def collect_columns(relation, batches=None):
+    """Pull every batch of a Relation (or `batches`, an iterator over
+    its output) and concatenate live rows on host.
 
     Returns (columns, validity, dicts, total_rows); strings stay
     dictionary-coded (dicts[i] holds the decoder).
@@ -100,7 +101,7 @@ def collect_columns(relation):
     vparts: list[list[Optional[np.ndarray]]] = [[] for _ in range(ncols)]
     dicts: list = [None] * ncols
     total = 0
-    for batch in relation.batches():
+    for batch in relation.batches() if batches is None else batches:
         cols, valids, bdicts, n = compact_batch(batch)
         total += n
         for i in range(ncols):

@@ -51,11 +51,25 @@ from datafusion_tpu_torch.exec.fused import (
     shared_signature,
 )
 from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
+from datafusion_tpu_torch.obs.device import LEDGER
+from datafusion_tpu_torch.obs.stats import OperatorStats, iter_stats, op_timer
 from datafusion_tpu_torch.plan.expr import Column, Expr
+from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.retry import device_call
 
 
 class Relation:
-    """Pull-based iterator of RecordBatches (reference `Relation` trait)."""
+    """Pull-based iterator of RecordBatches (reference `Relation` trait).
+
+    Every relation doubles as a physical plan node for observability:
+    it lazily owns an `OperatorStats` (`.stats`, filled only on
+    instrumented runs: EXPLAIN ANALYZE, DATAFUSION_TPU_TRACE=1), names
+    itself (`op_name`, `op_label`, the JAX package's labels) and exposes
+    its operator children (`op_children`) so EXPLAIN ANALYZE can walk
+    the executed tree.
+    """
+
+    _op_stats = None
 
     @property
     def schema(self) -> Schema:
@@ -63,6 +77,27 @@ class Relation:
 
     def batches(self) -> Iterator[RecordBatch]:
         raise NotImplementedError
+
+    @property
+    def stats(self):
+        st = self._op_stats
+        if st is None:
+            st = self._op_stats = OperatorStats()
+        return st
+
+    def op_name(self) -> str:
+        name = type(self).__name__
+        for junk in ("Relation", "Exec", "_"):
+            name = name.replace(junk, "")
+        return name or type(self).__name__
+
+    def op_label(self) -> str:
+        """One-line description for the EXPLAIN ANALYZE tree."""
+        return self.op_name()
+
+    def op_children(self) -> list["Relation"]:
+        c = getattr(self, "child", None)
+        return [c] if isinstance(c, Relation) else []
 
 
 class DataSourceRelation(Relation):
@@ -74,6 +109,11 @@ class DataSourceRelation(Relation):
     @property
     def schema(self) -> Schema:
         return self.datasource.schema
+
+    def op_label(self) -> str:
+        src = type(self.datasource).__name__.replace("DataSource", "")
+        path = getattr(self.datasource, "path", None)
+        return f"Scan[{src}{f': {path}' if path else ''}]"
 
     def batches(self) -> Iterator[RecordBatch]:
         return self.datasource.batches()
@@ -123,6 +163,10 @@ class _PipelineCore:
                     self.host_proj.add(j)
                     self.proj_fns.append(None)
                 elif isinstance(e, Column):
+                    # an out-of-range column raises InvalidColumnError
+                    # here, at lowering, as in the JAX package (an
+                    # unverified plan can name one)
+                    in_schema.field(e.index)
                     self.identity_proj[j] = e.index
                     self.proj_fns.append(None)
                 else:
@@ -219,6 +263,7 @@ class _PipelineCore:
             valids = tuple(None if v[0] is None else torch.cat(v)
                            for v in zip(*(e[1] for e in entries)))
             base = torch.cat(live)
+            LEDGER.adopt((cols, valids, base), "fold")
         capacity = base.shape[0]
         out = []
         for params in params_list:
@@ -305,6 +350,14 @@ class PipelineRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
+    def op_label(self) -> str:
+        parts = []
+        if self.predicate is not None:
+            parts.append("filter")
+        if self.projections is not None:
+            parts.append("project")
+        return f"Pipeline[{'+'.join(parts) or 'pass'}]"
+
     def batches(self) -> Iterator[RecordBatch]:
         injected = self.__dict__.pop("_injected_batches", None)
         if injected is not None:
@@ -312,7 +365,7 @@ class PipelineRelation(Relation):
             return
         core = self.core
         dev = self.device
-        batches = self.child.batches()
+        batches = iter_stats(self.child)
         if not core.needs_kernel:
             yield from self._passthrough(batches)
             return
@@ -322,7 +375,13 @@ class PipelineRelation(Relation):
         for group in self._batch_groups(batches):
             # one device pass, then one output batch per input batch,
             # with its boundaries, `num_rows` and mask
-            outs = core.run_group([e for _, e, _ in group], group[0][2], params, dev)
+            with METRICS.timer("execute.pipeline"), op_timer(self):
+                if len(group) > 1:
+                    METRICS.add("fused.groups")
+                    METRICS.add("fused.group_batches", len(group))
+                outs = device_call(
+                    core.run_group, [e for _, e, _ in group], group[0][2], params, dev,
+                    _tag="pipeline.group" if len(group) > 1 else "pipeline", _device=dev)
             for (batch, _, _), (cols, valids, mask) in zip(group, outs):
                 yield self._output(batch, cols, valids, mask)
 
@@ -335,9 +394,10 @@ class PipelineRelation(Relation):
         sig = None
         for batch in batches:
             aux = self._aux(batch)
-            data, validity, mask_in = device_inputs(
-                subset_view(batch, self.core.used_cols), self.device
-            )
+            with METRICS.timer("execute.pipeline"), op_timer(self):
+                data, validity, mask_in = device_inputs(
+                    subset_view(batch, self.core.used_cols), self.device
+                )
             entry = (data, validity, batch.num_rows, mask_in)
             entry_sig = (entry_signature(entry), shared_signature(aux))
             if group and (entry_sig != sig or len(group) >= group_max):
@@ -465,15 +525,17 @@ def run_pipeline_megabatch(rels: list) -> None:
     every query in one `run_group_multi` over inputs copied once.  Each
     relation gets its output batches as `_injected_batches`, which its
     `batches()` replays."""
-    from datafusion_tpu_torch.utils.metrics import METRICS
-
     leader = rels[0]
     dev = leader.device
     params_list = [param_tensors(r._params, dev) for r in rels]
     outs: list[list] = [[] for _ in rels]
-    for group in leader._batch_groups(leader.child.batches()):
-        per_query = leader.core.run_group_multi([e for _, e, _ in group], group[0][2],
-                                                params_list, dev)
+    for group in leader._batch_groups(iter_stats(leader.child)):
+        with METRICS.timer("execute.pipeline"), op_timer(leader):
+            METRICS.add("fused.groups")
+            METRICS.add("fused.group_batches", len(group))
+            per_query = device_call(
+                leader.core.run_group_multi, [e for _, e, _ in group], group[0][2],
+                params_list, dev, _tag="pipeline.mega", _device=dev)
         for r, out, res in zip(rels, outs, per_query):
             for (batch, _, _), (cols, valids, mask) in zip(group, res):
                 out.append(r._output(batch, cols, valids, mask))

@@ -78,8 +78,11 @@ from datafusion_tpu_torch.exec.cuda import sort_kernel
 from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled
 from datafusion_tpu_torch.exec.materialize import compact_batch
 from datafusion_tpu_torch.exec.relation import Relation
+from datafusion_tpu_torch.obs.device import LEDGER
+from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
 from datafusion_tpu_torch.plan.expr import Column, SortExpr
 from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.retry import device_call
 
 # LIMIT at or below this rides the streaming TopK in the JAX package;
 # above it the query is effectively a full sort and takes the run path.
@@ -210,6 +213,19 @@ class SortRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
+    def op_label(self) -> str:
+        keys = ", ".join(f"#{se.expr.index} {'ASC' if se.asc else 'DESC'}"
+                         for se in self.sort_expr)
+        # the chain this operator absorbed (exec/fused.rewrite_sort)
+        fused = ""
+        if self.predicate is not None:
+            fused += "+filter"
+        if self._out_cols != list(range(len(self.child.schema))):
+            fused += "+project"
+        if self._topk:
+            return f"TopK{fused}[{keys}, limit={self.limit}]"
+        return f"Sort{fused}[{keys}]"
+
     # -- fused selection (predicate folded into the sort pass) --
     def _pred_np_mask(self, batch) -> np.ndarray:
         """This query's fused predicate over one batch as a numpy bool
@@ -311,8 +327,9 @@ class SortRelation(Relation):
     def _sorted_run(self, keys: list[np.ndarray]) -> np.ndarray:
         """Sort one run on the device; returns its permutation (int32,
         host)."""
-        dev_ops = [to_device(o, self.device) for o in keys]
-        return to_host(sort_kernel.argsort_multi(dev_ops))
+        dev_ops = [to_device(o, self.device, owner="sort.keys") for o in keys]
+        return to_host(device_call(sort_kernel.argsort_multi, dev_ops, _tag="sort",
+                                   _device=self.device))
 
     @staticmethod
     def _merge_runs(run_keys: list[list[np.ndarray]], run_perms: list[np.ndarray]):
@@ -380,15 +397,16 @@ class SortRelation(Relation):
                 )
                 for vs, cs in zip(pending_valids, pending_cols)
             ]
-            run_perms.append(self._sorted_run(
-                self._host_keys(cols, valids, dicts, self._null_keys(valids))))
+            with METRICS.timer("execute.sort"), op_timer(self):
+                run_perms.append(self._sorted_run(
+                    self._host_keys(cols, valids, dicts, self._null_keys(valids))))
             run_cols.append(cols)
             run_valids.append(valids)
             pending_cols = None
             pending_valids = None
             pending_n = 0
 
-        for batch in self.child.batches():
+        for batch in iter_stats(self.child):
             for i, d in enumerate(batch.dicts):
                 if d is not None:
                     dicts[i] = d
@@ -495,10 +513,12 @@ class SortRelation(Relation):
             [valids[i] for i in self._out_cols], [dicts[i] for i in self._out_cols],
         )
 
-    def _topk_scan(self, k: int):
+    def _topk_scan(self, k: int, tag: Optional[str] = None):
         """The streaming TopK's scan at capacity `k`: returns (held
         batches, the state's global row ids in order or None for no
-        rows, the dictionaries).  `_merges` counts its sorts."""
+        rows, the dictionaries).  `_merges` counts its sorts; each is a
+        device pass tagged `tag` (by default `topk`, `topk.group` for a
+        group of several batches)."""
         self._merges = 0
         dev = self.device
         in_schema = self.child.schema
@@ -543,22 +563,21 @@ class SortRelation(Relation):
                 # NULL adds its dead operand: rebuild the state's
                 # operands from its rows
                 scols, svalids = self._gather(held, rows, len(in_schema))
-                state_ops = [to_device(o, dev) for o in
+                state_ops = [to_device(o, dev, owner="sort.keys") for o in
                              self._host_keys(scols, svalids, dicts, seen, ranks)]
             versions, dead = now, seen
-            parts = [[to_device(o, dev)
+            parts = [[to_device(o, dev, owner="sort.keys")
                       for o in self._host_keys(bcols, bvalids, dicts, dead, ranks)]
                      for bcols, bvalids, _, _ in group]
             if state_ops is not None:
                 parts.insert(0, state_ops)
-            ops = [p[0] if len(parts) == 1 else torch.cat(p) for p in zip(*parts)]
-            ids = torch.arange(base, base + n, dtype=torch.int64, device=dev)
-            if state_ids is not None:
-                ids = torch.cat([state_ids, ids])
-            keep = sort_kernel.argsort_multi(ops)[:k]
+            if len(group) > 1:
+                METRICS.add("fused.groups")
+                METRICS.add("fused.group_batches", len(group))
+            state_ops, state_ids = device_call(
+                _topk_pass, parts, state_ids, base, n, k,
+                _tag=tag or ("topk.group" if len(group) > 1 else "topk"), _device=dev)
             self._merges += 1
-            state_ops = [o.index_select(0, keep) for o in ops]
-            state_ids = ids.index_select(0, keep)
             for bcols, bvalids, bn, _ in group:
                 held[base] = (bcols, bvalids)
                 base += bn
@@ -568,7 +587,7 @@ class SortRelation(Relation):
             for b in [b for b in held if b not in owners]:
                 del held[b]
 
-        for batch in self.child.batches():
+        for batch in iter_stats(self.child):
             for i, d in enumerate(batch.dicts):
                 if d is not None:
                     dicts[i] = d
@@ -579,9 +598,11 @@ class SortRelation(Relation):
                           [v if i in needed else None for i, v in enumerate(valids)], n,
                           dict_versions(batch)))
             if len(group) >= group_max:
-                merge()
+                with METRICS.timer("execute.sort"), op_timer(self):
+                    merge()
         if group:
-            merge()
+            with METRICS.timer("execute.sort"), op_timer(self):
+                merge()
         return held, (None if state_ids is None else rows), dicts
 
     @staticmethod
@@ -616,6 +637,21 @@ class SortRelation(Relation):
         return cols, valids
 
 
+def _topk_pass(parts, state_ids, base: int, n: int, k: int):
+    """One TopK merge on the device: the state's key operands and each
+    batch's of the group (`parts`, the state first) concatenated, one
+    radix argsort, the first `k`.  Returns the new state's operands and
+    global row ids; the new rows' ids are base .. base + n - 1."""
+    dev = parts[0][0].device
+    ops = [p[0] if len(parts) == 1 else torch.cat(p) for p in zip(*parts)]
+    ids = torch.arange(base, base + n, dtype=torch.int64, device=dev)
+    if state_ids is not None:
+        ids = torch.cat([state_ids, ids])
+    LEDGER.adopt((ops, ids), "fold")
+    keep = sort_kernel.argsort_multi(ops)[:k]
+    return [o.index_select(0, keep) for o in ops], ids.index_select(0, keep)
+
+
 class LimitRelation(Relation):
     """Row-limit: stops pulling child batches as soon as enough rows
     are materialized (reference `Limit` plan, `logicalplan.rs:310-315`)."""
@@ -629,13 +665,16 @@ class LimitRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
+    def op_label(self) -> str:
+        return f"Limit[{self.limit}]"
+
     def batches(self) -> Iterator[RecordBatch]:
         remaining = self.limit
         if remaining <= 0:
             return
         # no one-ahead iteration here: the early return below exists to
         # avoid pulling any batch past the limit
-        for batch in self.child.batches():
+        for batch in iter_stats(self.child):
             cols, valids, dicts, n = compact_batch(batch)
             if n == 0:
                 continue
@@ -665,7 +704,7 @@ def run_topk_megabatch(rels: list) -> None:
     the held batches and the row ids as `_injected_topk`; its
     `batches()` then gathers its own prefix."""
     leader = max(rels, key=lambda r: r.limit)
-    held, rows, dicts = leader._topk_scan(leader.limit)
+    held, rows, dicts = leader._topk_scan(leader.limit, tag="topk.mega")
     METRICS.add("serve.megabatch_launches", leader._merges)
     METRICS.add("serve.megabatch_queries", len(rels))
     for r in rels:

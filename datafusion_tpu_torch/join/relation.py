@@ -70,7 +70,9 @@ from datafusion_tpu_torch.exec.cuda import hash_build
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.join import core as _core
 from datafusion_tpu_torch.obs.device import LEDGER
+from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
 from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.retry import device_call
 
 
 def _dense_max_slots() -> int:
@@ -160,6 +162,13 @@ class HashJoinRelation(Relation):
     def schema(self) -> Schema:
         return self._schema
 
+    def op_label(self) -> str:
+        on = ", ".join(f"#{l}=#{r}" for l, r in self.on)
+        return f"HashJoin[{self.join_type}, on={on}]"
+
+    def op_children(self) -> list[Relation]:
+        return [self.left, self.right]
+
     # -- build ---------------------------------------------------------
     def _build_artifact(self) -> JoinBuildArtifact:
         """The build side: the artifact pinned under `build_key` if
@@ -182,7 +191,7 @@ class HashJoinRelation(Relation):
     def _materialize_build(self) -> JoinBuildArtifact:
         from datafusion_tpu_torch.exec.materialize import collect_columns
 
-        cols, valids, dicts, n = collect_columns(self.right)
+        cols, valids, dicts, n = collect_columns(self.right, iter_stats(self.right))
         art = JoinBuildArtifact()
         art.cols, art.valids, art.dicts, art.n_rows = cols, valids, dicts, n
         art.nbytes = sum(int(c.nbytes) for c in cols) + sum(
@@ -238,36 +247,39 @@ class HashJoinRelation(Relation):
         # so the int32 cast is exact for them.
         pos = (bkey.astype(np.int64) - kmin).astype(np.int32)
         dev = self.device
-        slot_row, _, has_duplicate = hash_build.build_slot_table(
-            to_device(pos, dev), to_device(live, dev), num_slots
-        )
+        slot_row, _, has_duplicate = device_call(
+            hash_build.build_slot_table, to_device(pos, dev, owner="join.build"),
+            to_device(live, dev, owner="join.build"), num_slots,
+            _tag="join.build", _device=dev)
         if has_duplicate:
             return False  # a routing decision: the host index joins
         art.dense = True
         art.kmin, art.num_slots = kmin, num_slots
         art.dev_slot_row = slot_row
-        art.dev_cols = tuple(to_device(c, dev) for c in art.cols)
+        art.dev_cols = tuple(to_device(c, dev, owner="join.build") for c in art.cols)
         art.dev_valids = tuple(
-            None if v is None else to_device(v, dev) for v in art.valids
+            None if v is None else to_device(v, dev, owner="join.build") for v in art.valids
         )
         return True
 
     # -- probe ---------------------------------------------------------
     def batches(self):
-        art = self._build_artifact()
+        # the build is this operator's work: it runs with the join
+        # ambient (its launch and copies attribute here)
+        with op_timer(self):
+            art = self._build_artifact()
         if art.dense:
             return self._dense_batches(art)
         return self._host_batches(art)
 
     def _dense_batches(self, art: JoinBuildArtifact):
         li = self.on[0][0]
-        for batch in self.left.batches():
+        for batch in iter_stats(self.left):
             data, validity, mask = device_inputs(batch, self.device)
-            gath, gval, out_mask = _dense_probe(
-                data[li], validity[li], mask, art.dev_slot_row,
+            gath, gval, out_mask = device_call(
+                _dense_probe, data[li], validity[li], mask, art.dev_slot_row,
                 art.dev_cols, art.dev_valids, art.kmin, art.num_slots,
-                self.join_type,
-            )
+                self.join_type, _tag="join.probe", _device=self.device)
             out = RecordBatch(
                 self._schema,
                 list(data) + list(gath),
@@ -283,7 +295,7 @@ class HashJoinRelation(Relation):
         from datafusion_tpu_torch.exec.materialize import compact_batch
 
         l_keys = [k for k, _ in self.on]
-        for batch in self.left.batches():
+        for batch in iter_stats(self.left):
             cols, valids, dicts, n = compact_batch(batch)
             if n == 0:
                 continue

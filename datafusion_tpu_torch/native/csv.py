@@ -26,6 +26,7 @@ from datafusion_tpu_torch.exec.batch import (
     pin_dict_versions,
 )
 from datafusion_tpu_torch.native import load_library
+from datafusion_tpu_torch.utils.metrics import METRICS
 
 # the parser's column type codes (datafusion_native.cpp ColType)
 _TYPE_CODE = {
@@ -71,6 +72,11 @@ class NativeCsvReader:
         ]
 
     def batches(self) -> Iterator[RecordBatch]:
+        """The file's batches; producing them counts in the `scan.parse`
+        timer (the "decode" phase)."""
+        return METRICS.timed_iter("scan.parse", self._batches())
+
+    def _batches(self) -> Iterator[RecordBatch]:
         lib = self.lib
         n_all = len(self.schema)
         types = (ctypes.c_int32 * n_all)(

@@ -835,3 +835,133 @@ def test_console_on_the_card_runs_ddl_and_a_group_by(dev, tmp_path):
         console.execute(stmt)
     assert port_cuda.launch_counts()["hash_agg"] > 0
     assert sorted(line for line in text.getvalue().splitlines() if "\t" in line) == want
+
+
+# ---------------------------------------- per-query observability (slice 11)
+
+Q1_SQL = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity), SUM(l_extendedprice), "
+          "SUM(l_extendedprice * (1 - l_discount)), AVG(l_quantity), AVG(l_discount), "
+          "COUNT(1) FROM lineitem WHERE l_shipdate <= '1998-09-02' "
+          "GROUP BY l_returnflag, l_linestatus")
+
+
+def _q1_lineitem(n=120_000, batch_rows=16_384, seed=42):
+    """A small Q1 lineitem (benchmarks/data.py's distributions)."""
+    rng = np.random.default_rng(seed)
+    n_dates = 2526
+    ship = rng.integers(0, n_dates, n)
+    flag = np.where(ship < n_dates // 2, rng.integers(0, 2, n) * 2, 1)
+    status = (ship >= n_dates * 5 // 8).astype(np.int64)
+    d_flag, d_status, d_ship = tdf.StringDictionary(), tdf.StringDictionary(), \
+        tdf.StringDictionary()
+    dates = [str(np.datetime64("1992-01-02") + np.timedelta64(i, "D")) for i in range(n_dates)]
+    cols = [d_flag.encode(list(np.array(["A", "N", "R"])[flag])),
+            d_status.encode(list(np.array(["F", "O"])[status])),
+            np.floor(rng.uniform(1, 51, n)), np.round(rng.uniform(900.0, 104950.0, n), 2),
+            rng.integers(0, 11, n) / 100.0, d_ship.encode([dates[i] for i in ship])]
+    U, F = tdf.DataType.UTF8, tdf.DataType.FLOAT64
+    schema = tdf.Schema([tdf.Field("l_returnflag", U, False),
+                         tdf.Field("l_linestatus", U, False),
+                         tdf.Field("l_quantity", F, False),
+                         tdf.Field("l_extendedprice", F, False),
+                         tdf.Field("l_discount", F, False), tdf.Field("l_shipdate", U, False)])
+    dicts = [d_flag, d_status, None, None, None, d_ship]
+    return schema, [tdf.make_host_batch(schema, [c[i:i + batch_rows] for c in cols], None, dicts)
+                    for i in range(0, n, batch_rows)]
+
+
+def _q1_context(device):
+    schema, batches = _q1_lineitem()
+    ctx = tdf.ExecutionContext(device=device)
+    ctx.register_datasource("lineitem", tdf.MemoryDataSource(schema, batches))
+    return ctx
+
+
+def test_explain_analyze_q1_on_the_card(dev):
+    """EXPLAIN ANALYZE on cuda:0: the rows of the CPU port, the fold's
+    grouped-reduce launches, and an "execute" phase timed by CUDA events
+    above 0 and within the wall."""
+    from datafusion_tpu_torch.obs.explain import ExplainAnalyzeResult
+
+    want = sorted(tdf.collect(_q1_context("cpu").sql(Q1_SQL)).to_rows())
+    ctx = _q1_context(dev)
+    port_cuda.reset_launch_counts()
+    res = ctx.sql("EXPLAIN ANALYZE " + Q1_SQL)
+    assert isinstance(res, ExplainAnalyzeResult)
+    assert port_cuda.launch_counts()["hash_agg"] == 5  # the row count and 4 sums
+    got = sorted(res.result.to_rows())
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for gv, wv in zip(g, w):
+            assert np.isclose(gv, wv, rtol=1e-9, atol=0.0) if isinstance(wv, float) \
+                else gv == wv, (g, w)
+    assert 0 < res.phases["execute"] <= res.wall_s
+    assert res.counters["device.launches"] == 1
+    assert res.root.stats.execute_s > 0 and res.root.stats.attrs["launches"] == 1
+    assert res.hbm["peak_bytes"] > 0
+    report = res.report()
+    assert "execute" in report.splitlines()[1] and "HBM: peak" in report
+
+
+def test_profile_sync_adds_no_synchronize_outside_its_scope(dev, monkeypatch):
+    """Outside profile_sync (a plain query) the pass and copy seams make
+    no CUDA event, call no `torch.cuda.synchronize` and sync no stream;
+    EXPLAIN ANALYZE (inside it) records an event pair a pass."""
+    calls = {"synchronize": 0, "event": 0, "stream": 0}
+    real_sync, real_event, real_stream = (torch.cuda.synchronize, torch.cuda.Event,
+                                          torch.cuda.current_stream)
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    ctx = _q1_context(dev)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted("synchronize", real_sync))
+    monkeypatch.setattr(torch.cuda, "Event", counted("event", real_event))
+    monkeypatch.setattr(torch.cuda, "current_stream", counted("stream", real_stream))
+    tdf.collect(ctx.sql(Q1_SQL))
+    tdf.collect(ctx.sql("SELECT l_quantity * 2 FROM lineitem WHERE l_discount > 0.05"))
+    assert calls == {"synchronize": 0, "event": 0, "stream": 0}
+    res = ctx.sql("EXPLAIN ANALYZE " + Q1_SQL)
+    assert calls["event"] == 2 * res.counters["device.launches"] > 0
+    assert calls["synchronize"] == 0
+
+
+def test_ledger_live_bytes_return_after_the_query_dies(dev):
+    import gc
+
+    from datafusion_tpu_torch.obs.device import LEDGER
+
+    gc.collect()
+    start = LEDGER.buffer_bytes()
+    ctx = _q1_context(dev)
+    res = ctx.sql("EXPLAIN ANALYZE " + Q1_SQL)
+    assert LEDGER.buffer_bytes() > start  # the batches' device copies
+    assert res.hbm["peak_bytes"] >= res.hbm["live_bytes"] > 0
+    del ctx, res
+    gc.collect()
+    assert LEDGER.buffer_bytes() == start
+
+
+@pytest.mark.parametrize("fuse", ["1", "0"])
+def test_f32_sum_on_the_card_within_the_bound(dev, monkeypatch, fuse):
+    """scripts/port_f32_sum.py's bound ((10 * sqrt(n) + 1) * u * sum|x|
+    a group, u = eps / 2) on the card's grouped reduce, with the fold and
+    without; the same check fails in every group when the first batch's
+    values are lost."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                                    "scripts"))
+    import port_f32_sum as f32
+
+    monkeypatch.setenv("DATAFUSION_TPU_FUSE", fuse)
+    keys, vals, valid = f32.table(400_000, 8)
+    want = f32.oracle(keys, vals, valid)
+    got = f32.ratios(f32.run_port(dev, keys, vals, valid), want)
+    assert got["sum_ratio"] <= 1.0 and got["avg_ratio"] <= 1.0, got
+    lost = f32.ratios(f32.run_port(dev, keys, f32.lose_first_batch(vals), valid), want)
+    assert lost["min_sum_ratio"] > 1.0, lost

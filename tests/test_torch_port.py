@@ -403,11 +403,12 @@ def test_unported_plan_nodes_raise_not_supported():
     # (tests/test_torch_pipeline.py, test_torch_sort.py,
     # test_torch_topk.py), and EXPLAIN (tests/test_torch_native_frontend.py);
     # a computed ORDER BY key fails the verifier (PlanVerificationError, a
-    # NotSupportedError, as in the JAX package), and EXPLAIN ANALYZE waits
-    # for the observability slice
+    # NotSupportedError, as in the JAX package); EXPLAIN ANALYZE is ported
+    # (tests/test_torch_explain.py) and CREATE MATERIALIZED VIEW waits for
+    # the ingest plane
     for sql in ("SELECT k, v1 FROM t ORDER BY v1 + 1 LIMIT 5",
                 "SELECT k FROM t ORDER BY k * 2",
-                "EXPLAIN ANALYZE SELECT k FROM t"):
+                "CREATE MATERIALIZED VIEW mv AS SELECT k FROM t"):
         with pytest.raises(tdf.NotSupportedError):
             tctx.sql(sql)
     with pytest.raises(tdf.NotSupportedError):
