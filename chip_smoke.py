@@ -133,8 +133,23 @@ which raises on failure:
    (`config1_parse_split`), `utils/profiling.trace` over one Q1 run (its
    grouped-reduce kernel events) and the console's `\\hbm` report beside
    `torch.cuda.memory_allocated()`.
+14. The freshness and durability plane (after phase 13, `phase_ingest`):
+   a materialized Q1 view over the SF-1 lineitem maintained through a
+   write-ahead log that fsyncs before each ack (one warm-up delta, 15
+   deltas of 2,000 rows and one of 131,072: append-plus-maintain ms with
+   the log and without, one device pass and 6 grouped-reduce launches a
+   delta, the view and a rescan against a numpy oracle), recovery of the
+   log into a fresh context, the result cache at config_cache's shape
+   (cold, warm-hit p50, hit rate, a miss with the new rows after an
+   append), a served append that copies exactly the delta's used columns
+   and group ids, and a pin manifest re-pinning the table at a second
+   server's `start()`.  `ingest_*` lines.  The grouped reduce is also
+   timed at the delta's shape (N = 2,048, G = 8) in phase 2.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
-runs only), with the peak device memory of its first warm run.
+runs only), with the peak device memory of its first warm run.  Every
+context passes `result_cache=False` (the console phase runs under
+`DATAFUSION_TPU_CACHE=0`), so a warm run computes, except the cache
+step of phase 14, which measures the result cache.
 
 The batch-group fold (exec/fused.py) folds each scan of the main path
 into one group (at most DATAFUSION_TPU_FUSE_GROUP = 256 batches): the
@@ -154,7 +169,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10, 12 and 13) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 14) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -375,7 +390,8 @@ AGG_SHAPES = ((131_072, 8, "Q1 batch"), (524_288, 16, "config 2, 16 groups"),
               (524_288, 8192, "8192 groups, the default capacity"),
               (46 * 131_072, 8, "Q1 batch group: 46 batches"),
               (8 * 524_288, 16, "config 2 batch group, 16 groups: 8 batches"),
-              (8 * 524_288, 4096, "config 2 batch group, 4096 groups: 8 batches"))
+              (8 * 524_288, 4096, "config 2 batch group, 4096 groups: 8 batches"),
+              (2048, 8, "view delta: 2,000 rows in a batch of 2,048"))
 
 
 def _agg_timing_inputs(torch, n, g, gen, dev):
@@ -795,7 +811,7 @@ def _route_update(tdf, dev, groups, rows):
     from datafusion_tpu_torch.exec.expression import compute_aux_values
 
     src, _ = groupby_table(tdf, min(groups, 100_000), batch_rows=rows, rows=rows)
-    ctx = tdf.ExecutionContext(batch_size=rows)
+    ctx = tdf.ExecutionContext(batch_size=rows, result_cache=False)
     ctx.register_datasource("t", src)
     rel = ctx.sql(CONFIG2)
     core = rel.core
@@ -1585,7 +1601,7 @@ def phase_csv(tdf, cuda_mod, torch, smi):
                          tdf.Field("lng", D.FLOAT64, False)])
 
     def cold():
-        ctx = tdf.ExecutionContext(batch_size=1 << 19)
+        ctx = tdf.ExecutionContext(batch_size=1 << 19, result_cache=False)
         ctx.register_csv("cities", path, schema, has_header=True)
         t = time.perf_counter()
         table = tdf.collect(ctx.sql(CITIES_SQL))
@@ -1634,7 +1650,7 @@ def phase_csv(tdf, cuda_mod, torch, smi):
         "card": card()}))
     # the reference's own example (examples/csv_sql.rs)
     uk = os.path.join(here, "test", "data", "uk_cities.csv")
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     ctx.register_csv("cities", uk, schema, has_header=False)
     got = tdf.collect(ctx.sql(UK_SQL)).to_rows()
     with open(uk, newline="") as f:
@@ -2031,7 +2047,7 @@ def phase_serve(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi):
         snap = METRICS.snapshot()
         return snap["counts"], snap["timings_s"]
 
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     ctx.register_datasource("lineitem", src)
     cutoffs = [dates[dates.index("1998-09-02") - 7 * i] for i in range(32)]
     sqls = [Q1.replace("1998-09-02", c) for c in cutoffs]
@@ -2161,7 +2177,7 @@ def _serve_eviction(tdf, torch, cuda_mod):
     from datafusion_tpu_torch.obs.device import LEDGER
     from datafusion_tpu_torch.serve import PinnedSource
 
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     tables = {}
     for name, groups in (("a", 16), ("b", 4096), ("c", 16)):
         src, cols = groupby_table(tdf, groups, rows=1_000_000)
@@ -2214,7 +2230,7 @@ def phase_serve_joins(tdf, cuda_mod, torch, ctx, cols):
     numpy oracle."""
     from datafusion_tpu_torch.utils.metrics import METRICS
 
-    sctx = tdf.ExecutionContext()
+    sctx = tdf.ExecutionContext(result_cache=False)
     for name in ("lineitem", "orders"):
         sctx.register_datasource(name, ctx.datasources[name])
     cuda_mod.reset_launch_counts()
@@ -2626,7 +2642,7 @@ def phase_explain(tdf, cuda_mod, torch, star_ctx, li_src, li_cols, dates, star, 
     from datafusion_tpu_torch.utils.profiling import trace
 
     reports = []
-    ctx = tdf.ExecutionContext(batch_size=star_ctx.batch_size)
+    ctx = tdf.ExecutionContext(batch_size=star_ctx.batch_size, result_cache=False)
     ctx.register_datasource("lineitem", li_src)
     nb = len(list(li_src.batches()))
 
@@ -2713,7 +2729,7 @@ def phase_explain(tdf, cuda_mod, torch, star_ctx, li_src, li_cols, dates, star, 
     path, schema, want = cities
     cuda_mod.reset_launch_counts()
     with profiler.profile(name="config1_cold") as cap:
-        c1 = tdf.ExecutionContext(batch_size=1 << 19)
+        c1 = tdf.ExecutionContext(batch_size=1 << 19, result_cache=False)
         c1.register_csv("cities", path, schema, has_header=True)
         t0 = time.perf_counter()
         table = tdf.collect(c1.sql(CITIES_SQL))
@@ -2748,6 +2764,360 @@ def phase_explain(tdf, cuda_mod, torch, star_ctx, li_src, li_cols, dates, star, 
         "reduce_kernel_us": sum(e.get("dur", 0) for e in reduce_events), "card": smi}))
     if not reduce_events:
         raise AssertionError("utils/profiling.trace: no grouped-reduce kernel event")
+    return reports
+
+
+# ----------------------------------------------------------- phase 14
+
+INGEST_DELTAS = 15  # benchmarks/suite.py config_ingest (BENCH_INGEST_DELTAS)
+INGEST_DELTA_ROWS = 2000  # config_ingest's BENCH_INGEST_DELTA_ROWS
+INGEST_BULK_ROWS = 131_072  # one batch of the SF-1 lineitem
+Q1_FLAGS, Q1_STATUSES = np.array(["A", "N", "R"]), np.array(["F", "O"])
+
+
+def ingest_delta(rng, rows):
+    """One delta of config_ingest (benchmarks/suite.py:730-742): Q1's
+    columns, the shipdate an existing one."""
+    return {
+        "l_returnflag": [Q1_FLAGS[i] for i in rng.integers(0, 3, rows)],
+        "l_linestatus": [Q1_STATUSES[i] for i in rng.integers(0, 2, rows)],
+        "l_quantity": rng.uniform(1, 50, rows).round(2),
+        "l_extendedprice": rng.uniform(900, 105000, rows).round(2),
+        "l_discount": rng.uniform(0, 0.1, rows).round(2),
+        "l_tax": rng.uniform(0, 0.08, rows).round(2),
+        "l_shipdate": ["1995-06-15"] * rows,
+    }
+
+
+class Q1Oracle:
+    """`q1_oracle` kept up to date over a base and appended deltas: the
+    per-group sums in f64 (numpy bincount), one batch of rows at a time."""
+
+    def __init__(self, c, dates, cutoff="1998-09-02"):
+        self.dates = dates
+        self.cut = dates.index(cutoff)
+        self.sums = np.zeros((5, 6))
+        self.cnt = np.zeros(6, dtype=np.int64)
+        self.add(c)
+
+    def add(self, c):
+        keep = c["ship"] <= self.cut
+        key = (c["flag"] * 2 + c["status"])[keep]
+        qty, price = c["qty"][keep], c["price"][keep]
+        disc, tax = c["disc"][keep], c["tax"][keep]
+        disc_price = price * (1.0 - disc)
+        for i, w in enumerate((qty, price, disc_price, disc_price * (1.0 + tax), disc)):
+            self.sums[i] += np.bincount(key, weights=w, minlength=6)
+        self.cnt += np.bincount(key, minlength=6)
+
+    def add_delta(self, d):
+        pos = {s: i for i, s in enumerate(self.dates)}
+        self.add({"flag": np.searchsorted(Q1_FLAGS, d["l_returnflag"]),
+                  "status": np.searchsorted(Q1_STATUSES, d["l_linestatus"]),
+                  "qty": np.asarray(d["l_quantity"]), "price": np.asarray(d["l_extendedprice"]),
+                  "disc": np.asarray(d["l_discount"]), "tax": np.asarray(d["l_tax"]),
+                  "ship": np.fromiter((pos[x] for x in d["l_shipdate"]), dtype=np.int64,
+                                      count=len(d["l_shipdate"]))})
+
+    def rows(self):
+        q, p, dp, ch, d = self.sums
+        return [("ANR"[k // 2], "FO"[k % 2], q[k], p[k], dp[k], ch[k], q[k] / n, p[k] / n,
+                 d[k] / n, int(n)) for k, n in enumerate(self.cnt) if n]
+
+
+def phase_ingest(tdf, cuda_mod, torch, src, cols, dates, smi):
+    """The freshness and durability plane (datafusion_tpu_torch/ingest,
+    cache/, utils/wal.py, serve.py's appends and pin manifest) over the
+    SF-1 lineitem of phase 3 (6,000,000 rows in memory, seed 42):
+
+    1. setup: `ctx.ingest()` with the write-ahead log in a fresh
+       temporary directory under `DATAFUSION_TPU_WAL_SYNC=always` (an
+       fsync before each ack), `CREATE MATERIALIZED VIEW q1 AS <Q1>`,
+       which must be incremental; a twin context without a log and its
+       own view, the no-WAL leg;
+    2. trickle: one warm-up delta, then 15 deltas of 2,000 rows
+       (config_ingest, `benchmarks/suite.py:692-790`, seed 17): per delta
+       the append-plus-maintain ms with the log and without (the two
+       legs take turns at going first), the view's
+       device passes (exactly 1) and grouped-reduce launches (6: the row
+       count and Q1's 5 sums), the view against a numpy oracle over base
+       plus deltas, and a rescan's ms and rows;
+    3. bulk: one delta of 131,072 rows, timed and checked the same way;
+    4. recovery: the log closed, a fresh context over the same base,
+       `recover()`: every append replayed, the view equal to the oracle
+       and at its revision again;
+    5. cache: config_cache (`benchmarks/suite.py:616-690`: 2,000,000 rows,
+       10,000 groups, the sort-merge route) with the result cache on:
+       cold ms, warm-hit p50 (5 runs) and the hit rate, each warm run a
+       `CachedResultRelation`; an append to `t` then misses and answers
+       with the new rows;
+    6. served: a Server over the pinned lineitem; after `srv.append` of
+       2,000 rows the next served Q1 copies exactly the delta's used
+       columns and its group ids (`h2d.bytes`), and equals the oracle;
+    7. pin manifest: a second `Server(pin_manifest=...)` re-pins the
+       table at `start()`, and its first Q1 equals the oracle.
+    Launch counters are reset just before each step's timed work and
+    read just after.  Returns the reports whose launches the `kernels`
+    line counts."""
+    import shutil
+    import tempfile
+
+    from datafusion_tpu_torch.cache.result import CachedResultRelation
+    from datafusion_tpu_torch.obs.device import LEDGER
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    def count(name):
+        return METRICS.snapshot()["counts"].get(name, 0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reports = []
+    wal_dir = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    prior_sync = os.environ.get("DATAFUSION_TPU_WAL_SYNC")
+    os.environ["DATAFUSION_TPU_WAL_SYNC"] = "always"
+    try:
+        # 1. setup
+        ctx = tdf.ExecutionContext(result_cache=False)
+        ctx.register_datasource("lineitem", src)
+        ing = ctx.ingest(wal_dir=wal_dir)
+        nw_ctx = tdf.ExecutionContext(result_cache=False)
+        nw_ctx.register_datasource("lineitem", src)
+        nw_ing = nw_ctx.ingest()
+        cuda_mod.reset_launch_counts()
+        out, create_ms = timed(lambda: ctx.sql(f"CREATE MATERIALIZED VIEW q1 AS {Q1}"))
+        create_launches = cuda_mod.launch_counts()
+        if repr(out) != "Registered materialized view q1 (incremental)":
+            raise AssertionError(f"ingest: {out!r}")
+        view = ing.view("q1")
+        nw_ing.create_view("q1", Q1)
+        if ing.status()["wal"]["sync"] != "always":
+            raise AssertionError("ingest: the log does not fsync before the ack")
+        oracle = Q1Oracle(cols, dates)
+        assert_rows(ing.read_view("q1"), oracle.rows(), "view q1 at creation")
+        nb = len(list(src.batches()))
+        expect_launches({"launches": create_launches}, "view q1 creation",
+                        hash_agg=6 * fold_groups(nb))
+        rep = {"query": "ingest_view_create", "create_view_ms": create_ms,
+               "base_rows": SF1_ROWS, "batches": nb, "launches": create_launches,
+               "wal_sync": "always", "card": card()}
+        log("ingest_setup: " + json.dumps(rep))
+        reports.append(rep)
+
+        # 2. trickle, 3. bulk
+        rng = np.random.default_rng(17)
+        warm = ingest_delta(rng, INGEST_DELTA_ROWS)
+        ing.append("lineitem", warm)
+        nw_ing.append("lineitem", warm)
+        oracle.add_delta(warm)
+        deltas = [ingest_delta(rng, INGEST_DELTA_ROWS) for _ in range(INGEST_DELTAS)]
+        deltas.append(ingest_delta(rng, INGEST_BULK_ROWS))
+        per_delta = []
+        trickle_launches = {"hash_agg": 0, "hash_build": 0, "sort_kernel": 0}
+        for i, d in enumerate(deltas):
+            rows = len(d["l_quantity"])
+
+            def wal_leg():
+                passes0 = count("device.launches.view.maintain")
+                cuda_mod.reset_launch_counts()
+                ack, ms = timed(lambda: ing.append("lineitem", d))
+                return (ack, ms, cuda_mod.launch_counts(),
+                        count("device.launches.view.maintain") - passes0)
+
+            # the two legs take turns at going first
+            wal_first = i % 2 == 0
+            if wal_first:
+                ack, wal_ms, launches, passes = wal_leg()
+            _, nowal_ms = timed(lambda: nw_ing.append("lineitem", d))
+            if not wal_first:
+                ack, wal_ms, launches, passes = wal_leg()
+            oracle.add_delta(d)
+            label = f"delta {i}" if rows == INGEST_DELTA_ROWS else "bulk delta"
+            if passes != 1 or launches != {"hash_agg": 6, "hash_build": 0, "sort_kernel": 0}:
+                raise AssertionError(f"{label}: {passes} passes, launches {launches}")
+            if ack["views"] != {"q1": view.revision} or view.lag() != 0.0:
+                raise AssertionError(f"{label}: the view is not fresh at the ack: {ack}")
+            assert_rows(ing.read_view("q1"), oracle.rows(), f"view q1 after {label}")
+            assert_rows(nw_ing.read_view("q1"), oracle.rows(), f"no-WAL view after {label}")
+            table, rescan_ms = timed(lambda: tdf.collect(ctx.sql(Q1)))
+            assert_rows(table, oracle.rows(), f"rescan after {label}")
+            for k in trickle_launches:
+                trickle_launches[k] += launches[k]
+            line = {"delta": i, "rows": rows, "append_maintain_ms": wal_ms,
+                    "append_maintain_no_wal_ms": nowal_ms, "wal_first": wal_first,
+                    "passes": passes,
+                    "launches": launches, "rescan_ms": rescan_ms, "rev": ack["rev"],
+                    "card": card()}
+            per_delta.append(line)
+            log(("ingest_bulk: " if rows != INGEST_DELTA_ROWS else "ingest_delta: ")
+                + json.dumps(line))
+        trickle = per_delta[:-1]
+        wal = ing.status()["wal"]
+        summary = {
+            "query": "ingest_q1_view_trickle", "rows": INGEST_DELTA_ROWS * INGEST_DELTAS,
+            "append_p50_ms": float(np.median([x["append_maintain_ms"] for x in trickle])),
+            "append_no_wal_p50_ms": float(np.median(
+                [x["append_maintain_no_wal_ms"] for x in trickle])),
+            "rescan_p50_ms": float(np.median([x["rescan_ms"] for x in trickle])),
+            "bulk_append_ms": per_delta[-1]["append_maintain_ms"],
+            "bulk_append_no_wal_ms": per_delta[-1]["append_maintain_no_wal_ms"],
+            "bulk_rescan_ms": per_delta[-1]["rescan_ms"],
+            "wal_appends": wal["appends"], "wal_fsyncs": wal["fsyncs"],
+            "wal_bytes": wal["bytes_written"], "launches": trickle_launches, "card": card()}
+        summary["rows_per_s"] = INGEST_DELTA_ROWS / (summary["append_p50_ms"] / 1e3)
+        log("ingest_trickle: " + json.dumps(summary))
+        reports.append(summary)
+        want_rev = view.revision
+
+        # 4. recovery
+        ing.close()
+        del ctx, ing, view, nw_ctx, nw_ing
+        rctx = tdf.ExecutionContext(result_cache=False)
+        rctx.register_datasource("lineitem", src)
+        ring = rctx.ingest(wal_dir=wal_dir)
+        cuda_mod.reset_launch_counts()
+        rec, recover_ms = timed(ring.recover)
+        rec_launches = cuda_mod.launch_counts()
+        if rec["appends_replayed"] != len(deltas) + 1 or rec["views_recovered"] != 1 \
+                or rec["torn_tails"] != 0:
+            raise AssertionError(f"ingest recovery: {rec}")
+        if ring.view("q1").revision != want_rev:
+            raise AssertionError(f"ingest recovery: revision {ring.view('q1').revision}, "
+                                 f"want {want_rev}")
+        assert_rows(ring.read_view("q1"), oracle.rows(), "view q1 after recovery")
+        rep = {"query": "ingest_recovery", "rows": SF1_ROWS, "recover_ms": recover_ms,
+               "appends_replayed": rec["appends_replayed"], "wal_recovery_ms":
+               rec["recovery_ms"], "launches": rec_launches, "card": card()}
+        log("ingest_recovery: " + json.dumps(rep))
+        reports.append(rep)
+        ring.close()
+        del rctx, ring
+    finally:
+        if prior_sync is None:
+            os.environ.pop("DATAFUSION_TPU_WAL_SYNC", None)
+        else:
+            os.environ["DATAFUSION_TPU_WAL_SYNC"] = prior_sync
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+    # 5. the result cache, config_cache's shape
+    gsrc, gcols = groupby_table(tdf, 10_000, rows=CACHE_ROWS)
+    cctx = tdf.ExecutionContext()  # the result cache on: the default
+    if cctx.result_cache is None:
+        raise AssertionError("cache: the result cache is off by default")
+    cctx.register_datasource("t", gsrc)
+    tdf.collect(cctx.sql(CONFIG2))  # the device copies, outside the cold timing
+    cctx.result_cache.clear()
+    cuda_mod.reset_launch_counts()
+    cold, cold_ms = timed(lambda: tdf.collect(cctx.sql(CONFIG2)))
+    cache_launches = cuda_mod.launch_counts()
+    expect_launches({"launches": cache_launches}, "cache cold leg",
+                    sort_kernel=fold_groups(len(list(gsrc.batches()))), hash_agg=0)
+    assert_grouped(cold, config2_columns(gcols, 10_000), "cache cold leg")
+    warm_ms = []
+    for _ in range(5):
+        rel = cctx.sql(CONFIG2)
+        if not isinstance(rel, CachedResultRelation):
+            raise AssertionError("cache: a warm repeat was not served from the cache")
+        cuda_mod.reset_launch_counts()
+        table, ms = timed(lambda: tdf.collect(rel))
+        if any(cuda_mod.launch_counts().values()):
+            raise AssertionError("cache: a warm hit launched a kernel")
+        warm_ms.append(ms)
+        assert_grouped(table, config2_columns(gcols, 10_000), "cache warm hit")
+    stats = cctx.result_cache.stats()
+    hits = [r for r in cctx.stats_history(cctx.last_fingerprint) if r.get("cache_hit")]
+    rng = np.random.default_rng(23)
+    n = INGEST_DELTA_ROWS
+    keys = rng.integers(0, 10_010, n).astype(np.int64)
+    keys[:10] = np.arange(10_000, 10_010)  # ten new groups
+    delta = {"k": keys, "v1": rng.uniform(0.0, 1000.0, n), "v2": rng.uniform(-1.0, 1.0, n),
+             "v3": rng.integers(-(10**9), 10**9, n).astype(np.int64)}
+    cctx.ingest().append("t", delta)
+    rel = cctx.sql(CONFIG2)
+    if isinstance(rel, CachedResultRelation):
+        raise AssertionError("cache: the run after an append was served stale")
+    fresh = tdf.collect(rel)
+    grown = [np.concatenate([c, delta[k]]) for c, k in zip(gcols, ("k", "v1", "v2", "v3"))]
+    assert_grouped(fresh, config2_columns(grown, 10_010), "cache after an append")
+    rep = {"query": "ingest_cache_config", "rows": CACHE_ROWS, "groups": 10_000,
+           "cold_ms": cold_ms, "warm_hit_p50_ms": float(np.median(warm_ms)),
+           "warm_ms": warm_ms, "hit_rate": stats["hits"] / max(stats["hits"] + stats["misses"], 1),
+           "hits": stats["hits"], "misses": stats["misses"], "cached_bytes": stats["bytes"],
+           "history_warm_hits": len(hits), "rows_after_append": fresh.num_rows,
+           "launches": cache_launches, "card": card()}
+    log("ingest_cache: " + json.dumps(rep))
+    reports.append(rep)
+    del cctx, gsrc, gcols, rel, fresh, grown
+
+    # 6. served appends, 7. the pin manifest
+    man_dir = tempfile.mkdtemp(prefix="chip_smoke_pins_")
+    try:
+        manifest = os.path.join(man_dir, "pin_manifest.json")
+        sctx = tdf.ExecutionContext(result_cache=False)
+        sctx.register_datasource("lineitem", src)
+        soracle = Q1Oracle(cols, dates)
+        with sctx.serve(workers=1, window_s=0.001, pin_manifest=manifest) as srv:
+            srv.submit(Q1).result(timeout=600)
+            h2d0 = count("h2d.bytes")
+            srv.submit(Q1).result(timeout=600)
+            if count("h2d.bytes") != h2d0:
+                raise AssertionError("served: a warm Q1 copied to the device")
+            pin0 = LEDGER.pins_snapshot()["table:lineitem"]["bytes"]
+            d = ingest_delta(np.random.default_rng(29), INGEST_DELTA_ROWS)
+            _, served_append_ms = timed(lambda: srv.append("lineitem", d))
+            soracle.add_delta(d)
+            pinned = sctx.datasources["lineitem"]
+            batch = pinned._resident[-1]
+            pin_grown = LEDGER.pins_snapshot()["table:lineitem"]["bytes"] - pin0
+            h2d0 = count("h2d.bytes")
+            cuda_mod.reset_launch_counts()
+            t = srv.submit(Q1)
+            table, served_ms = timed(lambda: t.result(timeout=600))
+            served_launches = cuda_mod.launch_counts()
+            h2d = count("h2d.bytes") - h2d0
+            agg = t._rel
+            while not hasattr(agg, "encoder"):  # the AggregateRelation
+                agg = agg.child
+            proj = getattr(agg.child.datasource, "cols", None)
+            used = [c if proj is None else proj[c] for c in agg.core.used_cols]
+            want = sum(batch.data[c].nbytes for c in used) + 4 * batch.capacity
+            if h2d != want:
+                raise AssertionError(f"served: {h2d} bytes copied after the append, "
+                                     f"the delta's used columns and ids are {want}")
+            if pin_grown != sum(a.nbytes for a in batch.data):
+                raise AssertionError(f"served: the pin grew by {pin_grown} bytes")
+            assert_rows(table, soracle.rows(), "served Q1 after an append")
+            expect_launches({"launches": served_launches}, "served Q1 after an append",
+                            hash_agg=6)
+            table_bytes = sum(b.data[c].nbytes for b in pinned._resident for c in used)
+        rep = {"query": "ingest_served_append", "rows": SF1_ROWS + INGEST_DELTA_ROWS,
+               "append_ms": served_append_ms, "served_q1_ms": served_ms,
+               "h2d_bytes": h2d, "delta_used_bytes_and_ids": want,
+               "table_used_bytes": table_bytes, "pin_grown_bytes": pin_grown,
+               "launches": served_launches, "card": card()}
+        log("ingest_served: " + json.dumps(rep))
+        reports.append(rep)
+
+        with sctx.serve(workers=1, window_s=0.001, pin_manifest=manifest) as srv2:
+            if srv2.pins_rehydrated != 1 or "table:lineitem" not in LEDGER.pins_snapshot():
+                raise AssertionError("pin manifest: the table was not re-pinned at start()")
+            cuda_mod.reset_launch_counts()
+            t = srv2.submit(Q1)
+            table, first_ms = timed(lambda: t.result(timeout=600))
+            rehydrated_launches = cuda_mod.launch_counts()
+            assert_rows(table, soracle.rows(), "served Q1 after re-pinning")
+        rep = {"query": "ingest_pin_manifest", "rows": SF1_ROWS + INGEST_DELTA_ROWS,
+               "pins_rehydrated": 1, "first_served_q1_ms": first_ms,
+               "launches": rehydrated_launches, "card": card()}
+        log("ingest_manifest: " + json.dumps(rep))
+        reports.append(rep)
+    finally:
+        shutil.rmtree(man_dir, ignore_errors=True)
+    log(f"ingest: views, recovery, cache and served appends match their oracles ({smi})")
     return reports
 
 
@@ -2786,7 +3156,7 @@ def main() -> int:
     phase_route_timing(tdf, torch, sort_kernel, dev)
     axis_err, axis_shapes = phase_query_axis(torch, hash_agg, dev)
 
-    ctx = tdf.ExecutionContext()  # cuda:0
+    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
     t0 = time.perf_counter()
     src, cols, dates = lineitem_sf1(tdf, ctx.batch_size)
     log(f"lineitem SF-1 generated in {time.perf_counter() - t0:.1f} s "
@@ -2839,11 +3209,18 @@ def main() -> int:
     reports.append(phase_serve_joins(tdf, cuda_mod, torch, ctx, star_cols))
     reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
-    reports += phase_console(tdf, cuda_mod, torch, li_src, li_cols, dates, star_cols, smi)
+    # the console's contexts compute every run, as every other phase's
+    # do (its Q1 warm run and the DataFrame's warm runs count launches)
+    os.environ["DATAFUSION_TPU_CACHE"] = "0"
+    try:
+        reports += phase_console(tdf, cuda_mod, torch, li_src, li_cols, dates, star_cols, smi)
+    finally:
+        del os.environ["DATAFUSION_TPU_CACHE"]
     csv_rep, cities = phase_csv(tdf, cuda_mod, torch, smi)
     reports.append(csv_rep)
     reports += phase_explain(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,
                              cities, smi)
+    reports += phase_ingest(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)

@@ -4,7 +4,10 @@ A banner, script mode (`--script file.sql`, statements accumulate
 until `;`), an interactive REPL with `datafusion>` / `>` continuation
 prompts and `quit`/`exit`, per-query wall-clock timing, DDL, result
 rows, EXPLAIN / EXPLAIN VERIFY plans, EXPLAIN ANALYZE reports (also as
-`\\explain <sql>`), the device ledger's report (`\\hbm`), and the
+`\\explain <sql>`), the device ledger's report (`\\hbm`), the result
+cache's counters and per-query history (`\\cache`), the ingest plane's
+tables, views and log (`\\ingest`), one logged append
+(`\\append <table> {"col": [values], ...}`), and the
 `ST_Point`/`ST_AsText` geo UDFs the reference's golden smoketest expects
 (`test/data/smoketest.sql`, `test/data/smoketest-expected.txt`).
 
@@ -12,9 +15,9 @@ Run: ``python -m datafusion_tpu_torch.cli [--script FILE] [--device cpu]``
 
 The console runs on `cuda:0` unless `--device` names another device
 (`cpu` only when asked).  The `top` and `debug-bundle` modes and the
-commands `\\cache \\cluster \\top \\ingest \\cost \\append` need planes
-that are not ported yet: each prints an error naming its ROADMAP item,
-and the console carries on.
+commands `\\cluster \\top \\cost` need planes that are not ported
+yet: each prints an error naming its ROADMAP item, and the console
+carries on.
 """
 
 from __future__ import annotations
@@ -31,12 +34,9 @@ from datafusion_tpu_torch.sql.parser import split_statements, split_statements_p
 # console commands and modes that wait for an unported plane, with the
 # ROADMAP item that ports it
 _UNPORTED = {
-    "\\cache": "the result cache, ROADMAP queue 1 item 11.3",
     "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2",
     "\\top": "fleet telemetry, ROADMAP queue 1 item 13.2",
-    "\\ingest": "ingest, ROADMAP queue 1 item 11.2",
     "\\cost": "the cost store, ROADMAP queue 1 item 11.4",
-    "\\append": "ingest, ROADMAP queue 1 item 11.2",
     "top": "fleet telemetry, ROADMAP queue 1 item 13.2",
     "debug-bundle": "debug bundles, ROADMAP queue 1 item 13.2",
 }
@@ -121,11 +121,103 @@ class Console:
 
             self._print(LEDGER.report_text())
             return True
+        if cmd == "\\cache":
+            # the result cache (cache/): counters, byte budget and each
+            # fingerprint's runs
+            self._cache_status()
+            return True
+        if cmd == "\\ingest":
+            # the ingest plane (ingest/): appendable tables, views and
+            # their freshness, the log
+            self._ingest_status()
+            return True
+        if cmd.startswith("\\append"):
+            # \append <table> {"col": [v, ...], ...}: one logged delta
+            self._append(stripped[len("\\append"):].strip())
+            return True
         name = cmd.split(None, 1)[0] if cmd else ""
         if name in _UNPORTED and name.startswith("\\"):
             self._print(_not_ported(name))
             return True
         return False
+
+    def _cache_status(self) -> None:
+        store = getattr(self.ctx, "result_cache", None)
+        if store is None:
+            self._print("Result cache is off (DATAFUSION_TPU_CACHE=0).")
+            return
+        s = store.stats()
+        self._print(
+            f"Result cache: {s['entries']} entries, "
+            f"{s['bytes']}/{s['max_bytes']} bytes, "
+            f"ttl {s['ttl_s']}s — {s['hits']} hits, "
+            f"{s['misses']} misses, {s['evictions']} evictions, "
+            f"{s['invalidations']} invalidations"
+        )
+        for fp, runs in self.ctx.stats_history().items():
+            warm = sum(1 for r in runs if r.get("cache_hit"))
+            self._print(
+                f"  {fp}: {len(runs)} runs ({warm} cached), "
+                f"last {runs[-1]['wall_s'] * 1e3:.1f} ms"
+            )
+
+    def _ingest_status(self) -> None:
+        st = self.ctx.ingest().status()
+        wal = st["wal"]
+        self._print(
+            f"Ingest rev {st['rev']}, "
+            + (f"WAL {wal['appends']} append(s) in {wal['segments']} "
+               f"segment(s) ({wal['segment_bytes']} bytes)"
+               if wal else "no WAL (in-memory)")
+        )
+        if st["recovery"]:
+            r = st["recovery"]
+            self._print(
+                f"  recovered: {r.get('appends_replayed', 0)} append(s) "
+                f"replayed, {r.get('views_recovered', 0)} view(s) re-planned"
+            )
+        for name, t in sorted(st["tables"].items()):
+            self._print(
+                f"  table {name}: {t['rows']} rows "
+                f"({t['base_batches']} base batch(es)), "
+                f"data version {t['data_version']}"
+            )
+        for name, v in sorted(st["views"].items()):
+            mode = ("incremental" if v["incremental"]
+                    else f"full-recompute ({v['fallback_reason']})")
+            self._print(
+                f"  view {name} ON {v['table']}: rev {v['revision']}, "
+                f"{mode}, lag {v['lag_s'] * 1e3:.1f} ms, "
+                f"{v['maintain_launches']} maintain launch(es)"
+            )
+        if not st["tables"] and not st["views"]:
+            self._print("  (no appendable tables or materialized views)")
+
+    def _append(self, arg: str) -> None:
+        import json
+
+        from datafusion_tpu_torch.errors import DataFusionError
+
+        table, _, payload = arg.partition(" ")
+        if not table or not payload.strip():
+            self._print('Usage: \\append <table> {"col": [values], ...}')
+            return
+        try:
+            columns = json.loads(payload)
+        except ValueError as e:
+            self._print(f"Bad columns JSON: {e}")
+            return
+        try:
+            ack = self.ctx.ingest().append(table, columns)
+        except DataFusionError as e:
+            self._print(f"Append failed: {e}")
+            return
+        views = ", ".join(f"{n}@r{r}" for n, r in ack["views"].items())
+        self._print(
+            f"Appended {ack['rows']} row(s) to {ack['table']} "
+            f"(rev {ack['rev']}"
+            + (f"; views advanced: {views})" if views else ")")
+        )
 
     def execute(self, sql: str) -> None:
         sql = sql.strip().rstrip(";").strip()

@@ -50,6 +50,11 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   SUM/COUNT on the host; groups observed only in filtered-out rows
   (count 0) are dropped.
 
+- **Materialized views** (ingest/): a view owns one relation's state
+  and folds each appended delta through `_batch_groups` and
+  `fused_group` (one pass), growing it with `_grow_state` past its
+  capacity; its reads inject the state (`_injected_state`).
+
 Not ported yet (ROADMAP queue 1): host-split placement and cost
 presizing.
 
@@ -1139,7 +1144,9 @@ class AggregateRelation(Relation):
         batch.  Over a CSV scan on a CUDA device the host prep runs
         ahead on the prefetch threads (`exec/prefetch.staged_pipeline`).
         A state the serving megabatch computed for this relation
-        (`run_aggregate_megabatch`) is returned without a scan."""
+        (`run_aggregate_megabatch`), or a materialized view's resident
+        state (ingest/, `MaterializedView.read`), is returned without a
+        scan."""
         injected = self.__dict__.pop("_injected_state", None)
         if injected is not None:
             return injected

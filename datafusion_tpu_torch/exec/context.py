@@ -29,18 +29,37 @@ returns an `ExplainResult` (the plan's text) and EXPLAIN VERIFY an
 `ExplainVerifyResult` (the verifier's report), neither executing;
 EXPLAIN ANALYZE runs the query and returns an
 `obs/explain.ExplainAnalyzeResult` (rows, the annotated operator tree,
-phases, spans).
+phases, spans); CREATE MATERIALIZED VIEW registers a continuously
+maintained view through `ingest()` (ingest/) and returns a `DdlResult`.
 `sql_collect` materializes a SELECT.  `table(name)` gives a DataFrame
 (dataframe.py).
+
+Catalog versions and the result cache (the JAX package's
+`exec/context.py` seam): every (re)registration of a table bumps its
+catalog version and drops the cached results tagged with it, and every
+UDF registration bumps the functions version.  `query_fingerprint`
+folds the plan's wire JSON, each scanned table's catalog version, its
+source's `data_version` and `data_identity` (a file's size and
+modification time; an appendable table's append count), the device, the
+batch size and the functions version into one digest.  `execute` is the
+root-level cache seam: with a result cache (`result_cache=None` takes
+`cache.make_store("result")`, on unless `DATAFUSION_TPU_CACHE=0`; False
+turns it off; or a `cache.CacheStore`) a plan whose fingerprint is cached
+replays its host batches (`cache/result.CachedResultRelation`, no source
+and no device touched); a miss lowers as usual and its complete
+materialization (`exec/materialize.collect_columns`) fills the entry.
+A lowering nested in `execute` on the same thread (`in_execute`) never
+replays.  `stats_history` keeps each fingerprint's runs (rows, wall
+seconds, hit or miss; operators on traced runs), `last_fingerprint` the
+latest.
 
 Every plan `execute` lowers passes the static verifier first
 (analysis/verify.py, `DATAFUSION_TPU_VERIFY`, default on): an unknown
 column, a mistyped expression, a computed GROUP BY or ORDER BY key
 raises `PlanVerificationError` before any operator is built.
 
-What raises NotSupportedError: CREATE MATERIALIZED VIEW (ROADMAP queue
-1, item 11.2), result caching, a `host_fn` UDF in a WHERE predicate,
-and any other plan node (ROADMAP queue 1).
+What raises NotSupportedError: a `host_fn` UDF in a WHERE predicate
+and any plan node not listed above (ROADMAP queue 1).
 
 Every plan `execute` lowers counts `queries_admitted`
 (utils/metrics.py).  `serve()` starts the serving front door over the
@@ -59,6 +78,7 @@ from __future__ import annotations
 import hashlib
 import json
 import threading
+import time
 from typing import Callable, Optional, Union
 
 import torch
@@ -163,20 +183,36 @@ class ExecutionContext:
     """Register datasources, run SQL, pull columnar results.
 
     `device`: None (`cuda:0`), a CUDA device, or "cpu".
-    `result_cache`: only None or False; result caching is not ported.
+    `result_cache`: None (the environment's default store, on unless
+    `DATAFUSION_TPU_CACHE=0`), False (off), or a `cache.CacheStore`.
     """
 
     def __init__(self, device=None, batch_size: int = 131072,
                  result_cache=None):
-        if result_cache not in (None, False):
-            raise NotSupportedError(
-                "result caching is not ported yet (ROADMAP queue 1, "
-                "item 11: serving, ingest, cost and cache planes)"
-            )
         self.datasources: dict[str, DataSource] = {}
         self.functions: dict[str, FunctionMeta] = {}
         self.batch_size = batch_size
         self.device = _resolve_device(device)
+        # catalog versioning: every (re)registration of a table name
+        # bumps a context-wide serial, which the result-cache fingerprint
+        # folds in for every table a plan scans
+        self._catalog_versions: dict[str, int] = {}
+        self._catalog_serial = 0
+        self._functions_version = 0
+        if result_cache is None:
+            from datafusion_tpu_torch import cache as _cache
+
+            result_cache = _cache.make_store("result")
+        elif result_cache is False:
+            result_cache = None
+        self._result_cache = result_cache
+        self._stats_history: dict[str, list[dict]] = {}
+        self._history_cap = 32  # runs kept per fingerprint
+        self._history_fingerprints = 128  # distinct fingerprints kept
+        self.last_fingerprint: Optional[str] = None
+        # per-thread root guard: a lowering nested in `execute` (a view
+        # building its operator tree) must not meet the cache seam
+        self._execute_tls = threading.local()
         # builtin math functions are ordinary catalog entries
         from datafusion_tpu_torch.exec.expression import BUILTIN_FUNCTIONS
 
@@ -185,7 +221,18 @@ class ExecutionContext:
 
     # -- catalog --
     def register_datasource(self, name: str, ds: DataSource) -> None:
+        """Register (or re-register) a table.  Re-registering a name
+        bumps its catalog version: cached results that scanned the old
+        table stop matching (fingerprint) and are dropped (tag)."""
+        self._catalog_serial += 1
+        self._catalog_versions[name] = self._catalog_serial
+        if self._result_cache is not None:
+            self._result_cache.invalidate_tag(name)
         self.datasources[name] = ds
+
+    def catalog_version(self, name: str) -> int:
+        """Monotonic version of a registered table (0 = never seen)."""
+        return self._catalog_versions.get(name, 0)
 
     def register_csv(
         self, name: str, path: str, schema: Schema, has_header: bool = True
@@ -221,6 +268,8 @@ class ExecutionContext:
         NotSupportedError."""
         if torch_fn is None and host_fn is None:
             raise ExecutionError(f"UDF {name!r} needs a torch_fn or a host_fn")
+        # a (re)registered UDF changes what identical SQL text computes
+        self._functions_version += 1
         self.functions[name.lower()] = FunctionMeta(
             name.lower(),
             [Field(f"arg{i}", t, True) for i, t in enumerate(arg_types)],
@@ -253,10 +302,10 @@ class ExecutionContext:
         if isinstance(stmt, ast.SqlCreateExternalTable):
             return self._execute_ddl(stmt)
         if isinstance(stmt, ast.SqlCreateMaterializedView):
-            raise NotSupportedError(
-                "CREATE MATERIALIZED VIEW is not ported yet (ROADMAP queue 1, "
-                "item 11.2: ingest and the view fold)"
-            )
+            view = self.ingest().create_view(stmt.name, stmt.query_sql)
+            return DdlResult(
+                f"Registered materialized view {stmt.name} "
+                f"({'incremental' if view.incremental else 'recompute'})")
         if isinstance(stmt, ast.SqlExplain):
             plan = self._plan(stmt.stmt)
             if stmt.analyze:
@@ -324,6 +373,88 @@ class ExecutionContext:
 
         return Server(self, **kwargs).start()
 
+    def ingest(self, wal_dir: Optional[str] = None):
+        """This context's streaming-ingest state (ingest/: appendable
+        tables, materialized views, the durable ingest log), created on
+        first use.  `wal_dir` (or ``DATAFUSION_TPU_INGEST_WAL_DIR``)
+        turns durability on; pass it on the FIRST call, later calls
+        return the existing instance."""
+        ing = getattr(self, "_ingest", None)
+        if ing is None:
+            import os
+
+            from datafusion_tpu_torch.ingest import IngestContext
+
+            if wal_dir is None:
+                wal_dir = os.environ.get("DATAFUSION_TPU_INGEST_WAL_DIR") or None
+            ing = self._ingest = IngestContext(self, wal_dir=wal_dir)
+        return ing
+
+    # -- result caching (cache/) --
+    def query_fingerprint(self, plan: LogicalPlan) -> str:
+        """Canonical identity of `plan`'s result under this context's
+        catalog state: the plan's wire JSON, each scanned table's
+        catalog version, its source's data version and data identity
+        (an externally rewritten file or a grown table must not serve
+        stale rows), the device, the batch size and the functions
+        version."""
+        from datafusion_tpu_torch.cache import plan_fingerprint
+
+        versions: dict[str, list] = {}
+        for t in scan_tables(plan):
+            entry: list = [self.catalog_version(t)]
+            ds = self.datasources.get(t)
+            if ds is not None:
+                dv = getattr(ds, "data_version", None)
+                if dv is not None:
+                    entry.append(["data", int(dv)])
+                entry.append(repr(ds.data_identity))
+            versions[t] = entry
+        return plan_fingerprint(plan, versions, extra={
+            "device": str(self.device),
+            "batch_size": self.batch_size,
+            "functions_v": self._functions_version,
+        })
+
+    @property
+    def result_cache(self):
+        """The context's result CacheStore (None when caching is off)."""
+        return self._result_cache
+
+    def _record_history(self, fingerprint: str, summary: dict,
+                        root: Optional[Relation] = None) -> None:
+        entry = {"fingerprint": fingerprint, "ts": time.time(), **summary}
+        if root is not None:
+            from datafusion_tpu_torch.obs import trace as obs_trace
+
+            if obs_trace.enabled():
+                from datafusion_tpu_torch.obs.stats import collect_tree
+
+                entry["operators"] = [
+                    {"op": rel.op_label(), "depth": depth, **rel.stats.snapshot()}
+                    for depth, rel in collect_tree(root)
+                ]
+        hist = self._stats_history.setdefault(fingerprint, [])
+        hist.append(entry)
+        del hist[: -self._history_cap]
+        # bound the distinct fingerprints too (parameterized SQL mints
+        # one per literal): drop the oldest-inserted beyond the cap
+        while len(self._stats_history) > self._history_fingerprints:
+            try:
+                self._stats_history.pop(next(iter(self._stats_history)), None)
+            except (StopIteration, RuntimeError):
+                break
+
+    def stats_history(self, fingerprint: Optional[str] = None):
+        """Per-query run history keyed by plan fingerprint: each entry
+        records rows, wall seconds and whether it was a cache hit, and on
+        traced runs (EXPLAIN ANALYZE, DATAFUSION_TPU_TRACE=1) the
+        operators' stats.  With a fingerprint, that query's runs (oldest
+        first); without, the whole mapping."""
+        if fingerprint is not None:
+            return list(self._stats_history.get(fingerprint, ()))
+        return {k: list(v) for k, v in self._stats_history.items()}
+
     def execute(self, plan: LogicalPlan, build_pins: Optional[set] = None,
                 verified: bool = False) -> Relation:
         """Map a logical plan onto operators (reference `context.rs:103`).
@@ -333,15 +464,58 @@ class ExecutionContext:
         `build_pins` (a set; the serving path passes one) each join of
         the plan pins its build under `_build_key` and the key is added
         to the set, so the caller can release the pins; without it
-        nothing pins."""
-        METRICS.add("queries_admitted")
-        if not verified:
-            self._verify(plan)
+        nothing pins.
+
+        The result-cache seam (module docstring): a cached fingerprint
+        replays (`CachedResultRelation`, no verify: the miss that filled
+        it verified this exact plan); a miss lowers with a capture hook
+        attached.  A call nested in another on this thread lowers
+        straight through."""
+        tls = self._execute_tls
+        if getattr(tls, "in_execute", False):
+            return self._lower_with(plan, build_pins)
+        tls.in_execute = True
+        try:
+            METRICS.add("queries_admitted")
+            store = self._result_cache
+            fp = None
+            if store is not None:
+                try:
+                    fp = self.last_fingerprint = self.query_fingerprint(plan)
+                except (NotImplementedError, PlanError):
+                    fp = None  # a plan with no wire form runs uncached
+            if fp is not None:
+                from datafusion_tpu_torch.cache.result import CachedResultRelation
+
+                entry = store.get(fp)
+                if entry is not None:
+                    return CachedResultRelation(
+                        plan.schema, entry, fp,
+                        on_complete=lambda s: self._record_history(fp, s),
+                        batch_size=self.batch_size,
+                    )
+            if not verified:
+                self._verify(plan)
+            rel = self._lower_with(plan, build_pins)
+            if fp is not None:
+                from datafusion_tpu_torch.cache.result import attach_result_capture
+
+                attach_result_capture(
+                    rel, store, fp, tags=scan_tables(plan),
+                    on_complete=lambda s: self._record_history(fp, s, root=rel),
+                )
+            return rel
+        finally:
+            tls.in_execute = False
+
+    def _lower_with(self, plan: LogicalPlan, build_pins: Optional[set]) -> Relation:
+        """`_lower` with this thread's join-build pin set."""
+        prev = getattr(_LOWERING, "build_pins", None)
         _LOWERING.build_pins = build_pins
         try:
             return self._lower(plan)
         finally:
-            _LOWERING.build_pins = None
+            _LOWERING.build_pins = prev
 
     def _verify(self, plan: LogicalPlan) -> None:
         """Static verification of a plan before it is lowered

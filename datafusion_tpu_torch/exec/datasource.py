@@ -41,8 +41,10 @@ class DataSource:
     - `parses`: whether `batches` parses its input as it reads, work the
       prefetch threads can run ahead of the consumer
       (`exec/prefetch.pipeline_enabled`);
-    - `data_version`: bumped when the data changes (no port source
-      appends yet: 0);
+    - `data_version`: bumped when the data changes (an
+      `ingest.AppendableSource` bumps it per append; other sources keep
+      0), and part of `data_identity`, so a result built before an
+      append never serves after it;
     - `estimated_bytes()`: what the table would occupy pinned on the
       device (0 when unknown: admission never sheds for it);
     - `data_identity`: a hashable identity of the data itself, which a

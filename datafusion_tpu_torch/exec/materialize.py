@@ -16,6 +16,7 @@ ROADMAP queue 1, "wire codec").
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -94,7 +95,13 @@ def collect_columns(relation, batches=None):
 
     Returns (columns, validity, dicts, total_rows); strings stay
     dictionary-coded (dicts[i] holds the decoder).
+
+    This is also the result cache's capture point: a root relation that
+    `ExecutionContext.execute` tagged with `_result_cache_fill`
+    (`cache/result.py`) hands that hook the materialized columns after
+    a complete run; caching never changes what this returns.
     """
+    t0 = time.perf_counter()
     schema = relation.schema
     ncols = len(schema)
     parts: list[list[np.ndarray]] = [[] for _ in range(ncols)]
@@ -123,6 +130,9 @@ def collect_columns(relation, batches=None):
                 np.ones(len(p), dtype=bool) if v is None else v
                 for v, p in zip(vparts[i], parts[i])
             ]))
+    fill = getattr(relation, "_result_cache_fill", None)
+    if fill is not None:
+        fill(columns, validity, dicts, total, time.perf_counter() - t0)
     return columns, validity, dicts, total
 
 

@@ -383,6 +383,14 @@ class DeviceLedger:
             self._evict_entry(e, "pressure")
         return sum(e.nbytes for e in victims)
 
+    def set_pin_bytes(self, fingerprint: str, nbytes: int) -> None:
+        """Update a pin's accounted bytes (a pinned table that grew by an
+        append, serve.py)."""
+        with self._lock:
+            e = self._pins.get(fingerprint)
+            if e is not None:
+                e.nbytes = int(nbytes)
+
     def pinned_bytes(self) -> int:
         with self._lock:
             return sum(e.nbytes for e in self._pins.values())

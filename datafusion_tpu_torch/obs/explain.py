@@ -10,7 +10,10 @@ profile's top frames per phase (`obs/profiler.py`;
 `DATAFUSION_TPU_PROFILE_EXPLAIN=0` leaves it out), one line per
 operator with its rows, batches, times, bytes and launches and the
 `<- fused pass [...]` marker of a collapsed chain, the fused-pass line
-of the query's counter deltas, and the span tree.
+of the query's counter deltas, and the span tree.  A query the result
+cache answers shows as one `CachedResult[rows=..., bytes=..., fp=...]`
+operator with `cache.hit=True`; an analyzed miss fills the cache as a
+plain run does.
 
 Left out until their planes are ported: the cost view (ROADMAP queue 1
 item 11.4; the report omits its block, as the JAX package's does with
@@ -182,6 +185,11 @@ class _RootTap:
 
     def __init__(self, rel):
         self.rel = rel
+        # the result cache's capture hook: an analyzed run fills the
+        # cache as a plain run does (cache/result.py)
+        fill = getattr(rel, "_result_cache_fill", None)
+        if fill is not None:
+            self._result_cache_fill = fill
 
     @property
     def schema(self):

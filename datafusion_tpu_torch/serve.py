@@ -53,11 +53,31 @@ arrival, or twice `WINDOW_MS` after it opened),
 `PIN` (1 pins tables, 0 streams them), `DEADLINE_S` (default budget;
 unset: none).
 
-Not ported (ROADMAP queue 1, item 11): weighted fair queueing
-(`shares=`, `qos.py`), ingest and appends, the result cache, cost
-observations and the adaptive window, per-client metering and tail
-attribution (`client_id`), and the pin manifest (`pin_manifest=`).
-Each raises `NotSupportedError`.
+- **Streaming appends.**  `ingest()` is the context's ingest plane
+  (ingest/) with the serving hook installed; `append(table, columns)`
+  logs and applies one delta (`IngestContext.append`).  A pinned table
+  takes the appendable in under its pin (`PinnedSource.splice_appendable`):
+  its resident list is the appendable's live list, so an append grows
+  the pinned copy in place, the next served query copies only the
+  delta's used columns and its group ids (the table's shared encoder
+  encodes only the delta), and `_on_append_applied` grows the ledger's
+  pin accounting by the delta.  The append bumps `data_version`, which
+  is part of `data_identity`, so a join build pinned over the table is
+  re-keyed, never reused stale.  `submit` also takes CREATE MATERIALIZED
+  VIEW, run at once on the caller's thread.
+- **Pin manifest.**  With `pin_manifest=PATH` (or
+  `DATAFUSION_TPU_SERVE_PIN_MANIFEST`, or `pin_manifest.json` in
+  `DATAFUSION_TPU_WAL_DIR`) every residency change rewrites the resident
+  set through `utils/wal.atomic_write_json` (tmp, fsync, rename), and
+  `start()` re-pins the tables it names before the dispatcher runs
+  (`pins_rehydrated`); `stop()` leaves the manifest as it stood while
+  serving.  A query the result cache answers (exec/context.py) replays
+  on its worker like any solo query.
+
+Not ported (ROADMAP queue 1): weighted fair queueing (`shares=`,
+`qos.py`, item 11.1), cost observations and the adaptive window (item
+11.4), per-client metering and tail attribution (`client_id`, item
+11.5).  Each raises `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -81,7 +101,7 @@ from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.utils.deadline import Deadline, deadline_scope
 from datafusion_tpu_torch.utils.metrics import METRICS
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 11: {})"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item {})"
 
 
 def _env_int(name: str, default: int) -> int:
@@ -154,6 +174,9 @@ class PinnedSource(DataSource):
         self.name = name
         self.fingerprint = f"table:{name}"
         self._resident: Optional[list] = None
+        # residency-change hook (the server's pin-manifest save), called
+        # outside the lock after `ensure` and `_drop`
+        self.on_change = None
         # each resident batch's cache as the pin found it (`_drop`)
         self._caches_before: Optional[list] = None
         self._lock = threading.Lock()
@@ -173,8 +196,34 @@ class PinnedSource(DataSource):
     def data_identity(self) -> tuple:
         return self.inner.data_identity
 
+    @property
+    def data_version(self) -> int:
+        # an appendable inner versions per delta; fingerprints read the
+        # registered source
+        return self.inner.data_version
+
     def with_projection(self, projection) -> DataSource:
         return _PinnedProjection(self, list(projection))
+
+    def splice_appendable(self, cls):
+        """Take an appendable source (`cls` is ingest.AppendableSource)
+        in UNDER this pin: it materializes from the current batches (the
+        same objects when resident, so their device copies survive), and
+        a resident pin's list becomes the appendable's live list, so
+        every later append grows the pinned copy in place.  Idempotent;
+        `IngestContext._wrap_source` calls it on first attach."""
+        with self._lock:
+            if isinstance(self.inner, cls):
+                return self.inner
+        # materializing may parse a file: outside the lock, as `ensure`
+        src = cls.wrap(self, name=self.name)
+        with self._lock:
+            if isinstance(self.inner, cls):
+                return self.inner
+            self.inner = src
+            if self._resident is not None:
+                self._resident = src.live_batches
+        return src
 
     def estimated_bytes(self) -> int:
         """The resident list's bytes once materialized, else the inner
@@ -197,7 +246,9 @@ class PinnedSource(DataSource):
             if self._resident is not None:
                 LEDGER.pinned(self.fingerprint)  # a use: recency, priority
                 return True
-        batches = list(self.inner.batches())
+        # an appendable inner pins its LIVE list, which appends grow
+        live = getattr(self.inner, "live_batches", None)
+        batches = live if live is not None else list(self.inner.batches())
         with self._lock:
             if self._resident is None:
                 self._caches_before = [dict(b.cache) for b in batches]
@@ -208,6 +259,9 @@ class PinnedSource(DataSource):
                    on_evict=self._drop, artifact=self)
         METRICS.add("serve.tables_pinned")
         recorder.record("serve.pin", table=self.name, bytes=nbytes, batches=len(batches))
+        cb = self.on_change
+        if cb is not None:
+            cb()
         return True
 
     def _drop(self) -> None:
@@ -224,16 +278,23 @@ class PinnedSource(DataSource):
             self._encoders.clear()
             self._cores.clear()
         if res is not None:
-            for b, kept in zip(res, before):
+            # batches appended since the pin held nothing before it
+            for i, b in enumerate(list(res)):
                 b.cache.clear()
-                b.cache.update(kept)
+                if i < len(before):
+                    b.cache.update(before[i])
         METRICS.add("serve.tables_evicted")
         recorder.record("serve.evict", table=self.name)
+        cb = self.on_change
+        if cb is not None:
+            cb()
 
     def batches(self):
         res = self._resident
         if res is not None:
-            return iter(res)
+            # a snapshot: the resident list may be an appendable's live
+            # list, and an append must not extend a scan that started
+            return iter(list(res))
         return self.inner.batches()
 
     def release(self) -> None:
@@ -347,11 +408,17 @@ class Server:
 
         if shares is not None:
             raise NotSupportedError("Server(shares=...) " + _NOT_PORTED.format(
-                "weighted fair queueing, qos.py"))
-        if pin_manifest is not None:
-            raise NotSupportedError("Server(pin_manifest=...) " + _NOT_PORTED.format(
-                "the pin manifest"))
+                "11.1: weighted fair queueing, qos.py"))
         self.ctx = ctx
+        # the durable pin manifest (module docstring); unset: off
+        if pin_manifest is None:
+            pin_manifest = os.environ.get("DATAFUSION_TPU_SERVE_PIN_MANIFEST")
+            if not pin_manifest:
+                wal_dir = os.environ.get("DATAFUSION_TPU_WAL_DIR")
+                if wal_dir:
+                    pin_manifest = os.path.join(wal_dir, "pin_manifest.json")
+        self._pin_manifest_path = pin_manifest or None
+        self.pins_rehydrated = 0
         self._workers = workers or _env_int("DATAFUSION_TPU_SERVE_WORKERS", 2)
         self._queue_depth = queue_depth or _env_int("DATAFUSION_TPU_SERVE_QUEUE", 64)
         self._window_s = (window_s if window_s is not None
@@ -389,6 +456,9 @@ class Server:
     # -- lifecycle -----------------------------------------------------
     def start(self) -> "Server":
         if self._thread is None:
+            # the manifest's tables are pinned before the dispatcher
+            # runs: a restarted server serves warm from its first query
+            self._rehydrate_pins()
             self._thread = threading.Thread(target=self._loop.run, name="df-torch-serve",
                                             daemon=True)
             self._thread.start()
@@ -414,6 +484,8 @@ class Server:
         for table, pinned in self._swapped:
             if self.ctx.datasources.get(table) is pinned:
                 self.ctx.datasources[table] = pinned.inner
+            # the manifest keeps the set that was resident while serving
+            pinned.on_change = None
             pinned.release()
         for fp in self._build_pins:
             LEDGER.unpin(fp, reason="stop")
@@ -443,9 +515,21 @@ class Server:
 
         if client_id is not None:
             raise NotSupportedError("submit(client_id=...) " + _NOT_PORTED.format(
-                "per-client metering and tail attribution"))
+                "11.5: per-client metering and tail attribution"))
         with METRICS.timer("parse"):
             stmt = parse_sql(sql)
+        if isinstance(stmt, ast.SqlCreateMaterializedView):
+            # DDL-shaped: the initial fold runs here, and the ticket is
+            # fulfilled at once (it counts on neither side of
+            # `admitted + shed == submitted`)
+            from datafusion_tpu_torch.exec.context import DdlResult
+
+            view = self.ingest().create_view(stmt.name, stmt.query_sql)
+            t = Ticket(sql, None, None, None)
+            t._fulfill(DdlResult(
+                f"Registered materialized view {stmt.name} "
+                f"({'incremental' if view.incremental else 'recompute'})"))
+            return t
         if not isinstance(stmt, ast.SqlSelect):
             raise NotSupportedError(
                 f"{type(stmt).__name__} is not ported yet (ROADMAP queue 1)")
@@ -484,11 +568,42 @@ class Server:
         self._loop.call_soon(partial(self._enqueue, ticket))
         return ticket
 
+    # -- streaming ingestion (caller thread) ---------------------------
     def ingest(self):
-        raise NotSupportedError("Server.ingest " + _NOT_PORTED.format("ingest"))
+        """The context's ingest plane with this server's hook installed:
+        an applied append refreshes the pinned table's ledger accounting
+        and the pin manifest."""
+        ing = self.ctx.ingest()
+        if self._on_append_applied not in ing.on_applied:
+            ing.on_applied.append(self._on_append_applied)
+        return ing
 
-    def append(self, table: str, columns: dict, client_id: Optional[str] = None):
-        raise NotSupportedError("Server.append " + _NOT_PORTED.format("ingest"))
+    def append(self, table: str, columns: dict, client_id: Optional[str] = None) -> dict:
+        """One streaming append through the front door, logged before it
+        is applied (`IngestContext.append`: a log fault raises
+        `IngestUnavailableError` and acknowledges nothing)."""
+        if client_id is not None:
+            raise NotSupportedError("append(client_id=...) " + _NOT_PORTED.format(
+                "11.5: per-client metering and tail attribution"))
+        return self.ingest().append(table, columns)
+
+    def _on_append_applied(self, table: str, batch) -> None:
+        """The resident list already grew in place (it is the
+        appendable's live list after `splice_appendable`): refresh the
+        ledger's pin bytes and the manifest."""
+        ds = self.ctx.datasources.get(table)
+        if isinstance(ds, _PinnedProjection):
+            ds = ds.parent
+        if not isinstance(ds, PinnedSource):
+            return
+        res = ds._resident
+        if res is None:
+            return
+        LEDGER.set_pin_bytes(ds.fingerprint, host_bytes(res))
+        METRICS.add("serve.pin_appends")
+        cb = ds.on_change
+        if cb is not None:
+            cb()
 
     def _shed_submit(self, sql: str, reason: str) -> QueryShedError:
         with self._lock:
@@ -824,6 +939,7 @@ class Server:
                 self.ctx.datasources[table] = pinned
                 self._swapped.append((table, pinned))
                 ds = pinned
+            ds.on_change = self._save_pin_manifest
         if not ds.resident:
             # admission may be stale by dispatch time: pin only what
             # still fits, else this query streams cold
@@ -832,6 +948,60 @@ class Server:
                 METRICS.add("serve.pin_denied")
                 return
         ds.ensure()
+
+    # -- pin manifest --------------------------------------------------
+    def _pin_entries(self) -> list:
+        out = []
+        for table, ds in sorted(self.ctx.datasources.items()):
+            if isinstance(ds, _PinnedProjection):
+                ds = ds.parent
+            if isinstance(ds, PinnedSource) and ds.resident:
+                entry = {"table": table, "fingerprint": ds.fingerprint}
+                path = getattr(ds.inner, "path", None)
+                if path:
+                    entry["path"] = str(path)
+                out.append(entry)
+        return out
+
+    def _save_pin_manifest(self) -> None:
+        """Persist the resident set (tmp, fsync, rename: a crash
+        mid-write leaves the old manifest whole).  Called on every
+        residency change, never under a lock."""
+        path = self._pin_manifest_path
+        if path is None:
+            return
+        from datafusion_tpu_torch.utils.wal import atomic_write_json
+
+        try:
+            atomic_write_json(path, {"pins": self._pin_entries()})
+        except OSError:
+            METRICS.add("serve.pin_manifest_errors")
+
+    def _rehydrate_pins(self) -> None:
+        """Re-pin the manifest's tables at `start()`: each one the
+        context registers goes through `_ensure_resident`.  A table the
+        context no longer has, or whose materialization fails, is
+        skipped: rejoining cold is degraded, not broken."""
+        path = self._pin_manifest_path
+        if path is None or not self._pin_enabled:
+            return
+        from datafusion_tpu_torch.utils.wal import read_json
+
+        doc = read_json(path)
+        for entry in (doc or {}).get("pins") or []:
+            table = str(entry.get("table") or "")
+            if not table or table not in self.ctx.datasources:
+                METRICS.add("serve.pin_rehydrate_skipped")
+                continue
+            try:
+                with self._device_scope():
+                    self._ensure_resident(table)
+            except Exception:  # noqa: BLE001 — a cold table must not block the start
+                METRICS.add("serve.pin_rehydrate_errors")
+                continue
+            self.pins_rehydrated += 1
+            METRICS.add("serve.pins_rehydrated")
+            recorder.record("serve.pin_rehydrated", table=table)
 
     # -- introspection -------------------------------------------------
     def stats(self) -> dict:

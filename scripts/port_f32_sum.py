@@ -119,7 +119,7 @@ def run_port(device, keys, vals, valid):
     batches = [make_host_batch(schema, [keys[i:i + BATCH], vals[i:i + BATCH]],
                                [None, valid[i:i + BATCH]])
                for i in range(0, len(keys), BATCH)]
-    ctx = tdf.ExecutionContext(device=device, batch_size=BATCH)
+    ctx = tdf.ExecutionContext(device=device, result_cache=False, batch_size=BATCH)
     ctx.register_datasource("t", MemoryDataSource(schema, batches))
     return ctx.sql_collect(SQL).to_rows()
 

@@ -42,7 +42,7 @@ def main() -> int:
     from datafusion_tpu_torch.exec import cuda as cuda_mod
 
     smi = cs.phase_build(cuda_mod, torch)
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
 
     def warm(sql):
         start = torch.cuda.memory_allocated() / 2**20

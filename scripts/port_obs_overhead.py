@@ -43,7 +43,7 @@ def _load(root, device, rows, batch):
             if not mod.__file__.startswith(root):
                 raise RuntimeError(f"imported {mod.__file__}, not the one under {root}")
         cs.SF1_ROWS = rows
-        ctx = tdf.ExecutionContext(device=device, batch_size=batch)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False, batch_size=batch)
         src, _, _ = cs.lineitem_sf1(tdf, batch)
         ctx.register_datasource("lineitem", src)
         tdf.collect(ctx.sql(cs.Q1))  # cold: copies cached on the batches

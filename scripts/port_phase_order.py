@@ -40,7 +40,7 @@ def main() -> int:
         print("port_phase_order: no CUDA device available", file=sys.stderr)
         return 1
     smi = cs.phase_build(cuda_mod, torch)
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
 
     def topk(label):
         reps = cs.phase_topk(tdf, cuda_mod, torch, ctx, smi)

@@ -56,7 +56,7 @@ def main() -> int:
     from datafusion_tpu_torch.exec import cuda as cuda_mod
 
     smi = cs.phase_build(cuda_mod, torch)
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     switch = sys.getswitchinterval()
 
     def one_thread(batches, stage, depth=prefetch._DEPTH, pull=None):
@@ -140,7 +140,7 @@ def main() -> int:
                          tdf.Field("lng", D.FLOAT64, False)])
 
     def fresh():
-        cold = tdf.ExecutionContext(batch_size=1 << 19)
+        cold = tdf.ExecutionContext(batch_size=1 << 19, result_cache=False)
         cold.register_csv("cities", path, schema, has_header=True)
         return cold
 

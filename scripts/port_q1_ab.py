@@ -79,7 +79,7 @@ def _load_tree(root, torch):
         finally:
             os.chdir(cwd)
         cs.log = lambda *a: None
-        ctx = tdf.ExecutionContext()
+        ctx = tdf.ExecutionContext(result_cache=False)
         src, _, _ = cs.lineitem_sf1(tdf, ctx.batch_size)
         ctx.register_datasource("lineitem", src)
         src, _ = cs.groupby_table(tdf, 16)
@@ -183,7 +183,7 @@ def run(root, label, warm, profile):
             raise RuntimeError(f"imported {mod.__file__}, not the one under {root}")
     cuda_mod.build_all()
     cs.log = lambda *a: None
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     src, _, _ = cs.lineitem_sf1(tdf, ctx.batch_size)
     ctx.register_datasource("lineitem", src)
     out = {"tree": label, "device": torch.cuda.get_device_name(0)}

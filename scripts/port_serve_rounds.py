@@ -131,7 +131,7 @@ def main() -> int:
 
     smi = cs.phase_build(cuda_mod, torch)
     policies = {"port": Server, "jax": _jax_policy_server(Server)}
-    ctx = tdf.ExecutionContext()
+    ctx = tdf.ExecutionContext(result_cache=False)
     src, _, dates = cs.lineitem_sf1(tdf, ctx.batch_size)
     ctx.register_datasource("lineitem", src)
     cutoffs = [dates[dates.index("1998-09-02") - 7 * i] for i in range(32)]

@@ -120,14 +120,14 @@ def test_malformed_file_raises_io_error(tmp_path, text, why):
     path.write_text(text)
     schema = tdf.Schema([tdf.Field("a", tdf.DataType.INT64, True),
                          tdf.Field("b", tdf.DataType.INT64, True)])
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_csv("t", str(path), schema)
     with pytest.raises(tdf.IoError, match=why):
         tdf.collect(ctx.sql("SELECT a, b FROM t"))
 
 
 def test_missing_file_raises_io_error(tmp_path):
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_csv("t", str(tmp_path / "absent.csv"), port_schema(UK_SCHEMA))
     with pytest.raises(tdf.IoError, match="cannot open"):
         tdf.collect(ctx.sql("SELECT city FROM t"))
@@ -155,7 +155,7 @@ def test_build_without_a_working_compiler_raises_io_error(tmp_path, cxx):
 
 @pytest.fixture(scope="module")
 def ctx():
-    c = tdf.ExecutionContext(device="cpu", batch_size=4096)
+    c = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4096)
     c.register_csv("all_types", os.path.join(DATA, "all_types_flat.csv"),
                    port_schema(ALL_TYPES_SCHEMA), has_header=False)
     c.register_csv("null_test", os.path.join(DATA, "null_test.csv"),
@@ -250,7 +250,7 @@ def _geo_ctx():
     from datafusion_tpu.cli import _fmt_float
 
     D = tdf.DataType
-    c = tdf.ExecutionContext(device="cpu")
+    c = tdf.ExecutionContext(device="cpu", result_cache=False)
     point_t = tdf.StructType([tdf.Field("x", D.FLOAT64, False),
                               tdf.Field("y", D.FLOAT64, False)])
 
@@ -285,7 +285,7 @@ def test_geo_udf_goldens(name, sql):
 ])
 def test_sqrt_and_limit_goldens(name, sql):
     schema = tdf.Schema([tdf.Field("c_int", tdf.DataType.INT64, False)])
-    c = tdf.ExecutionContext(device="cpu")
+    c = tdf.ExecutionContext(device="cpu", result_cache=False)
     c.register_datasource("t", tdf.MemoryDataSource(
         schema, [tdf.make_host_batch(schema, [np.arange(1, 11, dtype=np.int64)])]))
     assert_rows_match(tdf.collect(c.sql(sql)), name)
@@ -297,7 +297,7 @@ def test_sqrt_and_limit_goldens(name, sql):
 def _both_csv(path, schema, header, sql, batch_size):
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     jctx.register_csv("cities", path, schema, has_header=header)
-    tctx = tdf.ExecutionContext(device="cpu", batch_size=batch_size)
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     tctx.register_csv("cities", path, port_schema(schema), has_header=header)
     return assert_same(tdf.collect(tctx.sql(sql)), jax_collect(jctx.sql(sql)))
 

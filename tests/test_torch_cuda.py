@@ -19,7 +19,11 @@ the sort-merge route above `agg_max_groups()` (its state: ints exactly,
 f64 within rtol 1e-12, f64 bit-identical when run twice, one radix-sort
 launch a batch group).  The kernels also run at the batch-group fold's
 shapes (a group's rows in one launch), and the fold launches the grouped
-reduce once per slot per group (DATAFUSION_TPU_FUSE=0: per batch).
+reduce once per slot per group (DATAFUSION_TPU_FUSE=0: per batch).  A
+materialized Q1 view folds each delta on the card as through the plain
+versions on the CPU, and an append into a pinned table sends the next
+served query only the delta.  Every context here passes
+`result_cache=False`, so a repeated query runs and launches again.
 """
 
 from __future__ import annotations
@@ -141,7 +145,7 @@ def test_engine_on_card_matches_engine_on_cpu(dev):
            "WHERE s >= 's05' AND v < 900 GROUP BY k")
     rows = {}
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
         rows[str(device)] = sorted(tdf.collect(ctx.sql(sql)).to_rows())
@@ -307,7 +311,7 @@ def test_engine_on_card_matches_engine_on_cpu_for_joins_and_sorts(dev, sql, orde
     tables = _star()
     rows = {}
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         for name, (schema, batches) in tables.items():
             ctx.register_datasource(name, tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
@@ -353,7 +357,7 @@ def test_uint64_join_key_on_card_matches_the_cpu(dev, base, dense):
     sql = "SELECT v, k, w FROM l JOIN r ON l.k = r.rk"
     rows = {}
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         for name, (schema, batches) in tables.items():
             ctx.register_datasource(name, tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
@@ -425,7 +429,7 @@ def test_slice6_queries_on_card_match_the_cpu(dev, sql, ordered, needs):
     schema, batches = _slice6_table()
     rows = {}
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device, batch_size=16384)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False, batch_size=16384)
         ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
         got = tdf.collect(ctx.sql(sql)).to_rows()
@@ -458,7 +462,7 @@ def test_csv_scan_on_card_matches_the_cpu(dev):
     sql = "SELECT city, lat, lng, lat + lng FROM cities WHERE lat > 51.0 AND lat < 53"
     out = []
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         ctx.register_csv("cities", path, schema, has_header=False)
         out.append(tdf.collect(ctx.sql(sql)).to_rows())
     assert out[0] == out[1] and len(out[0]) == 18
@@ -512,7 +516,7 @@ def test_csv_scans_on_card_stage_by_default_and_match_the_cpu(dev, tmp_path, mon
             ("SELECT s, k, v * 2 FROM t WHERE v > -5.0 ORDER BY s DESC, k LIMIT 300", True)):
         out = []
         for device in ("cpu", dev):
-            ctx = tdf.ExecutionContext(device=device, batch_size=2048)
+            ctx = tdf.ExecutionContext(device=device, result_cache=False, batch_size=2048)
             ctx.register_csv("t", str(path), schema, has_header=True)
             rows = tdf.collect(ctx.sql(sql)).to_rows()
             out.append(rows if ordered else sorted(rows))
@@ -546,7 +550,7 @@ def _high_card_table(groups, n=400_000, seed=7, batch_rows=1 << 17):
 def _accumulated_state(device, schema, batches):
     """The aggregate's state after the scan, on the host, and the
     launches it made."""
-    ctx = tdf.ExecutionContext(device=device)
+    ctx = tdf.ExecutionContext(device=device, result_cache=False)
     ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
     rel = ctx.sql(HIGH_CARD_SQL)
     port_cuda.reset_launch_counts()
@@ -602,7 +606,7 @@ def test_grouped_reduce_launches_once_a_slot_a_group(dev, monkeypatch, fuse, slo
         monkeypatch.setenv("DATAFUSION_TPU_FUSE", fuse)
     out = {}
     for device in ("cpu", dev, dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
         table = tdf.collect(ctx.sql(sql))
@@ -639,7 +643,7 @@ def test_high_cardinality_query_launches_the_sort_kernel(dev):
     schema, batches = _high_card_table(100_000, seed=9)
     rows = {}
     for device in ("cpu", dev):
-        ctx = tdf.ExecutionContext(device=device)
+        ctx = tdf.ExecutionContext(device=device, result_cache=False)
         ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
         port_cuda.reset_launch_counts()
         rows[str(device)] = sorted(tdf.collect(ctx.sql(HIGH_CARD_SQL)).to_rows(), key=repr)
@@ -736,7 +740,7 @@ def test_served_megabatch_on_card_equals_solo_bit_for_bit(dev):
     from datafusion_tpu_torch.utils.metrics import METRICS
 
     schema, batches, days = _serve_table()
-    ctx = tdf.ExecutionContext(device=dev)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
     ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
     sqls = [f"SELECT k, SUM(v), MIN(v), COUNT(1) FROM t WHERE d <= '{days[3 * i]}' GROUP BY k"
             for i in range(8)]
@@ -770,7 +774,7 @@ def test_repeated_join_launches_the_build_kernel_once(dev):
     rs = tdf.Schema([tdf.Field("rk", D.INT64, False), tdf.Field("w", D.INT64, False)])
     keys = rng.permutation(100_000).astype(np.int64)
     probe = rng.integers(0, 100_000, 300_000).astype(np.int64)
-    ctx = tdf.ExecutionContext(device=dev)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
     ctx.register_datasource("l", tdf.MemoryDataSource(ls, [tdf.make_host_batch(
         ls, [probe, np.arange(300_000)])]))
     ctx.register_datasource("r", tdf.MemoryDataSource(rs, [tdf.make_host_batch(
@@ -872,7 +876,7 @@ def _q1_lineitem(n=120_000, batch_rows=16_384, seed=42):
 
 def _q1_context(device):
     schema, batches = _q1_lineitem()
-    ctx = tdf.ExecutionContext(device=device)
+    ctx = tdf.ExecutionContext(device=device, result_cache=False)
     ctx.register_datasource("lineitem", tdf.MemoryDataSource(schema, batches))
     return ctx
 
@@ -965,3 +969,80 @@ def test_f32_sum_on_the_card_within_the_bound(dev, monkeypatch, fuse):
     assert got["sum_ratio"] <= 1.0 and got["avg_ratio"] <= 1.0, got
     lost = f32.ratios(f32.run_port(dev, keys, f32.lose_first_batch(vals), valid), want)
     assert lost["min_sum_ratio"] > 1.0, lost
+
+
+# ------------------------------------- the freshness plane (slice 12)
+
+
+def _view_deltas(n_deltas=4, rows=2000, seed=17):
+    """config_ingest's deltas (benchmarks/suite.py): Q1's columns, the
+    shipdate an existing one."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_deltas):
+        out.append({
+            "l_returnflag": [["A", "N", "R"][i] for i in rng.integers(0, 3, rows)],
+            "l_linestatus": [["F", "O"][i] for i in rng.integers(0, 2, rows)],
+            "l_quantity": rng.uniform(1, 50, rows).round(2),
+            "l_extendedprice": rng.uniform(900, 105000, rows).round(2),
+            "l_discount": rng.uniform(0, 0.1, rows).round(2),
+            "l_shipdate": ["1995-06-15"] * rows,
+        })
+    return out
+
+
+def test_view_folded_on_the_card_matches_the_plain_versions_on_the_cpu(dev):
+    """Q1 as a materialized view over a small lineitem, folded delta by
+    delta on cuda:0 (one pass a delta, one grouped-reduce launch per slot
+    not aliased to the row count) and through the kernels' plain versions
+    on the CPU: keys and counts exactly, floats within rtol 1e-9, at
+    every cut; on the card the view also matches its own rescan."""
+    views = {}
+    ings = {}
+    for device in ("cpu", dev):
+        ctx = _q1_context(device)
+        ings[device] = (ctx, ctx.ingest())
+        views[device] = ings[device][1].create_view("q1", Q1_SQL)
+        assert views[device].incremental
+    for delta in _view_deltas():
+        port_cuda.reset_launch_counts()
+        ings[dev][1].append("lineitem", delta)
+        # the row count and 4 sums (AVG(l_quantity) shares SUM(l_quantity)'s
+        # slot; the counts alias the row count): one launch each
+        assert port_cuda.launch_counts()["hash_agg"] == 5
+        ings["cpu"][1].append("lineitem", delta)
+        got = sorted(ings[dev][1].read_view("q1").to_rows())
+        want = sorted(ings["cpu"][1].read_view("q1").to_rows())
+        rescan = sorted(tdf.collect(ings[dev][0].sql(Q1_SQL)).to_rows())
+        for rows in (want, rescan):
+            assert len(got) == len(rows)
+            for g, w in zip(got, rows):
+                assert g[:2] == w[:2] and g[-1] == w[-1]
+                assert np.allclose(g[2:-1], w[2:-1], rtol=1e-9, atol=0.0)
+    assert views[dev].maintain_launches == 1 + len(_view_deltas())
+
+
+def test_append_into_a_pinned_table_copies_only_the_delta_on_the_card(dev):
+    """A served Q1 over a pinned lineitem on cuda:0; after `Server.append`
+    the next served Q1 copies the delta's used columns and its group ids,
+    nothing of the table, and equals the rescan."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    ctx = _q1_context(dev)
+    delta = _view_deltas(1)[0]
+    with ctx.serve(workers=1, window_s=0.001) as srv:
+        srv.submit(Q1_SQL).result(timeout=600)
+        srv.submit(Q1_SQL.replace("1998-09-02", "1998-09-01")).result(timeout=600)
+        srv.append("lineitem", delta)
+        batch = ctx.datasources["lineitem"]._resident[-1]
+        h2d0 = METRICS.snapshot()["counts"].get("h2d.bytes", 0)
+        t = srv.submit(Q1_SQL)
+        got = sorted(t.result(timeout=600).to_rows())
+        used = t._rel.core.used_cols
+        want_bytes = sum(batch.data[c].nbytes for c in used) + 4 * batch.capacity
+        assert METRICS.snapshot()["counts"].get("h2d.bytes", 0) - h2d0 == want_bytes
+    want = sorted(tdf.collect(ctx.sql(Q1_SQL)).to_rows())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2] and g[-1] == w[-1]
+        assert np.allclose(g[2:-1], w[2:-1], rtol=1e-9, atol=0.0)

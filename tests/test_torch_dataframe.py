@@ -32,7 +32,7 @@ def uk_schema(pkg):
 
 def contexts():
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4096)
-    tctx = tdf.ExecutionContext(device="cpu", batch_size=4096)
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4096)
     for pkg, ctx in ((jdf, jctx), (tdf, tctx)):
         ctx.register_csv("uk_cities", os.path.join(DATA, "uk_cities.csv"), uk_schema(pkg),
                          has_header=False)
@@ -107,7 +107,7 @@ def test_grouped_aggregate(tmp_path):
         schema = pkg.Schema([pkg.Field("k", pkg.DataType.UTF8, False),
                              pkg.Field("v", pkg.DataType.INT64, False)])
         c = (pkg.ExecutionContext(device="cpu", result_cache=False) if pkg is jdf
-             else pkg.ExecutionContext(device="cpu"))
+             else pkg.ExecutionContext(device="cpu", result_cache=False))
         c.register_csv("t", str(path), schema)
         df = c.table("t")
         got = df.aggregate(["k"], [pkg.f.sum(df.col("v")), pkg.f.count(df.col("v"))]).collect()
@@ -188,7 +188,8 @@ def test_q1_through_the_dataframe_equals_sql_q1(tmp_path):
     out = {}
     for pkg in (jdf, tdf):
         ctx = (pkg.ExecutionContext(device="cpu", result_cache=False, batch_size=512)
-               if pkg is jdf else pkg.ExecutionContext(device="cpu", batch_size=512))
+               if pkg is jdf else pkg.ExecutionContext(device="cpu", result_cache=False,
+                                                        batch_size=512))
         ctx.sql(LINEITEM_DDL.format(path))
         frame = q1_dataframe(pkg, ctx.table("lineitem"))
         out[pkg] = (frame.collect(), ctx.sql_collect(Q1), frame)
@@ -199,7 +200,7 @@ def test_q1_through_the_dataframe_equals_sql_q1(tmp_path):
     # the DataFrame lowers to the SQL path's one aggregate operator
     from datafusion_tpu_torch.sql.optimizer import push_down_projection
 
-    ctx = tdf.ExecutionContext(device="cpu", batch_size=512)
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=512)
     ctx.sql(LINEITEM_DDL.format(path))
     rel = ctx.execute(push_down_projection(out[tdf][2].logical_plan()))
     assert isinstance(rel, AggregateRelation)

@@ -203,7 +203,7 @@ def _csv_contexts(path, batch_size=1024):
                           tdf.Field("v", tdf.DataType.FLOAT64, False)])
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     jctx.register_csv("t", str(path), jschema, has_header=True)
-    tctx = tdf.ExecutionContext(device="cpu", batch_size=batch_size)
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     tctx.register_csv("t", str(path), tschema, has_header=True)
     return jctx, tctx
 

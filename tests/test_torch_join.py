@@ -97,7 +97,7 @@ def _run_both(sources: dict, sql: str):
     the same name would be probed.  The ledger is cleared first."""
     LEDGER.clear()
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     for name, src in sources.items():
         jctx.register_datasource(name, src)
         tctx.register_datasource(name, _carry(src))

@@ -46,7 +46,7 @@ def _tables(seed: int, nkeys: int = 500, nprobe: int = 6000):
 
 
 def _ctx(left, right):
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("l", left)
     ctx.register_datasource("r", right)
     return ctx

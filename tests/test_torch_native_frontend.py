@@ -98,7 +98,7 @@ def _explain(pkg, sql):
         ctx = jdf.ExecutionContext(device="cpu", result_cache=False)
         ctx.register_datasource(table, JaxMemorySource(schema, []))
     else:
-        ctx = tdf.ExecutionContext(device="cpu")
+        ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
         ctx.register_datasource(table, tdf.MemoryDataSource(schema, []))
     return ctx.sql("EXPLAIN " + sql)
 

@@ -50,7 +50,7 @@ def ctx():
     batches = [make_host_batch(schema, [d.encode(list(regions[rng.integers(0, 4, 300)])),
                                         rng.integers(-1000, 1000, 300)], None, [d, None])
                for _ in range(3)]
-    c = tdf.ExecutionContext(device="cpu")
+    c = tdf.ExecutionContext(device="cpu", result_cache=False)
     c.register_datasource("t", MemoryDataSource(schema, batches))
     return c
 

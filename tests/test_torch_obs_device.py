@@ -157,7 +157,7 @@ def test_fold_concatenation_registers_under_fold(monkeypatch):
     rng = np.random.default_rng(1)
     batches = [make_host_batch(schema, [rng.integers(0, 8, 1024), rng.random(1024)])
                for _ in range(4)]
-    ctx = tdf.ExecutionContext(device="cpu", batch_size=1024)
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=1024)
     ctx.register_datasource("t", MemoryDataSource(schema, batches))
     seen = []
     real = device.LEDGER.adopt

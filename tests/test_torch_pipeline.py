@@ -69,7 +69,7 @@ def carry(src):
 def contexts(src, name="t", batch_size=131072):
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     jctx.register_datasource(name, src)
-    tctx = tdf.ExecutionContext(device="cpu", batch_size=batch_size)
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=batch_size)
     tctx.register_datasource(name, carry(src))
     return jctx, tctx
 

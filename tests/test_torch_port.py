@@ -84,7 +84,7 @@ def _carry(jax_src):
 def _run_both(name, jax_src, sql):
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
     jctx.register_datasource(name, jax_src)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource(name, _carry(jax_src))
     return jax_collect(jctx.sql(sql)), tdf.collect(tctx.sql(sql))
 
@@ -347,7 +347,7 @@ def test_uncast_plan_takes_the_planner_types():
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
     jctx.register_datasource("t", jsrc)
     want = jax_collect(jctx.execute(jdf.LogicalPlan.from_json_str(text)))
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource("t", _carry(jsrc))
     got = tdf.collect(tctx.execute(tdf.LogicalPlan.from_json_str(text)))
     _assert_rows_match(got, want)
@@ -397,22 +397,44 @@ def test_convert_keeps_codes_dictionaries_and_padding():
 
 def test_unported_plan_nodes_raise_not_supported():
     schema, cols = _groupby(100, 4)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
     # filters, projections, sorts and the TopK are ported now
     # (tests/test_torch_pipeline.py, test_torch_sort.py,
     # test_torch_topk.py), and EXPLAIN (tests/test_torch_native_frontend.py);
     # a computed ORDER BY key fails the verifier (PlanVerificationError, a
     # NotSupportedError, as in the JAX package); EXPLAIN ANALYZE is ported
-    # (tests/test_torch_explain.py) and CREATE MATERIALIZED VIEW waits for
-    # the ingest plane
+    # (tests/test_torch_explain.py)
     for sql in ("SELECT k, v1 FROM t ORDER BY v1 + 1 LIMIT 5",
-                "SELECT k FROM t ORDER BY k * 2",
-                "CREATE MATERIALIZED VIEW mv AS SELECT k FROM t"):
+                "SELECT k FROM t ORDER BY k * 2"):
         with pytest.raises(tdf.NotSupportedError):
             tctx.sql(sql)
-    with pytest.raises(tdf.NotSupportedError):
-        tdf.ExecutionContext(device="cpu", result_cache=object())
+    # CREATE MATERIALIZED VIEW and `result_cache=<store>` are ported
+    # (tests/test_torch_ingest.py, test_torch_cache.py) and answer as the
+    # JAX package does
+    from datafusion_tpu.cache.store import CacheStore as JaxCacheStore
+
+    from datafusion_tpu_torch.cache.result import CachedResultRelation
+    from datafusion_tpu_torch.cache.store import CacheStore
+
+    view_sql = "SELECT k, SUM(v1), COUNT(1) FROM t GROUP BY k"
+    jctx = jdf.ExecutionContext(device="cpu", result_cache=JaxCacheStore(1 << 20))
+    jctx.register_datasource("t", _jax_source(schema, cols))
+    store = CacheStore(1 << 20, name="result")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=store)
+    tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
+    ddl = f"CREATE MATERIALIZED VIEW mv AS {view_sql}"
+    assert repr(tctx.sql(ddl)) == repr(jctx.sql(ddl)) == \
+        "Registered materialized view mv (incremental)"
+    want = sorted(jax_collect(jctx.sql(view_sql)).to_rows())
+    for ctx_rows in (tctx.ingest().read_view("mv").to_rows(),
+                     tdf.collect(tctx.sql(view_sql)).to_rows()):
+        got = sorted(ctx_rows)
+        assert [r[0] for r in got] == [r[0] for r in want]
+        assert [r[2] for r in got] == [r[2] for r in want]
+        assert np.allclose([r[1] for r in got], [r[1] for r in want], rtol=1e-9, atol=0)
+    assert tctx.result_cache is store and store.entries == 1
+    assert isinstance(tctx.sql(view_sql), CachedResultRelation)
 
 
 # -------------------------------------------------------- plan parity
@@ -463,7 +485,7 @@ def _plan_json(pkg, sql):
         from datafusion_tpu_torch.sql.parser import parse_sql
         from datafusion_tpu_torch.sql.planner import SqlToRel
 
-        ctx = tdf.ExecutionContext(device="cpu")
+        ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
         ctx.register_datasource(re.search(r"FROM (\w+)", sql).group(1),
                                 tdf.MemoryDataSource(schema, []))
     plan = SqlToRel(_ContextSchemaProvider(ctx)).sql_to_rel(parse_sql(sql))
@@ -501,6 +523,21 @@ def test_serving_modules_are_the_ports_own(module):
 def test_front_door_modules_are_the_ports_own(module):
     """The console slice's modules are the port's own copies: scanned by
     the import check below, and none names the JAX package."""
+    path = REPO / "datafusion_tpu_torch" / module
+    assert path in _port_sources()
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|datafusion_tpu)\b(?!_torch)", text,
+                         re.MULTILINE)
+
+
+@pytest.mark.parametrize("module", ["ingest/__init__.py", "utils/wal.py", "parallel/wire.py",
+                                    "testing/faults.py", "analysis/lockcheck.py",
+                                    "cache/__init__.py", "cache/store.py",
+                                    "cache/fingerprint.py", "cache/result.py"])
+def test_freshness_modules_are_the_ports_own(module):
+    """The freshness and durability slice's modules are the port's own
+    copies: scanned by the import check below, and none names the JAX
+    package."""
     path = REPO / "datafusion_tpu_torch" / module
     assert path in _port_sources()
     text = path.read_text()
@@ -580,6 +617,28 @@ def test_port_imports_and_runs_with_jax_blocked():
         "for name in ('cli', 'dataframe', 'analysis.verify', 'io.readers', 'io.io_thread',"
         " 'native.sqlfront'):\n"
         "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
+        # the freshness slice: an append behind the log folds into a view,
+        # the log recovers it, and a repeated query replays from the cache
+        "import tempfile\n"
+        "wal = tempfile.mkdtemp()\n"
+        "ing = ctx.ingest(wal_dir=wal)\n"
+        "ing.create_view('mv', 'SELECT k, SUM(v) FROM t GROUP BY k')\n"
+        "ing.append('t', {'k': np.array([0, 3]), 'v': np.array([1.0, 2.0])})\n"
+        "rows = sorted(ing.read_view('mv').to_rows())\n"
+        "assert rows == [(0, 19.0), (1, 12.0), (2, 15.0), (3, 2.0)], rows\n"
+        "ing.close()\n"
+        "rctx = t.ExecutionContext(device='cpu')\n"
+        "rctx.register_datasource('t', t.MemoryDataSource(s, [b]))\n"
+        "ring = rctx.ingest(wal_dir=wal)\n"
+        "assert ring.recover()['appends_replayed'] == 1\n"
+        "assert sorted(ring.read_view('mv').to_rows()) == rows\n"
+        "ring.close()\n"
+        "from datafusion_tpu_torch.cache.result import CachedResultRelation\n"
+        "t.collect(rctx.sql('SELECT k, v FROM t WHERE v > 8'))\n"
+        "assert isinstance(rctx.sql('SELECT k, v FROM t WHERE v > 8'), CachedResultRelation)\n"
+        "for name in ('ingest', 'utils.wal', 'parallel.wire', 'testing.faults',"
+        " 'analysis.lockcheck', 'cache', 'cache.store', 'cache.fingerprint', 'cache.result'):\n"
+        "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "assert not any(m == 'datafusion_tpu' or m.startswith('datafusion_tpu.')"
@@ -607,7 +666,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_cpu_context_takes_plain_route_and_launches_nothing():
     schema, cols = _groupby(3000, 16)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource("t", _carry(_jax_source(schema, cols)))
     before = hash_agg.LAUNCHES
     assert tdf.collect(tctx.sql(CONFIG2)).num_rows == 16

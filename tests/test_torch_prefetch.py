@@ -126,7 +126,7 @@ class _Exploding(DataSource):
 @pytest.mark.parametrize("sql", SQLS[:2])
 def test_source_exception_propagates(monkeypatch, sql):
     monkeypatch.setenv(KNOB, "1")
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("t", _Exploding(carry(agg_table(n=9000, seed=63)), 2))
     with pytest.raises(IoError, match="disk vanished"):
         tdf.collect(ctx.sql(sql))
@@ -211,7 +211,7 @@ def test_limit_closes_a_staged_scan_early(monkeypatch):
 
     monkeypatch.setenv(KNOB, "1")
     monkeypatch.setenv("DATAFUSION_TPU_FUSE_PIPELINE", "1")
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("t", Counting(carry(agg_table(n=60 * 512, seed=65,
                                                           batch_rows=512))))
     rows = tdf.collect(ctx.sql("SELECT k, v * 2 FROM t WHERE v > 0 LIMIT 10"))

@@ -259,7 +259,7 @@ def _csv_ctx(tmp_path, rows):
         f.write("k,v\n")
         for i in range(rows):
             f.write(f"k{i % 13},{rng.integers(0, 1000)}\n")
-    ctx = tdf.ExecutionContext(device="cpu", batch_size=4096)
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4096)
     ctx.register_csv("t", str(path), Schema([Field("k", DataType.UTF8, False),
                                              Field("v", DataType.INT64, False)]))
     return ctx

@@ -33,7 +33,7 @@ DATA = os.path.join(REPO, "test", "data")
 
 def _ctxs():
     return (jdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4),
-            tdf.ExecutionContext(device="cpu", batch_size=4))
+            tdf.ExecutionContext(device="cpu", result_cache=False, batch_size=4))
 
 
 def _same_rows(got, want):
@@ -103,7 +103,7 @@ def test_ndjson_rows_equal_a_parse_of_the_file():
 def test_ndjson_bad_line_raises_io_error(tmp_path):
     path = tmp_path / "bad.ndjson"
     path.write_text('{"a": 1}\n{"a": \n')
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_ndjson("t", str(path), tdf.Schema([tdf.Field("a", tdf.DataType.INT64)]))
     with pytest.raises(tdf.IoError, match="bad NDJSON line"):
         ctx.sql_collect("SELECT a FROM t")

@@ -46,6 +46,7 @@ from datafusion_tpu_torch.exec.datasource import MemoryDataSource
 from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.serve import PinnedSource
 from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.wal import atomic_write_json, read_json
 
 from test_torch_pipeline import assert_same
 
@@ -71,7 +72,7 @@ def _table(seed: int, rows: int = 4096, batches: int = 4, groups: int = 16):
 
 
 def _ctx(tables: dict) -> tdf.ExecutionContext:
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     for name, (_, ds) in tables.items():
         ctx.register_datasource(name, ds)
     return ctx
@@ -350,21 +351,151 @@ def test_stop_gives_back_sources_and_batch_caches():
 # ------------------------------------------------- what is not ported
 
 
-def test_unported_serving_options_raise():
+def test_unported_serving_options_raise(tmp_path):
+    """`shares=` and `client_id=` still wait for their planes (items 11.1
+    and 11.5); `pin_manifest=` and `ingest()` are ported: a manifest
+    round trip with re-pinning at `start()`, and `Server.append`
+    followed by a served query that sees the delta."""
     ctx = _ctx({"t": _table(14)})
-    with pytest.raises(NotSupportedError, match="item 11"):
+    with pytest.raises(NotSupportedError, match="item 11.1"):
         ctx.serve(shares={"a": 1.0})
-    with pytest.raises(NotSupportedError, match="item 11"):
-        ctx.serve(pin_manifest="pins.json")
-    srv = ctx.serve(workers=1)
+    manifest = str(tmp_path / "pins.json")
+    srv = ctx.serve(workers=1, pin_manifest=manifest)
     try:
-        with pytest.raises(NotSupportedError, match="item 11"):
+        with pytest.raises(NotSupportedError, match="item 11.5"):
             srv.submit(_q("t", 0.4), client_id="tenant-1")
-        with pytest.raises(NotSupportedError, match="item 11"):
-            srv.ingest()
+        with pytest.raises(NotSupportedError, match="item 11.5"):
+            srv.append("t", {"k": ["g0"], "v": [1.0], "p": [0.0]}, client_id="tenant-1")
         assert srv.submitted == 0
+        before = sorted(srv.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows())
+        assert read_json(manifest) == {"pins": [{"table": "t", "fingerprint": "table:t"}]}
+        assert srv.ingest() is ctx.ingest()
+        ack = srv.append("t", {"k": ["zz"], "v": [5.0], "p": [0.1]})
+        assert ack["rows"] == 1 and ack["rev"] == 1
+        after = sorted(srv.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows())
+        assert after == sorted(before + [("zz", 5.0, 1)])
     finally:
         srv.stop()
+    # the manifest keeps what was resident while serving; a new server
+    # re-pins it at start(), before its first query
+    assert read_json(manifest)["pins"][0]["table"] == "t"
+    srv2 = ctx.serve(workers=1, pin_manifest=manifest)
+    try:
+        assert srv2.pins_rehydrated == 1
+        assert "table:t" in LEDGER.pins_snapshot()
+        assert sorted(srv2.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows()) == after
+    finally:
+        srv2.stop()
+
+
+def test_pin_manifest_from_the_wal_dir_and_a_missing_table(tmp_path, monkeypatch):
+    monkeypatch.setenv("DATAFUSION_TPU_WAL_DIR", str(tmp_path))
+    monkeypatch.delenv("DATAFUSION_TPU_SERVE_PIN_MANIFEST", raising=False)
+    path = str(tmp_path / "pin_manifest.json")
+    atomic_write_json(path, {"pins": [{"table": "gone"}, {"table": "t"}]})
+    ctx = _ctx({"t": _table(15)})
+    skipped = _count("serve.pin_rehydrate_skipped")
+    with ctx.serve(workers=1) as srv:
+        assert srv.pins_rehydrated == 1
+        assert _count("serve.pin_rehydrate_skipped") == skipped + 1
+        assert "table:t" in LEDGER.pins_snapshot()
+    monkeypatch.delenv("DATAFUSION_TPU_WAL_DIR")
+    with ctx.serve(workers=1) as srv:  # no manifest configured: none read
+        assert srv.pins_rehydrated == 0
+
+
+def test_append_to_a_pinned_table_copies_only_the_delta():
+    """After `Server.append`, the next served query copies the delta's
+    used columns and its group ids, not the table; the table's shared
+    encoder encodes the delta alone; the ledger's pin grows by the
+    delta; the answer is the rescan's."""
+    schema, src = _table(16)
+    ctx = _ctx({"t": (schema, src)})
+    rng = np.random.default_rng(7)
+    n = 300
+    delta = {"k": [f"g{j}" for j in rng.integers(0, 20, n)],
+             "v": np.round(rng.uniform(0, 100, n), 2), "p": np.round(rng.uniform(0, 1, n), 3)}
+    srv = ctx.serve(workers=1, window_s=0.005)
+    try:
+        srv.submit(_q("t", 0.4)).result(timeout=WAIT)
+        srv.submit(_q("t", 0.45)).result(timeout=WAIT)  # warm: nothing crosses
+        pin0 = LEDGER.pins_snapshot()["table:t"]["bytes"]
+        srv.append("t", delta)
+        pinned = ctx.datasources["t"]
+        assert isinstance(pinned, PinnedSource) and pinned.resident
+        assert pinned._resident is pinned.inner.live_batches
+        batch = pinned._resident[-1]
+        assert batch.num_rows == n
+        grown = LEDGER.pins_snapshot()["table:t"]["bytes"] - pin0
+        assert grown == sum(a.nbytes for a in batch.data)
+        h2d0 = _count("h2d.bytes")
+        ticket = srv.submit(_q("t", 0.5))
+        got = ticket.result(timeout=WAIT)
+        # the columns the aggregate reads and the group ids (int32), at
+        # the delta's capacity
+        used = ticket._rel.core.used_cols
+        want = sum(batch.data[c].nbytes for c in used) + 4 * batch.capacity
+        assert batch.capacity == 1024 and used
+        assert _count("h2d.bytes") - h2d0 == want
+        h2d1 = _count("h2d.bytes")
+        warm = srv.submit(_q("t", 0.55)).result(timeout=WAIT)
+        assert _count("h2d.bytes") == h2d1  # warm again: nothing crosses
+    finally:
+        srv.stop()
+    assert sorted(got.to_rows()) == sorted(tdf.collect(ctx.sql(_q("t", 0.5))).to_rows())
+    assert sorted(warm.to_rows()) == sorted(tdf.collect(ctx.sql(_q("t", 0.55))).to_rows())
+    assert srv.admitted + srv.shed == srv.submitted
+
+
+def test_create_materialized_view_through_submit():
+    ctx = _ctx({"t": _table(17)})
+    with ctx.serve(workers=1) as srv:
+        out = srv.submit("CREATE MATERIALIZED VIEW mv AS SELECT k, SUM(v), COUNT(1) "
+                         "FROM t GROUP BY k").result(timeout=WAIT)
+        assert repr(out) == "Registered materialized view mv (incremental)"
+        assert srv.submitted == 0
+        srv.append("t", {"k": ["g1"], "v": [2.5], "p": [0.5]})
+        assert sorted(ctx.ingest().read_view("mv").to_rows()) == sorted(
+            tdf.collect(ctx.sql("SELECT k, SUM(v), COUNT(1) FROM t GROUP BY k")).to_rows())
+
+
+def test_served_join_sees_an_append_to_its_build_side():
+    """The pinned join build is keyed on the build table's data identity,
+    which an append changes: the next served join builds again and
+    returns the appended row, never a stale build."""
+    from datafusion_tpu_torch.join.relation import HashJoinRelation
+
+    rng = np.random.default_rng(3)
+    ls = tdf.Schema([tdf.Field("k", T.INT64, False), tdf.Field("v", T.INT64, False)])
+    rs = tdf.Schema([tdf.Field("rk", T.INT64, False), tdf.Field("w", T.FLOAT64, False)])
+    keys = np.arange(0, 400, 2, dtype=np.int64)
+    probe = rng.integers(0, 400, 3000).astype(np.int64)
+    ctx = _ctx({"l": (ls, MemoryDataSource(ls, [tdf.make_host_batch(
+                    ls, [probe, np.arange(3000, dtype=np.int64)])])),
+                "r": (rs, MemoryDataSource(rs, [tdf.make_host_batch(
+                    rs, [keys, keys.astype(np.float64) / 2])]))})
+    sql = "SELECT l.k, l.v, r.w FROM l JOIN r ON l.k = r.rk"
+
+    def join_of(rel):
+        while not isinstance(rel, HashJoinRelation):
+            rel = rel.child
+        return rel
+
+    with ctx.serve(workers=1, window_s=0.001) as srv:
+        t1 = srv.submit(sql)
+        rows1 = t1.result(timeout=WAIT).to_rows()
+        key1 = join_of(t1._rel).build_key
+        assert key1 in LEDGER.pins_snapshot()
+        new_key = int(probe[probe % 2 == 1][0])  # a probed key the build lacks
+        assert all(r[0] != new_key for r in rows1)
+        srv.append("r", {"rk": [new_key], "w": [-1.0]})
+        t2 = srv.submit(sql)
+        rows2 = t2.result(timeout=WAIT).to_rows()
+        assert join_of(t2._rel).build_key != key1
+        hits = int((probe == new_key).sum())
+        assert sorted(rows2) == sorted(rows1 + [(new_key, int(v), -1.0)
+                                                for v in np.nonzero(probe == new_key)[0]])
+        assert sum(1 for r in rows2 if r[0] == new_key) == hits
 
 
 # ------------------------------------------- each lane: solo, bit for bit
@@ -426,7 +557,7 @@ def test_aggregate_lane_distinct_string_literals_megabatch_bit_for_bit(monkeypat
     cores differ in a string literal, share one megabatch, and each
     answer is its solo answer bit for bit."""
     _, src, dates = _lineitem()
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("lineitem", src)
     sqls = [LINEITEM_Q1.format(dates[40 * i + 7]) for i in range(8)]
     solo = [tdf.collect(ctx.sql(s)) for s in sqls]
@@ -449,7 +580,7 @@ def test_aggregate_lane_distinct_string_literals_megabatch_bit_for_bit(monkeypat
 
 def test_topk_lane_megabatches_limits_exactly():
     _, src, _ = _lineitem(seed=3)
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("lineitem", src)
     sqls = [f"SELECT l_returnflag, l_extendedprice, l_quantity FROM lineitem "
             f"ORDER BY l_extendedprice DESC LIMIT {k}" for k in (10, 100, 1000, 7)]
@@ -467,7 +598,7 @@ def test_topk_lane_megabatches_limits_exactly():
 
 def test_pipeline_lane_megabatches_bit_for_bit():
     _, src, _ = _lineitem(seed=4)
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("lineitem", src)
     sqls = [f"SELECT l_returnflag, l_quantity, l_extendedprice * (1 - l_discount) "
             f"FROM lineitem WHERE l_shipdate <= '1992-12-01' AND l_discount > {d / 100}"
@@ -536,7 +667,7 @@ def test_served_rows_match_jax_packages_served_rows(lane):
                 f"WHERE l_quantity > {q}" for q in (10, 25, 40)]
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
     jctx.register_datasource("lineitem", jsrc)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource("lineitem", tsrc)
     jsrv = jctx.serve(workers=1, window_s=0.2, megabatch_max=16)
     tsrv = tctx.serve(workers=1, window_s=0.2, megabatch_max=16)

@@ -69,7 +69,7 @@ def _table(fields, columns, validity=None, batch_rows=2048):
 def _run_both(src, sql):
     jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
     jctx.register_datasource("t", src)
-    tctx = tdf.ExecutionContext(device="cpu")
+    tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     tctx.register_datasource("t", convert.memory_source(
         src.schema.to_json(), [convert.export_batch(b) for b in src.batches()]))
     return jax_collect(jctx.sql(sql)), tdf.collect(tctx.sql(sql))
@@ -225,7 +225,7 @@ class TestSortParity:
         the JAX package refuses it in its plan verifier.  The TopK
         itself is held against the JAX package in
         tests/test_torch_topk.py."""
-        tctx = tdf.ExecutionContext(device="cpu")
+        tctx = tdf.ExecutionContext(device="cpu", result_cache=False)
         src = _mixed(100)
         tctx.register_datasource("t", convert.memory_source(
             src.schema.to_json(), [convert.export_batch(b) for b in src.batches()]))

@@ -337,7 +337,7 @@ def test_sort_merge_matches_the_grouped_reduce_route(monkeypatch):
     out = {}
     for threshold in ("0", "8192"):
         monkeypatch.setenv(ROUTE_ENV, threshold)
-        ctx = tdf.ExecutionContext(device="cpu")
+        ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
         ctx.register_datasource("t", carry(src))
         out[threshold] = tdf.collect(ctx.sql(sql))
     assert_same(out["0"], out["8192"], ordered=False)
@@ -391,7 +391,7 @@ def test_tpch_q3_q10(tpch, routes, monkeypatch, sql, threshold,  # noqa: F811
 
 def test_high_cardinality_group_by_no_longer_raises(monkeypatch):
     monkeypatch.setenv(ROUTE_ENV, "64")
-    ctx = tdf.ExecutionContext(device="cpu")
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.register_datasource("t", carry(groupby_table(3000, 2000)))
     rel = ctx.sql(CONFIG2)
     assert isinstance(rel, port_aggregate.AggregateRelation)

@@ -80,7 +80,7 @@ def ctx_of(m, tmp_path):
     if m is JAX:
         c = jdf.ExecutionContext(device="cpu", result_cache=False)
     else:
-        c = tdf.ExecutionContext(device="cpu")
+        c = tdf.ExecutionContext(device="cpu", result_cache=False)
     c.register_csv("t", str(p), schema(m))
     return c
 
