@@ -145,6 +145,16 @@ which raises on failure:
    and group ids, and a pin manifest re-pinning the table at a second
    server's `start()`.  `ingest_*` lines.  The grouped reduce is also
    timed at the delta's shape (N = 2,048, G = 8) in phase 2.
+15. Tenancy and cost (after phase 14, `phase_tenancy`): two tenants
+   with shares 3:1 over the pinned SF-1 lineitem (A's 4 closed-loop
+   clients alone, then against B's open-loop burst of 4x A's queries:
+   quota sheds for B only, per-tenant and metering conservation, the
+   query axis), FIFO without shares, a `device.call` fault plan replayed
+   and a tiny retry budget denying B, the cost store across a restart
+   (config 2 at 100,000 groups presized onto sort-merge, Q12 with
+   lineitem written on the build side swapped to build over orders, a
+   poisoned store's replan, `DATAFUSION_TPU_COST=0`), and the learned
+   grouped-reduce window routing 12,000 groups.  `tenancy*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -169,7 +179,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 14) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 15) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -3121,6 +3131,489 @@ def phase_ingest(tdf, cuda_mod, torch, src, cols, dates, smi):
     return reports
 
 
+TENANT_SHARES = {"A": 3, "B": 1}
+TENANT_A_CLIENTS = 4
+TENANT_A_QUERIES = 8  # per A client, closed loop
+TENANT_B_BURST = 4 * TENANT_A_CLIENTS * TENANT_A_QUERIES  # 4x A's count, open loop
+# under megabatch_max: an open window cannot flush by size, so B's waves
+# overfill the queue
+TENANT_QUEUE = 12
+TENANT_CUTOFFS = 16  # distinct Q1 l_shipdate cutoffs the tenants share
+COST_Q12 = ("SELECT l_shipmode, COUNT(1) FROM orders "
+            "JOIN lineitem ON orders.o_orderkey = lineitem.l_orderkey "
+            "WHERE l_quantity > 25 GROUP BY l_shipmode")
+WINDOW_GROUPS = 12_000
+
+
+def _tenant_round(srv, a_sqls, b_sqls, wave=16, timeout=600.0):
+    """Tenant B's open-loop burst against tenant A's closed-loop clients
+    (one thread per list of `a_sqls`).  B never waits for an answer of
+    its own: its thread submits `b_sqls` in waves of `wave` back to back,
+    the first before A starts (A's clients start once B's first query
+    has answered, so B has service on the meter before A can meet a
+    full queue), each later one as A's clients have had another answer
+    each, so the burst arrives with A's queries for all of A's run.
+    Returns {"A"|"B": {"ok": [(sql, table)], "shed": {reason: n},
+    "submitted": n, "errors": [...], "lat_ms": [...]}} (latencies: A's,
+    submit to answer) and the round's wall seconds."""
+    import threading
+
+    from datafusion_tpu_torch.errors import QueryShedError
+
+    out = {c: {"ok": [], "shed": {}, "submitted": 0, "errors": [], "lat_ms": []}
+           for c in ("A", "B")}
+    lock = threading.Condition()
+    first_b = threading.Event()
+    b_tickets: list = []
+    a_answered = [0]
+    a_total = sum(len(sqls) for sqls in a_sqls)
+
+    def submit(client, sql):
+        with lock:
+            out[client]["submitted"] += 1
+        try:
+            return srv.submit(sql, client_id=client)
+        except QueryShedError as e:
+            with lock:
+                out[client]["shed"][e.reason] = out[client]["shed"].get(e.reason, 0) + 1
+            return None
+
+    def tenant_b():
+        try:
+            for i, sql in enumerate(b_sqls):
+                if i and i % wave == 0:
+                    need = min(len(a_sqls) * (i // wave), a_total)
+                    with lock:
+                        lock.wait_for(lambda: a_answered[0] >= need, timeout)
+                t = submit("B", sql)
+                if t is not None:
+                    b_tickets.append((sql, t))
+                if i == 0:
+                    first_b.set()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["B"]["errors"].append(e)
+            first_b.set()
+
+    def tenant_a(sqls):
+        try:
+            for sql in sqls:
+                t0 = time.perf_counter()
+                t = submit("A", sql)
+                table = None if t is None else t.result(timeout=timeout)
+                with lock:
+                    if table is not None:
+                        out["A"]["lat_ms"].append((time.perf_counter() - t0) * 1e3)
+                        out["A"]["ok"].append((sql, table))
+                    a_answered[0] += 1
+                    lock.notify_all()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["A"]["errors"].append(e)
+            with lock:
+                a_answered[0] = a_total
+                lock.notify_all()
+
+    t0 = time.perf_counter()
+    b = threading.Thread(target=tenant_b)
+    b.start()
+    if b_sqls:
+        first_b.wait(timeout)
+        if b_tickets:
+            b_tickets[0][1].result(timeout=timeout)
+    threads = [threading.Thread(target=tenant_a, args=(sqls,)) for sqls in a_sqls]
+    for th in threads:
+        th.start()
+    b.join(timeout)
+    for sql, t in b_tickets:
+        try:
+            out["B"]["ok"].append((sql, t.result(timeout=timeout)))
+        except QueryShedError as e:  # shed after queueing: a queued victim
+            out["B"]["shed"][e.reason] = out["B"]["shed"].get(e.reason, 0) + 1
+    for th in threads:
+        th.join(timeout)
+    wall = time.perf_counter() - t0
+    for c in ("A", "B"):
+        if out[c]["errors"]:
+            raise out[c]["errors"][0]
+    if b.is_alive() or any(th.is_alive() for th in threads):
+        raise AssertionError("tenancy: a tenant thread did not finish")
+    return out, wall
+
+
+def phase_tenancy(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi):
+    """Tenancy and cost (serve.py's client ids and shares, qos.py,
+    obs/attribution.py, utils/retry.py, cost/) over the pinned SF-1
+    lineitem of phase 3 and the SF-1 star schema of phase 5:
+
+    1. tenants: a Server(shares={"A": 3, "B": 1}, workers=2,
+       window_s=0.01, megabatch_max=16, queue_depth=12).  Tenant A (4
+       closed-loop clients x 8 Q1-shaped queries over 16 l_shipdate
+       cutoffs) runs alone first, the baseline; the meter starts the
+       contended round empty (a new billing period); then tenant B's
+       open-loop burst of 128 queries (4x A's: 8 waves of 16, one as A
+       starts and one each time every A client has had another answer)
+       overfills the queue while A runs again.  Gates: every answer equals the numpy oracle (rtol
+       1e-9) and its solo answer bit for bit; every shed names B, at
+       least one is `quota`; `admitted + shed == submitted` on the
+       server and per tenant (answered + shed == submitted), and the
+       meter's `shed` and `shed_quota` equal each tenant's client-side
+       sheds; the tenants' metered device seconds (each served pass's
+       device time, a CUDA event pair) sum to the round's
+       `device.dispatch` timer; the query axis
+       launched, with fewer grouped-reduce launches than queries.
+       Printed: A's p50 and p99 with and without B, sheds by reason,
+       megabatches.  Then the same two tenants with no shares, 12
+       queries alternating A and B in one window: they execute in
+       submission order (FIFO).
+    2. faults: a seeded plan raises DeviceTransientError at `device.call`
+       on 4 launches of a served Q1 round (replayed: every answer the
+       oracle's, `device.transient_retries` > 0); then with
+       DATAFUSION_TPU_QOS=1, a retry budget of ratio 0 (the tenant's
+       child bucket holds one token) and every launch failing, B's
+       queries fail with DeviceTransientError within seconds, and B's
+       `retry_denied` meter counts the denials.
+    3. cost across a restart, in a temporary DATAFUSION_TPU_COST_DIR:
+       config 2 at 100,000 groups and `COST_Q12` (Q12 with the
+       6,000,000-row lineitem on the build side) cold, then
+       `cost.flush(force=True)`, `cost.reset_store()` and the trained
+       leg: the `agg.capacity` (sort-merge route, presized) and
+       `join.build_side` decisions recorded, the join built densely over
+       orders through the build kernel, the rows equal to the cold
+       leg's and the oracle's; then the 100,000-group table's learned
+       groups poisoned to 16: a replan and the exact answer; then
+       DATAFUSION_TPU_COST=0: no decision and the same rows.
+    4. window: config 2 three times each at 8,192 and at 100,000 groups
+       train the route history; the advisor's window and its decision
+       are printed, and a 12,000-group config 2 takes the route the
+       window names (grouped-reduce launches and no sort launch when
+       its capacity of 16,384 is within the window, else sort
+       launches), its rows equal to the oracle.
+    Launch counters are reset just before each step's main-path work and
+    read just after.  Returns the reports whose launches the `kernels`
+    line counts."""
+    import shutil
+    import tempfile
+
+    from datafusion_tpu_torch import cost
+    from datafusion_tpu_torch.cost import advisor
+    from datafusion_tpu_torch.errors import DeviceTransientError
+    from datafusion_tpu_torch.exec.cuda import agg_max_groups
+    from datafusion_tpu_torch.join.relation import HashJoinRelation
+    from datafusion_tpu_torch.obs import attribution
+    from datafusion_tpu_torch.obs.attribution import METER
+    from datafusion_tpu_torch.testing import faults
+    from datafusion_tpu_torch.utils import retry
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    def snap():
+        s = METRICS.snapshot()
+        return s["counts"], s["timings_s"]
+
+    def meter(client, key):
+        return METER.snapshot().get(client, {}).get(key, 0.0)
+
+    reports = []
+    ctx = tdf.ExecutionContext(result_cache=False)
+    ctx.register_datasource("lineitem", src)
+    cutoffs = [dates[dates.index("1998-09-02") - 7 * i] for i in range(TENANT_CUTOFFS)]
+    sql_of = {c: Q1.replace("1998-09-02", c) for c in cutoffs}
+    cutoff_of = {sql: c for c, sql in sql_of.items()}
+    a_sqls = [[sql_of[cutoffs[(TENANT_A_QUERIES * i + j) % TENANT_CUTOFFS]]
+               for j in range(TENANT_A_QUERIES)] for i in range(TENANT_A_CLIENTS)]
+    b_sqls = [sql_of[cutoffs[i % TENANT_CUTOFFS]] for i in range(TENANT_B_BURST)]
+
+    # -- 1. tenants
+    srv = ctx.serve(shares=TENANT_SHARES, workers=2, window_s=0.01, megabatch_max=16,
+                    queue_depth=TENANT_QUEUE)
+    try:
+        base, base_wall = _tenant_round(srv, a_sqls, [])
+        if any(base["A"]["shed"].values()):
+            raise AssertionError(f"tenancy baseline: A shed {base['A']['shed']}")
+        METER.clear()  # the contended round's billing period
+        submitted0, admitted0, shed0 = srv.submitted, srv.admitted, srv.shed
+        c0, t0_ = snap()
+        cuda_mod.reset_launch_counts()
+        got, wall = _tenant_round(srv, a_sqls, b_sqls)
+        launches = cuda_mod.launch_counts()
+        multi = hash_agg.MULTI_LAUNCHES
+        c1, t1_ = snap()
+        meter_after = METER.snapshot()
+    finally:
+        srv.stop()
+    if srv.admitted + srv.shed != srv.submitted:
+        raise AssertionError(f"tenancy: admitted {srv.admitted} + shed {srv.shed} != "
+                             f"submitted {srv.submitted}")
+    round_sub = srv.submitted - submitted0
+    round_shed = srv.shed - shed0
+    answered = 0
+    for c in ("A", "B"):
+        g = got[c]
+        n_shed = sum(g["shed"].values())
+        if len(g["ok"]) + n_shed != g["submitted"]:
+            raise AssertionError(f"tenancy {c}: {len(g['ok'])} answered + {n_shed} shed != "
+                                 f"{g['submitted']} submitted")
+        m = meter_after.get(c, {})
+        if m.get("shed", 0.0) != n_shed:
+            raise AssertionError(f"tenancy {c}: meter shed {m.get('shed')} != {n_shed}")
+        if m.get("queries", 0.0) != len(g["ok"]):
+            raise AssertionError(f"tenancy {c}: meter queries {m.get('queries')} != "
+                                 f"{len(g['ok'])}")
+        answered += len(g["ok"])
+    if got["A"]["shed"]:
+        raise AssertionError(f"tenancy: A was shed {got['A']['shed']}; every shed must name B")
+    if got["B"]["shed"].get("quota", 0) < 1:
+        raise AssertionError(f"tenancy: B's burst was never shed for quota {got['B']['shed']}")
+    if meter_after["B"].get("shed_quota", 0.0) != got["B"]["shed"]["quota"]:
+        raise AssertionError("tenancy: tenant.B.shed_quota != B's client-side quota sheds")
+    if round_sub != got["A"]["submitted"] + got["B"]["submitted"] or \
+            round_shed != sum(got["B"]["shed"].values()):
+        raise AssertionError("tenancy: the server's counts disagree with the tenants'")
+    dev_s = sum(m.get("device_seconds", 0.0) for m in meter_after.values())
+    dispatch_s = t1_.get("device.dispatch", 0.0) - t0_.get("device.dispatch", 0.0)
+    if not dispatch_s > 0 or abs(dev_s - dispatch_s) > 1e-6 * dispatch_s:
+        raise AssertionError(f"tenancy: metered device seconds {dev_s} != the round's "
+                             f"device.dispatch {dispatch_s}")
+    if multi <= 0 or not 0 < launches["hash_agg"] < answered:
+        raise AssertionError(f"tenancy: {launches['hash_agg']} grouped-reduce launches "
+                             f"({multi} query-axis) for {answered} queries")
+    solo = {sql: tdf.collect(ctx.sql(sql)) for sql in sql_of.values()}
+    for cutoff, sql in sql_of.items():
+        assert_rows(solo[sql], q1_oracle(cols, dates, cutoff), f"tenancy solo Q1 <= {cutoff}")
+    for c in ("A", "B"):
+        for sql, table in base["A"]["ok"] + got[c]["ok"]:
+            assert_same_bits(table, solo[sql], f"tenancy {c} Q1 <= {cutoff_of[sql]}",
+                             key_cols=2)
+    mega = c1.get("serve.megabatches", 0) - c0.get("serve.megabatches", 0)
+    rep = {
+        "query": "tenancy_round", "rows": SF1_ROWS, "shares": TENANT_SHARES,
+        "queue_depth": TENANT_QUEUE, "a_queries": got["A"]["submitted"],
+        "b_queries": got["B"]["submitted"], "answered": answered,
+        "a_p50_ms_alone": float(np.percentile(base["A"]["lat_ms"], 50)),
+        "a_p99_ms_alone": float(np.percentile(base["A"]["lat_ms"], 99)),
+        "a_p50_ms_with_b": float(np.percentile(got["A"]["lat_ms"], 50)),
+        "a_p99_ms_with_b": float(np.percentile(got["A"]["lat_ms"], 99)),
+        "sheds": {c: got[c]["shed"] for c in ("A", "B")},
+        "megabatches": mega, "launches": launches, "query_axis_launches": multi,
+        "device_seconds": {c: meter_after.get(c, {}).get("device_seconds", 0.0)
+                           for c in ("A", "B")},
+        "dispatch_s": dispatch_s, "round_wall_s": wall, "baseline_wall_s": base_wall,
+        "card": card(),
+    }
+    log("tenancy: " + json.dumps(rep))
+    reports.append(rep)
+    log(attribution.tenants_text())
+
+    # FIFO without shares: 12 queries, alternating tenants, one window
+    order: list = []
+    orig_execute = ctx.execute
+
+    def recording(plan, *a, **k):
+        order.append(attribution.current_client())
+        return orig_execute(plan, *a, **k)
+
+    ctx.execute = recording
+    fifo_clients = ["A", "B"] * 6
+    try:
+        with ctx.serve(workers=1, window_s=0.25, megabatch_max=32) as srv:
+            if srv._qos is not None:
+                raise AssertionError("tenancy FIFO: a policy armed without shares")
+            tickets = [srv.submit(sql_of[cutoffs[i]], client_id=c)
+                       for i, c in enumerate(fifo_clients)]
+            for i, t in enumerate(tickets):
+                assert_same_bits(t.result(timeout=600), solo[sql_of[cutoffs[i]]],
+                                 "tenancy FIFO", key_cols=2)
+    finally:
+        del ctx.execute
+    if order != fifo_clients:
+        raise AssertionError(f"tenancy FIFO: executed {order}, submitted {fifo_clients}")
+    log(f"tenancy FIFO without shares: {len(order)} queries in submission order ({smi})")
+
+    # -- 2. faults
+    with ctx.serve(shares=TENANT_SHARES, workers=2, window_s=0.01, megabatch_max=16) as srv:
+        retries0 = METRICS.snapshot()["counts"].get("device.transient_retries", 0)
+        cuda_mod.reset_launch_counts()
+        with faults.scoped({"seed": 17, "rules": [
+                {"site": "device.call", "op": "raise", "exc": "DeviceTransientError",
+                 "p": 0.5, "count": 4}]}):
+            fault_got, fault_wall = _tenant_round(srv, a_sqls[:2], [])
+        fault_launches = cuda_mod.launch_counts()
+        retried = METRICS.snapshot()["counts"].get("device.transient_retries", 0) - retries0
+        for sql, table in fault_got["A"]["ok"]:
+            assert_same_bits(table, solo[sql], f"fault round Q1 <= {cutoff_of[sql]}",
+                             key_cols=2)
+        if retried <= 0 or len(fault_got["A"]["ok"]) != 2 * TENANT_A_QUERIES:
+            raise AssertionError(f"faults: {retried} replays, "
+                                 f"{len(fault_got['A']['ok'])} answers")
+        os.environ["DATAFUSION_TPU_QOS"] = "1"
+        try:
+            retry.set_retry_budget(retry.RetryBudget(0.0, burst=8.0))
+            denied0 = meter("B", "retry_denied")
+            exhausted0 = METRICS.snapshot()["counts"].get("device.retry_budget_exhausted", 0)
+            failed, fail_s = 0, []
+            with faults.scoped({"rules": [{"site": "device.call", "op": "raise",
+                                           "exc": "DeviceTransientError", "count": 0}]}):
+                for sql in b_sqls[:8]:
+                    t0 = time.perf_counter()
+                    try:
+                        srv.submit(sql, client_id="B").result(timeout=600)
+                    except DeviceTransientError:
+                        failed += 1
+                    fail_s.append(time.perf_counter() - t0)
+        finally:
+            retry.set_retry_budget(None)
+            del os.environ["DATAFUSION_TPU_QOS"]
+        denied = meter("B", "retry_denied") - denied0
+        exhausted = (METRICS.snapshot()["counts"].get("device.retry_budget_exhausted", 0)
+                     - exhausted0)
+        if failed != 8 or denied < 1 or exhausted < 1 or max(fail_s) > 10.0:
+            raise AssertionError(f"faults: {failed} of 8 failed, {denied} tenant denials, "
+                                 f"{exhausted} exhausted, slowest {max(fail_s):.3f} s")
+    rep = {"query": "tenancy_faults", "rows": SF1_ROWS, "replays": retried,
+           "answers": len(fault_got["A"]["ok"]), "fault_round_s": fault_wall,
+           "denied_b": denied, "budget_exhausted": exhausted,
+           "slowest_denied_s": max(fail_s), "launches": fault_launches, "card": card()}
+    log("tenancy_faults: " + json.dumps(rep))
+    reports.append(rep)
+
+    # -- 3. cost across a restart
+    cost_dir = tempfile.mkdtemp(prefix="df_cost_")
+    os.environ["DATAFUSION_TPU_COST_DIR"] = cost_dir
+    cost.reset_store()
+    try:
+        star, star_cols = star_sf1(tdf, ctx.batch_size)
+        gsrc, gcols = groupby_table(tdf, 100_000)
+        cctx = tdf.ExecutionContext(result_cache=False)
+        for name in ("orders", "lineitem"):
+            cctx.register_datasource(name, star[name])
+        cctx.register_datasource("t", gsrc)
+        g_oracle = config2_columns(gcols, 100_000)
+        q_oracle = q12_oracle(star_cols)
+
+        def leg(label):
+            out = {}
+            for key, sql in (("config2", CONFIG2), ("q12", COST_Q12)):
+                cuda_mod.reset_launch_counts()
+                t0 = time.perf_counter()
+                rel = cctx.sql(sql)
+                table = tdf.collect(rel)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                out[key] = (table, ms, cuda_mod.launch_counts(), rel)
+            assert_grouped(out["config2"][0], g_oracle, f"{label} config 2 (100,000 groups)")
+            assert_rows(out["q12"][0], q_oracle, f"{label} Q12, lineitem built")
+            return out
+
+        mark = cost.store().decision_serial
+        cold = leg("cost cold")
+        cold_decisions = [d for d in cost.store().decisions if d["seq"] > mark]
+        cost.flush(force=True)
+        cost.reset_store()  # the restart: the next store loads the file
+        if not len(cost.store()):
+            raise AssertionError("cost: the restarted store loaded nothing")
+        mark = cost.store().decision_serial
+        trained = leg("cost trained")
+        made = {d["decision"]: d for d in cost.store().decisions if d["seq"] > mark}
+        for name in ("agg.capacity", "join.build_side"):
+            if name not in made:
+                raise AssertionError(f"cost trained: no {name} decision ({list(made)})")
+        join = trained["q12"][3]
+        while join is not None and not isinstance(join, HashJoinRelation):
+            join = getattr(join, "child", None)
+        art = None if join is None else join._artifact
+        if art is None or not art.dense or art.n_rows != len(star_cols["o_custkey"]) \
+                or trained["q12"][2]["hash_build"] != 1:
+            raise AssertionError("cost trained: the join did not build densely over orders")
+        if trained["config2"][2]["sort_kernel"] < 1 or trained["config2"][2]["hash_agg"]:
+            raise AssertionError("cost trained: config 2 left the sort-merge route")
+        assert_same_tables(trained["config2"][0], cold["config2"][0], "cost legs config 2")
+        assert_same_tables(trained["q12"][0], cold["q12"][0], "cost legs Q12")
+        # a poisoned store: the 100,000-group table's learned groups set to
+        # 16 in the persisted file, which a restart loads
+        cost.flush(force=True)
+        path = cost.store_path()
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+        rec = doc["entries"][f"{cctx.cost_table_key('t')}\t{advisor.agg_shape(['k'])}"]
+        rec.update(groups=16.0, groups_last=16.0, groups_max=16.0)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        cost.reset_store()
+        replans0 = METRICS.snapshot()["counts"].get("plan.replans", 0)
+        cuda_mod.reset_launch_counts()
+        poisoned = tdf.collect(cctx.sql(CONFIG2))
+        poison_launches = cuda_mod.launch_counts()
+        replans = METRICS.snapshot()["counts"].get("plan.replans", 0) - replans0
+        if replans < 1:
+            raise AssertionError("cost: the poisoned store caused no replan")
+        assert_grouped(poisoned, g_oracle, "cost poisoned config 2")
+        os.environ["DATAFUSION_TPU_COST"] = "0"
+        try:
+            mark = cost.store().decision_serial
+            static = leg("cost off")
+            if cost.store().decision_serial != mark:
+                raise AssertionError("cost off: a decision was made")
+        finally:
+            del os.environ["DATAFUSION_TPU_COST"]
+        assert_same_tables(static["q12"][0], trained["q12"][0], "cost off Q12")
+        rep = {"query": "tenancy_cost", "rows": SF1_ROWS,
+               "cold_ms": {k: v[1] for k, v in cold.items()},
+               "trained_ms": {k: v[1] for k, v in trained.items()},
+               "static_ms": {k: v[1] for k, v in static.items()},
+               "cold_decisions": [d["decision"] for d in cold_decisions],
+               "trained_decisions": {k: [d["chosen"], d["default"], d["reason"]]
+                                     for k, d in made.items()},
+               "replans": replans, "launches": {
+                   k: sum(leg_[q][2][k] for leg_ in (cold, trained, static)
+                          for q in ("config2", "q12")) + poison_launches[k]
+                   for k in poison_launches},
+               "card": card()}
+        log("tenancy_cost: " + json.dumps(rep))
+        reports.append(rep)
+        del star, cctx, cold, trained, static
+
+        # -- 4. the grouped-reduce window
+        wctx = tdf.ExecutionContext(result_cache=False)
+        train_launches = None
+        for groups in (8192, 100_000):
+            wsrc, _ = groupby_table(tdf, groups)
+            wctx.register_datasource("t", wsrc)
+            for _ in range(3):
+                cuda_mod.reset_launch_counts()
+                tdf.collect(wctx.sql(CONFIG2))
+                got_l = cuda_mod.launch_counts()
+                train_launches = got_l if train_launches is None else {
+                    k: train_launches[k] + got_l[k] for k in got_l}
+        window = advisor.agg_window()
+        noted = [d for d in cost.store().decisions if d["decision"] == "agg.window"]
+        wsrc, wcols = groupby_table(tdf, WINDOW_GROUPS)
+        wctx.register_datasource("t", wsrc)
+        cuda_mod.reset_launch_counts()
+        wtable = tdf.collect(wctx.sql(CONFIG2))
+        wl = cuda_mod.launch_counts()
+        assert_grouped(wtable, config2_columns(wcols, WINDOW_GROUPS), "window config 2")
+        cap = 16384  # the capacity of 12,000 groups
+        route = "grouped_reduce" if cap <= window else "sortmerge"
+        if route == "grouped_reduce" and (wl["hash_agg"] < 1 or wl["sort_kernel"]):
+            raise AssertionError(f"window {window}: 12,000 groups launched {wl}")
+        if route == "sortmerge" and (wl["sort_kernel"] < 1 or wl["hash_agg"]):
+            raise AssertionError(f"window {window}: 12,000 groups launched {wl}")
+        hist = {r: cost.store().lookup(cost.CUDA_KEY, f"agg:{r}")
+                for r in ("grouped_reduce", "sortmerge")}
+        rep = {"query": "tenancy_window", "window": window, "static": agg_max_groups(),
+               "decision": noted[-1] if noted else None, "route_12000": route,
+               "history": {r: None if h is None else
+                           {"n": h["n"], "s_per_row": h["s_per_row"], "cap_max": h["cap_max"]}
+                           for r, h in hist.items()},
+               "launches": {k: train_launches[k] + wl[k] for k in wl}, "card": card()}
+        log("tenancy_window: " + json.dumps(rep, default=str))
+        reports.append(rep)
+    finally:
+        os.environ.pop("DATAFUSION_TPU_COST_DIR", None)
+        cost.reset_store()
+        shutil.rmtree(cost_dir, ignore_errors=True)
+    log(f"tenancy: tenants, faults, cost and window gates hold ({smi})")
+    return reports
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3221,6 +3714,9 @@ def main() -> int:
     reports += phase_explain(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,
                              cities, smi)
     reports += phase_ingest(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
+    tenancy_reports = phase_tenancy(tdf, cuda_mod, torch, hash_agg, li_src, li_cols, dates,
+                                    smi)
+    reports += tenancy_reports
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)
@@ -3234,7 +3730,8 @@ def main() -> int:
                      agg_err, next(e for e in shapes if "Q1 batch group" in e["shape"])),
         _kernel_line("hash_agg.grouped_reduce_multi", "datafusion_tpu_torch/csrc/hash_agg.cu",
                      "datafusion_tpu/exec/pallas/hash_agg.py:95",
-                     sum(r.get("query_axis_launches", 0) for r in serve_reports), axis_err,
+                     sum(r.get("query_axis_launches", 0)
+                         for r in serve_reports + tenancy_reports), axis_err,
                      next(e for e in axis_shapes if "Q=8" in e["shape"])),
         _kernel_line("hash_build.build_slot_table",
                      "datafusion_tpu_torch/csrc/hash_build.cu",

@@ -5,7 +5,8 @@ until `;`), an interactive REPL with `datafusion>` / `>` continuation
 prompts and `quit`/`exit`, per-query wall-clock timing, DDL, result
 rows, EXPLAIN / EXPLAIN VERIFY plans, EXPLAIN ANALYZE reports (also as
 `\\explain <sql>`), the device ledger's report (`\\hbm`), the result
-cache's counters and per-query history (`\\cache`), the ingest plane's
+cache's counters and per-query history (`\\cache`), the cost store's
+observations, decisions and replans (`\\cost`), the ingest plane's
 tables, views and log (`\\ingest`), one logged append
 (`\\append <table> {"col": [values], ...}`), and the
 `ST_Point`/`ST_AsText` geo UDFs the reference's golden smoketest expects
@@ -15,9 +16,8 @@ Run: ``python -m datafusion_tpu_torch.cli [--script FILE] [--device cpu]``
 
 The console runs on `cuda:0` unless `--device` names another device
 (`cpu` only when asked).  The `top` and `debug-bundle` modes and the
-commands `\\cluster \\top \\cost` need planes that are not ported
-yet: each prints an error naming its ROADMAP item, and the console
-carries on.
+commands `\\cluster \\top` need planes that are not ported yet: each
+prints an error naming its ROADMAP item, and the console carries on.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from datafusion_tpu_torch.sql.parser import split_statements, split_statements_p
 _UNPORTED = {
     "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2",
     "\\top": "fleet telemetry, ROADMAP queue 1 item 13.2",
-    "\\cost": "the cost store, ROADMAP queue 1 item 11.4",
     "top": "fleet telemetry, ROADMAP queue 1 item 13.2",
     "debug-bundle": "debug bundles, ROADMAP queue 1 item 13.2",
 }
@@ -131,6 +130,11 @@ class Console:
             # their freshness, the log
             self._ingest_status()
             return True
+        if cmd == "\\cost":
+            # the cost store (cost/): its observations per table, the
+            # recent planner decisions and replans
+            self._cost_status()
+            return True
         if cmd.startswith("\\append"):
             # \append <table> {"col": [v, ...], ...}: one logged delta
             self._append(stripped[len("\\append"):].strip())
@@ -140,6 +144,32 @@ class Console:
             self._print(_not_ported(name))
             return True
         return False
+
+    def _cost_status(self) -> None:
+        from datafusion_tpu_torch import cost as _cost
+
+        snap = _cost.store().snapshot()
+        state = "on" if _cost.enabled() else "off (DATAFUSION_TPU_COST=0)"
+        where = snap["path"] or "in-memory"
+        self._print(f"Cost store: {snap['entries']} entr(ies), "
+                    f"adaptive planning {state}, persisted to {where}")
+        for tkey, shapes in sorted(snap["tables"].items()):
+            self._print(f"  {tkey}:")
+            for shape, rec in sorted(shapes.items()):
+                facts = ", ".join(
+                    f"{k}={rec[k]:.4g}" for k in sorted(rec)
+                    if k not in ("n", "ts") and not k.endswith("_last")
+                    and not k.endswith("_max"))
+                self._print(f"    {shape}: n={rec.get('n', 0)} ({facts})")
+        for d in snap["decisions"][-8:]:
+            where = f" [{d['table']}]" if d.get("table") else ""
+            self._print(f"  decision {d['decision']}{where}: chose {d['chosen']} "
+                        f"(default {d['default']}) — {d['reason']}")
+        for r in snap["replans"][-4:]:
+            self._print(f"  replan {r['what']}: estimated {r['estimate']}, "
+                        f"observed {r['actual']} — {r['action']}")
+        if not snap["tables"]:
+            self._print("  (no observations yet)")
 
     def _cache_status(self) -> None:
         store = getattr(self.ctx, "result_cache", None)

@@ -22,7 +22,8 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   ops (`fused_group`).  The slots then take one of two routes by group
   capacity G (the JAX core's `_kernel`, less its dense one-hot route
   for G <= 64, which the grouped-reduce kernel serves on Hopper):
-  - G <= `agg_max_groups()` (8192): each slot is one launch of the
+  - G <= `agg_max_groups()` (8192; the cost store's window below,
+    when it has learned one): each slot is one launch of the
     hand-written grouped-reduce kernel (`exec/cuda/hash_agg.py`) over
     the group's rows;
   - above it, sort-merge (`_sortmerge_update`): the dense state
@@ -55,8 +56,18 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   `fused_group` (one pass), growing it with `_grow_state` past its
   capacity; its reads inject the state (`_injected_state`).
 
-Not ported yet (ROADMAP queue 1): host-split placement and cost
-presizing.
+- **Cost planning** (cost/, on unless `DATAFUSION_TPU_COST=0`): the
+  route switch reads `_agg_window()`, the cost store's learned
+  grouped-reduce window (at most 2 x `agg_max_groups()`, 0 sends every
+  capacity to sort-merge), and the first chunk presizes its capacity
+  to the group count the store learned for this (table, GROUP BY)
+  (`_cost_presize`), unless the chunk's encoded groups miss it by
+  `cost.replan_ratio()` (a replan, ``plan.replans``).  Finalize records
+  the group count and, on a CUDA device, the route's device time per
+  row (a CUDA event pair around each pass of 2^17 rows or more).
+
+Not ported yet: the host-split placement (it reads a measured link
+rate, ROADMAP item 6).
 
 Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
 internally, UInt64 in the output (planner contract); MIN/MAX keep the
@@ -66,6 +77,7 @@ argument dtype.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -108,6 +120,25 @@ def group_capacity(n: int) -> int:
     while cap < n:
         cap <<= 1
     return cap
+
+
+def _cost_enabled() -> bool:
+    from datafusion_tpu_torch import cost as _cost
+
+    return _cost.enabled()
+
+
+def _agg_window() -> int:
+    """The largest capacity routed to the grouped-reduce kernel: the
+    cost store's learned window (cost/advisor.agg_window) while cost
+    planning is on, else `agg_max_groups()`; above it, sort-merge."""
+    from datafusion_tpu_torch import cost as _cost
+
+    if _cost.enabled():
+        from datafusion_tpu_torch.cost import advisor
+
+        return advisor.agg_window()
+    return agg_max_groups()
 
 
 def _row_bytes_view(a: np.ndarray) -> np.ndarray:
@@ -696,7 +727,7 @@ class _AggregateCore:
         envs = [Env(cols, valids, aux, device, self.col_map, params)
                 for _, aux, params, _ in members]
         masks = [self._masked(m[0], env, live) for m, env in zip(members, envs)]
-        if counts0.shape[0] <= agg_max_groups():
+        if counts0.shape[0] <= _agg_window():
             return self._kernel_update(envs, capacity, masks, ids, states, str_aux,
                                        [m[3] for m in members])
         return [self._sortmerge_update(env, capacity, mask, ids, st[0], st[1], str_aux)
@@ -1071,6 +1102,21 @@ class AggregateRelation(Relation):
         # over a served table, every relation sharing its encoder
         # (`adopt_shared`) encode through it
         self._ids_lock = threading.Lock()
+        # feedback-driven planning (cost/): the lowering fills `_cost_obs`
+        # ((table key, shape): where finalize records the group count)
+        # and, when the store knows the shape, `_cost_hint` (the group
+        # estimate the first chunk presizes to)
+        self._cost_hint: Optional[int] = None
+        self._cost_obs: Optional[tuple] = None
+        self._cost_planned_cap = 0
+        self._cost_replans = 0
+        # CUDA event pairs around this relation's passes of
+        # `MIN_ROUTE_ROWS` rows or more, and those passes' rows: the
+        # route's device time per row, read at finalize
+        # (`_cost_observe_done`)
+        self._cost_events: list = []
+        self._cost_rows = 0
+        self._cost_route: Optional[tuple] = None
 
     def adopt_shared(self, entry: dict) -> None:
         """Take a served table's cross-query state (serve.py,
@@ -1157,11 +1203,25 @@ class AggregateRelation(Relation):
         if pipeline_enabled(device, self.child):
             batches = staged_pipeline(batches, self._stage, pull=pin_dict_versions)
         state = None
+        # the route's evidence for the learned window (cost/advisor) is
+        # the card's time for the passes, not the host's: a grouped
+        # reduce only queues its work, a sort-merge pass reads its runs
+        # back, so their host walls are not comparable.  A pass under
+        # `MIN_ROUTE_ROWS` rows is launch overhead and is not timed.
+        min_rows = None
+        if device.type == "cuda" and _cost_enabled():
+            from datafusion_tpu_torch.cost.advisor import MIN_ROUTE_ROWS as min_rows
         for capacity, entries, (aux, str_aux) in self._batch_groups(batches, self._aux):
             if state is None:
                 state = core._init_state(capacity, device)
             elif capacity > state[0].shape[0]:
                 state = core._grow_state(state, capacity)
+            rows = sum(e[2] for e in entries)
+            timed = min_rows is not None and rows >= min_rows
+            if timed:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
             with METRICS.timer("execute.aggregate"), op_timer(self):
                 if len(entries) > 1:
                     METRICS.add("fused.groups")
@@ -1169,6 +1229,12 @@ class AggregateRelation(Relation):
                 state = device_call(core.fused_group, entries, state, aux, str_aux, params,
                                     _tag="agg.group" if len(entries) > 1 else "agg",
                                     _device=device)
+            if timed:
+                events[1].record()
+                self._cost_events.append(events)
+                self._cost_rows += rows
+            self._cost_route = ("grouped_reduce" if capacity <= _agg_window()
+                                else "sortmerge", capacity)
             if self._op_stats is not None:
                 self.stats.attrs["fused_batches"] = (
                     self.stats.attrs.get("fused_batches", 0) + len(entries))
@@ -1192,7 +1258,16 @@ class AggregateRelation(Relation):
             # sized from the group count recorded when the chunk's last
             # batch was encoded: the encoder itself may already be
             # batches ahead on the prefetch thread
-            capacity = self._pick_capacity(chunk[-1][1], capacity)
+            n_groups = chunk[-1][1]
+            needed = self._pick_capacity(n_groups, capacity)
+            if capacity == 0:
+                # the first chunk: presize to the learned group count
+                # (cost/), checked against the chunk's encoded groups
+                # before any launch
+                needed = self._cost_presize(needed, n_groups)
+            elif 0 < self._cost_planned_cap < needed:
+                self._cost_misestimate(needed, n_groups)
+            capacity = needed
             entries = [e for e, _, _ in chunk]
             shareds = [sh for _, _, sh in chunk]
             out = [(capacity, [entries[i] for i in idxs], shared)
@@ -1361,8 +1436,79 @@ class AggregateRelation(Relation):
         host = _pull_parts([counts[:cut]] + [a[:cut] for a in accs])
         return host[0], host[1:]
 
+    # -- feedback-driven sizing (cost/) --------------------------------
+    def _cost_presize(self, needed: int, actual: int) -> int:
+        """The first chunk's capacity under a learned group estimate:
+        the estimate's capacity (at least `needed`), which fixes the
+        route for the whole scan, unless it misses the chunk's `actual`
+        encoded groups by more than `cost.replan_ratio()` either way;
+        then the presize is abandoned (a replan, recorded at once) and
+        the capacity comes from actuals, as on a cold store."""
+        hint = self._cost_hint
+        if not hint:
+            return needed
+        from datafusion_tpu_torch import cost as _cost
+
+        planned = group_capacity(int(hint))
+        actual = max(actual, 1)
+        ratio = _cost.replan_ratio()
+        if planned > needed * ratio or actual > int(hint) * ratio:
+            self._note_replan(int(hint), actual,
+                              f"pre-size {planned} aborted, capacity {needed} from actuals")
+            return needed
+        self._cost_planned_cap = max(planned, needed)
+        return self._cost_planned_cap
+
+    def _cost_misestimate(self, needed: int, actual: int) -> None:
+        """A later chunk outgrew the presized capacity: record the
+        replan once; the capacity grows as it would have."""
+        self._cost_planned_cap = 0
+        self._note_replan(int(self._cost_hint or 0), actual,
+                          f"pre-sized accumulator outgrown, regrow to {needed}")
+
+    def _note_replan(self, estimate: int, actual: int, action: str) -> None:
+        from datafusion_tpu_torch import cost as _cost
+        from datafusion_tpu_torch.obs import recorder
+
+        self._cost_replans += 1
+        METRICS.add("plan.replans")
+        recorder.record("query.replan", op="aggregate", estimate=estimate,
+                        actual=actual, action=action)
+        store = _cost.store()
+        if self._cost_obs is not None:
+            # the corrected count lands now: a query that fails after the
+            # replan still teaches the next one
+            store.observe(self._cost_obs[0], self._cost_obs[1], groups=actual)
+        store.note_replan("aggregate.capacity", estimate, actual, action)
+
+    def _cost_observe_done(self) -> None:
+        """Finalize-time observations: the group count of the (table,
+        GROUP BY) this relation was annotated with, and its route's
+        evidence for the learned window.  No lock."""
+        obs, route = self._cost_obs, self._cost_route
+        if obs is None and route is None:
+            return
+        from datafusion_tpu_torch import cost as _cost
+
+        store = _cost.store()
+        if obs is not None and self.key_cols and self.encoder.num_groups:
+            store.observe(obs[0], obs[1], groups=self.encoder.num_groups)
+        # route evidence is the card's: the plain versions a CPU run
+        # takes say nothing about the kernels' routes
+        events, self._cost_events = self._cost_events, []
+        if route is not None and self._cost_rows and events:
+            from datafusion_tpu_torch.cost import advisor
+
+            events[-1][1].synchronize()
+            exec_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+            advisor.observe_agg_route(store, route[0], route[1], exec_s,
+                                      self._cost_rows)
+
     def finalize(self, state) -> RecordBatch:
         counts, accs = self._pull_state(state)
+        # after the pull, which waited for the passes: reading their
+        # events waits for nothing more
+        self._cost_observe_done()
         accs = [_host_acc(sl, a) for sl, a in zip(self.slots, accs)]
         n_groups = self.encoder.num_groups if self.key_cols else 1
         if self.key_cols:
@@ -1388,7 +1534,7 @@ class AggregateRelation(Relation):
         yield self.finalize(self.accumulate())
 
 
-def run_aggregate_megabatch(rels: list) -> None:
+def run_aggregate_megabatch(rels: list) -> float:
     """ONE scan, N aggregate queries: the serving megabatch's aggregate
     lane (the loop of the JAX package's `Server._run_megabatch`).
 
@@ -1403,7 +1549,8 @@ def run_aggregate_megabatch(rels: list) -> None:
     are each query's own.  Each relation gets its state as
     `_injected_state`, which its `accumulate` returns, and the leader's
     key dictionaries.  Every query's state is pulled to the host in one
-    copy, so its finalize is host work only."""
+    copy, so its finalize is host work only; returns that pull's
+    seconds (the members' demux share, serve.py)."""
     leader = rels[0]
     core = leader.core
     device = leader.device
@@ -1441,8 +1588,10 @@ def run_aggregate_megabatch(rels: list) -> None:
     # every query's live prefix crosses to the host in ONE copy, so each
     # query's finalize is host work only
     cuts = [r._state_cut(st) for r, st in zip(rels, states)]
+    t0 = time.perf_counter()
     pulled = _pull_parts([p for (counts, accs), cut in zip(states, cuts)
                           for p in [counts[:cut], *(a[:cut] for a in accs)]])
+    pull_s = time.perf_counter() - t0
     per = 1 + len(core.slots)
     for i, r in enumerate(rels):
         if r is not leader:
@@ -1450,3 +1599,4 @@ def run_aggregate_megabatch(rels: list) -> None:
             r._str_dicts.update(leader._str_dicts)
         host = pulled[i * per:(i + 1) * per]
         r._injected_state = _HostState(host[0], host[1:])
+    return pull_s

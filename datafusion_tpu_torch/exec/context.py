@@ -61,6 +61,19 @@ raises `PlanVerificationError` before any operator is built.
 What raises NotSupportedError: a `host_fn` UDF in a WHERE predicate
 and any plan node not listed above (ROADMAP queue 1).
 
+Feedback-driven planning (cost/, on unless `DATAFUSION_TPU_COST=0`):
+`_plan` runs the cost store's logical rewrites after projection
+push-down (`_cost_rewrite`: a join's build side, a star's dimension
+order; a rewrite the verifier vetoes is dropped), the lowering gives
+every scan its table's key (`cost_table_key`) so it records the rows
+it read, annotates an aggregate over one table with its (table, GROUP
+BY) shape and the learned group estimate that presizes it
+(`_cost_annotate_aggregate`, an ``agg.capacity`` decision), and marks
+a join's single-table build side for its row count.  EXPLAIN ANALYZE
+reports the decisions made from the statement's planning on, and a
+completed query's history entry flushes the store (`cost.flush`,
+throttled).
+
 Every plan `execute` lowers counts `queries_admitted`
 (utils/metrics.py).  `serve()` starts the serving front door over the
 context (serve.py); a plan it lowers with `build_pins` pins each join's
@@ -307,13 +320,18 @@ class ExecutionContext:
                 f"Registered materialized view {stmt.name} "
                 f"({'incremental' if view.incremental else 'recompute'})")
         if isinstance(stmt, ast.SqlExplain):
+            # the cost store's decision serial before planning: EXPLAIN
+            # ANALYZE shows the rewrites decided while planning THIS one
+            from datafusion_tpu_torch import cost as _cost
+
+            decision_mark = _cost.store().decision_serial
             plan = self._plan(stmt.stmt)
             if stmt.analyze:
                 # runs the query under a trace session and annotates the
                 # operator tree with what it measured (obs/explain.py)
                 from datafusion_tpu_torch.obs.explain import explain_analyze
 
-                return explain_analyze(self, plan)
+                return explain_analyze(self, plan, decision_mark=decision_mark)
             if stmt.verify:
                 # type-checks the plan WITHOUT executing it
                 with METRICS.timer("verify"):
@@ -325,9 +343,13 @@ class ExecutionContext:
     def metrics_text(self) -> str:
         """The engine's counters, stage timings and gauges
         (utils/metrics.METRICS) in the Prometheus text exposition format
-        (obs/export.prometheus_text)."""
+        (obs/export.prometheus_text), with the pins' byte-seconds accrued
+        and the ``tenant.<id>.*`` metering gauges folded in first
+        (obs/attribution.refresh_tenant_gauges)."""
+        from datafusion_tpu_torch.obs import attribution
         from datafusion_tpu_torch.obs.export import prometheus_text
 
+        attribution.refresh_tenant_gauges()
         return prometheus_text()
 
     def sql_collect(self, sql_text: str) -> Union[ResultTable, DdlResult, ExplainResult]:
@@ -342,7 +364,65 @@ class ExecutionContext:
         with METRICS.timer("plan"):
             plan = SqlToRel(_ContextSchemaProvider(self)).sql_to_rel(stmt)
         with METRICS.timer("optimize"):
-            return push_down_projection(plan)
+            return self._cost_rewrite(push_down_projection(plan))
+
+    # -- feedback-driven planning seams (cost/) --
+    def _cost_rewrite(self, plan: LogicalPlan) -> LogicalPlan:
+        """The cost store's logical rewrites (join build side and order,
+        cost/optimizer.py).  Advisory: any failure, the verifier vetoing
+        a schema-changing rewrite included, keeps the static plan."""
+        from datafusion_tpu_torch import cost as _cost
+
+        if not _cost.enabled():
+            return plan
+        try:
+            from datafusion_tpu_torch.cost.optimizer import apply_cost_rewrites
+
+            return apply_cost_rewrites(self, plan)
+        except Exception:  # noqa: BLE001 — a cost rewrite never fails a query
+            METRICS.add("cost.rewrite_errors")
+            return plan
+
+    def cost_table_key(self, name: str) -> str:
+        """The cost store's identity of table `name`'s current data
+        (`cost.table_key`; the bare name if that fails)."""
+        from datafusion_tpu_torch import cost as _cost
+
+        try:
+            return _cost.table_key(self, name)
+        except Exception:  # noqa: BLE001 — keying never fails a query
+            return name
+
+    def _cost_annotate_aggregate(self, rel: AggregateRelation,
+                                 plan: LogicalPlan) -> AggregateRelation:
+        """Wire an aggregate into the cost loop: where its group count is
+        observed (``agg:g=<columns>`` of its one scanned table), and,
+        when the store knows that shape, the estimate that presizes its
+        accumulator (an ``agg.capacity`` decision)."""
+        from datafusion_tpu_torch import cost as _cost
+        from datafusion_tpu_torch.cost import advisor
+        from datafusion_tpu_torch.exec.aggregate import group_capacity
+
+        if not rel.key_cols:
+            return rel
+        tables = scan_tables(plan)
+        if len(tables) != 1:
+            return rel
+        sch = rel.child.schema
+        names = [sch.field(i).name for i in rel.key_cols]
+        tkey = self.cost_table_key(tables[0])
+        shape = advisor.agg_shape(names)
+        rel._cost_obs = (tkey, shape)  # observation flows even when off
+        if not _cost.enabled():
+            return rel
+        store = _cost.store()
+        est = advisor.agg_group_estimate(store, tkey, names)
+        if est:
+            rel._cost_hint = int(est)
+            store.note_decision(
+                "agg.capacity", group_capacity(int(est)), "grow-on-demand from 8",
+                f"observed ~{int(est)} groups for {shape}", table=tables[0])
+        return rel
 
     def _execute_ddl(self, stmt: ast.SqlCreateExternalTable) -> DdlResult:
         if stmt.columns:
@@ -434,6 +514,11 @@ class ExecutionContext:
                     {"op": rel.op_label(), "depth": depth, **rel.stats.snapshot()}
                     for depth, rel in collect_tree(root)
                 ]
+        # query completion is the cost store's persistence seam: no lock
+        # held, throttled inside (cost/store.flush)
+        from datafusion_tpu_torch import cost as _cost
+
+        _cost.flush()
         hist = self._stats_history.setdefault(fingerprint, [])
         hist.append(entry)
         del hist[: -self._history_cap]
@@ -561,7 +646,8 @@ class ExecutionContext:
                 raise ExecutionError(f"No datasource registered as {plan.table_name!r}")
             if plan.projection is not None:
                 ds = ds.with_projection(plan.projection)
-            return DataSourceRelation(ds)
+            # the scan teaches the cost store the table's rows
+            return DataSourceRelation(ds, cost_key=self.cost_table_key(plan.table_name))
         if isinstance(plan, EmptyRelation):
             return _EmptyRelationExec()
         if isinstance(plan, Selection):
@@ -590,10 +676,10 @@ class ExecutionContext:
             else:
                 child = self._lower(plan.input)
                 pred = None
-            return AggregateRelation(
+            return self._cost_annotate_aggregate(AggregateRelation(
                 child, plan.group_expr, plan.aggr_expr, plan.schema,
                 self.device, predicate=pred, functions=fns,
-            )
+            ), plan)
         if isinstance(plan, Sort):
             return SortRelation(
                 self._lower(plan.input), plan.expr, plan.schema, self.device
@@ -612,11 +698,16 @@ class ExecutionContext:
             key = None if pins is None else self._build_key(plan)
             if key is not None:
                 pins.add(key)
-            return HashJoinRelation(
+            rel = HashJoinRelation(
                 self._lower(plan.left), self._lower(plan.right),
                 plan.on, plan.join_type, plan.schema, self.device,
                 build_key=key,
             )
+            # a build over one table teaches the cost store its size
+            rtabs = scan_tables(plan.right)
+            if len(rtabs) == 1:
+                rel._cost_obs = (self.cost_table_key(rtabs[0]), "join-build")
+            return rel
         raise NotSupportedError(
             f"plan node {type(plan).__name__} is not ported yet (ROADMAP queue 1)"
         )
@@ -645,7 +736,7 @@ class ExecutionContext:
             except (NotSupportedError, PlanError):
                 return None  # an inlined shape the aggregate can't take
             rel._fused_chain = "filter+project+aggregate"  # EXPLAIN ANALYZE's marker
-            return rel
+            return self._cost_annotate_aggregate(rel, plan)
 
         if isinstance(plan, (Selection, Projection)):
             flat = fused.flatten_chain(plan)

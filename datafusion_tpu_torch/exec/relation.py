@@ -101,10 +101,18 @@ class Relation:
 
 
 class DataSourceRelation(Relation):
-    """Adapts a DataSource into a Relation (reference `relation.rs:34-54`)."""
+    """Adapts a DataSource into a Relation (reference `relation.rs:34-54`).
 
-    def __init__(self, datasource):
+    With `cost_key` (the lowering passes `cost.table_key` of the scanned
+    table) every scan, an abandoned one included, teaches the cost store
+    the table's rows and host bytes (``scan`` record; its ``rows_max``
+    keeps a partial scan from shrinking the learned count): the
+    statistics the build-side swap and the megabatch's member weights
+    read."""
+
+    def __init__(self, datasource, cost_key: Optional[str] = None):
         self.datasource = datasource
+        self._cost_key = cost_key
 
     @property
     def schema(self) -> Schema:
@@ -116,7 +124,27 @@ class DataSourceRelation(Relation):
         return f"Scan[{src}{f': {path}' if path else ''}]"
 
     def batches(self) -> Iterator[RecordBatch]:
-        return self.datasource.batches()
+        if self._cost_key is None:
+            return self.datasource.batches()
+        return self._observed(self.datasource.batches())
+
+    def _observed(self, it) -> Iterator[RecordBatch]:
+        rows = nbytes = 0
+        try:
+            for batch in it:
+                rows += batch.num_rows
+                for arr in batch.data:
+                    if isinstance(arr, np.ndarray):
+                        nbytes += arr.nbytes
+                for v in batch.validity:
+                    if isinstance(v, np.ndarray):
+                        nbytes += v.nbytes
+                yield batch
+        finally:
+            if rows:
+                from datafusion_tpu_torch import cost as _cost
+
+                _cost.store().observe(self._cost_key, "scan", rows=rows, nbytes=nbytes)
 
 
 class _EmptyRelationExec(Relation):

@@ -59,6 +59,7 @@ TPU's slow link and the wire codec.
 from __future__ import annotations
 
 import os
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -326,10 +327,21 @@ class SortRelation(Relation):
 
     def _sorted_run(self, keys: list[np.ndarray]) -> np.ndarray:
         """Sort one run on the device; returns its permutation (int32,
-        host)."""
+        host).  On a CUDA device the run's wall, copy to copy, is the
+        radix route's evidence in the cost store
+        (`cost/advisor.observe_sort_route`: the one route a sort has, at
+        every size)."""
+        t0 = time.perf_counter()
         dev_ops = [to_device(o, self.device, owner="sort.keys") for o in keys]
-        return to_host(device_call(sort_kernel.argsort_multi, dev_ops, _tag="sort",
+        perm = to_host(device_call(sort_kernel.argsort_multi, dev_ops, _tag="sort",
                                    _device=self.device))
+        if self.device.type == "cuda":
+            from datafusion_tpu_torch import cost as _cost
+            from datafusion_tpu_torch.cost import advisor
+
+            advisor.observe_sort_route(_cost.store(), "radix", len(perm),
+                                       time.perf_counter() - t0)
+        return perm
 
     @staticmethod
     def _merge_runs(run_keys: list[list[np.ndarray]], run_perms: list[np.ndarray]):

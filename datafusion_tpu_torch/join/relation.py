@@ -44,8 +44,15 @@ package pins in every context).  The fingerprint holds the identity of the
 data of every table the build side scans (`DataSource.data_identity`),
 so two contexts that register different in-memory tables under one
 name never probe each other's build, as they do in the JAX package
-(ROADMAP queue 3).  Not ported: per-client attribution and the cost
-store's build-side observation.
+(ROADMAP queue 3).  A pinned build is metered like a pinned table
+(obs/attribution.py): the client whose served query built it is its
+fallback payer, and every probe of it by a served query counts a use.
+
+**Cost observation**: a build over one table (`_cost_obs`, set by the
+lowering) records its row count under ``join-build`` in the cost store
+(cost/).  The build-side swap itself is a logical rewrite made before
+lowering (cost/optimizer.py): a join it swapped builds over what was
+its left input.
 """
 
 from __future__ import annotations
@@ -69,6 +76,11 @@ from datafusion_tpu_torch.exec.batch import (
 from datafusion_tpu_torch.exec.cuda import hash_build
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.join import core as _core
+from datafusion_tpu_torch.obs.attribution import (
+    current_client,
+    note_pin_use,
+    register_pin_client,
+)
 from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
 from datafusion_tpu_torch.utils.metrics import METRICS
@@ -157,6 +169,9 @@ class HashJoinRelation(Relation):
         self.device = device
         self.build_key = build_key  # the pin's fingerprint; None: no pin
         self._artifact: Optional[JoinBuildArtifact] = None
+        # (table key, "join-build") of a single-table build side, set by
+        # the lowering: where the build's row count is observed
+        self._cost_obs: Optional[tuple] = None
 
     @property
     def schema(self) -> Schema:
@@ -180,11 +195,20 @@ class HashJoinRelation(Relation):
             art = LEDGER.pinned(fp)
             if art is not None:
                 METRICS.add("join.build.reuse")
+                cid = current_client()
+                if cid is not None:
+                    note_pin_use(fp, cid)
                 self._artifact = art
                 return art
         art = self._materialize_build()
         if fp is not None and art.nbytes <= _pin_max_bytes():
             LEDGER.pin(fp, art.nbytes, owner="join.build", artifact=art)
+            # the building query's client pays for the pin's residency
+            # while nobody else probes it (obs/attribution.py)
+            cid = current_client()
+            if cid is not None:
+                register_pin_client(fp, cid)
+                note_pin_use(fp, cid)
         self._artifact = art
         return art
 
@@ -200,6 +224,13 @@ class HashJoinRelation(Relation):
         # the build side is read to its end: its dictionaries' versions
         # now are the ones every output batch's tables are built at
         art.versions = tuple(None if d is None else d.version for d in dicts)
+        # a single-table build side teaches the cost store its size (the
+        # build-side swap and the dimension reorder plan from it)
+        obs = self._cost_obs
+        if obs is not None:
+            from datafusion_tpu_torch import cost as _cost
+
+            _cost.store().observe(obs[0], obs[1], rows=n, nbytes=art.nbytes)
         if not self._try_dense(art):
             r_keys = [k for _, k in self.on]
             art.index = _core.HashIndex(

@@ -62,6 +62,7 @@ from typing import Any, Optional
 
 from datafusion_tpu_torch.obs import recorder
 from datafusion_tpu_torch.obs import stats as _stats
+from datafusion_tpu_torch.obs.attribution import charge_h2d, forget_pin
 from datafusion_tpu_torch.utils.metrics import METRICS
 
 
@@ -360,6 +361,8 @@ class DeviceLedger:
                         bytes=e.nbytes, reason=reason)
         cb = e.on_evict
         e.artifact = None
+        # the pin stops accruing byte-seconds to its clients
+        forget_pin(e.fingerprint)
         if cb is not None:
             cb()
 
@@ -439,11 +442,13 @@ LEDGER = DeviceLedger()
 def note_h2d(nbytes: int, seconds: float) -> None:
     """One host-to-device copy (`exec/batch.to_device`): the
     `device.h2d.transfers` and `h2d.bytes` counters, the `h2d.dispatch`
-    timer, and the ambient operator's bytes and time."""
+    timer, the ambient operator's bytes and time, and the bytes charged
+    to this thread's client (`obs/attribution.charge_h2d`)."""
     METRICS.tally("h2d.dispatch", seconds, ("device.h2d.transfers", 1),
                   ("h2d.bytes", nbytes))
     _stats.record_h2d(nbytes)
     _stats.record_h2d_time(seconds)
+    charge_h2d(nbytes)  # this thread's client, if a served query copies
 
 
 def record_d2h(nbytes: int, seconds: float) -> None:

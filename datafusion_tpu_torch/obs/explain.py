@@ -10,14 +10,15 @@ profile's top frames per phase (`obs/profiler.py`;
 `DATAFUSION_TPU_PROFILE_EXPLAIN=0` leaves it out), one line per
 operator with its rows, batches, times, bytes and launches and the
 `<- fused pass [...]` marker of a collapsed chain, the fused-pass line
-of the query's counter deltas, and the span tree.  A query the result
+of the query's counter deltas, the cost planner's decisions and replans
+made while this query planned and ran ("Cost decisions", "Replans";
+cost/), and the span tree.  A query the result
 cache answers shows as one `CachedResult[rows=..., bytes=..., fp=...]`
 operator with `cache.hit=True`; an analyzed miss fills the cache as a
 plain run does.
 
-Left out until their planes are ported: the cost view (ROADMAP queue 1
-item 11.4; the report omits its block, as the JAX package's does with
-`DATAFUSION_TPU_COST=0`) and the OTLP export (item 13.2).
+Left out until its plane is ported: the OTLP export (ROADMAP queue 1,
+item 13.2).
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class ExplainAnalyzeResult:
     def __init__(self, plan, root, result, spans: list[dict], trace_id: str,
                  wall_s: float, counters: Optional[dict] = None,
                  phases: Optional[dict] = None, hbm: Optional[dict] = None,
-                 host_profile=None):
+                 host_profile=None, cost: Optional[dict] = None):
         self.plan = plan
         self.root = root
         self.result = result
@@ -115,6 +116,8 @@ class ExplainAnalyzeResult:
         # the host sampling profile of the run (None when
         # DATAFUSION_TPU_PROFILE_EXPLAIN=0)
         self.host_profile = host_profile
+        # the cost store's decisions and replans made during this query
+        self.cost = cost or {}
 
     def report(self) -> str:
         lines = [f"EXPLAIN ANALYZE  (trace {self.trace_id}, "
@@ -150,6 +153,19 @@ class ExplainAnalyzeResult:
                 f"{c.get('kernel_cache.hits', 0)}/"
                 f"{c.get('kernel_cache.misses', 0)}"
             )
+        decisions = self.cost.get("decisions") or []
+        replans = self.cost.get("replans") or []
+        if decisions:
+            lines.append(f"Cost decisions ({len(decisions)}):")
+            for d in decisions:
+                where = f" [{d['table']}]" if d.get("table") else ""
+                lines.append(f"  {d['decision']}{where}: chose {d['chosen']} "
+                             f"(default {d['default']}) — {d['reason']}")
+        if replans:
+            lines.append(f"Replans ({len(replans)}):")
+            for r in replans:
+                lines.append(f"  {r['what']}: estimated {r['estimate']}, "
+                             f"observed {r['actual']} — {r['action']}")
         worker_spans = sum(1 for s in self.spans
                            if str(s.get("proc", "")).startswith("worker"))
         lines.append(f"Spans ({len(self.spans)} total, {worker_spans} worker-side):")
@@ -204,10 +220,14 @@ def _profile_explain() -> bool:
         "0", "false", "off", "no")
 
 
-def explain_analyze(ctx, plan) -> ExplainAnalyzeResult:
+def explain_analyze(ctx, plan, decision_mark: Optional[int] = None) -> ExplainAnalyzeResult:
     """Execute `plan` on `ctx` under a fresh trace session and package
     the annotated result.  The query runs to completion: EXPLAIN ANALYZE
-    measures a real execution."""
+    measures a real execution.  `decision_mark` is the cost store's
+    decision serial from before `plan` was planned (the caller marks it,
+    so the logical rewrites' decisions show); the decisions past it and
+    the replans from this run are the report's cost view."""
+    from datafusion_tpu_torch import cost as _cost
     from datafusion_tpu_torch.exec.materialize import collect
     from datafusion_tpu_torch.obs import profiler
     from datafusion_tpu_torch.obs.device import (
@@ -218,6 +238,10 @@ def explain_analyze(ctx, plan) -> ExplainAnalyzeResult:
     )
     from datafusion_tpu_torch.utils.metrics import METRICS
 
+    cstore = _cost.store()
+    if decision_mark is None:
+        decision_mark = cstore.decision_serial
+    replan_mark = time.time()
     before = METRICS.snapshot()["counts"]
     phase_before = phase_snapshot()
     LEDGER.begin_peak_window()
@@ -232,6 +256,10 @@ def explain_analyze(ctx, plan) -> ExplainAnalyzeResult:
             table = collect(_RootTap(rel))
         wall = time.perf_counter() - t0
     host_profile = None if cap is None else cap.report()
+    cost_view = {
+        "decisions": [d for d in list(cstore.decisions) if d.get("seq", 0) > decision_mark],
+        "replans": [r for r in list(cstore.replans) if r.get("ts", 0.0) >= replan_mark],
+    }
     phases = phase_breakdown(phase_before, wall)
     hbm = {"peak_bytes": LEDGER.window_peak_bytes(), "live_bytes": LEDGER.buffer_bytes(),
            "buffers": LEDGER.entries}
@@ -242,4 +270,5 @@ def explain_analyze(ctx, plan) -> ExplainAnalyzeResult:
     spans = trace.drain(tc.trace_id)
     spans.sort(key=lambda s: s["start_ns"])
     return ExplainAnalyzeResult(plan, rel, table, spans, tc.trace_id, wall, counters,
-                                phases=phases, hbm=hbm, host_profile=host_profile)
+                                phases=phases, hbm=hbm, host_profile=host_profile,
+                                cost=cost_view)

@@ -112,6 +112,14 @@ def record_compile(seconds: float) -> None:
         st.compile_s += seconds
 
 
+def record_retry() -> None:
+    """Attribute one replayed device pass to the ambient operator
+    (`retries` in EXPLAIN ANALYZE)."""
+    st = _CUR_OP.get()
+    if st is not None:
+        st.retries += 1
+
+
 def record_launch() -> None:
     """Attribute one device pass to the ambient operator (`launches=` in
     EXPLAIN ANALYZE: the batch-group fold is judged by this number going

@@ -74,10 +74,32 @@ unset: none).
   serving.  A query the result cache answers (exec/context.py) replays
   on its worker like any solo query.
 
-Not ported (ROADMAP queue 1): weighted fair queueing (`shares=`,
-`qos.py`, item 11.1), cost observations and the adaptive window (item
-11.4), per-client metering and tail attribution (`client_id`, item
-11.5).  Each raises `NotSupportedError`.
+- **Tenancy.**  `submit(sql, client_id=...)` and `append(...,
+  client_id=...)` name the client a query or a delta runs for (unset:
+  ``"default"``).  Every cost apportions back to it (obs/attribution.py):
+  a solo query's launches and copies run under `client_scope`, a
+  megabatch's under `shared_scope` over its members, weighted by the
+  rows of the tables each one scans (`_member_weights`, the cost store's
+  ``scan`` records; an even split until they are known), pinned tables
+  and join builds accrue byte-seconds to the clients that scan them,
+  and every fulfilled ticket's end-to-end wall decomposes into the
+  serving chain (`_segments`) for the tail explainer (`observe_path`).
+  Sheds charge ``tenant.<id>.shed``.
+- **Weighted fair queueing** (qos.py): with `shares={"A": 3, "B": 1}`
+  (or ``DATAFUSION_TPU_QOS=1`` and ``DATAFUSION_TPU_QOS_SHARES``) a
+  flushed window drains in the policy's order (`FairSharePolicy.order`:
+  virtual time over the metered service, so a share-3 tenant runs 3
+  queries per share-1 query under contention), and a full queue sheds
+  the tenant furthest over its share (`shed_victim`): its newest, least
+  urgent queued ticket, or the arrival itself, with the reason
+  ``quota`` and the meters ``tenant.<id>.shed_<reason>``.  With neither,
+  admission is FIFO and no per-reason meter is kept.
+- **Cost.**  Each arrival's spacing is observed in the cost store
+  (``__serve__`` / ``arrivals``), and a server whose window was left at
+  its default (no `window_s`, no ``DATAFUSION_TPU_SERVE_WINDOW_MS``)
+  waits `_effective_window_s()` instead: the store's window for the
+  observed spacing (cost/advisor.serve_window_s, a ``serve.window_ms``
+  decision).
 """
 
 from __future__ import annotations
@@ -101,9 +123,6 @@ from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.utils.deadline import Deadline, deadline_scope
 from datafusion_tpu_torch.utils.metrics import METRICS
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item {})"
-
-
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return default if not v else int(v)
@@ -119,14 +138,29 @@ class Ticket:
     fulfills or fails it.  The outcome is written once."""
 
     __slots__ = ("sql", "plan", "deadline", "signature", "submitted_mono",
-                 "_evt", "_table", "_error", "_rel")
+                 "_evt", "_table", "_error", "_rel", "client_id", "entry_mono",
+                 "admitted_mono", "enqueued_mono", "flushed_mono", "exec_start_mono",
+                 "launch_share_s", "demux_share_s")
 
-    def __init__(self, sql: str, plan, deadline: Optional[Deadline], signature):
+    def __init__(self, sql: str, plan, deadline: Optional[Deadline], signature,
+                 client_id: str = "default", entry_mono: Optional[float] = None):
         self.sql = sql
         self.plan = plan
         self.deadline = deadline
         self.signature = signature
+        self.client_id = client_id
         self.submitted_mono = time.monotonic()
+        # the serving chain's stamps (`Server._segments`): submit entry,
+        # queue-slot reservation, window entry, window flush, execution
+        self.entry_mono = self.submitted_mono if entry_mono is None else entry_mono
+        self.admitted_mono: Optional[float] = None
+        self.enqueued_mono: Optional[float] = None
+        self.flushed_mono: Optional[float] = None
+        self.exec_start_mono: Optional[float] = None
+        # this query's apportioned share of the launch walls it rode and
+        # of its megabatch's state pull
+        self.launch_share_s = 0.0
+        self.demux_share_s = 0.0
         self._evt = threading.Event()
         self._table = None
         self._error: Optional[BaseException] = None
@@ -404,12 +438,14 @@ class Server:
                  default_deadline_s: Optional[float] = None,
                  pin_manifest: Optional[str] = None,
                  shares: Optional[dict] = None):
+        from datafusion_tpu_torch import qos
         from datafusion_tpu_torch.utils.eventloop import ServerLoop
 
-        if shares is not None:
-            raise NotSupportedError("Server(shares=...) " + _NOT_PORTED.format(
-                "11.1: weighted fair queueing, qos.py"))
         self.ctx = ctx
+        # weighted fair queueing and the quota shed (qos.py): a policy
+        # when `shares` is given or DATAFUSION_TPU_QOS=1, else None, and
+        # a None policy is FIFO admission
+        self._qos = qos.policy_from_config(shares)
         # the durable pin manifest (module docstring); unset: off
         if pin_manifest is None:
             pin_manifest = os.environ.get("DATAFUSION_TPU_SERVE_PIN_MANIFEST")
@@ -423,6 +459,12 @@ class Server:
         self._queue_depth = queue_depth or _env_int("DATAFUSION_TPU_SERVE_QUEUE", 64)
         self._window_s = (window_s if window_s is not None
                           else _env_float("DATAFUSION_TPU_SERVE_WINDOW_MS", 2.0) / 1e3)
+        # a configured window (kwarg or env) stays fixed; the default
+        # adapts to the observed arrival spacing (cost/advisor)
+        self._window_adaptive = (window_s is None
+                                 and "DATAFUSION_TPU_SERVE_WINDOW_MS" not in os.environ)
+        self._last_arrival_mono: Optional[float] = None  # loop thread only
+        self._window_noted_s: Optional[float] = None  # loop thread only
         self._megabatch_max = (megabatch_max if megabatch_max is not None
                                else _env_int("DATAFUSION_TPU_SERVE_MEGABATCH", 16))
         if pin is None:
@@ -510,22 +552,23 @@ class Server:
         here, on the caller's thread.  A statement that does not plan or
         verify raises its error and counts on neither side of
         `admitted + shed == submitted`."""
+        from datafusion_tpu_torch.obs.attribution import client_scope
         from datafusion_tpu_torch.sql import ast
         from datafusion_tpu_torch.sql.parser import parse_sql
 
-        if client_id is not None:
-            raise NotSupportedError("submit(client_id=...) " + _NOT_PORTED.format(
-                "11.5: per-client metering and tail attribution"))
+        entry_mono = time.monotonic()
+        client = str(client_id) if client_id else "default"
         with METRICS.timer("parse"):
             stmt = parse_sql(sql)
         if isinstance(stmt, ast.SqlCreateMaterializedView):
-            # DDL-shaped: the initial fold runs here, and the ticket is
-            # fulfilled at once (it counts on neither side of
-            # `admitted + shed == submitted`)
+            # DDL-shaped: the initial fold runs here, charged to the
+            # registering client, and the ticket is fulfilled at once
+            # (it counts on neither side of `admitted + shed == submitted`)
             from datafusion_tpu_torch.exec.context import DdlResult
 
-            view = self.ingest().create_view(stmt.name, stmt.query_sql)
-            t = Ticket(sql, None, None, None)
+            with client_scope(client):
+                view = self.ingest().create_view(stmt.name, stmt.query_sql)
+            t = Ticket(sql, None, None, None, client_id=client)
             t._fulfill(DdlResult(
                 f"Registered materialized view {stmt.name} "
                 f"({'incremental' if view.incremental else 'recompute'})"))
@@ -538,35 +581,73 @@ class Server:
         with self._lock:
             self.submitted += 1
         if self._closed:
-            raise self._shed_submit(sql, "shutdown")
+            raise self._shed_submit(sql, "shutdown", client)
         # 1. deadline feasibility against the observed service time
         deadline = None
         budget = deadline_s if deadline_s is not None else self._default_deadline_s
         if budget is not None:
             ewma = self._service_ewma_s
             if budget <= 0 or (ewma is not None and budget < 0.5 * ewma):
-                raise self._shed_submit(sql, "deadline")
+                raise self._shed_submit(sql, "deadline", client)
             deadline = Deadline.after(budget)
         # 2. device memory headroom
         if self._check_hbm(plan) is not None:
-            raise self._shed_submit(sql, "hbm")
-        ticket = Ticket(sql, plan, deadline, self._mega_signature(plan))
+            raise self._shed_submit(sql, "hbm", client)
+        ticket = Ticket(sql, plan, deadline, self._mega_signature(plan),
+                        client_id=client, entry_mono=entry_mono)
         # 3. queue depth, checked and reserved under one lock
-        with self._lock:
-            at_depth = self._pending >= self._queue_depth
-            if not at_depth:
-                self._pending += 1
-                self._queued_tickets[id(ticket)] = ticket
-            closed = self._closed
+        at_depth, closed = self._reserve(ticket)
+        if at_depth and self._qos is not None:
+            # the queue is full: the tenant furthest over its share pays,
+            # with a queued ticket of its own (its slot goes to this
+            # arrival) or, when that is the submitter, with this arrival
+            with self._lock:
+                queued = list(self._queued_tickets.values())
+            victim, incoming_is_victim = self._qos.shed_victim(queued, client)
+            if incoming_is_victim or victim is None:
+                raise self._shed_submit(sql, "quota", client)
+            at_depth, closed = self._swap(victim, ticket)
         if at_depth:
-            raise self._shed_submit(sql, "queue")
+            raise self._shed_submit(sql, "queue", client)
         if closed:
             self._shed_ticket(ticket, "shutdown")
             raise ticket._error if ticket._error is not None else QueryShedError(
                 f"query shed at admission (shutdown): {sql[:80]!r}", reason="shutdown")
+        ticket.admitted_mono = time.monotonic()
         METRICS.add("queries_queued")
         self._loop.call_soon(partial(self._enqueue, ticket))
         return ticket
+
+    def _reserve(self, ticket: Ticket) -> tuple[bool, bool]:
+        """Reserve a queue slot for `ticket` under one lock acquisition.
+        Returns (at depth: not reserved, closed)."""
+        with self._lock:
+            return self._reserve_locked(ticket), self._closed
+
+    def _reserve_locked(self, ticket: Ticket) -> bool:
+        at_depth = self._pending >= self._queue_depth
+        if not at_depth:
+            self._pending += 1
+            self._queued_tickets[id(ticket)] = ticket
+        return at_depth
+
+    def _swap(self, victim: Ticket, ticket: Ticket) -> tuple[bool, bool]:
+        """Shed the queued `victim` (``quota``) and reserve its slot for
+        `ticket` under one lock acquisition, so no racing submitter takes
+        the freed slot (the JAX package re-reserves after the shed, and
+        its arrival may then shed ``queue``).  A victim a worker admitted
+        meanwhile is not shed; the arrival takes a slot if one is free.
+        Returns (at depth: not reserved, closed)."""
+        with self._lock:
+            freed = self._queued_tickets.pop(id(victim), None) is not None
+            if freed:
+                self.shed += 1
+                self._pending -= 1
+            at_depth = self._reserve_locked(ticket)
+            closed = self._closed
+        if freed:
+            self._shed_done(victim, "quota")
+        return at_depth, closed
 
     # -- streaming ingestion (caller thread) ---------------------------
     def ingest(self):
@@ -581,11 +662,13 @@ class Server:
     def append(self, table: str, columns: dict, client_id: Optional[str] = None) -> dict:
         """One streaming append through the front door, logged before it
         is applied (`IngestContext.append`: a log fault raises
-        `IngestUnavailableError` and acknowledges nothing)."""
-        if client_id is not None:
-            raise NotSupportedError("append(client_id=...) " + _NOT_PORTED.format(
-                "11.5: per-client metering and tail attribution"))
-        return self.ingest().append(table, columns)
+        `IngestUnavailableError` and acknowledges nothing).  The copies
+        and the view-maintenance passes it triggers are charged to
+        `client_id` (unset: ``"default"``), as a query's are."""
+        from datafusion_tpu_torch.obs.attribution import client_scope
+
+        with client_scope(str(client_id) if client_id else "default"):
+            return self.ingest().append(table, columns)
 
     def _on_append_applied(self, table: str, batch) -> None:
         """The resident list already grew in place (it is the
@@ -605,11 +688,22 @@ class Server:
         if cb is not None:
             cb()
 
-    def _shed_submit(self, sql: str, reason: str) -> QueryShedError:
+    def _charge_shed(self, client: str, reason: str) -> None:
+        """A shed's meters: ``tenant.<id>.shed``, and under QoS the
+        per-reason ``tenant.<id>.shed_<reason>``."""
+        from datafusion_tpu_torch.obs.attribution import METER
+
+        METER.charge(client, "shed", 1.0)
+        if self._qos is not None:
+            METER.charge(client, f"shed_{reason}", 1.0)
+
+    def _shed_submit(self, sql: str, reason: str,
+                     client: str = "default") -> QueryShedError:
         with self._lock:
             self.shed += 1
         METRICS.add("queries_shed")
-        recorder.record("serve.shed", reason=reason)
+        self._charge_shed(client, reason)
+        recorder.record("serve.shed", reason=reason, client=client)
         return QueryShedError(f"query shed at admission ({reason}): {sql[:80]!r}",
                               reason=reason)
 
@@ -621,8 +715,14 @@ class Server:
                 return
             self.shed += 1
             self._pending -= 1
+        self._shed_done(t, reason)
+
+    def _shed_done(self, t: Ticket, reason: str) -> None:
+        """A queued ticket's shed, once its registration is popped: the
+        counters, the meters, the flight event and the client's error."""
         METRICS.add("queries_shed")
-        recorder.record("serve.shed", reason=reason, queued=True)
+        self._charge_shed(t.client_id, reason)
+        recorder.record("serve.shed", reason=reason, queued=True, client=t.client_id)
         t._fail(QueryShedError(f"query shed after queueing ({reason}): {t.sql[:80]!r}",
                                reason=reason))
 
@@ -665,29 +765,64 @@ class Server:
         `window_s`, or `2 * window_s` after it opened, whichever comes
         first.  Clients that resubmit as their answers come back arrive
         spread over the interpreter's thread switches; waiting for a gap
-        in arrivals keeps them in one window, as the JAX package's
-        learned window (which needs the cost store, not ported) widens
-        under dense arrivals."""
+        in arrivals keeps them in one window.  The window is
+        `_effective_window_s()`, and each arrival's spacing feeds the
+        cost store it is learned from."""
+        now = t.enqueued_mono = time.monotonic()
+        prev, self._last_arrival_mono = self._last_arrival_mono, now
+        if prev is not None:
+            from datafusion_tpu_torch import cost as _cost
+
+            _cost.store().observe(_cost.SERVE_KEY, "arrivals",
+                                  interval_s=min(now - prev, 60.0))
         self._window.append(t)
         if self._window_timer is not None:
             self._window_timer.cancel()
         if len(self._window) >= max(self._megabatch_max, 1):
             self._flush_window()
             return
-        now = time.monotonic()
+        window_s = self._effective_window_s()
         if len(self._window) == 1:
-            self._window_closes = now + 2 * self._window_s
+            self._window_closes = now + 2 * window_s
         self._window_timer = self._loop.call_later(
-            min(self._window_s, self._window_closes - now), self._flush_window)
+            min(window_s, self._window_closes - now), self._flush_window)
+
+    def _effective_window_s(self) -> float:
+        """The batching window armed: the configured one, or, when it
+        was left at its default and cost planning is on, the cost
+        store's window for the observed arrival spacing
+        (cost/advisor.serve_window_s), noted as a ``serve.window_ms``
+        decision when it changes."""
+        from datafusion_tpu_torch import cost as _cost
+
+        if not self._window_adaptive or not _cost.enabled():
+            return self._window_s
+        from datafusion_tpu_torch.cost import advisor
+
+        store = _cost.store()
+        chosen = advisor.serve_window_s(store, self._window_s)
+        if chosen != self._window_s and chosen != self._window_noted_s:
+            self._window_noted_s = chosen
+            iv = store.value(_cost.SERVE_KEY, "arrivals", "interval_s") or 0
+            store.note_decision("serve.window_ms", round(chosen * 1e3, 3),
+                                round(self._window_s * 1e3, 3),
+                                f"observed arrival spacing {iv * 1e3:.2f} ms")
+        return chosen
 
     def _flush_window(self) -> None:
         self._window_timer = None
         if not self._window:
             return
         batch, self._window = self._window, []
+        if self._qos is not None and len(batch) > 1:
+            # weighted fair drain (qos.py): each tenant's backlog
+            # advances in proportion to its share; FIFO without QoS
+            batch = self._qos.order(batch, unit_cost_s=self._service_ewma_s)
         groups: dict = {}
         singles: list[list[Ticket]] = []
+        now = time.monotonic()
         for t in batch:
+            t.flushed_mono = now
             if t.signature is None:
                 singles.append([t])
             else:
@@ -736,10 +871,13 @@ class Server:
 
     # -- execution (executor threads) ----------------------------------
     def _run_group(self, group: list[Ticket]) -> None:
+        from datafusion_tpu_torch.obs.attribution import client_scope
         from datafusion_tpu_torch.plan.logical import scan_tables
 
         ready: list[Ticket] = []
+        exec_start = time.monotonic()
         for t in group:
+            t.exec_start_mono = exec_start
             if t.deadline is not None and t.deadline.expired:
                 self._shed_ticket(t, "deadline")
                 continue
@@ -756,14 +894,16 @@ class Server:
                         self.admitted += 1
                 if not admitted:
                     continue  # a shutdown shed won the race
-                recorder.record("serve.admit", plan=type(t.plan).__name__)
+                recorder.record("serve.admit", plan=type(t.plan).__name__,
+                                client=t.client_id)
                 try:
-                    if self._pin_enabled:
-                        for tbl in scan_tables(t.plan):
-                            self._ensure_resident(tbl)
-                    with deadline_scope(t.deadline):
-                        t._rel = self.ctx.execute(t.plan, build_pins=self._build_pins,
-                                                  verified=True)
+                    with client_scope(t.client_id):
+                        if self._pin_enabled:
+                            for tbl in scan_tables(t.plan):
+                                self._ensure_resident(tbl, client_id=t.client_id)
+                        with deadline_scope(t.deadline):
+                            t._rel = self.ctx.execute(t.plan, build_pins=self._build_pins,
+                                                      verified=True)
                     executed.append(t)
                 except BaseException as e:  # noqa: BLE001 — delivered to the client
                     t._fail(e)
@@ -858,16 +998,47 @@ class Server:
         elif type(rel) is PipelineRelation:
             rel._aux_cache = pin.shared_state_for((), rel.core)["aux"]
 
+    def _member_weights(self, tickets: list[Ticket]) -> list[float]:
+        """Each megabatch member's share of the pass's costs: the rows
+        of the tables its plan scans (the cost store's ``scan`` records),
+        so a member that also reads another table carries its rows;
+        members of the shared scan alone split evenly, and while any
+        count is unknown the split is even (never a zero weight)."""
+        from datafusion_tpu_torch import cost as _cost
+        from datafusion_tpu_torch.cost import advisor
+        from datafusion_tpu_torch.plan.logical import scan_tables
+
+        store = _cost.store()
+        counts = []
+        for t in tickets:
+            known = [advisor.table_rows(store, self.ctx.cost_table_key(n))
+                     for n in scan_tables(t.plan)]
+            rows = sum(k for k in known if k)
+            counts.append(rows if rows and all(known) else None)
+        if any(c is None for c in counts):
+            return [1.0 / len(tickets)] * len(tickets)
+        total = float(sum(counts))
+        return [c / total for c in counts]
+
     def _run_megabatch(self, tickets: list[Ticket]) -> None:
+        """One lane's pass over the shared scan, under a `shared_scope`
+        of the members weighted by `_member_weights`: every launch wall
+        and copy of the pass splits across their clients, and each
+        ticket keeps its share of the walls (and of the aggregate lane's
+        one state pull) for its critical path."""
         from datafusion_tpu_torch.exec.aggregate import (
             AggregateRelation,
             run_aggregate_megabatch,
         )
         from datafusion_tpu_torch.exec.relation import run_pipeline_megabatch
         from datafusion_tpu_torch.exec.sort import SortRelation, run_topk_megabatch
+        from datafusion_tpu_torch.obs.attribution import shared_scope
 
         rels = [t._rel for t in tickets]
-        with METRICS.timer("execute.serve_megabatch"):
+        weights = self._member_weights(tickets)
+        pull_s = 0.0
+        with METRICS.timer("execute.serve_megabatch"), \
+                shared_scope(tuple((t.client_id, w) for t, w in zip(tickets, weights))) as acc:
             if type(rels[0]) is SortRelation:
                 run_topk_megabatch(rels)
             elif type(rels[0]) is AggregateRelation:
@@ -877,55 +1048,105 @@ class Server:
                 for r in rels[1:]:
                     # one encoder for the group, pinned table or not
                     r.encoder, r._ids_lock = leader.encoder, leader._ids_lock
-                run_aggregate_megabatch(rels)
+                pull_s = run_aggregate_megabatch(rels)
             else:
                 for r in rels:
                     self._adopt_shared(r)
                 run_pipeline_megabatch(rels)
+        for t, w in zip(tickets, weights):
+            t.launch_share_s += acc[0] * w
+            t.demux_share_s += pull_s * w
 
     def _materialize(self, t: Ticket):
         """One ticket's result table (a megabatched relation finalizes
-        the state it was given), or None once its error is delivered."""
+        the state it was given) under its client's scope, with the
+        seconds it took and the launch wall inside them, or None once
+        its error is delivered."""
         from datafusion_tpu_torch.exec.materialize import collect
+        from datafusion_tpu_torch.obs.attribution import client_scope
 
         try:
             rel = t._rel
             if not any(k in rel.__dict__ for k in
                        ("_injected_state", "_injected_topk", "_injected_batches")):
                 self._adopt_shared(rel)
-            with self._device_scope(), deadline_scope(t.deadline):
-                return collect(rel)
+            t0 = time.monotonic()
+            with self._device_scope(), deadline_scope(t.deadline), \
+                    client_scope(t.client_id) as acc:
+                table = collect(rel)
+            return table, time.monotonic() - t0, acc[0]
         except BaseException as e:  # noqa: BLE001 — delivered to the client
             METRICS.add("serve.query_errors")
             t._fail(e)
             return None
 
-    def _fulfill(self, t: Ticket, table) -> None:
+    def _fulfill(self, t: Ticket, done) -> None:
+        """Fulfill a materialized ticket and observe its critical path
+        (obs/attribution.observe_path)."""
+        from datafusion_tpu_torch.obs.attribution import observe_path
+
+        table, fin_wall, fin_launch_s = done
         t._fulfill(table)
-        wall = time.monotonic() - t.submitted_mono
+        now = time.monotonic()
+        wall = now - t.submitted_mono
+        t.launch_share_s += fin_launch_s
+        observe_path(t.client_id, now - t.entry_mono,
+                     self._segments(t, now - t.entry_mono, fin_wall, fin_launch_s))
         with self._lock:
             self._latencies.append(wall)
             ewma = self._service_ewma_s
             self._service_ewma_s = wall if ewma is None else 0.8 * ewma + 0.2 * wall
-        recorder.record("serve.done", ms=round(wall * 1e3, 3))
+        recorder.record("serve.done", ms=round(wall * 1e3, 3), client=t.client_id)
+
+    @staticmethod
+    def _segments(t: Ticket, wall: float, fin_wall: float, fin_launch_s: float) -> dict:
+        """One ticket's serving chain in seconds, from its stamps and
+        apportioned shares: ``admission`` (submit entry to the queue
+        slot: parse, plan, verify, the feasibility checks),
+        ``megabatch_window`` (parked in the batching window),
+        ``queue_wait`` (the hand-off to the loop and the wait for a
+        worker), ``shared_launch_share`` (its share of every launch wall
+        it rode), ``demux_pull`` (its share of its megabatch's state
+        pull), ``merge`` (materialization less its own launch wall) and
+        ``other`` (the rest, never negative)."""
+        entry = t.entry_mono
+        admitted = t.admitted_mono or entry
+        enqueued = t.enqueued_mono or admitted
+        flushed = t.flushed_mono or enqueued
+        started = t.exec_start_mono or flushed
+        seg = {
+            "admission": max(admitted - entry, 0.0),
+            "megabatch_window": max(flushed - enqueued, 0.0),
+            "queue_wait": max(enqueued - admitted, 0.0) + max(started - flushed, 0.0),
+            "shared_launch_share": t.launch_share_s,
+            "demux_pull": t.demux_share_s,
+            "merge": max(fin_wall - fin_launch_s, 0.0),
+        }
+        seg["other"] = max(wall - sum(seg.values()), 0.0)
+        return seg
 
     def _finish(self, t: Ticket) -> None:
         """Materialize one ticket and fulfill it."""
         if t.done:
             return
-        table = self._materialize(t)
-        if table is not None:
-            self._fulfill(t, table)
+        done = self._materialize(t)
+        if done is not None:
+            self._fulfill(t, done)
 
     def _finish_together(self, tickets: list[Ticket]) -> None:
         """Materialize every ticket, then fulfill them all."""
-        tables = [(t, self._materialize(t)) for t in tickets if not t.done]
-        for t, table in tables:
-            if table is not None:
-                self._fulfill(t, table)
+        done = [(t, self._materialize(t)) for t in tickets if not t.done]
+        for t, d in done:
+            if d is not None:
+                self._fulfill(t, d)
 
     # -- pinning -------------------------------------------------------
-    def _ensure_resident(self, table: str) -> None:
+    def _ensure_resident(self, table: str, client_id: str = "default") -> None:
+        """Pin `table` if it is not resident and still fits, and meter the
+        pin (obs/attribution.py): the client that materializes it is its
+        fallback payer, and every query that scans it counts a use."""
+        from datafusion_tpu_torch.obs.attribution import note_pin_use, register_pin_client
+
         with self._lock:  # one PinnedSource per table, whichever worker comes first
             ds = self.ctx.datasources.get(table)
             if ds is None:
@@ -940,7 +1161,8 @@ class Server:
                 self._swapped.append((table, pinned))
                 ds = pinned
             ds.on_change = self._save_pin_manifest
-        if not ds.resident:
+        newly_resident = not ds.resident
+        if newly_resident:
             # admission may be stale by dispatch time: pin only what
             # still fits, else this query streams cold
             headroom = LEDGER.headroom()
@@ -948,6 +1170,9 @@ class Server:
                 METRICS.add("serve.pin_denied")
                 return
         ds.ensure()
+        if newly_resident:
+            register_pin_client(ds.fingerprint, client_id)
+        note_pin_use(ds.fingerprint, client_id)
 
     # -- pin manifest --------------------------------------------------
     def _pin_entries(self) -> list:
@@ -995,7 +1220,7 @@ class Server:
                 continue
             try:
                 with self._device_scope():
-                    self._ensure_resident(table)
+                    self._ensure_resident(table, client_id="rehydrate")
             except Exception:  # noqa: BLE001 — a cold table must not block the start
                 METRICS.add("serve.pin_rehydrate_errors")
                 continue
@@ -1025,6 +1250,8 @@ class Server:
             "pins": LEDGER.pins_snapshot(),
             "pinned_bytes": LEDGER.pinned_bytes(),
         })
+        if self._qos is not None:
+            out["qos"] = self._qos.snapshot()
         if lat:
             out["p50_s"] = float(np.quantile(lat, 0.5))
             out["p99_s"] = float(np.quantile(lat, 0.99))

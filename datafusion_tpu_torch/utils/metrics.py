@@ -50,6 +50,16 @@ PROFILE_STAGES = None  # type: ignore[var-annotated]
 PROFILE_TRACES = None  # type: ignore[var-annotated]
 
 
+# -- per-client charge scopes (obs/attribution.py) --------------------
+# {thread ident: scope}: which client's work this thread is doing,
+# published by the serving front door (`attribution.client_scope`,
+# `shared_scope`) and read by the charge hooks on other subsystems' hot
+# paths (`utils/retry.device_call`'s launch walls, `obs/device.note_h2d`).
+# Plain dict operations, no lock, as for the tables above; always a
+# dict, so a reader pays one `.get` miss when nothing is served.
+CLIENT_SCOPES: dict = {}
+
+
 def set_profile_tables(stages, traces) -> None:
     """Install (or clear, with None/None) the publication tables: the
     profiler calls this when its first capture starts and its last

@@ -186,7 +186,7 @@ def test_timing_as_bare_script_line(tmp_path):
     assert "Error" not in text
 
 
-@pytest.mark.parametrize("command", ["\\cluster", "\\top", "\\cost"])
+@pytest.mark.parametrize("command", ["\\cluster", "\\top"])
 def test_unported_command_prints_an_error_and_the_console_survives(tmp_path, command):
     lines = _run(f"{command}\nSELECT 2 + 3;\n", tmp_path)
     assert lines[0].startswith("Error: ") and "not ported yet (" in lines[0]
@@ -198,10 +198,12 @@ def test_unported_command_prints_an_error_and_the_console_survives(tmp_path, com
     ("\\cache", "Result cache: 0 entries"),
     ("\\ingest", "Ingest rev 0, no WAL (in-memory)"),
     ("\\append t {}", "Append failed: no datasource registered as 't'"),
+    ("\\cost", "Cost store: "),
 ])
 def test_ported_command_prints_its_report_and_the_console_survives(tmp_path, command, first):
     """The console commands of the freshness plane (\\cache, \\ingest,
-    \\append), once unported, now answer as the JAX package's do."""
+    \\append) and the cost store's (\\cost), once unported, now answer
+    as the JAX package's do."""
     lines = _run(f"{command}\nSELECT 2 + 3;\n", tmp_path)
     assert lines[0].startswith(first), lines
     assert _strip_timing(lines)[-1] == "5"

@@ -22,8 +22,12 @@ shapes (a group's rows in one launch), and the fold launches the grouped
 reduce once per slot per group (DATAFUSION_TPU_FUSE=0: per batch).  A
 materialized Q1 view folds each delta on the card as through the plain
 versions on the CPU, and an append into a pinned table sends the next
-served query only the delta.  Every context here passes
-`result_cache=False`, so a repeated query runs and launches again.
+served query only the delta.  Tenancy and cost: the grouped reduce at
+G = 16,384 (the widest window the cost store can learn), a served
+two-tenant round whose metered device seconds sum to its launch wall,
+and a `device.call` fault replayed around a real launch.  Every context
+here passes `result_cache=False`, so a repeated query runs and launches
+again, and every case starts from an empty cost store.
 """
 
 from __future__ import annotations
@@ -49,6 +53,19 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda:0")
+
+
+@pytest.fixture(autouse=True)
+def _cold_cost_store():
+    """Each case plans from an empty cost store (cost/): route history
+    and group counts one case teaches would otherwise move another's
+    grouped-reduce window or presize its accumulator, and several cases
+    count launches per route."""
+    from datafusion_tpu_torch import cost
+
+    cost.reset_store()
+    yield
+    cost.reset_store()
 
 
 def _inputs(kind, dtype, n, g, dev, seed=0):
@@ -100,6 +117,25 @@ def test_kernel_matches_plain_version(dev, kind, dtype, n, g):
 def test_kernel_matches_plain_version_at_a_batch_group(dev, kind, dtype, n, g):
     ids, vals, live = _inputs(kind, dtype, n, g, dev, seed=n + g)
     got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+    want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
+    if dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
+        again = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+        assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    else:
+        assert torch.equal(got, want)
+
+
+# the widened grouped-reduce window (cost/advisor.agg_window: up to
+# 2 x agg_max_groups()) sends capacities up to 16,384 to the kernel
+@pytest.mark.parametrize("kind,dtype", [("sum", torch.float64), ("min", torch.float64),
+                                        ("max", torch.float64), ("sum", torch.int64)])
+def test_kernel_matches_plain_version_at_the_widened_window(dev, kind, dtype):
+    g = 2 * port_cuda.agg_max_groups()
+    ids, vals, live = _inputs(kind, dtype, 524_288, g, dev, seed=g)
+    before = hash_agg.LAUNCHES
+    got = hash_agg.grouped_reduce(ids, vals, live, g, kind)
+    assert hash_agg.LAUNCHES == before + 1 and got.shape == (16_384,)
     want = hash_agg.grouped_reduce_torch(ids, vals, live, g, kind)
     if dtype.is_floating_point:
         torch.testing.assert_close(got, want, rtol=1e-12, atol=0, equal_nan=True)
@@ -933,6 +969,45 @@ def test_profile_sync_adds_no_synchronize_outside_its_scope(dev, monkeypatch):
     assert calls["synchronize"] == 0
 
 
+def test_route_evidence_is_one_event_pair_a_pass_of_the_card(dev, monkeypatch):
+    """The learned window's evidence is device time: each aggregate pass
+    of `MIN_ROUTE_ROWS` rows or more records one CUDA event pair and
+    nothing synchronizes; finalize stores the pairs' device time per row
+    under the pass's route.  The 120,000-row Q1 of the test above makes
+    one pass under that, and no pair."""
+    import time
+
+    from datafusion_tpu_torch import cost
+    from datafusion_tpu_torch.cost.advisor import MIN_ROUTE_ROWS
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    n = 3 * MIN_ROUTE_ROWS
+    schema, batches = _q1_lineitem(n=n, batch_rows=MIN_ROUTE_ROWS)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("lineitem", tdf.MemoryDataSource(schema, batches))
+    calls = {"synchronize": 0, "event": 0}
+    real_sync, real_event = torch.cuda.synchronize, torch.cuda.Event
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted("synchronize", real_sync))
+    monkeypatch.setattr(torch.cuda, "Event", counted("event", real_event))
+    counts0 = dict(METRICS.counts)
+    t0 = time.perf_counter()
+    tdf.collect(ctx.sql(Q1_SQL))
+    wall = time.perf_counter() - t0
+    passes = sum(METRICS.counts.get(f"device.launches.{t}", 0) - counts0.get(
+        f"device.launches.{t}", 0) for t in ("agg", "agg.group"))
+    assert passes >= 1 and calls == {"synchronize": 0, "event": 2 * passes}
+    rec = cost.store().lookup(cost.CUDA_KEY, "agg:grouped_reduce")
+    assert rec["n"] == 1 and 0 < rec["exec_s_last"] < wall
+    assert rec["s_per_row_last"] == pytest.approx(rec["exec_s_last"] / n, rel=1e-12)
+
+
 def test_ledger_live_bytes_return_after_the_query_dies(dev):
     import gc
 
@@ -1046,3 +1121,71 @@ def test_append_into_a_pinned_table_copies_only_the_delta_on_the_card(dev):
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[-1] == w[-1]
         assert np.allclose(g[2:-1], w[2:-1], rtol=1e-9, atol=0.0)
+
+
+def test_served_two_tenant_round_conserves_metering_on_the_card(dev):
+    """Two tenants with shares on cuda:0: every launch runs under a
+    client's or a megabatch's scope and is charged its device time (a
+    CUDA event pair), so the tenants' device seconds sum to the round's
+    `device.dispatch` timer, which the same pairs fed; every answer is
+    its solo answer bit for bit, and `admitted + shed == submitted`."""
+    from datafusion_tpu_torch.obs.attribution import METER
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    schema, batches, days = _serve_table()
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+    sqls = [f"SELECT k, SUM(v), MIN(v), COUNT(1) FROM t WHERE d <= '{days[2 * i]}' GROUP BY k"
+            for i in range(12)]
+    solo = [tdf.collect(ctx.sql(s)) for s in sqls]
+    before = {c: METER.snapshot().get(c, {}).get("device_seconds", 0.0) for c in "AB"}
+    disp0 = METRICS.snapshot()["timings_s"].get("device.dispatch", 0.0)
+    with ctx.serve(shares={"A": 3, "B": 1}, workers=2, window_s=0.01,
+                   megabatch_max=16) as srv:
+        tickets = [srv.submit(s, client_id="A" if i % 3 == 0 else "B")
+                   for i, s in enumerate(sqls)]
+        got = [t.result(timeout=120) for t in tickets]
+    assert srv.admitted + srv.shed == srv.submitted == len(sqls)
+    launch_wall = METRICS.snapshot()["timings_s"]["device.dispatch"] - disp0
+    metered = sum(METER.snapshot()[c]["device_seconds"] - before[c] for c in "AB")
+    assert launch_wall > 0 and metered == pytest.approx(launch_wall, rel=1e-6)
+    for g_, w in zip(got, solo):
+        order_g = np.argsort(np.asarray(g_.columns[0]).astype(str))
+        order_w = np.argsort(np.asarray(w.columns[0]).astype(str))
+        for cg, cw in zip(g_.columns, w.columns):
+            assert np.asarray(cg)[order_g].tobytes() == np.asarray(cw)[order_w].tobytes()
+
+
+def test_device_call_fault_replays_a_real_launch(dev):
+    """A planted `device.call` fault around a grouped-reduce launch: the
+    pass replays and launches the kernel (never its plain version), with
+    the plain version's answer; a failed launch raises on its first
+    attempt."""
+    from datafusion_tpu_torch.errors import ExecutionError
+    from datafusion_tpu_torch.testing import faults
+    from datafusion_tpu_torch.utils import retry
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    ids, vals, live = _inputs("sum", torch.float64, 131_072, 8, dev)
+    # no NaN: each of the 8 groups sums about 9,800 live rows, and one
+    # NaN among them would make every answer NaN and the check vacuous
+    vals = torch.nan_to_num(vals, nan=0.5)
+    retries0 = METRICS.snapshot()["counts"].get("device.transient_retries", 0)
+    before = hash_agg.LAUNCHES
+    with faults.scoped({"rules": [{"site": "device.call", "op": "raise",
+                                   "exc": "DeviceTransientError", "count": 2}]}):
+        got = retry.device_call(hash_agg.grouped_reduce, ids, vals, live, 8, "sum",
+                                _tag="test", _device=dev)
+    assert hash_agg.LAUNCHES == before + 1
+    assert METRICS.snapshot()["counts"]["device.transient_retries"] == retries0 + 2
+    want = hash_agg.grouped_reduce_torch(ids, vals, live, 8, "sum")
+    assert torch.isfinite(want).all() and (want > 0).all()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    # a launch the kernel refuses (strided values) raises on its first
+    # attempt: nothing replays, nothing launches
+    strided = torch.stack([vals, vals], 1)[:, 0]
+    with pytest.raises(ExecutionError, match="contiguous"):
+        retry.device_call(hash_agg.grouped_reduce, ids, strided, live, 8, "sum",
+                          _device=dev)
+    assert hash_agg.LAUNCHES == before + 1
+    assert METRICS.snapshot()["counts"]["device.transient_retries"] == retries0 + 2

@@ -40,7 +40,7 @@ from datafusion_tpu.exec.datasource import MemoryDataSource as JaxMemorySource
 
 import datafusion_tpu_torch as tdf
 from datafusion_tpu_torch import convert
-from datafusion_tpu_torch.errors import DataFusionError, NotSupportedError, QueryShedError
+from datafusion_tpu_torch.errors import DataFusionError, QueryShedError
 from datafusion_tpu_torch.exec.cuda import hash_agg
 from datafusion_tpu_torch.exec.datasource import MemoryDataSource
 from datafusion_tpu_torch.obs.device import LEDGER
@@ -352,25 +352,31 @@ def test_stop_gives_back_sources_and_batch_caches():
 
 
 def test_unported_serving_options_raise(tmp_path):
-    """`shares=` and `client_id=` still wait for their planes (items 11.1
-    and 11.5); `pin_manifest=` and `ingest()` are ported: a manifest
-    round trip with re-pinning at `start()`, and `Server.append`
-    followed by a served query that sees the delta."""
+    """The serving options once refused here now work: `shares=` arms
+    the fair-share policy, and `client_id=` on `submit` and `append`
+    meters the query and the delta under that client
+    (obs/attribution.py; tests/test_torch_qos.py holds both against the
+    JAX package).  `pin_manifest=` and `ingest()`: a manifest round trip
+    with re-pinning at `start()`, and `Server.append` followed by a
+    served query that sees the delta."""
+    from datafusion_tpu_torch.obs.attribution import METER
+
     ctx = _ctx({"t": _table(14)})
-    with pytest.raises(NotSupportedError, match="item 11.1"):
-        ctx.serve(shares={"a": 1.0})
+    with ctx.serve(shares={"a": 1.0}) as srv:
+        assert srv._qos is not None and srv._qos.share("a") == 1.0
+        assert srv.stats()["qos"]["shares"] == {"a": 1.0}
     manifest = str(tmp_path / "pins.json")
     srv = ctx.serve(workers=1, pin_manifest=manifest)
+    queries = METER.snapshot().get("tenant-1", {}).get("queries", 0.0)
     try:
-        with pytest.raises(NotSupportedError, match="item 11.5"):
-            srv.submit(_q("t", 0.4), client_id="tenant-1")
-        with pytest.raises(NotSupportedError, match="item 11.5"):
-            srv.append("t", {"k": ["g0"], "v": [1.0], "p": [0.0]}, client_id="tenant-1")
-        assert srv.submitted == 0
-        before = sorted(srv.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows())
+        before = sorted(srv.submit(_q("t", 0.4), client_id="tenant-1")
+                        .result(timeout=WAIT).to_rows())
+        assert srv.submitted == 1
+        assert METER.snapshot()["tenant-1"]["queries"] == queries + 1
+        assert sorted(srv.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows()) == before
         assert read_json(manifest) == {"pins": [{"table": "t", "fingerprint": "table:t"}]}
         assert srv.ingest() is ctx.ingest()
-        ack = srv.append("t", {"k": ["zz"], "v": [5.0], "p": [0.1]})
+        ack = srv.append("t", {"k": ["zz"], "v": [5.0], "p": [0.1]}, client_id="tenant-1")
         assert ack["rows"] == 1 and ack["rev"] == 1
         after = sorted(srv.submit(_q("t", 0.4)).result(timeout=WAIT).to_rows())
         assert after == sorted(before + [("zz", 5.0, 1)])
