@@ -155,6 +155,20 @@ which raises on failure:
    lineitem written on the build side swapped to build over orders, a
    poisoned store's replan, `DATAFUSION_TPU_COST=0`), and the learned
    grouped-reduce window routing 12,000 groups.  `tenancy*` lines.
+16. Distributed execution (after phase 15, `phase_distributed`): the
+   partitioned mesh (`PartitionedContext` on 8 shard slots of cuda:0)
+   at config 5's shape (config 2's SQL over 4,000,000 rows and 1,000
+   groups in 8 partitions, seeds 100 to 107) against the numpy oracle,
+   5 grouped-reduce launches a round cold and one folded pass warm, f64
+   bit-identical over two folded warm runs, and against a one-slot
+   mesh; two `python -m datafusion_tpu_torch.worker` processes on
+   cuda:0 (fragment cache off) serving TPC-H Q1 over phase 12's SF-1
+   lineitem CSV cut into 4 partitions (cold, twice warm; their `status`
+   launch counts: 6 grouped reduces a batch group of each fragment),
+   Q12 over phase 12's orders and lineitem CSVs through the shuffle join
+   and under DATAFUSION_TPU_SHUFFLE=0 (the coordinator's grouped
+   reduce, sort and, for the local join, build), and Q1 again with one
+   worker killed (every fragment on the survivor).  `dist_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -179,7 +193,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 15) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 16) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -3614,6 +3628,377 @@ def phase_tenancy(tdf, cuda_mod, torch, hash_agg, src, cols, dates, smi):
     return reports
 
 
+# ------------------------------------------------------------ phase 16
+
+MESH_ROWS = 4_000_000  # benchmarks/mesh_bench.py: BENCH_MESH_ROWS
+MESH_GROUPS = 1000  # BENCH_MESH_GROUPS
+MESH_SLOTS = 8
+MESH_BATCH = 1 << 18  # groupby_batches' batch_rows in mesh_bench
+DIST_PARTS = 4
+# a worker process: no --device, so cuda:0
+WORKER_CMD = ("-m", "datafusion_tpu_torch.worker", "--bind", "127.0.0.1:0")
+LINEITEM_Q1_SCHEMA = (("l_returnflag", "UTF8"), ("l_linestatus", "UTF8"),
+                      ("l_quantity", "FLOAT64"), ("l_extendedprice", "FLOAT64"),
+                      ("l_discount", "FLOAT64"), ("l_tax", "FLOAT64"), ("l_shipdate", "UTF8"))
+ORDERS_SCHEMA = (("o_orderkey", "INT64"), ("o_custkey", "INT64"), ("o_orderdate", "UTF8"),
+                 ("o_shippriority", "INT64"))
+LINEITEM_Q12_SCHEMA = (("l_orderkey", "INT64"), ("l_quantity", "INT64"),
+                       ("l_extendedprice", "FLOAT64"), ("l_discount", "FLOAT64"),
+                       ("l_shipmode", "INT64"))
+
+
+def config5_partitions(tdf):
+    """Config 5's table: 8 in-memory partitions of config 2's columns,
+    500,000 rows each, from seeds 100 to 107 with groupby_batches' RNG
+    sequence and its batch of 2^18 rows (benchmarks/mesh_bench.py).
+    Returns (partitions, the concatenated columns)."""
+    I, F = tdf.DataType.INT64, tdf.DataType.FLOAT64
+    schema = tdf.Schema([tdf.Field("k", I, False), tdf.Field("v1", F, False),
+                         tdf.Field("v2", F, False), tdf.Field("v3", I, False)])
+    per_part = MESH_ROWS // MESH_SLOTS
+    parts, cols = [], []
+    for i in range(MESH_SLOTS):
+        rng = np.random.default_rng(100 + i)
+        batches = []
+        for start in range(0, per_part, MESH_BATCH):
+            n = min(MESH_BATCH, per_part - start)
+            c = [rng.integers(0, MESH_GROUPS, n).astype(np.int64),
+                 rng.uniform(0.0, 1000.0, n), rng.uniform(-1.0, 1.0, n),
+                 rng.integers(-(10**9), 10**9, n).astype(np.int64)]
+            cols.append(c)
+            batches.append(tdf.make_host_batch(schema, c, None, None))
+        parts.append(tdf.MemoryDataSource(schema, batches))
+    return parts, [np.concatenate([c[i] for c in cols]) for i in range(4)]
+
+
+def _schema_of(tdf, fields):
+    return tdf.Schema([tdf.Field(n, getattr(tdf.DataType, t), False) for n, t in fields])
+
+
+def split_csv(path, parts, out_dir, stem):
+    """`path` (a CSV with a header) as `parts` CSVs cut on line
+    boundaries, each with the header.  Returns [(path, rows)]."""
+    with open(path, "rb") as f:
+        header = f.readline()
+        body = f.read()
+    out, start = [], 0
+    for p in range(parts):
+        end = len(body) if p == parts - 1 else body.index(b"\n", len(body) * (p + 1) // parts) + 1
+        part = os.path.join(out_dir, f"{stem}_part{p}.csv")
+        with open(part, "wb") as f:
+            f.write(header)
+            f.write(body[start:end])
+        out.append((part, body.count(b"\n", start, end)))
+        start = end
+    return out
+
+
+def _start_workers(n, out_dir):
+    """`n` worker processes (`python -m datafusion_tpu_torch.worker`,
+    no --device: cuda:0), fresh interpreters on ephemeral ports, the
+    fragment cache off so every run computes.  Returns [(process,
+    (host, port))]; a worker that does not come up fails the phase."""
+    import select
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DATAFUSION_TPU_CACHE="0")
+    workers = []
+    try:
+        for i in range(n):
+            err = open(os.path.join(out_dir, f"worker{i}.err"), "w")
+            proc = subprocess.Popen([sys.executable, *WORKER_CMD], cwd=here, env=env,
+                                    stdout=subprocess.PIPE, stderr=err, text=True)
+            err.close()
+            workers.append((proc, None))
+        out = []
+        for i, (proc, _) in enumerate(workers):
+            ready, _, _ = select.select([proc.stdout], [], [], 180)
+            line = proc.stdout.readline() if ready else ""
+            if "listening on" not in line:
+                raise AssertionError(f"worker {i} did not start: {line!r} "
+                                     f"(see build/chip_smoke/worker{i}.err)")
+            host, port = line.strip().rsplit(" ", 1)[1].rsplit(":", 1)
+            out.append((proc, (host, int(port))))
+        return out
+    except BaseException:
+        _stop_workers(workers)
+        raise
+
+
+def _stop_workers(workers):
+    for proc, _ in workers:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc, _ in workers:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _worker_counts(ctx):
+    """Per worker address: its `status` kernel launches and queries (a
+    worker that does not answer is None)."""
+    return {addr: None if st is None else (dict(st["kernels"]), st["queries"])
+            for addr, st in ctx.worker_status().items()}
+
+
+def _counts_delta(before, after):
+    out = {}
+    for addr, a in after.items():
+        b = before.get(addr)
+        if a is None:
+            continue
+        k0 = {} if b is None else b[0]
+        out[addr] = ({k: v - k0.get(k, 0) for k, v in a[0].items()},
+                     a[1] - (0 if b is None else b[1]))
+    return out
+
+
+def _sum_kernels(delta):
+    total = {"hash_agg": 0, "hash_build": 0, "sort_kernel": 0}
+    for kernels, _ in delta.values():
+        for k in total:
+            total[k] += kernels.get(k, 0)
+    return total
+
+
+def _dist_run(tdf, torch, ctx, sql, cuda_mod):
+    """One run with the coordinator's and the workers' launch counters
+    read around it: (result, ms, coordinator launches, worker deltas,
+    wire bytes sent and received)."""
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    before = _worker_counts(ctx)
+    sent0 = METRICS.counts.get("wire.bytes_sent", 0)
+    recv0 = METRICS.counts.get("wire.bytes_received", 0)
+    cuda_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = tdf.collect(ctx.sql(sql))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    coord = cuda_mod.launch_counts()
+    sent = METRICS.counts.get("wire.bytes_sent", 0) - sent0
+    recv = METRICS.counts.get("wire.bytes_received", 0) - recv0
+    return table, ms, coord, _counts_delta(before, _worker_counts(ctx)), sent + recv
+
+
+def phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star, smi):
+    """Distributed execution on cuda:0 (datafusion_tpu_torch/parallel/):
+
+    1. the partitioned mesh: `PartitionedContext` on 8 slots of cuda:0
+       at config 5's shape (config 2's SQL over 4,000,000 rows and 1,000
+       groups, 8 partitions from seeds 100 to 107, benchmarks/
+       mesh_bench.py), against the numpy oracle, the 8 slots folding
+       into one state of 1024 groups: 5 grouped-reduce launches a round
+       cold (2 rounds), the same in the warm run that admits the rounds,
+       then 5 a folded warm run, whose f64 bits repeat; and against a
+       one-slot mesh (`make_mesh()`, the card);
+    2. coordinator and workers: two `python -m datafusion_tpu_torch.worker`
+       processes on cuda:0 (fragment cache off), TPC-H Q1 over phase
+       12's SF-1 lineitem CSV cut into 4 partitions, cold and twice warm,
+       against `q1_oracle`; the workers' `status` must show 6
+       grouped-reduce launches a batch group of each fragment; then one
+       worker killed and Q1 again, every fragment answered by the
+       survivor;
+    3. Q12 over phase 12's orders and lineitem CSVs cut into 4
+       partitions each: through the shuffle join (the coordinator's
+       aggregate launches the grouped reduce, its ORDER BY the sort),
+       and under DATAFUSION_TPU_SHUFFLE=0 (the coordinator's local join
+       over distributed scans launches the build kernel), against
+       `q12_oracle`.
+    `dist_*` lines; returns the reports the `kernels` line counts."""
+    import gc
+
+    from datafusion_tpu_torch.parallel import (
+        DistributedContext,
+        PartitionedContext,
+        PartitionedDataSource,
+        make_mesh,
+    )
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    reports = []
+
+    # 1. the partitioned mesh
+    parts, c5 = config5_partitions(tdf)
+    mctx = PartitionedContext(mesh=make_mesh(devices=[dev] * MESH_SLOTS), result_cache=False)
+    mctx.register_datasource("t", PartitionedDataSource(parts))
+    rel = mctx.sql(CONFIG2)
+    rounds = -(-(MESH_ROWS // MESH_SLOTS) // MESH_BATCH)
+    cuda_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = tdf.collect(rel)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cold = cuda_mod.launch_counts()
+    want = config2_columns(c5, MESH_GROUPS)
+    assert_grouped(table, want, "mesh config 5")
+    # the row count, SUM(v1), SUM(v2), MIN(v3), MAX(v3): one launch each
+    # a round (the 8 slots of cuda:0 fold into one state of 1024 groups)
+    rep = {"query": "dist_mesh_config5", "rows": MESH_ROWS, "launches": cold}
+    expect_launches(rep, "mesh config 5", hash_agg=5 * rounds, sort_kernel=0)
+    warm, warm_launches, outs = [], [], []
+    for _ in range(3):
+        cuda_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs.append(tdf.collect(rel))
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        warm_launches.append(cuda_mod.launch_counts()["hash_agg"])
+    if warm_launches != [5 * rounds, 5, 5]:
+        raise AssertionError(f"mesh warm launches {warm_launches}, want "
+                             f"{[5 * rounds, 5, 5]} (admit, then one folded pass)")
+    for o in outs:
+        assert_grouped(o, want, "mesh config 5 warm")
+    for a, b in zip(outs[1].columns, outs[2].columns):
+        if np.asarray(a).tobytes() != np.asarray(b).tobytes():
+            raise AssertionError("mesh config 5: two folded warm runs differ in their bits")
+    one = PartitionedContext(mesh=make_mesh(), result_cache=False)
+    one.register_datasource("t", PartitionedDataSource(parts))
+    rel1 = one.sql(CONFIG2)
+    t1 = tdf.collect(rel1)
+    assert_same_tables(t1, table, "mesh 1 slot against 8")
+    t0 = time.perf_counter()
+    tdf.collect(rel1)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    rep.update({"slots": MESH_SLOTS, "rounds": rounds, "cold_ms": cold_ms,
+                "warm_ms": warm, "warm_launches": warm_launches,
+                "one_slot_warm_ms": one_ms, "card": card()})
+    log("dist_mesh: " + json.dumps(rep))
+    log(f"mesh: config 5 on {MESH_SLOTS} slots of cuda:0 matches the numpy oracle and the "
+        "one-slot mesh; folded warm runs repeat their f64 bits")
+    reports.append(rep)
+    del parts, c5, mctx, rel, one, rel1, outs
+    gc.collect()
+
+    # the CSVs of phase 12 (written again if absent), cut into partitions
+    li_path = os.path.join(out_dir, f"lineitem_q1_{SF1_ROWS}.csv")
+    if not os.path.exists(li_path):
+        write_csv(li_path, [n for n, _ in LINEITEM_Q1_SCHEMA],
+                  [np.array(["A", "N", "R"])[li_cols["flag"]],
+                   np.array(["F", "O"])[li_cols["status"]], li_cols["qty"], li_cols["price"],
+                   li_cols["disc"], li_cols["tax"], np.array(dates)[li_cols["ship"]]])
+    orders_path = os.path.join(out_dir, "orders_q12.csv")
+    l12_path = os.path.join(out_dir, "lineitem_q12.csv")
+    if not (os.path.exists(orders_path) and os.path.exists(l12_path)):
+        d_date = np.array([f"1995-{m:02d}-{d:02d}" for m in range(1, 13) for d in range(1, 29)])
+        write_csv(orders_path, [n for n, _ in ORDERS_SCHEMA],
+                  [np.arange(len(star["o_custkey"])), star["o_custkey"],
+                   d_date[star["o_date"]], star["o_shippriority"]])
+        write_csv(l12_path, [n for n, _ in LINEITEM_Q12_SCHEMA],
+                  [star["l_orderkey"], star["l_quantity"], star["l_extendedprice"],
+                   star["l_discount"], star["l_shipmode"]])
+    t0 = time.perf_counter()
+    li_parts = split_csv(li_path, DIST_PARTS, out_dir, "dist_lineitem_q1")
+    o_parts = split_csv(orders_path, DIST_PARTS, out_dir, "dist_orders_q12")
+    l12_parts = split_csv(l12_path, DIST_PARTS, out_dir, "dist_lineitem_q12")
+    split_s = time.perf_counter() - t0
+
+    workers = _start_workers(2, out_dir)
+    try:
+        addrs = [a for _, a in workers]
+        ctx = DistributedContext(addrs, result_cache=False)  # the coordinator: cuda:0
+        ctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, _schema_of(tdf, LINEITEM_Q1_SCHEMA)) for p, _ in li_parts]))
+        batch = ctx.batch_size
+        want_q1 = 6 * sum(fold_groups(-(-rows // batch)) for _, rows in li_parts)
+
+        # 2. Q1 through two workers: cold, twice warm
+        runs = []
+        for i in range(3):
+            table, ms, coord, delta, nbytes = _dist_run(tdf, torch, ctx, Q1, cuda_mod)
+            assert_rows(table, q1_oracle(li_cols, dates), f"distributed Q1 run {i}")
+            got = _sum_kernels(delta)
+            if got["hash_agg"] != want_q1 or coord["hash_agg"] != 0:
+                raise AssertionError(f"distributed Q1 run {i}: workers launched {got}, "
+                                     f"coordinator {coord}; want {want_q1} grouped reduces "
+                                     "in the workers")
+            if sum(q for _, q in delta.values()) != DIST_PARTS:
+                raise AssertionError(f"distributed Q1 run {i}: fragments {delta}")
+            runs.append((ms, got, delta, nbytes))
+        rep = {"query": "dist_tpch_q1_sf1_csv", "rows": SF1_ROWS, "partitions": DIST_PARTS,
+               "workers": 2, "launches": runs[0][1], "cold_ms": runs[0][0],
+               "warm_ms": [r[0] for r in runs[1:]],
+               "per_worker": {a: d for a, d in runs[0][2].items()},
+               "wire_bytes": runs[0][3], "csv_split_s": split_s, "card": card()}
+        log("dist_q1: " + json.dumps(rep))
+        log(f"distributed Q1 through 2 workers matches the numpy oracle ({want_q1} "
+            "grouped-reduce launches in the workers a run)")
+        reports.append(rep)
+
+        # 3. Q12 through the shuffle join, then under DATAFUSION_TPU_SHUFFLE=0
+        ctx.register_datasource("orders", PartitionedDataSource(
+            [tdf.CsvDataSource(p, _schema_of(tdf, ORDERS_SCHEMA)) for p, _ in o_parts]))
+        ctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, _schema_of(tdf, LINEITEM_Q12_SCHEMA)) for p, _ in l12_parts]))
+        for knob, label in (("1", "shuffle"), ("0", "local_join")):
+            os.environ["DATAFUSION_TPU_SHUFFLE"] = knob
+            try:
+                joins0 = METRICS.counts.get("shuffle.joins", 0)
+                table, ms, coord, delta, nbytes = _dist_run(tdf, torch, ctx, Q12, cuda_mod)
+                shuffled = METRICS.counts.get("shuffle.joins", 0) - joins0
+            finally:
+                del os.environ["DATAFUSION_TPU_SHUFFLE"]
+            got = table.to_rows()
+            if got != q12_oracle(star):
+                raise AssertionError(f"distributed Q12 ({label}): {got} != {q12_oracle(star)}")
+            # the coordinator's aggregate and ORDER BY launch the grouped
+            # reduce and the sort; its local join (SHUFFLE=0) the build
+            if coord["sort_kernel"] < 1 or coord["hash_agg"] < 1 or (
+                    knob == "0" and coord["hash_build"] != 1) or (
+                    (shuffled > 0) != (knob == "1")):
+                raise AssertionError(f"distributed Q12 ({label}): coordinator launches "
+                                     f"{coord}, shuffle joins {shuffled}")
+            rep = {"query": f"dist_tpch_q12_sf1_{label}", "rows": len(star["l_orderkey"]),
+                   "launches": coord, "worker_launches": _sum_kernels(delta),
+                   "cold_ms": ms, "wire_bytes": nbytes, "card": card()}
+            log(f"dist_q12_{label}: " + json.dumps(rep))
+            reports.append(rep)
+        log("distributed Q12 matches the numpy oracle through the shuffle join and "
+            "through the coordinator's local join")
+
+        # 2b. one worker killed: Q1 again, every fragment on the survivor
+        ctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, _schema_of(tdf, LINEITEM_Q1_SCHEMA)) for p, _ in li_parts]))
+        (victim, victim_addr), (_, survivor) = workers
+        victim.kill()
+        victim.wait(timeout=30)
+        moved0 = METRICS.counts.get("coord.fragment_reassigned", 0)
+        hedged0 = METRICS.counts.get("coord.hedges_dispatched", 0)
+        table, ms, coord, delta, nbytes = _dist_run(tdf, torch, ctx, Q1, cuda_mod)
+        assert_rows(table, q1_oracle(li_cols, dates), "distributed Q1 after a kill")
+        key = f"{survivor[0]}:{survivor[1]}"
+        dead = f"{victim_addr[0]}:{victim_addr[1]}"
+        if dead in delta or delta[key][1] != DIST_PARTS or \
+                delta[key][0]["hash_agg"] != want_q1:
+            raise AssertionError(f"distributed Q1 after a kill: {delta}")
+        moved = METRICS.counts.get("coord.fragment_reassigned", 0) - moved0
+        if moved < 1:
+            raise AssertionError("distributed Q1 after a kill: nothing was reassigned")
+        rep = {"query": "dist_tpch_q1_sf1_failover", "rows": SF1_ROWS,
+               "launches": delta[key][0], "ms": ms, "reassigned": moved,
+               "hedged": METRICS.counts.get("coord.hedges_dispatched", 0) - hedged0,
+               "wire_bytes": nbytes, "card": card()}
+        log("dist_q1_failover: " + json.dumps(rep))
+        log(f"distributed Q1 with one worker killed: the survivor answered all "
+            f"{DIST_PARTS} fragments ({moved} reassigned)")
+        reports.append(rep)
+        ctx.close()
+    finally:
+        _stop_workers(workers)
+    log(f"dist_phase: {time.perf_counter() - t_phase:.3f} s ({smi})")
+    return reports
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3717,6 +4102,7 @@ def main() -> int:
     tenancy_reports = phase_tenancy(tdf, cuda_mod, torch, hash_agg, li_src, li_cols, dates,
                                     smi)
     reports += tenancy_reports
+    reports += phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star_cols, smi)
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)

@@ -4,9 +4,8 @@ The machinery is the JAX package's, whole: fingerprint -> materialized
 artifact, bounded by bytes, invalidated by version.  In the port it
 backs the **result cache** (`exec/context.py`): a repeated identical SQL
 query on one context returns its materialized host batches without
-touching a source or the device.  The JAX package's second user, the
-worker fragment cache, waits for the distributed plane (ROADMAP queue
-1, item 12).
+touching a source or the device.  Its second user is the worker
+fragment cache (parallel/worker.py), keyed by `fragment_fingerprint`.
 
 Knobs (read per store construction, overridable in-process for tests):
 
@@ -28,6 +27,7 @@ from typing import Optional
 from datafusion_tpu_torch.cache.fingerprint import (  # noqa: F401 — subsystem API
     canonical_json,
     digest,
+    fragment_fingerprint,
     plan_fingerprint,
 )
 from datafusion_tpu_torch.cache.store import CacheStore  # noqa: F401

@@ -1,6 +1,5 @@
-"""Canonical, cross-process plan fingerprints (the JAX package's
-`cache/fingerprint.py`, its plan half: the fragment fingerprints wait
-for the worker fragment cache, ROADMAP queue 1 item 12).
+"""Canonical, cross-process plan and fragment fingerprints (the JAX
+package's `cache/fingerprint.py`).
 
 A fingerprint identifies "the same work": the logical plan in its JSON
 wire form (`plan/logical.py`), canonicalized with sorted keys so dict
@@ -22,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from typing import Optional
 
 _SEP = b"\x1f"  # unit separator between digest parts
@@ -56,4 +56,55 @@ def plan_fingerprint(plan, catalog_versions: Optional[dict] = None,
         "plan": plan.to_json(),
         "catalog": catalog_versions or {},
         "extra": extra or {},
+    })
+
+
+def source_version(meta) -> list:
+    """Best-effort version of a datasource meta's backing files:
+    (path, mtime_ns, size) triples, recursively for partitioned metas.
+    An unstattable path records as missing: the fingerprint still
+    forms, and stops matching once the file appears."""
+    out: list = []
+
+    def walk(m):
+        if not isinstance(m, dict):
+            return
+        for body in m.values():
+            if isinstance(body, list):  # {"Partitioned": [child metas]}
+                for child in body:
+                    walk(child)
+                continue
+            if not isinstance(body, dict):
+                continue
+            path = body.get("filename")
+            if path is None:
+                # an in-memory growing source versions by append count
+                dv = body.get("data_version")
+                if dv is not None:
+                    out.append(["mem:" + str(body.get("name") or ""),
+                                int(dv), int(body.get("rows") or 0)])
+                continue
+            try:
+                st = os.stat(path)
+                out.append([path, st.st_mtime_ns, st.st_size])
+            except OSError:
+                out.append([path, "missing", 0])
+
+    walk(meta)
+    return out
+
+
+def fragment_fingerprint(frag, with_source_version: bool = True) -> str:
+    """Fingerprint of one fragment's work (the worker fragment cache's
+    key, parallel/worker.py): its plan wire JSON, datasource meta and
+    shard/num_shards, and NOT its `query_id`, so a replayed dispatch
+    after a failover and a repeat of the same query both land on one
+    entry.  `with_source_version` folds the backing files' (mtime,
+    size) in, so a rewritten partition misses."""
+    return digest({
+        "plan": frag.plan,
+        "datasource": frag.datasource_meta,
+        "shard": frag.shard,
+        "num_shards": frag.num_shards,
+        "src": source_version(frag.datasource_meta) if with_source_version else None,
     })

@@ -5,7 +5,9 @@ CUDA C++ source under `datafusion_tpu_torch/csrc/` with a plain C
 interface.  It is compiled with `nvcc` for `sm_90a` on first use into
 `build/datafusion_tpu_torch/` beside the package, keyed by a hash of
 the source and the flags (an edited source rebuilds), and loaded with
-`ctypes`.
+`ctypes`.  Processes that build at once (a coordinator and its worker
+processes on one machine) each compile into a temporary file of their
+own and rename it into place, so a loader finds a whole library or none.
 
 - `hash_agg`: grouped reduce by dense group id (replaces the Pallas
   `hash_agg.grouped_reduce`).

@@ -17,6 +17,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from datafusion_tpu_torch.datatypes import Schema
+from datafusion_tpu_torch.errors import PlanError
 from datafusion_tpu_torch.exec.batch import RecordBatch
 
 # identities of in-memory sources: never reused in a process (an id()
@@ -49,7 +50,11 @@ class DataSource:
       device (0 when unknown: admission never sheds for it);
     - `data_identity`: a hashable identity of the data itself, which a
       fingerprint of a result built from it holds (serve.py's pins,
-      join/relation.py's pinned builds)."""
+      join/relation.py's pinned builds);
+    - `to_meta()`: the source's wire description (the JAX package's
+      `DataSourceMeta` JSON, reference `datasource.rs:70-85`), which a
+      plan fragment ships to a worker (parallel/physical.py); a source
+      with no file behind it raises PlanError."""
 
     parses = False
     data_version = 0
@@ -66,6 +71,9 @@ class DataSource:
 
     def estimated_bytes(self) -> int:
         return 0
+
+    def to_meta(self) -> dict:
+        raise PlanError(f"{type(self).__name__} is not serializable")
 
     @property
     def data_identity(self) -> tuple:
@@ -168,6 +176,10 @@ class CsvDataSource(FileDataSource):
         return CsvDataSource(self.path, self.table_schema, self.has_header,
                              self.batch_size, projection)
 
+    def to_meta(self) -> dict:
+        return {"CsvFile": {"filename": self.path, "schema": self.table_schema.to_json(),
+                            "has_header": self.has_header, "projection": self.projection}}
+
 
 class NdJsonDataSource(FileDataSource):
     """A newline-delimited JSON file (io/readers.NdJsonReader)."""
@@ -189,6 +201,10 @@ class NdJsonDataSource(FileDataSource):
 
     def with_projection(self, projection: Sequence[int]) -> "NdJsonDataSource":
         return NdJsonDataSource(self.path, self.table_schema, self.batch_size, projection)
+
+    def to_meta(self) -> dict:
+        return {"NdJsonFile": {"filename": self.path, "schema": self.table_schema.to_json(),
+                               "projection": self.projection}}
 
 
 class ParquetDataSource(FileDataSource):
@@ -212,3 +228,7 @@ class ParquetDataSource(FileDataSource):
 
     def with_projection(self, projection: Sequence[int]) -> "ParquetDataSource":
         return ParquetDataSource(self.path, self.table_schema, self.batch_size, projection)
+
+    def to_meta(self) -> dict:
+        return {"ParquetFile": {"filename": self.path, "schema": self.table_schema.to_json(),
+                                "projection": self.projection}}

@@ -18,9 +18,9 @@ ranks segments by their p99 contribution so a slow tail names its
 segment (`EXPLAINER.explain()`).  `observe_phases` is the non-served
 fallback over the phase set of `obs/device.PHASE_ORDER`.
 `critical_path_from_spans` decomposes a merged span tree with hedge
-losers excluded (`hedge_loser_span_ids`); in the port only the
-distributed plane would produce hedge spans (ROADMAP item 12), so the
-two are pure functions over span dicts for now.
+losers excluded (`hedge_loser_span_ids`); in the port the coordinator's
+hedged dispatch (parallel/coordinator.py) produces such spans when
+tracing is on, and the two are pure functions over span dicts.
 
 **Per-client metering.**  `Server.submit(client_id=...)` and
 `Server.append(client_id=...)` publish the client as this thread's

@@ -2,8 +2,9 @@
 `parallel/wire.py`, whole: numpy only).
 
 In the port its frames are the records of the write-ahead log
-(`utils/wal.py`) and the ingest log's column blocks (`ingest/`); the
-socket helpers wait for the distributed plane.
+(`utils/wal.py`), the ingest log's column blocks (`ingest/`) and the
+messages between the coordinator and its workers (parallel/); a frame
+`recv_msg` reads counts its bytes in ``wire.bytes_received``.
 
 The reference planned HTTP + Arrow IPC between console and worker nodes
 (`README.md:33`, worker image EXPOSE 8080 in
@@ -180,6 +181,9 @@ def recv_msg(sock: socket.socket) -> Optional[dict]:
         # handler keys on ConnectionError/OSError
         raise ConnectionError("connection closed mid-frame")
     data = faults.corrupt("wire.recv.payload", data)
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    METRICS.add("wire.bytes_received", _LEN.size + n)
     return parse_frame(data)
 
 

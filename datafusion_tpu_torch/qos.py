@@ -32,9 +32,12 @@ or ``Server(shares={...})``; an unlisted tenant weighs
 `default_share()` (1.0) unless `FairSharePolicy(default=...)` says
 otherwise.
 
-Not ported yet: `debug_snapshot` and the ``/debug/qos`` document (they
-read the SLO watchdog, ROADMAP item 13.2) and pin-aware placement (the
-coordinator's, item 12).
+`scope_client` and `TenantBuckets` also bill the coordinator's fragment
+dispatch (parallel/coordinator.py): its reassignment retries and its
+hedges spend the dispatching tenant's child buckets.  Not ported yet:
+`debug_snapshot` and the ``/debug/qos`` document (they read the SLO
+watchdog) and the coordinator's pin-aware placement (it reads the
+cluster's lease advertisements), all ROADMAP item 13.2.
 """
 
 from __future__ import annotations

@@ -2,10 +2,12 @@
 whole: the registry, `check`, `corrupt` and the plan).
 
 In the port the disk sites of the write-ahead log (`utils/wal.py`:
-``wal.write``, ``wal.fsync``, ``wal.rename``, ``snapshot.write``) and the
-wire codec's (``wire.send``, ``wire.recv``, ``wire.recv.payload``)
-consult it; the other sites named below belong to planes the port has
-not taken yet.
+``wal.write``, ``wal.fsync``, ``wal.rename``, ``snapshot.write``), the
+wire codec's (``wire.send``, ``wire.recv``, ``wire.recv.payload``, in
+the blocking codec and the worker's event loop), the device pass's
+(``device.call``) and the distributed plane's (``worker.fragment``,
+``worker.shuffle_join``, ``coord.request``) consult it; the cluster
+sites named below belong to a plane the port has not taken yet.
 
 SURVEY §5.3 names failure detection/recovery as a first-class rebuild
 target, but recovery code that only ever runs when real hardware

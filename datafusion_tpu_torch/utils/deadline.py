@@ -34,6 +34,17 @@ class Deadline:
     def expired(self) -> bool:
         return self.remaining() <= 0.0
 
+    def check(self, what: str = "query") -> None:
+        """Raise `QueryDeadlineError` once the budget is spent (the mesh
+        round loops and the coordinator's dispatch call it)."""
+        rem = self.remaining()
+        if rem <= 0.0:
+            from datafusion_tpu_torch.errors import QueryDeadlineError
+
+            raise QueryDeadlineError(
+                f"{what} exceeded its deadline (over budget by {-rem:.3f}s)"
+            )
+
     def __repr__(self):
         return f"Deadline(remaining={self.remaining():.3f}s)"
 

@@ -60,12 +60,15 @@ meter, ``retry.tenant_denied`` flight event).  Metrics:
 
 Constants: 4 attempts a pass, backoff base 0.25 s and cap 5.0 s.  A
 budget is installed with `set_retry_budget(RetryBudget(ratio, burst))`
-(the burst defaults to max(2, 10*ratio)).  The hedge budget and the circuit breakers
-(`utils/hedge.py`, `utils/breaker.py`) wait for ROADMAP item 13.2.
+(the burst defaults to max(2, 10*ratio)).  The coordinator's fragment
+reassignments spend the same budget (parallel/coordinator.py); its
+hedge budget and circuit breakers are `utils/hedge.py` and
+`utils/breaker.py`, switched on by the environment through `_env_bool`.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -83,6 +86,15 @@ from datafusion_tpu_torch.utils.metrics import (
     stage_enter,
     stage_exit,
 )
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    """One truthy-env idiom for every resilience switch (breakers,
+    hedging, the coordinator's local fallback)."""
+    v = os.environ.get(name)
+    if not v:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
 
 
 _ATTEMPTS = 4

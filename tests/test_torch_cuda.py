@@ -25,7 +25,11 @@ versions on the CPU, and an append into a pinned table sends the next
 served query only the delta.  Tenancy and cost: the grouped reduce at
 G = 16,384 (the widest window the cost store can learn), a served
 two-tenant round whose metered device seconds sum to its launch wall,
-and a `device.call` fault replayed around a real launch.  Every context
+and a `device.call` fault replayed around a real launch.  Distributed:
+the partitioned aggregate on a mesh of 8 slots of cuda:0 against the
+same mesh of CPU slots (5 grouped-reduce launches a round, folded warm
+runs bit-identical), and a worker process on cuda:0 answering a
+coordinator, its `status` counting the grouped reduces it launched.  Every context
 here passes `result_cache=False`, so a repeated query runs and launches
 again, and every case starts from an empty cost store.
 """
@@ -1189,3 +1193,107 @@ def test_device_call_fault_replays_a_real_launch(dev):
                           _device=dev)
     assert hash_agg.LAUNCHES == before + 1
     assert METRICS.snapshot()["counts"]["device.transient_retries"] == retries0 + 2
+
+
+def _mesh_parts(seed=100, n_parts=8, rows=40_000, groups=1000, batch=16_384):
+    """config 5's shape in miniature: 8 in-memory partitions of config
+    2's columns (k, v1, v2, v3)."""
+    T = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", T.INT64, False), tdf.Field("v1", T.INT64, False),
+                         tdf.Field("v2", T.FLOAT64, False), tdf.Field("v3", T.FLOAT64, False)])
+    parts = []
+    for p in range(n_parts):
+        rng = np.random.default_rng(seed + p)
+        cols = [rng.integers(0, groups, rows).astype(np.int64),
+                rng.integers(0, 100, rows).astype(np.int64),
+                rng.normal(size=rows), rng.uniform(-1e3, 1e3, rows)]
+        parts.append(tdf.MemoryDataSource(schema, [
+            tdf.make_host_batch(schema, [c[lo:lo + batch] for c in cols])
+            for lo in range(0, rows, batch)]))
+    return parts
+
+
+def test_partitioned_mesh_on_one_card_matches_the_cpu(dev):
+    """The partitioned aggregate on a mesh of 8 slots of cuda:0 (the
+    slots fold into one state of 1024 groups, one grouped-reduce launch
+    an aggregate column a round) against the same mesh of CPU slots: ints exactly, f64 within rtol
+    1e-9; two warm folded runs repeat their f64 bits."""
+    from datafusion_tpu_torch.parallel import (
+        PartitionedContext,
+        PartitionedDataSource,
+        make_mesh,
+    )
+
+    sql = "SELECT k, SUM(v1), AVG(v2), MIN(v3), MAX(v3), COUNT(1) FROM t GROUP BY k"
+    out = {}
+    for name, slots in (("cuda", [dev] * 8), ("cpu", ["cpu"] * 8)):
+        ctx = PartitionedContext(mesh=make_mesh(devices=slots), result_cache=False)
+        ctx.register_datasource("t", PartitionedDataSource(_mesh_parts()))
+        rel = ctx.sql(sql)
+        port_cuda.reset_launch_counts()
+        out[name] = tdf.collect(rel)
+        if name == "cuda":
+            # 3 rounds (3 batches a partition), 5 launches a round: the
+            # row count, SUM(v1), SUM(v2), MIN(v3), MAX(v3)
+            assert port_cuda.launch_counts()["hash_agg"] == 3 * 5
+            tdf.collect(rel)  # admits the rounds
+            warm = [tdf.collect(rel) for _ in range(2)]
+            for a, b in zip(warm[0].columns, warm[1].columns):
+                assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    got, want = out["cuda"], out["cpu"]
+    og = np.argsort(np.asarray(got.columns[0]))
+    ow = np.argsort(np.asarray(want.columns[0]))
+    for cg, cw in zip(got.columns, want.columns):
+        cg, cw = np.asarray(cg)[og], np.asarray(cw)[ow]
+        if cw.dtype.kind == "f":
+            np.testing.assert_allclose(cg, cw, rtol=1e-9, atol=0)
+        else:
+            np.testing.assert_array_equal(cg, cw)
+
+
+def test_worker_process_on_the_card(dev, tmp_path):
+    """`python -m datafusion_tpu_torch.worker` with no --device serves on
+    cuda:0: a fragment's rows against a CPU context's, and its `status`
+    shows the grouped-reduce launches made inside the worker process."""
+    import os
+    import subprocess
+    import sys
+
+    from datafusion_tpu_torch.parallel import DistributedContext, PartitionedDataSource
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(3)
+    paths = []
+    for p in range(2):
+        path = tmp_path / f"p{p}.csv"
+        k = rng.integers(0, 16, 5000)
+        x = rng.uniform(0, 1, 5000).round(6)
+        path.write_text("k,x\n" + "".join(f"{a},{b}\n" for a, b in zip(k, x)))
+        paths.append(str(path))
+    T = tdf.DataType
+    schema = tdf.Schema([tdf.Field("k", T.INT64, False), tdf.Field("x", T.FLOAT64, False)])
+    proc = subprocess.Popen([sys.executable, "-m", "datafusion_tpu_torch.worker",
+                             "--bind", "127.0.0.1:0"], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "listening on" in line, line
+        host, port = line.strip().rsplit(" ", 1)[1].rsplit(":", 1)
+        ctx = DistributedContext([(host, int(port))], result_cache=False)
+        ctx.register_datasource("t", PartitionedDataSource(
+            [tdf.CsvDataSource(p, schema) for p in paths]))
+        sql = "SELECT k, SUM(x), COUNT(1) FROM t GROUP BY k"
+        got = sorted(tdf.collect(ctx.sql(sql)).to_rows())
+        local = tdf.ExecutionContext(device="cpu", result_cache=False)
+        local.register_datasource("t", PartitionedDataSource(
+            [tdf.CsvDataSource(p, schema) for p in paths]))
+        want = sorted(tdf.collect(local.sql(sql)).to_rows())
+        assert [r[0] for r in got] == [r[0] for r in want]
+        np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want], rtol=1e-9)
+        (status,) = ctx.worker_status().values()
+        assert status["device"] == "cuda:0"
+        # two fragments, 2 launches each: the row count and SUM(x)
+        assert status["kernels"]["hash_agg"] == 4
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
