@@ -169,6 +169,18 @@ which raises on failure:
    and under DATAFUSION_TPU_SHUFFLE=0 (the coordinator's grouped
    reduce, sort and, for the local join, build), and Q1 again with one
    worker killed (every fragment on the survivor).  `dist_*` lines.
+17. The data plane (after phase 6, `phase_data_plane`): the probes
+   (`link_rate_mbps`, both exact probes, which must read True, and
+   whether `auto` turns the codec on over this link), the wire spec of
+   each of Q1's columns and its `put_compressed` round trip bit for bit
+   under DATAFUSION_TPU_WIRE=always, cold Q1 over fresh batch objects
+   with =always, =auto and =never in turns (3 runs each: ms,
+   `h2d.bytes`, `h2d.encode`; the same result bits, and `auto` sends
+   what its choice sends), the SF-1 filter/project's `d2h.bytes` and
+   compacted batches, the lineitem sort cold and twice more on one
+   relation (permutation-plane bytes; the third run makes no sort
+   launch), and the TopK `a DESC, b` over config 4's 4,000,000 rows.
+   `data_plane_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -193,7 +205,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 16) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 17) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -3108,7 +3120,11 @@ def phase_ingest(tdf, cuda_mod, torch, src, cols, dates, smi):
                 agg = agg.child
             proj = getattr(agg.child.datasource, "cols", None)
             used = [c if proj is None else proj[c] for c in agg.core.used_cols]
-            want = sum(batch.data[c].nbytes for c in used) + 4 * batch.capacity
+            # the delta's used columns as put_compressed sent them (raw
+            # where `auto` leaves the codec off; else their wire images,
+            # the core's hints replaying its choices) and its raw group ids
+            want = wire_bytes([batch.data[c] for c in used], sctx.device,
+                              agg.core.wire_hints) + 4 * batch.capacity
             if h2d != want:
                 raise AssertionError(f"served: {h2d} bytes copied after the append, "
                                      f"the delta's used columns and ids are {want}")
@@ -3999,6 +4015,206 @@ def phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star, smi):
     return reports
 
 
+# ------------------------------------------------------------ phase 17
+
+
+def _counter(name):
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["counts"].get(name, 0)
+
+
+def _timer_ms(name):
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["timings_s"].get(name, 0.0) * 1e3
+
+
+def wire_bytes(arrays, dev, hints=None):
+    """The bytes `batch.put_compressed` sends for host `arrays` (in their
+    positions): each array's wire images as the host encode produces
+    them (`hints` replays a core's codec choices), or its raw bytes
+    where the wire is off."""
+    from datafusion_tpu_torch.exec import batch as B
+
+    if not B._wire_enabled(dev):
+        return sum(B.device_array(np.asarray(a)).nbytes for a in arrays)
+    total = 0
+    for i, a in enumerate(arrays):
+        a = np.ascontiguousarray(B.device_array(np.asarray(a)))
+        hint = None if hints is None else hints.get(i)
+        enc = None if hint is None else B._encode_wire_hinted(a, hint, dev)
+        total += sum(w.nbytes for w in (enc or B._encode_wire(a, dev))[1])
+    return total
+
+
+def _fresh_source(tdf, src):
+    """The batches of `src` as new batch objects around the same arrays:
+    nothing is cached on them, so a scan copies every column again."""
+    from datafusion_tpu_torch.exec.batch import RecordBatch
+
+    return tdf.MemoryDataSource(src.schema, [
+        RecordBatch(b.schema, list(b.data), list(b.validity), list(b.dicts),
+                    num_rows=b.num_rows)
+        for b in src.batches()])
+
+
+def _same_bits(got, want, label):
+    for i, (g, w) in enumerate(zip(got.columns, want.columns)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or not np.array_equal(
+                g.view(np.uint8) if g.dtype.kind in "fiu" else g,
+                w.view(np.uint8) if w.dtype.kind in "fiu" else w):
+            raise AssertionError(f"{label}: column {i} differs in its bits")
+
+
+def phase_data_plane(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star, smi):
+    """The data plane (exec/batch.py, exec/materialize.py, the run sort's
+    permutation planes and cache), on tables already in memory: the
+    probes, the codec on Q1's columns, cold Q1 with the codec forced on,
+    chosen by `auto` and off, the compaction of the SF-1 filter/project,
+    the lineitem sort's permutation planes and its cache, and the TopK
+    `a DESC, b`."""
+    from datafusion_tpu_torch.exec import batch as B
+    from datafusion_tpu_torch.exec.sort import SortRelation
+
+    dev = ctx.device
+    reports = []
+    # 1. the probes
+    knob = os.environ.get("DATAFUSION_TPU_WIRE")
+
+    def wire(mode):
+        if mode is None:
+            os.environ.pop("DATAFUSION_TPU_WIRE", None)
+        else:
+            os.environ["DATAFUSION_TPU_WIRE"] = mode
+
+    wire("auto")
+    try:
+        probes = {"link_rate_mbps": B.link_rate_mbps(dev),
+                  "f64_device_exact": B._f64_device_exact(dev),
+                  "decimal_division_exact": B._decimal_division_exact(dev),
+                  "auto_codec_on": B._wire_enabled(dev),
+                  "codec_max_link_mbps": B._WIRE_MAX_LINK_MBPS, "card": smi}
+    finally:
+        wire(knob)
+    log("data_plane_probes: " + json.dumps(probes))
+    if not (probes["f64_device_exact"] and probes["decimal_division_exact"]):
+        raise AssertionError(f"data plane: an exact probe reads False: {probes}")
+    if probes["auto_codec_on"] != (probes["link_rate_mbps"] < B._WIRE_MAX_LINK_MBPS):
+        raise AssertionError(f"data plane: auto disagrees with the link: {probes}")
+
+    # 2. the codec on Q1's columns, one batch each, round trips bit for bit
+    first = next(iter(li_src.batches()))
+    specs = {}
+    wire("always")
+    for f, col in zip(li_src.schema.fields, first.data):
+        want = B.device_array(col)
+        spec, _ = B._encode_wire(np.ascontiguousarray(want), dev)
+        h0 = _counter("h2d.bytes")
+        (got,) = B.put_compressed([col], dev)
+        got = got.cpu().numpy()
+        if got.dtype != want.dtype or not np.array_equal(got.view(np.uint8),
+                                                         want.view(np.uint8)):
+            raise AssertionError(f"data plane: {f.name} does not round-trip ({spec})")
+        specs[f.name] = {"spec": list(spec), "raw_bytes": int(want.nbytes),
+                         "wire_bytes": _counter("h2d.bytes") - h0}
+    wire(knob)
+    log("data_plane_codec: " + json.dumps({"rows": first.capacity, "columns": specs,
+                                           "card": smi}))
+
+    # 3. cold Q1 over fresh batch objects, the codec forced on, as auto
+    # chooses it over this link, and off, in turns
+    modes = ("always", "auto", "never")
+    runs = {m: [] for m in modes}
+    tables = {}
+    for _ in range(3):
+        for mode in modes:
+            wire(mode)
+            try:
+                c = tdf.ExecutionContext(result_cache=False)
+                c.register_datasource("lineitem", _fresh_source(tdf, li_src))
+                h0, e0 = _counter("h2d.bytes"), _timer_ms("h2d.encode")
+                t0 = time.perf_counter()
+                table = tdf.collect(c.sql(Q1))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                runs[mode].append({"ms": ms, "h2d_bytes": _counter("h2d.bytes") - h0,
+                                   "h2d_encode_ms": _timer_ms("h2d.encode") - e0})
+            finally:
+                wire(knob)
+            if mode in tables:
+                _same_bits(table, tables[mode], f"cold Q1 ({mode}) rerun")
+            tables[mode] = table
+    for mode in ("auto", "never"):
+        _same_bits(tables["always"], tables[mode], f"cold Q1, codec on against {mode}")
+    assert_rows(tables["always"], q1_oracle(li_cols, dates), "cold Q1 through the codec")
+    chosen = "always" if probes["auto_codec_on"] else "never"
+    if runs["auto"][0]["h2d_bytes"] != runs[chosen][0]["h2d_bytes"]:
+        raise AssertionError(f"data plane: auto did not send what {chosen} sends: {runs}")
+    rep = {"query": "data_plane_cold_q1_sf1", "rows": SF1_ROWS, "runs": runs,
+           "p50_ms": {m: float(np.median([r["ms"] for r in v])) for m, v in runs.items()},
+           "card": smi}
+    log("data_plane_cold_q1: " + json.dumps(rep))
+
+    # 4. the compaction of the SF-1 filter/project (lineitem of phase 3)
+    c = tdf.ExecutionContext(result_cache=False)
+    c.register_datasource("lineitem", li_src)
+    d0, k0 = _counter("d2h.bytes"), _counter("d2h.compacted_batches")
+    t0 = time.perf_counter()
+    tdf.collect(c.sql(SF1_FILTER_PROJECT))
+    torch.cuda.synchronize()
+    log("data_plane_filter_project: " + json.dumps({
+        "query": "lineitem_filter_project_sf1", "ms": (time.perf_counter() - t0) * 1e3,
+        "d2h_bytes": _counter("d2h.bytes") - d0,
+        "d2h_compacted_batches": _counter("d2h.compacted_batches") - k0, "card": smi}))
+
+    # 5. the lineitem sort: cold, then the same relation twice more
+    # (second-chance admission stores the permutation on the second run;
+    # the third makes no sort launch)
+    sel = star["l_quantity"] > 25
+    mode, okey = star["l_shipmode"][sel], star["l_orderkey"][sel]
+    order = np.lexsort((~okey, mode))
+    want_sort = [mode[order], okey[order], star["l_extendedprice"][sel][order]]
+    rel = ctx.sql(LINEITEM_SORT)
+    sort_runs = []
+    for i in range(3):
+        p0, h0 = _counter("sort.perm_plane_bytes"), _counter("sort.perm_cache_hits")
+        cuda_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        table = tdf.collect(rel)
+        torch.cuda.synchronize()
+        sort_runs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "sort_launches": cuda_mod.launch_counts()["sort_kernel"],
+                          "perm_plane_bytes": _counter("sort.perm_plane_bytes") - p0,
+                          "perm_cache_hits": _counter("sort.perm_cache_hits") - h0})
+        assert_columns(table, want_sort, f"data plane lineitem sort, run {i + 1}")
+    if [r["sort_launches"] for r in sort_runs] != [1, 1, 0]:
+        raise AssertionError(f"data plane: lineitem sort launches {sort_runs}")
+    node = rel
+    while not isinstance(node, SortRelation):
+        node = node.child
+    log("data_plane_sort: " + json.dumps({
+        "query": "lineitem_filtered_sort_sf1", "rows_sorted": int(sel.sum()),
+        "runs": sort_runs, "cached_runs": len(node._run_ops_cache), "card": smi}))
+
+    # 6. the TopK `a DESC, b` (config 4's table, keys built on the card)
+    tsrc, tc = sort4b_table(tdf, TOPK_ROWS)
+    ctx.register_datasource("t4", tsrc)
+    sql = "SELECT a, b, x FROM t4 ORDER BY a DESC, b LIMIT 100"
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, sql, "data_plane_topk_a_desc_b",
+                              TOPK_ROWS, needs=("sort_kernel",))
+    order = np.lexsort((tc[1], -tc[0]))[:100]
+    assert_columns(table, [tc[0][order], tc[1][order], tc[2][order]], "data plane TopK")
+    log("data_plane_topk: " + json.dumps({
+        "query": rep["query"], "cold_ms": rep["cold_ms"], "p50_ms": rep["p50_ms"],
+        "before_p50_ms": 129.563, "card": smi}))
+    reports.append(rep)
+    del tsrc, tc
+
+    return reports
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4087,6 +4303,8 @@ def main() -> int:
     reports.append(phase_serve_joins(tdf, cuda_mod, torch, ctx, star_cols))
     reports += phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, star_cols, smi)
     reports += phase_sorts(tdf, cuda_mod, torch, ctx, star_cols)
+    reports += phase_data_plane(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,
+                                smi)
     # the console's contexts compute every run, as every other phase's
     # do (its Q1 warm run and the DataFrame's warm runs count launches)
     os.environ["DATAFUSION_TPU_CACHE"] = "0"

@@ -66,8 +66,13 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   the group count and, on a CUDA device, the route's device time per
   row (a CUDA event pair around each pass of 2^17 rows or more).
 
-Not ported yet: the host-split placement (it reads a measured link
-rate, ROADMAP item 6).
+Each core keeps its columns' codec hints across batches (`wire_hints`,
+`batch.put_compressed`).  Not ported: the JAX package's link-aware
+host split of SUM/AVG/COUNT slots (`_decide_placement`), which pays
+only where shipping a column costs more than about 8 ns a row: over
+the link `chip_smoke.py` measures (36,048.715 MB/s on an NVIDIA H100
+80GB HBM3 at 700 W) that takes some 288 saved wire bytes a row, which
+no column has (ROADMAP item 6).
 
 Accumulator dtypes: integer SUM accumulates in 64-bit; COUNT is Int64
 internally, UInt64 in the output (planner contract); MIN/MAX keep the
@@ -90,6 +95,7 @@ from datafusion_tpu_torch.exec.batch import (
     StringDictionary,
     bucket_capacity,
     device_inputs,
+    device_pull,
     dict_versions,
     host_array,
     make_host_batch,
@@ -550,6 +556,9 @@ class _AggregateCore:
 
         self.slot_params = [param_slots_of(sl.arg, param_slots or {}) for sl in self.slots]
         self.mega_key = mega_key
+        # the wire codec's per-column memory across batches
+        # (batch.put_compressed): the core outlives its relations
+        self.wire_hints: dict = {}
 
     @staticmethod
     def param_exprs(predicate, aggr_expr):
@@ -1030,20 +1039,6 @@ class _AggregateCore:
         return new_counts, tuple(new_accs)
 
 
-def _pull_parts(parts) -> list:
-    """Tensors on the host in ONE device-to-host copy: every tensor is
-    viewed as bytes and concatenated on the device first."""
-    blob = to_host(torch.cat([p.contiguous().view(-1).view(torch.uint8) for p in parts]))
-    host = []
-    off = 0
-    for p in parts:
-        np_dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
-        nbytes = p.numel() * np_dtype.itemsize
-        host.append(blob[off:off + nbytes].view(np_dtype))
-        off += nbytes
-    return host
-
-
 class _HostState:
     """An accumulator state already pulled to the host: the live
     prefix's counts and per-slot arrays."""
@@ -1282,7 +1277,8 @@ class AggregateRelation(Relation):
             ids, n_groups = self._group_ids(batch)
             shared = tables(batch)
             data, validity, mask = device_inputs(
-                subset_view(batch, self.core.used_cols), self.device
+                subset_view(batch, self.core.used_cols), self.device,
+                self.core.wire_hints,
             )
             chunk.append(((data, validity, batch.num_rows, mask, ids), n_groups, shared))
             if len(chunk) >= chunk_max:
@@ -1311,7 +1307,8 @@ class AggregateRelation(Relation):
         self._group_ids(batch)
         batch.cache["staged_aux"] = (self._aux_cache, self._str_aux_cache,
                                      self._tables(batch))
-        device_inputs(subset_view(batch, self.core.used_cols), self.device)
+        device_inputs(subset_view(batch, self.core.used_cols), self.device,
+                      self.core.wire_hints)
 
     def _group_ids(self, batch: RecordBatch):
         """Dense group ids for one batch as an int32 tensor on the
@@ -1427,13 +1424,14 @@ class AggregateRelation(Relation):
 
     def _pull_state(self, state):
         """The state's live prefix on the host, in ONE device-to-host
-        copy (`_pull_parts`).  Returns (counts, per-slot host arrays); a
-        state the serving megabatch already pulled passes through."""
+        copy (`batch.device_pull`).  Returns (counts, per-slot host
+        arrays); a state the serving megabatch already pulled passes
+        through."""
         if isinstance(state, _HostState):
             return state.counts, state.accs
         counts, accs = state
         cut = self._state_cut(state)
-        host = _pull_parts([counts[:cut]] + [a[:cut] for a in accs])
+        host = device_pull([counts[:cut]] + [a[:cut] for a in accs])
         return host[0], host[1:]
 
     # -- feedback-driven sizing (cost/) --------------------------------
@@ -1589,7 +1587,7 @@ def run_aggregate_megabatch(rels: list) -> float:
     # query's finalize is host work only
     cuts = [r._state_cut(st) for r, st in zip(rels, states)]
     t0 = time.perf_counter()
-    pulled = _pull_parts([p for (counts, accs), cut in zip(states, cuts)
+    pulled = device_pull([p for (counts, accs), cut in zip(states, cuts)
                           for p in [counts[:cut], *(a[:cut] for a in accs)]])
     pull_s = time.perf_counter() - t0
     per = 1 + len(core.slots)

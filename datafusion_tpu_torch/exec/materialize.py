@@ -4,14 +4,19 @@ The counterpart of the JAX package's `exec/materialize.py`.  A batch
 reaching this boundary is a host batch or holds tensors on the device
 (the dense join probe's output; a pipeline's computed columns and its
 selection mask beside its pass-through host columns; a pipeline's
-host-function outputs are already host arrays); `compact_batch` brings
-each column to the host, an unsigned one back in its numpy dtype, and
-drops padding and masked-out rows.  The JAX package gathers
-live rows on the device first and overlaps the copies with the next
-batch through an asynchronous pull (`iter_with_mask_prefetch`); here
-batches are pulled one at a time, each device column crosses in one
-copy and the live rows are selected with numpy (that pipelining is
-ROADMAP queue 1, "wire codec").
+host-function outputs are already host arrays).  `compact_batch`
+brings one to the host: the selection mask crosses first, bit-packed
+on the device (`_fetch_mask`); when the live rows at most half fill the
+batch (`_COMPACT_FACTOR`) the device columns are gathered to them on
+the device (`_gather_compact`); then every device column crosses in
+ONE copy (`batch.device_pull`), unsigned columns come back in their
+numpy dtype, and padding and masked-out rows are dropped.
+
+The JAX package also overlaps each batch's copy with the next batch
+(`iter_with_mask_prefetch`, `compact_dispatch`, `collect_columns` one
+batch behind).  Not ported: the copies here block, and one stream runs
+every pass, so a copy queued behind the next batch's pass would wait
+for it and overlap nothing.
 """
 
 from __future__ import annotations
@@ -20,18 +25,56 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from datafusion_tpu_torch.datatypes import DataType, Schema
-from datafusion_tpu_torch.exec.batch import RecordBatch, to_host
+from datafusion_tpu_torch.exec.batch import (
+    RecordBatch,
+    bucket_capacity,
+    device_pull,
+    has_link,
+    host_array,
+)
+from datafusion_tpu_torch.utils.metrics import METRICS
+
+# device-side compaction pays off when it at least halves the D2H bytes
+_COMPACT_FACTOR = 2
 
 
-def _live_rows(batch: RecordBatch) -> Optional[np.ndarray]:
-    """Bool mask of the batch's live rows over its capacity, or None
-    when every row below num_rows is live (no selection mask)."""
-    if batch.mask is None:
-        return None
-    live = to_host(batch.mask)[: batch.capacity].astype(bool)
-    return live & (np.arange(batch.capacity) < batch.num_rows)
+def _on_device(a) -> bool:
+    return isinstance(a, torch.Tensor)
+
+
+def _gather_compact(arrays, idx: torch.Tensor) -> list:
+    """The live rows of each device array gathered to the front, in
+    order (`idx`: their positions, an int64 tensor on the device)."""
+    return [a.index_select(0, idx) for a in arrays]
+
+
+_WEIGHTS: dict = {}
+
+
+def _fetch_mask(batch) -> np.ndarray:
+    """Host bool mask for a batch (blocking), cached on the batch.
+    Across a link (`batch.has_link`) a device mask packs to bits on the
+    device first: 8x fewer bytes."""
+    hit = batch.cache.get("host_mask")
+    if hit is not None:
+        return hit
+    m = batch.mask
+    if not _on_device(m):
+        return np.asarray(m, bool)
+    packed = m.shape[0] % 8 == 0 and has_link(m.device)
+    if packed:
+        w = _WEIGHTS.get(m.device)
+        if w is None:
+            w = _WEIGHTS[m.device] = torch.tensor(
+                [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=m.device)
+        m = (m.reshape(-1, 8).to(torch.uint8) * w).sum(dim=1, dtype=torch.uint8)
+    host = device_pull((m,))[0]
+    host = np.unpackbits(host).astype(bool) if packed else host.astype(bool)
+    batch.cache["host_mask"] = host
+    return host
 
 
 def compact_batch(batch: RecordBatch):
@@ -39,21 +82,62 @@ def compact_batch(batch: RecordBatch):
 
     Returns (columns, validity, dicts, num_live_rows); strings stay
     dictionary-coded."""
-    live = _live_rows(batch)
     n = batch.num_rows
-
-    def select(a, np_dtype=None):
-        a = to_host(a, np_dtype)
-        return a[live] if live is not None else a[:n]
-
-    # a device column of an unsigned type comes back in its numpy dtype
+    live: Optional[np.ndarray] = None
+    if batch.mask is not None:
+        live = _fetch_mask(batch)[: batch.capacity]
+        live = live & (np.arange(batch.capacity) < n)
+    # arrays already on the device; host arrays (pass-through columns,
+    # host-function outputs) never travel just to be compacted
+    dev_pos: list = []
+    dev_arrays: list = []
+    for i, c in enumerate(batch.data):
+        if _on_device(c):
+            dev_pos.append(("col", i))
+            dev_arrays.append(c)
+    for i, v in enumerate(batch.validity):
+        if v is not None and _on_device(v):
+            dev_pos.append(("val", i))
+            dev_arrays.append(v)
+    compacted = False
+    count = int(live.sum()) if live is not None else n
+    if live is not None and dev_arrays:
+        cap_out = bucket_capacity(max(count, 1))
+        if cap_out * _COMPACT_FACTOR <= batch.capacity:
+            idx = torch.from_numpy(np.nonzero(live)[0]).to(dev_arrays[0].device)
+            with METRICS.timer("d2h.compact"):
+                dev_arrays = _gather_compact(dev_arrays, idx)
+            METRICS.add("d2h.compacted_batches")
+            compacted = True
+    elif live is None:
+        # no selection: only the rows below num_rows cross
+        dev_arrays = [a[:n] for a in dev_arrays]
+    pulled = dict(zip(dev_pos, device_pull(dev_arrays)))
     fields = batch.schema.fields
     if len(fields) != len(batch.data):
         fields = [None] * len(batch.data)
-    cols = [select(c, None if f is None else f.data_type.np_dtype)
-            for c, f in zip(batch.data, fields)]
-    valids = [None if v is None else select(v) for v in batch.validity]
-    count = int(live.sum()) if live is not None else n
+
+    def select(kind, i, a):
+        hit = pulled.get((kind, i))
+        if hit is not None:
+            if kind == "col" and fields[i] is not None:
+                # an unsigned column comes back in its numpy dtype
+                hit = host_array(hit, fields[i].data_type.np_dtype)
+            if compacted:
+                return hit  # already gathered to the live rows
+            a = hit
+        else:
+            a = np.asarray(a)
+        if live is not None:
+            return a[live]
+        return a[:n]
+
+    cols = []
+    valids = []
+    for i in range(batch.num_columns):
+        cols.append(select("col", i, batch.data[i]))
+        v = batch.validity[i]
+        valids.append(None if v is None else select("val", i, v))
     return cols, valids, list(batch.dicts), count
 
 
@@ -108,6 +192,7 @@ def collect_columns(relation, batches=None):
     vparts: list[list[Optional[np.ndarray]]] = [[] for _ in range(ncols)]
     dicts: list = [None] * ncols
     total = 0
+
     for batch in relation.batches() if batches is None else batches:
         cols, valids, bdicts, n = compact_batch(batch)
         total += n

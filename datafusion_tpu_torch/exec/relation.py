@@ -217,6 +217,9 @@ class _PipelineCore:
             used.add(0)  # a constant predicate: one column carries capacity
         self.used_cols = sorted(used)
         self.col_map = {c: i for i, c in enumerate(self.used_cols)}
+        # the wire codec's per-column memory across batches
+        # (batch.put_compressed): the core outlives its relations
+        self.wire_hints: dict = {}
 
     @staticmethod
     def param_exprs(predicate, projections, metas):
@@ -423,8 +426,10 @@ class PipelineRelation(Relation):
         for batch in batches:
             aux = self._aux(batch)
             with METRICS.timer("execute.pipeline"), op_timer(self):
+                # the columns and the selection mask cross in one copy
                 data, validity, mask_in = device_inputs(
-                    subset_view(batch, self.core.used_cols), self.device
+                    subset_view(batch, self.core.used_cols), self.device,
+                    self.core.wire_hints,
                 )
             entry = (data, validity, batch.num_rows, mask_in)
             entry_sig = (entry_signature(entry), shared_signature(aux))
@@ -492,7 +497,8 @@ class PipelineRelation(Relation):
         tables (pinned on the batch for this relation) and the copies
         of the columns the pass reads."""
         batch.cache["staged_aux"] = (self, self._tables(batch))
-        device_inputs(subset_view(batch, self.core.used_cols), self.device)
+        device_inputs(subset_view(batch, self.core.used_cols), self.device,
+                      self.core.wire_hints)
 
     def _assemble(self, batch, dev_cols, dev_valids):
         """Interleave the column passthroughs (the input arrays, exact),

@@ -6,10 +6,18 @@ path (run sort + host merge):
 - **Run sort**: the child's live rows collect on the host into runs of
   up to `DATAFUSION_TPU_SORT_RUN_ROWS` rows (2^24 by default, so one
   run in practice); each run's transformed keys cross to the device as
-  int64 operands and the hand-written radix-sort kernel
-  (`exec/cuda/sort_kernel.py`) returns the stable permutation, which
-  comes back to the host.  There is no run-size window: the JAX
-  package's 2^18-row bitonic window was the TPU's VMEM.
+  int64 operands through the wire codec and the hand-written radix-sort
+  kernel (`exec/cuda/sort_kernel.py`) returns the stable permutation,
+  which comes back as ceil(bits/8) byte planes in one packed copy.
+  There is no run-size window: the JAX package's 2^18-row bitonic
+  window was the TPU's VMEM.  A run key seen twice stores its
+  permutation (`_sorted_run`), so a third run of the relation over the
+  same in-memory batches skips the keys, the sort and the copy back.
+  Not ported: the JAX package's host-routed run sort (`_host_run_sort`),
+  which pays only where the permutation's copy back costs more than a
+  host lexsort (about 150 ns a row a key): a link slower than about 27
+  MB/s, some 1,300 times slower than the one `chip_smoke.py` measures
+  on an NVIDIA H100 80GB HBM3 at 700 W (ROADMAP item 6).
 - **Host merge**: runs merge on the host with a vectorized
   structured-array `searchsorted` merge, re-ranking strings under the
   final dictionaries.
@@ -37,10 +45,10 @@ Key transforms:
 device holds a state of at most k rows, their key operands and their
 global row ids.  Per batch group (the batch-group fold: up to
 `exec/fused.fuse_group_max()` batches; one with DATAFUSION_TPU_FUSE=0),
-the live rows' key operands of every batch of the group are built on
-the host as above, in scan order, cross to the device, and follow the
-state's; one radix argsort of the concatenation keeps the first k.  The
-sort is stable, the state comes first and the rows keep scan order, so
+the live rows' key operands of every batch of the group are built as
+above, on the device, in scan order, and follow the state's; one radix
+argsort of the concatenation keeps the first k.  The sort is stable,
+the state comes first and the rows keep scan order, so
 ties keep ascending row order, as the JAX package's `lax.top_k` keeps
 them; `torch.topk` does not, and the port never calls it.  Payload
 columns never cross: the host keeps the rows of the batches that still
@@ -48,18 +56,20 @@ hold survivors (it pulls the k row ids once per group) and gathers the
 output from them, bit-exact.  A Utf8 key's ranks change when its
 dictionary grows, and a key's first NULL adds its dead operand, so the
 state's key operands are rebuilt from the kept rows where a group
-brings either.
+brings either.  A batch's key operands are built on the device
+(`_device_ops`) from its key columns' device inputs, which a warm
+in-memory batch already holds; the fused predicate's mask crosses
+bit-packed and joins the upstream mask there.
 
 `LimitRelation` over anything but a Sort stops pulling batches once it
-has its rows.  Not ported (ROADMAP queue 1): the host-routed run sort
-and the permutation cache, which exist in the JAX package for the
-TPU's slow link and the wire codec.
+has its rows.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from collections import OrderedDict
 from typing import Iterator, Optional
 
 import numpy as np
@@ -70,14 +80,19 @@ from datafusion_tpu_torch.errors import NotSupportedError
 from datafusion_tpu_torch.exec.batch import (
     RecordBatch,
     bucket_capacity,
+    device_inputs,
+    device_pull,
     dict_versions,
+    has_link,
     make_host_batch,
+    put_compressed,
+    subset_view,
     to_device,
     to_host,
 )
 from datafusion_tpu_torch.exec.cuda import sort_kernel
 from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled
-from datafusion_tpu_torch.exec.materialize import compact_batch
+from datafusion_tpu_torch.exec.materialize import _fetch_mask, compact_batch
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
@@ -92,6 +107,14 @@ TOPK_MAX = 65536
 _SIGN_MASK = np.int64(0x7FFF_FFFF_FFFF_FFFF)
 _F64_TINY = np.finfo(np.float64).tiny  # the smallest normal f64
 _F32_TINY = np.finfo(np.float32).tiny
+_SIGN_MASK_T = int(_SIGN_MASK)
+_I64_MIN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+def _f64_bits(x: torch.Tensor) -> torch.Tensor:
+    """The int64 bit view of a float64 tensor."""
+    return x.contiguous().view(torch.int64)
 
 
 def f64_sort_image(values: np.ndarray) -> np.ndarray:
@@ -205,6 +228,15 @@ class SortRelation(Relation):
         # subnormals kept), every NaN after every number in either
         # direction, NULLs last; every other key orders as the full
         # sort (but for f32 subnormals under several keys, _host_keys)
+        # the full sort's run permutations, stored after second-chance
+        # admission (`_sorted_run`) and keyed by the run's source batch
+        # identities: FIFO-bounded, so multi-run sorts and cold re-scans
+        # never accumulate
+        self._run_ops_cache: OrderedDict = OrderedDict()
+        self._run_ops_cache_max = 4
+        self._run_seen: OrderedDict = OrderedDict()
+        # the TopK's codec memory
+        self._wire_hints: dict = {}
         self._topk = limit is not None and 0 < limit <= TOPK_MAX
         self._total_float = (
             self._topk and len(self._key_plans) == 1 and self._key_plans[0].kind == "f"
@@ -248,7 +280,7 @@ class SortRelation(Relation):
         if self.predicate is None:
             return batch
         pm = self._pred_np_mask(batch)
-        m = pm if batch.mask is None else (to_host(batch.mask) & pm)
+        m = pm if batch.mask is None else (_fetch_mask(batch) & pm)
         return RecordBatch(
             batch.schema, list(batch.data), list(batch.validity),
             list(batch.dicts), num_rows=batch.num_rows, mask=m,
@@ -325,22 +357,41 @@ class SortRelation(Relation):
         img = np.where(np.isnan(v), np.iinfo(np.int64).max, img)
         return dead.astype(np.int64), np.where(dead, np.int64(0), img)
 
-    def _sorted_run(self, keys: list[np.ndarray]) -> np.ndarray:
+    def _sorted_run(self, keys: list[np.ndarray], cache_key=None, pin=None) -> np.ndarray:
         """Sort one run on the device; returns its permutation (int32,
-        host).  On a CUDA device the run's wall, copy to copy, is the
+        host).
+
+        Second-chance admission: a run key (`cache_key`) must be seen
+        twice before its permutation is stored in `_run_ops_cache`
+        (`pin` holds the source batches alive), so one-shot file scans,
+        whose batch objects are fresh every scan, store nothing; a
+        third run of the same relation then skips the keys, the sort
+        and the copy back (`sort.perm_cache_hits`).  Only where a copy
+        crosses a link (`batch.has_link`): on the CPU the copy back is
+        free.  On a CUDA device the run's wall, copy to copy, is the
         radix route's evidence in the cost store
-        (`cost/advisor.observe_sort_route`: the one route a sort has, at
-        every size)."""
+        (`cost/advisor.observe_sort_route`)."""
+        n = len(keys[0])
+        admit = False
+        if cache_key is not None and has_link(self.device):
+            if cache_key in self._run_seen:
+                admit = True
+            else:
+                self._run_seen[cache_key] = True
+                while len(self._run_seen) > 32:
+                    self._run_seen.popitem(last=False)
         t0 = time.perf_counter()
-        dev_ops = [to_device(o, self.device, owner="sort.keys") for o in keys]
-        perm = to_host(device_call(sort_kernel.argsort_multi, dev_ops, _tag="sort",
-                                   _device=self.device))
+        dev_ops = put_compressed(keys, self.device, owner="sort.keys")
+        perm = device_call(_sort_planes, dev_ops, _tag="sort", _device=self.device)
         if self.device.type == "cuda":
             from datafusion_tpu_torch import cost as _cost
             from datafusion_tpu_torch.cost import advisor
 
-            advisor.observe_sort_route(_cost.store(), "radix", len(perm),
-                                       time.perf_counter() - t0)
+            advisor.observe_sort_route(_cost.store(), "radix", n, time.perf_counter() - t0)
+        if admit:
+            self._run_ops_cache[cache_key] = (perm, pin)
+            while len(self._run_ops_cache) > self._run_ops_cache_max:
+                self._run_ops_cache.popitem(last=False)
         return perm
 
     @staticmethod
@@ -395,8 +446,10 @@ class SortRelation(Relation):
         pending_n = 0
         run_rows = None
 
+        run_src: list = []
+
         def flush_run():
-            nonlocal pending_cols, pending_valids, pending_n
+            nonlocal pending_cols, pending_valids, pending_n, run_src
             if pending_n == 0:
                 return
             cols = [np.concatenate(c) for c in pending_cols]
@@ -409,24 +462,46 @@ class SortRelation(Relation):
                 )
                 for vs, cs in zip(pending_valids, pending_cols)
             ]
+            # a cacheable run: unmasked source batches (their live rows
+            # are their content), keyed on their identities, the Utf8
+            # keys' dictionary versions, the row count and the fused
+            # predicate (its repr carries this query's literals)
+            cache_key = None
+            if run_src and all(b.mask is None for b in run_src):
+                versions = tuple(
+                    dicts[kp.index].version
+                    if kp.kind == "str" and dicts[kp.index] is not None else -1
+                    for kp in self._key_plans
+                )
+                cache_key = (tuple(id(b) for b in run_src), versions, pending_n,
+                             None if self.predicate is None else repr(self.predicate))
+            hit = None if cache_key is None else self._run_ops_cache.get(cache_key)
             with METRICS.timer("execute.sort"), op_timer(self):
-                run_perms.append(self._sorted_run(
-                    self._host_keys(cols, valids, dicts, self._null_keys(valids))))
+                if hit is not None:
+                    METRICS.add("sort.perm_cache_hits")
+                    perm = hit[0]
+                else:
+                    perm = self._sorted_run(
+                        self._host_keys(cols, valids, dicts, self._null_keys(valids)),
+                        cache_key, tuple(run_src))
+            run_perms.append(perm)
             run_cols.append(cols)
             run_valids.append(valids)
             pending_cols = None
             pending_valids = None
             pending_n = 0
+            run_src = []
 
         for batch in iter_stats(self.child):
             for i, d in enumerate(batch.dicts):
                 if d is not None:
                     dicts[i] = d
             # fused selection: the predicate folds into the compaction
-            # mask
+            # mask (run_src keeps the original batches)
             cols, valids, _, n = compact_batch(self._pred_batch(batch))
             if n == 0:
                 continue
+            run_src.append(batch)
             if run_rows is None:
                 # run size: everything up to SORT_RUN_ROWS sorts in ONE
                 # kernel call, so the host merge engages only on scans
@@ -507,6 +582,89 @@ class SortRelation(Relation):
         yield make_host_batch(self._schema, out_cols, out_valid, out_dicts)
 
 
+    # -- the TopK's key operands built on the device --
+    def _pred_device_mask(self, batch) -> torch.Tensor:
+        """The fused predicate over one batch as a bool tensor on the
+        device: the host-evaluated mask crosses bit-packed through the
+        wire codec, cached on the batch and pinned by relation (the
+        predicate carries this query's literals)."""
+        hit = batch.cache.get("sort_pred_dev_mask")
+        if hit is not None and hit[0] is self:
+            return hit[1]
+        m = put_compressed([self._pred_np_mask(batch)], self.device, owner="sort.keys")[0]
+        batch.cache["sort_pred_dev_mask"] = (self, m)
+        return m
+
+    def _device_ops(self, batch, dead, ranks) -> list:
+        """The batch's live rows' int64 key operands, built on the device
+        from its key columns' device inputs (`device_inputs`, cached on
+        the batch, so a warm in-memory batch copies nothing): the same
+        operands `_host_keys` builds on the host from the compacted rows.
+        The live rows are the row bound, the upstream mask and the fused
+        predicate (`_pred_device_mask`), joined on the device; `dead`
+        picks the keys that carry their NULL operand and `ranks[column]`
+        is a Utf8 key's rank table (a tensor on the device)."""
+        dev = self.device
+        kcols = sorted({kp.index for kp in self._key_plans})
+        sub = {c: i for i, c in enumerate(kcols)}
+        data, validity, mask = device_inputs(subset_view(batch, kcols), dev, self._wire_hints)
+        live = torch.arange(batch.capacity, device=dev) < batch.num_rows
+        if mask is not None:
+            live &= mask[: batch.capacity]
+        if self.predicate is not None:
+            live &= self._pred_device_mask(batch)
+        rows = torch.nonzero(live).squeeze(1)
+        ops = []
+        for j, kp in enumerate(self._key_plans):
+            v = data[sub[kp.index]].index_select(0, rows)
+            valid = validity[sub[kp.index]]
+            dead_op = (torch.zeros(v.shape[0], dtype=torch.bool, device=dev) if valid is None
+                       else ~valid.index_select(0, rows))
+            ops.extend(self._device_key(kp, v, dead_op, ranks, dead[j]))
+        return ops
+
+    def _device_key(self, kp, v, dead_op, ranks, with_dead: bool) -> list:
+        """One key's operands from its live values `v` on the device: its
+        dead flag where asked, then its value image, as `_host_keys`."""
+        if kp.kind == "str":
+            r = ranks.get(kp.index)
+            v = v if r is None else r[v.to(torch.int64)]
+            kind = "i"
+        elif kp.kind == "u64":
+            # the uint64's int64 bit view with its sign bit flipped:
+            # order-preserving and lossless
+            v = v.to(torch.int64) ^ _I64_MIN
+            kind = "i"
+        else:
+            kind = kp.kind
+        if kind == "f" and self._total_float:
+            img = _f64_bits(v.to(torch.float64))
+            img = img ^ ((img >> 63) & _SIGN_MASK_T)
+            if not kp.asc:
+                img = ~img
+            k = torch.where(torch.isnan(v), _I64_MAX, img)
+        elif kind == "f":
+            if self._topk and v.dtype == torch.float32:
+                # the JAX package's multi-key TopK widens f32 keys on
+                # the CPU with subnormals read as zero
+                v = torch.where(v.abs() < _F32_TINY, torch.zeros((), dtype=v.dtype, device=v.device), v)
+            k = v.to(torch.float64)
+            if not kp.asc:
+                k = -k
+            k = torch.where(dead_op, 0.0, k)
+            # `f64_sort_image`: zeros of both signs and subnormals read
+            # +0.0, every NaN the canonical NaN, then the total order
+            k = torch.where(k.abs() < _F64_TINY, 0.0, k)
+            k = torch.where(torch.isnan(k), float("nan"), k)
+            b = _f64_bits(k)
+            k = b ^ ((b >> 63) & _SIGN_MASK_T)
+        else:
+            k = v.to(torch.int64)
+            if not kp.asc:
+                k = ~k  # complement, not negation: -int64.min overflows
+        k = torch.where(dead_op, 0, k)
+        return [dead_op.to(torch.int64), k] if with_dead else [k]
+
     # -- streaming TopK --
     def _topk_batches(self) -> Iterator[RecordBatch]:
         """The TopK's one output batch: this query's first `limit` rows
@@ -550,6 +708,10 @@ class SortRelation(Relation):
         # only the columns needed, their row count and their dictionary
         # versions (`batch.dict_versions`)
         group: list = []
+        # the Utf8 keys' rank tables on the device for this scan only, by
+        # (column, dictionary version): a later run may read another
+        # dictionary of the same length
+        rank_dev: dict = {}
 
         def merge():
             """One radix argsort of the state and the group's live rows
@@ -568,7 +730,7 @@ class SortRelation(Relation):
             ranks = {i: dicts[i].sort_ranks(v) for i, v in zip(str_keys, now)
                      if dicts[i] is not None}
             seen = dead
-            for _, bvalids, _, _ in group:
+            for _, bvalids, _, _, _ in group:
                 seen = tuple(a or b for a, b in zip(seen, self._null_keys(bvalids)))
             if state_ops is not None and (now != versions or seen != dead):
                 # a grown dictionary re-ranks its strings, a key's first
@@ -578,9 +740,14 @@ class SortRelation(Relation):
                 state_ops = [to_device(o, dev, owner="sort.keys") for o in
                              self._host_keys(scols, svalids, dicts, seen, ranks)]
             versions, dead = now, seen
-            parts = [[to_device(o, dev, owner="sort.keys")
-                      for o in self._host_keys(bcols, bvalids, dicts, dead, ranks)]
-                     for bcols, bvalids, _, _ in group]
+            ranks_dev = {}
+            for i, v in zip(str_keys, now):
+                if i in ranks:
+                    if (i, v) not in rank_dev:
+                        rank_dev[(i, v)] = to_device(ranks[i].astype(np.int64), dev,
+                                                     owner="sort.keys")
+                    ranks_dev[i] = rank_dev[(i, v)]
+            parts = [self._device_ops(b, dead, ranks_dev) for _, _, _, _, b in group]
             if state_ops is not None:
                 parts.insert(0, state_ops)
             if len(group) > 1:
@@ -590,7 +757,7 @@ class SortRelation(Relation):
                 _topk_pass, parts, state_ids, base, n, k,
                 _tag=tag or ("topk.group" if len(group) > 1 else "topk"), _device=dev)
             self._merges += 1
-            for bcols, bvalids, bn, _ in group:
+            for bcols, bvalids, bn, _, _ in group:
                 held[base] = (bcols, bvalids)
                 base += bn
             group.clear()
@@ -608,7 +775,7 @@ class SortRelation(Relation):
                 continue
             group.append(([c if i in needed else None for i, c in enumerate(cols)],
                           [v if i in needed else None for i, v in enumerate(valids)], n,
-                          dict_versions(batch)))
+                          dict_versions(batch), batch))
             if len(group) >= group_max:
                 with METRICS.timer("execute.sort"), op_timer(self):
                     merge()
@@ -647,6 +814,28 @@ class SortRelation(Relation):
             cols.append(out)
             valids.append(vout)
         return cols, valids
+
+
+def _plane_count(cap: int) -> int:
+    """Byte planes a permutation of a `cap`-row run crosses in."""
+    return max(1, ((cap - 1).bit_length() + 7) >> 3)
+
+
+def _sort_planes(dev_ops) -> np.ndarray:
+    """One radix argsort of a run's int64 operands on the device; the
+    permutation crosses back as ceil(bits/8) byte planes (a 6M-row run
+    needs 23 bits: 3 planes, not int32's 4 bytes) in ONE packed copy
+    (`device_pull`), and the host reassembles it."""
+    perm = sort_kernel.argsort_multi(list(dev_ops))
+    n = int(perm.shape[0])
+    planes = [((perm >> (8 * i)) & 0xFF).to(torch.uint8)
+              for i in range(_plane_count(bucket_capacity(n)))]
+    host = device_pull(planes)
+    METRICS.add("sort.perm_plane_bytes", sum(p.nbytes for p in host))
+    out = host[0].astype(np.int32)
+    for i in range(1, len(host)):
+        out |= host[i].astype(np.int32) << np.int32(8 * i)
+    return out
 
 
 def _topk_pass(parts, state_ids, base: int, n: int, k: int):

@@ -71,7 +71,7 @@ from datafusion_tpu_torch.exec.batch import (
     dict_versions,
     make_host_batch,
     pin_dict_versions,
-    to_device,
+    put_compressed,
 )
 from datafusion_tpu_torch.exec.cuda import hash_build
 from datafusion_tpu_torch.exec.relation import Relation
@@ -278,19 +278,22 @@ class HashJoinRelation(Relation):
         # so the int32 cast is exact for them.
         pos = (bkey.astype(np.int64) - kmin).astype(np.int32)
         dev = self.device
+        # the build's uploads go through put_compressed (the wire codec
+        # where it pays): the slot inputs, then the payload (only once
+        # the build is dense)
+        pos_d, live_d = put_compressed([pos, live], dev, owner="join.build")
         slot_row, _, has_duplicate = device_call(
-            hash_build.build_slot_table, to_device(pos, dev, owner="join.build"),
-            to_device(live, dev, owner="join.build"), num_slots,
+            hash_build.build_slot_table, pos_d, live_d, num_slots,
             _tag="join.build", _device=dev)
         if has_duplicate:
             return False  # a routing decision: the host index joins
         art.dense = True
         art.kmin, art.num_slots = kmin, num_slots
         art.dev_slot_row = slot_row
-        art.dev_cols = tuple(to_device(c, dev, owner="join.build") for c in art.cols)
-        art.dev_valids = tuple(
-            None if v is None else to_device(v, dev, owner="join.build") for v in art.valids
-        )
+        present = [v for v in art.valids if v is not None]
+        up = iter(put_compressed(list(art.cols) + present, dev, owner="join.build"))
+        art.dev_cols = tuple(next(up) for _ in art.cols)
+        art.dev_valids = tuple(None if v is None else next(up) for v in art.valids)
         return True
 
     # -- probe ---------------------------------------------------------

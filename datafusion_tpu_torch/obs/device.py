@@ -462,21 +462,23 @@ def record_d2h(nbytes: int, seconds: float) -> None:
 
 # -- phase breakdown ---------------------------------------------------
 # Phases over the stage timers: "decode" is the scan's parse
-# (`scan.parse`, timed around every reader) and the aggregate's host
-# group-key encode (`agg.host_encode`); "h2d" the copy seam
+# (`scan.parse`, timed around every reader), the aggregate's host
+# group-key encode (`agg.host_encode`) and the wire codec's host encode
+# (`h2d.encode`, exec/batch.put_compressed); "h2d" the copy seam
 # (`h2d.dispatch`, exec/batch.to_device); "compile" the first-use kernel
 # build (`compile.nvcc`, exec/cuda.load); "execute" the pass seam
 # (`device.dispatch`, utils/retry.device_call) less the builds made
-# inside it; "d2h" the pulls (`d2h.wait`, exec/batch.to_host); "other"
+# inside it; "d2h" the pulls (`d2h.wait`, exec/batch.to_host and
+# device_pull) and the compaction gathers (`d2h.compact`); "other"
 # the rest of the query's wall (planning, host merges, assembly).
 PHASE_ORDER = ("decode", "h2d", "compile", "execute", "d2h", "other")
 
 _PHASE_TIMERS = {
-    "decode": ("scan.parse", "agg.host_encode"),
+    "decode": ("scan.parse", "agg.host_encode", "h2d.encode"),
     "h2d": ("h2d.dispatch",),
     "compile": ("compile.nvcc",),
     "execute": ("device.dispatch",),
-    "d2h": ("d2h.wait",),
+    "d2h": ("d2h.wait", "d2h.compact"),
 }
 
 
@@ -497,7 +499,7 @@ def phase_breakdown(before: Optional[dict], wall_s: float) -> dict[str, float]:
     cur = phase_snapshot()
     phases: dict[str, float] = {}
     for name, timers in _PHASE_TIMERS.items():
-        phases[name] = max(sum(cur[t] - before.get(t, 0.0) for t in timers), 0.0)
+        phases[name] = max(sum(cur.get(t, 0.0) - before.get(t, 0.0) for t in timers), 0.0)
     # a build happens inside the first pass's wall: split it out
     phases["execute"] = max(phases["execute"] - phases["compile"], 0.0)
     phases["other"] = max(wall_s - sum(phases.values()), 0.0)

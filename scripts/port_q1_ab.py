@@ -29,6 +29,11 @@ cumulative time of the port's batch and materialization functions.
 data, and alternates single warm runs between them (round i runs the
 checkouts in the given order, round i+1 in reverse), so no process
 boundary, heap or host-load drift sits between the compared runs.
+Besides Q1 and config 2 it times a cold Q1 (`q1_cold`: new batch
+objects around the same arrays each run, so every column is copied
+again), the SF-1 filter/project over the same lineitem and config 4's
+TopK `ORDER BY a DESC, b LIMIT 100` over 4,000,000 rows
+(`chip_smoke.topk_table`).
 Each checkout's modules are swapped into `sys.modules` before its run.
 Prints one `INTERLEAVE {...}` line per query: every run, the median
 and quartiles of each checkout, and, for each checkout after the
@@ -45,6 +50,8 @@ import os
 import subprocess
 import sys
 import time
+
+TOPK_A_DESC_B = "SELECT a, b, x FROM t4 ORDER BY a DESC, b LIMIT 100"
 
 # cumulative times reported by --profile: the functions a Q1 run goes
 # through between the scan and the host result
@@ -82,9 +89,12 @@ def _load_tree(root, torch):
         ctx = tdf.ExecutionContext(result_cache=False)
         src, _, _ = cs.lineitem_sf1(tdf, ctx.batch_size)
         ctx.register_datasource("lineitem", src)
+        ctx.cold_lineitem = src
         src, _ = cs.groupby_table(tdf, 16)
         ctx.register_datasource("t", src)
-        for sql in (cs.Q1, cs.CONFIG2):
+        src, _ = cs.topk_table(tdf)
+        ctx.register_datasource("t4", src)
+        for sql in (cs.Q1, cs.CONFIG2, cs.SF1_FILTER_PROJECT, TOPK_A_DESC_B):
             tdf.collect(ctx.sql(sql))
         torch.cuda.synchronize()
         return _tree_modules(), ctx, tdf, cs
@@ -104,14 +114,16 @@ def interleave(specs, rounds):
         label, root = spec.split("=", 1)
         mods, ctx, tdf, cs = _load_tree(os.path.abspath(root), torch)
         trees.append((label, mods, ctx, tdf))
-    queries = {"q1": cs.Q1, "config2_16": cs.CONFIG2}
+    queries = {"q1": cs.Q1, "q1_cold": cs.Q1, "config2_16": cs.CONFIG2,
+               "filter_project_sf1": cs.SF1_FILTER_PROJECT, "topk_a_desc_b": TOPK_A_DESC_B}
     for qname, sql in queries.items():
         times = {label: [] for label, *_ in trees}
         for i in range(rounds):
             for label, mods, ctx, tdf in (trees if i % 2 == 0 else trees[::-1]):
                 sys.modules.update(mods)
+                run_ctx = _cold_context(tdf, mods, ctx) if qname == "q1_cold" else ctx
                 t0 = time.perf_counter()
-                tdf.collect(ctx.sql(sql))
+                tdf.collect(run_ctx.sql(sql))
                 torch.cuda.synchronize()
                 times[label].append((time.perf_counter() - t0) * 1e3)
         first = trees[0][0]
@@ -126,6 +138,20 @@ def interleave(specs, rounds):
                                   rounds_slower=sum(d > 0 for d in diff))
         print("INTERLEAVE " + json.dumps(out), flush=True)
     return 0
+
+
+def _cold_context(tdf, mods, ctx):
+    """A context over new batch objects around the arrays of `ctx`'s
+    lineitem: nothing is cached on them, so a run copies every column
+    again."""
+    record_batch = mods["datafusion_tpu_torch.exec.batch"].RecordBatch
+    src = ctx.cold_lineitem
+    cold = tdf.ExecutionContext(result_cache=False)
+    cold.register_datasource("lineitem", tdf.MemoryDataSource(src.schema, [
+        record_batch(b.schema, list(b.data), list(b.validity), list(b.dicts),
+                     num_rows=b.num_rows)
+        for b in src.batches()]))
+    return cold
 
 
 def _median(xs):

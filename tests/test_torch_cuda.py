@@ -29,7 +29,14 @@ and a `device.call` fault replayed around a real launch.  Distributed:
 the partitioned aggregate on a mesh of 8 slots of cuda:0 against the
 same mesh of CPU slots (5 grouped-reduce launches a round, folded warm
 runs bit-identical), and a worker process on cuda:0 answering a
-coordinator, its `status` counting the grouped reduces it launched.  Every context
+coordinator, its `status` counting the grouped reduces it launched.
+The data plane: every wire codec spec round-trips bit for bit through
+`put_compressed` under DATAFUSION_TPU_WIRE=always (counted as its wire
+bytes), the decimal decode is exact on values a reciprocal multiply
+gets wrong, both exact probes read True, the link probe syncs nothing
+and `auto` follows it, and two threads pulling and putting through
+pinned host buffers never see each other's bytes; the append above
+counts the bytes `put_compressed` sends.  Every context
 here passes `result_cache=False`, so a repeated query runs and launches
 again, and every case starts from an empty cost store.
 """
@@ -1117,14 +1124,165 @@ def test_append_into_a_pinned_table_copies_only_the_delta_on_the_card(dev):
         h2d0 = METRICS.snapshot()["counts"].get("h2d.bytes", 0)
         t = srv.submit(Q1_SQL)
         got = sorted(t.result(timeout=600).to_rows())
-        used = t._rel.core.used_cols
-        want_bytes = sum(batch.data[c].nbytes for c in used) + 4 * batch.capacity
+        core = t._rel.core
+        # the bytes put_compressed sends for the used columns (raw where
+        # `auto` leaves the codec off; else their wire images, the core's
+        # codec hints replaying its choices), and the raw ids
+        want_bytes = _wire_bytes([batch.data[c] for c in core.used_cols], dev,
+                                 core.wire_hints) + 4 * batch.capacity
         assert METRICS.snapshot()["counts"].get("h2d.bytes", 0) - h2d0 == want_bytes
     want = sorted(tdf.collect(ctx.sql(Q1_SQL)).to_rows())
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[-1] == w[-1]
         assert np.allclose(g[2:-1], w[2:-1], rtol=1e-9, atol=0.0)
+
+
+def _wire_bytes(arrays, dev, hints=None) -> int:
+    """The bytes `batch.put_compressed` sends for host `arrays` (in their
+    positions): each array's wire images, or its raw bytes where the
+    wire is off."""
+    from datafusion_tpu_torch.exec import batch as B
+
+    if not B._wire_enabled(dev):
+        return sum(B.device_array(np.asarray(a)).nbytes for a in arrays)
+    total = 0
+    for i, a in enumerate(arrays):
+        a = np.ascontiguousarray(B.device_array(np.asarray(a)))
+        hint = None if hints is None else hints.get(i)
+        enc = None if hint is None else B._encode_wire_hinted(a, hint, dev)
+        total += sum(w.nbytes for w in (enc or B._encode_wire(a, dev))[1])
+    return total
+
+
+def _wire_cases(seed=1515):
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(-(2**31) + 1, 2**31 - 1, 1 << 16)
+    recip = ints[(ints / 100) != (ints * (1.0 / 100))][:4096] / 100
+    return [
+        (np.round(rng.uniform(900.0, 104950.0, 4096), 2), ("decimal", 100)),
+        (np.round(rng.uniform(-1000.0, 1000.0, 4096), 3), ("decimal", 1000)),
+        (recip, ("decimal", 100)),
+        (rng.integers(1, 51, 4096).astype(np.float64), ("dict",)),
+        (rng.integers(0, 11, 8192) / 100.0, ("dict",)),
+        (np.tile(np.array([0.01, 0.07, -0.0, np.nan, 104949.99, -0.03]), 256), ("dict",)),
+        (rng.standard_normal(4096).astype(np.float32).astype(np.float64), ("f32",)),
+        (rng.standard_normal(4096), ("raw",)),
+        (rng.integers(-100, 100, 4096).astype(np.int64), ("narrow", "<i8")),
+        (rng.integers(-30000, 30000, 4096).astype(np.int64), ("narrow", "<i8")),
+        (rng.integers(0, 2526, 4096).astype(np.int32), ("narrow", "<i4")),
+        (rng.integers(0, 30000, 4096).astype(np.uint32), ("narrow", "<i8")),
+        (rng.integers(0, 2**63, 4096, dtype=np.uint64) * np.uint64(2), ("raw",)),
+        (rng.random(4096) > 0.3, ("bits", 4096)),
+        (rng.random(4099) > 0.3, ("raw",)),
+        (np.empty(0, np.float64), ("raw",)),
+    ]
+
+
+def test_every_wire_spec_round_trips_on_the_card(dev, monkeypatch):
+    """Each column through `put_compressed` on cuda:0 with the codec
+    forced on comes back bit for bit, in one copy, counted as its wire
+    bytes; all of them in one call too."""
+    from datafusion_tpu_torch.exec import batch as B
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    monkeypatch.setenv("DATAFUSION_TPU_WIRE", "always")
+    cases = _wire_cases()
+    assert B._wire_enabled(dev)
+    for a, spec in cases:
+        want = B.device_array(a)
+        assert B._encode_wire(np.ascontiguousarray(want), dev)[0] == spec
+        h0 = METRICS.snapshot()["counts"].get("h2d.bytes", 0)
+        (got,) = B.put_compressed([a], dev)
+        assert got.device.type == "cuda"
+        got = got.cpu().numpy()
+        assert got.dtype == want.dtype
+        assert np.array_equal(got.view(np.uint8) if got.dtype != np.bool_ else got,
+                              want.view(np.uint8) if want.dtype != np.bool_ else want)
+        assert METRICS.snapshot()["counts"]["h2d.bytes"] - h0 == _wire_bytes([a], dev)
+    outs = B.put_compressed([a for a, _ in cases], dev)
+    for (a, _), got in zip(cases, outs):
+        got, want = got.cpu().numpy(), B.device_array(a)
+        assert np.array_equal(got.view(np.uint8) if got.dtype != np.bool_ else got,
+                              want.view(np.uint8) if want.dtype != np.bool_ else want)
+
+
+def test_decimal_decode_and_probes_are_exact_on_the_card(dev):
+    from datafusion_tpu_torch.exec import batch as B
+
+    assert B._decimal_division_exact(dev) is True
+    assert B._f64_device_exact(dev) is True
+    recip = _wire_cases()[2][0]
+    spec, wires = B._encode_wire(recip, dev)
+    assert spec == ("decimal", 100)
+    got = B._decode_wire(spec, tuple(torch.from_numpy(np.array(w)).to(dev) for w in wires))
+    assert np.array_equal(got.cpu().numpy().view(np.int64), recip.view(np.int64))
+
+
+def test_link_probe_syncs_nothing_and_steers_auto_on_the_card(dev, monkeypatch):
+    """The link probe times blocking copies: no synchronize, no CUDA
+    event, no stream call.  `auto` turns the codec on exactly where the
+    measured link is slower than its host encode."""
+    from datafusion_tpu_torch.exec import batch as B
+
+    calls = {"synchronize": 0, "event": 0, "stream": 0}
+    real_sync, real_event, real_stream = (torch.cuda.synchronize, torch.cuda.Event,
+                                          torch.cuda.current_stream)
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(B, "_LINK_RATE", {})
+    monkeypatch.setattr(torch.cuda, "synchronize", counted("synchronize", real_sync))
+    monkeypatch.setattr(torch.cuda, "Event", counted("event", real_event))
+    monkeypatch.setattr(torch.cuda, "current_stream", counted("stream", real_stream))
+    rate = B.link_rate_mbps(dev)
+    assert calls == {"synchronize": 0, "event": 0, "stream": 0}
+    assert 0 < rate < float("inf") and B.link_rate_mbps(dev) == rate
+    monkeypatch.delenv("DATAFUSION_TPU_WIRE", raising=False)
+    assert B._wire_enabled(dev) == (rate < B._WIRE_MAX_LINK_MBPS)
+
+
+def test_two_threads_pulling_through_pinned_buffers(dev, monkeypatch):
+    """Concurrent packed pulls and puts through the codec's staging
+    never see each other's bytes: PyTorch's pinned host allocator gives
+    each call its own block and reuses one only after the copy that read
+    it."""
+    import threading
+
+    from datafusion_tpu_torch.exec import batch as B
+
+    monkeypatch.setenv("DATAFUSION_TPU_WIRE", "always")
+    errors = []
+
+    def worker(tag):
+        try:
+            for it in range(200):
+                base = tag * 1_000_000 + it * 1000
+                a = torch.arange(base, base + 999, dtype=torch.int64, device=dev)
+                b = torch.full((333,), float(base), dtype=torch.float64, device=dev)
+                c = (torch.arange(517, device=dev) % (tag + 2)) == 0
+                out = B.device_pull([a, b, c])
+                if not (np.array_equal(out[0], np.arange(base, base + 999))
+                        and np.all(out[1] == base)
+                        and np.array_equal(out[2], np.arange(517) % (tag + 2) == 0)):
+                    errors.append((tag, it, "pull"))
+                host = np.arange(base, base + 2048, dtype=np.int64) * 7919
+                (back,) = B.put_compressed([host], dev)
+                if not np.array_equal(back.cpu().numpy(), host):
+                    errors.append((tag, it, "put"))
+        except Exception as e:  # noqa: BLE001 — surfaced by the assert below
+            errors.append((tag, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
 
 
 def test_served_two_tenant_round_conserves_metering_on_the_card(dev):
