@@ -181,6 +181,19 @@ which raises on failure:
    relation (permutation-plane bytes; the third run makes no sort
    launch), and the TopK `a DESC, b` over config 4's 4,000,000 rows.
    `data_plane_*` lines.
+18. Fleet observability (after phase 16, `phase_fleet`): tenant A's
+   warm Q1 round over the resident SF-1 lineitem alone and under tenant
+   B's cold scans (shares 3:1): every served pass on its worker's own
+   CUDA stream, metering equal to `device.dispatch`, every answer its
+   solo bits, A's metered ms a query alone and under B printed; the pin's
+   accounted bytes equal to its cached device tensors' bytes; warm Q1
+   10 times through the telemetry funnel under a latency SLO it
+   breaches (no telemetry error, no ledger leak, 10 histogram samples,
+   `device.h2d` events carrying `h2d.bytes`, a breach artifact and a
+   slow-query artifact with its OTLP document); the debug HTTP plane's
+   routes; two workers with their debug planes: the fleet view, the
+   console's `top` and `debug-bundle` over them, and the survivor's
+   ring after one is killed mid-query.  `fleet_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -205,7 +218,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 17) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 18) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -3709,11 +3722,12 @@ def split_csv(path, parts, out_dir, stem):
     return out
 
 
-def _start_workers(n, out_dir):
+def _start_workers(n, out_dir, extra=()):
     """`n` worker processes (`python -m datafusion_tpu_torch.worker`,
-    no --device: cuda:0), fresh interpreters on ephemeral ports, the
-    fragment cache off so every run computes.  Returns [(process,
-    (host, port))]; a worker that does not come up fails the phase."""
+    no --device: cuda:0, and the arguments `extra`), fresh interpreters
+    on ephemeral ports, the fragment cache off so every run computes.
+    Returns [(process, (host, port))]; a worker that does not come up
+    fails the phase."""
     import select
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3722,7 +3736,7 @@ def _start_workers(n, out_dir):
     try:
         for i in range(n):
             err = open(os.path.join(out_dir, f"worker{i}.err"), "w")
-            proc = subprocess.Popen([sys.executable, *WORKER_CMD], cwd=here, env=env,
+            proc = subprocess.Popen([sys.executable, *WORKER_CMD, *extra], cwd=here, env=env,
                                     stdout=subprocess.PIPE, stderr=err, text=True)
             err.close()
             workers.append((proc, None))
@@ -4215,6 +4229,461 @@ def phase_data_plane(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star, sm
     return reports
 
 
+# ------------------------------------------------------------ phase 18
+
+FLEET_A_CLIENTS = 4
+FLEET_A_QUERIES = 6  # per A client, closed loop
+FLEET_Q1_RUNS = 10
+FLEET_SLO = "DATAFUSION_TPU_SLO_FLEET_Q1_P99"
+
+
+def stream_round(tdf, torch, src, cols, dates, profile_round=True):
+    """Tenant A's warm Q1 round over the resident SF-1 lineitem, alone
+    and while tenant B's cold scans run on the server's other worker:
+    a Server(shares={"A": 3, "B": 1}, workers=2, window_s=0.01,
+    megabatch_max=16, pin=False), A's table resident (a `PinnedSource`
+    made before the server starts, so its copies and ids are cached), B's
+    the same batches behind a plain in-memory source, whose projection
+    yields new batch objects each query: every B query copies the table
+    to the card again.  A's 4 closed-loop clients send 6 Q1-shaped
+    queries each (distinct l_shipdate cutoffs); B's one client sends Q1
+    back to back for as long as A's contended round runs.  Returns A's
+    metered device ms a query alone and under B, B's, both tenants'
+    metered seconds of the contended round against its
+    `device.dispatch` and (`profile_round`) against the device time of
+    `torch.profiler` over it, the streams the served passes recorded
+    their event pairs on (`pass_streams`: worker threads, distinct
+    streams, passes on the default stream), each answer checked against
+    the numpy oracle and its solo answer's bits, and the launches of the
+    round."""
+    import threading
+
+    from datafusion_tpu_torch.exec import cuda as cuda_mod
+    from datafusion_tpu_torch.exec.cuda import hash_agg
+    from datafusion_tpu_torch.obs.attribution import METER
+    from datafusion_tpu_torch.serve import PinnedSource
+    from datafusion_tpu_torch.utils import retry
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    # the stream each served pass records its event pair on, by thread
+    seen: dict = {}
+    real_note = retry.note_launch
+
+    def note_launch(seconds, events=None):
+        if events is not None:
+            seen.setdefault(threading.get_ident(), set()).add(
+                torch.cuda.current_stream().cuda_stream)
+        return real_note(seconds, events)
+
+    ctx = tdf.ExecutionContext(result_cache=False)
+    pin = PinnedSource(src, "lineitem_a")
+    pin.ensure()
+    ctx.register_datasource("lineitem_a", pin)
+    ctx.register_datasource("lineitem_b", tdf.MemoryDataSource(src.schema, list(src.batches())))
+    cutoffs = [dates[dates.index("1998-09-02") - 7 * i] for i in range(TENANT_CUTOFFS)]
+    a_sqls = [[Q1.replace("1998-09-02", cutoffs[(FLEET_A_QUERIES * i + j) % TENANT_CUTOFFS])
+               .replace("FROM lineitem", "FROM lineitem_a") for j in range(FLEET_A_QUERIES)]
+              for i in range(FLEET_A_CLIENTS)]
+    b_sql = Q1.replace("FROM lineitem", "FROM lineitem_b")
+    solo = {s: tdf.collect(ctx.sql(s)) for s in sorted({s for c in a_sqls for s in c})}
+    solo[b_sql] = tdf.collect(ctx.sql(b_sql))
+    for s, table in solo.items():
+        cut = next(c for c in cutoffs if f"'{c}'" in s) if "lineitem_a" in s else "1998-09-02"
+        assert_rows(table, q1_oracle(cols, dates, cut), f"stream round solo {s[-60:]}")
+
+    def a_round(srv):
+        got, errors = [], []
+
+        def client(sqls):
+            try:
+                for s in sqls:
+                    got.append((s, srv.submit(s, client_id="A").result(timeout=600)))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        m0 = METER.snapshot().get("A", {}).get("device_seconds", 0.0)
+        threads = [threading.Thread(target=client, args=(c,)) for c in a_sqls]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(660)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"stream round: tenant A failed {errors[:1]}")
+        n = sum(len(c) for c in a_sqls)
+        return (METER.snapshot()["A"]["device_seconds"] - m0) / n * 1e3, got
+
+    out = {}
+    retry.note_launch = note_launch
+    try:
+        with ctx.serve(shares=TENANT_SHARES, workers=2, window_s=0.01, megabatch_max=16,
+                       pin=False) as srv:
+            a_round(srv)  # warm: A's ids and tables cached on the resident batches
+            out["a_ms_alone"], got_alone = a_round(srv)
+            METER.clear()  # the contended round's billing period
+            stop = threading.Event()
+            b_got, b_err = [], []
+
+            def tenant_b():
+                try:
+                    while not stop.is_set():
+                        b_got.append(srv.submit(b_sql, client_id="B").result(timeout=600))
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    b_err.append(e)
+
+            disp0 = METRICS.snapshot()["timings_s"].get("device.dispatch", 0.0)
+            cuda_mod.reset_launch_counts()
+            th = threading.Thread(target=tenant_b)
+            prof = None
+            if profile_round:
+                from torch.profiler import ProfilerActivity, profile
+
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            try:
+                th.start()
+                while not b_got and not b_err and th.is_alive():
+                    time.sleep(0.01)  # B's first cold scan is under way
+                out["a_ms_under_b"], got_under = a_round(srv)
+            finally:
+                stop.set()
+                th.join(660)
+                torch.cuda.synchronize()
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+            launches = cuda_mod.launch_counts()
+            multi = hash_agg.MULTI_LAUNCHES
+            if b_err or th.is_alive() or not b_got:
+                raise AssertionError(f"stream round: tenant B failed {b_err[:1]}")
+    finally:
+        retry.note_launch = real_note
+        pin.release()
+    default = torch.cuda.default_stream().cuda_stream
+    out["pass_streams"] = {
+        "threads": len(seen), "distinct": len(set().union(*seen.values())) if seen else 0,
+        "per_thread_max": max((len(v) for v in seen.values()), default=0),
+        "on_default": sum(default in v for v in seen.values())}
+    meter = METER.snapshot()
+    dispatch = METRICS.snapshot()["timings_s"].get("device.dispatch", 0.0) - disp0
+    metered = sum(m.get("device_seconds", 0.0) for m in meter.values())
+    out.update({
+        "a_ratio": out["a_ms_under_b"] / out["a_ms_alone"],
+        "b_queries": len(b_got),
+        "b_ms": meter["B"]["device_seconds"] / len(b_got) * 1e3,
+        "metered_s": {c: meter[c]["device_seconds"] for c in ("A", "B")},
+        "dispatch_s": dispatch, "launches": launches, "query_axis_launches": multi,
+    })
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        out["profiler_device_ms"] = sum(
+            e.device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / 1e3
+    for s, table in got_alone + got_under + [(b_sql, t) for t in b_got]:
+        assert_same_bits(table, solo[s], f"stream round {s[-40:]}", key_cols=2)
+    out["metered_matches_dispatch"] = bool(
+        dispatch > 0 and abs(metered - dispatch) <= 1e-6 * dispatch)
+    return out
+
+
+def _worker_debug_line(proc):
+    """The `worker debug: URL/debug` line a worker started with
+    --http-port prints after its listening line: (host, port)."""
+    import re
+
+    # the line may sit in the pipe's read buffer already: read, do not
+    # select (the worker prints its info line right after either way)
+    line = proc.stdout.readline()
+    m = re.search(r"http://([\d.]+):(\d+)/debug", line)
+    if m is None:
+        raise AssertionError(f"worker printed no debug plane: {line!r}")
+    return m.group(1), int(m.group(2))
+
+
+def _get(url, timeout=60):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def phase_fleet(tdf, cuda_mod, torch, src, cols, dates, smi):
+    """Fleet observability on cuda:0 (serve.py's per-worker streams,
+    obs/{recorder,aggregate,otlp,slo,httpd}.py, the worker's telemetry,
+    the coordinator's fleet view, the console's modes):
+
+    1. streams: `stream_round` (tenant A's warm Q1 alone and under tenant
+       B's cold scans, shares 3:1).  Gates: every served pass recorded
+       its event pair on its worker's own stream (no pass on the default
+       stream, one stream a worker thread, the two workers' streams
+       distinct); the tenants' metered seconds equal the round's
+       `device.dispatch` (1e-6); every answer the oracle's and its solo
+       answer's bits.  Printed, not gated: A's metered ms a query under
+       B against alone, and the profiler's device time of the round.
+       A pair spans its pass's host call, and B's Python stretches A's
+       host calls, so A's billed time under B also holds idle stream
+       gaps on either tree (PERF.md §6, ROADMAP queue 3): the card test
+       `test_concurrent_tenant_is_billed_only_its_own_kernels` holds the
+       2x bound and fails until the meter bills device work alone.
+    2. pin bytes: a Server(workers=2) over the SF-1 lineitem serves Q1;
+       the pin's accounted bytes must equal the storage bytes of the
+       device tensors cached on its batches (printed beside the host
+       estimate).
+    3. funnel and ledger: warm Q1 10 times with a latency SLO declared
+       through the environment (``DATAFUSION_TPU_SLO_FLEET_Q1_P99``, 1 us:
+       Q1 breaches it) and the flight recorder's slow threshold at 0,
+       the first run traced.  Gates: ``obs.telemetry_errors`` and
+       ``device.ledger.leaks`` unchanged, 10 more ``query.latency``
+       samples, the ``device.h2d`` events' bytes equal to ``h2d.bytes``,
+       an ``slo_breach`` artifact and a ``slow_query`` artifact holding
+       an OTLP document.
+    4. debug plane: `start_debug_server(-1)` answers `/metrics`,
+       `/debug/tenants`, `/debug/tail`, `/debug/qos`, `/debug/hbm`,
+       `/debug/flights` and `/debug/bundle?format=tar` with 200;
+       `/debug/hbm`'s pinned bytes equal step 2's; `config_snapshot`
+       names the card.
+    5. fleet: two workers with --http-port -1 run Q1 over phase 16's 4
+       lineitem CSV partitions; `fleet_refresh()` holds 2 snapshots and
+       `top_text` lists both with p50/p99; `cli top --workers` and `cli
+       debug-bundle --workers --format tar` exit 0; one worker killed
+       mid-query, after which `collect_flight_dumps` of the query's root
+       holds the survivor's ring and not the victim's.
+    `fleet_*` lines; returns the reports the `kernels` line counts."""
+    import gc
+    import tarfile
+    import threading
+
+    from datafusion_tpu_torch.obs import aggregate, recorder, slo
+    from datafusion_tpu_torch.obs import trace as obs_trace
+    from datafusion_tpu_torch.obs.device import LEDGER
+    from datafusion_tpu_torch.obs.httpd import config_snapshot, start_debug_server
+    from datafusion_tpu_torch.parallel import DistributedContext, PartitionedDataSource
+    from datafusion_tpu_torch.serve import _cached_tensors
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    reports = []
+
+    # 1. streams
+    st = stream_round(tdf, torch, src, cols, dates)
+    rep = {"query": "fleet_streams", **st, "card": card()}
+    log("fleet_streams: " + json.dumps(rep))
+    if not st["metered_matches_dispatch"]:
+        raise AssertionError(f"fleet streams: metered {st['metered_s']} != the round's "
+                             f"device.dispatch {st['dispatch_s']}")
+    ps = st["pass_streams"]
+    if ps["on_default"] or ps["per_thread_max"] != 1 or ps["threads"] < 2 or \
+            ps["distinct"] != ps["threads"]:
+        raise AssertionError(f"fleet streams: served passes' streams {ps}: want one stream "
+                             "a worker, none the default stream")
+    log(f"streams: {ps['threads']} serving workers on {ps['distinct']} streams; tenant A "
+        f"billed {st['a_ms_alone']:.6f} ms a query alone, {st['a_ms_under_b']:.6f} under B's "
+        f"cold scans ({st['a_ratio']:.3f}x, not gated); answers equal their solo bits")
+    reports.append(rep)
+
+    # 2. pin bytes (the server stays up for step 4's /debug/hbm)
+    ctx = tdf.ExecutionContext(result_cache=False)
+    ctx.register_datasource("lineitem", src)
+    srv = ctx.serve(workers=2, window_s=0.01)
+    try:
+        cuda_mod.reset_launch_counts()
+        table = srv.submit(Q1, client_id="A").result(timeout=600)
+        launches = cuda_mod.launch_counts()
+        assert_rows(table, q1_oracle(cols, dates), "fleet served Q1")
+        pinned = ctx.datasources["lineitem"]
+        tensors = [t for t in _cached_tensors(list(pinned._resident))
+                   if t.device.type == ctx.device.type]
+        device_bytes = sum({(t.device, t.untyped_storage().data_ptr()):
+                            t.untyped_storage().nbytes() for t in tensors}.values())
+        pin_bytes = LEDGER.pins_snapshot()["table:lineitem"]["bytes"]
+        host_est = pinned.estimated_bytes()
+        rep = {"query": "fleet_pin_bytes", "pin_bytes": pin_bytes,
+               "cached_device_bytes": device_bytes, "host_estimate_bytes": host_est,
+               "cached_tensors": len(tensors), "launches": launches, "card": card()}
+        log("fleet_pin_bytes: " + json.dumps(rep))
+        if not tensors or pin_bytes != device_bytes:
+            raise AssertionError(f"fleet pin bytes: {pin_bytes} != cached device bytes "
+                                 f"{device_bytes}")
+        reports.append(rep)
+
+        # 3. funnel and ledger: warm Q1 under a breached SLO
+        flight_dir = os.path.join(out_dir, "flight")
+        os.makedirs(flight_dir, exist_ok=True)
+        for f in os.listdir(flight_dir):
+            os.remove(os.path.join(flight_dir, f))
+        saved = (recorder._SLOW_S, recorder._DIR, recorder._DUMP_INTERVAL_S, slo.WATCHDOG)
+        os.environ[FLEET_SLO] = "0.000001"
+        os.environ["DATAFUSION_TPU_SLO_MIN_SAMPLES"] = str(FLEET_Q1_RUNS)
+        qctx = tdf.ExecutionContext(result_cache=False)
+        qctx.register_datasource("lineitem", src)
+        tdf.collect(qctx.sql(Q1))  # warm
+        try:
+            recorder.configure(slow_s=0.0, directory=flight_dir, dump_interval_s=0.0)
+            slo.WATCHDOG = slo._arm_from_env()
+            c0 = _counts()
+            h0 = aggregate.HISTOGRAMS["query.latency"].count
+            t_ns = time.time_ns()
+            cuda_mod.reset_launch_counts()
+            ms = []
+            for i in range(FLEET_Q1_RUNS):
+                t0 = time.perf_counter()
+                if i == 0:
+                    with obs_trace.session():
+                        table = tdf.collect(qctx.sql(Q1))
+                else:
+                    table = tdf.collect(qctx.sql(Q1))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                assert_rows(table, q1_oracle(cols, dates), f"fleet funnel Q1 {i}")
+            launches = cuda_mod.launch_counts()
+            rows = slo.WATCHDOG.evaluate()
+            c1 = _counts()
+            h2d_events = sum(e["attrs"]["bytes"] for e in recorder.events("device.h2d")
+                             if e["ts_ns"] >= t_ns)
+        finally:
+            del os.environ[FLEET_SLO], os.environ["DATAFUSION_TPU_SLO_MIN_SAMPLES"]
+            recorder.configure(slow_s=saved[0], directory=saved[1], dump_interval_s=saved[2])
+            slo.WATCHDOG = saved[3]
+        dumps = [json.load(open(os.path.join(flight_dir, f), encoding="utf-8"))
+                 for f in sorted(os.listdir(flight_dir))]
+        breach = [d for d in dumps if d["reason"] == "slo_breach"]
+        slow_otlp = [d for d in dumps if d["reason"] == "slow_query" and d.get("otlp")]
+        delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in
+                 ("obs.telemetry_errors", "device.ledger.leaks", "h2d.bytes")}
+        rep = {"query": "fleet_funnel", "runs": FLEET_Q1_RUNS, "ms": ms,
+               "latency_samples": aggregate.HISTOGRAMS["query.latency"].count - h0,
+               "counters": delta, "h2d_event_bytes": h2d_events, "slo": rows,
+               "artifacts": {"slo_breach": len(breach), "slow_query_with_otlp": len(slow_otlp),
+                             "all": len(dumps)},
+               "launches": launches, "card": card()}
+        log("fleet_funnel: " + json.dumps(rep, default=str))
+        if delta["obs.telemetry_errors"] or delta["device.ledger.leaks"]:
+            raise AssertionError(f"fleet funnel: {delta}")
+        if rep["latency_samples"] != FLEET_Q1_RUNS:
+            raise AssertionError(f"fleet funnel: {rep['latency_samples']} latency samples")
+        if h2d_events != delta["h2d.bytes"]:
+            raise AssertionError(f"fleet funnel: device.h2d events carry {h2d_events} bytes, "
+                                 f"h2d.bytes counted {delta['h2d.bytes']}")
+        if not any(r["breached"] for r in rows) or not breach or not slow_otlp:
+            raise AssertionError(f"fleet funnel: SLO rows {rows}, {len(breach)} breach and "
+                                 f"{len(slow_otlp)} OTLP artifacts")
+        reports.append(rep)
+
+        # 4. the debug plane
+        dbg = start_debug_server(-1)
+        try:
+            codes = {}
+            for route in ("/metrics", "/debug/tenants", "/debug/tail", "/debug/qos",
+                          "/debug/hbm", "/debug/flights", "/debug/bundle?format=tar&seconds=0.2"):
+                code, body = _get(dbg.url + route)
+                codes[route] = code
+                if route == "/debug/hbm":
+                    hbm = json.loads(body)
+                if route.startswith("/debug/bundle"):
+                    with tarfile.open(fileobj=io.BytesIO(body)) as tf:
+                        members = tf.getnames()
+        finally:
+            dbg.close()
+        cfg = config_snapshot()
+        rep = {"query": "fleet_debug_plane", "codes": codes, "bundle_members": members,
+               "hbm_pinned_bytes": hbm.get("pinned_bytes"),
+               "config": {k: cfg.get(k) for k in ("backend", "devices", "torch", "cuda")},
+               "card": card()}
+        log("fleet_debug_plane: " + json.dumps(rep))
+        if any(c != 200 for c in codes.values()):
+            raise AssertionError(f"fleet debug plane: {codes}")
+        if hbm.get("pinned_bytes") != pin_bytes:
+            raise AssertionError(f"fleet debug plane: /debug/hbm pinned {hbm.get('pinned_bytes')}"
+                                 f" != {pin_bytes}")
+        if cfg["backend"] != "cuda" or cfg["devices"][0] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"fleet debug plane: config_snapshot {cfg}")
+    finally:
+        srv.stop()
+
+    # 5. the fleet: two workers with their debug planes
+    li_parts = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir)
+                      if f.startswith("dist_lineitem_q1_part"))
+    if len(li_parts) != DIST_PARTS:
+        raise AssertionError(f"fleet: phase 16's partitions are missing ({li_parts})")
+    workers = _start_workers(2, out_dir, extra=("--http-port", "-1"))
+    try:
+        debug = [_worker_debug_line(proc) for proc, _ in workers]
+        addrs = [a for _, a in workers]
+        dctx = DistributedContext(addrs, result_cache=False)
+        schema = _schema_of(tdf, LINEITEM_Q1_SCHEMA)
+        dctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, schema) for p in li_parts]))
+        table, q1_ms, _, delta, _ = _dist_run(tdf, torch, dctx, Q1, cuda_mod)
+        assert_rows(table, q1_oracle(cols, dates), "fleet distributed Q1")
+        held = dctx.fleet_refresh()
+        top = dctx.top_text()
+        env = dict(os.environ)
+        spec = ",".join(f"{h}:{p}" for h, p in addrs)
+        top_run = subprocess.run([sys.executable, "-m", "datafusion_tpu_torch.cli", "top",
+                                  "--workers", spec], capture_output=True, text=True,
+                                 timeout=300, env=env, cwd=here)
+        bundle_dir = os.path.join(out_dir, "fleet_bundles")
+        bundle_run = subprocess.run(
+            [sys.executable, "-m", "datafusion_tpu_torch.cli", "debug-bundle", "--workers",
+             ",".join(f"{h}:{p}" for h, p in debug), "--out", bundle_dir, "--format", "tar",
+             "--seconds", "0.2"], capture_output=True, text=True, timeout=300, env=env,
+            cwd=here)
+        # one worker killed mid-query: the survivor's ring, not the victim's
+        rel = dctx.sql(Q1)
+        result = {}
+
+        def run():
+            try:
+                result["table"] = tdf.collect(rel)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                result["error"] = e
+
+        th = threading.Thread(target=run)
+        th.start()
+        time.sleep(1.0)
+        (victim, victim_addr), (_, survivor) = workers
+        victim.kill()
+        victim.wait(timeout=30)
+        th.join(600)
+        if "error" in result or th.is_alive():
+            raise AssertionError(f"fleet: Q1 after the kill failed {result.get('error')!r}")
+        assert_rows(result["table"], q1_oracle(cols, dates), "fleet Q1 after a kill")
+        dumps = rel.collect_flight_dumps(None)
+        dctx.close()
+    finally:
+        _stop_workers(workers)
+    key, dead = f"{survivor[0]}:{survivor[1]}", f"{victim_addr[0]}:{victim_addr[1]}"
+    rep = {"query": "fleet_workers", "q1_ms": q1_ms, "snapshots": held,
+           "launches": _sum_kernels(delta),
+           "top_rc": top_run.returncode, "bundle_rc": bundle_run.returncode,
+           "bundles": sorted(os.listdir(bundle_dir)) if os.path.isdir(bundle_dir) else [],
+           "dump_nodes": sorted(dumps), "survivor_events": len(dumps.get(key, {}).get(
+               "events", [])), "card": card()}
+    log("fleet_workers: " + json.dumps(rep))
+    log(top)
+    if held != 2 or not all(f"node {a}:" in top and "p50=" in top and "p99=" in top
+                            for a in spec.split(",")):
+        raise AssertionError(f"fleet: {held} snapshots; top:\n{top}")
+    if top_run.returncode or bundle_run.returncode or len(rep["bundles"]) != 2:
+        raise AssertionError(f"fleet console: top {top_run.returncode} {top_run.stderr[-400:]}"
+                             f" bundle {bundle_run.returncode} {bundle_run.stdout[-400:]}")
+    if key not in dumps or dead in dumps or not rep["survivor_events"]:
+        raise AssertionError(f"fleet: flight dumps after the kill {sorted(dumps)}")
+    reports.append(rep)
+    log(f"fleet_phase: {time.perf_counter() - t_phase:.3f} s ({smi})")
+    return reports
+
+
+
+def _counts():
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.snapshot()["counts"]
+
+
 def _kernel_line(name, source, replaces, launches, max_abs_err, entry):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4321,6 +4790,8 @@ def main() -> int:
                                     smi)
     reports += tenancy_reports
     reports += phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star_cols, smi)
+    fleet_reports = phase_fleet(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
+    reports += fleet_reports
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)
@@ -4335,7 +4806,7 @@ def main() -> int:
         _kernel_line("hash_agg.grouped_reduce_multi", "datafusion_tpu_torch/csrc/hash_agg.cu",
                      "datafusion_tpu/exec/pallas/hash_agg.py:95",
                      sum(r.get("query_axis_launches", 0)
-                         for r in serve_reports + tenancy_reports), axis_err,
+                         for r in serve_reports + tenancy_reports + fleet_reports), axis_err,
                      next(e for e in axis_shapes if "Q=8" in e["shape"])),
         _kernel_line("hash_build.build_slot_table",
                      "datafusion_tpu_torch/csrc/hash_build.cu",

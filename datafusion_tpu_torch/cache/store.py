@@ -1,7 +1,7 @@
 """Byte-accounted LRU+TTL cache store (the JAX package's
 `cache/store.py`, less its cluster hooks: the shared tier, `peek`,
 `export_entries` and `tags` wait for the control plane, ROADMAP queue 1
-item 13.2).
+item 13.2 part 2).
 
 One `CacheStore` backs each cache in the subsystem (the coordinator's
 result cache, a worker's fragment cache).  Entries are keyed by a

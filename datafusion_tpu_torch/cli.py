@@ -14,10 +14,18 @@ tables, views and log (`\\ingest`), one logged append
 
 Run: ``python -m datafusion_tpu_torch.cli [--script FILE] [--device cpu]``
 
+The fleet view (`\\top`, and the `top` mode: ``top [--workers
+h:p,...] [--tenants] [--qos] [--watch N]``) renders this process's
+telemetry, or with `--workers` a fleet's through a `DistributedContext`
+(obs/aggregate.FleetAggregator).  The `debug-bundle` mode (``debug-bundle
+[--workers h:debugport,...] [--out DIR] [--seconds N] [--format
+json|tar]``) pulls one debug bundle from each worker's debug HTTP plane
+(obs/httpd.py), or bundles this process when no worker is named.
+
 The console runs on `cuda:0` unless `--device` names another device
-(`cpu` only when asked).  The `top` and `debug-bundle` modes and the
-commands `\\cluster \\top` need planes that are not ported yet: each
-prints an error naming its ROADMAP item, and the console carries on.
+(`cpu` only when asked).  `\\cluster` and `--cluster` need the cluster
+control plane, which is not ported yet: each prints an error naming its
+ROADMAP item, and the console carries on.
 """
 
 from __future__ import annotations
@@ -34,10 +42,8 @@ from datafusion_tpu_torch.sql.parser import split_statements, split_statements_p
 # console commands and modes that wait for an unported plane, with the
 # ROADMAP item that ports it
 _UNPORTED = {
-    "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2",
-    "\\top": "fleet telemetry, ROADMAP queue 1 item 13.2",
-    "top": "fleet telemetry, ROADMAP queue 1 item 13.2",
-    "debug-bundle": "debug bundles, ROADMAP queue 1 item 13.2",
+    "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2 part 2",
+    "--cluster": "the cluster control plane, ROADMAP queue 1 item 13.2 part 2",
 }
 
 
@@ -49,6 +55,189 @@ def _fmt_float(v: float) -> str:
     """Shortest round-trip decimal (matches the golden output's
     `52.412811`, `0.10231` style)."""
     return repr(float(v))
+
+
+def fleet_top_text(ctx=None) -> str:
+    """The ``top`` view: a `DistributedContext` renders its fleet (each
+    worker's ``telemetry`` snapshot); any other context this process's
+    own histograms and counters as node "local"."""
+    if ctx is not None and hasattr(ctx, "top_text"):
+        return ctx.top_text()
+    from datafusion_tpu_torch.obs import slo
+    from datafusion_tpu_torch.obs.aggregate import FleetAggregator
+
+    rows = slo.WATCHDOG.evaluate() if slo.WATCHDOG.armed() else None
+    return FleetAggregator().top_text(slo_rows=rows)
+
+
+def qos_text() -> str:
+    """The ``top --qos`` block: armed state, each tenant's share and
+    attained and normalized service, and the scale hint with its two
+    inputs."""
+    from datafusion_tpu_torch import qos as qos_mod
+
+    snap = qos_mod.debug_snapshot()
+    lines = [f"QoS: {'armed' if snap['enabled'] else 'off'}"]
+    for cid, row in snap.get("attained", {}).items():
+        lines.append(f"  {cid}: share {row['share']:g}  attained {row['cost_s']:.3f}s  "
+                     f"normalized {row['normalized']:.3f}")
+    sc = snap["scale"]
+    burn = sc["max_burn_rate"]
+    lines.append(f"  scale hint: {sc['hint']:+d}  "
+                 f"(max burn {'n/a' if burn is None else f'{burn:.2f}x'}, "
+                 f"queue_wait share {sc['queue_wait_share']:.0%})")
+    return "\n".join(lines)
+
+
+def _addrs(workers: Optional[str]) -> list[tuple[str, int]]:
+    out = []
+    for addr in (workers or "").split(","):
+        addr = addr.strip()
+        if addr:
+            host, _, port = addr.rpartition(":")
+            out.append((host, int(port)))
+    return out
+
+
+def run_top(workers: Optional[str], watch_s: float, out=None, tenants: bool = False,
+            qos: bool = False, device: Optional[str] = None) -> int:
+    """``top [--workers a:1,b:2] [--watch N] [--tenants] [--qos]``: print
+    the telemetry view once, or every N seconds until interrupted.
+    `--tenants` appends the per-client metering table (the fleet's
+    summed tenant gauges with `--workers`), `--qos` the fair-share
+    view.  With `--workers` the coordinator context runs on `device`
+    (``cuda:0`` unless it says otherwise), as every context does."""
+    out = out if out is not None else sys.stdout
+    ctx = None
+    if workers:
+        from datafusion_tpu_torch.parallel.coordinator import DistributedContext
+
+        ctx = DistributedContext(_addrs(workers), device=device, result_cache=False)
+    try:
+        while True:
+            print(fleet_top_text(ctx), file=out)
+            if tenants:
+                from datafusion_tpu_torch.obs import attribution
+
+                if ctx is not None:
+                    # this process served nothing: the node-summed gauges
+                    print(attribution.tenants_text_from_gauges(
+                        ctx.telemetry.fleet().get("tenants", {})), file=out)
+                else:
+                    print(attribution.tenants_text(), file=out)
+            if qos:
+                print(qos_text(), file=out)
+            if not watch_s:
+                return 0
+            print("", file=out)
+            time.sleep(watch_s)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        if ctx is not None:
+            ctx.close()
+
+
+def run_debug_bundle(workers: Optional[str], out_dir: Optional[str], seconds: float,
+                     out=None, fmt: str = "json") -> int:
+    """``debug-bundle [--workers h:debugport,...] [--out DIR] [--seconds N]
+    [--format json|tar]``: pull one debug bundle (obs/httpd.py
+    ``/debug/bundle``) from each named debug plane and write them under
+    DIR; ``--format tar`` pulls the tar stream whose members carry the
+    raw ring, spans and profile.  With no worker, bundles this process.
+    Exits non-zero if any member failed to produce its bundle."""
+    import json
+    import os
+    import tempfile
+    import urllib.request
+
+    out = out if out is not None else sys.stdout
+    tar = fmt == "tar"
+    targets = [(f"{h}:{p}", f"http://{h}:{p}/debug/bundle") for h, p in _addrs(workers)]
+    if out_dir is None:
+        out_dir = tempfile.mkdtemp(prefix="datafusion_tpu_bundles_")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def _stem(member: str) -> str:
+        return f"bundle-{member.replace(':', '-').replace('/', '-')}"
+
+    def _write(member: str, doc: dict) -> str:
+        path = os.path.join(out_dir, f"{_stem(member)}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(doc, f, default=str)
+        return path
+
+    def _write_tar(member: str, blob: bytes) -> str:
+        path = os.path.join(out_dir, f"{_stem(member)}.tar")
+        with open(path, "wb") as f:
+            f.write(blob)
+        return path
+
+    def _wal_summary(doc: dict) -> str:
+        parts = []
+        for m in doc.get("wal") or []:
+            age = m.get("last_fsync_age_s")
+            rec = m.get("recovery") or {}
+            clause = (f"{m.get('segments', 0)} segs {m.get('bytes_written', 0)}B "
+                      f"fsync_age={age if age is None else f'{age:.1f}s'}")
+            if rec:
+                clause += (f" recovered@rev={rec.get('recovered_rev')} "
+                           f"({rec.get('replayed_events')} events, "
+                           f"{rec.get('torn_tails')} torn)")
+            parts.append(clause)
+        return f"; wal: {' | '.join(parts)}" if parts else ""
+
+    def _tar_summary(blob: bytes) -> str:
+        import io
+        import tarfile
+
+        try:
+            with tarfile.open(fileobj=io.BytesIO(blob)) as tf:
+                names = tf.getnames()
+        except tarfile.TarError:
+            return f"{len(blob)} bytes (not a tar stream)"
+        return f"{len(blob)} bytes, {len(names)} members: {', '.join(names)}"
+
+    failures = 0
+    if not targets:
+        from datafusion_tpu_torch.obs.httpd import build_bundle, build_bundle_tar
+
+        if tar:
+            blob = build_bundle_tar(profile_seconds=seconds)
+            print(f"local: {_write_tar('local', blob)} ({_tar_summary(blob)})", file=out)
+        else:
+            doc = build_bundle(profile_seconds=seconds)
+            path = _write("local", doc)
+            print(f"local: {path} ({(doc.get('profile') or {}).get('samples', 0)} profile "
+                  f"samples, {len(doc['flights']['events'])} flight events"
+                  f"{_wal_summary(doc)})", file=out)
+    # the debug plane may be token-guarded: forward the operator's token
+    headers = {}
+    token = os.environ.get("DATAFUSION_TPU_DEBUG_TOKEN")
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    for member, url in targets:
+        try:
+            req = urllib.request.Request(f"{url}?seconds={seconds:g}"
+                                         + ("&format=tar" if tar else ""), headers=headers)
+            with urllib.request.urlopen(req, timeout=seconds + 15) as resp:
+                raw = resp.read()
+            if tar:
+                print(f"{member}: {_write_tar(member, raw)} ({_tar_summary(raw)})", file=out)
+                continue
+            doc = json.loads(raw)
+        except (OSError, ValueError) as e:
+            print(f"{member}: bundle pull failed: {e}", file=out)
+            failures += 1
+            continue
+        path = _write(member, doc)
+        prof = doc.get("profile") or {}
+        print(f"{member}: {path} ({prof.get('samples', 0)} profile samples, "
+              f"{len((doc.get('flights') or {}).get('events', []))} flight events"
+              f"{_wal_summary(doc)})", file=out)
+    n = max(len(targets), 1)
+    print(f"bundles written to {out_dir} ({n - failures}/{n} ok)", file=out)
+    return 1 if failures else 0
 
 
 def make_context(device: Optional[str] = None, batch_size: int = 131072):
@@ -119,6 +308,11 @@ class Console:
             from datafusion_tpu_torch.obs.device import LEDGER
 
             self._print(LEDGER.report_text())
+            return True
+        if cmd == "\\top":
+            # the telemetry view (obs/aggregate.py): fleet-wide on a
+            # DistributedContext, this process's otherwise
+            self._print(fleet_top_text(self.ctx))
             return True
         if cmd == "\\cache":
             # the result cache (cache/): counters, byte budget and each
@@ -373,7 +567,10 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "mode", nargs="?", choices=["top", "debug-bundle"],
-        help="the JAX package's fleet view and debug bundles (not ported yet)",
+        help="'top': print the telemetry view (latency percentiles, cache hit "
+             "rates, SLO burn rates) and exit (or repeat with --watch); "
+             "'debug-bundle': pull one debug bundle from each --workers debug "
+             "plane (obs/httpd.py) into --out, or bundle this process",
     )
     parser.add_argument("--script", help="execute commands from file, then exit")
     parser.add_argument(
@@ -385,12 +582,46 @@ def main(argv=None) -> int:
         "--timing", action="store_true",
         help="print per-query engine stage timings (same as \\timing)",
     )
+    parser.add_argument(
+        "--workers", default=None,
+        help="top mode: worker addresses host:port to aggregate; debug-bundle "
+             "mode: host:port of the workers' DEBUG HTTP planes",
+    )
+    parser.add_argument(
+        "--cluster", default=None,
+        help="top / debug-bundle mode: a cluster service (not ported yet)",
+    )
+    parser.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                        help="top mode: refresh every N seconds until interrupted")
+    parser.add_argument("--tenants", action="store_true",
+                        help="top mode: append the per-client metering table")
+    parser.add_argument("--qos", action="store_true",
+                        help="top mode: append the fair-share view and scale hint")
+    parser.add_argument("--out", default=None, metavar="DIR",
+                        help="debug-bundle mode: directory for the bundles "
+                             "(default: a fresh temporary directory, printed)")
+    parser.add_argument("--seconds", type=float, default=0.5, metavar="N",
+                        help="debug-bundle mode: host-profile capture per member "
+                             "(default 0.5)")
+    parser.add_argument("--format", default="json", choices=["json", "tar"],
+                        help="debug-bundle mode: 'tar' pulls the tar stream of raw "
+                             "members instead of one JSON document each")
     args = parser.parse_args(argv)
 
-    if args.mode is not None:
-        print(_not_ported(args.mode))
+    if args.cluster is not None:
+        print(_not_ported("--cluster"))
         return 1
     from datafusion_tpu_torch.errors import ExecutionError
+
+    if args.mode == "top":
+        try:
+            return run_top(args.workers, args.watch, tenants=args.tenants, qos=args.qos,
+                           device=args.device)
+        except ExecutionError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+    if args.mode == "debug-bundle":
+        return run_debug_bundle(args.workers, args.out, args.seconds, fmt=args.format)
 
     try:
         ctx = make_context(args.device, args.batch_size)

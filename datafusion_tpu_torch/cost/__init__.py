@@ -38,10 +38,10 @@ the port's route names (``agg:grouped_reduce``, ``agg:sortmerge``,
 ``sort:radix``).  The JAX package's records under `PALLAS_KEY` load and
 persist with the rest, and no port decision reads them: Pallas timings
 from a TPU never steer a Hopper route.  The JAX package's
-``scan.chunk`` sizing and the aggregate's host-split placement read a
-measured link rate the port does not probe yet (ROADMAP item 6), and
-the sort has one route at every size (the radix kernel), so there is
-no sort window.
+``scan.chunk`` sizing and the aggregate's host-split placement are not
+ported: the port probes the link (`exec/batch.link_rate_mbps`), and on
+the H100's link neither route pays (ROADMAP item 6).  The sort has one
+route at every size (the radix kernel), so there is no sort window.
 """
 
 from __future__ import annotations

@@ -64,7 +64,8 @@ The counterpart of the JAX package's `exec/aggregate.py`:
   (`_cost_presize`), unless the chunk's encoded groups miss it by
   `cost.replan_ratio()` (a replan, ``plan.replans``).  Finalize records
   the group count and, on a CUDA device, the route's device time per
-  row (a CUDA event pair around each pass of 2^17 rows or more).
+  row (a CUDA event pair around each pass of 2^17 rows or more that
+  no served query runs).
 
 Each core keeps its columns' codec hints across batches (`wire_hints`,
 `batch.put_compressed`).  Not ported: the JAX package's link-aware
@@ -110,10 +111,11 @@ from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_
 from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled, iter_groups
 from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.exec.relation import Relation
+from datafusion_tpu_torch.exec.streams import publish, shared
 from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.obs.stats import iter_stats, op_timer
 from datafusion_tpu_torch.plan.expr import AggregateFunction, Column, Expr
-from datafusion_tpu_torch.utils.metrics import METRICS
+from datafusion_tpu_torch.utils.metrics import CLIENT_SCOPES, METRICS
 from datafusion_tpu_torch.utils.retry import device_call
 
 
@@ -1141,7 +1143,7 @@ class AggregateRelation(Relation):
             self._str_dicts[k] = d
             version = dict_versions(batch)[sl.arg_index]
             key = (k, version)
-            hit = self._str_aux_cache.get(key)
+            hit = shared(self._str_aux_cache.get(key))
             if hit is None:
                 ranks = d.sort_ranks(version).astype(np.int32)
                 order = np.argsort(ranks).astype(np.int32)  # rank -> code
@@ -1151,7 +1153,7 @@ class AggregateRelation(Relation):
                 po = np.zeros(cap, np.int32)
                 po[: len(order)] = order
                 hit = (to_device(pr, self.device), to_device(po, self.device))
-                self._str_aux_cache[key] = hit
+                self._str_aux_cache[key] = publish(hit)
             out.append(hit)
         return tuple(out)
 
@@ -1202,9 +1204,13 @@ class AggregateRelation(Relation):
         # the card's time for the passes, not the host's: a grouped
         # reduce only queues its work, a sort-merge pass reads its runs
         # back, so their host walls are not comparable.  A pass under
-        # `MIN_ROUTE_ROWS` rows is launch overhead and is not timed.
+        # `MIN_ROUTE_ROWS` rows is launch overhead and is not timed, nor
+        # is a served one (under a charge scope): its pair also holds
+        # the stream's idle gaps while other clients' threads run, up to
+        # 10x the pass's device time on the card (ROADMAP queue 3)
         min_rows = None
-        if device.type == "cuda" and _cost_enabled():
+        if (device.type == "cuda" and _cost_enabled()
+                and threading.get_ident() not in CLIENT_SCOPES):
             from datafusion_tpu_torch.cost.advisor import MIN_ROUTE_ROWS as min_rows
         for capacity, entries, (aux, str_aux) in self._batch_groups(batches, self._aux):
             if state is None:
@@ -1291,7 +1297,7 @@ class AggregateRelation(Relation):
         pinned on it from this relation's caches, else built here."""
         hit = batch.cache.get("staged_aux")
         if hit is not None and hit[0] is self._aux_cache and hit[1] is self._str_aux_cache:
-            return hit[2]
+            return shared(hit[2])
         return self._tables(batch)
 
     def _tables(self, batch: RecordBatch):
@@ -1320,14 +1326,14 @@ class AggregateRelation(Relation):
         `agg.host_encode` timer."""
         hit = batch.cache.get("group_ids")
         if hit is not None and hit[0] is self.encoder:
-            return hit[1], hit[2]
+            return shared(hit[1]), hit[2]
         with self._ids_lock:
             return self._group_ids_locked(batch)
 
     def _group_ids_locked(self, batch: RecordBatch):
         hit = batch.cache.get("group_ids")
         if hit is not None and hit[0] is self.encoder:
-            return hit[1], hit[2]
+            return shared(hit[1]), hit[2]
         if self.key_cols:
             # a key column on the device (a join's gathered payload)
             # crosses to the host for the encoder
@@ -1347,7 +1353,7 @@ class AggregateRelation(Relation):
         n_groups = self.encoder.num_groups
         # one slot per batch: another query's encoder overwrites it, so
         # a long-lived batch holds at most one ids tensor
-        batch.cache["group_ids"] = (self.encoder, ids, n_groups)
+        batch.cache["group_ids"] = (self.encoder, publish(ids), n_groups)
         return ids, n_groups
 
     @staticmethod

@@ -46,6 +46,7 @@ import torch
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.errors import ExecutionError
+from datafusion_tpu_torch.exec.streams import publish, shared
 from datafusion_tpu_torch.obs.device import LEDGER, note_h2d, profile_sync_active, record_d2h
 from datafusion_tpu_torch.utils.metrics import METRICS, stage_enter, stage_exit
 
@@ -823,7 +824,7 @@ def device_inputs(batch: RecordBatch, device: torch.device, hints=None):
     key = ("device", str(device))
     hit = batch.cache.get(key)
     if hit is not None:
-        return hit
+        return shared(hit)
     # layout: data columns, then the present validity arrays, then mask
     arrays: list = list(batch.data)
     valid_pos = [i for i, v in enumerate(batch.validity) if v is not None]
@@ -837,7 +838,7 @@ def device_inputs(batch: RecordBatch, device: torch.device, hints=None):
         validity[i] = decoded[n + j]
     mask = decoded[-1] if batch.mask is not None else None
     out = (tuple(decoded[:n]), tuple(validity), mask)
-    batch.cache[key] = out
+    batch.cache[key] = publish(out)
     return out
 
 

@@ -134,6 +134,7 @@ from datafusion_tpu_torch.sql import ast
 from datafusion_tpu_torch.sql.optimizer import push_down_projection
 from datafusion_tpu_torch.sql.parser import parse_sql
 from datafusion_tpu_torch.sql.planner import SqlToRel, convert_data_type
+from datafusion_tpu_torch.obs import recorder
 from datafusion_tpu_torch.utils.metrics import METRICS
 
 
@@ -226,6 +227,10 @@ class ExecutionContext:
         # per-thread root guard: a lowering nested in `execute` (a view
         # building its operator tree) must not meet the cache seam
         self._execute_tls = threading.local()
+        # root queries feed the per-query telemetry funnel
+        # (obs/aggregate.query_completed); a worker's fragment contexts
+        # turn it off: a fragment records as fragment latency instead
+        self._telemetry = True
         # builtin math functions are ordinary catalog entries
         from datafusion_tpu_torch.exec.expression import BUILTIN_FUNCTIONS
 
@@ -364,7 +369,9 @@ class ExecutionContext:
         with METRICS.timer("plan"):
             plan = SqlToRel(_ContextSchemaProvider(self)).sql_to_rel(stmt)
         with METRICS.timer("optimize"):
-            return self._cost_rewrite(push_down_projection(plan))
+            plan = self._cost_rewrite(push_down_projection(plan))
+        recorder.record("query.plan", plan=type(plan).__name__)
+        return plan
 
     # -- feedback-driven planning seams (cost/) --
     def _cost_rewrite(self, plan: LogicalPlan) -> LogicalPlan:
@@ -562,6 +569,8 @@ class ExecutionContext:
         tls.in_execute = True
         try:
             METRICS.add("queries_admitted")
+            if self._telemetry:
+                recorder.record("query.admit", plan=type(plan).__name__)
             store = self._result_cache
             fp = None
             if store is not None:
@@ -574,11 +583,13 @@ class ExecutionContext:
 
                 entry = store.get(fp)
                 if entry is not None:
-                    return CachedResultRelation(
+                    recorder.record("cache.hit", level="result", fingerprint=fp[:16])
+                    return self._tag_root(CachedResultRelation(
                         plan.schema, entry, fp,
                         on_complete=lambda s: self._record_history(fp, s),
                         batch_size=self.batch_size,
-                    )
+                    ), plan)
+                recorder.record("cache.miss", level="result", fingerprint=fp[:16])
             if not verified:
                 self._verify(plan)
             rel = self._lower_with(plan, build_pins)
@@ -589,9 +600,21 @@ class ExecutionContext:
                     rel, store, fp, tags=scan_tables(plan),
                     on_complete=lambda s: self._record_history(fp, s, root=rel),
                 )
-            return rel
+            return self._tag_root(rel, plan)
         finally:
             tls.in_execute = False
+
+    def _tag_root(self, rel: Relation, plan: LogicalPlan) -> Relation:
+        """Mark a root relation for the per-query telemetry funnel,
+        which `exec/materialize.collect_columns` calls at its end: its
+        label and the stage timers now, from which the funnel derives the
+        query's phases (obs/device.phase_breakdown)."""
+        if self._telemetry:
+            from datafusion_tpu_torch.obs.device import phase_snapshot
+
+            rel._telemetry_query = type(plan).__name__
+            rel._phase_before = phase_snapshot()
+        return rel
 
     def _lower_with(self, plan: LogicalPlan, build_pins: Optional[set]) -> Relation:
         """`_lower` with this thread's join-build pin set."""
@@ -608,6 +631,7 @@ class ExecutionContext:
         PlanVerificationError."""
         if not _averify.verify_enabled():
             return
+        recorder.record("query.verify", plan=type(plan).__name__)
         with METRICS.timer("verify"):
             _averify.check_plan(plan, functions=self.functions)
 
@@ -647,7 +671,8 @@ class ExecutionContext:
             if plan.projection is not None:
                 ds = ds.with_projection(plan.projection)
             # the scan teaches the cost store the table's rows
-            return DataSourceRelation(ds, cost_key=self.cost_table_key(plan.table_name))
+            return DataSourceRelation(ds, cost_key=self.cost_table_key(plan.table_name),
+                                      table_name=plan.table_name)
         if isinstance(plan, EmptyRelation):
             return _EmptyRelationExec()
         if isinstance(plan, Selection):

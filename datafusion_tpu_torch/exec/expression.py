@@ -44,6 +44,7 @@ from datafusion_tpu_torch.exec.batch import (
     dict_versions,
     to_device,
 )
+from datafusion_tpu_torch.exec.streams import publish, shared
 from datafusion_tpu_torch.plan.expr import (
     AggregateFunction,
     BinaryExpr,
@@ -540,7 +541,7 @@ def compute_aux_values(
         key = (i, version)
         hit = cache.get(key)
         if hit is not None:
-            out.append(hit)
+            out.append(shared(hit))
             continue
         if spec.kind == "eq_code":
             val = torch.tensor(d.code_of(spec.literal, version), dtype=torch.int32,
@@ -550,6 +551,6 @@ def compute_aux_values(
             padded = np.zeros(bucket_capacity(max(len(table), 1)), dtype=bool)
             padded[: len(table)] = table
             val = to_device(padded, device)
-        cache[key] = val
+        cache[key] = publish(val)
         out.append(val)
     return out

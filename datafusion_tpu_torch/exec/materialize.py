@@ -183,7 +183,10 @@ def collect_columns(relation, batches=None):
     This is also the result cache's capture point: a root relation that
     `ExecutionContext.execute` tagged with `_result_cache_fill`
     (`cache/result.py`) hands that hook the materialized columns after
-    a complete run; caching never changes what this returns.
+    a complete run; caching never changes what this returns.  And the
+    per-query telemetry funnel's: a root relation the context tagged
+    (`_telemetry_query`) reports its outcome, success or failure, to
+    `obs/aggregate.query_completed` (`_query_telemetry`).
     """
     t0 = time.perf_counter()
     schema = relation.schema
@@ -192,15 +195,24 @@ def collect_columns(relation, batches=None):
     vparts: list[list[Optional[np.ndarray]]] = [[] for _ in range(ncols)]
     dicts: list = [None] * ncols
     total = 0
+    query_label = getattr(relation, "_telemetry_query", None)
 
-    for batch in relation.batches() if batches is None else batches:
-        cols, valids, bdicts, n = compact_batch(batch)
-        total += n
-        for i in range(ncols):
-            parts[i].append(cols[i])
-            vparts[i].append(valids[i])
-            if bdicts[i] is not None:
-                dicts[i] = bdicts[i]
+    try:
+        for batch in relation.batches() if batches is None else batches:
+            cols, valids, bdicts, n = compact_batch(batch)
+            total += n
+            for i in range(ncols):
+                parts[i].append(cols[i])
+                vparts[i].append(valids[i])
+                if bdicts[i] is not None:
+                    dicts[i] = bdicts[i]
+    except Exception as e:
+        # a failed root query: the funnel observes the error (the error
+        # budget, the flight event, the artifact set), then it propagates
+        if query_label is not None:
+            _query_telemetry(relation, query_label, time.perf_counter() - t0, total,
+                             error=f"{type(e).__name__}: {e}")
+        raise
     columns = []
     validity: list[Optional[np.ndarray]] = []
     for i in range(ncols):
@@ -218,7 +230,36 @@ def collect_columns(relation, batches=None):
     fill = getattr(relation, "_result_cache_fill", None)
     if fill is not None:
         fill(columns, validity, dicts, total, time.perf_counter() - t0)
+    if query_label is not None:
+        _query_telemetry(relation, query_label, time.perf_counter() - t0, total)
     return columns, validity, dicts, total
+
+
+def _query_telemetry(relation, label: str, wall_s: float, rows: int,
+                     error: Optional[str] = None) -> None:
+    """One root query's outcome to the telemetry funnel, with its
+    phases from the stage timers the context snapshotted when it tagged
+    the query.  The funnel never raises."""
+    from datafusion_tpu_torch.obs import trace as obs_trace
+    from datafusion_tpu_torch.obs.aggregate import query_completed
+
+    phases = None
+    before = getattr(relation, "_phase_before", None)
+    if before:  # empty: the ledger is off, no breakdown
+        from datafusion_tpu_torch.obs.device import phase_breakdown, phase_ms
+
+        phases = phase_ms(phase_breakdown(before, wall_s)) or None
+    tc = obs_trace.current_trace()
+    query_completed(
+        wall_s, rows=rows,
+        # EXPLAIN ANALYZE's root tap forwards the real tree
+        root=getattr(relation, "_telemetry_root", relation),
+        label=label, error=error,
+        trace_id=None if tc is None else tc.trace_id,
+        # EXPLAIN ANALYZE exports its complete span set itself
+        export_otlp=not getattr(relation, "_telemetry_skip_otlp", False),
+        phases=phases,
+    )
 
 
 def collect(relation) -> ResultTable:

@@ -17,11 +17,12 @@ scan of batches already in memory (nothing to parse ahead; PERF.md §6),
 so the scan's source chooses.  DATAFUSION_TPU_PREFETCH=1 or 0 forces
 the threads on or off; the CPU tests use 1.
 
-CUDA: a producer thread issues its copies (pinned memory, then
-`non_blocking`) on its current stream, which for a new thread is the
-device's default stream, the stream the consumer launches on; the queue
-hands a batch over only after its copies were enqueued, so the
-consumer's kernels run after them.  Callers pass the device explicitly
+CUDA: a producer thread enters the consumer's serving stream
+(exec/streams.py; outside serving a new thread's current stream is the
+device's default stream, the consumer's) and issues its copies (pinned
+memory, then `non_blocking`) there; the queue hands a batch over only
+after its copies were enqueued, so the consumer's kernels run after
+them.  Callers pass the device explicitly
 (a new thread's current device is `cuda:0`).
 
 numpy's bulk work, the native CSV parser and torch ops release the
@@ -35,6 +36,8 @@ import os
 import queue
 import threading
 from typing import Callable, Iterator, Optional
+
+from datafusion_tpu_torch.exec import streams
 
 _DEPTH = 2  # batches in flight: N computing, N+1 staged, N+2 parsing
 
@@ -79,6 +82,7 @@ def staged_prefetch(
     q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()
     done = object()
+    stream = streams.current()  # None: the default stream
 
     def put(item) -> None:
         while True:
@@ -91,13 +95,8 @@ def staged_prefetch(
 
     def producer() -> None:
         try:
-            for b in batches:
-                if stop.is_set():
-                    return
-                if stage is not None:
-                    stage(b)
-                put(b)
-            put(done)
+            with streams.stream_scope(stream):
+                _produce()
         except _Stop:
             pass
         except BaseException as e:  # noqa: BLE001 (handed to the consumer)
@@ -109,6 +108,15 @@ def staged_prefetch(
             close = getattr(batches, "close", None)
             if close is not None:
                 close()
+
+    def _produce() -> None:
+        for b in batches:
+            if stop.is_set():
+                return
+            if stage is not None:
+                stage(b)
+            put(b)
+        put(done)
 
     t = threading.Thread(target=producer, name="df-torch-prefetch", daemon=True)
     t.start()

@@ -27,6 +27,8 @@ whose predicate calls a host-only function (`host_fn` UDF).
 
 from __future__ import annotations
 
+import time
+
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -108,11 +110,15 @@ class DataSourceRelation(Relation):
     the table's rows and host bytes (``scan`` record; its ``rows_max``
     keeps a partial scan from shrinking the learned count): the
     statistics the build-side swap and the megabatch's member weights
-    read."""
+    read.  With `table_name` it also lands in the scan histograms
+    (obs/aggregate.observe_scan: the source's produce time and host
+    bytes, once a scan)."""
 
-    def __init__(self, datasource, cost_key: Optional[str] = None):
+    def __init__(self, datasource, cost_key: Optional[str] = None,
+                 table_name: Optional[str] = None):
         self.datasource = datasource
         self._cost_key = cost_key
+        self.table_name = table_name
 
     @property
     def schema(self) -> Schema:
@@ -124,14 +130,22 @@ class DataSourceRelation(Relation):
         return f"Scan[{src}{f': {path}' if path else ''}]"
 
     def batches(self) -> Iterator[RecordBatch]:
-        if self._cost_key is None:
+        if self._cost_key is None and self.table_name is None:
             return self.datasource.batches()
         return self._observed(self.datasource.batches())
 
     def _observed(self, it) -> Iterator[RecordBatch]:
         rows = nbytes = 0
+        produce_s = 0.0
         try:
-            for batch in it:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    produce_s += time.perf_counter() - t0
                 rows += batch.num_rows
                 for arr in batch.data:
                     if isinstance(arr, np.ndarray):
@@ -141,7 +155,12 @@ class DataSourceRelation(Relation):
                         nbytes += v.nbytes
                 yield batch
         finally:
-            if rows:
+            # once a scan, an abandoned one (a bare LIMIT) included
+            if self.table_name is not None:
+                from datafusion_tpu_torch.obs.aggregate import observe_scan
+
+                observe_scan(self.table_name, produce_s, nbytes)
+            if rows and self._cost_key is not None:
                 from datafusion_tpu_torch import cost as _cost
 
                 _cost.store().observe(self._cost_key, "scan", rows=rows, nbytes=nbytes)

@@ -32,9 +32,10 @@ The counterpart of the JAX package's `ingest/`:
 
 - **Subscriptions and freshness.**  `wait_for` parks on a view
   revision; `freshness_lags` and `max_freshness_lag` are the seam the
-  freshness SLO will read.  The cluster KV hook of `_post_apply` (the
-  JAX package's ``views/<name>`` events for remote watchers) waits for
-  the control plane, ROADMAP queue 1 item 13.2.
+  freshness SLO reads (obs/slo.py), and `debug_snapshot` is the
+  ``/debug/ingest`` document.  The cluster KV hook of `_post_apply`
+  (the JAX package's ``views/<name>`` events for remote watchers) waits
+  for the control plane, ROADMAP queue 1 item 13.2 part 2.
 
 Exactness contract of a view, against a rescan of the defining query:
 
@@ -94,6 +95,19 @@ __all__ = [
 _LIVE_VIEWS: "weakref.WeakValueDictionary[str, MaterializedView]" = (
     weakref.WeakValueDictionary()
 )
+
+
+# live ingest contexts (for /debug/ingest): weak for the same reason
+_LIVE_CONTEXTS: "weakref.WeakSet[IngestContext]" = weakref.WeakSet()
+
+
+def debug_snapshot() -> dict:
+    """The ``/debug/ingest`` document: every live IngestContext's status
+    and the process's freshness lags (read-only)."""
+    return {
+        "contexts": [c.status() for c in list(_LIVE_CONTEXTS)],
+        "freshness_lags_s": freshness_lags(),
+    }
 
 
 def freshness_lags() -> dict:
@@ -540,6 +554,7 @@ class IngestContext:
             self._wal = WriteAheadLog(wal_dir)
         METRICS.declare("ingest.appends", "ingest.rows", "ingest.bytes",
                         "view.maintain_launches", "view.full_recomputes")
+        _LIVE_CONTEXTS.add(self)
 
     # -- tables --
 

@@ -75,6 +75,7 @@ from datafusion_tpu_torch.exec.batch import (
 )
 from datafusion_tpu_torch.exec.cuda import hash_build
 from datafusion_tpu_torch.exec.relation import Relation
+from datafusion_tpu_torch.exec.streams import publish, shared
 from datafusion_tpu_torch.join import core as _core
 from datafusion_tpu_torch.obs.attribution import (
     current_client,
@@ -194,6 +195,8 @@ class HashJoinRelation(Relation):
         if fp is not None:
             art = LEDGER.pinned(fp)
             if art is not None:
+                if art.dense:  # built on another serving worker's stream, perhaps
+                    shared((art.dev_slot_row, art.dev_cols, art.dev_valids))
                 METRICS.add("join.build.reuse")
                 cid = current_client()
                 if cid is not None:
@@ -202,6 +205,8 @@ class HashJoinRelation(Relation):
                 return art
         art = self._materialize_build()
         if fp is not None and art.nbytes <= _pin_max_bytes():
+            if art.dense:
+                publish((art.dev_slot_row, art.dev_cols, art.dev_valids))
             LEDGER.pin(fp, art.nbytes, owner="join.build", artifact=art)
             # the building query's client pays for the pin's residency
             # while nobody else probes it (obs/attribution.py)

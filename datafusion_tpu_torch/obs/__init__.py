@@ -15,15 +15,22 @@ and exporters (the JAX package's `obs/`).
   stacks, speedscope, per-phase top frames).
 - `obs.export`: Chrome-trace / Perfetto JSON and Prometheus text over
   `utils.metrics.METRICS`.
-- `obs.recorder`: the flight recorder's event ring.
+- `obs.recorder`: the flight recorder: its event ring, dumps, the
+  slow- and failed-query artifact capture and the crash hook.
+- `obs.aggregate`: latency histograms, the per-query telemetry funnel
+  (`query_completed`), node snapshots and the fleet aggregator.
+- `obs.otlp`: OTLP/JSON span export (file, batched HTTP POST).
+- `obs.slo`: the SLO watchdog (burn rates, breach captures).
+- `obs.httpd`: the debug HTTP plane (`/metrics`, `/debug/*`, bundles).
 
 Env knobs: `DATAFUSION_TPU_TRACE=1` collects spans engine-wide;
 `DATAFUSION_TPU_TRACE_FILE=path.json` also writes a Chrome trace at
 process exit (with `DATAFUSION_TPU_TRACE_FLUSH_S`, a flusher appends
 JSON lines).  The span buffer holds 100000 spans (overflow counts in
-`obs.spans_dropped`).  The JAX package's
-recorder dumps, OTLP export, fleet aggregation, SLOs and debug HTTP
-plane wait for ROADMAP queue 1 item 13.2.
+`obs.spans_dropped`).  The flight recorder, the SLO watchdog, OTLP
+export and the debug plane read the JAX package's variables
+(``DATAFUSION_TPU_FLIGHT*``, ``DATAFUSION_TPU_SLO_*``,
+``DATAFUSION_TPU_OTLP_*``, ``DATAFUSION_TPU_DEBUG_*``).
 """
 
 from datafusion_tpu_torch.obs.trace import (  # noqa: F401 — public API surface

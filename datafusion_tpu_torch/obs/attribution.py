@@ -46,7 +46,8 @@ seconds charged under scopes, because both come from the one
 measurement in `device_call` (`tenants_snapshot()["conservation"]`
 compares it with the ``device.dispatch`` timer, which also holds
 unscoped launches).  On the card a scoped pass is charged its device
-time (a CUDA event pair, settled when its scope closes), which also
+time (a CUDA event pair on its worker's own stream, settled when its
+scope closes), which also
 goes into ``device.dispatch`` in place of its host launch wall; on the
 CPU, and for unscoped launches, the seconds are the host's wall around
 the pass.
@@ -111,7 +112,9 @@ _MAX_CLIENTS = 256
 #
 # `acc[0]` accumulates the launch seconds charged under the scope so
 # the serving path can read back its own apportioned share (the
-# shared_launch_share segment) without re-measuring.  `pending` holds
+# shared_launch_share segment) without re-measuring; `acc[1]` the bytes
+# the scope copied to the device (serve.py measures a pin's device
+# bytes only after a query that copied).  `pending` holds
 # the CUDA event pairs of the scope's passes on the card, which the
 # scope's exit settles (`_settle`): a pass there queues its work and
 # returns, so its device time is known only once the card has run it.
@@ -133,11 +136,11 @@ def current_client() -> Optional[str]:
 @contextmanager
 def client_scope(client_id: str):
     """Publish `client_id` as this thread's cost owner for the block.
-    Yields the scope's launch-wall accumulator (a one-slot list)."""
+    Yields the scope's accumulator: [launch seconds, H2D bytes]."""
     tbl = _metrics.CLIENT_SCOPES
     tid = threading.get_ident()
     prev = tbl.get(tid)
-    acc = [0.0]
+    acc = [0.0, 0]
     scope = tbl[tid] = ("solo", str(client_id), acc, [])
     try:
         yield acc
@@ -153,11 +156,11 @@ def client_scope(client_id: str):
 def shared_scope(members: Iterable[tuple[str, float]]):
     """Publish a weighted member set as this thread's cost owners (a
     megabatched launch: every charge under the scope splits by
-    weight).  Yields the launch-wall accumulator."""
+    weight).  Yields the accumulator: [launch seconds, H2D bytes]."""
     tbl = _metrics.CLIENT_SCOPES
     tid = threading.get_ident()
     prev = tbl.get(tid)
-    acc = [0.0]
+    acc = [0.0, 0]
     scope = tbl[tid] = ("shared", tuple(members), acc, [])
     try:
         yield acc
@@ -279,6 +282,7 @@ def charge_h2d(nbytes: int) -> None:
     scope = _metrics.CLIENT_SCOPES.get(threading.get_ident())
     if scope is not None:
         METER.charge_scope(scope, "h2d_bytes", float(nbytes))
+        scope[2][1] += nbytes
 
 
 def charge_hedge_loss(scope, seconds: float) -> None:

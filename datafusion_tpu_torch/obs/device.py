@@ -19,8 +19,16 @@ instruments:
   `device.hbm.live_bytes` / `device.hbm.peak_bytes` gauges follow them.
   `\\hbm` renders `report_text`.  Registration and release take no lock
   (dict stores and int adds), so they may run inside any critical
-  section.  The JAX package's leak sweep waits for ROADMAP queue 1 item
-  13.2.
+  section.  Each entry carries the trace id of the query that
+  registered it and whether it is a cache entry (a batch's cached copy,
+  ids or tables, a pin); `sweep`, run by the per-query funnel
+  (obs/aggregate.query_completed), makes the completed query's
+  non-cache buffers leak candidates and reports a candidate still live
+  past the grace period (``DATAFUSION_TPU_LEDGER_LEAK_GRACE_S``, 5 s) at
+  a later sweep: ``device.ledger.leaks`` and a ``device.leak`` flight
+  event.  Every copy at the copy seams records a ``device.h2d`` or
+  ``device.d2h`` flight event (bytes, wall, and GB/s where the copy was
+  waited for).
 - **Pins.** A pin is a named artifact owned by the ledger (a served
   table's resident batches, a join build) with its accounted bytes, an
   owner tag, a priority and an eviction hook.  `pinned(fp)` returns the
@@ -34,6 +42,11 @@ instruments:
   the copy seam waits for its copy, so "execute" and "h2d" are device
   time; outside it nothing is synchronized and the timers hold host
   time only.
+
+``DATAFUSION_TPU_DEVICE_LEDGER=0`` turns the ledger off: nothing
+registers, the copy seams record no flight event, no
+``device.hbm.*`` gauge is published and there is no phase breakdown;
+pins, admission and every copy work as before, on the same device.
 
 Capacity and admission (`headroom`) keep their own definition, which
 the serving front door's sheds rest on:
@@ -62,8 +75,28 @@ from typing import Any, Optional
 
 from datafusion_tpu_torch.obs import recorder
 from datafusion_tpu_torch.obs import stats as _stats
+from datafusion_tpu_torch.obs.trace import _current_trace
 from datafusion_tpu_torch.obs.attribution import charge_h2d, forget_pin
 from datafusion_tpu_torch.utils.metrics import METRICS
+
+
+_ENABLED = recorder._env_flag("DATAFUSION_TPU_DEVICE_LEDGER", True)
+# a non-cache buffer live this long past its query's completion is a
+# leak (two sweeps must see it: one marks, a later one reports)
+_LEAK_GRACE_S = float(os.environ.get("DATAFUSION_TPU_LEDGER_LEAK_GRACE_S", "5") or 5)
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def configure(enabled: Optional[bool] = None, leak_grace_s: Optional[float] = None) -> None:
+    """Override the environment's ledger switch and leak grace (tests)."""
+    global _ENABLED, _LEAK_GRACE_S
+    if enabled is not None:
+        _ENABLED = bool(enabled)
+    if leak_grace_s is not None:
+        _LEAK_GRACE_S = float(leak_grace_s)
 
 
 # -- profiling-sync mode ----------------------------------------------
@@ -91,20 +124,30 @@ def profile_sync():
 
 
 def profile_sync_active() -> bool:
-    return _profile_sync_depth.get() > 0
+    return _ENABLED and _profile_sync_depth.get() > 0
 
 
 class _BufEntry:
-    """One registered storage: its bytes, owner, device and a weak
-    reference to each registered tensor that still holds it."""
+    """One registered storage: its bytes, owner, device, a weak
+    reference to each registered tensor that still holds it, and the
+    leak sweep's state: the registering query's trace id, whether it is
+    a cache entry, since when it is a candidate and whether it was
+    reported."""
 
-    __slots__ = ("nbytes", "owner", "device", "holders")
+    __slots__ = ("nbytes", "owner", "device", "holders", "trace_id", "cached", "ts",
+                 "candidate_since", "reported")
 
-    def __init__(self, nbytes: int, owner: str, device: str):
+    def __init__(self, nbytes: int, owner: str, device: str, trace_id: Optional[str],
+                 cached: bool):
         self.nbytes = nbytes
         self.owner = owner
         self.device = device
         self.holders: dict = {}
+        self.trace_id = trace_id
+        self.cached = cached
+        self.ts = time.monotonic()
+        self.candidate_since: Optional[float] = None
+        self.reported = False
 
 
 class _PinEntry:
@@ -160,6 +203,10 @@ def device_allocated_bytes() -> int:
     return int(torch.cuda.memory_allocated())
 
 
+# owners whose buffers live one query: a batch group's concatenation
+TRANSIENT_OWNERS = frozenset({"fold"})
+
+
 class DeviceLedger:
     """Process-wide registry of device buffers and pinned residents."""
 
@@ -175,29 +222,41 @@ class DeviceLedger:
         self._live = 0  # running sum; exact on buffer_bytes()
         self._peak = 0
         self._window_peak: Optional[int] = None
+        self.leaks_reported = 0
 
     # -- buffers -------------------------------------------------------
-    def adopt(self, value: Any, owner: str = "anon") -> Any:
+    def adopt(self, value: Any, owner: str = "anon", cached: bool = True) -> Any:
         """Register every tensor of `value` (a tensor, or a tuple or list
-        nesting tensors and None) under `owner`; returns `value`."""
-        if isinstance(value, (tuple, list)):
-            for v in value:
-                self.adopt(v, owner)
-        elif value is not None:
-            self._register(value, owner)
+        nesting tensors and None) under `owner`; returns `value`.
+        Buffers that should die with their query (`cached=False`, and
+        every owner in `TRANSIENT_OWNERS`) are the only ones the leak
+        sweep flags."""
+        if not _ENABLED:
+            return value
+        self._adopt(value, owner, cached and owner not in TRANSIENT_OWNERS)
         return value
 
-    def retag(self, value: Any, owner: str) -> None:
-        """Re-attribute the registered storages of `value` to `owner`."""
+    def _adopt(self, value: Any, owner: str, cached: bool) -> None:
         if isinstance(value, (tuple, list)):
             for v in value:
-                self.retag(v, owner)
+                self._adopt(v, owner, cached)
+        elif value is not None:
+            self._register(value, owner, cached)
+
+    def retag(self, value: Any, owner: str, cached: bool = True) -> None:
+        """Re-attribute the registered storages of `value` to `owner`
+        (and mark them cache entries unless `cached` is False)."""
+        if isinstance(value, (tuple, list)):
+            for v in value:
+                self.retag(v, owner, cached)
             return
         e = self._bufs.get(_buf_key(value)) if value is not None else None
         if e is not None:
             e.owner = owner
+            e.cached = cached
+            e.candidate_since = None
 
-    def _register(self, t, owner: str) -> None:
+    def _register(self, t, owner: str, cached: bool) -> None:
         st = t.untyped_storage()
         nbytes = st.nbytes()
         if nbytes == 0:
@@ -205,7 +264,9 @@ class DeviceLedger:
         key = (t.device, st.data_ptr())
         e = self._bufs.get(key)
         if e is None:
-            e = self._bufs[key] = _BufEntry(nbytes, owner, str(key[0]))
+            tc = _current_trace.get()
+            e = self._bufs[key] = _BufEntry(nbytes, owner, str(key[0]),
+                                            None if tc is None else tc.trace_id, cached)
             live = self._live = self._live + nbytes
             if live > self._peak:
                 self._peak = live
@@ -215,7 +276,11 @@ class DeviceLedger:
             METRICS.gauge("device.hbm.live_bytes", live)
             METRICS.gauge("device.hbm.peak_bytes", self._peak)
         else:
-            e.owner = owner  # the latest registration names the owner
+            # the latest registration names the owner, and a buffer just
+            # shown in use is no leak candidate
+            e.owner = owner
+            e.cached = cached
+            e.candidate_since = None
         token = next(self._tokens)
         # the entry keeps the weak reference (and with it the callback)
         # alive; dict stores and pops are atomic: no lock
@@ -241,8 +306,9 @@ class DeviceLedger:
         wp = self._window_peak
         if wp is not None and exact > wp:
             self._window_peak = exact
-        METRICS.gauge("device.hbm.live_bytes", exact)
-        METRICS.gauge("device.hbm.peak_bytes", self._peak)
+        if _ENABLED:  # a ledger that measures nothing publishes nothing
+            METRICS.gauge("device.hbm.live_bytes", exact)
+            METRICS.gauge("device.hbm.peak_bytes", self._peak)
         return exact
 
     def peak_bytes(self) -> int:
@@ -280,11 +346,44 @@ class DeviceLedger:
             out[e.device] = out.get(e.device, 0) + e.nbytes
         return out
 
+    # -- leak detection ------------------------------------------------
+    def sweep(self, trace_id: Optional[str] = None, grace_s: Optional[float] = None) -> int:
+        """At a root query's completion: non-cache buffers of the
+        completed query (or of no query) become leak candidates, and
+        candidates of an earlier sweep still live past the grace period
+        report as leaks (``device.ledger.leaks``, a ``device.leak``
+        flight event), each once.  Returns the leaks newly reported.
+        With tracing off every buffer is trace-less, so a concurrent
+        query's buffer held past the grace can be flagged; tracing
+        scopes buffers to their query."""
+        if not _ENABLED:
+            return 0
+        grace = _LEAK_GRACE_S if grace_s is None else grace_s
+        now = time.monotonic()
+        leaks = 0
+        for e in list(self._bufs.values()):
+            if e.cached or e.reported:
+                continue
+            if e.candidate_since is None:
+                if e.trace_id is None or e.trace_id == trace_id:
+                    e.candidate_since = now
+                continue
+            if now - e.candidate_since >= grace:
+                e.reported = True
+                leaks += 1
+                self.leaks_reported += 1
+                METRICS.add("device.ledger.leaks")
+                recorder.record("device.leak", owner=e.owner, bytes=e.nbytes,
+                                device=e.device, age_s=round(now - e.ts, 3),
+                                trace_id_put=e.trace_id)
+        return leaks
+
     def snapshot(self) -> dict:
         return {
             "live_bytes": self.buffer_bytes(),
             "peak_bytes": self._peak,
             "buffers": len(self._bufs),
+            "leaks_reported": self.leaks_reported,
             "owners": self.owners(),
             "devices": self.devices(),
             "pinned_bytes": self.pinned_bytes(),
@@ -298,6 +397,7 @@ class DeviceLedger:
             f"Device ledger: {snap['buffers']} buffer(s), "
             f"live {_fmt_bytes(snap['live_bytes'])}, "
             f"peak {_fmt_bytes(snap['peak_bytes'])}"
+            + ("" if _ENABLED else "  [DISABLED]")
         ]
         for dev, nbytes in sorted(snap["devices"].items()):
             lines.append(f"  device {dev}: {_fmt_bytes(nbytes)}")
@@ -307,6 +407,8 @@ class DeviceLedger:
         for fp, p in sorted(snap["pins"].items(), key=lambda kv: -kv[1]["bytes"]):
             lines.append(f"  pinned {fp}: {_fmt_bytes(p['bytes'])} "
                          f"(owner {p['owner']}, uses {p['uses']})")
+        if snap["leaks_reported"]:
+            lines.append(f"  leaks reported: {snap['leaks_reported']}")
         return "\n".join(lines)
 
     # -- pins ----------------------------------------------------------
@@ -386,9 +488,17 @@ class DeviceLedger:
             self._evict_entry(e, "pressure")
         return sum(e.nbytes for e in victims)
 
+    def add_pin_bytes(self, fingerprint: str, nbytes: int) -> None:
+        """Grow a pin's accounted bytes (an append's batch, before its
+        device copies exist to be measured: serve.py)."""
+        with self._lock:
+            e = self._pins.get(fingerprint)
+            if e is not None:
+                e.nbytes += int(nbytes)
+
     def set_pin_bytes(self, fingerprint: str, nbytes: int) -> None:
-        """Update a pin's accounted bytes (a pinned table that grew by an
-        append, serve.py)."""
+        """Set a pin's accounted bytes (serve.py: the measured bytes of a
+        pinned table's device copies)."""
         with self._lock:
             e = self._pins.get(fingerprint)
             if e is not None:
@@ -449,6 +559,21 @@ def note_h2d(nbytes: int, seconds: float) -> None:
     _stats.record_h2d(nbytes)
     _stats.record_h2d_time(seconds)
     charge_h2d(nbytes)  # this thread's client, if a served query copies
+    if _ENABLED:
+        recorder.record("device.h2d", **_copy_attrs(nbytes, seconds, profile_sync_active()))
+
+
+def _copy_attrs(nbytes: int, seconds: float, synced: bool) -> dict:
+    """A copy's flight-event attributes: bytes and wall, and the
+    achieved GB/s only where the wall covers the copy itself (a copy
+    that was waited for); an asynchronous copy's wall is its enqueue
+    and is marked `dispatch_only`."""
+    attrs = {"bytes": nbytes, "ms": round(seconds * 1e3, 3)}
+    if synced:
+        attrs["gbps"] = round(nbytes / max(seconds, 1e-9) / 1e9, 3)
+    else:
+        attrs["dispatch_only"] = True
+    return attrs
 
 
 def record_d2h(nbytes: int, seconds: float) -> None:
@@ -458,6 +583,9 @@ def record_d2h(nbytes: int, seconds: float) -> None:
     METRICS.tally("d2h.wait", seconds, ("device.d2h.transfers", 1), ("d2h.bytes", nbytes))
     _stats.record_d2h(nbytes)
     _stats.record_d2h_time(seconds)
+    if _ENABLED:
+        # a pull blocks until its bytes are on the host: the wall is the copy's
+        recorder.record("device.d2h", **_copy_attrs(nbytes, seconds, True))
 
 
 # -- phase breakdown ---------------------------------------------------
@@ -488,6 +616,8 @@ def phase_snapshot() -> dict[str, float]:
     process-wide: with concurrent queries the breakdown is approximate,
     and the prefetch threads' parse and encode overlap the passes, so
     the phases may add up to more than the wall ("other" is then 0)."""
+    if not _ENABLED:
+        return {}
     timings = METRICS.snapshot()["timings_s"]
     return {t: timings.get(t, 0.0) for timers in _PHASE_TIMERS.values() for t in timers}
 

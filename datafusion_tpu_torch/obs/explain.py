@@ -17,8 +17,11 @@ cache answers shows as one `CachedResult[rows=..., bytes=..., fp=...]`
 operator with `cache.hit=True`; an analyzed miss fills the cache as a
 plain run does.
 
-Left out until its plane is ported: the OTLP export (ROADMAP queue 1,
-item 13.2).
+The run feeds the per-query telemetry funnel as a plain query does
+(obs/aggregate.query_completed); `otlp()` and `write_otlp()` give its
+spans as an OTLP/JSON document (obs/otlp.py), and the environment's
+OTLP export (``DATAFUSION_TPU_OTLP_FILE`` / ``_ENDPOINT``) receives the
+complete span set once, from here and not from the funnel.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ import os
 import time
 from typing import Optional
 
-from datafusion_tpu_torch.errors import NotSupportedError
 from datafusion_tpu_torch.obs import trace
 from datafusion_tpu_torch.obs.device import _fmt_bytes
 from datafusion_tpu_torch.obs.stats import collect_tree, iter_stats
@@ -183,12 +185,14 @@ class ExplainAnalyzeResult:
         return write_chrome_trace(path, self.spans)
 
     def otlp(self) -> dict:
-        raise NotSupportedError(
-            "OTLP export is not ported yet (ROADMAP queue 1, item 13.2: control "
-            "plane and fleet observability)")
+        from datafusion_tpu_torch.obs.otlp import spans_to_otlp
+
+        return spans_to_otlp(self.spans)
 
     def write_otlp(self, path: str) -> str:
-        return self.otlp()
+        from datafusion_tpu_torch.obs.otlp import write_otlp
+
+        return write_otlp(path, self.spans)
 
     def __repr__(self):
         return self.report()
@@ -206,6 +210,21 @@ class _RootTap:
         fill = getattr(rel, "_result_cache_fill", None)
         if fill is not None:
             self._result_cache_fill = fill
+        # the telemetry markers: an analyzed query feeds the funnel as a
+        # plain one does, with the real tree for its operator report and
+        # the context's stage-timer snapshot for its phases; the complete
+        # span set exports after the run, so the funnel does not
+        label = getattr(rel, "_telemetry_query", None)
+        if label is not None:
+            self._telemetry_query = label
+            self._telemetry_root = rel
+            pb = getattr(rel, "_phase_before", None)
+            if pb is not None:
+                self._phase_before = pb
+            self._telemetry_skip_otlp = True
+        dumps = getattr(rel, "collect_flight_dumps", None)
+        if dumps is not None:
+            self.collect_flight_dumps = dumps
 
     @property
     def schema(self):
@@ -269,6 +288,11 @@ def explain_analyze(ctx, plan, decision_mark: Optional[int] = None) -> ExplainAn
     METRICS.gauge("query.kernel_cache_misses", counters["kernel_cache.misses"])
     spans = trace.drain(tc.trace_id)
     spans.sort(key=lambda s: s["start_ns"])
+    # the environment's OTLP export gets the COMPLETE set (the funnel ran
+    # while the root span was still open)
+    from datafusion_tpu_torch.obs.otlp import export_spans
+
+    export_spans(spans)
     return ExplainAnalyzeResult(plan, rel, table, spans, tc.trace_id, wall, counters,
                                 phases=phases, hbm=hbm, host_profile=host_profile,
                                 cost=cost_view)

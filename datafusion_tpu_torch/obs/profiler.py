@@ -38,9 +38,10 @@ Captures are scoped (``with profile() as cap: ...; cap.report()``):
 EXPLAIN ANALYZE runs under one (``DATAFUSION_TPU_PROFILE_EXPLAIN=0``
 opts out), and ``capture_seconds`` samples for a fixed time.  The
 sampler thread exists only while a capture is active: by default there
-is none.  The JAX package's continuous mode
-(``DATAFUSION_TPU_PROFILE_HZ``) feeds its flight artifacts and
-``/debug`` plane, which wait for ROADMAP queue 1 item 13.2.
+is none.  The debug plane's ``/debug/profile`` and bundles capture on
+demand (obs/httpd.py); the JAX package's continuous mode
+(``DATAFUSION_TPU_PROFILE_HZ``, a rolling report in every flight
+artifact) is not ported.
 
 A capture samples at ``_CAPTURE_HZ`` (97 — a prime, so periodic engine
 work can't alias the sampler) unless it is given a rate, keeps at most

@@ -67,7 +67,7 @@ _TRUTHY = ("1", "true", "on", "yes")
 _ENABLED = os.environ.get("DATAFUSION_TPU_TRACE", "").lower() in _TRUTHY
 _SESSION_DEPTH = 0  # active trace sessions (EXPLAIN ANALYZE runs)
 _MAX_SPANS = 100000
-_ROLE = "main"  # a span's `proc` is "<role>:<pid>"
+_ROLE = "main"  # a span's `proc` is "<role>:<pid>" (`set_process_role`)
 
 _lock = threading.Lock()
 _spans: list["Span"] = []
@@ -180,6 +180,13 @@ def enable() -> None:
 def disable() -> None:
     global _ENABLED
     _ENABLED = False
+
+
+def set_process_role(role: str) -> None:
+    """Tag this process's spans and flight dumps (workers pass
+    "worker"); mirrors `testing.faults.set_role`."""
+    global _ROLE
+    _ROLE = role
 
 
 def current_trace(create: bool = False) -> Optional[TraceContext]:

@@ -29,9 +29,12 @@ as the remaining budget.  Hedged requests (`utils/hedge.py`), circuit
 breakers (`utils/breaker.py`) and the retry budget
 (`utils/retry.retry_budget`) guard the dispatch, each off by default.
 
-Cluster membership, the shared result tier, the fleet telemetry
-aggregator, the debug HTTP server, the `fleet_*` gauges, `top_text`
-and the pin-aware placement wait for ROADMAP item 13.2.
+Fleet telemetry off the cluster: a `FleetAggregator` of each worker's
+``telemetry`` snapshot (`fleet_refresh`, `fleet_gauges`, `top_text`),
+and every distributed root's `collect_flight_dumps`, which the per-query
+funnel calls on a slow or failed query.  Cluster membership, the shared
+result tier, the fleet view over the cluster's heartbeats and the
+pin-aware placement wait for ROADMAP item 13.2 part 2.
 """
 
 from __future__ import annotations
@@ -173,6 +176,27 @@ class WorkerHandle:
         delivered over the fragment protocol instead)."""
         return self.request({"type": "status"}, timeout=10.0)
 
+    def telemetry(self) -> Optional[dict]:
+        """The worker's node snapshot for fleet aggregation (None when
+        it is unreachable or answers an error).  The tight timeout bounds
+        what a wedged worker costs a scrape."""
+        try:
+            return self.request({"type": "telemetry"}, timeout=2.0).get("snapshot")
+        except (ConnectionError, OSError, ExecutionError):
+            return None
+
+    def flight_dump(self, trace_id: Optional[str] = None) -> Optional[dict]:
+        """The worker's flight ring (one query's events when `trace_id`
+        is given), or None when it is unreachable.  The tight timeout
+        bounds what the one query whose capture pulls the rings pays."""
+        msg: dict = {"type": "flight_dump"}
+        if trace_id:
+            msg["trace_id"] = trace_id
+        try:
+            return self.request(msg, timeout=2.0)
+        except (ConnectionError, OSError, ExecutionError):
+            return None
+
 
 class HeartbeatMonitor:
     """Coordinator-side failure detection and worker re-admission.
@@ -189,7 +213,7 @@ class HeartbeatMonitor:
     The sleep between cycles is jittered (+-20%).  `poll_once()` runs
     one cycle synchronously, for tests.  (The JAX package's cluster mode,
     which consumes a shared membership view instead of probing, waits
-    for ROADMAP item 13.2.)
+    for ROADMAP item 13.2 part 2.)
     """
 
     def __init__(self, workers: list[WorkerHandle], interval: float = 5.0,
@@ -745,6 +769,22 @@ def _device_image(sl, acc: np.ndarray) -> np.ndarray:
     return acc
 
 
+def _collect_worker_flight_dumps(workers: list[WorkerHandle],
+                                 trace_id: Optional[str]) -> dict:
+    """One query's flight events from every reachable worker (addr ->
+    {events, events_emitted}): unreachable workers are skipped, so a
+    capture a worker's death set off still ships the survivors' rings."""
+    out: dict = {}
+    for w in workers:
+        dump = w.flight_dump(trace_id)
+        if dump is not None:
+            out[f"{w.host}:{w.port}"] = {
+                "events": dump.get("events", []),
+                "events_emitted": dump.get("events_emitted"),
+            }
+    return out
+
+
 class DistributedAggregateRelation(Relation):
     """[Selection +] Aggregate over partitions executed by remote
     workers; the coordinator merges partial states by *key*, on the
@@ -774,6 +814,11 @@ class DistributedAggregateRelation(Relation):
         self.query_deadline_s = query_deadline_s
         self.hedge = hedge
         self.local_exec = local_exec
+
+    def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
+        """Every reachable worker's flight ring for one query (the
+        funnel's slow or failed query artifact)."""
+        return _collect_worker_flight_dumps(self.workers, trace_id)
 
     @property
     def schema(self) -> Schema:
@@ -929,6 +974,11 @@ class DistributedUnionRelation(Relation):
         self.hedge = hedge
         self.local_exec = local_exec
 
+    def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
+        """Every reachable worker's flight ring for one query (the
+        funnel's slow or failed query artifact)."""
+        return _collect_worker_flight_dumps(self.workers, trace_id)
+
     @property
     def schema(self) -> Schema:
         return self._schema
@@ -1029,6 +1079,11 @@ class DistributedShuffleJoinRelation(Relation):
         self._schema = plan.schema
         self.query_deadline_s = query_deadline_s
         self.hedge = hedge
+
+    def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
+        """Every reachable worker's flight ring for one query (the
+        funnel's slow or failed query artifact)."""
+        return _collect_worker_flight_dumps(self.workers, trace_id)
 
     @property
     def schema(self) -> Schema:
@@ -1275,8 +1330,11 @@ class DistributedContext(ExecutionContext):
     (`DistributedShuffleJoinRelation`) unless DATAFUSION_TPU_SHUFFLE=0,
     which keeps the local hash join over distributed scans.
 
-    Cluster membership (`cluster=`), the shared result tier, fleet
-    telemetry and the debug server wait for ROADMAP item 13.2.
+    Fleet telemetry: `telemetry` (obs/aggregate.FleetAggregator) holds
+    each worker's latest node snapshot, pulled by `fleet_refresh` (one
+    ``telemetry`` request a live worker); `fleet_gauges`, `top_text` and
+    `metrics_text` refresh it first.  Cluster membership (`cluster=`)
+    and the shared result tier wait for ROADMAP item 13.2 part 2.
     """
 
     def __init__(
@@ -1317,6 +1375,11 @@ class DistributedContext(ExecutionContext):
             # minted eagerly: dispatch threads share it without a
             # creation race; idle cost is one fragment-cache store
             self._local_worker = WorkerState(device=self.device, batch_size=batch_size)
+        # fleet telemetry: the latest node snapshot of each worker
+        from datafusion_tpu_torch.obs.aggregate import FleetAggregator
+
+        self.telemetry = FleetAggregator()
+        self._last_scale_hint: Optional[int] = None
         self.heartbeat: Optional[HeartbeatMonitor] = None
         if heartbeat_interval:
             self.heartbeat = HeartbeatMonitor(
@@ -1363,14 +1426,77 @@ class DistributedContext(ExecutionContext):
                 out[f"{w.host}:{w.port}"] = None
         return out
 
+    def fleet_refresh(self) -> int:
+        """Pull every live worker's telemetry snapshot into the
+        aggregator (one ``telemetry`` request each; the cluster's
+        heartbeat piggyback is ROADMAP item 13.2 part 2).  Returns the
+        snapshots taken."""
+        n = 0
+        for w in list(self.workers):
+            if not w.alive:
+                continue
+            snap = w.telemetry()
+            if snap is not None:
+                self.telemetry.ingest(f"{w.host}:{w.port}", snap)
+                n += 1
+        return n
+
+    def fleet_gauges(self) -> dict:
+        """The fleet gauges, freshly refreshed, with the SLO burn rates;
+        under QoS the scale hint (qos.scale_hint over the worst burn and
+        the tail explainer's queue-wait share) rides along as
+        ``fleet.scale_hint``, and each change of it records a ``scale``
+        flight event."""
+        from datafusion_tpu_torch import qos as _qos
+        from datafusion_tpu_torch.obs import attribution, slo
+
+        self.fleet_refresh()
+        gauges = self.telemetry.gauges()
+        rows = slo.WATCHDOG.evaluate() if slo.WATCHDOG.armed() else None
+        if _qos.enabled():
+            burn = slo.max_burn_rate(rows)
+            share = attribution.queue_wait_share()
+            hint = _qos.scale_hint(burn, share)
+            gauges["fleet.scale_hint"] = hint
+            METRICS.gauge("fleet.scale_hint", hint)
+            if hint != self._last_scale_hint:
+                flight.record("scale", hint=hint,
+                              burn_rate=None if burn is None else round(burn, 4),
+                              queue_wait_share=round(share, 4))
+                self._last_scale_hint = hint
+        return gauges
+
+    def top_text(self) -> str:
+        """The console's ``top`` view of this fleet: the summary, one
+        row per node, and the SLO table when a watchdog is armed."""
+        from datafusion_tpu_torch.obs import slo
+
+        self.fleet_refresh()
+        rows = slo.WATCHDOG.evaluate() if slo.WATCHDOG.armed() else None
+        return self.telemetry.top_text(slo_rows=rows)
+
+    def metrics_text(self) -> str:
+        """Prometheus text with the fleet gauges, the breakers' states
+        and the hedge tracker's estimates folded in."""
+        from datafusion_tpu_torch.obs import attribution
+        from datafusion_tpu_torch.obs.export import prometheus_text
+        from datafusion_tpu_torch.utils import breaker as breaker_mod
+
+        attribution.refresh_tenant_gauges()
+        gauges = self.fleet_gauges()
+        gauges.update(breaker_mod.gauges())
+        if self.hedge is not None:
+            gauges.update(self.hedge.gauges())
+        return prometheus_text(METRICS, extra_gauges=gauges)
+
     def sync_workers(self) -> list[str]:
         """Fold newly registered cluster workers into the rotation: with
-        no cluster membership (ROADMAP item 13.2) there are none."""
+        no cluster membership (ROADMAP item 13.2 part 2) there are none."""
         return []
 
     def broadcast_invalidate(self, table: str) -> int:
         """The cluster's fleet-wide fragment-cache invalidation: with no
-        cluster (ROADMAP item 13.2) nothing is broadcast.  Worker
+        cluster (ROADMAP item 13.2 part 2) nothing is broadcast.  Worker
         fragment caches key on the partition files' (mtime, size), so a
         rewritten partition misses there anyway."""
         return 0

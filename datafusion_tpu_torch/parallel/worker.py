@@ -12,6 +12,8 @@ Projection/Selection fragments return materialized rows instead.
 
 Requests:  {"type": "ping"}
            {"type": "status"}
+           {"type": "telemetry"}
+           {"type": "flight_dump", "trace_id": ...}
            {"type": "execute_fragment", "fragment": <PlanFragment str>}
            {"type": "execute_plan", "fragment": <PlanFragment str>}
            {"type": "shuffle_map", "fragment": ..., "keys": [...],
@@ -20,20 +22,28 @@ Requests:  {"type": "ping"}
             "join_type": ..., "left_blocks": [...], "right_blocks": [...]}
            {"type": "shutdown"}
 Responses: {"type": "pong", ...} / {"type": "status", ...} /
+           {"type": "telemetry", "snapshot": ...} /
+           {"type": "flight_dump", "events": [...], ...} /
            {"type": "partial_state", ...} / {"type": "rows", ...} /
            {"type": "shuffle_blocks", ...} / {"type": "bye"} /
            {"type": "error", "message": ...}
 
 The `status` reply carries the worker's own counters: its queries and
-errors, its fragment cache, its metrics, and the launches of each
-kernel in this process (`exec/cuda.launch_counts`), which are the only
-evidence that a kernel ran inside a worker.  The fault site
-``worker.fragment`` (testing/faults.py) guards each executed (not
-cached) fragment.
+errors, its fragment cache, its metrics, its telemetry snapshot, and
+the launches of each kernel in this process (`exec/cuda.launch_counts`),
+which are the only evidence that a kernel ran inside a worker.  The
+``telemetry`` reply is the node snapshot alone (obs/aggregate.py: the
+latency histograms, ``fragment.latency`` among them, counters and
+gauges; the JAX package's wire form, so either package's coordinator
+aggregates either package's worker), ``flight_dump`` the flight ring
+(filtered to one query's trace id when given).  `--http-port` (or
+``DATAFUSION_TPU_DEBUG_PORT``; 0 is off, negative an ephemeral port)
+serves the debug HTTP plane (obs/httpd.py) on the worker's host, with
+`status` as its ``/status``.  The fault site ``worker.fragment``
+(testing/faults.py) guards each executed (not cached) fragment.
 
-Waits for ROADMAP item 13.2, and raises naming it: the cluster agent
-(`--cluster`), the debug HTTP plane (`--http-port`) and the
-``telemetry`` and ``flight_dump`` requests.
+Waits for ROADMAP item 13.2 part 2, and raises naming it: the cluster
+agent (`--cluster`).
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from datafusion_tpu_torch.exec.aggregate import AggregateRelation, _host_acc
 from datafusion_tpu_torch.exec.context import ExecutionContext, _resolve_device
 from datafusion_tpu_torch.exec.materialize import collect_columns
 from datafusion_tpu_torch.obs import recorder
+from datafusion_tpu_torch.obs.aggregate import observe_latency
 from datafusion_tpu_torch.obs import trace as obs_trace
 from datafusion_tpu_torch.parallel.physical import PlanFragment
 from datafusion_tpu_torch.parallel.wire import BinWriter, enc_array
@@ -60,7 +71,7 @@ from datafusion_tpu_torch.testing import faults
 from datafusion_tpu_torch.utils.deadline import Deadline, deadline_scope
 from datafusion_tpu_torch.utils.eventloop import LoopServer
 
-_LATER = "ROADMAP item 13.2 (the control plane and fleet observability)"
+_LATER = "ROADMAP item 13.2 part 2 (the cluster control plane)"
 
 
 def _find_scan(plan) -> TableScan:
@@ -157,6 +168,7 @@ class WorkerState:
         self.started = time.time()
         self.fragment_cache = qcache.make_store("fragment")
         self.cache_hits = 0
+        self.debug_port: Optional[int] = None
 
     def _gauges(self) -> dict:
         from datafusion_tpu_torch.utils import breaker as breaker_mod
@@ -170,8 +182,8 @@ class WorkerState:
     def status(self) -> dict:
         """Operator introspection over the fragment protocol: uptime,
         query and error counts, the device, the fragment cache, every
-        kernel's launches in this process (`kernels`), the metrics
-        registry and its Prometheus rendering."""
+        kernel's launches in this process (`kernels`), the telemetry
+        snapshot, the metrics registry and its Prometheus rendering."""
         import torch
 
         from datafusion_tpu_torch.exec import cuda as cuda_mod
@@ -198,12 +210,23 @@ class WorkerState:
                              else self.fragment_cache.stats()),
                 "hits_served": self.cache_hits,
             },
+            "debug_port": self.debug_port,
+            "telemetry": self.telemetry_snapshot(),
             "metrics": {
                 "timings_s": {k: round(v, 3) for k, v in snap["timings_s"].items()},
                 "counts": snap["counts"],
             },
             "prometheus": prometheus_text(METRICS, extra_gauges=self._gauges()),
         }
+
+    def telemetry_snapshot(self) -> dict:
+        """This worker's node snapshot for fleet aggregation, with its
+        fragment-cache and breaker gauges folded in."""
+        from datafusion_tpu_torch.obs.aggregate import node_snapshot
+
+        snap = node_snapshot()
+        snap["gauges"].update(self._gauges())
+        return snap
 
     def _relation(self, frag: PlanFragment):
         plan = frag.logical_plan()
@@ -213,6 +236,9 @@ class WorkerState:
         # operator tree, and fragments cache one layer up
         ctx = ExecutionContext(device=self.device, batch_size=self.batch_size,
                                result_cache=False)
+        # a fragment is not a fleet query: it records as fragment
+        # latency (`_serve_fragment`), not in the query funnel
+        ctx._telemetry = False
         ctx.register_datasource(scan.table_name, ds)
         return ctx.execute(plan), plan
 
@@ -239,9 +265,14 @@ class WorkerState:
         except Exception as e:
             recorder.record("fragment.error", shard=frag.shard,
                             error=f"{type(e).__name__}: {e}")
+            recorder.auto_capture("fragment_failure", lambda: {
+                "fragment": frag.span_attrs(),
+                "error": f"{type(e).__name__}: {e}",
+            })
             raise
-        recorder.record("fragment.serve", shard=frag.shard,
-                        wall_s=round(time.perf_counter() - t0, 6))
+        dt = time.perf_counter() - t0
+        observe_latency("fragment.latency", dt)
+        recorder.record("fragment.serve", shard=frag.shard, wall_s=round(dt, 6))
         if cache is not None:
             stored = _copy_raw(raw)
             cache.put(key, stored, _raw_nbytes(stored), tags=frag.table_names())
@@ -381,8 +412,18 @@ def _serve_worker_request(state: WorkerState, msg: dict):
             out = {"type": "pong", "queries": state.queries}
         elif kind == "status":
             out = state.status()
-        elif kind in ("telemetry", "flight_dump"):
-            raise NotSupportedError(f"the {kind!r} request waits for {_LATER}")
+        elif kind == "telemetry":
+            # the fleet view's pull: the node snapshot alone
+            out = {"type": "telemetry", "snapshot": state.telemetry_snapshot()}
+        elif kind == "flight_dump":
+            # the ring, filtered to one query when the coordinator
+            # assembles that query's artifact set across its workers
+            out = {
+                "type": "flight_dump",
+                "node": f"worker:{os.getpid()}",
+                "events": recorder.events(trace_id=msg.get("trace_id") or None),
+                "events_emitted": recorder.emitted(),
+            }
         elif kind == "execute_fragment":
             with adoption, deadline_scope(deadline):
                 out = state.execute_fragment(msg["fragment"], bw)
@@ -418,16 +459,36 @@ class WorkerServer(LoopServer):
     and writes; fragments execute on the bounded pool."""
 
     worker_state: WorkerState
+    http_server = None
+
+    def server_close(self) -> None:
+        if self.http_server is not None:
+            self.http_server.close()
+            self.http_server = None
+        super().server_close()
+
+
+def serve_http_status(state: WorkerState, host: str, port: int):
+    """The worker's debug HTTP plane (obs/httpd.py): `GET /status` (and
+    `/healthz`) answers the fragment protocol's `status`, `GET /metrics`
+    the Prometheus text with the worker's gauges, and every `/debug/*`
+    route rides the same port."""
+    from datafusion_tpu_torch.obs.httpd import DebugServer
+
+    return DebugServer(port, host, label=f"worker:{os.getpid()}",
+                       gauges_fn=state._gauges, status_fn=state.status)
 
 
 def serve(bind: str = "127.0.0.1:0", device=None, batch_size: int = 131072,
           http_port: Optional[int] = None, cluster=None) -> WorkerServer:
     """Bind a worker and return its server (call `serve_forever`).
-    `http_port` and `cluster` wait for ROADMAP item 13.2 and raise."""
+    `http_port` (non-zero; negative binds an ephemeral port) also serves
+    the debug HTTP plane on this host, loopback unless
+    ``DATAFUSION_TPU_DEBUG_BIND`` says otherwise; a bind failure leaves
+    the worker without it (``obs.debug_server_errors``).  `cluster`
+    waits for ROADMAP item 13.2 part 2 and raises."""
     from datafusion_tpu_torch.utils.eventloop import ServerLoop, WireConnection
 
-    if http_port:
-        raise NotSupportedError(f"the worker's debug HTTP plane waits for {_LATER}")
     if cluster:
         raise NotSupportedError(f"cluster membership waits for {_LATER}")
     host, _, port = bind.partition(":")
@@ -445,6 +506,17 @@ def serve(bind: str = "127.0.0.1:0", device=None, batch_size: int = 131072,
                         lambda lp, sock, a: WireConnection(lp, sock, a, on_message))
     server = WorkerServer(loop, lsock)
     server.worker_state = state
+    if http_port:
+        from datafusion_tpu_torch.obs.httpd import debug_bind_host
+        from datafusion_tpu_torch.utils.metrics import METRICS
+
+        try:
+            server.http_server = serve_http_status(state, debug_bind_host(host),
+                                                   max(int(http_port), 0))
+        except OSError:
+            METRICS.add("obs.debug_server_errors")
+        else:
+            state.debug_port = server.http_server.port
     return server
 
 
@@ -462,8 +534,11 @@ def main(argv=None) -> int:
                     help="execution device: cuda[:N] | cpu (default: cuda:0; "
                          "exits with an error without CUDA)")
     ap.add_argument("--batch-size", type=int, default=131072)
-    ap.add_argument("--http-port", type=int, default=0,
-                    help=f"debug HTTP plane port: waits for {_LATER}")
+    ap.add_argument("--http-port", type=int,
+                    default=int(os.environ.get("DATAFUSION_TPU_DEBUG_PORT", "0") or 0),
+                    help="debug HTTP plane port (/status, /metrics, /debug/*; "
+                         "obs/httpd.py): 0 is off (the default; env "
+                         "DATAFUSION_TPU_DEBUG_PORT), negative an ephemeral port")
     ap.add_argument("--cluster", default=None,
                     help=f"cluster state service address: waits for {_LATER}")
     ap.add_argument("--coordinator", default=None,
@@ -475,6 +550,7 @@ def main(argv=None) -> int:
                     help="this worker's torch.distributed rank")
     args = ap.parse_args(argv)
     faults.set_role("worker")
+    obs_trace.set_process_role("worker")
     try:
         if args.coordinator is not None or args.num_processes is not None:
             from datafusion_tpu_torch.parallel.mesh import initialize_distributed
@@ -491,6 +567,8 @@ def main(argv=None) -> int:
         return 1
     host, port = server.server_address[:2]
     print(f"worker listening on {host}:{port}", flush=True)
+    if server.http_server is not None:
+        print(f"worker debug: {server.http_server.url}/debug", flush=True)
     print(f"worker info: device={server.worker_state.device} "
           f"batch_size={args.batch_size}", flush=True)
     try:

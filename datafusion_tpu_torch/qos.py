@@ -34,10 +34,13 @@ otherwise.
 
 `scope_client` and `TenantBuckets` also bill the coordinator's fragment
 dispatch (parallel/coordinator.py): its reassignment retries and its
-hedges spend the dispatching tenant's child buckets.  Not ported yet:
-`debug_snapshot` and the ``/debug/qos`` document (they read the SLO
-watchdog) and the coordinator's pin-aware placement (it reads the
-cluster's lease advertisements), all ROADMAP item 13.2.
+hedges spend the dispatching tenant's child buckets.  `debug_snapshot`
+is the ``/debug/qos`` document (obs/httpd.py) and the console's
+``top --qos`` block: shares, attained service and `scale_hint` over the
+SLO watchdog's worst burn (obs/slo.max_burn_rate) and the tail
+explainer's queue-wait share.  Not ported yet: the coordinator's
+pin-aware placement (it reads the cluster's lease advertisements),
+ROADMAP item 13.2 part 2.
 """
 
 from __future__ import annotations
@@ -368,3 +371,23 @@ def scale_hint(max_burn_rate: Optional[float],
     if max_burn_rate <= _SCALE_BURN_DOWN and q < _SCALE_QUEUE_SHARE:
         return -1
     return 0
+
+
+def debug_snapshot(policy: Optional[FairSharePolicy] = None) -> dict:
+    """The ``/debug/qos`` document: armed state, shares, per-tenant
+    attained and normalized service, and the scale hint with its two
+    inputs (read without side effects)."""
+    from datafusion_tpu_torch.obs import attribution, slo
+
+    pol = policy or policy_from_config()
+    doc: dict = {"enabled": enabled()}
+    if pol is not None:
+        doc.update(pol.snapshot())
+    burn = slo.max_burn_rate()
+    qshare = attribution.queue_wait_share()
+    doc["scale"] = {
+        "hint": scale_hint(burn, qshare),
+        "max_burn_rate": burn,
+        "queue_wait_share": qshare,
+    }
+    return doc

@@ -43,7 +43,20 @@ worker threads and folds compatible concurrent queries into one scan:
   is not padded: eager torch compiles nothing per query count.
 
 Worker threads run their launches on the context's device
-(`torch.cuda.device`), never on a thread's default device.
+(`torch.cuda.device`), never on a thread's default device, and each on
+a CUDA stream of its own (`exec/streams.serving_scope`), so the event
+pair that meters a served pass (`utils/retry._pass`) never times another
+worker's kernels or copies.  Device values one worker caches and another reads (a
+pinned table's copies, ids and aux tables, a pinned join build) carry
+an event of their producing stream, which each reader's stream waits
+for on the device (`exec/streams.publish`, `shared`); so do a
+megabatch's outputs, which its members may finish on another worker.
+
+The pin's accounted bytes start as the host estimate of its batches
+(`ensure`) and, after a served query over it that copied to the
+device, become the measured bytes of the device tensors cached on them
+(`_measure_pins`), so eviction and the `hbm` shed read what the pin
+would free.
 
 Env knobs, each prefixed `DATAFUSION_TPU_SERVE_`: `QUEUE` (queue depth,
 64), `WORKERS` (executor threads, 2), `WINDOW_MS` (batching window, 2),
@@ -109,7 +122,6 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import nullcontext
 from functools import partial
 from typing import Optional
 
@@ -118,7 +130,9 @@ import torch
 
 from datafusion_tpu_torch.errors import NotSupportedError, QueryShedError
 from datafusion_tpu_torch.exec.datasource import DataSource, host_bytes
-from datafusion_tpu_torch.obs import recorder
+from datafusion_tpu_torch.exec.streams import publish, serving_scope, shared
+from datafusion_tpu_torch.obs import recorder, slo
+from datafusion_tpu_torch.obs.aggregate import observe_latency
 from datafusion_tpu_torch.obs.device import LEDGER
 from datafusion_tpu_torch.utils.deadline import Deadline, deadline_scope
 from datafusion_tpu_torch.utils.metrics import METRICS
@@ -140,7 +154,7 @@ class Ticket:
     __slots__ = ("sql", "plan", "deadline", "signature", "submitted_mono",
                  "_evt", "_table", "_error", "_rel", "client_id", "entry_mono",
                  "admitted_mono", "enqueued_mono", "flushed_mono", "exec_start_mono",
-                 "launch_share_s", "demux_share_s")
+                 "launch_share_s", "demux_share_s", "copied")
 
     def __init__(self, sql: str, plan, deadline: Optional[Deadline], signature,
                  client_id: str = "default", entry_mono: Optional[float] = None):
@@ -161,6 +175,8 @@ class Ticket:
         # of its megabatch's state pull
         self.launch_share_s = 0.0
         self.demux_share_s = 0.0
+        # whether its megabatch's pass copied to the device
+        self.copied = False
         self._evt = threading.Event()
         self._table = None
         self._error: Optional[BaseException] = None
@@ -217,6 +233,9 @@ class PinnedSource(DataSource):
         # cross-query execution state (`shared_state_for`)
         self._encoders: dict = {}
         self._cores: dict = {}
+        # one measurement of the pin's device bytes at a time
+        # (`Server._measure_pins`)
+        self.measure_lock = threading.Lock()
 
     @property
     def schema(self):
@@ -387,6 +406,48 @@ class _PinnedProjection(DataSource):
             yield subset_view(b, self.cols)
 
 
+def _cached_tensors(batches) -> list:
+    """Every tensor cached on `batches` and on the view batches cached
+    on them (`subset_view`): device copies, group ids, tables."""
+    from datafusion_tpu_torch.exec.batch import RecordBatch
+
+    out: list = []
+    stack = [v for b in batches for v in b.cache.values()]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            stack.extend(v)
+        elif isinstance(v, RecordBatch):
+            stack.extend(v.cache.values())
+    return out
+
+
+# what a megabatch lane leaves on each member relation (`_run_megabatch`)
+_INJECTED = ("_injected_state", "_injected_topk", "_injected_batches")
+
+
+def _injected_tensors(rels) -> list:
+    """The tensors a megabatch lane left on `rels`: in the lanes'
+    output batches, row ids and states."""
+    from datafusion_tpu_torch.exec.batch import RecordBatch
+
+    out: list = []
+    stack = [r.__dict__.get(k) for r in rels for k in _INJECTED]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            stack.extend(v)
+        elif isinstance(v, RecordBatch):
+            stack.extend(v.data)
+            stack.extend(v.validity)
+            stack.append(v.mask)
+    return out
+
+
 def _pin_of(rel) -> Optional[PinnedSource]:
     """The resident PinnedSource a relation scans directly, if any."""
     ds = getattr(getattr(rel, "child", None), "datasource", None)
@@ -540,9 +601,9 @@ class Server:
         self.stop()
 
     def _device_scope(self):
-        """Launches on the context's device from any thread."""
-        dev = self.ctx.device
-        return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+        """Launches on the context's device, on this thread's own
+        stream there (exec/streams.py)."""
+        return serving_scope(self.ctx.device)
 
     # -- admission (caller thread) -------------------------------------
     def submit(self, sql: str, deadline_s: Optional[float] = None,
@@ -672,8 +733,10 @@ class Server:
 
     def _on_append_applied(self, table: str, batch) -> None:
         """The resident list already grew in place (it is the
-        appendable's live list after `splice_appendable`): refresh the
-        ledger's pin bytes and the manifest."""
+        appendable's live list after `splice_appendable`): grow the
+        ledger's pin bytes by the delta's host bytes (the served query
+        that copies it measures them, `_measure_pins`) and refresh the
+        manifest."""
         ds = self.ctx.datasources.get(table)
         if isinstance(ds, _PinnedProjection):
             ds = ds.parent
@@ -682,7 +745,7 @@ class Server:
         res = ds._resident
         if res is None:
             return
-        LEDGER.set_pin_bytes(ds.fingerprint, host_bytes(res))
+        LEDGER.add_pin_bytes(ds.fingerprint, host_bytes([batch]))
         METRICS.add("serve.pin_appends")
         cb = ds.on_change
         if cb is not None:
@@ -927,7 +990,8 @@ class Server:
         # pulled in one copy, and are fulfilled together: their clients
         # come back at once, and their next queries meet in one window.
         # Every other ticket materializes on its own worker, so a client
-        # unblocks as soon as its own result is ready
+        # unblocks as soon as its own result is ready (a megabatch's
+        # device outputs carry their stream's event: `_run_megabatch`)
         for sub in together:
             self._finish_together(sub)
         for t in rest[1:]:
@@ -949,7 +1013,7 @@ class Server:
         except NotSupportedError:
             METRICS.add("serve.megabatch_fallbacks")
             for t in tickets:
-                for name in ("_injected_state", "_injected_topk", "_injected_batches"):
+                for name in _INJECTED:
                     t._rel.__dict__.pop(name, None)
         except BaseException as e:  # noqa: BLE001 — delivered to every client
             for t in tickets:
@@ -1025,7 +1089,9 @@ class Server:
         of the members weighted by `_member_weights`: every launch wall
         and copy of the pass splits across their clients, and each
         ticket keeps its share of the walls (and of the aggregate lane's
-        one state pull) for its critical path."""
+        one state pull) for its critical path.  The members' device
+        outputs are published on this worker's stream: a member another
+        worker finishes waits for them there (`_materialize`)."""
         from datafusion_tpu_torch.exec.aggregate import (
             AggregateRelation,
             run_aggregate_megabatch,
@@ -1053,9 +1119,13 @@ class Server:
                 for r in rels:
                     self._adopt_shared(r)
                 run_pipeline_megabatch(rels)
+        publish(_injected_tensors(rels))
         for t, w in zip(tickets, weights):
             t.launch_share_s += acc[0] * w
             t.demux_share_s += pull_s * w
+        # the shared scan's copies: its pin is measured once, after
+        # the first member
+        tickets[0].copied = acc[1] > 0
 
     def _materialize(self, t: Ticket):
         """One ticket's result table (a megabatched relation finalizes
@@ -1067,16 +1137,22 @@ class Server:
 
         try:
             rel = t._rel
-            if not any(k in rel.__dict__ for k in
-                       ("_injected_state", "_injected_topk", "_injected_batches")):
+            injected = _injected_tensors([rel])
+            if not any(k in rel.__dict__ for k in _INJECTED):
                 self._adopt_shared(rel)
             t0 = time.monotonic()
             with self._device_scope(), deadline_scope(t.deadline), \
                     client_scope(t.client_id) as acc:
+                shared(injected)  # made on the pass's worker's stream
                 table = collect(rel)
+            if acc[1] or t.copied:
+                self._measure_pins(t)
             return table, time.monotonic() - t0, acc[0]
         except BaseException as e:  # noqa: BLE001 — delivered to the client
             METRICS.add("serve.query_errors")
+            # the error counts against error-rate SLOs with the wall the
+            # client saw (the funnel leaves served queries to this seam)
+            slo.WATCHDOG.observe(time.monotonic() - t.entry_mono, error=True)
             t._fail(e)
             return None
 
@@ -1090,6 +1166,11 @@ class Server:
         now = time.monotonic()
         wall = now - t.submitted_mono
         t.launch_share_s += fin_launch_s
+        # the client-visible wall, queue wait included, feeds the serving
+        # histogram and the SLO watchdog (the funnel's inner wall does
+        # not, for a served query)
+        observe_latency("serve.latency", now - t.entry_mono)
+        slo.WATCHDOG.observe(now - t.entry_mono)
         observe_path(t.client_id, now - t.entry_mono,
                      self._segments(t, now - t.entry_mono, fin_wall, fin_launch_s))
         with self._lock:
@@ -1141,16 +1222,17 @@ class Server:
                 self._fulfill(t, d)
 
     # -- pinning -------------------------------------------------------
-    def _ensure_resident(self, table: str, client_id: str = "default") -> None:
-        """Pin `table` if it is not resident and still fits, and meter the
+    def _ensure_resident(self, table: str, client_id: str = "default") -> bool:
+        """Pin `table` if it is not resident and still fits, meter the
         pin (obs/attribution.py): the client that materializes it is its
-        fallback payer, and every query that scans it counts a use."""
+        fallback payer, and every query that scans it counts a use.
+        Returns whether this call pinned it."""
         from datafusion_tpu_torch.obs.attribution import note_pin_use, register_pin_client
 
         with self._lock:  # one PinnedSource per table, whichever worker comes first
             ds = self.ctx.datasources.get(table)
             if ds is None:
-                return
+                return False
             if isinstance(ds, _PinnedProjection):
                 ds = ds.parent
             if not isinstance(ds, PinnedSource):
@@ -1168,11 +1250,44 @@ class Server:
             headroom = LEDGER.headroom()
             if headroom is not None and ds.estimated_bytes() > headroom:
                 METRICS.add("serve.pin_denied")
-                return
+                return False
         ds.ensure()
         if newly_resident:
             register_pin_client(ds.fingerprint, client_id)
         note_pin_use(ds.fingerprint, client_id)
+        return newly_resident
+
+    def _measure_pins(self, t: Ticket) -> None:
+        """After a served query that copied to the device, attribute the
+        device tensors cached on each resident pin it scans (and on
+        their projection views) to the pin's owner tag, and set the
+        pin's accounted bytes to their storages' bytes, each storage
+        counted once: the pin was registered with a host estimate before
+        anything was copied, and eviction should free what it reads.  A
+        warm query copies nothing and measures nothing."""
+        from datafusion_tpu_torch.plan.logical import scan_tables
+
+        for tbl in scan_tables(t.plan):
+            pin = self.ctx.datasources.get(tbl)
+            if isinstance(pin, _PinnedProjection):
+                pin = pin.parent
+            if not isinstance(pin, PinnedSource):
+                continue
+            with pin.measure_lock:
+                res = pin._resident
+                tensors = _cached_tensors(list(res)) if res is not None else []
+                if not tensors:
+                    continue
+                LEDGER.retag(tensors, f"pin.{pin.name}")
+                seen = set()
+                measured = 0
+                for x in tensors:
+                    st = x.untyped_storage()
+                    key = (x.device, st.data_ptr())
+                    if key not in seen:
+                        seen.add(key)
+                        measured += st.nbytes()
+                LEDGER.set_pin_bytes(pin.fingerprint, measured)
 
     # -- pin manifest --------------------------------------------------
     def _pin_entries(self) -> list:

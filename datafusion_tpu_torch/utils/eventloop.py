@@ -1,5 +1,5 @@
-"""Selector event loop for the serving front door and the worker (the
-JAX package's `utils/eventloop.py`, less its HTTP connection).
+"""Selector event loop for the serving front door, the worker and the
+debug HTTP plane (the JAX package's `utils/eventloop.py`).
 
 ONE selector thread owns every socket (accept, read, write readiness
 via `selectors`), complete requests dispatch to a small bounded
@@ -21,10 +21,13 @@ thread.
                    through (`serve_forever`, `shutdown`, `server_close`,
                    `server_address`).
 
+- `HttpConnection` GET-shaped HTTP/1.1 for the debug plane
+                   (obs/httpd.py): Content-Length framing, keep-alive,
+                   each route run on the executor.
+
 The fault sites of the blocking wire path run here too: inbound frames
 pass ``wire.recv`` / ``wire.recv.payload``, outbound replies pass
-``wire.send`` (testing/faults.py).  The JAX package's `HttpConnection`
-serves only its debug HTTP plane, which waits for ROADMAP item 13.2.
+``wire.send`` (testing/faults.py).
 """
 
 from __future__ import annotations
@@ -334,6 +337,11 @@ class Connection:
                 break
             self._out.popleft()
         self._set_writable(bool(self._out))
+        if not self._out and not self.closed:
+            self.writes_drained()
+
+    def writes_drained(self) -> None:
+        """Hook: every queued write reached the socket."""
 
     def _set_writable(self, want: bool) -> None:
         mask = selectors.EVENT_READ | (selectors.EVENT_WRITE if want else 0)
@@ -463,6 +471,125 @@ class WireConnection(Connection):
     def connection_closed(self) -> None:
         self._backlog.clear()
         self._inflight = False
+
+
+_HTTP_STATUS = {
+    200: "OK", 401: "Unauthorized", 404: "Not Found",
+    405: "Method Not Allowed", 500: "Internal Server Error",
+}
+
+
+class HttpConnection(Connection):
+    """GET-shaped HTTP for the debug endpoints: parses one request at a
+    time, runs the route on the executor (a profile capture sleeps),
+    answers with Content-Length framing and honors keep-alive, so idle
+    scrape connections wait in the selector instead of each holding a
+    thread.  `handler(method, path, query, headers)` returns
+    (code, content type, body bytes)."""
+
+    def __init__(self, loop, sock, addr, handler):
+        self._buf = bytearray()
+        self._handler = handler
+        self._busy = False
+        self._close_after = False
+        self._discard = 0  # request-body bytes still owed to the stream
+        super().__init__(loop, sock, addr)
+
+    def data_received(self, data: bytes) -> None:
+        self._buf.extend(data)
+        self._maybe_dispatch()
+
+    def _maybe_dispatch(self) -> None:
+        if self._busy or self.closed:
+            return
+        if self._discard:
+            # an earlier request declared a body nothing reads: eat it as
+            # it arrives, so the next request line parses at a boundary
+            n = min(len(self._buf), self._discard)
+            del self._buf[:n]
+            self._discard -= n
+            if self._discard:
+                return
+        end = self._buf.find(b"\r\n\r\n")
+        if end < 0:
+            if len(self._buf) > 65536:
+                self.close()  # a header flood
+            return
+        head = bytes(self._buf[:end]).decode("latin-1", "replace")
+        del self._buf[:end + 4]
+        lines = head.split("\r\n")
+        parts = lines[0].split()
+        if len(parts) != 3:
+            self.close()
+            return
+        method, target, version = parts
+        headers = {}
+        for line in lines[1:]:
+            name, _, value = line.partition(":")
+            headers[name.strip().lower()] = value.strip()
+        try:
+            body_len = int(headers.get("content-length", 0) or 0)
+        except ValueError:
+            body_len = 0
+        if body_len:
+            n = min(len(self._buf), body_len)
+            del self._buf[:n]
+            self._discard = body_len - n
+        conn_hdr = headers.get("connection", "").lower()
+        self._close_after = (conn_hdr == "close"
+                             or (version == "HTTP/1.0" and conn_hdr != "keep-alive"))
+        from urllib.parse import parse_qs, urlparse
+
+        u = urlparse(target)
+        query = {k: v[-1] for k, v in parse_qs(u.query).items()}
+        path = u.path.rstrip("/") or "/"
+        self._busy = True
+        if method not in ("GET", "HEAD"):
+            self._respond(405, "application/json", b'{"error": "GET only"}')
+            return
+
+        def _run():
+            return self._handler(method, path, query, headers)
+
+        def _done(result, exc):
+            if exc is not None:
+                METRICS.add("obs.debug_request_errors")
+                self._respond(500, "application/json",
+                              f'{{"error": "{type(exc).__name__}"}}'.encode("utf-8"))
+                return
+            code, ctype, body = result
+            self._respond(code, ctype, body if method == "GET" else b"")
+
+        self.loop.defer(_run, _done)
+
+    def _respond(self, code: int, ctype: str, body: bytes) -> None:
+        reason = _HTTP_STATUS.get(code, "OK")
+        head = (
+            f"HTTP/1.1 {code} {reason}\r\n"
+            f"Content-Type: {ctype}\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            f"Connection: {'close' if self._close_after else 'keep-alive'}\r\n"
+            "\r\n"
+        ).encode("latin-1")
+
+        def _send():
+            self._busy = False
+            self._write_now([head, body])
+            if self._close_after:
+                if not self._out:
+                    self.close()
+                # else writes_drained closes after the flush
+            else:
+                self._maybe_dispatch()
+
+        if self.loop.on_loop_thread():
+            _send()
+        else:
+            self.loop.call_soon(_send)
+
+    def writes_drained(self) -> None:
+        if self._close_after and not self._busy:
+            self.close()
 
 
 class LoopServer:

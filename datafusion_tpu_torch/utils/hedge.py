@@ -1,7 +1,6 @@
 """Hedged-dispatch policy: when to speculatively re-send a fragment (the
-JAX package's `utils/hedge.py`, whole, with its own copy of the log2
-`LatencyHistogram` of the JAX package's `obs/aggregate.py`, whose fleet
-aggregation waits for ROADMAP item 13.2).
+JAX package's `utils/hedge.py`, whole, over obs/aggregate's log2
+`LatencyHistogram`).
 
 Tail latency in a scatter-gather engine is set by the *slowest*
 replica, not the median — one alive-but-slow worker (gray failure:
@@ -44,13 +43,10 @@ dispatch, a bucket cap of 4.0.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
+from datafusion_tpu_torch.obs.aggregate import LatencyHistogram
 from datafusion_tpu_torch.utils.retry import TokenBucket, _env_bool
-
-_BASE_S = 1e-6
-_BUCKETS = 28
 
 HEDGE_FACTOR = 3.0
 HEDGE_FLOOR_S = 0.25
@@ -58,53 +54,6 @@ HEDGE_QUANTILE = 0.95
 HEDGE_MIN_SAMPLES = 4
 HEDGE_RATIO = 0.25
 HEDGE_BURST = 4.0
-
-
-class LatencyHistogram:
-    """Mergeable log2 histogram with quantile estimation: latencies in
-    [1 us, ~137 s) over 28 buckets, the last one open."""
-
-    __slots__ = ("buckets", "count", "sum_s", "base", "nbuckets")
-
-    def __init__(self, base: float = _BASE_S, nbuckets: int = _BUCKETS):
-        self.base = float(base)
-        self.nbuckets = int(nbuckets)
-        self.buckets = [0] * self.nbuckets
-        self.count = 0
-        self.sum_s = 0.0
-
-    def _index(self, value: float) -> int:
-        if value <= self.base:
-            return 0
-        return min(int(math.log2(value / self.base)) + 1, self.nbuckets - 1)
-
-    def _upper(self, i: int) -> float:
-        if i >= self.nbuckets - 1:
-            return math.inf
-        return self.base * (2.0 ** i)
-
-    def observe(self, seconds: float) -> None:
-        self.buckets[self._index(seconds)] += 1
-        self.count += 1
-        self.sum_s += seconds
-
-    def quantile(self, q: float) -> Optional[float]:
-        """Upper bound of the bucket holding the q-quantile (the true
-        latency is <= this); None when empty.  A quantile in the open
-        bucket reports a lower bound: the largest finite edge or the
-        mean, whichever is larger."""
-        if self.count <= 0:
-            return None
-        rank = max(math.ceil(q * self.count), 1)
-        seen = 0
-        for i, n in enumerate(self.buckets):
-            seen += n
-            if seen >= rank:
-                ub = self._upper(i)
-                if math.isinf(ub):
-                    break
-                return ub
-        return max(self._upper(self.nbuckets - 2), self.sum_s / self.count)
 
 
 class HedgeTracker:

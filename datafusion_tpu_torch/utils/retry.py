@@ -16,7 +16,8 @@ through `device_call(fn, *args, _tag=..., _device=...)`, which
   the client a served query runs for, or a megabatch's members by
   weight),
 - consults the ``device.call`` fault site (`testing/faults.py`) before
-  each attempt, and replays a pass that raised a transient error.
+  each attempt, and replays a pass that raised a transient error,
+- records a ``device.launch`` flight event (obs/recorder.py) per pass.
 
 A pass queues CUDA work and returns before the card has done it, so
 outside `obs/device.profile_sync()` and outside a charge scope the
@@ -26,10 +27,13 @@ device records a `torch.cuda.Event(enable_timing=True)` pair around
 `fn`, waits on the second at the end of the pass and accrues the
 elapsed device time instead, so EXPLAIN ANALYZE's "execute" is device
 time.  Under a charge scope (a served query, `obs/attribution`), a pass
-on the card records the pair and does not wait: the scope's exit,
+on the card records the pair on its worker's own stream
+(`exec/streams.serving_scope`) and does not wait: the scope's exit,
 after the query has read its result back, accrues the pair's device
 time into the timer and the tenant's meter, so a tenant is billed the
-card's time, not the host's.
+card's time on its own stream, never another worker's kernels.  The
+pair spans the pass's host call, so it also holds the stream's idle
+gaps while the host enqueues (ROADMAP queue 3).
 
 **Retry.**  Classification is typed (`errors.classify_transient`): a
 `TransientError` (``DeviceTransientError`` from the fault plan, an
@@ -269,10 +273,11 @@ def _pass(fn, args, kwargs, tag, device):
     Returns (result, seconds, events).  On a CUDA device inside
     `profile_sync`, `seconds` is the pass's device time (an event pair
     waited on here); on one under a charge scope (a served query),
-    `events` is an event pair not waited on, whose device time the
-    scope's exit folds into the timer and the meter
-    (`obs/attribution.note_launch`), and `seconds` is 0; otherwise
-    `seconds` is the host's wall around `fn`."""
+    `events` is an event pair not waited on, on the worker's own stream
+    (exec/streams.serving_scope), whose device time the scope's exit
+    folds into the timer and the meter (`obs/attribution.note_launch`),
+    and `seconds` is 0; otherwise `seconds` is the host's wall around
+    `fn`."""
     events = None
     sync = False
     if device is not None and device.type == "cuda":
@@ -323,6 +328,9 @@ def device_call(fn, /, *args, _tag=None, _device=None, **kwargs):
             # the pass charges this thread's scope: one dict read when
             # nothing is served
             note_launch(wall, events)
+            # a served pass's device time settles with its scope: 0 here
+            recorder.record("device.launch", attempt=attempt, kernel=_tag,
+                            ms=round(wall * 1e3, 3))
             return out
         except Exception as e:  # noqa: BLE001 — classified, most re-raise
             transient = classify_transient(e)

@@ -5,7 +5,8 @@ so either package recovers a log the other wrote.  In the port it backs
 the ingest log (`ingest/`) and the serving pin manifest
 (`atomic_write_json`, serve.py); the cluster control plane that the
 text below also describes is not ported yet, and neither are the rate-
-limited lease-deadline notes it writes into the log (ROADMAP item 13.2):
+limited lease-deadline notes it writes into the log (ROADMAP item 13.2
+part 2):
 recovery skips such a record like any other at revision 0.
 
 The reference scaffolded etcd for durability and never enabled it
@@ -59,6 +60,7 @@ import os
 import struct
 import threading
 import time
+import weakref
 import zlib
 from typing import Optional
 
@@ -79,6 +81,21 @@ _U32 = struct.Struct(">I")
 DEFAULT_SEGMENT_BYTES = 4 << 20
 DEFAULT_SNAPSHOT_BYTES = 8 << 20
 DEFAULT_SYNC_INTERVAL_S = 0.05
+
+# live logs, for the debug bundle's durability manifests
+_ACTIVE: list = []
+
+
+def active_manifests() -> list:
+    """Manifests of every live log in this process (obs/httpd.py's
+    debug bundle)."""
+    out = []
+    for ref in list(_ACTIVE):
+        log = ref()
+        if log is not None and not log.closed:
+            out.append(log.manifest())
+    return out
+
 
 def atomic_write_json(path: str, doc: dict, *, site: str = "snapshot.write") -> None:
     """Write `doc` as JSON via tmp -> fsync -> rename so readers never
@@ -177,6 +194,8 @@ class WriteAheadLog:
         self.appends = 0
         self.fsyncs = 0
         self.bytes_written = 0
+        _ACTIVE[:] = [r for r in _ACTIVE if r() is not None]
+        _ACTIVE.append(weakref.ref(self))
 
     # -- paths ---------------------------------------------------------
 

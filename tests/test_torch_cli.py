@@ -186,7 +186,7 @@ def test_timing_as_bare_script_line(tmp_path):
     assert "Error" not in text
 
 
-@pytest.mark.parametrize("command", ["\\cluster", "\\top"])
+@pytest.mark.parametrize("command", ["\\cluster"])
 def test_unported_command_prints_an_error_and_the_console_survives(tmp_path, command):
     lines = _run(f"{command}\nSELECT 2 + 3;\n", tmp_path)
     assert lines[0].startswith("Error: ") and "not ported yet (" in lines[0]
@@ -199,11 +199,12 @@ def test_unported_command_prints_an_error_and_the_console_survives(tmp_path, com
     ("\\ingest", "Ingest rev 0, no WAL (in-memory)"),
     ("\\append t {}", "Append failed: no datasource registered as 't'"),
     ("\\cost", "Cost store: "),
+    ("\\top", "fleet: 1 node(s) [local]"),
 ])
 def test_ported_command_prints_its_report_and_the_console_survives(tmp_path, command, first):
     """The console commands of the freshness plane (\\cache, \\ingest,
-    \\append) and the cost store's (\\cost), once unported, now answer
-    as the JAX package's do."""
+    \\append), the cost store's (\\cost) and the telemetry view
+    (\\top), once unported, now answer as the JAX package's do."""
     lines = _run(f"{command}\nSELECT 2 + 3;\n", tmp_path)
     assert lines[0].startswith(first), lines
     assert _strip_timing(lines)[-1] == "5"
@@ -222,8 +223,7 @@ def test_interactive_quit(tmp_path):
 
 @pytest.mark.parametrize("argv,want", [
     ([], "no CUDA device"),
-    (["top"], "top is not ported yet"),
-    (["debug-bundle"], "debug-bundle is not ported yet"),
+    (["top", "--cluster", "127.0.0.1:1"], "--cluster is not ported yet"),
 ])
 def test_without_a_card_or_a_plane_the_console_exits_non_zero(tmp_path, argv, want):
     if argv == [] and __import__("torch").cuda.is_available():

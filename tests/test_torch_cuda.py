@@ -43,6 +43,8 @@ again, and every case starts from an empty cost store.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1019,6 +1021,31 @@ def test_route_evidence_is_one_event_pair_a_pass_of_the_card(dev, monkeypatch):
     assert rec["s_per_row_last"] == pytest.approx(rec["exec_s_last"] / n, rel=1e-12)
 
 
+def test_served_passes_leave_no_route_evidence(dev):
+    """A served aggregate's passes are not route evidence: their event
+    pairs also hold the idle stream time while other clients' threads
+    run, so the learned window reads plain queries' passes only."""
+    from datafusion_tpu_torch import cost
+    from datafusion_tpu_torch.cost.advisor import MIN_ROUTE_ROWS
+
+    schema, batches = _q1_lineitem(n=3 * MIN_ROUTE_ROWS, batch_rows=MIN_ROUTE_ROWS)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("lineitem", tdf.MemoryDataSource(schema, batches))
+
+    def n_route():
+        rec = cost.store().lookup(cost.CUDA_KEY, "agg:grouped_reduce")
+        return 0 if rec is None else rec["n"]
+
+    n0 = n_route()
+    with ctx.serve(workers=2, window_s=0.001) as srv:
+        served = [srv.submit(Q1_SQL, client_id="A").result(timeout=300) for _ in range(2)]
+    assert n_route() == n0
+    solo = tdf.collect(ctx.sql(Q1_SQL))
+    assert n_route() == n0 + 1
+    for table in served:
+        assert sorted(table.to_rows()) == sorted(solo.to_rows())
+
+
 def test_ledger_live_bytes_return_after_the_query_dies(dev):
     import gc
 
@@ -1455,3 +1482,240 @@ def test_worker_process_on_the_card(dev, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -------------------------------------------- serving streams (slice 16)
+
+
+def _li(rows, batch_rows, seed):
+    """A Q1-shaped lineitem: flag, status, quantity, price, discount,
+    tax and ship date (a day index into `days`)."""
+    rng = np.random.default_rng(seed)
+    D = tdf.DataType
+    days = [f"1998-{m:02d}-{d:02d}" for m in range(1, 13) for d in range(1, 29)]
+    schema = tdf.Schema([tdf.Field("l_returnflag", D.UTF8, False),
+                         tdf.Field("l_linestatus", D.UTF8, False),
+                         tdf.Field("l_quantity", D.FLOAT64, False),
+                         tdf.Field("l_extendedprice", D.FLOAT64, False),
+                         tdf.Field("l_discount", D.FLOAT64, False),
+                         tdf.Field("l_tax", D.FLOAT64, False),
+                         tdf.Field("l_shipdate", D.UTF8, False)])
+    dicts = [tdf.StringDictionary() for _ in range(3)]
+    for s in "ANR":
+        dicts[0].add(s)
+    for s in "FO":
+        dicts[1].add(s)
+    for s in days:
+        dicts[2].add(s)
+    batches = []
+    for lo in range(0, rows, batch_rows):
+        n = min(batch_rows, rows - lo)
+        batches.append(tdf.make_host_batch(schema, [
+            rng.integers(0, 3, n).astype(np.int32), rng.integers(0, 2, n).astype(np.int32),
+            np.floor(rng.uniform(1, 51, n)), np.round(rng.uniform(900, 104950, n), 2),
+            rng.integers(0, 11, n) / 100.0, rng.integers(0, 9, n) / 100.0,
+            rng.integers(0, len(days), n).astype(np.int32)],
+            None, [dicts[0], dicts[1], None, None, None, None, dicts[2]]))
+    return schema, batches, days
+
+
+_Q1_CUT = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity), SUM(l_extendedprice), "
+           "SUM(l_extendedprice * (1 - l_discount)), AVG(l_discount), COUNT(1) "
+           "FROM {t} WHERE l_shipdate <= '{cut}' GROUP BY l_returnflag, l_linestatus")
+
+
+def _same_table_bits(got, want):
+    order_g = np.lexsort([np.asarray(c).astype(str) for c in got.columns[:2]][::-1])
+    order_w = np.lexsort([np.asarray(c).astype(str) for c in want.columns[:2]][::-1])
+    for cg, cw in zip(got.columns, want.columns):
+        assert np.asarray(cg)[order_g].tobytes() == np.asarray(cw)[order_w].tobytes()
+
+
+def test_two_serving_workers_launch_on_two_streams(dev, monkeypatch):
+    """Each served pass's event pair is recorded on its worker's own
+    stream: not the default stream, and the two workers' differ."""
+    import threading
+
+    from datafusion_tpu_torch.obs import attribution
+    from datafusion_tpu_torch.utils import retry
+
+    seen = []
+    real = retry.note_launch
+
+    def spy(seconds, events=None):
+        if events is not None:
+            seen.append((torch.cuda.current_stream(dev), threading.get_ident()))
+        return real(seconds, events)
+
+    monkeypatch.setattr(retry, "note_launch", spy)
+    schema, batches, days = _li(200_000, 1 << 15, 3)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("a", tdf.MemoryDataSource(schema, batches))
+    ctx.register_datasource("b", tdf.MemoryDataSource(schema, batches))
+    with ctx.serve(workers=2, window_s=0.001, megabatch_max=1) as srv:
+        tickets = [srv.submit(_Q1_CUT.format(t="ab"[i % 2], cut=days[5 * i]), client_id="AB"[i % 2])
+                   for i in range(24)]
+        for t in tickets:
+            t.result(timeout=300)
+    default = torch.cuda.default_stream(dev)
+    assert seen and all(s != default for s, _ in seen)
+    by_thread = {}
+    for s, tid in seen:
+        by_thread.setdefault(tid, set()).add(s.cuda_stream)
+    assert all(len(v) == 1 for v in by_thread.values())  # one stream a worker
+    assert len(by_thread) == 2
+    a, b = by_thread.values()
+    assert a != b
+    assert attribution.METER.snapshot()["A"]["device_seconds"] > 0
+
+
+def test_shared_values_wait_for_their_producers_stream(dev):
+    """A value published on one serving stream, or made outside serving
+    on the default stream, is read complete on another stream: the
+    reader's stream waits for the producer's event on the device while
+    the producer is still busy (a long `torch.cuda._sleep` before it
+    writes), and the host never waits."""
+    from datafusion_tpu_torch.exec import streams
+
+    n = 1 << 20
+    cycles = 2_000_000_000  # about a second: the host's first launches fit in it
+    warm = torch.zeros(n, dtype=torch.int64, device=dev).fill_(1)
+    int((warm + warm).sum())  # the kernels below loaded before the clock runs
+    s1, s2 = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+    with streams.stream_scope(s1):
+        x = torch.zeros(n, dtype=torch.int64, device=dev)
+        torch.cuda._sleep(cycles)
+        x.fill_(7)
+        streams.publish((x, None))
+    with torch.cuda.device(dev):
+        y = torch.zeros(n, dtype=torch.int64, device=dev)  # the default stream
+        torch.cuda._sleep(cycles)
+        y.fill_(3)
+    with streams.stream_scope(s2):
+        streams.shared([x, y])
+        total = (x + y).sum()
+    assert not s1.query()  # the producer still runs: nothing waited on the host
+    s2.synchronize()  # the read below runs on the default stream
+    assert int(total) == 10 * n
+    assert x._df_ready.readers == {s1.cuda_stream, s2.cuda_stream}
+    assert y._df_ready.readers == {torch.cuda.default_stream(dev).cuda_stream, s2.cuda_stream}
+
+
+def test_megabatch_members_handed_to_the_other_worker_keep_their_bits(dev, monkeypatch):
+    """The serving phase's pipeline lane (8 `l_discount` literals) and a
+    TopK lane on two workers, each with its own stream: while the pass's
+    worker finishes its first member (held back here), the other worker
+    finishes the rest from the outputs the pass made on the first
+    worker's stream, and each answer is its solo answer bit for bit."""
+    import threading
+
+    from datafusion_tpu_torch.serve import Server
+
+    schema, batches, days = _li(1_000_000, 1 << 16, 9)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("li", tdf.MemoryDataSource(schema, batches))
+    pipe = [f"SELECT l_returnflag, l_quantity, l_extendedprice * (1 - l_discount) FROM li "
+            f"WHERE l_discount > {d / 100}" for d in range(8)]
+    topk = [f"SELECT l_returnflag, l_extendedprice FROM li ORDER BY l_extendedprice DESC "
+            f"LIMIT {k}" for k in (10, 100, 1000, 7)]
+    solo = {q: tdf.collect(ctx.sql(q)) for q in pipe + topk}
+    passes, finished = [], {}
+    real_run, real_mat = Server._run_megabatch, Server._materialize
+
+    def run(self, tickets):
+        passes.append((threading.get_ident(), [id(t) for t in tickets]))
+        return real_run(self, tickets)
+
+    def mat(self, t):
+        tid = threading.get_ident()
+        finished[id(t)] = tid
+        if any(p == tid for p, _ in passes):
+            time.sleep(0.05)  # the other worker takes the handed-off members
+        return real_mat(self, t)
+
+    monkeypatch.setattr(Server, "_run_megabatch", run)
+    monkeypatch.setattr(Server, "_materialize", mat)
+    got = []
+    with ctx.serve(workers=2, window_s=0.05, megabatch_max=16) as srv:
+        for _ in range(3):
+            tickets = [(q, srv.submit(q)) for q in pipe + topk]
+            got += [(q, t.result(timeout=300)) for q, t in tickets]
+    assert len(passes) >= 2
+    assert all(len({finished[i] for i in ids}) == 2 for _, ids in passes)
+    for q, table in got:
+        for cg, cw in zip(table.columns, solo[q].columns):
+            assert np.asarray(cg).tobytes() == np.asarray(cw).tobytes()
+
+
+def test_concurrent_tenant_is_billed_only_its_own_kernels(dev):
+    """Tenant A's warm Q1 round over a resident table, alone and while
+    tenant B's cold scans (fresh batch objects: every query copies the
+    table) run on the other worker: A's metered device time a query
+    stays within 2x of alone, and every answer is its solo answer bit
+    for bit.  The gate of ROADMAP queue 3's open metering fault: each
+    worker's own stream keeps B's kernels out of A's event pairs, but a
+    pair spans its pass's host call, and B's Python stretches it with
+    idle stream time, so this fails on the card until the meter bills
+    device work alone (PERF.md §6)."""
+    import threading
+
+    from datafusion_tpu_torch.obs.attribution import METER
+    from datafusion_tpu_torch.serve import PinnedSource
+
+    schema, a_batches, days = _li(400_000, 1 << 16, 5)
+    _, b_batches, _ = _li(3_000_000, 1 << 17, 6)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    pin = PinnedSource(tdf.MemoryDataSource(schema, a_batches), "li_a")
+    pin.ensure()
+    ctx.register_datasource("li_a", pin)
+    ctx.register_datasource("li_b", tdf.MemoryDataSource(schema, b_batches))
+    a_sqls = [_Q1_CUT.format(t="li_a", cut=days[-1 - 3 * i]) for i in range(16)]
+    b_sql = _Q1_CUT.format(t="li_b", cut=days[-1])
+    solo = {s: tdf.collect(ctx.sql(s)) for s in a_sqls + [b_sql]}
+
+    def a_round(srv):
+        m0 = METER.snapshot().get("A", {}).get("device_seconds", 0.0)
+        got = [(s, srv.submit(s, client_id="A").result(timeout=300)) for s in a_sqls]
+        return (METER.snapshot()["A"]["device_seconds"] - m0) / len(a_sqls), got
+
+    with ctx.serve(shares={"A": 3, "B": 1}, workers=2, window_s=0.002, megabatch_max=1,
+                   pin=False) as srv:
+        a_round(srv)  # warm: A's copies cached on the resident batches
+        alone, got_alone = a_round(srv)
+        stop = threading.Event()
+        b_got = []
+
+        def tenant_b():
+            while not stop.is_set():
+                b_got.append(srv.submit(b_sql, client_id="B").result(timeout=300))
+
+        th = threading.Thread(target=tenant_b)
+        th.start()
+        time.sleep(0.5)
+        try:
+            under_b, got_under = a_round(srv)
+        finally:
+            stop.set()
+            th.join(timeout=300)
+    assert not th.is_alive() and b_got
+    b_per_query = METER.snapshot()["B"]["device_seconds"] / len(b_got)
+    assert under_b <= 2 * alone, (alone, under_b, b_per_query)
+    for s, table in got_alone + got_under + [(b_sql, t) for t in b_got]:
+        _same_table_bits(table, solo[s])
+    pin.release()
+
+
+def test_pin_bytes_are_the_cached_device_bytes_on_the_card(dev):
+    from datafusion_tpu_torch.obs.device import LEDGER
+    from datafusion_tpu_torch.serve import _cached_tensors
+
+    schema, batches, days = _li(300_000, 1 << 15, 8)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("li", tdf.MemoryDataSource(schema, batches))
+    with ctx.serve(workers=2, window_s=0.001) as srv:
+        srv.submit(_Q1_CUT.format(t="li", cut=days[-1])).result(timeout=300)
+        tensors = [t for t in _cached_tensors(list(ctx.datasources["li"]._resident))
+                   if t.is_cuda]
+        nbytes = {(t.device, t.untyped_storage().data_ptr()): t.untyped_storage().nbytes()
+                  for t in tensors}
+        assert tensors and LEDGER.pins_snapshot()["table:li"]["bytes"] == sum(nbytes.values())

@@ -144,9 +144,9 @@ def test_parked_connections_cost_no_threads(echo):
 
 
 def test_port_worker_answers_the_jax_handle():
-    """The port's worker server on the loop: ping and status through
-    the JAX package's `WorkerHandle`, then a `shutdown` request stops
-    the loop."""
+    """The port's worker server on the loop: ping, status and telemetry
+    through the JAX package's `WorkerHandle`, then a `shutdown` request
+    stops the loop."""
     from datafusion_tpu.parallel.coordinator import WorkerHandle as JaxHandle
 
     from datafusion_tpu_torch.parallel.worker import serve
@@ -158,8 +158,9 @@ def test_port_worker_answers_the_jax_handle():
         assert handle.probe()
         status = handle.status()
         assert status["device"] == "cpu" and "kernels" in status
-        with pytest.raises(Exception, match="telemetry"):
-            handle.request({"type": "telemetry"}, timeout=5.0)
+        # the fleet view's pull answers in the JAX package's wire form
+        snap = handle.telemetry()
+        assert {"ts", "histograms", "counts", "gauges"} <= set(snap)
         assert handle.request({"type": "shutdown"}, timeout=5.0)["type"] == "bye"
         t.join(timeout=5)
         assert not t.is_alive()

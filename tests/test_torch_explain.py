@@ -365,8 +365,9 @@ def test_root_stats_and_wall(tables):
     assert set(res.phases) == {"decode", "h2d", "compile", "execute", "d2h", "other"}
     assert res.phases["execute"] > 0 and res.phases["compile"] == 0
     assert repr(res) == res.report()
-    with pytest.raises(tdf.NotSupportedError, match="13.2"):
-        res.otlp()
+    doc = res.otlp()  # the OTLP document of the run's spans (obs/otlp.py)
+    assert sum(len(ss["spans"]) for rs in doc["resourceSpans"]
+               for ss in rs["scopeSpans"]) == len(res.spans)
 
 
 def test_sql_collect_returns_the_result_object(tables):
