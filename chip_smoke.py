@@ -193,7 +193,23 @@ which raises on failure:
    slow-query artifact with its OTLP document); the debug HTTP plane's
    routes; two workers with their debug planes: the fleet view, the
    console's `top` and `debug-bundle` over them, and the survivor's
-   ring after one is killed mid-query.  `fleet_*` lines.
+   ring after one is killed mid-query.  A's metered ms a query under B
+   must stay within 2x of alone (the meter's host gate, exec/gate.py).
+   `fleet_*` lines.
+19. The cluster control plane (after phase 18, `phase_cluster`): a
+   3-replica service (`python -m datafusion_tpu_torch.cluster`, a primary
+   and two standbys, write quorum 2, a write-ahead log each, lease TTL
+   2 s) and two `--cluster` workers on cuda:0.  A coordinator given only
+   `cluster=` finds both and runs Q1 over phase 16's 4 partitions cold
+   and warm (the oracle's rows, each worker's grouped reduces in its
+   `status`); a second coordinator in a fresh context gets the same bits
+   from the shared result tier with no launch on either worker; an
+   invalidation reaches both workers within one heartbeat; `kill -9` of
+   the primary: a standby promotes within one TTL, every write
+   acknowledged under W=2 is there, the membership epoch holds (leases
+   re-armed), the term rises, and Q1 answers; `kill -9` of a worker: its
+   lease lapses, the epoch rises by one, and Q1 answers from the
+   survivor.  `cluster_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -4417,13 +4433,10 @@ def phase_fleet(tdf, cuda_mod, torch, src, cols, dates, smi):
        stream, one stream a worker thread, the two workers' streams
        distinct); the tenants' metered seconds equal the round's
        `device.dispatch` (1e-6); every answer the oracle's and its solo
-       answer's bits.  Printed, not gated: A's metered ms a query under
-       B against alone, and the profiler's device time of the round.
-       A pair spans its pass's host call, and B's Python stretches A's
-       host calls, so A's billed time under B also holds idle stream
-       gaps on either tree (PERF.md §6, ROADMAP queue 3): the card test
-       `test_concurrent_tenant_is_billed_only_its_own_kernels` holds the
-       2x bound and fails until the meter bills device work alone.
+       answer's bits; A's metered ms a query under B within 2x of alone
+       (each served pass's pairs sit behind the meter's host gate,
+       exec/gate.py).  Printed: the profiler's device time of the
+       round.
     2. pin bytes: a Server(workers=2) over the SF-1 lineitem serves Q1;
        the pin's accounted bytes must equal the storage bytes of the
        device tensors cached on its batches (printed beside the host
@@ -4468,8 +4481,10 @@ def phase_fleet(tdf, cuda_mod, torch, src, cols, dates, smi):
     reports = []
 
     # 1. streams
+    forced0 = _counter("meter.gate_forced")
     st = stream_round(tdf, torch, src, cols, dates)
-    rep = {"query": "fleet_streams", **st, "card": card()}
+    rep = {"query": "fleet_streams", **st, "gate_forced": _counter("meter.gate_forced") - forced0,
+           "card": card()}
     log("fleet_streams: " + json.dumps(rep))
     if not st["metered_matches_dispatch"]:
         raise AssertionError(f"fleet streams: metered {st['metered_s']} != the round's "
@@ -4479,9 +4494,13 @@ def phase_fleet(tdf, cuda_mod, torch, src, cols, dates, smi):
             ps["distinct"] != ps["threads"]:
         raise AssertionError(f"fleet streams: served passes' streams {ps}: want one stream "
                              "a worker, none the default stream")
+    if st["a_ratio"] > 2.0:
+        raise AssertionError(f"fleet streams: tenant A billed {st['a_ms_under_b']:.6f} ms a "
+                             f"query under B, {st['a_ratio']:.3f}x its {st['a_ms_alone']:.6f} "
+                             "alone (bound 2x)")
     log(f"streams: {ps['threads']} serving workers on {ps['distinct']} streams; tenant A "
         f"billed {st['a_ms_alone']:.6f} ms a query alone, {st['a_ms_under_b']:.6f} under B's "
-        f"cold scans ({st['a_ratio']:.3f}x, not gated); answers equal their solo bits")
+        f"cold scans ({st['a_ratio']:.3f}x, bound 2x); answers equal their solo bits")
     reports.append(rep)
 
     # 2. pin bytes (the server stays up for step 4's /debug/hbm)
@@ -4678,6 +4697,317 @@ def phase_fleet(tdf, cuda_mod, torch, src, cols, dates, smi):
 
 
 
+CLUSTER_TTL_S = 2.0  # every process of the phase: the lease TTL
+CLUSTER_QUORUM = 2
+CLUSTER_CMD = ("-m", "datafusion_tpu_torch.cluster")
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _start_replicas(addrs, out_dir):
+    """The 3-replica service: `python -m datafusion_tpu_torch.cluster` on
+    `addrs` (the first the primary, the others its standbys), write
+    quorum 2, a write-ahead log each.  One at a time: a replica probes
+    its peers before it serves, and two that start together each wait
+    out the other's probe.  Returns the processes; one that does not
+    come up fails the phase."""
+    import select
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    peers = ",".join(addrs)
+    procs = []
+
+    def start(i):
+        wal = os.path.join(out_dir, f"cluster_wal{i}")
+        shutil.rmtree(wal, ignore_errors=True)
+        env = dict(os.environ, DATAFUSION_TPU_WAL_DIR=wal,
+                   DATAFUSION_TPU_CLUSTER_QUORUM=str(CLUSTER_QUORUM))
+        args = ["--bind", addrs[i], "--peers", peers]
+        if i:
+            args += ["--standby-of", addrs[0], "--rank", str(i - 1)]
+        with open(os.path.join(out_dir, f"cluster{i}.err"), "w") as err:
+            procs.append(subprocess.Popen([sys.executable, *CLUSTER_CMD, *args], cwd=here,
+                                          env=env, stdout=subprocess.PIPE, stderr=err,
+                                          text=True))
+
+    def listening(i):
+        proc = procs[i]
+        ready, _, _ = select.select([proc.stdout], [], [], 180)
+        line = proc.stdout.readline() if ready else ""
+        if "listening on" not in line:
+            raise AssertionError(f"cluster replica {i} did not start: {line!r} "
+                                 f"(see build/chip_smoke/cluster{i}.err)")
+
+    try:
+        for i in range(len(addrs)):
+            start(i)
+            listening(i)
+        return procs
+    except BaseException:
+        _stop_workers([(p, None) for p in procs])
+        raise
+
+
+def _wait(cond, timeout, step=0.02):
+    """Seconds until `cond()` is true, polled every `step`; None past
+    `timeout`."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(step)
+    return None
+
+
+def _status_or_none(client):
+    from datafusion_tpu_torch.errors import ExecutionError
+
+    try:
+        return client.status()
+    except (ConnectionError, OSError, ExecutionError):
+        return None
+
+
+def phase_cluster(tdf, cuda_mod, torch, cols, dates, smi):
+    """The cluster control plane (datafusion_tpu_torch/cluster/) over
+    phase 16's 4 lineitem CSV partitions:
+
+    1. a 3-replica service (a primary and two standbys, write quorum 2,
+       a write-ahead log each) and two `--cluster` workers on cuda:0,
+       every process with a 2 s lease TTL; a coordinator given only
+       `cluster=` finds both workers and runs Q1 cold and warm (its
+       result cache replays the warm run).  Gates: the oracle's rows,
+       both workers launched the grouped reduce (their `status`).
+    2. a second coordinator, a fresh context: Q1 is a shared-tier hit
+       (`CachedResultRelation`, `shared`), the first one's bits, and
+       neither worker launches.
+    3. `broadcast_invalidate("lineitem")`: both workers apply it within
+       one heartbeat (the agent's refresh interval, TTL / 3, plus 0.5 s
+       for the status polls).
+    4. a writer puts keys through the HA client while the primary is
+       `kill -9`ed: a standby promotes within one TTL of the kill, every
+       write acknowledged under W=2 reads back, the membership epoch
+       holds (the workers' leases were re-armed), the term rises by one,
+       and the first coordinator's next Q1 answers the oracle's rows.
+    5. `kill -9` of one worker: its lease lapses (within a TTL and a
+       refresh), the epoch rises by one, and Q1 answers from the
+       survivor.
+    `cluster_*` lines; returns the reports the `kernels` line counts."""
+    import threading
+
+    from datafusion_tpu_torch import cache as qcache
+    from datafusion_tpu_torch.cache.result import CachedResultRelation
+    from datafusion_tpu_torch.cluster import ClusterClient
+    from datafusion_tpu_torch.parallel import DistributedContext, PartitionedDataSource
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    li_parts = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir)
+                      if f.startswith("dist_lineitem_q1_part"))
+    if len(li_parts) != DIST_PARTS:
+        raise AssertionError(f"cluster: phase 16's partitions are missing ({li_parts})")
+    want = q1_oracle(cols, dates)
+    schema = _schema_of(tdf, LINEITEM_Q1_SCHEMA)
+    saved_ttl = os.environ.get("DATAFUSION_TPU_CLUSTER_TTL_S")
+    os.environ["DATAFUSION_TPU_CLUSTER_TTL_S"] = str(CLUSTER_TTL_S)
+    addrs = [f"127.0.0.1:{p}" for p in _free_ports(3)]
+    endpoints = ",".join(addrs)
+    replicas, workers, ctxs = [], [], []
+    steps = {}
+    try:
+        replicas = _start_replicas(addrs, out_dir)
+        workers = _start_workers(2, out_dir, extra=("--cluster", endpoints))
+        worker_addrs = {f"{h}:{p}" for _, (h, p) in workers}
+        client = ClusterClient(endpoints)
+        if _wait(lambda: set(client.membership()["workers"]) >= worker_addrs, 60) is None:
+            raise AssertionError(f"cluster: workers never registered "
+                                 f"({client.membership()['workers']})")
+
+        def coordinator(**kw):
+            ctx = DistributedContext(cluster=endpoints, **kw)
+            ctx.register_datasource("lineitem", PartitionedDataSource(
+                [tdf.CsvDataSource(p, schema) for p in li_parts]))
+            ctxs.append(ctx)
+            return ctx
+
+        # 1. discovery, Q1 cold and warm
+        with qcache.configured(enabled=True):
+            ca = coordinator()
+            found = {f"{w.host}:{w.port}" for w in ca.workers}
+            if found != worker_addrs:
+                raise AssertionError(f"cluster: the coordinator found {found}, "
+                                     f"want {worker_addrs}")
+            cold, cold_ms, _, delta, _ = _dist_run(tdf, torch, ca, Q1, cuda_mod)
+            assert_rows(cold, want, "cluster Q1 cold")
+            launches = _sum_kernels(delta)
+            per_worker = {a: k.get("hash_agg", 0) for a, (k, _) in delta.items()}
+            if len(per_worker) != 2 or min(per_worker.values()) < 1:
+                raise AssertionError(f"cluster: grouped-reduce launches a worker {per_worker}")
+            warm, warm_ms, _, wdelta, _ = _dist_run(tdf, torch, ca, Q1, cuda_mod)
+            assert_same_bits(warm, cold, "cluster Q1 warm", key_cols=2)
+            steps["q1"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                           "warm_worker_launches": _sum_kernels(wdelta)}
+            if not ca._shared_tier.flush(timeout_s=30.0):
+                raise AssertionError("cluster: the shared tier did not publish Q1")
+
+            # 2. a second coordinator: the shared tier's hit
+            cb = coordinator()
+            before = _worker_counts(cb)
+            t0 = time.perf_counter()
+            rel = cb.sql(Q1)
+            hit = tdf.collect(rel)
+            hit_ms = (time.perf_counter() - t0) * 1e3
+            hdelta = _counts_delta(before, _worker_counts(cb))
+        if not isinstance(rel, CachedResultRelation) or not rel.entry.shared:
+            raise AssertionError(f"cluster: the second coordinator ran {type(rel).__name__}, "
+                                 "not a shared-tier hit")
+        assert_same_bits(hit, cold, "cluster shared-tier hit", key_cols=2)
+        if any(_sum_kernels(hdelta).values()):
+            raise AssertionError(f"cluster: the shared-tier hit launched {hdelta}")
+        steps["shared_hit"] = {"ms": hit_ms, "worker_launches": _sum_kernels(hdelta),
+                               "shared_hits": cb.result_cache.stats()["shared_hits"]}
+
+        # 3. the invalidation broadcast reaches both workers
+        def applied():
+            st = ca.worker_status()
+            return {a: (s or {}).get("cluster", {}).get("events_applied", 0)
+                    for a, s in st.items()}
+
+        base = applied()
+        refresh_s = CLUSTER_TTL_S / 3.0
+        t0 = time.perf_counter()
+        ca.broadcast_invalidate("lineitem")
+        inv_s = _wait(lambda: all(v > base.get(a, 0) for a, v in applied().items()),
+                      10 * refresh_s, step=0.01)
+        steps["invalidate"] = {"seconds": inv_s, "heartbeat_s": refresh_s}
+        if inv_s is None or inv_s > refresh_s + 0.5:
+            raise AssertionError(f"cluster: the invalidation took {inv_s} s to reach both "
+                                 f"workers (heartbeat {refresh_s:.3f} s)")
+
+        # 4. kill -9 the primary under quorum writes
+        st0 = client.status()
+        epoch0, term0 = st0["epoch"], st0["term"]
+        acked, stop = {}, threading.Event()
+
+        def writer():
+            i = 0
+            while not stop.is_set():
+                key, value = f"smoke/kv/{i}", {"i": i}
+                try:
+                    client.put(key, value)
+                    acked[key] = value
+                except Exception:  # noqa: BLE001 — an unacknowledged write owes nothing
+                    pass
+                i += 1
+                time.sleep(0.005)
+
+        th = threading.Thread(target=writer)
+        th.start()
+        time.sleep(0.5)
+        replicas[0].kill()
+        replicas[0].wait(timeout=30)
+        t_kill = time.perf_counter()
+        standbys = [ClusterClient(a) for a in addrs[1:]]
+
+        def promoted():
+            return any((_status_or_none(c) or {}).get("role") == "primary" for c in standbys)
+
+        takeover_s = _wait(promoted, 10 * CLUSTER_TTL_S)
+
+        def terms():
+            return [(s or {}).get("cluster", {}).get("term")
+                    for s in ca.worker_status().values()]
+
+        # both workers heartbeat to the new primary (their agents saw the
+        # new term) before the epoch is read: a lease that lapsed in the
+        # takeover would have moved it by then
+        rejoin_s = _wait(lambda: all(t == term0 + 1 for t in terms()), 5 * CLUSTER_TTL_S,
+                         step=0.05)
+        stop.set()
+        th.join(timeout=60)
+        st1 = next(s for s in map(_status_or_none, standbys)
+                   if s is not None and s.get("role") == "primary")
+        lost = [k for k, v in acked.items() if client.get(k) != v]
+        after_kill = coordinator(result_cache=False)
+        table, q1_after_ms, _, adelta, _ = _dist_run(tdf, torch, after_kill, Q1, cuda_mod)
+        assert_rows(table, want, "cluster Q1 after the primary's kill")
+        steps["failover"] = {"takeover_s": takeover_s, "workers_on_new_term_s": rejoin_s,
+                             "acked_writes": len(acked),
+                             "lost_writes": len(lost), "epoch": [epoch0, st1["epoch"]],
+                             "term": [term0, st1["term"]], "q1_ms": q1_after_ms,
+                             "worker_launches": _sum_kernels(adelta)}
+        if takeover_s is None or takeover_s > CLUSTER_TTL_S:
+            raise AssertionError(f"cluster: takeover in {takeover_s} s (TTL {CLUSTER_TTL_S})")
+        if lost or len(acked) < 20:
+            raise AssertionError(f"cluster: {len(lost)} of {len(acked)} acknowledged writes "
+                                 "lost in the failover")
+        if st1["epoch"] != epoch0 or st1["term"] != term0 + 1:
+            raise AssertionError(f"cluster: epoch {epoch0} -> {st1['epoch']}, term {term0} -> "
+                                 f"{st1['term']} across the failover")
+
+        # 5. kill -9 a worker: its lease lapses
+        (victim, vaddr), (_, survivor) = workers
+        vkey = f"{vaddr[0]}:{vaddr[1]}"
+        epoch1 = client.membership()["epoch"]
+        victim.kill()
+        victim.wait(timeout=30)
+        lapse_s = _wait(lambda: vkey not in client.membership()["workers"],
+                        4 * CLUSTER_TTL_S, step=0.05)
+        epoch2 = client.membership()["epoch"]
+        table, q1_survivor_ms, _, sdelta, _ = _dist_run(tdf, torch, after_kill, Q1, cuda_mod)
+        assert_rows(table, want, "cluster Q1 on the survivor")
+        skey = f"{survivor[0]}:{survivor[1]}"
+        steps["worker_kill"] = {"lapse_s": lapse_s, "epoch": [epoch1, epoch2],
+                                "q1_ms": q1_survivor_ms,
+                                "worker_launches": {a: k for a, (k, _) in sdelta.items()}}
+        if lapse_s is None or lapse_s > CLUSTER_TTL_S + CLUSTER_TTL_S / 3.0 + 0.5:
+            raise AssertionError(f"cluster: the killed worker's lease lapsed after {lapse_s} s")
+        if epoch2 != epoch1 + 1:
+            churn = [e for e in client.events_since(0)["events"]
+                     if e["kind"] in ("join", "leave")]
+            raise AssertionError(f"cluster: epoch {epoch1} -> {epoch2} after a worker's "
+                                 f"death (membership events {churn})")
+        if set(sdelta) != {skey} or not sdelta[skey][0].get("hash_agg"):
+            raise AssertionError(f"cluster: Q1 after the worker's death ran on {sdelta}")
+    finally:
+        for ctx in ctxs:
+            ctx.close()
+        _stop_workers(workers)
+        _stop_workers([(p, None) for p in replicas])
+        if saved_ttl is None:
+            os.environ.pop("DATAFUSION_TPU_CLUSTER_TTL_S", None)
+        else:
+            os.environ["DATAFUSION_TPU_CLUSTER_TTL_S"] = saved_ttl
+    total = {k: launches.get(k, 0) + steps["failover"]["worker_launches"].get(k, 0)
+             + sum(w.get(k, 0) for w in steps["worker_kill"]["worker_launches"].values())
+             for k in ("hash_agg", "hash_build", "sort_kernel")}
+    rep = {"query": "cluster", "replicas": len(addrs), "ttl_s": CLUSTER_TTL_S,
+           "write_quorum": CLUSTER_QUORUM, "cold_worker_launches": per_worker, **steps,
+           "launches": total, "card": card()}
+    log("cluster_q1: " + json.dumps({"cold_ms": steps["q1"]["cold_ms"],
+                                     "warm_ms": steps["q1"]["warm_ms"],
+                                     "per_worker_hash_agg": per_worker}))
+    log("cluster_shared_hit: " + json.dumps(steps["shared_hit"]))
+    log("cluster_invalidate: " + json.dumps(steps["invalidate"]))
+    log("cluster_failover: " + json.dumps(steps["failover"]))
+    log("cluster_worker_kill: " + json.dumps(steps["worker_kill"]))
+    log("cluster: " + json.dumps(rep))
+    log(f"cluster_phase: {time.perf_counter() - t_phase:.3f} s ({smi})")
+    return [rep]
+
+
 def _counts():
     from datafusion_tpu_torch.utils.metrics import METRICS
 
@@ -4792,6 +5122,7 @@ def main() -> int:
     reports += phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star_cols, smi)
     fleet_reports = phase_fleet(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
     reports += fleet_reports
+    reports += phase_cluster(tdf, cuda_mod, torch, li_cols, dates, smi)
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)

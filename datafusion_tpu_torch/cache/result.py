@@ -27,17 +27,22 @@ from datafusion_tpu_torch.utils.metrics import METRICS
 
 
 class CachedResult:
-    """One query's materialized result, as stored in the cache."""
+    """One query's materialized result, as stored in the cache.
+    `shared` marks snapshots that arrived via the cluster's shared
+    result tier (cluster/shared_cache.py) rather than a local fill:
+    surfaced in EXPLAIN ANALYZE and used to suppress re-publication."""
 
-    __slots__ = ("columns", "validity", "dict_values", "num_rows", "nbytes")
+    __slots__ = ("columns", "validity", "dict_values", "num_rows", "nbytes",
+                 "shared")
 
     def __init__(self, columns, validity, dict_values, num_rows: int,
-                 nbytes: int):
+                 nbytes: int, shared: bool = False):
         self.columns = columns
         self.validity = validity
         self.dict_values = dict_values
         self.num_rows = num_rows
         self.nbytes = nbytes
+        self.shared = shared
 
 
 def _snapshot_nbytes(columns, validity, dicts) -> int:
@@ -94,7 +99,8 @@ class CachedResultRelation(Relation):
     """Relation replaying a cached result as bucketed host batches.
 
     Shows up in EXPLAIN ANALYZE as `CachedResult[...]` with
-    `cache.hit=True` / `cache.bytes=...` operator attributes; pulling its
+    `cache.hit=True` / `cache.bytes=...` operator attributes (plus
+    `cache.shared=True` for shared-tier snapshots); pulling its
     batches touches no datasource or device.
 
     Replay is chunked: rows stream out in `batch_size`-row batches
@@ -129,6 +135,8 @@ class CachedResultRelation(Relation):
                 "cache.hit": True,
                 "cache.bytes": self.entry.nbytes,
             })
+            if self.entry.shared:
+                st.attrs["cache.shared"] = True
         return st
 
     def op_name(self) -> str:

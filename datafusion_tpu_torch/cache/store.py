@@ -1,7 +1,4 @@
-"""Byte-accounted LRU+TTL cache store (the JAX package's
-`cache/store.py`, less its cluster hooks: the shared tier, `peek`,
-`export_entries` and `tags` wait for the control plane, ROADMAP queue 1
-item 13.2 part 2).
+"""Byte-accounted LRU+TTL cache store (the JAX package's `cache/store.py`).
 
 One `CacheStore` backs each cache in the subsystem (the coordinator's
 result cache, a worker's fragment cache).  Entries are keyed by a
@@ -53,6 +50,13 @@ class CacheStore:
         self.max_bytes = int(max_bytes)
         self.ttl_s = ttl_s if ttl_s else None  # 0/None = entries never age out
         self.name = name
+        # pluggable shared tier (cluster/shared_cache.py): an object with
+        # `load(key) -> (value, nbytes, tags) | None` (read-through on a
+        # local miss) and `store(key, value, nbytes, tags)` (write-behind
+        # after a local fill; must not block).  None = single-tier store,
+        # and the only overhead is one attribute test on the miss path.
+        self.shared = None
+        self.shared_hits = 0
         self._lock = lockcheck.make_lock(f"cache.store:{name}")
         self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         self._tags: dict[str, set[str]] = {}
@@ -85,7 +89,10 @@ class CacheStore:
     # -- API --
     def get(self, key: str) -> Optional[Any]:
         """Value for `key`, or None (missing / expired).  A hit moves
-        the entry to MRU."""
+        the entry to MRU.  On a local miss a configured shared tier is
+        consulted (read-through): a tier hit installs locally — without
+        re-publishing — and serves; `misses` still counts the local
+        miss, `shared_hits` counts the rescue."""
         now = time.monotonic()
         with self._lock:
             entry = self._entries.get(key)
@@ -99,17 +106,29 @@ class CacheStore:
             if entry is None:
                 self.misses += 1
                 self._count("misses")
-                return None
-            self._entries.move_to_end(key)
-            self.hits += 1
-            self._count("hits")
-            return entry.value
+            else:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                self._count("hits")
+                return entry.value
+        if self.shared is not None:  # outside the lock: a network call
+            loaded = self.shared.load(key)
+            if loaded is not None:
+                value, nbytes, tags = loaded
+                self.put(key, value, nbytes, tags=tags, propagate=False)
+                self.shared_hits += 1
+                self._count("shared_hits")
+                return value
+        return None
 
     def put(self, key: str, value: Any, nbytes: int,
-            tags: Iterable[str] = ()) -> bool:
+            tags: Iterable[str] = (), propagate: bool = True) -> bool:
         """Insert (or replace) `key`.  Returns False when the value
         alone exceeds the byte budget (the entry is not stored — one
-        giant result must not wipe the whole cache)."""
+        giant result must not wipe the whole cache).  With a shared
+        tier configured, a local fill also publishes there
+        (write-behind, never blocking); `propagate=False` suppresses
+        the echo for read-through installs."""
         nbytes = int(nbytes)
         if nbytes > self.max_bytes:
             with self._lock:
@@ -131,7 +150,34 @@ class CacheStore:
             while self._bytes > self.max_bytes:
                 self._evict_lru()
         self._count("inserts")
+        if propagate and self.shared is not None:
+            self.shared.store(key, value, nbytes, tags)
         return True
+
+    def peek(self, key: str) -> Optional[Any]:
+        """Value for `key` without touching hit/miss counters, LRU
+        order, or the shared tier — replication reads (the cluster
+        service attaching result values to a log-shipping response)
+        must not skew the cache's own statistics."""
+        now = time.monotonic()
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None or (entry.expires is not None
+                                 and now >= entry.expires):
+                return None
+            return entry.value
+
+    def export_entries(self) -> list:
+        """Snapshot of every live entry as (key, value, nbytes, tags)
+        tuples, MRU last — the cluster service's full-state snapshot
+        uses this to ship the result tier to a catching-up standby."""
+        now = time.monotonic()
+        with self._lock:
+            return [
+                (k, e.value, e.nbytes, e.tags)
+                for k, e in self._entries.items()
+                if e.expires is None or now < e.expires
+            ]
 
     def invalidate(self, key: str) -> bool:
         with self._lock:
@@ -172,6 +218,13 @@ class CacheStore:
     def entries(self) -> int:
         return len(self._entries)
 
+    def tags(self) -> set[str]:
+        """The live tag vocabulary (table names, for the fragment and
+        result stores) — pin advertisement (cluster/agent.py) folds it
+        into the worker's lease value under QoS."""
+        with self._lock:
+            return set(self._tags)
+
     def stats(self) -> dict:
         """Snapshot for status endpoints / smoke assertions."""
         with self._lock:
@@ -186,6 +239,8 @@ class CacheStore:
                 "evictions": self.evictions,
                 "invalidations": self.invalidations,
                 "rejected": self.rejected,
+                "shared_hits": self.shared_hits,
+                "shared_tier": self.shared is not None,
             }
 
     def gauges(self, prefix: Optional[str] = None) -> dict:

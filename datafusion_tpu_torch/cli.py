@@ -7,7 +7,9 @@ rows, EXPLAIN / EXPLAIN VERIFY plans, EXPLAIN ANALYZE reports (also as
 `\\explain <sql>`), the device ledger's report (`\\hbm`), the result
 cache's counters and per-query history (`\\cache`), the cost store's
 observations, decisions and replans (`\\cost`), the ingest plane's
-tables, views and log (`\\ingest`), one logged append
+tables, views and log (`\\ingest`), the cluster control plane's
+membership, replication and shared result tier (`\\cluster`), one
+logged append
 (`\\append <table> {"col": [values], ...}`), and the
 `ST_Point`/`ST_AsText` geo UDFs the reference's golden smoketest expects
 (`test/data/smoketest.sql`, `test/data/smoketest-expected.txt`).
@@ -15,17 +17,20 @@ tables, views and log (`\\ingest`), one logged append
 Run: ``python -m datafusion_tpu_torch.cli [--script FILE] [--device cpu]``
 
 The fleet view (`\\top`, and the `top` mode: ``top [--workers
-h:p,...] [--tenants] [--qos] [--watch N]``) renders this process's
-telemetry, or with `--workers` a fleet's through a `DistributedContext`
-(obs/aggregate.FleetAggregator).  The `debug-bundle` mode (``debug-bundle
-[--workers h:debugport,...] [--out DIR] [--seconds N] [--format
-json|tar]``) pulls one debug bundle from each worker's debug HTTP plane
-(obs/httpd.py), or bundles this process when no worker is named.
+h:p,... | --cluster h:p] [--tenants] [--qos] [--watch N]``) renders this
+process's telemetry, or with `--workers` or `--cluster` a fleet's through
+a `DistributedContext` (obs/aggregate.FleetAggregator; with `--cluster`
+one service round trip reads every worker's heartbeat telemetry).  The
+`debug-bundle` mode (``debug-bundle [--workers h:debugport,... |
+--cluster h:p] [--out DIR] [--seconds N] [--format json|tar]``) pulls
+one debug bundle from each worker's debug HTTP plane (obs/httpd.py),
+found through the cluster's membership with `--cluster` (a member whose
+lease advertises no debug port counts as a failure), or bundles this
+process when no worker is named.  ``DATAFUSION_TPU_CLUSTER`` stands in
+for `--cluster`.
 
 The console runs on `cuda:0` unless `--device` names another device
-(`cpu` only when asked).  `\\cluster` and `--cluster` need the cluster
-control plane, which is not ported yet: each prints an error naming its
-ROADMAP item, and the console carries on.
+(`cpu` only when asked).
 """
 
 from __future__ import annotations
@@ -38,18 +43,6 @@ from typing import Optional
 import numpy as np
 
 from datafusion_tpu_torch.sql.parser import split_statements, split_statements_partial
-
-# console commands and modes that wait for an unported plane, with the
-# ROADMAP item that ports it
-_UNPORTED = {
-    "\\cluster": "the cluster control plane, ROADMAP queue 1 item 13.2 part 2",
-    "--cluster": "the cluster control plane, ROADMAP queue 1 item 13.2 part 2",
-}
-
-
-def _not_ported(name: str) -> str:
-    return f"Error: {name} is not ported yet ({_UNPORTED[name]})"
-
 
 def _fmt_float(v: float) -> str:
     """Shortest round-trip decimal (matches the golden output's
@@ -100,19 +93,24 @@ def _addrs(workers: Optional[str]) -> list[tuple[str, int]]:
 
 
 def run_top(workers: Optional[str], watch_s: float, out=None, tenants: bool = False,
-            qos: bool = False, device: Optional[str] = None) -> int:
-    """``top [--workers a:1,b:2] [--watch N] [--tenants] [--qos]``: print
-    the telemetry view once, or every N seconds until interrupted.
-    `--tenants` appends the per-client metering table (the fleet's
-    summed tenant gauges with `--workers`), `--qos` the fair-share
-    view.  With `--workers` the coordinator context runs on `device`
+            qos: bool = False, device: Optional[str] = None,
+            cluster: Optional[str] = None) -> int:
+    """``top [--workers a:1,b:2 | --cluster h:p] [--watch N] [--tenants]
+    [--qos]``: print the telemetry view once, or every N seconds until
+    interrupted.  `--tenants` appends the per-client metering table (the
+    fleet's summed tenant gauges with a fleet), `--qos` the fair-share
+    view.  With a fleet the coordinator context runs on `device`
     (``cuda:0`` unless it says otherwise), as every context does."""
+    import os
+
     out = out if out is not None else sys.stdout
     ctx = None
-    if workers:
+    cluster = cluster or os.environ.get("DATAFUSION_TPU_CLUSTER")
+    if workers or cluster:
         from datafusion_tpu_torch.parallel.coordinator import DistributedContext
 
-        ctx = DistributedContext(_addrs(workers), device=device, result_cache=False)
+        ctx = DistributedContext(_addrs(workers), device=device, result_cache=False,
+                                 cluster=cluster)
     try:
         while True:
             print(fleet_top_text(ctx), file=out)
@@ -139,13 +137,15 @@ def run_top(workers: Optional[str], watch_s: float, out=None, tenants: bool = Fa
 
 
 def run_debug_bundle(workers: Optional[str], out_dir: Optional[str], seconds: float,
-                     out=None, fmt: str = "json") -> int:
-    """``debug-bundle [--workers h:debugport,...] [--out DIR] [--seconds N]
-    [--format json|tar]``: pull one debug bundle (obs/httpd.py
-    ``/debug/bundle``) from each named debug plane and write them under
-    DIR; ``--format tar`` pulls the tar stream whose members carry the
-    raw ring, spans and profile.  With no worker, bundles this process.
-    Exits non-zero if any member failed to produce its bundle."""
+                     out=None, fmt: str = "json", cluster: Optional[str] = None) -> int:
+    """``debug-bundle [--workers h:debugport,... | --cluster h:p] [--out
+    DIR] [--seconds N] [--format json|tar]``: pull one debug bundle
+    (obs/httpd.py ``/debug/bundle``) from each named debug plane, or from
+    each live cluster member's advertised one, and write them under DIR;
+    ``--format tar`` pulls the tar stream whose members carry the raw
+    ring, spans and profile.  With no worker, bundles this process.
+    Exits non-zero if any member failed to produce its bundle (a member
+    with no advertised debug port counts)."""
     import json
     import os
     import tempfile
@@ -153,7 +153,17 @@ def run_debug_bundle(workers: Optional[str], out_dir: Optional[str], seconds: fl
 
     out = out if out is not None else sys.stdout
     tar = fmt == "tar"
-    targets = [(f"{h}:{p}", f"http://{h}:{p}/debug/bundle") for h, p in _addrs(workers)]
+    cluster = cluster or os.environ.get("DATAFUSION_TPU_CLUSTER")
+    targets: list = [(f"{h}:{p}", f"http://{h}:{p}/debug/bundle")
+                     for h, p in _addrs(workers)]
+    if not workers and cluster:
+        from datafusion_tpu_torch.cluster import connect
+
+        status = connect(cluster).status()
+        for addr, info in sorted(status.get("workers", {}).items()):
+            dport = (info or {}).get("debug_port")
+            host = addr.rpartition(":")[0]
+            targets.append((addr, f"http://{host}:{dport}/debug/bundle" if dport else None))
     if out_dir is None:
         out_dir = tempfile.mkdtemp(prefix="datafusion_tpu_bundles_")
     os.makedirs(out_dir, exist_ok=True)
@@ -217,6 +227,11 @@ def run_debug_bundle(workers: Optional[str], out_dir: Optional[str], seconds: fl
     if token:
         headers["Authorization"] = f"Bearer {token}"
     for member, url in targets:
+        if url is None:
+            print(f"{member}: NO debug port advertised in its lease (start the "
+                  "worker with --http-port / DATAFUSION_TPU_DEBUG_PORT)", file=out)
+            failures += 1
+            continue
         try:
             req = urllib.request.Request(f"{url}?seconds={seconds:g}"
                                          + ("&format=tar" if tar else ""), headers=headers)
@@ -329,15 +344,64 @@ class Console:
             # recent planner decisions and replans
             self._cost_status()
             return True
+        if cmd == "\\cluster":
+            # the cluster control plane (cluster/): membership epoch,
+            # live workers and their lease ages, replication, the
+            # shared result tier
+            self._cluster_status()
+            return True
         if cmd.startswith("\\append"):
             # \append <table> {"col": [v, ...], ...}: one logged delta
             self._append(stripped[len("\\append"):].strip())
             return True
-        name = cmd.split(None, 1)[0] if cmd else ""
-        if name in _UNPORTED and name.startswith("\\"):
-            self._print(_not_ported(name))
-            return True
         return False
+
+    def _cluster_status(self) -> None:
+        import os
+
+        client = getattr(self.ctx, "cluster", None)
+        target = os.environ.get("DATAFUSION_TPU_CLUSTER")
+        if client is None and not target:
+            self._print("Cluster mode is off (no DATAFUSION_TPU_CLUSTER and the "
+                        "context has no cluster client).")
+            return
+        from datafusion_tpu_torch.errors import ExecutionError
+
+        try:
+            if client is None:
+                from datafusion_tpu_torch.cluster import connect
+
+                client = connect(target)
+            status = client.status()
+        except (ConnectionError, OSError, ExecutionError) as e:
+            # an error reply from the service is reported, not fatal
+            self._print(f"Cluster service unreachable: {e}")
+            return
+        self._print(f"Cluster epoch {status['epoch']} (rev {status['rev']}), "
+                    f"{len(status['workers'])} live worker(s), "
+                    f"service up {status['uptime_s']}s")
+        if "role" in status:
+            lag = status.get("replication_lag_revisions", 0)
+            self._print(f"Replica role {status['role']}, term {status.get('term')}, "
+                        f"replication lag {lag} revision(s)"
+                        + (f", standby of {status['standby_of']}"
+                           if status.get("standby_of") else ""))
+            if status.get("replica_set_size", 1) > 1 or status.get("write_quorum", 1) > 1:
+                self._print(f"Replica set: {status.get('replica_set_size', 1)} node(s), "
+                            f"write quorum {status.get('write_quorum', 1)}, succession "
+                            f"rank {status.get('rank', 0)}, "
+                            f"{status.get('parked_watchers', 0)} parked watch(es)")
+        for addr, info in sorted(status["workers"].items()):
+            self._print(f"  worker {addr}: lease age {info.get('lease_age_s')}s")
+        r = status["results"]
+        self._print(f"Shared result tier: {r['entries']} entries, "
+                    f"{r['bytes']}/{r['max_bytes']} bytes, {r['hits']} hits, "
+                    f"{r['misses']} misses, {r['invalidations']} invalidations")
+        membership = getattr(self.ctx, "membership", None)
+        if membership is not None:
+            lag = membership.watch_lag_s
+            self._print(f"This coordinator: epoch {membership.epoch}, watch lag "
+                        f"{'never refreshed' if lag is None else f'{lag:.3f}s'}")
 
     def _cost_status(self) -> None:
         from datafusion_tpu_torch import cost as _cost
@@ -585,11 +649,14 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--workers", default=None,
         help="top mode: worker addresses host:port to aggregate; debug-bundle "
-             "mode: host:port of the workers' DEBUG HTTP planes",
+             "mode: host:port of the workers' DEBUG HTTP planes (default: "
+             "discover them through --cluster)",
     )
     parser.add_argument(
         "--cluster", default=None,
-        help="top / debug-bundle mode: a cluster service (not ported yet)",
+        help="top / debug-bundle mode: cluster service address host:port "
+             "(default: env DATAFUSION_TPU_CLUSTER); the fleet is its live "
+             "members",
     )
     parser.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
                         help="top mode: refresh every N seconds until interrupted")
@@ -608,20 +675,22 @@ def main(argv=None) -> int:
                              "members instead of one JSON document each")
     args = parser.parse_args(argv)
 
-    if args.cluster is not None:
-        print(_not_ported("--cluster"))
-        return 1
     from datafusion_tpu_torch.errors import ExecutionError
 
     if args.mode == "top":
         try:
             return run_top(args.workers, args.watch, tenants=args.tenants, qos=args.qos,
-                           device=args.device)
+                           device=args.device, cluster=args.cluster)
         except ExecutionError as e:
             print(f"Error: {e}", file=sys.stderr)
             return 1
     if args.mode == "debug-bundle":
-        return run_debug_bundle(args.workers, args.out, args.seconds, fmt=args.format)
+        try:
+            return run_debug_bundle(args.workers, args.out, args.seconds, fmt=args.format,
+                                    cluster=args.cluster)
+        except (ConnectionError, OSError, ExecutionError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
 
     try:
         ctx = make_context(args.device, args.batch_size)

@@ -109,6 +109,7 @@ from datafusion_tpu_torch.exec.batch import (
 from datafusion_tpu_torch.exec.cuda import agg_max_groups, hash_agg, sort_kernel
 from datafusion_tpu_torch.exec.expression import Env, ExprCompiler, compute_aux_values
 from datafusion_tpu_torch.exec.fused import fuse_group_max, fusion_enabled, iter_groups
+from datafusion_tpu_torch.exec.gate import host_wait
 from datafusion_tpu_torch.exec.prefetch import pipeline_enabled, staged_pipeline
 from datafusion_tpu_torch.exec.relation import Relation
 from datafusion_tpu_torch.exec.streams import publish, shared
@@ -996,7 +997,8 @@ class _AggregateCore:
         skeys = torch.index_select(keys, 0, perm)
         left = torch.searchsorted(skeys, groups)
         right = torch.searchsorted(skeys, groups, right=True)
-        span, live_end = torch.stack([(right - left).max(), right[-1]]).tolist()
+        with host_wait():
+            span, live_end = torch.stack([(right - left).max(), right[-1]]).tolist()
         perm = perm[:live_end]
         heads = perm < G
 
@@ -1205,9 +1207,10 @@ class AggregateRelation(Relation):
         # reduce only queues its work, a sort-merge pass reads its runs
         # back, so their host walls are not comparable.  A pass under
         # `MIN_ROUTE_ROWS` rows is launch overhead and is not timed, nor
-        # is a served one (under a charge scope): its pair also holds
-        # the stream's idle gaps while other clients' threads run, up to
-        # 10x the pass's device time on the card (ROADMAP queue 3)
+        # is a served one (under a charge scope): this pair sits outside
+        # the meter's host gate (exec/gate.py), so it also holds the
+        # stream's idle gaps while other clients' threads run, up to 10x
+        # the pass's device time on the card
         min_rows = None
         if (device.type == "cuda" and _cost_enabled()
                 and threading.get_ident() not in CLIENT_SCOPES):

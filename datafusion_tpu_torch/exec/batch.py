@@ -46,6 +46,7 @@ import torch
 
 from datafusion_tpu_torch.datatypes import Schema
 from datafusion_tpu_torch.errors import ExecutionError
+from datafusion_tpu_torch.exec.gate import host_wait
 from datafusion_tpu_torch.exec.streams import publish, shared
 from datafusion_tpu_torch.obs.device import LEDGER, note_h2d, profile_sync_active, record_d2h
 from datafusion_tpu_torch.utils.metrics import METRICS, stage_enter, stage_exit
@@ -734,7 +735,8 @@ def device_pull(tensors) -> list:
             host = blob.numpy()
         else:
             buf = torch.empty(blob.numel(), dtype=torch.uint8, pin_memory=True)
-            buf.copy_(blob)
+            with host_wait():
+                buf.copy_(blob)
             host = buf.numpy()
         out = []
         off = 0
@@ -788,7 +790,8 @@ def to_host(x, np_dtype=None) -> np.ndarray:
         tok = stage_enter("d2h.wait")
         t0 = time.perf_counter()
         try:
-            out = x.cpu().numpy()
+            with host_wait():
+                out = x.cpu().numpy()
         finally:
             stage_exit(tok)
         record_d2h(out.nbytes, time.perf_counter() - t0)

@@ -39,10 +39,10 @@ Catalog versions and the result cache (the JAX package's
 catalog version and drops the cached results tagged with it, and every
 UDF registration bumps the functions version.  `query_fingerprint`
 folds the plan's wire JSON, each scanned table's catalog version, its
-source's `data_version` and `data_identity` (a file's size and
-modification time; an appendable table's append count), the device, the
-batch size and the functions version into one digest.  `execute` is the
-root-level cache seam: with a result cache (`result_cache=None` takes
+source's `data_version` and its files' versions (path, size and
+modification time; a source with no file form: its `data_identity`),
+the device, the batch size and the functions version into one digest.
+`execute` is the root-level cache seam: with a result cache (`result_cache=None` takes
 `cache.make_store("result")`, on unless `DATAFUSION_TPU_CACHE=0`; False
 turns it off; or a `cache.CacheStore`) a plan whose fingerprint is cached
 replays its host batches (`cache/result.CachedResultRelation`, no source
@@ -481,11 +481,16 @@ class ExecutionContext:
     def query_fingerprint(self, plan: LogicalPlan) -> str:
         """Canonical identity of `plan`'s result under this context's
         catalog state: the plan's wire JSON, each scanned table's
-        catalog version, its source's data version and data identity
-        (an externally rewritten file or a grown table must not serve
-        stale rows), the device, the batch size and the functions
-        version."""
+        catalog version, its source's data version and its files'
+        versions (path, size and modification time: an externally
+        rewritten file or a grown table must not serve stale rows), or,
+        for a source with no file form, its data identity; the device,
+        the batch size and the functions version.  A file-backed
+        table's fingerprint is the same in every context and process
+        that registers those files, so coordinators share results
+        through the cluster's result tier."""
         from datafusion_tpu_torch.cache import plan_fingerprint
+        from datafusion_tpu_torch.cache.fingerprint import source_version
 
         versions: dict[str, list] = {}
         for t in scan_tables(plan):
@@ -495,7 +500,10 @@ class ExecutionContext:
                 dv = getattr(ds, "data_version", None)
                 if dv is not None:
                     entry.append(["data", int(dv)])
-                entry.append(repr(ds.data_identity))
+                try:
+                    entry.append(source_version(ds.to_meta()))
+                except PlanError:
+                    entry.append(repr(ds.data_identity))
             versions[t] = entry
         return plan_fingerprint(plan, versions, extra={
             "device": str(self.device),

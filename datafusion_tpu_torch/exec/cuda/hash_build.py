@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from datafusion_tpu_torch.errors import ExecutionError
+from datafusion_tpu_torch.exec.gate import host_wait
 
 LAUNCHES = 0
 
@@ -128,4 +129,5 @@ def build_slot_table(pos, live, num_slots: int):
     if pos.device.type != "cuda":
         raise ExecutionError(f"build_slot_table runs on cuda or cpu, not {pos.device}")
     row, count, dup = _launch(pos, live, num_slots)
-    return row, count, bool(dup.item())
+    with host_wait():
+        return row, count, bool(dup.item())

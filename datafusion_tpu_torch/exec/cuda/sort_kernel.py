@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from datafusion_tpu_torch.errors import ExecutionError
+from datafusion_tpu_torch.exec.gate import host_wait
 
 LAUNCHES = 0
 
@@ -140,7 +141,9 @@ def _launch(ops):
     idx_b = torch.empty_like(idx_a)
     status = torch.empty(-(-n // TILE) * RADIX + 1, dtype=torch.int64, device=dev)
     # the largest bucket of each digit, k x 8 ints, is all the host reads
-    masks = [digit_mask(tops, n) for tops in hist.amax(dim=2).cpu().tolist()]
+    with host_wait():
+        tops_all = hist.amax(dim=2).cpu().tolist()
+    masks = [digit_mask(tops, n) for tops in tops_all]
     in_b = ctypes.c_int(0)
     perm = None
     for i in reversed(range(k)):

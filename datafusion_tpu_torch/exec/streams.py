@@ -8,9 +8,9 @@ inside the pair and was billed to the wrong tenant.  `serving_scope`
 enters the thread's own stream (created once per thread and device, on
 first use, and kept in a thread-local), so a pair times that worker's
 work alone.  Creating the stream raises where it fails: nothing falls
-back to the default stream.  (A pair also spans the stream's idle gaps
-while its host thread enqueues, which another worker's Python can
-stretch: ROADMAP queue 3.)
+back to the default stream.  The pass's pairs sit behind a host gate
+on that stream (exec/gate.py), so they hold no idle gap while the host
+thread enqueues.
 
 Device values that outlive a query are read by whichever worker scans
 them next, on another stream: a pinned table's cached copies, its

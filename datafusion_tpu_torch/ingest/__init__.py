@@ -33,9 +33,11 @@ The counterpart of the JAX package's `ingest/`:
 - **Subscriptions and freshness.**  `wait_for` parks on a view
   revision; `freshness_lags` and `max_freshness_lag` are the seam the
   freshness SLO reads (obs/slo.py), and `debug_snapshot` is the
-  ``/debug/ingest`` document.  The cluster KV hook of `_post_apply`
-  (the JAX package's ``views/<name>`` events for remote watchers) waits
-  for the control plane, ROADMAP queue 1 item 13.2 part 2.
+  ``/debug/ingest`` document.  With a cluster client attached
+  (`IngestContext.cluster`), each applied append also drops the table's
+  shared-tier results fleet-wide (``invalidate``) and advances each
+  affected view's ``views/<name>`` key (``view_advance``), whose watch
+  events reach remote watchers.
 
 Exactness contract of a view, against a rescan of the defining query:
 
@@ -545,6 +547,9 @@ class IngestContext:
         # post-apply hooks: (table, batch) -> None, called OUTSIDE the
         # lock (the serving layer refreshes its pin accounting here)
         self.on_applied: list[Callable] = []
+        # a cluster client (cluster/) whose `invalidate(table)` and
+        # `view_advance(name, rev)` each applied append calls
+        self.cluster = None
         self._wal = None
         self._rev = 0
         self.recovery: dict = {}
@@ -629,7 +634,7 @@ class IngestContext:
             self._rev = rev
             views = self._apply_locked(src, table, batch, affected)
             self._cond.notify_all()
-        self._post_apply(table, batch)
+        self._post_apply(table, batch, views)
         if self._wal is not None and self._wal.should_snapshot():
             self.maybe_snapshot()
         METRICS.add("ingest.appends")
@@ -659,14 +664,25 @@ class IngestContext:
             views[v.name] = v.revision
         return views
 
-    def _post_apply(self, table: str, batch: RecordBatch) -> None:
-        """Outside-lock fan-out to the serving hooks; best effort, since
-        the append is already durable and applied."""
+    def _post_apply(self, table: str, batch: RecordBatch, views: dict) -> None:
+        """Outside-lock fan-out to the serving hooks and the cluster
+        (stale shared results dropped, view advances for remote
+        watchers); best effort, since the append is already durable and
+        applied."""
         for hook in list(self.on_applied):
             try:
                 hook(table, batch)
             except Exception:  # noqa: BLE001 — a hook must not unwind an applied append
                 METRICS.add("ingest.hook_failures")
+        cl = self.cluster
+        if cl is None:
+            return
+        try:
+            cl.invalidate(table)
+            for name, rev in views.items():
+                cl.view_advance(name, rev)
+        except (DataFusionError, OSError):
+            METRICS.add("ingest.cluster_notify_failures")
 
     # -- views --
 
@@ -806,7 +822,7 @@ class IngestContext:
         Appends for unregistered tables are dropped with a count."""
         if self._wal is None:
             return {}
-        snap, events = self._wal.recover()
+        snap, events, _deadlines = self._wal.recover()
         applied = dropped = 0
         # recovered view revisions continue the pre-crash sequence: each
         # view resumes at its snapshot revision (1, the creation fold,

@@ -263,14 +263,14 @@ def note_launch(seconds: float, events=None) -> None:
     """One device launch, from ``utils/retry.device_call`` — charged to
     this thread's published scope (split by weight when the launch is a
     megabatch serving several clients): `seconds` now, or, for a pass
-    on the card, the device time between `events` (a CUDA event pair)
-    when the scope closes.  Untenanted launches charge nobody.
-    Lock-free."""
+    on the card, the device time of `events` (a gated pass's CUDA event
+    pairs, exec/gate.py) when the scope closes.  Untenanted launches
+    charge nobody.  Lock-free."""
     scope = _metrics.CLIENT_SCOPES.get(threading.get_ident())
     if scope is None:
         return
     if events is not None:
-        scope[3].append(events)
+        scope[3].extend(events)
         return
     METER.charge_scope(scope, "device_seconds", seconds)
     scope[2][0] += seconds

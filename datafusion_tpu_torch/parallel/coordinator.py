@@ -1,6 +1,6 @@
 """Multi-process coordinator: ships plan fragments to worker processes
 and merges their partial results (the JAX package's
-`parallel/coordinator.py`, less its cluster half).
+`parallel/coordinator.py`).
 
 Each partition becomes a `PlanFragment` (JSON logical plan +
 DataSourceMeta); a worker (`python -m datafusion_tpu_torch.worker`)
@@ -29,16 +29,25 @@ as the remaining budget.  Hedged requests (`utils/hedge.py`), circuit
 breakers (`utils/breaker.py`) and the retry budget
 (`utils/retry.retry_budget`) guard the dispatch, each off by default.
 
-Fleet telemetry off the cluster: a `FleetAggregator` of each worker's
-``telemetry`` snapshot (`fleet_refresh`, `fleet_gauges`, `top_text`),
-and every distributed root's `collect_flight_dumps`, which the per-query
-funnel calls on a slow or failed query.  Cluster membership, the shared
-result tier, the fleet view over the cluster's heartbeats and the
-pin-aware placement wait for ROADMAP item 13.2 part 2.
+Fleet telemetry: a `FleetAggregator` of each worker's ``telemetry``
+snapshot (`fleet_refresh`, `fleet_gauges`, `top_text`), and every
+distributed root's `collect_flight_dumps`, which the per-query funnel
+calls on a slow or failed query.
+
+Cluster mode (`cluster=`, or ``DATAFUSION_TPU_CLUSTER``; `cluster/`):
+the workers come from the shared `MembershipView` (the heartbeat monitor
+follows it instead of probing, and every epoch change folds joiners in
+and retires leavers), the result cache gains the shared tier, a
+re-registered table's invalidation is broadcast to every worker, one
+service round trip gives every worker's heartbeat telemetry, and under
+QoS a fragment goes first to a worker whose lease advertises its table
+pinned (`_pin_placement`).
 """
 
 from __future__ import annotations
 
+import functools
+import socket
 import threading
 import time
 import uuid
@@ -96,6 +105,10 @@ class WorkerHandle:
         self.host = host
         self.port = port
         self.alive = True
+        # True for handles minted from cluster membership: only these
+        # retire when the view drops them (a configured worker only
+        # ever flips alive/dead)
+        self.discovered = False
         # None = wait for the fragment however long it takes; a slow
         # worker is NOT a dead worker (marking it dead on a response
         # timeout would replay the fragment elsewhere, time out again,
@@ -198,6 +211,34 @@ class WorkerHandle:
             return None
 
 
+@functools.lru_cache(maxsize=256)
+def _resolve_addr(addr: str) -> str:
+    """'host:port' with the host resolved to its IP (memoized; an
+    unresolvable host returns unchanged)."""
+    from datafusion_tpu_torch.analysis import lockcheck
+
+    # a miss blocks on the resolver: callers that may hold a lock warm
+    # the memo first (lockcheck enforces this)
+    lockcheck.note_blocking("dns.resolve")
+    host, _, port = addr.rpartition(":")
+    try:
+        return f"{socket.gethostbyname(host)}:{port}"
+    except OSError:
+        return addr
+
+
+def _resolved_addrs(addrs: set[str]) -> set[str]:
+    """The address set plus each member's resolved spelling: a worker
+    registered as '127.0.0.1:p' matches a handle configured as
+    'localhost:p'."""
+    return addrs | {_resolve_addr(a) for a in addrs}
+
+
+def _addr_in_view(resolved: set[str], host, port) -> bool:
+    addr = f"{host}:{port}"
+    return addr in resolved or _resolve_addr(addr) in resolved
+
+
 class HeartbeatMonitor:
     """Coordinator-side failure detection and worker re-admission.
 
@@ -211,17 +252,25 @@ class HeartbeatMonitor:
       has to fail.
 
     The sleep between cycles is jittered (+-20%).  `poll_once()` runs
-    one cycle synchronously, for tests.  (The JAX package's cluster mode,
-    which consumes a shared membership view instead of probing, waits
-    for ROADMAP item 13.2 part 2.)
+    one cycle synchronously, for tests.
+
+    In cluster mode (`membership` set) the monitor probes nothing: it
+    follows the shared `MembershipView`, its loop parked in a long-poll
+    watch on the service (a join or leave reaches it one round trip
+    later), and a worker is up exactly while the view holds it (the
+    lease TTL is the debounce).  A refresh that cannot reach the service
+    keeps the last view; dispatch's last-gasp re-probe stays the final
+    word before a query fails.
     """
 
     def __init__(self, workers: list[WorkerHandle], interval: float = 5.0,
-                 probation_pings: int = 1, fail_threshold: int = 2):
+                 probation_pings: int = 1, fail_threshold: int = 2,
+                 membership=None):
         self.workers = workers
         self.interval = interval
         self.probation_pings = probation_pings
         self.fail_threshold = fail_threshold
+        self.membership = membership
         self._ok: dict[int, int] = {}
         self._bad: dict[int, int] = {}
         self._seen_alive: dict[int, bool] = {}
@@ -229,6 +278,10 @@ class HeartbeatMonitor:
         self._thread: Optional[threading.Thread] = None
 
     def poll_once(self) -> None:
+        if self.membership is not None:
+            if self.membership.poll():
+                self._apply_view()
+            return
         for i, w in enumerate(self.workers):
             # dispatch failover (or a last-gasp re-probe) can flip a
             # worker's state between cycles; stale streaks must not
@@ -248,9 +301,40 @@ class HeartbeatMonitor:
                     w.mark_down()
             self._seen_alive[i] = w.alive
 
+    def _apply_view(self) -> None:
+        """Flip worker state to match the shared view (resolved-address
+        matching)."""
+        resolved = _resolved_addrs(self.membership.live_addresses())
+        for w in list(self.workers):
+            in_view = _addr_in_view(resolved, w.host, w.port)
+            if in_view and not w.alive:
+                w.readmit()
+            elif not in_view and w.alive:
+                w.mark_down()
+
     def _loop(self) -> None:
         import random
 
+        if self.membership is not None:
+            # a parked watch, not a timed poll; an unreachable service
+            # keeps the stale view and backs off with capped jitter (a
+            # promoted standby is as a rule reachable within a second)
+            watch_failures = 0
+            while not self._stop.is_set():
+                try:
+                    ok = self.membership.watch(timeout_s=self.interval)
+                    self._apply_view()
+                except Exception:  # noqa: BLE001 — the monitor must outlive the service
+                    METRICS.add("coord.heartbeat_errors")
+                    ok = False
+                if ok:
+                    watch_failures = 0
+                    self._stop.wait(0.02)
+                else:
+                    watch_failures += 1
+                    self._stop.wait(backoff_s(min(watch_failures, 6), base=0.1,
+                                              cap=self.interval * 1.2))
+            return
         while not self._stop.wait(self.interval * random.uniform(0.8, 1.2)):
             try:
                 self.poll_once()
@@ -298,7 +382,7 @@ def _dispatch(workers: list[WorkerHandle], fragments: list[PlanFragment],
               request_type: str,
               deadline: Optional[Deadline] = None,
               hedge=None, local_exec=None, extra: Optional[dict] = None,
-              ) -> list[tuple[PlanFragment, dict]]:
+              placement=None) -> list[tuple[PlanFragment, dict]]:
     """Send the fragments to the workers concurrently (round-robin over
     live workers; one thread per in-flight fragment, so N workers
     genuinely run N fragments at once), reassigning on connection
@@ -336,6 +420,10 @@ def _dispatch(workers: list[WorkerHandle], fragments: list[PlanFragment],
       when every worker is dead AND the synchronous probe rounds find
       nothing, run the fragment on the coordinator itself rather than
       failing the query (``coord.local_fallbacks``).
+    - `placement` (QoS in cluster mode): a ``(fragment, live) ->
+      WorkerHandle | None`` callable consulted before round-robin on a
+      fragment's first attempt (the pin-aware router); None falls
+      through to round-robin.
     """
     import itertools
     import queue as _queue
@@ -608,7 +696,17 @@ def _dispatch(workers: list[WorkerHandle], fragments: list[PlanFragment],
                     f"all {len(workers)} workers are down "
                     f"(fragment {fi}/{len(fragments)})"
                 )
-            w = pick_worker(live)
+            w = None
+            if placement is not None and attempts == 0:
+                # first attempt only: a failover replay must not target
+                # the worker that just died
+                try:
+                    w = placement(frag, live)
+                except Exception:  # noqa: BLE001 — placement is advisory, never fatal
+                    METRICS.add("coord.placement_errors")
+                    w = None
+            if w is None:
+                w = pick_worker(live)
             msg = {"type": request_type, "fragment": frag.to_json_str()}
             if extra:
                 # request-kind parameters riding beside the fragment
@@ -793,7 +891,7 @@ class DistributedAggregateRelation(Relation):
     def __init__(self, plan, agg, pred, scan, ds: PartitionedDataSource,
                  workers: list[WorkerHandle], device, functions=None,
                  query_deadline_s: Optional[float] = None,
-                 hedge=None, local_exec=None):
+                 hedge=None, local_exec=None, placement=None):
         # verified once at construction: the plan is immutable, and
         # batches()/re-collects must not re-walk it per iteration
         _check_fragment_plan(plan)
@@ -814,6 +912,7 @@ class DistributedAggregateRelation(Relation):
         self.query_deadline_s = query_deadline_s
         self.hedge = hedge
         self.local_exec = local_exec
+        self.placement = placement
 
     def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
         """Every reachable worker's flight ring for one query (the
@@ -852,7 +951,7 @@ class DistributedAggregateRelation(Relation):
         )
         responses = _dispatch(
             self.workers, self._fragments(), "execute_fragment", deadline,
-            hedge=self.hedge, local_exec=self.local_exec,
+            hedge=self.hedge, local_exec=self.local_exec, placement=self.placement,
         )
 
         n_keys = len(t.key_cols)
@@ -964,7 +1063,7 @@ class DistributedUnionRelation(Relation):
 
     def __init__(self, plan, ds: PartitionedDataSource, workers: list[WorkerHandle],
                  query_deadline_s: Optional[float] = None,
-                 hedge=None, local_exec=None):
+                 hedge=None, local_exec=None, placement=None):
         _check_fragment_plan(plan)
         self.plan = plan
         self.ds = ds
@@ -973,6 +1072,7 @@ class DistributedUnionRelation(Relation):
         self.query_deadline_s = query_deadline_s
         self.hedge = hedge
         self.local_exec = local_exec
+        self.placement = placement
 
     def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
         """Every reachable worker's flight ring for one query (the
@@ -1005,7 +1105,8 @@ class DistributedUnionRelation(Relation):
             else Deadline.after(self.query_deadline_s)
         )
         responses = _dispatch(self.workers, fragments, "execute_plan", deadline,
-                              hedge=self.hedge, local_exec=self.local_exec)
+                              hedge=self.hedge, local_exec=self.local_exec,
+                              placement=self.placement)
         dicts: list[Optional[StringDictionary]] = [
             StringDictionary() if f.data_type == DataType.UTF8 else None
             for f in self._schema.fields
@@ -1070,7 +1171,8 @@ class DistributedShuffleJoinRelation(Relation):
     """
 
     def __init__(self, plan, sides, workers: list[WorkerHandle],
-                 query_deadline_s: Optional[float] = None, hedge=None):
+                 query_deadline_s: Optional[float] = None, hedge=None,
+                 placement=None):
         # sides: per (left, right) input either ("frags", side_plan, ds)
         # or ("local", relation)
         self.plan = plan
@@ -1079,6 +1181,7 @@ class DistributedShuffleJoinRelation(Relation):
         self._schema = plan.schema
         self.query_deadline_s = query_deadline_s
         self.hedge = hedge
+        self.placement = placement
 
     def collect_flight_dumps(self, trace_id: Optional[str] = None) -> dict:
         """Every reachable worker's flight ring for one query (the
@@ -1116,7 +1219,8 @@ class DistributedShuffleJoinRelation(Relation):
             ]
             responses = _dispatch(
                 self.workers, fragments, "shuffle_map", deadline,
-                hedge=self.hedge, extra={"keys": keys, "num_parts": num_parts, "side": tag},
+                hedge=self.hedge, placement=self.placement,
+                extra={"keys": keys, "num_parts": num_parts, "side": tag},
             )
             for _frag, resp in _iter_unique_responses(responses):
                 for ob in resp["blocks"]:
@@ -1333,8 +1437,22 @@ class DistributedContext(ExecutionContext):
     Fleet telemetry: `telemetry` (obs/aggregate.FleetAggregator) holds
     each worker's latest node snapshot, pulled by `fleet_refresh` (one
     ``telemetry`` request a live worker); `fleet_gauges`, `top_text` and
-    `metrics_text` refresh it first.  Cluster membership (`cluster=`)
-    and the shared result tier wait for ROADMAP item 13.2 part 2.
+    `metrics_text` refresh it first.
+
+    `cluster` (an address, or a comma-separated HA endpoint list
+    "h1:p1,h2:p2"; a `ClusterState`/`ClusterNode`; a client; or env
+    DATAFUSION_TPU_CLUSTER) joins the cluster control plane
+    (`cluster/`): liveness comes from the shared `MembershipView` (the
+    heartbeat monitor follows it instead of probing), `workers` may be
+    omitted (discovered from the membership, and the pool then follows
+    every epoch change: joiners fold in, leavers retire), the result
+    cache gains the shared read-through, write-behind tier, a
+    re-registered table broadcasts its invalidation to every worker,
+    and `fleet_refresh` reads every worker's heartbeat telemetry in one
+    service round trip.  Under QoS, fragments go first to a worker
+    whose lease advertises their tables pinned (`_pin_placement`).  A
+    failover of the service itself is absorbed inside the client.
+    Unset, no cluster code runs.
     """
 
     def __init__(
@@ -1349,13 +1467,46 @@ class DistributedContext(ExecutionContext):
         result_cache=None,
         hedge=None,
         device=None,
+        cluster=None,
     ):
         import os
 
         super().__init__(device=device, batch_size=batch_size,
                          result_cache=result_cache)
+        self.cluster = None
+        self.membership = None
+        self._shared_tier = None
+        discovered_all = False
+        if cluster is None:
+            cluster = os.environ.get("DATAFUSION_TPU_CLUSTER") or None
+        if cluster:
+            from datafusion_tpu_torch import cluster as _cluster_mod
+            from datafusion_tpu_torch.cluster.membership import MembershipView
+            from datafusion_tpu_torch.cluster.shared_cache import SharedResultTier
+
+            self.cluster = _cluster_mod.connect(cluster)
+            self.membership = MembershipView(self.cluster)
+            # best effort: a coordinator may start before the service
+            self.membership.poll()
+            if not workers:
+                workers = sorted(self._parse_addr(a)
+                                 for a in self.membership.live_addresses())
+                discovered_all = True
+            if self._result_cache is not None:
+                self._shared_tier = SharedResultTier(self.cluster)
+                self._result_cache.shared = self._shared_tier
         self._request_timeout = request_timeout
+        from datafusion_tpu_torch.analysis import lockcheck
+
+        self._workers_lock = lockcheck.make_lock("coord.workers")
         self.workers = [WorkerHandle(h, p, request_timeout) for h, p in workers]
+        if discovered_all:
+            for w in self.workers:
+                w.discovered = True
+        if self.membership is not None:
+            # every epoch change any view consumer observes folds joiners
+            # into the rotation and retires leavers
+            self.membership.subscribe(lambda _view: self._fold_view_workers())
         if query_deadline_s is None:
             env = os.environ.get("DATAFUSION_TPU_QUERY_DEADLINE_S")
             # "0" means off (the documented default), not a 0s budget
@@ -1380,6 +1531,13 @@ class DistributedContext(ExecutionContext):
 
         self.telemetry = FleetAggregator()
         self._last_scale_hint: Optional[int] = None
+        # pin-aware placement: QoS armed in cluster mode.  Advisory and
+        # first-attempt only: a miss falls through to round-robin
+        from datafusion_tpu_torch import qos as _qos
+
+        self._placement = None
+        if self.membership is not None and _qos.enabled():
+            self._placement = self._pin_placement
         self.heartbeat: Optional[HeartbeatMonitor] = None
         if heartbeat_interval:
             self.heartbeat = HeartbeatMonitor(
@@ -1387,7 +1545,56 @@ class DistributedContext(ExecutionContext):
                 interval=heartbeat_interval,
                 probation_pings=probation_pings,
                 fail_threshold=fail_threshold,
+                membership=self.membership,
             ).start()
+
+    @staticmethod
+    def _parse_addr(addr: str) -> tuple[str, int]:
+        host, _, port = addr.rpartition(":")
+        return host, int(port)
+
+    def _pin_placement(self, frag: PlanFragment, live):
+        """Pin-aware placement (QoS): prefer a live worker whose lease
+        advertises this fragment's tables pinned (``pins``).  When every
+        holder reports no device headroom while a non-holder shows some,
+        route to the non-holder instead (its next heartbeat advertises
+        the pins it warmed: ``pin.replicate`` flight event).  Any miss
+        returns None and dispatch round-robins."""
+        view = self.membership
+        if view is None or not live:
+            return None
+        names = frag.table_names()
+        if not names:
+            return None
+        wanted = {f"table:{n}" for n in names}
+        # .copy(): the view's thread swaps the dict on a refresh
+        info_by_addr = {_resolve_addr(addr): info
+                        for addr, info in view.workers.copy().items()
+                        if isinstance(info, dict)}
+        holders, spare = [], []
+        for w in live:
+            info = info_by_addr.get(_resolve_addr(f"{w.host}:{w.port}"))
+            if info is None:
+                continue
+            headroom = info.get("hbm_headroom_bytes")
+            if wanted & set(info.get("pins") or ()):
+                holders.append((w, headroom))
+            else:
+                spare.append((w, headroom))
+        if not holders:
+            return None
+        for w, headroom in holders:
+            if headroom is None or headroom > 0:
+                METRICS.add("coord.pin_routed")
+                return w
+        for w, headroom in spare:
+            if headroom is not None and headroom > 0:
+                METRICS.add("coord.pin_replicated")
+                flight.record("pin.replicate", target=f"{w.host}:{w.port}",
+                              tables=",".join(sorted(names)))
+                return w
+        METRICS.add("coord.pin_routed")
+        return holders[0][0]
 
     def _local_exec(self, frag: PlanFragment, request_type: str) -> dict:
         """Degraded-mode fragment execution on the coordinator: the
@@ -1404,6 +1611,12 @@ class DistributedContext(ExecutionContext):
     def close(self) -> None:
         if self.heartbeat is not None:
             self.heartbeat.stop()
+        if self._shared_tier is not None:
+            self._shared_tier.close()
+        if self.cluster is not None:
+            close = getattr(self.cluster, "close", None)
+            if close is not None:
+                close()  # the client's persistent watch channel
 
     def __enter__(self) -> "DistributedContext":
         return self
@@ -1427,11 +1640,22 @@ class DistributedContext(ExecutionContext):
         return out
 
     def fleet_refresh(self) -> int:
-        """Pull every live worker's telemetry snapshot into the
-        aggregator (one ``telemetry`` request each; the cluster's
-        heartbeat piggyback is ROADMAP item 13.2 part 2).  Returns the
-        snapshots taken."""
+        """Pull the latest worker telemetry into the aggregator: in
+        cluster mode one service round trip returns the snapshot every
+        worker sent with its lease heartbeat; otherwise one
+        ``telemetry`` request a live worker.  Returns the snapshots
+        held."""
         n = 0
+        if self.cluster is not None:
+            try:
+                snaps = self.cluster.telemetry().get("workers", {})
+            except (ConnectionError, OSError, ExecutionError):
+                METRICS.add("coord.telemetry_refresh_errors")
+                snaps = {}
+            for addr, snap in snaps.items():
+                self.telemetry.ingest(addr, snap)
+                n += 1
+            return n
         for w in list(self.workers):
             if not w.alive:
                 continue
@@ -1484,28 +1708,100 @@ class DistributedContext(ExecutionContext):
 
         attribution.refresh_tenant_gauges()
         gauges = self.fleet_gauges()
+        if self.membership is not None:
+            gauges.update(self.membership.gauges())
         gauges.update(breaker_mod.gauges())
         if self.hedge is not None:
             gauges.update(self.hedge.gauges())
         return prometheus_text(METRICS, extra_gauges=gauges)
 
+    def cluster_epoch(self, refresh: bool = True) -> int:
+        """The membership epoch this coordinator has observed (-1 before
+        the first refresh): two coordinators at one epoch saw one worker
+        set."""
+        if self.membership is None:
+            raise ExecutionError("cluster mode is off (no cluster= / "
+                                 "DATAFUSION_TPU_CLUSTER)")
+        if refresh:
+            self.membership.poll()
+        return self.membership.epoch
+
+    def _fold_view_workers(self) -> list[str]:
+        """Reconcile the handles with the current view (no round trip):
+        joiners get handles; discovered workers gone from a non-empty
+        view retire (configured handles only flip alive/dead; an empty
+        view retires nobody, it may be a blip).  Returns the addresses
+        added."""
+        view = self.membership
+        if view is None:
+            return []
+        live = view.live_addresses()
+        # warm the DNS memo outside the lock: a resolver stall must not
+        # hold the dispatch path (lockcheck's `dns.resolve` finding)
+        for addr in live | {f"{w.host}:{w.port}" for w in list(self.workers)}:
+            _resolve_addr(addr)
+        added = []
+        with self._workers_lock:
+            known = _resolved_addrs({f"{w.host}:{w.port}" for w in self.workers})
+            for addr in sorted(live):
+                if addr in known or _resolve_addr(addr) in known:
+                    continue
+                host, port = self._parse_addr(addr)
+                handle = WorkerHandle(host, port, self._request_timeout)
+                handle.discovered = True
+                self.workers.append(handle)
+                added.append(addr)
+            if live:
+                resolved = _resolved_addrs(live)
+                keep = [w for w in self.workers
+                        if not w.discovered or _addr_in_view(resolved, w.host, w.port)]
+                if len(keep) < len(self.workers):
+                    METRICS.add("coord.workers_retired", len(self.workers) - len(keep))
+                    # in place: dispatch loops re-read the list each retry
+                    self.workers[:] = keep
+        if added:
+            METRICS.add("coord.workers_discovered", len(added))
+            if getattr(self, "_placement", None) is not None:
+                METRICS.add("coord.pin_rebalance_events")
+                flight.record("pin.rebalance", added=",".join(added))
+        return added
+
     def sync_workers(self) -> list[str]:
-        """Fold newly registered cluster workers into the rotation: with
-        no cluster membership (ROADMAP item 13.2 part 2) there are none."""
-        return []
+        """Refresh the shared view and fold newly registered cluster
+        workers into the rotation (and retire leavers); returns the
+        addresses added.  In cluster mode this also runs on every
+        observed epoch change."""
+        if self.membership is None:
+            return []
+        before = {f"{w.host}:{w.port}" for w in self.workers}
+        self.membership.poll()
+        self._fold_view_workers()
+        return sorted({f"{w.host}:{w.port}" for w in self.workers} - before)
 
     def broadcast_invalidate(self, table: str) -> int:
-        """The cluster's fleet-wide fragment-cache invalidation: with no
-        cluster (ROADMAP item 13.2 part 2) nothing is broadcast.  Worker
-        fragment caches key on the partition files' (mtime, size), so a
-        rewritten partition misses there anyway."""
-        return 0
+        """The fleet-wide invalidation: drop shared-tier results that
+        scanned `table` and queue an event every worker applies to its
+        fragment cache on its next lease refresh.  Returns the shared-
+        tier entries dropped (0 outside cluster mode, where worker
+        fragment caches key on the partition files' (mtime, size))."""
+        if self.cluster is None:
+            return 0
+        out = self.cluster.invalidate(table)
+        METRICS.add("coord.invalidations_broadcast")
+        return int(out.get("dropped", 0))
 
     def register_datasource(self, name: str, ds) -> None:
+        """A re-registration in cluster mode also broadcasts the
+        invalidation fleet-wide."""
         rereg = self.catalog_version(name) > 0
         super().register_datasource(name, ds)
-        if rereg:
-            self.broadcast_invalidate(name)
+        if rereg and self.cluster is not None:
+            try:
+                self.broadcast_invalidate(name)
+            except (ConnectionError, OSError, ExecutionError):
+                # the fast path, not the correctness: file versions stop
+                # matching anyway
+                METRICS.add("coord.invalidation_broadcast_errors")
 
     def _lower(self, plan: LogicalPlan) -> Relation:
         # unlike the single-process mesh, Utf8 MIN/MAX ship too: the
@@ -1525,6 +1821,7 @@ class DistributedContext(ExecutionContext):
                 functions=self._torch_functions(),
                 query_deadline_s=self.query_deadline_s,
                 hedge=self.hedge, local_exec=self._local_exec_fn,
+                placement=self._placement,
             )
         ds = _match_distributed_pipeline(plan, self.datasources)
         if ds is not None:
@@ -1536,6 +1833,7 @@ class DistributedContext(ExecutionContext):
                 plan, ds, self.workers,
                 query_deadline_s=self.query_deadline_s,
                 hedge=self.hedge, local_exec=self._local_exec_fn,
+                placement=self._placement,
             )
         if isinstance(plan, Join):
             rel = self._maybe_shuffle_join(plan)
@@ -1583,4 +1881,5 @@ class DistributedContext(ExecutionContext):
         return DistributedShuffleJoinRelation(
             plan, sides, self.workers,
             query_deadline_s=self.query_deadline_s, hedge=self.hedge,
+            placement=self._placement,
         )

@@ -42,8 +42,14 @@ serves the debug HTTP plane (obs/httpd.py) on the worker's host, with
 `status` as its ``/status``.  The fault site ``worker.fragment``
 (testing/faults.py) guards each executed (not cached) fragment.
 
-Waits for ROADMAP item 13.2 part 2, and raises naming it: the cluster
-agent (`--cluster`).
+`--cluster` (or ``DATAFUSION_TPU_CLUSTER``) registers the worker in the
+cluster control plane (`cluster/agent.py`): a TTL lease on
+``workers/<addr>``, kept alive by a heartbeat that carries the worker's
+telemetry snapshot and applies the broadcast fragment-cache
+invalidations; under QoS the lease also advertises the worker's pinned
+tables and the device ledger's measured headroom
+(``hbm_headroom_bytes``), which the coordinator's pin-aware placement
+reads.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import numpy as np
 from datafusion_tpu_torch import cache as qcache
 from datafusion_tpu_torch.cache import fragment_fingerprint
 from datafusion_tpu_torch.datatypes import DataType
-from datafusion_tpu_torch.errors import DataFusionError, ExecutionError, NotSupportedError
+from datafusion_tpu_torch.errors import DataFusionError, ExecutionError
 from datafusion_tpu_torch.exec.aggregate import AggregateRelation, _host_acc
 from datafusion_tpu_torch.exec.context import ExecutionContext, _resolve_device
 from datafusion_tpu_torch.exec.materialize import collect_columns
@@ -70,8 +76,6 @@ from datafusion_tpu_torch.plan.logical import TableScan
 from datafusion_tpu_torch.testing import faults
 from datafusion_tpu_torch.utils.deadline import Deadline, deadline_scope
 from datafusion_tpu_torch.utils.eventloop import LoopServer
-
-_LATER = "ROADMAP item 13.2 part 2 (the cluster control plane)"
 
 
 def _find_scan(plan) -> TableScan:
@@ -168,7 +172,32 @@ class WorkerState:
         self.started = time.time()
         self.fragment_cache = qcache.make_store("fragment")
         self.cache_hits = 0
+        # the cluster agent (cluster/agent.py), in cluster mode only
+        self.cluster_agent = None
+        # the debug HTTP plane's port, advertised in the cluster lease
         self.debug_port: Optional[int] = None
+
+    @property
+    def pins_rehydrated(self) -> int:
+        """Pins a serving front door in this process re-materialized
+        from its pin manifest (serve.py), advertised in the lease."""
+        from datafusion_tpu_torch.utils.metrics import METRICS
+
+        return int(METRICS.counts.get("serve.pins_rehydrated", 0))
+
+    def pinned_fingerprints(self) -> list[str]:
+        """The resident-table fingerprints this worker advertises in its
+        cluster lease under QoS: the device ledger's ``table:<name>``
+        pins plus the fragment cache's table tags as ``table:<name>``
+        (a worker that served a table's fragments holds them warm).
+        Sorted, so the lease value is stable (the agent re-puts only on
+        a change)."""
+        from datafusion_tpu_torch.obs.device import LEDGER
+
+        fps = {fp for fp in LEDGER.pins_snapshot() if fp.startswith("table:")}
+        if self.fragment_cache is not None:
+            fps.update(f"table:{t}" for t in self.fragment_cache.tags())
+        return sorted(fps)
 
     def _gauges(self) -> dict:
         from datafusion_tpu_torch.utils import breaker as breaker_mod
@@ -176,6 +205,8 @@ class WorkerState:
         gauges = {}
         if self.fragment_cache is not None:
             gauges.update(self.fragment_cache.gauges())
+        if self.cluster_agent is not None:
+            gauges.update(self.cluster_agent.gauges())
         gauges.update(breaker_mod.gauges())
         return gauges
 
@@ -211,6 +242,8 @@ class WorkerState:
                 "hits_served": self.cache_hits,
             },
             "debug_port": self.debug_port,
+            "cluster": (None if self.cluster_agent is None
+                        else self.cluster_agent.snapshot()),
             "telemetry": self.telemetry_snapshot(),
             "metrics": {
                 "timings_s": {k: round(v, 3) for k, v in snap["timings_s"].items()},
@@ -221,7 +254,8 @@ class WorkerState:
 
     def telemetry_snapshot(self) -> dict:
         """This worker's node snapshot for fleet aggregation, with its
-        fragment-cache and breaker gauges folded in."""
+        fragment-cache, breaker and cluster gauges folded in (the cluster
+        heartbeat carries it: plain JSON values only)."""
         from datafusion_tpu_torch.obs.aggregate import node_snapshot
 
         snap = node_snapshot()
@@ -480,17 +514,22 @@ def serve_http_status(state: WorkerState, host: str, port: int):
 
 
 def serve(bind: str = "127.0.0.1:0", device=None, batch_size: int = 131072,
-          http_port: Optional[int] = None, cluster=None) -> WorkerServer:
+          http_port: Optional[int] = None, cluster=None,
+          lease_ttl_s: Optional[float] = None,
+          advertise: Optional[str] = None) -> WorkerServer:
     """Bind a worker and return its server (call `serve_forever`).
     `http_port` (non-zero; negative binds an ephemeral port) also serves
     the debug HTTP plane on this host, loopback unless
     ``DATAFUSION_TPU_DEBUG_BIND`` says otherwise; a bind failure leaves
-    the worker without it (``obs.debug_server_errors``).  `cluster`
-    waits for ROADMAP item 13.2 part 2 and raises."""
+    the worker without it (``obs.debug_server_errors``).  `cluster` (a
+    service address or comma-separated HA endpoint list, a
+    `ClusterState`/`ClusterNode`, or a client) registers the worker in
+    the cluster control plane under a TTL lease (`lease_ttl_s`, default
+    ``DATAFUSION_TPU_CLUSTER_TTL_S``) kept alive by a heartbeat thread
+    (`cluster/agent.py`); `advertise` is the host[:port] coordinators
+    dial, needed behind a wildcard bind."""
     from datafusion_tpu_torch.utils.eventloop import ServerLoop, WireConnection
 
-    if cluster:
-        raise NotSupportedError(f"cluster membership waits for {_LATER}")
     host, _, port = bind.partition(":")
     state = WorkerState(device=device, batch_size=batch_size)
     loop = ServerLoop(pool_size=None, name="df-torch-worker")
@@ -517,6 +556,27 @@ def serve(bind: str = "127.0.0.1:0", device=None, batch_size: int = 131072,
             METRICS.add("obs.debug_server_errors")
         else:
             state.debug_port = server.http_server.port
+    if cluster:
+        from datafusion_tpu_torch import cluster as _cluster_mod
+        from datafusion_tpu_torch.cluster.agent import WorkerClusterAgent
+
+        bound_host, bound_port = server.server_address[:2]
+        if advertise:
+            adv_host, _, adv_port = advertise.partition(":")
+            addr = f"{adv_host or bound_host}:{adv_port or bound_port}"
+        else:
+            adv_host = bound_host
+            if adv_host in ("0.0.0.0", "::", ""):
+                # a wildcard bind is not a dialable address
+                import socket
+
+                try:
+                    adv_host = socket.gethostbyname(socket.gethostname())
+                except OSError:
+                    adv_host = socket.gethostname()
+            addr = f"{adv_host}:{bound_port}"
+        state.cluster_agent = WorkerClusterAgent(
+            _cluster_mod.connect(cluster), addr, state, ttl_s=lease_ttl_s).start()
     return server
 
 
@@ -540,7 +600,12 @@ def main(argv=None) -> int:
                          "obs/httpd.py): 0 is off (the default; env "
                          "DATAFUSION_TPU_DEBUG_PORT), negative an ephemeral port")
     ap.add_argument("--cluster", default=None,
-                    help=f"cluster state service address: waits for {_LATER}")
+                    help="cluster state service address host:port, or a "
+                         "comma-separated HA endpoint list (default: env "
+                         "DATAFUSION_TPU_CLUSTER; empty = cluster mode off)")
+    ap.add_argument("--advertise", default=None,
+                    help="host[:port] coordinators dial for this worker "
+                         "(behind a wildcard bind; default: the bound address)")
     ap.add_argument("--coordinator", default=None,
                     help="torch.distributed rendezvous address host:port "
                          "(with --num-processes and --process-id; omit on one host)")
@@ -560,8 +625,14 @@ def main(argv=None) -> int:
 
             print(f"distributed: process {dist.get_rank()}/{dist.get_world_size()} "
                   f"({dist.get_backend()})", flush=True)
+        cluster = args.cluster
+        if cluster is None:
+            from datafusion_tpu_torch.cluster import cluster_address
+
+            cluster = cluster_address()
         server = serve(args.bind, device=args.device, batch_size=args.batch_size,
-                       http_port=args.http_port, cluster=args.cluster)
+                       http_port=args.http_port, cluster=cluster,
+                       advertise=args.advertise)
     except DataFusionError as e:
         print(f"worker: {e}", file=sys.stderr, flush=True)
         return 1
@@ -569,6 +640,8 @@ def main(argv=None) -> int:
     print(f"worker listening on {host}:{port}", flush=True)
     if server.http_server is not None:
         print(f"worker debug: {server.http_server.url}/debug", flush=True)
+    if cluster:
+        print(f"worker cluster: registered with {cluster}", flush=True)
     print(f"worker info: device={server.worker_state.device} "
           f"batch_size={args.batch_size}", flush=True)
     try:
@@ -576,5 +649,8 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        agent = server.worker_state.cluster_agent
+        if agent is not None:
+            agent.close()  # revoke the lease: the epoch moves now
         server.server_close()
     return 0

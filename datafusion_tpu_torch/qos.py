@@ -38,9 +38,11 @@ hedges spend the dispatching tenant's child buckets.  `debug_snapshot`
 is the ``/debug/qos`` document (obs/httpd.py) and the console's
 ``top --qos`` block: shares, attained service and `scale_hint` over the
 SLO watchdog's worst burn (obs/slo.max_burn_rate) and the tail
-explainer's queue-wait share.  Not ported yet: the coordinator's
-pin-aware placement (it reads the cluster's lease advertisements),
-ROADMAP item 13.2 part 2.
+explainer's queue-wait share.  In cluster mode under QoS the coordinator
+also places a fragment on a worker whose lease advertises its table
+pinned, with its measured device headroom
+(`parallel/coordinator.DistributedContext._pin_placement`, the worker's
+`cluster/agent.py`).
 """
 
 from __future__ import annotations

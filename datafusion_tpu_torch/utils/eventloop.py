@@ -52,8 +52,12 @@ _READ_CHUNK = 1 << 18
 
 def default_pool_size() -> int:
     """Executor width for one server's blocking work (fragment
-    execution): the CPU count clamped to [4, 16].  The pool is the
-    compute concurrency cap; connections cost no threads."""
+    execution, cluster state mutations): ``DATAFUSION_TPU_SERVER_THREADS``,
+    else the CPU count clamped to [4, 16].  The pool is the compute
+    concurrency cap; connections cost no threads."""
+    env = os.environ.get("DATAFUSION_TPU_SERVER_THREADS", "")
+    if env:
+        return max(1, int(env))
     return max(4, min(16, (os.cpu_count() or 4)))
 
 

@@ -27,13 +27,15 @@ device records a `torch.cuda.Event(enable_timing=True)` pair around
 `fn`, waits on the second at the end of the pass and accrues the
 elapsed device time instead, so EXPLAIN ANALYZE's "execute" is device
 time.  Under a charge scope (a served query, `obs/attribution`), a pass
-on the card records the pair on its worker's own stream
-(`exec/streams.serving_scope`) and does not wait: the scope's exit,
-after the query has read its result back, accrues the pair's device
-time into the timer and the tenant's meter, so a tenant is billed the
-card's time on its own stream, never another worker's kernels.  The
-pair spans the pass's host call, so it also holds the stream's idle
-gaps while the host enqueues (ROADMAP queue 3).
+on the card runs gated on its worker's own stream
+(`exec/streams.serving_scope`, exec/gate.py): the stream waits on a host
+word, the pass's event pairs and work are enqueued behind that wait, and
+the host opens it when the enqueue is done, so the pairs hold the
+card's work on the pass alone, not the stream's idle gaps while the
+host enqueued.  Nothing waits: the scope's exit, after the query has
+read its result back, accrues the pairs' device time into the timer and
+the tenant's meter, so a tenant is billed the card's time on its own
+work, never another worker's kernels or Python.
 
 **Retry.**  Classification is typed (`errors.classify_transient`): a
 `TransientError` (``DeviceTransientError`` from the fault plan, an
@@ -272,38 +274,49 @@ def _pass(fn, args, kwargs, tag, device):
     """One attempt of a device pass: run `fn`, time it, count it.
     Returns (result, seconds, events).  On a CUDA device inside
     `profile_sync`, `seconds` is the pass's device time (an event pair
-    waited on here); on one under a charge scope (a served query),
-    `events` is an event pair not waited on, on the worker's own stream
-    (exec/streams.serving_scope), whose device time the scope's exit
-    folds into the timer and the meter (`obs/attribution.note_launch`),
-    and `seconds` is 0; otherwise `seconds` is the host's wall around
-    `fn`."""
+    waited on here).  On one under a charge scope (a served query), the
+    pass runs gated (exec/gate.py): its stream waits on a host word, the
+    pass's work is enqueued behind that wait between event pairs (one a
+    segment: a host wait inside the pass ends one), and the word is
+    written once the enqueue is done; `events` is the list of pairs, not
+    waited on, whose device time the scope's exit folds into the timer
+    and the meter (`obs/attribution.note_launch`), and `seconds` is 0.
+    Otherwise `seconds` is the host's wall around `fn`."""
     events = None
     sync = False
+    gated = None
     if device is not None and device.type == "cuda":
         sync = profile_sync_active()
-        if sync or threading.get_ident() in CLIENT_SCOPES:
+        if sync:
             import torch
 
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
+        elif threading.get_ident() in CLIENT_SCOPES:
+            from datafusion_tpu_torch.exec import gate
+
+            gated = gate.gated_pass(device)
     tok = stage_enter("device.dispatch")
     t0 = time.perf_counter()
     try:
-        out = fn(*args, **kwargs)
-        if events is not None:
+        if gated is None:
+            out = fn(*args, **kwargs)
+        else:
+            with gated as p:
+                out = fn(*args, **kwargs)
+            events = None if p is None else p.pairs
+        if sync:
             events[1].record()
-            if sync:
-                events[1].synchronize()
+            events[1].synchronize()
     finally:
         stage_exit(tok)
-    if events is None:
-        wall = time.perf_counter() - t0
-    elif sync:
+    if sync:
         wall, events = events[0].elapsed_time(events[1]) / 1e3, None
-    else:
+    elif gated is not None:
         wall = 0.0
+    else:
+        wall = time.perf_counter() - t0
     if tag is None:
         METRICS.tally("device.dispatch", wall, ("device.launches", 1))
     else:

@@ -2,12 +2,10 @@
 
 The port writes the same bytes as the JAX package for the same records,
 so either package recovers a log the other wrote.  In the port it backs
-the ingest log (`ingest/`) and the serving pin manifest
-(`atomic_write_json`, serve.py); the cluster control plane that the
-text below also describes is not ported yet, and neither are the rate-
-limited lease-deadline notes it writes into the log (ROADMAP item 13.2
-part 2):
-recovery skips such a record like any other at revision 0.
+the ingest log (`ingest/`), the serving pin manifest (`atomic_write_json`,
+serve.py) and the cluster control plane (`cluster/service.ClusterNode`),
+whose rate-limited lease-deadline notes (`note_deadlines`) recovery
+returns beside the events, with `deadline_cutoff_rev`.
 
 The reference scaffolded etcd for durability and never enabled it
 (`scripts/smoketest.sh:30-66` brings the container up, nothing writes
@@ -62,7 +60,7 @@ import threading
 import time
 import weakref
 import zlib
-from typing import Optional
+from typing import Callable, Optional
 
 from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.parallel.wire import (
@@ -81,6 +79,7 @@ _U32 = struct.Struct(">I")
 DEFAULT_SEGMENT_BYTES = 4 << 20
 DEFAULT_SNAPSHOT_BYTES = 8 << 20
 DEFAULT_SYNC_INTERVAL_S = 0.05
+DEFAULT_DEADLINE_S = 1.0
 
 # live logs, for the debug bundle's durability manifests
 _ACTIVE: list = []
@@ -159,6 +158,7 @@ class WriteAheadLog:
         sync: Optional[str] = None,
         segment_bytes: Optional[int] = None,
         snapshot_bytes: Optional[int] = None,
+        deadline_interval_s: Optional[float] = None,
     ) -> None:
         self.dir = os.path.abspath(dirpath)
         os.makedirs(self.dir, exist_ok=True)
@@ -176,6 +176,11 @@ class WriteAheadLog:
             snapshot_bytes
             or os.environ.get("DATAFUSION_TPU_WAL_SNAPSHOT_BYTES",
                               DEFAULT_SNAPSHOT_BYTES))
+        self.deadline_interval_s = float(
+            deadline_interval_s
+            if deadline_interval_s is not None
+            else os.environ.get("DATAFUSION_TPU_WAL_DEADLINE_S",
+                                DEFAULT_DEADLINE_S))
         # the internal mutex is the reviewed held-across-IO exception
         # (module docstring); deliberately NOT lockcheck-tracked as a
         # cluster lock would be — note_blocking before acquire (below)
@@ -187,6 +192,7 @@ class WriteAheadLog:
         self._seg_max_rev: dict = {}  # seq -> highest event rev inside
         self._pending_sync = False
         self._last_fsync = time.monotonic()
+        self._last_deadline_note = 0.0
         self.last_rev = 0  # highest event rev durably appended
         self.snapshot_rev = 0  # rev of the newest on-disk snapshot
         self.recovery: dict = {}  # stats from the last recover()
@@ -194,6 +200,11 @@ class WriteAheadLog:
         self.appends = 0
         self.fsyncs = 0
         self.bytes_written = 0
+        # coverage cutoff of the recovered deadline set: leases granted
+        # at rev <= this but absent from the recovered deadlines were
+        # expired (or gone) when the note was taken; recovery re-arms
+        # them at zero, never at a fresh full TTL
+        self.deadline_cutoff_rev = 0
         _ACTIVE[:] = [r for r in _ACTIVE if r() is not None]
         _ACTIVE.append(weakref.ref(self))
 
@@ -223,8 +234,8 @@ class WriteAheadLog:
     # -- recovery ------------------------------------------------------
 
     def recover(self):
-        """Scan snapshot + segments -> (snapshot_doc | None, events).
-        Torn tails are truncated in place; events the
+        """Scan snapshot + segments -> (snapshot_doc | None, events,
+        deadlines).  Torn tails are truncated in place; events the
         snapshot already covers are skipped (revs are strictly
         increasing but NOT contiguous — entry revisions interleave
         event revisions, so coverage is by ordering, never by
@@ -237,6 +248,10 @@ class WriteAheadLog:
             snap_doc, snap_rev = self._load_snapshot()
             self.snapshot_rev = snap_rev
             events: list = []
+            deadlines: dict = {}
+            cutoff = snap_rev
+            if snap_doc is not None:
+                deadlines = dict(snap_doc.get("lease_deadlines") or {})
             torn = 0
             dropped = 0
             last = snap_rev
@@ -249,6 +264,11 @@ class WriteAheadLog:
                 self._seg_sizes[seq] = good_size
                 max_rev = 0
                 for rec in records:
+                    if rec.get("kind") == "_deadlines":
+                        if not gap:
+                            deadlines = dict(rec.get("deadlines") or {})
+                            cutoff = int(rec.get("last_rev") or 0)
+                        continue
                     rev = int(rec.get("rev") or 0)
                     max_rev = max(max_rev, rev)
                     if gap or rev <= last:
@@ -272,6 +292,7 @@ class WriteAheadLog:
                         pass
             self._seq = segs[-1][0] if segs else 0
             self.last_rev = last
+            self.deadline_cutoff_rev = cutoff
             self.recovery = {
                 "snapshot_rev": snap_rev,
                 "replayed_events": len(events),
@@ -285,7 +306,7 @@ class WriteAheadLog:
                         int(self.recovery["recovery_ms"]))
             if torn:
                 METRICS.add("wal.torn_tails", torn)
-            return snap_doc, events
+            return snap_doc, events, deadlines
 
     def _load_snapshot(self):
         """Newest snapshot whose record verifies; invalid ones are
@@ -437,6 +458,31 @@ class WriteAheadLog:
         lockcheck.note_blocking("wal.flush")
         with self._lock:
             self._sync_file()
+
+    # -- deadline notes ------------------------------------------------
+
+    def note_deadlines(self, deadlines_fn: Callable[[], dict]) -> bool:
+        """Rate-limited persistence of lease remaining-TTLs (recovery
+        re-arms from these, never a fresh full TTL).  `deadlines_fn`
+        is only invoked when a note is actually due.  Returns True if
+        a note was written."""
+        now = time.monotonic()
+        if now - self._last_deadline_note < self.deadline_interval_s:
+            return False
+        deadlines = deadlines_fn()
+        lockcheck.note_blocking("wal.append")
+        with self._lock:
+            if now - self._last_deadline_note < self.deadline_interval_s:
+                return False
+            self._last_deadline_note = now
+            if not deadlines and self.last_rev == 0:
+                return False
+            self._write_record(
+                {"kind": "_deadlines", "rev": 0,
+                 "last_rev": self.last_rev, "deadlines": deadlines},
+                None)
+            self._maybe_fsync()
+            return True
 
     # -- snapshots -----------------------------------------------------
 

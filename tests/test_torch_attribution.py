@@ -349,20 +349,21 @@ class _EventStub:
 
 def test_a_pass_on_the_card_is_charged_its_device_time_when_its_scope_closes():
     """A pass on the card queues its work and returns: `note_launch`
-    keeps its event pair, and the scope's exit waits for the last one
+    keeps its event pairs (one a segment of the gated pass), and the
+    scope's exit waits for the last one
     and charges each pair's device time to the meter, the scope's
     accumulator and the `device.dispatch` timer, split by weight when
     shared; a failing wait charges nothing and does not raise."""
     dispatch0 = METRICS.snapshot()["timings_s"].get("device.dispatch", 0.0)
     pairs = [(_EventStub(0.0), _EventStub(3.0)), (_EventStub(5.0), _EventStub(6.5))]
     with tatt.client_scope("heavy") as acc:
-        for pair in pairs:
-            tatt.note_launch(0.0, pair)
+        tatt.note_launch(0.0, pairs[:1])
+        tatt.note_launch(0.0, pairs[1:])
         assert "heavy" not in tatt.METER.snapshot() and acc[0] == 0.0
     assert acc[0] == pytest.approx(4.5e-3) and pairs[-1][1].waited
     assert tatt.METER.snapshot()["heavy"]["device_seconds"] == pytest.approx(4.5e-3)
     with tatt.shared_scope((("x", 0.75), ("y", 0.25))):
-        tatt.note_launch(0.0, (_EventStub(1.0), _EventStub(9.0)))
+        tatt.note_launch(0.0, [(_EventStub(1.0), _EventStub(9.0))])
     snap = tatt.METER.snapshot()
     assert snap["x"]["device_seconds"] == pytest.approx(6e-3)
     assert snap["y"]["device_seconds"] == pytest.approx(2e-3)
@@ -375,7 +376,7 @@ def test_a_pass_on_the_card_is_charged_its_device_time_when_its_scope_closes():
 
     errors0 = METRICS.counts.get("obs.telemetry_errors", 0)
     with tatt.client_scope("failed") as acc:
-        tatt.note_launch(0.0, (_EventStub(0.0), _Broken(1.0)))
+        tatt.note_launch(0.0, [(_EventStub(0.0), _Broken(1.0))])
     assert acc[0] == 0.0 and "failed" not in tatt.METER.snapshot()
     assert METRICS.counts.get("obs.telemetry_errors", 0) == errors0 + 1
 

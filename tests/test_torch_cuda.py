@@ -36,7 +36,14 @@ bytes), the decimal decode is exact on values a reciprocal multiply
 gets wrong, both exact probes read True, the link probe syncs nothing
 and `auto` follows it, and two threads pulling and putting through
 pinned host buffers never see each other's bytes; the append above
-counts the bytes `put_compressed` sends.  Every context
+counts the bytes `put_compressed` sends.  The meter's host gate
+(exec/gate.py): a gated pass is billed its kernels, not a host sleep
+between them; every host wait of a kernel wrapper, the packed copy back
+and the served sort, join and sort-merge finishes under a charge scope
+with no gate forced open; an unhooked wait is opened by the watchdog.
+The cluster: a `cluster=` worker on cuda:0 advertises the ledger's
+measured headroom and answers Q1 for a coordinator that knows only the
+cluster.  Every context
 here passes `result_cache=False`, so a repeated query runs and launches
 again, and every case starts from an empty cost store.
 """
@@ -1484,6 +1491,74 @@ def test_worker_process_on_the_card(dev, tmp_path):
         proc.wait(timeout=30)
 
 
+def _q1_csv_parts(tmp_path, n=40_000, parts=4, seed=19):
+    rng = np.random.default_rng(seed)
+    days = (np.datetime64("1992-01-02") + rng.integers(0, 2526, n)).astype(str)
+    cols = [rng.choice(list("ANR"), n), rng.choice(list("FO"), n),
+            np.floor(rng.uniform(1, 51, n)), np.round(rng.uniform(900, 104950, n), 2),
+            rng.integers(0, 11, n) / 100.0, rng.integers(0, 9, n) / 100.0, days]
+    names = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+             "l_discount", "l_tax", "l_shipdate")
+    paths = []
+    for p in range(parts):
+        lo, hi = p * n // parts, (p + 1) * n // parts
+        path = tmp_path / f"li{p}.csv"
+        path.write_text(",".join(names) + "\n" + "".join(
+            ",".join(str(c[i]) for c in cols) + "\n" for i in range(lo, hi)))
+        paths.append(str(path))
+    D = tdf.DataType
+    schema = tdf.Schema([tdf.Field(nm, D.UTF8 if nm in ("l_returnflag", "l_linestatus",
+                                                          "l_shipdate") else D.FLOAT64, False)
+                         for nm in names])
+    return schema, paths
+
+
+def test_cluster_worker_on_the_card_advertises_measured_headroom_and_answers_q1(
+        dev, tmp_path, monkeypatch):
+    """A `cluster=` worker on cuda:0 registers under QoS with the device
+    ledger's measured headroom in its lease; a coordinator that knows
+    only the cluster finds it and runs Q1 through it on the card, with
+    the CPU's rows (ints and strings exactly, f64 within rtol 1e-9) and
+    the grouped reduce launched."""
+    import threading
+
+    from datafusion_tpu_torch.cluster import ClusterState, LocalClusterClient
+    from datafusion_tpu_torch.obs.device import LEDGER, hbm_capacity_bytes
+    from datafusion_tpu_torch.parallel import DistributedContext, PartitionedDataSource
+    from datafusion_tpu_torch.parallel.worker import serve
+
+    monkeypatch.setenv("DATAFUSION_TPU_QOS", "1")
+    client = LocalClusterClient(ClusterState())
+    worker = serve("127.0.0.1:0", device=dev, cluster=client, lease_ttl_s=30.0)
+    threading.Thread(target=worker.serve_forever, daemon=True).start()
+    try:
+        host, port = worker.server_address[:2]
+        info = client.membership()["workers"][f"{host}:{port}"]
+        headroom = LEDGER.headroom()
+        assert 0 < info["hbm_headroom_bytes"] <= hbm_capacity_bytes()
+        assert abs(info["hbm_headroom_bytes"] - headroom) <= 1 << 20
+        schema, paths = _q1_csv_parts(tmp_path)
+        ctx = DistributedContext(cluster=client, device=dev, result_cache=False)
+        assert [(w.host, w.port) for w in ctx.workers] == [(host, port)]
+        ctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, schema) for p in paths]))
+        before = hash_agg.LAUNCHES
+        got = sorted(tdf.collect(ctx.sql(Q1_SQL)).to_rows())
+        assert hash_agg.LAUNCHES > before
+        local = tdf.ExecutionContext(device="cpu", result_cache=False)
+        local.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.CsvDataSource(p, schema) for p in paths]))
+        want = sorted(tdf.collect(local.sql(Q1_SQL)).to_rows())
+        assert [r[:2] + r[-1:] for r in got] == [r[:2] + r[-1:] for r in want]
+        np.testing.assert_allclose([r[2:-1] for r in got], [r[2:-1] for r in want],
+                                   rtol=1e-9)
+        ctx.close()
+    finally:
+        worker.worker_state.cluster_agent.close()
+        worker.shutdown()
+        worker.server_close()
+
+
 # -------------------------------------------- serving streams (slice 16)
 
 
@@ -1719,3 +1794,163 @@ def test_pin_bytes_are_the_cached_device_bytes_on_the_card(dev):
         nbytes = {(t.device, t.untyped_storage().data_ptr()): t.untyped_storage().nbytes()
                   for t in tensors}
         assert tensors and LEDGER.pins_snapshot()["table:li"]["bytes"] == sum(nbytes.values())
+
+
+# -- the meter's host gate (exec/gate.py) ---------------------------------
+
+
+def _forced(since: int):
+    """Gates the watchdog forced open since the count `since`, with where
+    each pass thread stood (the flight events' frames)."""
+    from datafusion_tpu_torch.obs import recorder
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    n = METRICS.counts.get("meter.gate_forced", 0) - since
+    return n, [e["attrs"]["where"] for e in recorder.events("meter.gate_forced")][-n:] \
+        if n else []
+
+
+def _gated(dev, fn, client="gate", warm=None):
+    """Run `fn` as one device pass under `client`'s charge scope on a
+    worker stream, in a thread joined with a timeout (a host wait the
+    gate does not cover would hang it), after `warm()` ran ungated in
+    that thread (a kernel library's first build, cuBLAS's handle);
+    returns (result, metered seconds, gates the watchdog forced and
+    where)."""
+    import threading
+
+    from datafusion_tpu_torch.exec import streams
+    from datafusion_tpu_torch.obs import attribution
+    from datafusion_tpu_torch.utils.metrics import METRICS
+    from datafusion_tpu_torch.utils.retry import device_call
+
+    box = {}
+
+    def run():
+        try:
+            with streams.serving_scope(dev):
+                if warm is not None:
+                    warm()
+                torch.cuda.synchronize()
+                box["forced0"] = METRICS.counts.get("meter.gate_forced", 0)
+                with attribution.client_scope(client) as acc:
+                    box["out"] = device_call(fn, _device=dev)
+            box["acc"] = acc[0]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=60)
+    assert not th.is_alive(), "a gated pass did not return"
+    if "err" in box:
+        raise box["err"]
+    return box["out"], box["acc"], _forced(box["forced0"])
+
+
+def test_gated_pass_bills_device_work_not_the_host_gap(dev):
+    """A pass that launches, sleeps on the host (shorter than the
+    watchdog's limit) and launches again is billed its two kernels'
+    device time, not the sleep."""
+    from datafusion_tpu_torch.exec import gate
+
+    x = torch.rand(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    nap = gate.FORCE_OPEN_S / 2
+
+    def fn():
+        y = x @ x
+        time.sleep(nap)
+        return y @ x
+
+    t0 = time.perf_counter()
+    out, metered, forced = _gated(dev, fn, warm=lambda: x @ x)
+    wall = time.perf_counter() - t0
+    assert forced[0] == 0 and wall >= nap, forced
+    assert 0 < metered < nap / 2, metered
+    torch.testing.assert_close(out, (x @ x) @ x)
+
+
+def _site_sort(dev):
+    keys = torch.randint(-(1 << 40), 1 << 40, (1 << 20,), device=dev)
+    return lambda: (keys, sort_kernel.argsort_i64(keys)), \
+        lambda out: torch.equal(out[0][out[1].long()], torch.sort(keys, stable=True).values)
+
+
+def _site_build(dev):
+    pos = torch.randint(0, 1 << 16, (1 << 18,), device=dev, dtype=torch.int32)
+    live = torch.ones(1 << 18, dtype=torch.bool, device=dev)
+    return lambda: hash_build.build_slot_table(pos, live, 1 << 16), \
+        lambda out: out[2] == bool(out[1].max().item() > 1)
+
+
+def _site_device_pull(dev):
+    from datafusion_tpu_torch.exec.batch import device_pull
+
+    a = torch.arange(1 << 16, device=dev)
+    b = torch.rand(1 << 10, device=dev, dtype=torch.float64)
+    return lambda: device_pull([a, b]), \
+        lambda out: (np.array_equal(out[0], a.cpu().numpy())
+                     and np.array_equal(out[1], b.cpu().numpy()))
+
+
+@pytest.mark.parametrize("site", [_site_sort, _site_build, _site_device_pull],
+                         ids=["sort_digits", "build_dup_flag", "device_pull"])
+def test_each_host_wait_site_finishes_under_a_charge_scope(dev, site):
+    """Each host wait a kernel's wrapper or the packed copy back makes,
+    run inside a gated pass: it returns (no deadlock), the watchdog
+    opened nothing (the site opened the gate itself), the answer is
+    right and the pass was billed."""
+    run, check = site(dev)
+    out, metered, forced = _gated(dev, run, warm=run)
+    assert forced[0] == 0 and metered > 0 and check(out), forced
+
+
+@pytest.mark.parametrize("sql,agg_groups", [
+    # the full sort: its pass pulls the radix digits and the permutation
+    ("SELECT k, v FROM t WHERE i > 0 ORDER BY v, k", None),
+    # a dense join build: the duplicate flag
+    ("SELECT COUNT(1), SUM(t.v) FROM t JOIN u ON t.k = u.k WHERE t.i > 0", None),
+    # the sort-merge GROUP BY: the span pull inside the fold's pass
+    ("SELECT k, SUM(v), COUNT(1) FROM t GROUP BY k", "0"),
+], ids=["full_sort", "join_build", "sortmerge_span"])
+def test_served_host_wait_sites_finish_and_keep_their_bits(dev, monkeypatch, sql, agg_groups):
+    """The same sites reached by served queries, every pass gated: each
+    answers its solo answer bit for bit, is billed, and the watchdog
+    opened no gate."""
+    from datafusion_tpu_torch.obs.attribution import METER
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    if agg_groups is not None:
+        monkeypatch.setenv("DATAFUSION_TPU_PALLAS_AGG_GROUPS", agg_groups)
+    schema, batches = _high_card_table(20_000, n=100_000)
+    ctx = tdf.ExecutionContext(device=dev, result_cache=False)
+    ctx.register_datasource("t", tdf.MemoryDataSource(schema, batches))
+    ctx.register_datasource("u", tdf.MemoryDataSource(schema, batches[:1]))
+    want = tdf.collect(ctx.sql(sql))
+    forced0 = METRICS.counts.get("meter.gate_forced", 0)
+    m0 = METER.snapshot().get("W", {}).get("device_seconds", 0.0)
+    with ctx.serve(workers=2, window_s=0.001) as srv:
+        got = srv.submit(sql, client_id="W").result(timeout=120)
+    forced = _forced(forced0)
+    assert forced[0] == 0, forced
+    assert METER.snapshot()["W"]["device_seconds"] > m0
+    order = "ORDER BY" in sql
+    for cg, cw in zip(got.columns, want.columns):
+        cg, cw = np.asarray(cg), np.asarray(cw)
+        if not order:
+            cg, cw = np.sort(cg), np.sort(cw)
+        assert cg.tobytes() == cw.tobytes()
+
+
+def test_an_unhooked_host_wait_is_opened_by_the_watchdog(dev):
+    """A host wait outside `host_wait()` inside a gated pass does not
+    hang: the watchdog opens the gate and counts it."""
+    from datafusion_tpu_torch.exec import gate
+
+    x = torch.arange(1 << 20, device=dev, dtype=torch.float64)
+    t0 = time.perf_counter()
+    total, _, forced = _gated(dev, lambda: x.sum().item(), warm=lambda: x.sum().item())
+    assert forced[0] == 1 and "test_torch_cuda.py" in forced[1][0], forced
+    assert total == float((1 << 20) * ((1 << 20) - 1) // 2)
+    assert time.perf_counter() - t0 >= gate.FORCE_OPEN_S

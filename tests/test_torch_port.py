@@ -639,6 +639,21 @@ def test_port_imports_and_runs_with_jax_blocked():
         "for name in ('ingest', 'utils.wal', 'parallel.wire', 'testing.faults',"
         " 'analysis.lockcheck', 'cache', 'cache.store', 'cache.fingerprint', 'cache.result'):\n"
         "    assert 'datafusion_tpu_torch.' + name in sys.modules, name\n"
+        # the cluster slice, in process: a state, a worker's agent
+        # registering, and a coordinator's view seeing it
+        "from datafusion_tpu_torch.cluster import ClusterState, LocalClusterClient\n"
+        "from datafusion_tpu_torch.cluster.agent import WorkerClusterAgent\n"
+        "from datafusion_tpu_torch.cluster.membership import MembershipView\n"
+        "from datafusion_tpu_torch.parallel.worker import WorkerState\n"
+        "cst = ClusterState()\n"
+        "client = LocalClusterClient(cst)\n"
+        "agent = WorkerClusterAgent(client, '127.0.0.1:9', WorkerState(device='cpu'), ttl_s=5.0)\n"
+        "agent.poll_once()\n"
+        "view = MembershipView(client)\n"
+        "assert view.poll() and view.live_addresses() == {'127.0.0.1:9'}, view.workers\n"
+        "assert view.epoch == 1 and agent.epoch == 1, (view.epoch, agent.epoch)\n"
+        "agent.close()\n"
+        "assert view.poll() and view.live_addresses() == set()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "assert not any(m == 'datafusion_tpu' or m.startswith('datafusion_tpu.')"

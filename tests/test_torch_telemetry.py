@@ -27,8 +27,8 @@ console's `top` and `debug-bundle` modes).
   JAX worker, the JAX package's coordinator over port workers, and the
   console's modes over them.
 
-The JAX package's `TestClusterTelemetryPiggyback` belongs to the cluster
-(ROADMAP item 13.2 part 2) and has no counterpart here.
+The JAX package's `TestClusterTelemetryPiggyback` is held with the
+cluster, in `tests/test_torch_cluster.py`.
 """
 
 from __future__ import annotations

@@ -12,12 +12,9 @@ atomic JSON helpers.  Then what the port adds: the same records give
 the same bytes in both packages, each package recovers a log the other
 wrote, and the disk fault sites raise through the port's fault plan.
 
-Left out, since their planes are not ported (ROADMAP queue 1, item
-13.2): the lease-deadline notes (`test_deadline_note_*`; a note in a
-JAX log is skipped on recovery, tested below), `TestNodeRecovery`,
-`TestLeaseRearm`, `TestSnapshotResyncTruncation` and
-`TestBundleWalBlock` (node, lease and standby recovery and the debug
-bundle).
+The lease-deadline notes, node, lease and standby recovery
+(`TestNodeRecovery`, `TestLeaseRearm`, `TestSnapshotResyncTruncation`)
+are tested with the cluster in `tests/test_torch_cluster.py`.
 """
 
 from __future__ import annotations
@@ -54,7 +51,7 @@ class TestWalUnit:
         _append(log, 1, 3, 7)
         log.close()
         log2 = WriteAheadLog(d)
-        snap, events = log2.recover()
+        snap, events, _ = log2.recover()
         assert snap is None
         assert [e["rev"] for e in events] == [1, 3, 7]
         assert [e["key"] for e in events] == ["k1", "k3", "k7"]
@@ -69,7 +66,7 @@ class TestWalUnit:
         _append(log, 1, 2, 3)
         log.close()
         log2 = WriteAheadLog(str(tmp_path))
-        _, events = log2.recover()
+        _, events, _ = log2.recover()
         assert [e["rev"] for e in events] == [1, 2, 3]
 
     def test_torn_tail_truncated_in_place(self, tmp_path):
@@ -83,14 +80,14 @@ class TestWalUnit:
         with open(seg, "ab") as f:
             f.write(b"\x00" * 7)  # a crash mid-header
         log2 = WriteAheadLog(d)
-        _, events = log2.recover()
+        _, events, _ = log2.recover()
         assert [e["rev"] for e in events] == [1, 2]
         assert log2.recovery["torn_tails"] == 1
         assert os.path.getsize(seg) == good
         _append(log2, 3)
         log2.close()
         log3 = WriteAheadLog(d)
-        _, events = log3.recover()
+        _, events, _ = log3.recover()
         assert [e["rev"] for e in events] == [1, 2, 3]
         assert log3.recovery["torn_tails"] == 0
 
@@ -107,7 +104,7 @@ class TestWalUnit:
             f.seek(-1, os.SEEK_END)
             f.write(bytes([last[0] ^ 0xFF]))
         log2 = WriteAheadLog(d)
-        _, events = log2.recover()
+        _, events, _ = log2.recover()
         assert [e["rev"] for e in events] == [1]
         assert log2.recovery["torn_tails"] == 1
         assert log2.last_rev == 1
@@ -125,7 +122,7 @@ class TestWalUnit:
         with open(seg2, "r+b") as f:
             f.truncate(os.path.getsize(seg2) // 2)
         log2 = WriteAheadLog(d, segment_bytes=1)
-        _, events = log2.recover()
+        _, events, _ = log2.recover()
         assert [e["rev"] for e in events] == [1]
         assert log2.last_rev == 1
         assert log2.recovery["dropped_records"] == 1
@@ -150,7 +147,7 @@ class TestWalUnit:
         assert log.snapshot_rev == 3
         log.close()
         log2 = WriteAheadLog(d)
-        snap, events = log2.recover()
+        snap, events, _ = log2.recover()
         assert snap == {"rev": 3, "kv": {"compacted": 2}}
         assert events == []
         assert log2.last_rev == 3 and log2.snapshot_rev == 3
@@ -184,13 +181,13 @@ class TestWalUnit:
         with open(os.path.join(d, "snapshot-00000009.snap"), "wb") as f:
             f.write(b"\xde\xad\xbe\xef not a snapshot")
         log2 = WriteAheadLog(d)
-        snap, _ = log2.recover()
+        snap, _, _ = log2.recover()
         assert snap == {"rev": 1, "kv": {"good": True}}
         assert log2.snapshot_rev == 1
 
     def test_a_jax_deadline_note_is_skipped_on_recovery(self, tmp_path):
-        # the JAX cluster's lease-deadline notes (revision 0) are not
-        # ported; the port recovers a log that holds one and skips it
+        # a lease-deadline note (revision 0) that the JAX cluster wrote
+        # is no event: the port's recovery returns it beside the events
         d = str(tmp_path)
         log = jax_wal.WriteAheadLog(d, deadline_interval_s=0.0)
         log.recover()
@@ -199,9 +196,10 @@ class TestWalUnit:
         _append(log, 4)
         log.close()
         log2 = WriteAheadLog(d)
-        snap, events = log2.recover()
+        snap, events, deadlines = log2.recover()
         assert snap is None
         assert [e["rev"] for e in events] == [1, 2, 3, 4]
+        assert deadlines == {"L1": 5.0} and log2.deadline_cutoff_rev == 3
         assert log2.last_rev == 4 and log2.recovery["torn_tails"] == 0
         log2.close()
 
@@ -285,7 +283,7 @@ def test_either_package_recovers_the_others_log(tmp_path, writer, reader):
               "ab") as f:
         f.write(b"\x00" * 5)  # a torn tail on top
     log2 = reader(d)
-    events = log2.recover()[1]  # the JAX log also returns lease deadlines
+    events = log2.recover()[1]
     assert [e["rev"] for e in events] == [1, 2, 5]
     assert log2.recovery["torn_tails"] == 1
     rng = np.random.default_rng(3)  # _records()'s draws, in order
@@ -314,7 +312,7 @@ def test_disk_fault_sites_raise_and_keep_the_log_recoverable(tmp_path, site, rev
             _append(log, 2)
     log.close()
     log2 = WriteAheadLog(d)
-    _, events = log2.recover()
+    _, events, _ = log2.recover()
     # rev 1 was acknowledged and survives; rev 2 raised, never acked: a
     # failed write left nothing, a failed fsync may leave the record
     # (the log is a superset of the acknowledged appends)
@@ -331,7 +329,7 @@ def test_short_write_is_a_torn_record_on_recovery(tmp_path):
         _append(log, 2)
     log.close()
     log2 = WriteAheadLog(d)
-    _, events = log2.recover()
+    _, events, _ = log2.recover()
     assert [e["rev"] for e in events] == [1]
     assert log2.recovery["torn_tails"] == 1
     log2.close()
