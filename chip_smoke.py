@@ -210,6 +210,25 @@ which raises on failure:
    re-armed), the term rises, and Q1 answers; `kill -9` of a worker: its
    lease lapses, the epoch rises by one, and Q1 answers from the
    survivor.  `cluster_*` lines.
+20. The analyzers (after phase 19, `phase_analysis`): the invariant
+   linter over the package (`python -m datafusion_tpu_torch.analysis`,
+   exit 0); a child process (`--analysis-round`) under
+   DATAFUSION_TPU_LOCKCHECK=1 and DATAFUSION_TPU_PROFILE_HZ=97 on
+   cuda:0 serves Q1 at SF-1, config 4's TopK over 4,000,000 rows and Q12
+   at SF-1 through one Server (2 workers, 8 clients) against their
+   oracles, appends through the write-ahead log and reads the rows back
+   served, hits the result cache, forces one slow-query artifact and
+   builds one debug bundle; its lock-order report, evaluated with
+   `--lockcheck-report`, must hold no cycle and no blocking call under a
+   lock, each of the three kernels must have launched in the child, the
+   artifact must carry `profile` and the bundle `profile_continuous`.
+   The child also times served Q1 with lockcheck on and off, in turns
+   (for information).  Then `execute_physical` writes Q1 at SF-1 to a
+   CSV and shows its first rows, `Server.submit` registers a CSV of
+   262,144 lineitem rows with CREATE EXTERNAL TABLE and answers Q1 over
+   it, and one `append` goes over the loopback wire to an in-process
+   worker with an ingest context, each against its oracle.
+   `analysis_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
 runs only), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
@@ -234,7 +253,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 18) runs each query with the launch counters
+The main path (phases 3 to 10 and 12 to 20) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -5008,6 +5027,325 @@ def phase_cluster(tdf, cuda_mod, torch, cols, dates, smi):
     return [rep]
 
 
+# ------------------------------------------------------------ phase 20
+
+
+ANALYSIS_CMD = ("chip_smoke.py", "--analysis-round")  # the child, from the checkout
+ANALYSIS_WORKERS = 2
+ANALYSIS_CLIENTS = 8
+ANALYSIS_PROFILE_HZ = 97
+ANALYSIS_DDL_ROWS = 262_144  # two SF-1 batches: the served DDL's CSV
+ANALYSIS_P50_RUNS = 8  # served Q1 runs a lockcheck turn
+ANALYSIS_TURNS = ("on", "off", "on", "off")
+ANALYSIS_TOPK = "SELECT s, b, x FROM t ORDER BY s DESC LIMIT 100"  # topk_cases' first
+ANALYSIS_Q12 = Q12.replace("lineitem", "li12")  # the star's lineitem, renamed
+
+
+def _analysis_turn(tdf, lockcheck, turn, src):
+    """One served Q1 turn's context and server.  For the "off" turn the
+    locks a context and a server make are plain, and so are the two
+    module-level locks every query takes (the metrics registry's and the
+    kernel counts'); the other module-level locks of the child, made at
+    import, stay tracked."""
+    import threading
+
+    from datafusion_tpu_torch.exec import cuda as cuda_mod
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    lockcheck._ENABLED = turn == "on"
+    METRICS._lock = lockcheck.make_lock("utils.metrics")
+    cuda_mod.COUNT_LOCK = lockcheck.make_lock("exec.kernel_counts")
+    if turn == "off":
+        assert isinstance(METRICS._lock, type(threading.Lock()))
+    ctx = tdf.ExecutionContext(result_cache=False)
+    ctx.register_datasource("lineitem", src)
+    return ctx, ctx.serve(workers=ANALYSIS_WORKERS, window_s=0.005)
+
+
+def analysis_round(out_path) -> int:
+    """The lockcheck-enabled child of `phase_analysis` (run with
+    DATAFUSION_TPU_LOCKCHECK=1 and DATAFUSION_TPU_PROFILE_HZ set); writes
+    its findings as JSON to `out_path`.  Raises on any wrong answer."""
+    import glob
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import datafusion_tpu_torch as tdf
+    from datafusion_tpu_torch.analysis import lockcheck
+    from datafusion_tpu_torch.exec import cuda as cuda_mod
+    from datafusion_tpu_torch.obs import httpd, profiler, recorder
+    from datafusion_tpu_torch.utils.metrics import METRICS
+
+    if not (lockcheck.enabled() and profiler.continuous_running()):
+        raise AssertionError("analysis round: lockcheck or the continuous profiler is off")
+    flight_dir = os.environ["DATAFUSION_TPU_FLIGHT_DIR"]
+    t0 = time.perf_counter()
+    src, cols, dates = lineitem_sf1(tdf, 131_072)
+    topk_src, topk_cols = topk_table(tdf)
+    star, star_cols = star_sf1(tdf, 131_072)
+    gen_s = time.perf_counter() - t0
+    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+    ctx.register_datasource("lineitem", src)
+    ctx.register_datasource("t", topk_src)
+    ctx.register_datasource("orders", star["orders"])
+    ctx.register_datasource("li12", star["lineitem"])
+    events = tdf.Schema([tdf.Field("k", tdf.DataType.INT64, False),
+                         tdf.Field("v", tdf.DataType.FLOAT64, False)])
+    ctx.register_datasource("events", tdf.MemoryDataSource(
+        events, [tdf.make_host_batch(events, [np.arange(64) % 4, np.arange(64.0)])]))
+    ing = ctx.ingest(wal_dir=os.path.join(flight_dir, "wal"))
+    _, topk_sql, topk_out, topk_order = topk_cases(topk_cols)[0]
+    assert topk_sql == ANALYSIS_TOPK
+    srv = ctx.serve(workers=ANALYSIS_WORKERS, window_s=0.005)
+    try:
+        cuda_mod.reset_launch_counts()
+        per_client = [[Q1, ANALYSIS_TOPK, ANALYSIS_Q12] for _ in range(ANALYSIS_CLIENTS)]
+        results, lat, wall = _serve_clients(srv, per_client)
+        launches = cuda_mod.launch_counts()
+        assert_rows(results[Q1], q1_oracle(cols, dates), "analysis served Q1")
+        table = results[ANALYSIS_TOPK]
+        for i, col in enumerate(topk_out):
+            if not np.array_equal(np.asarray(table.columns[i]), col[topk_order]):
+                raise AssertionError("analysis served TopK: rows or order differ")
+        if results[ANALYSIS_Q12].to_rows() != q12_oracle(star_cols):
+            raise AssertionError("analysis served Q12 differs from its oracle")
+        ack = srv.append("events", {"k": [7, 7], "v": [0.5, 0.25]}, client_id="ingest")
+        got = srv.submit("SELECT k, COUNT(1), SUM(v) FROM events GROUP BY k").result(
+            timeout=120).to_rows()
+        if sorted(got) != [(0, 16, 480.0), (1, 16, 496.0), (2, 16, 512.0),
+                           (3, 16, 528.0), (7, 2, 0.75)]:
+            raise AssertionError(f"analysis served append: {sorted(got)}")
+        if srv.admitted + srv.shed != srv.submitted:
+            raise AssertionError("analysis: admitted + shed != submitted")
+    finally:
+        srv.stop()
+    # a result-cache hit on a context with the cache on
+    cctx = tdf.ExecutionContext()
+    cctx.register_datasource("lineitem", src)
+    hits = METRICS.counts.get("cache.result.hits", 0)
+    first = tdf.collect(cctx.sql(Q1)).to_rows()
+    if tdf.collect(cctx.sql(Q1)).to_rows() != first or \
+            METRICS.counts.get("cache.result.hits", 0) <= hits:
+        raise AssertionError("analysis: the repeated Q1 was no result-cache hit")
+    # one slow-query artifact (every query is slow for one run) and a bundle
+    recorder.configure(slow_s=0.0, dump_interval_s=0.0)
+    tdf.collect(ctx.sql(Q1))
+    recorder.configure(slow_s=10.0, dump_interval_s=30.0)
+    paths = sorted(glob.glob(os.path.join(flight_dir, "flight-*.json")))
+    with open(paths[-1]) as f:
+        artifact = json.load(f)
+    bundle = httpd.build_bundle(profile_seconds=0)
+    engine_report = lockcheck.report()
+    # served Q1's p50 with lockcheck on and off, in turns (information)
+    p50 = {"on": [], "off": []}
+    for turn in ANALYSIS_TURNS:
+        tctx, tsrv = _analysis_turn(tdf, lockcheck, turn, src)
+        try:
+            tsrv.submit(Q1).result(timeout=120)  # warm the pin
+            times = []
+            for _ in range(ANALYSIS_P50_RUNS):
+                t1 = time.perf_counter()
+                tsrv.submit(Q1).result(timeout=120)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            tsrv.stop()
+        p50[turn].append(float(np.median(times)))
+        del tctx
+    lockcheck._ENABLED = True
+    out = {
+        "gen_s": gen_s, "served_wall_s": wall, "served_queries": len(lat),
+        "served_p50_ms": float(np.median(lat)), "launches": launches,
+        "append_ack": ack, "artifact_reason": artifact.get("reason"),
+        "artifact_keys": sorted(artifact), "bundle_keys": sorted(bundle),
+        "profile_samples": profiler.continuous_report().samples,
+        "engine_report": engine_report, "q1_p50_ms": p50,
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class _CsvRows:
+    """A CSV written by `ResultTable.to_csv`, read back as Q1's rows."""
+
+    def __init__(self, path):
+        import csv
+
+        with open(path, newline="") as f:
+            r = list(csv.reader(f))
+        self.header = r[0]
+        self.rows = [(a, b, *map(float, rest[:-1]), int(rest[-1])) for a, b, *rest in r[1:]]
+
+    def to_rows(self):
+        return self.rows
+
+
+def phase_analysis(tdf, cuda_mod, torch, li_src, li_cols, dates, smi):
+    from datafusion_tpu_torch.parallel.physical import PhysicalPlan
+    from datafusion_tpu_torch.sql.parser import parse_sql
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke", "analysis")
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # 1. the linter over the package, on this machine (no jax here)
+    lint = subprocess.run([sys.executable, "-m", "datafusion_tpu_torch.analysis",
+                           "datafusion_tpu_torch"], cwd=here, capture_output=True,
+                          text=True, timeout=300)
+    log("analysis_lint: " + lint.stdout.strip().splitlines()[-1])
+    if lint.returncode != 0:
+        raise AssertionError(f"analysis: the linter found:\n{lint.stdout}{lint.stderr}")
+    # 2. the lockcheck-enabled child
+    report_path = os.path.join(out_dir, "lockcheck.json")
+    child_out = os.path.join(out_dir, "round.json")
+    env = dict(os.environ, DATAFUSION_TPU_LOCKCHECK="1",
+               DATAFUSION_TPU_LOCKCHECK_FILE=report_path,
+               DATAFUSION_TPU_PROFILE_HZ=str(ANALYSIS_PROFILE_HZ),
+               DATAFUSION_TPU_FLIGHT_DIR=out_dir)
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "round.err"), "w") as err:
+        child = subprocess.run([sys.executable, *ANALYSIS_CMD, child_out], cwd=here, env=env,
+                               stdout=err, stderr=subprocess.STDOUT, timeout=600)
+    child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        with open(os.path.join(out_dir, "round.err")) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"analysis round failed (rc {child.returncode}):\n{tail}")
+    with open(child_out) as f:
+        rnd = json.load(f)
+    check = subprocess.run([sys.executable, "-m", "datafusion_tpu_torch.analysis",
+                            "--lockcheck-report", report_path], cwd=here,
+                           capture_output=True, text=True, timeout=120)
+    with open(report_path) as f:
+        report = json.load(f)
+    locks = sorted({e["held"] for e in report["edges"]} |
+                   {e["acquired"] for e in report["edges"]})
+    log("analysis_locks: " + json.dumps(locks))
+    for e in report["edges"]:
+        log(f"analysis_edge: {e['held']} -> {e['acquired']} ({e['site']})")
+    counts = {"cycles": len(report["cycles"]), "blocking": len(report["blocking"]),
+              "edges": len(report["edges"]), "locks": len(locks)}
+    log("analysis_lockcheck: " + json.dumps(counts) + " | " +
+        check.stdout.strip().splitlines()[-1])
+    if check.returncode != 0 or counts["cycles"] or counts["blocking"]:
+        raise AssertionError(f"analysis: lockcheck found issues:\n{check.stdout}")
+    if [e for e in report["edges"] if e["held"] == "utils.metrics"]:
+        raise AssertionError("analysis: an edge leaves the metrics registry's leaf lock")
+    launches = rnd["launches"]
+    for name in ("hash_agg", "hash_build", "sort_kernel"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"analysis: {name} did not launch under lockcheck")
+    if "profile" not in rnd["artifact_keys"] or rnd["artifact_reason"] != "slow_query":
+        raise AssertionError(f"analysis: the slow-query artifact has no profile "
+                             f"({rnd['artifact_keys']})")
+    if "profile_continuous" not in rnd["bundle_keys"]:
+        raise AssertionError("analysis: the debug bundle has no profile_continuous")
+    log("analysis_round: " + json.dumps({
+        k: rnd[k] for k in ("gen_s", "served_wall_s", "served_queries", "served_p50_ms",
+                            "launches", "append_ack", "artifact_reason",
+                            "profile_samples")} | {"child_s": child_s, "card": smi}))
+    p50 = rnd["q1_p50_ms"]
+    log("analysis_q1_p50: " + json.dumps({
+        "lockcheck_on_ms": p50["on"], "lockcheck_off_ms": p50["off"],
+        "turns": list(ANALYSIS_TURNS), "runs_a_turn": ANALYSIS_P50_RUNS,
+        "rows": SF1_ROWS, "card": smi}))
+
+    # 3. the PhysicalPlan executor on the card: Write and Show of Q1 at SF-1
+    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+    ctx.register_datasource("lineitem", li_src)
+    plan = ctx._plan(parse_sql(Q1))
+    csv_path = os.path.join(out_dir, "q1_write.csv")
+    cuda_mod.reset_launch_counts()
+    n = ctx.execute_physical(PhysicalPlan("write", plan, filename=csv_path,
+                                          file_format="csv"))
+    write_launches = cuda_mod.launch_counts()
+    back = _CsvRows(csv_path)
+    if back.header[:2] != ["l_returnflag", "l_linestatus"] or n != len(back.rows):
+        raise AssertionError(f"analysis write: header {back.header}, {n} rows")
+    assert_rows(back, q1_oracle(li_cols, dates), "analysis PhysicalPlan write Q1")
+    full = tdf.collect(ctx.sql(Q1)).to_rows()
+    shown = ctx.execute_physical(PhysicalPlan("show", plan, count=2))
+    if shown.num_rows != 2 or shown.to_rows() != full[:2]:
+        raise AssertionError("analysis show: not the first 2 rows of Q1")
+    assert_rows(shown, [r for r in q1_oracle(li_cols, dates)
+                        if (r[0], r[1]) in {(a, b) for a, b, *_ in shown.to_rows()}],
+                "analysis PhysicalPlan show Q1")
+    if write_launches["hash_agg"] <= 0:
+        raise AssertionError("analysis write: the grouped reduce did not launch")
+    log(f"analysis_physical: write {n} rows and show 2 match the Q1 oracle "
+        f"(launches {json.dumps(write_launches)}; {smi})")
+
+    # 4. DDL through the serving front door over a CSV this phase writes
+    ddl_path = os.path.join(out_dir, f"lineitem_{ANALYSIS_DDL_ROWS}.csv")
+    part = {k: v[:ANALYSIS_DDL_ROWS] for k, v in li_cols.items()}
+    write_csv(ddl_path, ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                         "l_discount", "l_tax", "l_shipdate"],
+              [np.array(["A", "N", "R"])[part["flag"]], np.array(["F", "O"])[part["status"]],
+               part["qty"], part["price"], part["disc"], part["tax"],
+               np.array(dates)[part["ship"]]])
+    dctx = tdf.ExecutionContext(result_cache=False)
+    with dctx.serve(workers=1, window_s=0.005) as srv:
+        ddl = srv.submit(LINEITEM_DDL.format(ddl_path).strip().rstrip(";")).result(timeout=120)
+        if srv.submitted != 0:
+            raise AssertionError("analysis DDL: the DDL counted as submitted")
+        cuda_mod.reset_launch_counts()
+        table = srv.submit(Q1).result(timeout=300)
+        ddl_launches = cuda_mod.launch_counts()
+    assert_rows(table, q1_oracle(part, dates), "analysis served DDL Q1")
+    if ddl_launches["hash_agg"] <= 0:
+        raise AssertionError("analysis DDL: the grouped reduce did not launch")
+    log(f"analysis_ddl: {ddl!r}; served Q1 over {ANALYSIS_DDL_ROWS} CSV rows matches "
+        f"the oracle (launches {json.dumps(ddl_launches)})")
+
+    # 5. one append over the loopback wire to an in-process worker
+    import socket
+    import threading
+
+    from datafusion_tpu_torch.parallel.wire import recv_msg, send_msg
+    from datafusion_tpu_torch.parallel.worker import serve
+
+    wctx = tdf.ExecutionContext(result_cache=False)
+    schema = tdf.Schema([tdf.Field("k", tdf.DataType.INT64, False),
+                         tdf.Field("v", tdf.DataType.FLOAT64, False)])
+    wctx.register_datasource("events", tdf.MemoryDataSource(
+        schema, [tdf.make_host_batch(schema, [np.arange(64) % 4, np.arange(64.0)])]))
+    server = serve("127.0.0.1:0", device="cuda:0")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        server.worker_state.ingest_ctx = wctx.ingest(wal_dir=os.path.join(out_dir, "wal"))
+        with socket.create_connection(tuple(server.server_address[:2]), timeout=60) as s:
+            send_msg(s, {"type": "append", "table": "events",
+                         "columns": {"k": [9, 9, 9], "v": [1.5, 2.5, 3.0]}})
+            ack = recv_msg(s)
+    finally:
+        server.shutdown()
+        server.server_close()
+    if ack.get("type") != "append_ack" or ack.get("rows") != 3:
+        raise AssertionError(f"analysis wire append: {ack}")
+    cuda_mod.reset_launch_counts()
+    got = sorted(tdf.collect(wctx.sql(
+        "SELECT k, COUNT(1), SUM(v) FROM events GROUP BY k")).to_rows())
+    append_launches = cuda_mod.launch_counts()
+    if got != [(0, 16, 480.0), (1, 16, 496.0), (2, 16, 512.0), (3, 16, 528.0),
+               (9, 3, 7.0)]:
+        raise AssertionError(f"analysis wire append: the query saw {got}")
+    log(f"analysis_wire_append: ack {json.dumps(ack)}; the next query sees the rows "
+        f"(launches {json.dumps(append_launches)})")
+    total = {k: launches.get(k, 0) + write_launches.get(k, 0) + ddl_launches.get(k, 0)
+             + append_launches.get(k, 0) for k in ("hash_agg", "hash_build", "sort_kernel")}
+    rep = {"query": "analysis", "launches": total, "lockcheck": counts,
+           "q1_p50_ms": p50, "card": smi}
+    log("analysis: " + json.dumps(rep))
+    log(f"analysis_phase: {time.perf_counter() - t_phase:.3f} s ({smi})")
+    return [rep]
+
+
 def _counts():
     from datafusion_tpu_torch.utils.metrics import METRICS
 
@@ -5123,6 +5461,7 @@ def main() -> int:
     fleet_reports = phase_fleet(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
     reports += fleet_reports
     reports += phase_cluster(tdf, cuda_mod, torch, li_cols, dates, smi)
+    reports += phase_analysis(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)
     del star_cols, li_src, li_cols
     reports += phase_topk(tdf, cuda_mod, torch, ctx, smi)
     reports += phase_unsigned(tdf, cuda_mod, torch, ctx, smi)
@@ -5156,4 +5495,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--analysis-round"]:
+        sys.exit(analysis_round(sys.argv[2]))
     sys.exit(main())

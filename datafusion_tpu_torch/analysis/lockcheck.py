@@ -1,11 +1,16 @@
 """Lock-order race detector (a lockdep, sized for one engine).
 
-The JAX package's `analysis/lockcheck.py`, whole.  In the port the
-result cache's store (`cache/store.py`), the fault plan
-(`testing/faults.py`) and the blocking sites of the write-ahead log,
-the wire codec and the ingest plane feed it; the port's other locks
-(serve.py, the device ledger, the prefetch threads) are plain
-`threading.Lock`s still.  This module makes the discipline checked.
+The JAX package's `analysis/lockcheck.py`.  Every lock the JAX package
+names is made here under the same name (the serving front door, the
+device ledger's pins, the span buffer, the profiler, the aggregate's
+encoder, the io threads, the cache, the cluster state), as are the
+port's own locks held around other work (the kernel build and counts,
+the launch gate, the OTLP batch, the metrics registry's leaf lock).
+The blocking sites of the write-ahead log, the wire codec, the io
+threads, the ingest plane and the coordinator's DNS feed it.  This
+module makes the discipline checked; ``python -m
+datafusion_tpu_torch.analysis --lockcheck-report FILE`` evaluates a
+written report.
 ``make_lock(name)`` is the adoption seam: with
 ``DATAFUSION_TPU_LOCKCHECK`` unset it returns a plain
 ``threading.Lock`` — zero overhead, byte-identical behavior — and with
@@ -88,7 +93,9 @@ class Registry:
     def note_acquire(self, name: str) -> None:
         """Called BEFORE a blocking acquire: fold edges held -> name."""
         stack = self._stack()
-        if stack:
+        # the site (a stack walk) is taken only for an edge not seen
+        # yet: an edge keeps its first site, so the report is the same
+        if stack and any((held, name) not in self.edges for held in stack):
             site = _site()
             with self._lock:
                 # held == name makes a SELF-edge: two instances of one

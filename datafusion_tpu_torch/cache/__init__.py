@@ -70,6 +70,12 @@ def configure(enabled: Optional[bool] = None, max_bytes: Optional[int] = None,
     )
 
 
+def reset_config() -> None:
+    """Drop a `configure` override: the environment decides again."""
+    global _OVERRIDE
+    _OVERRIDE = None
+
+
 @contextmanager
 def configured(enabled: Optional[bool] = None,
                max_bytes: Optional[int] = None,

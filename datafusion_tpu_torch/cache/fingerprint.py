@@ -43,6 +43,13 @@ def digest(*parts) -> str:
     return h.hexdigest()[:32]
 
 
+def scan_tables(plan) -> list[str]:
+    """Sorted table names a logical plan scans (tags for invalidation)."""
+    from datafusion_tpu_torch.plan.logical import scan_tables as in_plan_order
+
+    return sorted(in_plan_order(plan))
+
+
 def plan_fingerprint(plan, catalog_versions: Optional[dict] = None,
                      extra: Optional[dict] = None) -> str:
     """Fingerprint of a logical plan under a catalog state.

@@ -478,6 +478,9 @@ class _Channel:
     def __init__(self, name: str):
         self.name = name
         self.sock: Optional[socket.socket] = None
+        # plain, as in the JAX package: it serializes this one socket's
+        # request and reply by design, so a lock-order name would record
+        # each `wire.recv` under it as a blocking call
         self.lock = threading.Lock()
 
 

@@ -1056,6 +1056,9 @@ class _ReplicaLink:
         self.acked_rev = 0
         self.errors = 0
         self.last_error_at: Optional[float] = None
+        # plain, as in the JAX package: a replication round holds it
+        # across its push to the replica by design (commits batch
+        # behind it), so a lock-order name would record each round trip
         self.lock = threading.Lock()
         self._client = None
 

@@ -89,6 +89,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.datatypes import DataType, Schema
 from datafusion_tpu_torch.errors import ExecutionError, NotSupportedError
 from datafusion_tpu_torch.exec.batch import (
@@ -283,8 +284,8 @@ class GroupKeyEncoder:
     def _pack(stacked: np.ndarray) -> Optional[np.ndarray]:
         """Mixed-radix pack of (n, 2K) int64 key parts into (n,) int64;
         None when the combined range could overflow 63 bits."""
-        mins = stacked.min(axis=0).tolist()
-        maxs = stacked.max(axis=0).tolist()
+        mins = stacked.min(axis=0).tolist()  # df-lint: ok(DF001) — a numpy array's min, not a tensor
+        maxs = stacked.max(axis=0).tolist()  # df-lint: ok(DF001) — a numpy array's max, not a tensor
         # ranges in Python ints: a single int64 column can span > 2^63,
         # which would wrap (and slip past the bail-out) in int64 math
         ranges = [int(mx) - int(mn) + 1 for mn, mx in zip(mins, maxs)]
@@ -647,7 +648,7 @@ class _AggregateCore:
 
     def _device_identity(self, sl: _Slot):
         """The slot's identity as its device accumulator holds it."""
-        v = self._slot_identity(sl).item()
+        v = self._slot_identity(sl).item()  # df-lint: ok(DF001) — a numpy scalar identity, not a tensor
         if _flips(sl):
             v = (v ^ (1 << 63)) - (1 << 64 if v < 1 << 63 else 0)
         return v
@@ -998,7 +999,7 @@ class _AggregateCore:
         left = torch.searchsorted(skeys, groups)
         right = torch.searchsorted(skeys, groups, right=True)
         with host_wait():
-            span, live_end = torch.stack([(right - left).max(), right[-1]]).tolist()
+            span, live_end = torch.stack([(right - left).max(), right[-1]]).tolist()  # df-lint: ok(DF001) — the sort-merge's span pull, one per batch group, under host_wait
         perm = perm[:live_end]
         heads = perm < G
 
@@ -1100,7 +1101,7 @@ class AggregateRelation(Relation):
         # serializes the encoder's mutation: the prefetch thread and,
         # over a served table, every relation sharing its encoder
         # (`adopt_shared`) encode through it
-        self._ids_lock = threading.Lock()
+        self._ids_lock = lockcheck.make_lock("exec.aggregate_ids")
         # feedback-driven planning (cost/): the lowering fills `_cost_obs`
         # ((table key, shape): where finalize records the group count)
         # and, when the store knows the shape, `_cost_hint` (the group
@@ -1506,7 +1507,7 @@ class AggregateRelation(Relation):
         if route is not None and self._cost_rows and events:
             from datafusion_tpu_torch.cost import advisor
 
-            events[-1][1].synchronize()
+            events[-1][1].synchronize()  # df-lint: ok(DF001) — route evidence: one wait on the last pass's event a query, on the card only
             exec_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
             advisor.observe_agg_route(store, route[0], route[1], exec_s,
                                       self._cost_rows)

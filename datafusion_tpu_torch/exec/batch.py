@@ -192,6 +192,9 @@ class RecordBatch:
         self.mask = mask
         self.cache: dict = {}
 
+    def column(self, i: int):
+        return self.data[i]
+
     @property
     def num_columns(self) -> int:
         return len(self.data)
@@ -304,11 +307,11 @@ def _decimal_division_exact(device) -> bool:
         rng = np.random.default_rng(0xD1CE)
         ints = rng.integers(-(2**31) + 1, 2**31 - 1, _SAMPLE).astype(np.int32)
         hit = True
-        codes = torch.from_numpy(ints).to(device)
+        codes = torch.from_numpy(ints).to(device)  # df-lint: ok(DF006) — the decimal probe, once a platform
         for scale in (100, 1000):
             want = ints.astype(np.float64) / scale
-            sc = torch.from_numpy(np.full(1, scale, np.float64)).to(device)
-            got = _decode_wire(("decimal", scale), (codes, sc)).cpu().numpy()
+            sc = torch.from_numpy(np.full(1, scale, np.float64)).to(device)  # df-lint: ok(DF006) — the decimal probe, once a platform
+            got = _decode_wire(("decimal", scale), (codes, sc)).cpu().numpy()  # df-lint: ok(DF001) — the decimal probe, once a platform
             if not np.array_equal(got.view(np.int64), want.view(np.int64)):
                 hit = False
                 break
@@ -324,7 +327,7 @@ def _f64_device_exact(device) -> bool:
     if hit is None:
         rng = np.random.default_rng(0xF64)
         v = np.round(rng.uniform(-1e6, 1e6, _SAMPLE), 2)
-        back = torch.from_numpy(v).to(device).cpu().numpy()
+        back = torch.from_numpy(v).to(device).cpu().numpy()  # df-lint: ok(DF001, DF006) — the f64 round-trip probe, once a platform
         hit = _F64_EXACT[platform] = bool(
             np.array_equal(back.view(np.int64), v.view(np.int64))
         )
@@ -426,14 +429,14 @@ def link_rate_mbps(device) -> float:
     key = _link_cache_key(device, platform)
     hit = _LINK_RATE.get(key)
     if hit is None:
-        torch.arange(16, device=device).cpu()
+        torch.arange(16, device=device).cpu()  # df-lint: ok(DF001) — the link-rate probe's warm-up, once a card
         rng = np.random.default_rng(0xBEEF)
         src = torch.from_numpy(
             rng.integers(0, 255, _LINK_PROBE_BYTES, dtype=np.uint8)).pin_memory()
         rates = []
         for _ in range(2):
             t0 = time.perf_counter()
-            src.to(device)
+            src.to(device)  # df-lint: ok(DF006) — the link-rate probe times the raw transport, once a card
             rates.append(src.numel() / 1e6 / max(time.perf_counter() - t0, 1e-9))
         hit = _LINK_RATE[key] = float(max(rates))
         METRICS.add("link.probe_mbps", int(hit))
@@ -690,10 +693,10 @@ def put_compressed(host_arrays, device, hints=None, owner: str = "batch"):
             blob = torch.from_numpy(host)
         else:
             buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-            _write_wires(buf.numpy(), wire_lists, offsets)
+            _write_wires(buf.numpy(), wire_lists, offsets)  # df-lint: ok(DF001) — a view of pinned host memory, no device wait
             blob = buf.to(device, non_blocking=True)
             if profile_sync_active():
-                torch.cuda.current_stream(device).synchronize()
+                torch.cuda.current_stream(device).synchronize()  # df-lint: ok(DF001) — only inside profile_sync (EXPLAIN ANALYZE)
     finally:
         stage_exit(tok)
     note_h2d(wire_bytes, time.perf_counter() - t0)
@@ -732,16 +735,16 @@ def device_pull(tensors) -> list:
     t0 = time.perf_counter()
     try:
         if blob.device.type == "cpu":
-            host = blob.numpy()
+            host = blob.numpy()  # df-lint: ok(DF001) — a CPU tensor's view
         else:
             buf = torch.empty(blob.numel(), dtype=torch.uint8, pin_memory=True)
             with host_wait():
                 buf.copy_(blob)
-            host = buf.numpy()
+            host = buf.numpy()  # df-lint: ok(DF001) — a view of the pinned block the copy above filled
         out = []
         off = 0
         for x in tensors:
-            np_dtype = np.dtype(torch.empty(0, dtype=x.dtype).numpy().dtype)
+            np_dtype = np.dtype(torch.empty(0, dtype=x.dtype).numpy().dtype)  # df-lint: ok(DF001) — an empty CPU tensor names the dtype
             nbytes = x.numel() * np_dtype.itemsize
             # a copy: the pinned block goes back to the allocator
             out.append(host[off: off + nbytes].copy().view(np_dtype).reshape(tuple(x.shape)))
@@ -772,7 +775,7 @@ def to_device(arr: np.ndarray, device: torch.device, owner: str = "batch") -> to
         if device.type != "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
             if profile_sync_active():
-                torch.cuda.current_stream(device).synchronize()
+                torch.cuda.current_stream(device).synchronize()  # df-lint: ok(DF001) — only inside profile_sync (EXPLAIN ANALYZE)
     finally:
         stage_exit(tok)
     note_h2d(t.numel() * t.element_size(), time.perf_counter() - t0)
@@ -791,7 +794,7 @@ def to_host(x, np_dtype=None) -> np.ndarray:
         t0 = time.perf_counter()
         try:
             with host_wait():
-                out = x.cpu().numpy()
+                out = x.cpu().numpy()  # df-lint: ok(DF001) — the pull seam itself, under host_wait
         finally:
             stage_exit(tok)
         record_d2h(out.nbytes, time.perf_counter() - t0)
@@ -803,7 +806,7 @@ def on_device(x, device: torch.device, owner: str = "batch") -> torch.Tensor:
     """A host array or a tensor as a tensor on `device`; a tensor
     already there passes through."""
     if isinstance(x, torch.Tensor):
-        return x if x.device == device else x.to(device)
+        return x if x.device == device else x.to(device)  # df-lint: ok(DF006) — a tensor's move between devices; host data goes through to_device
     return to_device(np.asarray(x), device, owner)
 
 
@@ -812,7 +815,7 @@ def param_tensors(values, device: torch.device) -> tuple:
     exec/kernels.parameterize_exprs) as 0-dim tensors on `device`, in
     their device dtypes."""
     return tuple(
-        torch.from_numpy(device_array(np.asarray(v)).copy()).to(device)
+        torch.from_numpy(device_array(np.asarray(v)).copy()).to(device)  # df-lint: ok(DF006) — 0-dim runtime literals ride each launch as arguments, not columns
         for v in values
     )
 

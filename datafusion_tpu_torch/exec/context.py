@@ -58,8 +58,9 @@ Every plan `execute` lowers passes the static verifier first
 column, a mistyped expression, a computed GROUP BY or ORDER BY key
 raises `PlanVerificationError` before any operator is built.
 
-What raises NotSupportedError: a `host_fn` UDF in a WHERE predicate
-and any plan node not listed above (ROADMAP queue 1).
+What raises NotSupportedError: a `host_fn` UDF in a WHERE predicate,
+a plan node outside `plan/logical.py`, and a `PhysicalPlan` write to a
+format other than CSV (`execute_physical`).
 
 Feedback-driven planning (cost/, on unless `DATAFUSION_TPU_COST=0`):
 `_plan` runs the cost store's logical rewrites after projection
@@ -344,6 +345,38 @@ class ExecutionContext:
                 return _averify.ExplainVerifyResult(plan, report)
             return ExplainResult(plan)
         return self.execute(self._plan(stmt))
+
+    def metrics(self) -> dict:
+        """Every counter, timing and gauge of `utils/metrics.METRICS`."""
+        return METRICS.snapshot()
+
+    def execute_physical(self, physical_plan):
+        """Execute a `parallel/physical.PhysicalPlan` statement wrapper,
+        the unit of work the reference defined (`physicalplan.rs:18-34`).
+
+        interactive -> the plan's Relation (lazy); write -> the result
+        written to `filename` as CSV (any other format raises
+        NotSupportedError), returns the row count; show -> the first
+        `count` rows as a ResultTable."""
+        kind = physical_plan.kind
+        if kind == "interactive":
+            return self.execute(physical_plan.plan)
+        if kind == "write":
+            if (physical_plan.file_format or "csv").lower() != "csv":
+                raise NotSupportedError(
+                    f"write format {physical_plan.file_format!r} not supported"
+                )
+            table = collect(self.execute(physical_plan.plan))
+            table.to_csv(physical_plan.filename)
+            return table.num_rows
+        if kind == "show":
+            table = collect(self.execute(physical_plan.plan))
+            n = physical_plan.count
+            return ResultTable(
+                table.schema, [c[:n] for c in table.columns],
+                [None if v is None else v[:n] for v in table.validity],
+            )
+        raise ExecutionError(f"unknown physical plan kind {kind!r}")
 
     def metrics_text(self) -> str:
         """The engine's counters, stage timings and gauges
@@ -742,7 +775,7 @@ class ExecutionContext:
                 rel._cost_obs = (self.cost_table_key(rtabs[0]), "join-build")
             return rel
         raise NotSupportedError(
-            f"plan node {type(plan).__name__} is not ported yet (ROADMAP queue 1)"
+            f"plan node {type(plan).__name__} is not supported"
         )
 
     def _execute_fused(self, plan: LogicalPlan, fns) -> Optional[Relation]:

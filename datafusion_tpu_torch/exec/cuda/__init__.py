@@ -31,10 +31,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.errors import ExecutionError
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -47,8 +47,8 @@ NVCC_FLAGS = (
 SOURCES = ("hash_agg", "hash_build", "sort_kernel")
 
 _LIBS: dict = {}
-_LOCK = threading.Lock()
-COUNT_LOCK = threading.Lock()
+_LOCK = lockcheck.make_lock("exec.kernel_build")
+COUNT_LOCK = lockcheck.make_lock("exec.kernel_counts")
 
 
 def agg_max_groups() -> int:

@@ -130,4 +130,4 @@ def build_slot_table(pos, live, num_slots: int):
         raise ExecutionError(f"build_slot_table runs on cuda or cpu, not {pos.device}")
     row, count, dup = _launch(pos, live, num_slots)
     with host_wait():
-        return row, count, bool(dup.item())
+        return row, count, bool(dup.item())  # df-lint: ok(DF001) — the build's duplicate flag, one pull a build, under host_wait

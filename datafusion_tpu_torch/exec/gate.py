@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.errors import ExecutionError
 from datafusion_tpu_torch.utils.metrics import METRICS
 
@@ -61,7 +62,7 @@ _CU_MEMHOSTALLOC_DEVICEMAP = 0x02
 _CU_DEVICE_ATTRIBUTE_UNIFIED_ADDRESSING = 41
 _CU_DEVICE_ATTRIBUTE_CAN_USE_HOST_POINTER_FOR_REGISTERED_MEM = 91
 
-_LOCK = threading.Lock()
+_LOCK = lockcheck.make_lock("exec.gate_driver")
 _DRIVER: Optional["_Driver"] = None
 _local = threading.local()
 
@@ -167,7 +168,7 @@ class Gate:
         self._word = ctypes.c_uint32.from_address(host.value)
         self._word.value = 0
         self.value = 0
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("exec.gate")
         self.thread = threading.get_ident()  # a gate serves one thread
 
     def close(self, stream: int) -> None:
@@ -199,7 +200,7 @@ class _Watchdog:
     backstop against a host wait that runs under no `host_wait()`."""
 
     def __init__(self):
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(lockcheck.make_lock("exec.gate_watchdog"))
         self._heap: list = []
         self._seq = 0
         self._thread: Optional[threading.Thread] = None

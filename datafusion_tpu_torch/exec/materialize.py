@@ -68,7 +68,7 @@ def _fetch_mask(batch) -> np.ndarray:
     if packed:
         w = _WEIGHTS.get(m.device)
         if w is None:
-            w = _WEIGHTS[m.device] = torch.tensor(
+            w = _WEIGHTS[m.device] = torch.tensor(  # df-lint: ok(DF006) — 8 bit weights, once a device
                 [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8, device=m.device)
         m = (m.reshape(-1, 8).to(torch.uint8) * w).sum(dim=1, dtype=torch.uint8)
     host = device_pull((m,))[0]
@@ -104,7 +104,7 @@ def compact_batch(batch: RecordBatch):
     if live is not None and dev_arrays:
         cap_out = bucket_capacity(max(count, 1))
         if cap_out * _COMPACT_FACTOR <= batch.capacity:
-            idx = torch.from_numpy(np.nonzero(live)[0]).to(dev_arrays[0].device)
+            idx = torch.from_numpy(np.nonzero(live)[0]).to(dev_arrays[0].device)  # df-lint: ok(DF006) — the compaction's row index, counted by the d2h.compact timer
             with METRICS.timer("d2h.compact"):
                 dev_arrays = _gather_compact(dev_arrays, idx)
             METRICS.add("d2h.compacted_batches")
@@ -158,7 +158,7 @@ class ResultTable:
         """Python values for column i, None where null."""
         col = self.columns[i]
         valid = self.validity[i]
-        out = col.tolist()
+        out = col.tolist()  # df-lint: ok(DF001) — a host column (numpy), not a tensor
         if valid is not None:
             out = [v if ok else None for v, ok in zip(out, valid)]
         return out
@@ -171,6 +171,41 @@ class ResultTable:
     def to_rows(self) -> list[tuple]:
         cols = [self.column_values(i) for i in range(len(self.schema))]
         return list(zip(*cols)) if cols else []
+
+    def to_csv(self, path: str, header: bool = True) -> None:
+        """Write the table to a CSV file (the `PhysicalPlan` write sink,
+        reference `physicalplan.rs:25-29`): the JAX package's bytes,
+        NULL as an empty field."""
+        import csv as _csv
+
+        with open(path, "w", newline="", encoding="utf-8") as fh:
+            w = _csv.writer(fh)
+            if header:
+                w.writerow(self.schema.names())
+            for row in self.to_rows():
+                w.writerow(["" if v is None else v for v in row])
+
+    def pretty(self, max_rows: int = 50) -> str:
+        """The first `max_rows` rows as a boxed text table (the JAX
+        package's text), with a row-count line when more exist."""
+        names = self.schema.names()
+        rows = self.to_rows()
+        cells = [[("NULL" if v is None else str(v)) for v in row]
+                 for row in rows[:max_rows]]
+        widths = [len(n) for n in names]
+        for row in cells:
+            for j, c in enumerate(row):
+                widths[j] = max(widths[j], len(c))
+        sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+        lines = [sep,
+                 "|" + "|".join(f" {n:<{w}} " for n, w in zip(names, widths)) + "|",
+                 sep]
+        for row in cells:
+            lines.append("|" + "|".join(f" {c:<{w}} " for c, w in zip(row, widths)) + "|")
+        lines.append(sep)
+        if len(rows) > max_rows:
+            lines.append(f"... ({self.num_rows} rows total)")
+        return "\n".join(lines)
 
 
 def collect_columns(relation, batches=None):

@@ -762,7 +762,7 @@ class SortRelation(Relation):
                 base += bn
             group.clear()
             rows = to_host(state_ids)
-            owners = set(self._owner(held, rows).tolist())
+            owners = set(self._owner(held, rows).tolist())  # df-lint: ok(DF001) — a numpy array from to_host above
             for b in [b for b in held if b not in owners]:
                 del held[b]
 
@@ -804,7 +804,7 @@ class SortRelation(Relation):
             out = np.empty(len(rows), first[0][i].dtype)
             any_valid = any(h[1][i] is not None for h in held.values())
             vout = np.ones(len(rows), bool) if any_valid else None
-            for b in np.unique(owner).tolist():
+            for b in np.unique(owner).tolist():  # df-lint: ok(DF001) — a numpy array, not a tensor
                 m = owner == b
                 local = rows[m] - b
                 bcols, bvalids = held[b]

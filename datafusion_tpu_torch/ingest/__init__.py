@@ -539,7 +539,9 @@ class IngestContext:
     def __init__(self, ctx, wal_dir: Optional[str] = None):
         self.ctx = ctx
         # ONE mutex serializes append -> log -> apply -> notify and view
-        # reads; held across the log write (module docstring)
+        # reads; held across the log write (module docstring).  Plain, as
+        # in the JAX package: the blocking sites announce themselves
+        # before they take it (`ingest.*` in analysis/lockcheck)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._tables: dict[str, AppendableSource] = {}
@@ -563,10 +565,15 @@ class IngestContext:
 
     # -- tables --
 
-    def _attach_locked(self, table: str) -> AppendableSource:
+    def attach(self, table: str) -> AppendableSource:
         """Make `table` appendable (idempotent): the registered source is
         wrapped into an :class:`AppendableSource` (materializing it) and
         re-registered, bumping the catalog version once."""
+        lockcheck.note_blocking("ingest.attach")
+        with self._lock:
+            return self._attach_locked(table)
+
+    def _attach_locked(self, table: str) -> AppendableSource:
         src = self._tables.get(table)
         if src is not None:
             return src

@@ -12,9 +12,10 @@ its whole scan; distinct scans land on distinct threads round-robin.
 Callers submit closures and block for the result: `confined_iter` is a
 synchronous pull, one queue round-trip per batch.
 
-The JAX package's lock-order instrumentation (`analysis/lockcheck`)
-is not ported (ROADMAP queue 1, item 13): the start lock is a plain
-`threading.Lock`.
+The start lock is `analysis/lockcheck`'s `io.worker_start`, and a
+submit marks its wait for the result (`io_thread.submit`), so a
+lock-order run records any lock a caller holds across a confined call,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import itertools
 import queue
 import threading
 from typing import Any, Callable, Iterator
+
+from datafusion_tpu_torch.analysis import lockcheck
 
 __all__ = ["run_on_io_thread", "confined_iter"]
 
@@ -35,7 +38,7 @@ class _IoWorker:
     def __init__(self, name: str) -> None:
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         self._thread: threading.Thread | None = None
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("io.worker_start")
         self._name = name
 
     def _ensure_started(self) -> None:
@@ -77,6 +80,9 @@ class _IoWorker:
         done = threading.Event()
         out: list = []
         self._q.put((fn, args, kwargs, done, out))
+        # a caller holding a lock would stall every contender for as
+        # long as the confined call takes: lockcheck records it
+        lockcheck.note_blocking("io_thread.submit")
         done.wait()
         if out[1] is not None:
             raise out[1]

@@ -6,8 +6,7 @@ dictionary-coded — Utf8 keys compare through per-dictionary lookup
 tables, never by materializing python strings per row).  `HashIndex`
 serves the host join path (join/relation.py); the partition hash is the
 one the JAX package's shuffle exchange places rows by, kept byte for
-byte so a distributed port can agree with it (ROADMAP queue 1,
-distributed execution).
+byte so the port's shuffle join (parallel/shuffle.py) agrees with it.
 
 SQL NULL semantics throughout: a NULL key matches nothing — not even
 another NULL — and a LEFT OUTER probe row whose key is NULL still

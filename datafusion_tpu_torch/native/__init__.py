@@ -29,6 +29,7 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.errors import IoError
 
 REPO = Path(__file__).resolve().parents[2]
@@ -39,7 +40,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 LIB_NAME = "libdatafusion_native.so"
 
 _LIB = None
-_LOCK = threading.Lock()
+_LOCK = lockcheck.make_lock("native.build")
 
 
 def _compiler(cxx: Optional[str]) -> str:
@@ -139,3 +140,12 @@ def load_library():
                     raise IoError(f"cannot load {path}: {e}") from e
                 _LIB = lib
     return _LIB
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here (False where
+    no compiler is found or the build fails)."""
+    try:
+        return load_library() is not None
+    except IoError:
+        return False

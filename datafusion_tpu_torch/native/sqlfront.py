@@ -31,6 +31,18 @@ def _library():
     return load_library()
 
 
+def frontend_available() -> bool:
+    """Whether the C++ SQL front end is on: the library loads and
+    DATAFUSION_TPU_NATIVE is not 0."""
+    from datafusion_tpu_torch.errors import IoError
+
+    try:
+        lib = _library()
+    except IoError:
+        return False
+    return lib is not None and hasattr(lib, "dtf_parse_sql")
+
+
 def _call(lib, fn_name: str, arg: str) -> str:
     ptr = getattr(lib, fn_name)(arg.encode("utf-8"))
     if not ptr:

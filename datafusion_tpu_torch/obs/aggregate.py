@@ -270,6 +270,10 @@ class LatencyHistogram:
 HISTOGRAMS: dict[str, LatencyHistogram] = {}
 
 
+def reset_histograms() -> None:
+    HISTOGRAMS.clear()
+
+
 def observe_latency(name: str, seconds: float) -> None:
     """Record one latency observation into the named histogram."""
     h = HISTOGRAMS.get(name)

@@ -68,11 +68,11 @@ import contextvars
 import functools
 import itertools
 import os
-import threading
 import time
 import weakref
 from typing import Any, Optional
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.obs import recorder
 from datafusion_tpu_torch.obs import stats as _stats
 from datafusion_tpu_torch.obs.trace import _current_trace
@@ -211,7 +211,7 @@ class DeviceLedger:
     """Process-wide registry of device buffers and pinned residents."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("obs.device_pins")
         self._pins: dict[str, _PinEntry] = {}
         # (device, storage pointer) -> entry; mutated without a lock
         self._bufs: dict[tuple, _BufEntry] = {}
@@ -313,6 +313,22 @@ class DeviceLedger:
 
     def peak_bytes(self) -> int:
         return self._peak
+
+    def reset_peak(self) -> int:
+        """Re-arm the process-wide watermark at the live level now.
+        Scrapes then lose the true high-water mark: a per-run
+        measurement uses `begin_peak_window`."""
+        self._peak = self.live_bytes()
+        self._gauge("device.hbm.peak_bytes", self._peak)
+        return self._peak
+
+    def clear(self) -> None:
+        """Drop every tracked buffer (tests).  The finalizers of
+        buffers still alive later release entries that no longer
+        exist, which `_release` tolerates."""
+        self._bufs.clear()
+        self._live = 0
+        self._peak = 0
 
     def begin_peak_window(self) -> int:
         """Start a per-run watermark (EXPLAIN ANALYZE): `window_peak_bytes`

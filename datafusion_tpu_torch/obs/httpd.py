@@ -163,6 +163,9 @@ def build_bundle(*, label: Optional[str] = None,
         doc["profile"] = profiler.capture_seconds(
             seconds, name="bundle"
         ).to_json()
+    cont = profiler.continuous_report()
+    if cont is not None:
+        doc["profile_continuous"] = cont.to_json()
     METRICS.add("obs.debug_bundles")
     return doc
 
@@ -182,7 +185,7 @@ def build_bundle_tar(*, label: Optional[str] = None,
     replaced by member references), ``flights.jsonl`` (one flight
     event per line), ``spans.jsonl`` (the raw span buffer, one span
     per line), ``metrics.prom`` (the Prometheus exposition),
-    ``profile.json`` (the host profile),
+    ``profile.json`` / ``profile_continuous.json`` (host profiles),
     ``tenants.json`` (per-client metering), ``tail.json`` (the tail
     explainer report)."""
     import io
@@ -204,9 +207,11 @@ def build_bundle_tar(*, label: Optional[str] = None,
     members["spans.jsonl"] = "\n".join(
         json.dumps(s, default=str) for s in obs_trace.spans(trace_id)
     ).encode()
-    attachment = doc.pop("profile", None)
-    if attachment is not None:
-        members["profile.json"] = json.dumps(attachment, default=str).encode()
+    for key, name in (("profile", "profile.json"),
+                      ("profile_continuous", "profile_continuous.json")):
+        attachment = doc.pop(key, None)
+        if attachment is not None:
+            members[name] = json.dumps(attachment, default=str).encode()
     members["tenants.json"] = json.dumps(
         attribution.tenants_snapshot(), default=str).encode()
     members["tail.json"] = json.dumps(

@@ -36,6 +36,7 @@ import os
 import threading
 from typing import Optional
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.utils.metrics import METRICS
 
 # the JAX package's scope and service names: one collector sees both
@@ -183,7 +184,7 @@ def post_otlp(endpoint: str, span_dicts: list[dict], timeout_s: float = 5.0,
 
 # -- batching to the endpoint ---------------------------------------------
 _pending: list[dict] = []
-_pending_lock = threading.Lock()
+_pending_lock = lockcheck.make_lock("obs.otlp_pending")
 _flush_timer: Optional[threading.Timer] = None
 
 

@@ -39,9 +39,13 @@ EXPLAIN ANALYZE runs under one (``DATAFUSION_TPU_PROFILE_EXPLAIN=0``
 opts out), and ``capture_seconds`` samples for a fixed time.  The
 sampler thread exists only while a capture is active: by default there
 is none.  The debug plane's ``/debug/profile`` and bundles capture on
-demand (obs/httpd.py); the JAX package's continuous mode
-(``DATAFUSION_TPU_PROFILE_HZ``, a rolling report in every flight
-artifact) is not ported.
+demand (obs/httpd.py).  Continuous mode, as in the JAX package:
+``DATAFUSION_TPU_PROFILE_HZ`` > 0 starts one process-lifetime capture
+at import (``maybe_start_continuous``); its rolling report
+(``continuous_report``) rides in every slow or failed query's flight
+artifact as ``profile`` (obs/recorder.py) and in every debug bundle as
+``profile_continuous`` (obs/httpd.py).  Unset or 0, the default, starts
+no thread.
 
 A capture samples at ``_CAPTURE_HZ`` (97 — a prime, so periodic engine
 work can't alias the sampler) unless it is given a rate, keeps at most
@@ -57,9 +61,11 @@ import threading
 import time
 from typing import Optional
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.utils import metrics as _metrics
 from datafusion_tpu_torch.utils.metrics import METRICS
 
+_HZ = float(os.environ.get("DATAFUSION_TPU_PROFILE_HZ", "0") or 0)
 _CAPTURE_HZ = 97.0
 _MAX_STACKS = 8192
 _MAX_DEPTH = 64
@@ -67,6 +73,23 @@ _MAX_DEPTH = 64
 # phases rendered in bar order (mirrors obs/device.PHASE_ORDER without
 # importing it here — profiler stays a leaf module, see _stage_phase)
 _TRUNCATED = "(truncated)"
+
+
+def capture_hz() -> float:
+    """The scoped-capture default rate (EXPLAIN ANALYZE,
+    /debug/profile): the continuous rate when one is configured, else
+    ``_CAPTURE_HZ``."""
+    return _HZ if _HZ > 0 else _CAPTURE_HZ
+
+
+def configure(capture_hz: Optional[float] = None,
+              max_stacks: Optional[int] = None) -> None:
+    """Test/embedding override of the capture rate and the stack cap."""
+    global _CAPTURE_HZ, _MAX_STACKS
+    if capture_hz is not None:
+        _CAPTURE_HZ = float(capture_hz)
+    if max_stacks is not None:
+        _MAX_STACKS = int(max_stacks)
 
 
 _STAGE_PHASE: Optional[dict] = None
@@ -321,13 +344,13 @@ class SamplingProfiler:
         # stop or be un-stopped by a later start's clear()
         self._stop = threading.Event()
         # start/stop only: the SAMPLE path never touches it
-        self._admin = threading.Lock()
+        self._admin = lockcheck.make_lock("obs.profiler_admin")
         self._interval = 1.0
 
     # -- capture lifecycle (cold path) --------------------------------
     def start_capture(self, hz: Optional[float] = None,
                       name: str = "capture") -> ProfileCapture:
-        hz = float(hz) if hz else _CAPTURE_HZ
+        hz = float(hz) if hz else capture_hz()
         hz = max(min(hz, 1000.0), 0.1)
         cap = ProfileCapture(hz, name)
         with self._admin:
@@ -400,6 +423,40 @@ class SamplingProfiler:
 
 PROFILER = SamplingProfiler()
 
+# the continuous (process-lifetime) capture, when DATAFUSION_TPU_PROFILE_HZ
+# is set: its rolling report attaches to slow-query flight artifacts
+# and debug bundles
+_continuous: Optional[ProfileCapture] = None
+
+
+def continuous_running() -> bool:
+    return _continuous is not None
+
+
+def continuous_report() -> Optional[ProfileReport]:
+    """Rolling snapshot of the continuous capture (None when off)."""
+    return None if _continuous is None else _continuous.report()
+
+
+def maybe_start_continuous() -> bool:
+    """Start the env-configured continuous profiler (idempotent; False
+    when ``DATAFUSION_TPU_PROFILE_HZ`` is unset or 0, the default, which
+    creates no thread)."""
+    global _continuous
+    if _HZ <= 0 or _continuous is not None:
+        return _continuous is not None
+    _continuous = PROFILER.start_capture(_HZ, name="continuous")
+    return True
+
+
+def stop_continuous() -> Optional[ProfileReport]:
+    global _continuous
+    if _continuous is None:
+        return None
+    cap, _continuous = _continuous, None
+    return PROFILER.stop_capture(cap)
+
+
 class profile:
     """``with profile() as cap: ...`` — scoped capture; read
     ``cap.report()`` after the block (EXPLAIN ANALYZE).  ``hz=0``/``enabled=False`` degrades to
@@ -437,3 +494,6 @@ def capture_seconds(seconds: float, hz: Optional[float] = None,
     finally:
         report = PROFILER.stop_capture(cap)
     return report
+
+
+maybe_start_continuous()

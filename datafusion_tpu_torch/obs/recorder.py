@@ -12,7 +12,8 @@ and the ring is dumpable as JSON:
 - automatically on a slow query (its wall crosses
   ``DATAFUSION_TPU_FLIGHT_SLOW_S``) and on a failed one: a correlated
   artifact set (the ring, the query's span tree as OTLP, the operator
-  report, the tail explainer, every involved worker's ring;
+  report, the tail explainer, the continuous host profile, every
+  involved worker's ring;
   `capture_query_artifacts`);
 - on an SLO breach (obs/slo.py) and on a process crash (a chained
   ``sys.excepthook``, `install_crash_hook`).
@@ -226,8 +227,10 @@ def capture_query_artifacts(reason: str, *, wall_s: Optional[float] = None,
     """One correlated artifact for a slow or failed query: this node's
     events, every involved node's (`node_dumps_fn`, called only when a
     dump happens, so a throttled capture touches no network), the
-    query's spans as an OTLP document, its phase breakdown, the tail
-    explainer's report and the operator report of an instrumented run."""
+    query's spans as an OTLP document, its phase breakdown, the
+    continuous profile (`profile`, when DATAFUSION_TPU_PROFILE_HZ runs
+    one), the tail explainer's report and the operator report of an
+    instrumented run."""
 
     def _extra() -> dict:
         from datafusion_tpu_torch.obs import attribution
@@ -239,6 +242,14 @@ def capture_query_artifacts(reason: str, *, wall_s: Optional[float] = None,
                                  "trace_id": trace_id, "error": error}}
         if phases:
             extra["query"]["phases"] = dict(phases)
+        # the continuous host profiler's rolling report rides along
+        # (DATAFUSION_TPU_PROFILE_HZ): the slow query's artifact then
+        # says where the host's time went beside what happened
+        from datafusion_tpu_torch.obs import profiler as _profiler
+
+        prof = _profiler.continuous_report()
+        if prof is not None and prof.samples:
+            extra["profile"] = prof.to_json()
         try:
             extra["tail"] = attribution.EXPLAINER.explain()
             if spans:

@@ -80,6 +80,11 @@ class OperatorStats:
         return f"OperatorStats({self.snapshot()})"
 
 
+def current_op() -> Optional[OperatorStats]:
+    """The ambient operator's stats (None outside instrumented runs)."""
+    return _CUR_OP.get()
+
+
 def record_h2d(nbytes: int) -> None:
     st = _CUR_OP.get()
     if st is not None:

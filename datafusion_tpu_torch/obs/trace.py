@@ -32,6 +32,7 @@ import uuid
 from contextlib import contextmanager
 from typing import Any, Optional
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.utils import metrics as _metrics
 from datafusion_tpu_torch.utils.metrics import METRICS
 
@@ -69,7 +70,7 @@ _SESSION_DEPTH = 0  # active trace sessions (EXPLAIN ANALYZE runs)
 _MAX_SPANS = 100000
 _ROLE = "main"  # a span's `proc` is "<role>:<pid>" (`set_process_role`)
 
-_lock = threading.Lock()
+_lock = lockcheck.make_lock("obs.trace_buffer")
 _spans: list["Span"] = []
 
 
@@ -305,6 +306,13 @@ def span(name: str, **attrs: Any):
     if not enabled():
         return _NOOP
     return _SpanScope(name, attrs or None)
+
+
+def buffered() -> int:
+    """Finished spans buffered now (the worker's
+    `obs.span_buffer_depth` gauge)."""
+    with _lock:
+        return len(_spans)
 
 
 def spans(trace_id: Optional[str] = None) -> list[dict]:

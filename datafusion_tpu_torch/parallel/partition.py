@@ -321,7 +321,7 @@ class PartitionedAggregateRelation(AggregateRelation):
             key = (k, dict_versions(batch)[self.slots[k].arg_index])
             hit = str_cache.get(key)
             if hit is None:
-                hit = str_cache[key] = tuple(t.to(device) for t in pair)
+                hit = str_cache[key] = tuple(t.to(device) for t in pair)  # df-lint: ok(DF006) — a string rank table, cached per dictionary version
             str_aux.append(hit)
         return aux, tuple(str_aux)
 
@@ -501,7 +501,7 @@ class PartitionedAggregateRelation(AggregateRelation):
             return self._combine(states, self._on_combine_device(last_str_aux))
 
     def _on_combine_device(self, str_aux):
-        return tuple(None if p is None else tuple(t.to(self.device) for t in p)
+        return tuple(None if p is None else tuple(t.to(self.device) for t in p)  # df-lint: ok(DF006) — rank tables moved to the combine device, once a query
                      for p in str_aux)
 
 

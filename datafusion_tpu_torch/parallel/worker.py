@@ -20,12 +20,15 @@ Requests:  {"type": "ping"}
             "num_parts": P, "side": "L"|"R"}
            {"type": "shuffle_join", "partition": p, "on": [[l,r]...],
             "join_type": ..., "left_blocks": [...], "right_blocks": [...]}
+           {"type": "append", "table": ..., "columns": {...}, "client": ...}
+             (a worker with an attached `ingest_ctx` only)
            {"type": "shutdown"}
 Responses: {"type": "pong", ...} / {"type": "status", ...} /
            {"type": "telemetry", "snapshot": ...} /
            {"type": "flight_dump", "events": [...], ...} /
            {"type": "partial_state", ...} / {"type": "rows", ...} /
-           {"type": "shuffle_blocks", ...} / {"type": "bye"} /
+           {"type": "shuffle_blocks", ...} / {"type": "append_ack", ...} /
+           {"type": "bye"} /
            {"type": "error", "message": ...}
 
 The `status` reply carries the worker's own counters: its queries and
@@ -176,6 +179,25 @@ class WorkerState:
         self.cluster_agent = None
         # the debug HTTP plane's port, advertised in the cluster lease
         self.debug_port: Optional[int] = None
+        # the streaming-ingest seam (ingest/): a process embedding this
+        # worker beside a long-lived ExecutionContext attaches that
+        # context's IngestContext here, and the wire takes an `append`
+        # request.  None on a plain fragment worker: its per-fragment
+        # contexts have no tables to append to
+        self.ingest_ctx = None
+
+    def append(self, table: str, columns: dict,
+               client: Optional[str] = None) -> dict:
+        """Wire append: logged, then applied, on the attached ingest
+        context.  IngestUnavailableError (a TransientError) crosses the
+        wire as an error reply, so the coordinator retries, and the
+        log's revision dedup absorbs the replay."""
+        if self.ingest_ctx is None:
+            from datafusion_tpu_torch.errors import IngestUnavailableError
+
+            raise IngestUnavailableError("ingest not enabled on this worker")
+        ack = self.ingest_ctx.append(table, columns, client=client or None)
+        return {"type": "append_ack", **ack}
 
     @property
     def pins_rehydrated(self) -> int:
@@ -202,7 +224,7 @@ class WorkerState:
     def _gauges(self) -> dict:
         from datafusion_tpu_torch.utils import breaker as breaker_mod
 
-        gauges = {}
+        gauges = {"obs.span_buffer_depth": obs_trace.buffered()}
         if self.fragment_cache is not None:
             gauges.update(self.fragment_cache.gauges())
         if self.cluster_agent is not None:
@@ -471,6 +493,9 @@ def _serve_worker_request(state: WorkerState, msg: dict):
         elif kind == "shuffle_join":
             with adoption, deadline_scope(deadline):
                 out = state.shuffle_join(msg, bw)
+        elif kind == "append":
+            with adoption, deadline_scope(deadline):
+                out = state.append(msg["table"], msg["columns"], msg.get("client"))
         else:
             out = {"type": "error", "message": f"unknown request {kind!r}"}
     except faults.InjectedConnectionAbort:

@@ -128,6 +128,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.errors import NotSupportedError, QueryShedError
 from datafusion_tpu_torch.exec.datasource import DataSource, host_bytes
 from datafusion_tpu_torch.exec.streams import publish, serving_scope, shared
@@ -229,13 +230,13 @@ class PinnedSource(DataSource):
         self.on_change = None
         # each resident batch's cache as the pin found it (`_drop`)
         self._caches_before: Optional[list] = None
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("serve.pin_source")
         # cross-query execution state (`shared_state_for`)
         self._encoders: dict = {}
         self._cores: dict = {}
         # one measurement of the pin's device bytes at a time
         # (`Server._measure_pins`)
-        self.measure_lock = threading.Lock()
+        self.measure_lock = lockcheck.make_lock("serve.pin_measure")
 
     @property
     def schema(self):
@@ -370,7 +371,7 @@ class PinnedSource(DataSource):
             enc = self._encoders.get(key_sig)
             if enc is None:
                 enc = self._encoders[key_sig] = (GroupKeyEncoder(len(key_sig)),
-                                                 threading.Lock())
+                                                 lockcheck.make_lock("serve.shared_ids"))
             caches = self._cores.get(id(core))
             if caches is None or caches[0] is not core:
                 caches = self._cores[id(core)] = (core, {}, {})
@@ -540,7 +541,7 @@ class Server:
         self._window: list[Ticket] = []  # loop thread only
         self._window_timer = None  # loop thread only
         self._window_closes = 0.0  # loop thread only: the latest flush
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("serve.server")
         self._pending = 0  # queued, not yet executing
         # queued tickets by identity: `stop` sheds what is left once the
         # loop thread is gone, and the pop is the exactly-once guard
@@ -609,10 +610,12 @@ class Server:
     def submit(self, sql: str, deadline_s: Optional[float] = None,
                client_id: Optional[str] = None) -> Ticket:
         """Admit one SELECT.  Returns a `Ticket`; raises `QueryShedError`
-        when admission refuses it.  The plan passes the static verifier
-        here, on the caller's thread.  A statement that does not plan or
-        verify raises its error and counts on neither side of
-        `admitted + shed == submitted`."""
+        when admission refuses it.  `CREATE EXTERNAL TABLE` and `CREATE
+        MATERIALIZED VIEW` run inline and return a fulfilled ticket;
+        `EXPLAIN` raises NotSupportedError (run it on the context).  The
+        plan passes the static verifier here, on the caller's thread.  A
+        statement that does not plan or verify raises its error and
+        counts on neither side of `admitted + shed == submitted`."""
         from datafusion_tpu_torch.obs.attribution import client_scope
         from datafusion_tpu_torch.sql import ast
         from datafusion_tpu_torch.sql.parser import parse_sql
@@ -621,6 +624,14 @@ class Server:
         client = str(client_id) if client_id else "default"
         with METRICS.timer("parse"):
             stmt = parse_sql(sql)
+        if isinstance(stmt, ast.SqlCreateExternalTable):
+            # DDL is control-plane work: it runs inline and the ticket
+            # is fulfilled at once (not counted in `submitted`: only
+            # queries enter `admitted + shed == submitted`)
+            out = self.ctx._execute_ddl(stmt)
+            t = Ticket(sql, None, None, None, client_id=client)
+            t._fulfill(out)
+            return t
         if isinstance(stmt, ast.SqlCreateMaterializedView):
             # DDL-shaped: the initial fold runs here, charged to the
             # registering client, and the ticket is fulfilled at once
@@ -634,9 +645,11 @@ class Server:
                 f"Registered materialized view {stmt.name} "
                 f"({'incremental' if view.incremental else 'recompute'})"))
             return t
-        if not isinstance(stmt, ast.SqlSelect):
+        if isinstance(stmt, ast.SqlExplain):
             raise NotSupportedError(
-                f"{type(stmt).__name__} is not ported yet (ROADMAP queue 1)")
+                "EXPLAIN is an interactive statement; run it on the "
+                "context, not the serving front door"
+            )
         plan = self.ctx._plan(stmt)
         self.ctx._verify(plan)  # on the caller's thread, before admission
         with self._lock:

@@ -173,7 +173,7 @@ class ServerLoop:
                     kind, payload = key.data
                     if kind == "wake":
                         try:
-                            while self._wake_r.recv(4096):
+                            while self._wake_r.recv(4096):  # df-lint: ok(DF003) — wakeup-pipe drain, not a wire boundary
                                 pass
                         except OSError:
                             pass
@@ -292,7 +292,7 @@ class Connection:
     def _read(self) -> None:
         while not self.closed:
             try:
-                data = self.sock.recv(_READ_CHUNK)
+                data = self.sock.recv(_READ_CHUNK)  # df-lint: ok(DF003) — non-blocking pump; frame decode runs the wire.recv sites in data_received
             except (BlockingIOError, InterruptedError):
                 return
             except OSError:
@@ -320,6 +320,14 @@ class Connection:
         raise NotImplementedError
 
     # -- writes --------------------------------------------------------
+    def write_chunks(self, chunks) -> None:
+        """Queue chunks for write (thread-safe; flushes at once when
+        called on the loop thread)."""
+        if self.loop.on_loop_thread():
+            self._write_now(chunks)
+        else:
+            self.loop.call_soon(lambda: self._write_now(chunks))
+
     def _write_now(self, chunks) -> None:
         if self.closed:
             return

@@ -85,6 +85,12 @@ DEFAULT_DEADLINE_S = 1.0
 _ACTIVE: list = []
 
 
+def wal_dir_from_env() -> Optional[str]:
+    """The node's log directory (`DATAFUSION_TPU_WAL_DIR`), or None:
+    durability off, the default."""
+    return os.environ.get("DATAFUSION_TPU_WAL_DIR") or None
+
+
 def active_manifests() -> list:
     """Manifests of every live log in this process (obs/httpd.py's
     debug bundle)."""

@@ -611,3 +611,96 @@ def test_worker_flags_and_device_rule():
     finally:
         proc.kill()
         proc.wait(timeout=30)
+
+
+# ------------------------------------------------------ the wire append
+
+
+def _append_table(pkg):
+    schema = pkg.Schema([pkg.Field("k", pkg.DataType.INT64, False),
+                         pkg.Field("v", pkg.DataType.FLOAT64, False)])
+    from datafusion_tpu.exec.batch import make_host_batch as jax_batch
+    from datafusion_tpu.exec.datasource import MemoryDataSource as JaxMemory
+
+    ctx = pkg.ExecutionContext(device="cpu", result_cache=False)
+    memory, batch = ((tdf.MemoryDataSource, tdf.make_host_batch) if pkg is tdf
+                     else (JaxMemory, jax_batch))
+    src = memory(schema, [batch(schema, [np.arange(8), np.arange(8.0)])])
+    ctx.register_datasource("t", src)
+    return ctx
+
+
+def _wire_round(server, msg):
+    import socket
+
+    from datafusion_tpu_torch.parallel.wire import recv_msg, send_msg
+
+    with socket.create_connection(tuple(server.server_address[:2]), timeout=30) as s:
+        send_msg(s, msg)
+        return recv_msg(s)
+
+
+@pytest.fixture()
+def append_workers(tmp_path):
+    """One in-process worker of each package, each with an attached
+    ingest context over its own log."""
+    from datafusion_tpu.parallel.worker import serve as jax_serve
+
+    out = {}
+    for pkg, fn in ((tdf, serve), (jdf, jax_serve)):
+        server = fn("127.0.0.1:0", device="cpu")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        ctx = _append_table(pkg)
+        wal = tmp_path / ("port" if pkg is tdf else "jax")
+        server.worker_state.ingest_ctx = ctx.ingest(wal_dir=str(wal))
+        out[pkg] = (server, ctx, wal)
+    yield out
+    for server, _, _ in out.values():
+        server.shutdown()
+        server.server_close()
+
+
+APPEND = {"type": "append", "table": "t", "columns": {"k": [8, 9], "v": [8.5, 9.5]},
+          "client": "A"}
+
+
+def test_wire_append_ack_matches_the_jax_worker(append_workers):
+    acks = {pkg: _wire_round(server, APPEND) for pkg, (server, _, _) in append_workers.items()}
+    got, want = acks[tdf], acks[jdf]
+    assert got == want == {"type": "append_ack", "table": "t", "rows": 2, "rev": 1,
+                           "views": {}}
+    ctx = append_workers[tdf][1]
+    assert tdf.collect(ctx.sql("SELECT COUNT(1), SUM(v) FROM t")).to_rows() == [(10, 46.0)]
+
+
+def test_wire_append_to_a_plain_worker_is_an_error_reply(inproc_workers):
+    from datafusion_tpu_torch.errors import IngestUnavailableError, TransientError
+
+    assert issubclass(IngestUnavailableError, TransientError)
+
+    class _Addr:
+        server_address = inproc_workers[0]
+
+    out = _wire_round(_Addr, APPEND)
+    assert out == {"type": "error", "message": "ingest not enabled on this worker"}
+
+
+def test_a_replayed_revision_is_absorbed(append_workers):
+    server, ctx, wal = append_workers[tdf]
+    assert _wire_round(server, APPEND)["rev"] == 1
+    # the coordinator's retry of a write that did land: the same
+    # revision offered to the log again is dropped, not applied twice
+    from datafusion_tpu_torch.ingest import _block_from_batch
+    from datafusion_tpu_torch.parallel.wire import BinWriter
+
+    ing = server.worker_state.ingest_ctx
+    src = ing.attach("t")
+    bw = BinWriter()
+    batch = src.build_batch(APPEND["columns"])
+    ing._wal.append([({"kind": "append", "rev": 1, "table": "t", "client": "A",
+                       "rows": batch.num_rows,
+                       "cols": _block_from_batch(src.schema, batch, bw)}, bw)])
+    fresh = _append_table(tdf)
+    rec = fresh.ingest(wal_dir=str(wal)).recover()
+    assert rec["appends_replayed"] == 1 and rec["recovered_rev"] == 1
+    assert tdf.collect(fresh.sql("SELECT COUNT(1) FROM t")).to_rows() == [(10,)]

@@ -11,6 +11,10 @@
   `to_json` and `summary`.
 - EXPLAIN ANALYZE's host profile over a CSV scan (on by default;
   `DATAFUSION_TPU_PROFILE_EXPLAIN=0` leaves it out).
+- The continuous profiler (`DATAFUSION_TPU_PROFILE_HZ`): off with no
+  thread by default, `capture_hz` / `configure`, start and stop, and in
+  a subprocess under the variable a slow query's flight artifact carries
+  `profile` and a debug bundle `profile_continuous`.
 """
 
 from __future__ import annotations
@@ -288,3 +292,98 @@ def test_explain_analyze_profile_opt_out(tmp_path, monkeypatch):
     res = _csv_ctx(tmp_path, 3).sql_collect("EXPLAIN ANALYZE SELECT v FROM t")
     assert res.host_profile is None
     assert "Host profile" not in res.report()
+
+
+# ---------------------------------------- the continuous profiler
+
+
+def test_continuous_default_off_and_idempotent():
+    # default env (unset): no continuous capture and no thread
+    assert not profiler.continuous_running()
+    assert profiler.maybe_start_continuous() is False
+    assert profiler.continuous_report() is None
+    assert profiler.stop_continuous() is None
+    assert not profiler.PROFILER.running()
+
+
+def test_capture_hz_and_configure_match_the_jax_package():
+    assert profiler.capture_hz() == jax_profiler.capture_hz() == 97.0
+    saved = profiler._CAPTURE_HZ
+    profiler.configure(capture_hz=41)
+    try:
+        assert profiler.capture_hz() == 41.0
+        cap = profiler.PROFILER.start_capture(name="rate")
+        assert cap.hz == 41.0
+        profiler.PROFILER.stop_capture(cap)
+    finally:
+        profiler.configure(capture_hz=saved)
+    assert profiler.capture_hz() == 97.0
+
+
+def test_continuous_capture_runs_and_stops(monkeypatch):
+    monkeypatch.setattr(profiler, "_HZ", 200.0)
+    assert profiler.capture_hz() == 200.0  # the continuous rate wins
+    try:
+        assert profiler.maybe_start_continuous() is True
+        assert profiler.maybe_start_continuous() is True  # idempotent
+        assert profiler.continuous_running() and profiler.PROFILER.running()
+        deadline = time.monotonic() + 10
+        while profiler.continuous_report().samples == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        rep = profiler.continuous_report()
+        assert rep.samples > 0 and rep.hz == 200.0
+        # a scoped capture beside it shares the one sampler thread
+        with profiler.profile(hz=50) as cap:
+            assert profiler.PROFILER.active_captures() == 2
+        assert cap.report().hz == 50.0 and profiler.PROFILER.running()
+    finally:
+        final = profiler.stop_continuous()
+    assert final is not None and final.samples >= rep.samples
+    assert not profiler.continuous_running() and not profiler.PROFILER.running()
+
+
+_CONTINUOUS_SCRIPT = """\
+import glob, io, json, sys, tarfile, time
+import numpy as np
+import datafusion_tpu_torch as tdf
+from datafusion_tpu_torch.exec.datasource import MemoryDataSource
+from datafusion_tpu_torch.obs import httpd, profiler, recorder
+
+flight_dir = sys.argv[1]
+assert profiler.continuous_running()
+recorder.configure(slow_s=0.0, directory=flight_dir, dump_interval_s=0.0)
+schema = tdf.Schema([tdf.Field("k", tdf.DataType.INT64, False),
+                     tdf.Field("v", tdf.DataType.FLOAT64, False)])
+ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
+ctx.register_datasource("t", MemoryDataSource(
+    schema, [tdf.make_host_batch(schema, [np.arange(4096) % 7, np.arange(4096.0)])]))
+deadline = time.monotonic() + 10
+while profiler.continuous_report().samples == 0 and time.monotonic() < deadline:
+    time.sleep(0.02)
+tdf.collect(ctx.sql("SELECT k, SUM(v) FROM t GROUP BY k"))
+(path,) = glob.glob(flight_dir + "/flight-*.json")
+art = json.load(open(path))
+doc = httpd.build_bundle(profile_seconds=0)
+members = tarfile.open(fileobj=io.BytesIO(httpd.build_bundle_tar(profile_seconds=0))).getnames()
+print(json.dumps({"reason": art["reason"], "artifact": sorted(art),
+                  "profile_hz": art["profile"]["hz"], "bundle": sorted(doc),
+                  "members": members}))
+"""
+
+
+def test_profile_hz_puts_the_rolling_report_in_artifacts_and_bundles(tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "DATAFUSION_TPU_PROFILE_HZ": "97", "PYTHONPATH": str(repo)}
+    proc = subprocess.run([sys.executable, "-c", _CONTINUOUS_SCRIPT, str(tmp_path)],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["reason"] == "slow_query" and "profile" in out["artifact"]
+    assert out["profile_hz"] == 97.0
+    assert "profile_continuous" in out["bundle"]
+    assert "profile_continuous.json" in out["members"]

@@ -686,3 +686,47 @@ def test_served_rows_match_jax_packages_served_rows(lane):
     for g, w in zip(got, want):
         assert_same(g, w, ordered=lane == "topk")
     assert tsrv.admitted + tsrv.shed == tsrv.submitted == len(sqls)
+
+
+def test_create_external_table_through_submit_then_q1(tmp_path):
+    """DDL at the front door runs inline, fulfils its ticket at once and
+    counts on neither side of `admitted + shed == submitted`; Q1 over
+    the table it registered equals the JAX package's served Q1."""
+    from test_torch_dataframe import LINEITEM_DDL, lineitem_csv
+    from test_torch_port import Q1
+
+    path = tmp_path / "lineitem.csv"
+    lineitem_csv(path)
+    out = {}
+    for pkg in (jdf, tdf):
+        ctx = pkg.ExecutionContext(device="cpu", result_cache=False, batch_size=512)
+        srv = ctx.serve(workers=1, window_s=0.005)
+        try:
+            ddl = srv.submit(LINEITEM_DDL.format(path)).result(timeout=WAIT)
+            assert srv.submitted == 0 and srv.admitted == 0
+            if pkg is tdf:
+                assert repr(ddl) == repr(out[jdf][0])
+            rows = srv.submit(Q1).result(timeout=WAIT)
+            assert srv.admitted + srv.shed == srv.submitted == 1
+        finally:
+            srv.stop()
+        out[pkg] = (ddl, rows)
+    assert_same(out[tdf][1], out[jdf][1])
+    assert out[tdf][1].num_rows == 4
+
+
+def test_explain_through_submit_is_refused_with_the_jax_message():
+    from datafusion_tpu.errors import NotSupportedError as JaxNotSupported
+
+    from datafusion_tpu_torch.errors import NotSupportedError
+
+    sql = "EXPLAIN SELECT k, SUM(v) FROM t GROUP BY k"
+    jctx = jdf.ExecutionContext(device="cpu", result_cache=False)
+    with jctx.serve(workers=1) as jsrv, pytest.raises(JaxNotSupported) as want:
+        jsrv.submit(sql)
+    with _ctx({"t": _table(23)}).serve(workers=1) as srv:
+        with pytest.raises(NotSupportedError) as got:
+            srv.submit(sql)
+        assert srv.submitted == 0
+    assert str(got.value) == str(want.value)
+    assert "EXPLAIN is an interactive statement" in str(got.value)
