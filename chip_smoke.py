@@ -94,9 +94,10 @@ which raises on failure:
 11. Serving (datafusion_tpu_torch/serve.py).  First the grouped reduce's
    query axis (`grouped_reduce_multi`) against its plain version and
    against Q solo launches, bit for bit, at Q1's group shape (Q = 1, 8,
-   16), config 2's (G = 16 and 4096, Q = 4) and for MIN and MAX with
-   NaN, with its times against Q solo launches and one `scatter_reduce_`
-   over offset ids (`query_axis_timing` lines; right after phase 2).
+   16, 32; G = 64 at Q = 8), config 2's (G = 16 and 4096, Q = 4) and for
+   MIN and MAX with NaN, with its times against Q solo launches and one
+   `scatter_reduce_` over offset ids, its query tile, its passes and the
+   bytes it reads (`query_axis_timing` lines; right after phase 2).
    Then, after phase 8, a Server(workers=2, window_s=0.01,
    megabatch_max=16) over the SF-1 lineitem: 8 closed-loop clients with
    4 Q1-shaped queries each (32 l_shipdate cutoffs; a warm-up round,
@@ -263,6 +264,7 @@ without a CUDA device or without the package beside this script.
 
 from __future__ import annotations
 
+import atexit
 import functools
 import io
 import json
@@ -344,7 +346,9 @@ def expect_launches(rep, label, **want):
 
 def phase_build(cuda_mod, torch):
     """The kernels (one nvcc per source) and, beside them, the native
-    library of the CSV parser and the SQL front-end (g++)."""
+    library of the CSV parser and the SQL front-end (g++) and the
+    grouped reduce's phase-clock build (`_agg_clock_library`, which
+    phase 2 waits for)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from datafusion_tpu_torch import native
@@ -354,6 +358,7 @@ def phase_build(cuda_mod, torch):
         native.load_library()
         return time.perf_counter() - t0
 
+    _start_agg_clock_build(cuda_mod)
     with ThreadPoolExecutor(1) as ex:
         native_s = ex.submit(native_build)
         secs = cuda_mod.build_all()
@@ -559,17 +564,34 @@ def phase_kernel_timing(torch, hash_agg, cuda_mod, dev):
 AGG_PHASES = ("clear", "rows", "combine", "barrier", "fold")
 
 
+_AGG_CLOCK_BUILD: list = []  # the phase-clock build's nvcc, once started
+
+
+def _start_agg_clock_build(cuda_mod):
+    """Starts nvcc on csrc/hash_agg.cu with DF_AGG_PHASE_CLOCKS, once;
+    a script that ends first stops it."""
+    if not _AGG_CLOCK_BUILD:
+        out = cuda_mod.BUILD_DIR / "libhash_agg_phase_clocks.so"
+        cuda_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.Popen(
+            [cuda_mod._nvcc(), *cuda_mod.NVCC_FLAGS, "-DDF_AGG_PHASE_CLOCKS", "-o", str(out),
+             str(cuda_mod.CSRC / "hash_agg.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(proc.kill)
+        _AGG_CLOCK_BUILD.append((out, proc))
+    return _AGG_CLOCK_BUILD[0]
+
+
 def _agg_clock_library(cuda_mod, hash_agg):
     """csrc/hash_agg.cu built once more with DF_AGG_PHASE_CLOCKS: the
     same kernel, recording the global timer at its phase boundaries.  A
     measurement build; the port never loads it."""
     import ctypes
 
-    out = cuda_mod.BUILD_DIR / "libhash_agg_phase_clocks.so"
-    cuda_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_mod._nvcc(), *cuda_mod.NVCC_FLAGS, "-DDF_AGG_PHASE_CLOCKS",
-                    "-o", str(out), str(cuda_mod.CSRC / "hash_agg.cu")],
-                   check=True, capture_output=True, timeout=600)
+    out, proc = _start_agg_clock_build(cuda_mod)
+    log_text = proc.communicate(timeout=600)[0] if proc.returncode is None else ""
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase-clock build failed:\n{log_text}")
     lib = ctypes.CDLL(str(out))
     lib.df_grouped_reduce.restype = ctypes.c_int
     lib.df_grouped_reduce.argtypes = hash_agg._library().df_grouped_reduce.argtypes
@@ -590,7 +612,7 @@ def _agg_phase_split(torch, hash_agg, cuda_mod, lib, ids, vals, live, g):
     buf = torch.empty(g * (1 + blocks), dtype=torch.float64, device=vals.device)
     for _ in range(3):
         rc = lib.df_grouped_reduce(
-            5, 0, ids.data_ptr(), vals.data_ptr(), 0, live.data_ptr(), n, 1, g, tile_g,
+            5, 0, ids.data_ptr(), vals.data_ptr(), 0, live.data_ptr(), n, 1, 1, g, tile_g,
             warps, lane_parts, blocks, chunk_rows, fold_lanes, buf.data_ptr(),
             cuda_mod.raw_stream(vals.device))
         if rc != 0:
@@ -1937,6 +1959,8 @@ def phase_unsigned(tdf, cuda_mod, torch, ctx, smi):
 QUERY_AXIS_SHAPES = ((46 * 131_072, 8, 1, False, "Q1 batch group"),
                      (46 * 131_072, 8, 8, False, "Q1 batch group"),
                      (46 * 131_072, 8, 16, False, "Q1 batch group"),
+                     (46 * 131_072, 8, 32, False, "Q1 batch group"),
+                     (46 * 131_072, 64, 8, False, "Q1 batch group, 64 groups"),
                      (8 * 524_288, 16, 4, True, "config 2 batch group, 16 groups"),
                      (8 * 524_288, 4096, 4, True, "config 2 batch group, 4096 groups"))
 
@@ -1977,7 +2001,10 @@ def phase_query_axis(torch, hash_agg, dev):
     launches, its plain version and one `scatter_reduce_` over the
     offset ids q * G + id on Q x N rows (dead rows keyed Q * G, one slot
     past the result), with its byte bound: the ids once, the values
-    (once when shared) and Q live masks, Q * G results."""
+    (once when shared) and Q live masks, Q * G results; beside it the
+    launch's query tile and passes (`hash_agg.query_tiles`) and the
+    bytes it reads: the ids, and shared values, once a pass, each
+    query's mask and its own values once."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(909)
     err = 0.0
@@ -2020,10 +2047,16 @@ def phase_query_axis(torch, hash_agg, dev):
             ids, vals, live, g, "sum"), reps=5)
         lib_ms = _time_ms(torch, library, reps=20)
         nbytes = 4 * n + vals.numel() * 8 + rows.numel() + q * g * 8
+        tile, passes = hash_agg.query_tiles(n, g, 8, *hash_agg._limits(
+            torch.cuda.current_device()), q)
+        per_pass = 4 * n + (0 if per_query else 8 * n)
         entry = _kernel_entry(f"{where}: N={n}, G={g}, Q={q}, f64 sum, "
                               f"{'values per query' if per_query else 'shared values'}",
                               kern_ms, plain_ms, lib_ms, _profiled(torch, kern), nbytes)
-        entry.update({"solo_launches_ms": solo_ms,
+        entry.update({"query_tile": tile, "passes": passes,
+                      "bytes_read": per_pass * passes + vals.numel() * 8 * per_query
+                      + rows.numel(),
+                      "solo_launches_ms": solo_ms,
                       "solo_launches_device_ms": _profiled(torch, solos),
                       "library_device_ms": _profiled(torch, library), "card": card()})
         log("query_axis_timing: " + json.dumps(entry))

@@ -51,15 +51,29 @@
 // at every shape measured (PERF.md).
 //
 // The query axis: one launch serves Q queries that share the rows' ids,
-// each with its own live mask and either shared or its own values, at the
-// geometry of one query (a solo call is Q = 1).  Each block runs the
-// partials phase once per query over the same row chunk (the ids are
-// read again per query, from L2 where they fit), writing query q's
-// partials to its own slice of the scratch; one grid barrier; then the
-// fold once per query.  Every query's combines happen in the order of a
-// Q = 1 launch on the same rows, so each query's result is bit-identical
-// to its own solo call.  Bound: the ids once, each query's live mask and
-// values, and Q * G outputs; this simple form reads the ids Q times.
+// each with its own live mask and either shared or its own values (a
+// solo call is Q = 1).  Bound: the ids once, the values once when shared
+// (else each query's), each query's live mask, and Q * G outputs; at
+// Q = 8, G = 8, N = 6,029,312 shared f64 values that is 120.6 MB.
+// Every query keeps the geometry of its solo launch (blocks, chunk_rows,
+// warps and their row slices, the route, the fold), and the queries run
+// in query tiles: as many as keep their partials side by side in a
+// block's shared memory at that geometry (hash_agg.query_tiles; one
+// query's lane partials at G = 8 f64 are 16 KB, so 14 fit).  A tile is
+// one sweep of the rows inside the one launch: a warp loads a batch's
+// ids, and shared values, once, then folds it into each query of the
+// tile with that query's live bytes (and its own values), so the ids
+// and shared values are read once per tile, ceil(Q / tile) times a
+// call, and each live mask once.  A mask loads as four words a lane
+// (load_live), so the masks of 8 queries are in flight together, and
+// the lane partials of those 8 fold step by step together, their
+// shared-memory read-add-write chains overlapping.  Q = 8 at G = 8 is
+// one sweep; a G whose partials fill shared memory alone (G >= 64 f64
+// with lane partials, G = 4096 f64 with tags) is a tile of one, a sweep
+// per query.  Each query's rows reach its partials in the order of its
+// solo launch, one grid barrier follows the last tile, and the fold
+// runs once per query, so each query's result is bit-identical to its
+// own solo call.
 //
 // Every float combine happens in an order fixed by the launch geometry
 // (hash_agg.geometry: N, G, the type's size and the card's SM count and
@@ -81,6 +95,7 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kMaxThreads = kMaxWarps * 32;
 constexpr int kItems = 16;  // 32-row steps a warp loads before it folds any
+constexpr int kQueryBlock = 8;  // live masks (shared values) a warp loads and folds at once
 constexpr int kUnroll = 16;  // scratch loads in flight per fold thread
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -121,8 +136,8 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? 
 // With DF_AGG_PHASE_CLOCKS (a measurement build, never the port's), the
 // first thread of each block records the global timer (ns) as it enters
 // the partials (0), has cleared them (1), has folded its rows (2) and
-// combined them (3) into the last tile, starts the fold (4: past the grid
-// barrier) and has folded its groups (5).
+// combined them (3) in the last query tile and group tile, starts the
+// fold (4: past the grid barrier) and has folded its groups (5).
 constexpr int kClockBlocks = 1024;
 #ifdef DF_AGG_PHASE_CLOCKS
 __device__ long long g_phase_clocks[kClockBlocks][6];
@@ -225,29 +240,95 @@ __device__ __forceinline__ T load_cg(const T* p) {
   return v;
 }
 
-// Loads kItems 32-row steps from row `base` (item j of lane l is row
-// base + 32 j + l): gid is the row's group in the tile, or -1 for a row
-// that is dead, outside the tile or past r1.  vals are read for every
-// row in range, so no load waits on live.
+// Values of kItems 32-row steps from row `base` (item j of lane l is
+// row base + 32 j + l; ident past r1).  Values are read for every row in
+// range, so no load waits on liveness.
 template <typename T>
-__device__ __forceinline__ void load_batch(const int32_t* __restrict__ ids,
-                                           const T* __restrict__ vals,
-                                           const uint8_t* __restrict__ live,
-                                           int64_t base, int64_t r1, int32_t g0,
-                                           int32_t tg, int lane, T ident,
-                                           int32_t (&gid)[kItems], T (&v)[kItems]) {
+__device__ __forceinline__ void load_vals(const T* __restrict__ vals, int64_t base, int64_t r1,
+                                          int lane, T ident, T (&v)[kItems]) {
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int64_t r = base + 32 * j + lane;
-    gid[j] = -1;
-    v[j] = ident;
-    if (r < r1) {
-      const int32_t id = ids[r];
-      const uint8_t on = live[r];
-      v[j] = vals[r];
-      if (on && id >= g0 && id - g0 < tg) gid[j] = id - g0;
+    v[j] = r < r1 ? vals[r] : ident;
+  }
+}
+
+// The ids of the same rows, -1 past r1: read once for every query of a
+// query tile.  in_tile turns them into groups of the tile once every
+// load of the batch is in flight.
+__device__ __forceinline__ void load_ids(const int32_t* __restrict__ ids, int64_t base,
+                                         int64_t r1, int lane, int32_t (&rel)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int64_t r = base + 32 * j + lane;
+    rel[j] = r < r1 ? ids[r] : -1;
+  }
+}
+
+// rel[j] = the row's group in the tile [g0, g0 + tg), or -1.
+__device__ __forceinline__ void in_tile(int32_t g0, int32_t tg, int32_t (&rel)[kItems]) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    rel[j] = rel[j] >= g0 && rel[j] - g0 < tg ? rel[j] - g0 : -1;
+  }
+}
+
+// One query's live bytes of the same kItems steps, 16 bytes a lane in
+// four words: word k of lane l holds rows base + 128 k + 4 l .. + 3, so
+// the byte of row base + 32 j + l is byte l & 3 of word j >> 2 of lane
+// 8 (j & 3) + (l >> 2) (live_bit).  Four coalesced loads and four
+// registers a query instead of kItems of each, so a query block's masks
+// are all in flight at once.  The words may hold rows past the warp's
+// r1 (other warps' rows, which no fold takes: their rel is -1), so a
+// warp's last, partial batch loads whole words too; only bytes past the
+// mask's n read as 0.  A mask that is not 4-byte aligned (N not a
+// multiple of 4), or the batch that reaches n, is read byte by byte,
+// every byte load issued before any is used.
+__device__ __forceinline__ void load_live(const uint8_t* __restrict__ live, int64_t base,
+                                          int64_t n, int lane, uint32_t (&w)[4]) {
+  if ((reinterpret_cast<uintptr_t>(live) & 3) == 0 && base + 32 * kItems <= n) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      w[k] = *reinterpret_cast<const uint32_t*>(live + base + 128 * k + 4 * lane);
+    }
+    return;
+  }
+  uint32_t bytes[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int64_t r = base + 128 * k + 4 * lane + b;
+      bytes[k][b] = r < n ? live[r] : 0;
     }
   }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = bytes[k][0] | bytes[k][1] << 8 | bytes[k][2] << 16 | bytes[k][3] << 24;
+  }
+}
+
+// The live masks of queries 0..count-1 (query k's mask at live + k * n)
+// into w[k]; w[k] = 0 for the rest of the block.
+__device__ __forceinline__ void load_block(const uint8_t* __restrict__ live, int64_t n,
+                                           int count, int64_t base, int lane,
+                                           uint32_t (&w)[kQueryBlock][4]) {
+#pragma unroll
+  for (int k = 0; k < kQueryBlock; ++k) {
+    if (k < count) {
+      load_live(live + k * n, base, n, lane, w[k]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[k][u] = 0;
+    }
+  }
+}
+
+// Whether item j of this lane is live, from its query's load_live words.
+// Every lane of the warp must call it (a shuffle).
+__device__ __forceinline__ bool live_bit(const uint32_t (&w)[4], int j, int lane) {
+  const uint32_t word = __shfl_sync(kFull, w[j >> 2], 8 * (j & 3) + (lane >> 2));
+  return (word >> (8 * (lane & 3))) & 0xffu;
 }
 
 // One step with a group that several lanes hit: the lanes with equal
@@ -330,18 +411,75 @@ __device__ __forceinline__ void fill(T* p, int count, T x) {
   for (int i = whole * kPer + threadIdx.x; i < count; i += blockDim.x) p[i] = x;
 }
 
-// Block b's partial of every group into scratch[b * G + g].  Warps
-// 0..warps-1 own a partial and a slice of the block's rows; every warp
-// of the block clears the partials and combines them.  With lane_parts
+// Folds one query's batch into its partial `mine`: a row counts where
+// it lies in the tile (rel) and the query's live bit (from `w`, its
+// load_live words) is set.
+template <int K, typename T>
+__device__ __forceinline__ void fold_query(const int32_t (&rel)[kItems], const T (&v)[kItems],
+                                           const uint32_t (&w)[4], int steps, int lane,
+                                           bool lane_parts, T* mine, volatile uint8_t* tags) {
+  int32_t gid[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) gid[j] = live_bit(w, j, lane) ? rel[j] : -1;
+  if (lane_parts) {
+    fold_batch_lanes<K>(gid, v, steps, lane, mine);
+  } else {
+    fold_batch<K>(gid, v, steps, lane, mine, tags);
+  }
+}
+
+// Folds one batch of shared values into the lane partials of a block's
+// queries (query m's at mine + m * per_query, its mask in w[m]; a query
+// past the block's count has words 0 and folds nothing), step after
+// step.  A step reads every query's slot before it writes any: the
+// queries' partials are disjoint, so their read-add-write chains
+// overlap, while each slot still takes its rows in step order.
+template <int K, typename T>
+__device__ __forceinline__ void fold_block_lanes(const int32_t (&rel)[kItems],
+                                                 const T (&v)[kItems],
+                                                 const uint32_t (&w)[kQueryBlock][4],
+                                                 int steps, int lane, T* mine,
+                                                 int per_query) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (j < steps) {
+      T* slot = mine + max(rel[j], 0) * 32 + lane;
+      bool hit[kQueryBlock];
+      T cur[kQueryBlock];
+#pragma unroll
+      for (int m = 0; m < kQueryBlock; ++m) {
+        hit[m] = live_bit(w[m], j, lane) && rel[j] >= 0;
+        if (hit[m]) cur[m] = slot[m * per_query];
+      }
+#pragma unroll
+      for (int m = 0; m < kQueryBlock; ++m) {
+        if (hit[m]) slot[m * per_query] = combine<K>(cur[m], v[j]);
+      }
+    }
+  }
+}
+
+// Block b's partial of every group, for each query of a query tile of
+// `queries` queries, into query q's scratch[q * slice + b * G + g].
+// Warps 0..warps-1 own a partial and a slice of the block's rows; every
+// warp of the block clears the partials and combines them.  A query's
+// partials take per_query = warps * per_owner values: with lane_parts
 // each owning warp holds tile_g * 32 values (a partial per lane, lane
-// fastest), otherwise tile_g values and tile_g one-byte tags.
+// fastest), otherwise tile_g values; the tile's queries lie side by side,
+// then the warps' tile_g tag bytes, which the queries use in turn.  A
+// warp loads a batch's ids (and shared values) once and folds the batch
+// into each query of the tile.  With shared values the live masks of a
+// block of kQueryBlock queries load at once, and lane partials fold the
+// block's queries step by step together; with values per query the next
+// query's values and mask load while one folds.  Each query's rows reach
+// its partials in the order of its solo launch.
 template <int K, typename T>
 __device__ __forceinline__ void partials(const int32_t* __restrict__ ids,
-                                         const T* __restrict__ vals,
-                                         const uint8_t* __restrict__ live,
-                                         int64_t n, int32_t num_groups,
-                                         int32_t tile_g, int32_t warps, bool lane_parts,
-                                         int64_t chunk_rows, T* scratch, T* part) {
+                                         const T* __restrict__ vals, int64_t vals_stride,
+                                         const uint8_t* __restrict__ live, int64_t n,
+                                         int32_t queries, int32_t num_groups, int32_t tile_g,
+                                         int32_t warps, bool lane_parts, int64_t chunk_rows,
+                                         T* scratch, int64_t slice, T* part) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t chunk = blockIdx.x;
@@ -352,59 +490,108 @@ __device__ __forceinline__ void partials(const int32_t* __restrict__ ids,
   const int64_t r1 = warp < warps ? min64(n, r0 + per_warp) : r0;
   const T ident = identity<K, T>();
   const int per_owner = lane_parts ? tile_g * 32 : tile_g;
+  const int per_query = warps * per_owner;
   T* mine = part + warp * per_owner;
   volatile uint8_t* tags =
-      reinterpret_cast<uint8_t*>(part + warps * per_owner) + warp * tile_g;
+      reinterpret_cast<uint8_t*>(part + queries * per_query) + warp * tile_g;
+
+  const bool shared = vals_stride == 0;
+  const int first = shared ? min(kQueryBlock, queries) : 1;
 
   for (int32_t g0 = 0; g0 < num_groups; g0 += tile_g) {
     const int32_t tg = min(tile_g, num_groups - g0);
-    int32_t gid[kItems];
+    int32_t rel[kItems];
     T v[kItems];
-    // the first batch is in flight while the partials are cleared
-    load_batch(ids, vals, live, r0, r1, g0, tg, lane, ident, gid, v);
-    fill(part, warps * per_owner, ident);
+    uint32_t w[kQueryBlock][4];
+    // A batch's loads (ids, the first query's values or the shared ones,
+    // the first block's masks) are all issued before any is used; the
+    // first batch's are in flight while the partials are cleared.
+    load_ids(ids, r0, r1, lane, rel);
+    load_vals(vals, r0, r1, lane, ident, v);
+    load_block(live, n, first, r0, lane, w);
+    fill(part, queries * per_query, ident);
     __syncthreads();
     phase_clock(1);
     for (int64_t base = r0; base < r1; base += 32 * kItems) {
-      if (base != r0) load_batch(ids, vals, live, base, r1, g0, tg, lane, ident, gid, v);
+      if (base != r0) {
+        load_ids(ids, base, r1, lane, rel);
+        load_vals(vals, base, r1, lane, ident, v);
+        load_block(live, n, first, base, lane, w);
+      }
+      in_tile(g0, tg, rel);
       const int steps = static_cast<int>(min64(kItems, (r1 - base + 31) / 32));
-      if (lane_parts) {
-        fold_batch_lanes<K>(gid, v, steps, lane, mine);
-      } else {
-        fold_batch<K>(gid, v, steps, lane, mine, tags);
+      // Shared values: blocks of kQueryBlock queries, the next block's
+      // masks loading after one folds.  Values per query: one block of
+      // every query, the next query's values and mask loading while one
+      // folds.
+      for (int32_t q0 = 0;;) {
+        const int count = shared ? min(kQueryBlock, queries - q0) : queries;
+        if (shared && lane_parts && count > 1) {
+          fold_block_lanes<K>(rel, v, w, steps, lane, mine + q0 * per_query, per_query);
+        } else {
+          // one query at a time, w[0]: the words move down one query each
+          // time, so no register array is indexed at run time
+#pragma unroll 1
+          for (int k = 0; k < count; ++k) {
+            T next_v[kItems];
+            const bool more = !shared && k + 1 < count;
+            if (more) {
+              load_vals(vals + (k + 1) * vals_stride, base, r1, lane, ident, next_v);
+              load_live(live + (k + 1) * n, base, n, lane, w[1]);
+            }
+            fold_query<K>(rel, v, w[0], steps, lane, lane_parts, mine + (q0 + k) * per_query,
+                          tags);
+            if (more) {
+#pragma unroll
+              for (int j = 0; j < kItems; ++j) v[j] = next_v[j];
+            }
+#pragma unroll
+            for (int t = 0; t + 1 < kQueryBlock; ++t) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) w[t][u] = w[t + 1][u];
+            }
+          }
+        }
+        q0 += count;
+        if (q0 >= queries) break;
+        load_block(live + q0 * n, n, min(kQueryBlock, queries - q0), base, lane, w);
       }
     }
     __syncthreads();
     phase_clock(2);
-    if (lane_parts) {
-      // warp by group: each lane folds its partials in warp order, then a
-      // fixed shuffle tree folds the lanes
-      for (int32_t gl = warp; gl < tg; gl += blockDim.x >> 5) {
-        T acc = part[gl * 32 + lane];
-        for (int w = 1; w < warps; ++w) acc = combine<K>(acc, part[w * per_owner + gl * 32 + lane]);
-        for (int delta = 16; delta > 0; delta >>= 1) acc = combine<K>(acc, shfl_down(acc, delta, 32));
-        if (lane == 0) scratch[chunk * num_groups + g0 + gl] = acc;
-      }
-    } else {
-      // four groups per round, so their combine chains overlap
-      for (int32_t gl0 = threadIdx.x; gl0 < tg; gl0 += 4 * blockDim.x) {
-        T acc[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int32_t gl = gl0 + u * blockDim.x;
-          acc[u] = gl < tg ? part[gl] : ident;
+    for (int32_t q = 0; q < queries; ++q) {
+      const T* qpart = part + q * per_query;
+      T* qscratch = scratch + q * slice + chunk * num_groups + g0;
+      if (lane_parts) {
+        // warp by group: each lane folds its partials in warp order, then a
+        // fixed shuffle tree folds the lanes
+        for (int32_t gl = warp; gl < tg; gl += blockDim.x >> 5) {
+          T acc = qpart[gl * 32 + lane];
+          for (int w = 1; w < warps; ++w) acc = combine<K>(acc, qpart[w * per_owner + gl * 32 + lane]);
+          for (int delta = 16; delta > 0; delta >>= 1) acc = combine<K>(acc, shfl_down(acc, delta, 32));
+          if (lane == 0) qscratch[gl] = acc;
         }
-        for (int w = 1; w < warps; ++w) {
+      } else {
+        // four groups per round, so their combine chains overlap
+        for (int32_t gl0 = threadIdx.x; gl0 < tg; gl0 += 4 * blockDim.x) {
+          T acc[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int32_t gl = gl0 + u * blockDim.x;
-            if (gl < tg) acc[u] = combine<K>(acc[u], part[w * tile_g + gl]);
+            acc[u] = gl < tg ? qpart[gl] : ident;
           }
-        }
+          for (int w = 1; w < warps; ++w) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int32_t gl = gl0 + u * blockDim.x;
-          if (gl < tg) scratch[chunk * num_groups + g0 + gl] = acc[u];
+            for (int u = 0; u < 4; ++u) {
+              const int32_t gl = gl0 + u * blockDim.x;
+              if (gl < tg) acc[u] = combine<K>(acc[u], qpart[w * tile_g + gl]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int32_t gl = gl0 + u * blockDim.x;
+            if (gl < tg) qscratch[gl] = acc[u];
+          }
         }
       }
     }
@@ -450,21 +637,24 @@ __device__ __forceinline__ void fold(const T* scratch, int32_t chunks,
 
 // Query q reads vals + q * vals_stride (a stride of 0 shares one value
 // column) and live + q * n, and writes its result to out[q * G ..] and
-// its partials to the scratch after the Q results.  The launch must be
-// cooperative (every block resident) for the grid barrier.
+// its partials to the scratch after the Q results.  The queries run in
+// passes of query_tile (the last pass takes the rest), each one sweep
+// of the rows.  The launch must be cooperative (every block resident)
+// for the grid barrier.
 template <int K, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 reduce_kernel(const int32_t* __restrict__ ids, const T* __restrict__ vals,
               int64_t vals_stride, const uint8_t* __restrict__ live, int64_t n,
-              int32_t queries, int32_t num_groups, int32_t tile_g, int32_t warps,
-              int32_t lane_parts, int64_t chunk_rows, int32_t fold_lanes, T* out) {
+              int32_t queries, int32_t query_tile, int32_t num_groups, int32_t tile_g,
+              int32_t warps, int32_t lane_parts, int64_t chunk_rows, int32_t fold_lanes,
+              T* out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t slice = static_cast<int64_t>(gridDim.x) * num_groups;
   T* scratch = out + static_cast<int64_t>(queries) * num_groups;
-  for (int32_t q = 0; q < queries; ++q) {
-    partials<K, T>(ids, vals + q * vals_stride, live + q * n, n, num_groups, tile_g, warps,
-                   lane_parts != 0, chunk_rows, scratch + q * slice,
-                   reinterpret_cast<T*>(smem_raw));
+  for (int32_t q0 = 0; q0 < queries; q0 += query_tile) {
+    partials<K, T>(ids, vals + q0 * vals_stride, vals_stride, live + q0 * n, n,
+                   min(query_tile, queries - q0), num_groups, tile_g, warps, lane_parts != 0,
+                   chunk_rows, scratch + q0 * slice, slice, reinterpret_cast<T*>(smem_raw));
   }
   cg::this_grid().sync();
   phase_clock(4);
@@ -510,8 +700,9 @@ cudaError_t most_static_smem(size_t* most) {
 
 template <int K, typename T>
 int launch(const void* ids, const void* vals, long long vals_stride, const void* live,
-           long long n, int queries, int num_groups, int tile_g, int warps, int lane_parts,
-           int blocks, long long chunk_rows, int fold_lanes, void* out, cudaStream_t stream) {
+           long long n, int queries, int query_tile, int num_groups, int tile_g, int warps,
+           int lane_parts, int blocks, long long chunk_rows, int fold_lanes, void* out,
+           cudaStream_t stream) {
   // above 48 KB of dynamic shared memory a kernel must opt in: once per
   // instantiation, to the device's limit
   static const cudaError_t opted =
@@ -523,6 +714,7 @@ int launch(const void* ids, const void* vals, long long vals_stride, const void*
   const uint8_t* live_p = static_cast<const uint8_t*>(live);
   int64_t n64 = n;
   int32_t qs = queries;
+  int32_t qtile = query_tile;
   int32_t groups = num_groups;
   int32_t tile = tile_g;
   int32_t owners = warps;
@@ -530,10 +722,14 @@ int launch(const void* ids, const void* vals, long long vals_stride, const void*
   int64_t rows = chunk_rows;
   int32_t lanes = fold_lanes;
   T* out_p = static_cast<T*>(out);
-  const size_t smem = static_cast<size_t>(warps) * tile_g *
-                      (lane_parts ? 32 * sizeof(T) : sizeof(T) + 1);
-  void* args[] = {&ids_p, &vals_p, &stride, &live_p, &n64, &qs, &groups, &tile, &owners,
-                  &by_lane, &rows, &lanes, &out_p};
+  // a query tile's partials side by side, then (without lane_parts) one
+  // tag byte per group and owning warp
+  const size_t per_query = static_cast<size_t>(warps) * tile_g *
+                           (lane_parts ? 32 * sizeof(T) : sizeof(T));
+  const size_t smem = query_tile * per_query +
+                      (lane_parts ? 0 : static_cast<size_t>(warps) * tile_g);
+  void* args[] = {&ids_p, &vals_p, &stride, &live_p, &n64, &qs, &qtile, &groups, &tile,
+                  &owners, &by_lane, &rows, &lanes, &out_p};
   // fails (and is reported) if the grid is not resident all at once
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&reduce_kernel<K, T>), dim3(blocks),
@@ -542,19 +738,22 @@ int launch(const void* ids, const void* vals, long long vals_stride, const void*
 
 template <typename T>
 int launch_kind(int kind, const void* ids, const void* vals, long long vals_stride,
-                const void* live, long long n, int queries, int num_groups, int tile_g,
-                int warps, int lane_parts, int blocks, long long chunk_rows, int fold_lanes,
-                void* out, cudaStream_t stream) {
+                const void* live, long long n, int queries, int query_tile, int num_groups,
+                int tile_g, int warps, int lane_parts, int blocks, long long chunk_rows,
+                int fold_lanes, void* out, cudaStream_t stream) {
   switch (kind) {
     case kSum:
-      return launch<kSum, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
-                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
+      return launch<kSum, T>(ids, vals, vals_stride, live, n, queries, query_tile, num_groups,
+                             tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out,
+                             stream);
     case kMin:
-      return launch<kMin, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
-                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
+      return launch<kMin, T>(ids, vals, vals_stride, live, n, queries, query_tile, num_groups,
+                             tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out,
+                             stream);
     case kMax:
-      return launch<kMax, T>(ids, vals, vals_stride, live, n, queries, num_groups, tile_g,
-                             warps, lane_parts, blocks, chunk_rows, fold_lanes, out, stream);
+      return launch<kMax, T>(ids, vals, vals_stride, live, n, queries, query_tile, num_groups,
+                             tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out,
+                             stream);
     default:
       return -1;
   }
@@ -606,24 +805,27 @@ extern "C" int df_grouped_reduce_limits(int* sms, int* smem) {
 // a partial that fits the shared memory df_grouped_reduce_limits reports
 // (tile_g * 32 values with lane_parts, else tile_g values and tile_g
 // bytes), chunk_rows is a multiple of warps * 32, blocks * chunk_rows >=
-// n, and fold_lanes is a power of two <= 32.  out holds
+// n, and fold_lanes is a power of two <= 32.  query_tile (>= 1) is
+// hash_agg.query_tiles': that many queries' partials (warps * tile_g *
+// 32 values each with lane_parts, else warps * tile_g values, plus the
+// tags once) fit that shared memory.  out holds
 // Q * (1 + blocks) * num_groups values of the dtype: the Q results, then
 // the partials.  One cooperative launch.  Returns the launch's CUDA
 // error (a grid that cannot be resident at once is one), or -1 for a
 // dtype or kind it does not know.
 extern "C" int df_grouped_reduce(int dtype, int kind, const void* ids, const void* vals,
                                  long long vals_stride, const void* live, long long n,
-                                 int queries, int num_groups, int tile_g, int warps,
-                                 int lane_parts, int blocks, long long chunk_rows,
+                                 int queries, int query_tile, int num_groups, int tile_g,
+                                 int warps, int lane_parts, int blocks, long long chunk_rows,
                                  int fold_lanes, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_kind<int8_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 1: return launch_kind<int16_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 2: return launch_kind<int32_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 3: return launch_kind<int64_t>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 4: return launch_kind<float>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
-    case 5: return launch_kind<double>(kind, ids, vals, vals_stride, live, n, queries, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 0: return launch_kind<int8_t>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 1: return launch_kind<int16_t>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 2: return launch_kind<int32_t>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 3: return launch_kind<int64_t>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 4: return launch_kind<float>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
+    case 5: return launch_kind<double>(kind, ids, vals, vals_stride, live, n, queries, query_tile, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows, fold_lanes, out, s);
     default: return -1;
   }
 }

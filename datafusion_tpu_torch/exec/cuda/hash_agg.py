@@ -22,8 +22,11 @@ The kernel has a query axis, which the serving megabatch needs:
 `grouped_reduce_multi` runs Q queries over one set of ids, each with its
 own live mask and either one shared value column or its own, in one
 cooperative launch at the geometry of one query, so each query's result
-is bit-identical to its own `grouped_reduce` on the same rows.  A solo
-call is the launch with Q = 1: one kernel, one launch site (`_launch`).
+is bit-identical to its own `grouped_reduce` on the same rows.  The
+queries run in tiles (`query_tiles`): a tile's partials fit a block's
+shared memory side by side, and one sweep of the rows serves the whole
+tile, reading the ids (and shared values) once.  A solo call is the
+launch with Q = 1: one kernel, one launch site (`_launch`).
 Its plain version, `grouped_reduce_multi_torch`, is one reduction over
 the offset ids q * G + id.  `LAUNCHES` counts every launch;
 `MULTI_LAUNCHES` counts those that served more than one query.
@@ -152,6 +155,29 @@ def geometry(n: int, num_groups: int, itemsize: int, sms: int,
     return warps, tile_g, lane_parts, blocks, chunk_rows, fold_lanes
 
 
+@functools.lru_cache(maxsize=1024)
+def query_tiles(n: int, num_groups: int, itemsize: int, sms: int, smem: int,
+                queries: int) -> tuple[int, int]:
+    """(tile, passes) of a launch of `queries` queries: the launch sweeps
+    the rows `passes` times, each sweep serving `tile` queries (the last
+    the rest), and reads the ids, and shared values, once a sweep.
+
+    The tile is chosen from one query's `geometry`, which does not take
+    Q, so every query keeps the row partition, route and fold of its
+    solo launch: as many queries as keep their partials side by side in
+    `smem` (with `lane_parts` warps * tile_g * 32 values each, otherwise
+    warps * tile_g values each plus the warps' tag bytes once, which the
+    queries use in turn), at least 1; then the queries are spread evenly
+    over the fewest passes.  A pure function of its arguments."""
+    warps, tile_g, lane_parts, _, _, _ = geometry(n, num_groups, itemsize, sms, smem)
+    if lane_parts:
+        fit = smem // (warps * tile_g * 32 * itemsize)
+    else:
+        fit = (smem - warps * tile_g) // (warps * tile_g * itemsize)
+    passes = -(-queries // max(1, fit))
+    return max(1, -(-queries // max(1, passes))), passes
+
+
 _LIB = None
 _LIMITS: dict = {}
 
@@ -172,7 +198,7 @@ def _library():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -263,14 +289,17 @@ def _launch(ids, vals, live, num_groups: int, kind: str):
     q = 1 if live.dim() == 1 else live.shape[0]
     n = ids.shape[0]
     lib = _library()
+    limits = _limits(current)
+    itemsize = vals.element_size()
     warps, tile_g, lane_parts, blocks, chunk_rows, fold_lanes = geometry(
-        n, num_groups, vals.element_size(), *_limits(current))
+        n, num_groups, itemsize, *limits)
+    tile, _ = query_tiles(n, num_groups, itemsize, *limits, q)
     # the Q results, then Q rows of partials per block: one allocation
     buf = torch.empty(q * (1 + blocks) * num_groups, dtype=vals.dtype, device=dev)
     rc = lib.df_grouped_reduce(
         dtype, _KINDS[kind], ids.data_ptr(), vals.data_ptr(), n if vals.dim() == 2 else 0,
-        live.data_ptr(), n, q, num_groups, tile_g, warps, lane_parts, blocks, chunk_rows,
-        fold_lanes, buf.data_ptr(), _cuda.raw_stream(dev))
+        live.data_ptr(), n, q, tile, num_groups, tile_g, warps, lane_parts, blocks,
+        chunk_rows, fold_lanes, buf.data_ptr(), _cuda.raw_stream(dev))
     if rc != 0:
         raise ExecutionError(f"grouped_reduce kernel launch failed: CUDA error {rc}")
     with _cuda.COUNT_LOCK:

@@ -725,11 +725,17 @@ def _bits_equal(a, b):
     return torch.equal(a, b)
 
 
-# Q1's group (46 x 131,072 rows, G = 8), config 2's (8 x 524,288 rows,
-# G = 16 and 4096), a G past one tile of shared memory, and small shapes
+# Q1's group (46 x 131,072 rows, G = 8) at one pass of queries (Q = 8,
+# 13, 14: a query tile holds 14 at G = 8 f64) and several (15, 16, 32),
+# config 2's (8 x 524,288 rows, G = 16 and 4096), the tag route with
+# several queries a tile (G = 200), a G past one tile of shared memory,
+# and small shapes
 @pytest.mark.parametrize("n,g,q", [(46 * 131_072, 8, 16), (8 * 524_288, 4096, 4),
                                    (8 * 524_288, 16, 4), (70001, 32768, 3),
-                                   (1000, 8, 1), (70001, 200, 5)])
+                                   (1000, 8, 1), (70001, 200, 5),
+                                   (46 * 131_072, 8, 8), (46 * 131_072, 8, 13),
+                                   (46 * 131_072, 8, 14), (46 * 131_072, 8, 15),
+                                   (46 * 131_072, 8, 32), (1_000_000, 200, 16)])
 @pytest.mark.parametrize("kind,dtype", CASES)
 @pytest.mark.parametrize("shared", [True, False])
 def test_query_axis_matches_solo_launches_bit_for_bit(dev, kind, dtype, n, g, q, shared):
