@@ -123,6 +123,16 @@ which raises on failure:
    raises PlanVerificationError before any launch; an NDJSON table
    (test/data/example1.ndjson) grouped through the console against
    json.loads of the file.  `console_*` and `dataframe_q1` lines.
+12b. Parquet through the port's own reader (after phase 12,
+   `phase_parquet`; no pyarrow on the card's machine): the fixtures
+   `uk_cities.parquet` and `all_types_flat.parquet` by CREATE EXTERNAL
+   TABLE against the native CSV reads of their twins, value for value
+   (one pinned cell differs); `lineitem_sf1`'s columns written as
+   Parquet by this script's own writer (`write_lineitem_parquet`: row
+   groups of 1,000,000 rows, RLE_DICTIONARY but l_extendedprice PLAIN,
+   SNAPPY pages of at most 1 MiB), then Q1 over it through CREATE
+   EXTERNAL TABLE ... STORED AS PARQUET, cold and warm, against
+   `q1_oracle`, with the scan alone timed.  `parquet_*` lines.
 13. Per-query observability (after phase 7, `phase_explain`): EXPLAIN
    ANALYZE of Q1 at SF-1 (rows against `q1_oracle`, 6 grouped-reduce
    launches, "execute" from CUDA events above 0 and within the wall, the
@@ -166,6 +176,7 @@ which raises on failure:
    cuda:0 (fragment cache off) serving TPC-H Q1 over phase 12's SF-1
    lineitem CSV cut into 4 partitions (cold, twice warm; their `status`
    launch counts: 6 grouped reduces a batch group of each fragment),
+   Q1 over the same 4 partitions written as Parquet (cold, twice warm),
    Q12 over phase 12's orders and lineitem CSVs through the shuffle join
    and under DATAFUSION_TPU_SHUFFLE=0 (the coordinator's grouped
    reduce, sort and, for the local join, build), and Q1 again with one
@@ -231,7 +242,8 @@ which raises on failure:
    worker with an ingest context, each against its oracle.
    `analysis_*` lines.
 Every query runs once cold and WARM_RUNS times warm (phase 7: cold
-runs only), with the peak device memory of its first warm run.  Every
+runs only; Q3 and Q10 once warm, to keep the script inside its time
+limit), with the peak device memory of its first warm run.  Every
 context passes `result_cache=False` (the console phase runs under
 `DATAFUSION_TPU_CACHE=0`), so a warm run computes, except the cache
 step of phase 14, which measures the result cache.
@@ -254,7 +266,7 @@ interleaved with the default under DATAFUSION_TPU_PREFETCH=0 (a CSV
 scan stages by default), and prints both p50s on a `prefetch_ab` line.  Q3
 and Q10 stay out of both (8 to 17 s a run).
 
-The main path (phases 3 to 10 and 12 to 20) runs each query with the launch counters
+The main path (phases 3 to 10, 12, 12b and 13 to 20) runs each query with the launch counters
 set to 0 just before its cold run and read just after; each query must
 have launched the kernels of its path, as often as the fold says.  The second-to-last lines are
 the `kernels` JSON object and the nvidia-smi line; the last line is
@@ -1578,8 +1590,9 @@ def phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, cols, smi):
     reports = []
     for sql, label, want, builds in ((Q3, "tpch_q3_sf1", q3_columns(cols), 2),
                                      (Q10, "tpch_q10_sf1", q10_columns(cols), 3)):
+        # one warm run each (8 to 17 s a run): the script's time limit
         table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, sql, label, SF1_ROWS,
-                                    needs=("sort_kernel", "hash_build"))
+                                    needs=("sort_kernel", "hash_build"), warm_runs=1)
         assert_grouped(table, want, label)
         routes = join_routes(rel)
         expect_launches(rep, label, hash_agg=0, sort_kernel=fold_groups(
@@ -2657,20 +2670,6 @@ def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
         raise AssertionError(f"the rejected plan launched {cuda_mod.launch_counts()}")
     log(f"EXPLAIN and EXPLAIN VERIFY of Q1 ok; {BAD_GROUP_BY!r} rejected before any "
         f"launch: {rejected}")
-    # Parquet needs pyarrow, which the card's machine may lack: then an
-    # IoError names it
-    try:
-        import pyarrow  # noqa: F401
-    except ImportError:
-        try:
-            ctx.sql(f"CREATE EXTERNAL TABLE p STORED AS PARQUET "
-                    f"LOCATION '{data}/uk_cities.parquet'")
-        except tdf.IoError as e:
-            if "pyarrow" not in str(e):
-                raise
-            log(f"Parquet without pyarrow: IoError ({e})")
-        else:
-            raise AssertionError("a Parquet table registered without pyarrow")
     del ctx
 
     # 6. an NDJSON table through the console
@@ -2694,6 +2693,320 @@ def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
     if launches["hash_agg"] <= 0:
         raise AssertionError(f"console NDJSON: launches {launches}")
     log("console_ndjson: " + json.dumps(rep))
+    reports.append(rep)
+    return reports
+
+
+# ------------------------------------------------------------ phase 12b
+
+# Parquet test data: a writer kept here (no pyarrow on the card's
+# machine), in the layout benchmarks/data.py's pyarrow writer gives
+# lineitem: row groups of 1,000,000 rows, OPTIONAL columns, the Utf8
+# columns and the low-cardinality doubles RLE_DICTIONARY, l_extendedprice
+# PLAIN, data pages (v1) of at most 1 MiB, SNAPPY (literals only).
+PARQUET_ROW_GROUP = 1_000_000  # benchmarks/data.py's _CHUNK
+PARQUET_PAGE_BYTES = 1 << 20
+PQ_BYTE_ARRAY, PQ_DOUBLE = 6, 5
+PQ_PLAIN, PQ_RLE, PQ_RLE_DICTIONARY = 0, 3, 8
+PQ_SNAPPY = 1
+
+
+def _uvarint(n):
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _tc_struct(*fields):
+    """A Thrift compact-protocol struct: `fields` are (id, kind, value)
+    in rising id order, kind "i32", "i64", "bin", "struct" (value
+    already encoded) or ("list", element kind); None values are left out."""
+    codes = {"i32": 5, "i64": 6, "bin": 8, "struct": 12}
+    out, last = bytearray(), 0
+    for fid, kind, value in fields:
+        if value is None:
+            continue
+        code = 9 if isinstance(kind, tuple) else codes[kind]
+        out.append(((fid - last) << 4) | code)  # ids here rise by 1 to 15
+        last = fid
+        if isinstance(kind, tuple):
+            ek = kind[1]
+            n = len(value)
+            out.append((n << 4 | codes[ek]) if n < 15 else (0xF0 | codes[ek]))
+            if n >= 15:
+                out += _uvarint(n)
+            for v in value:
+                out += _tc_value(ek, v)
+        else:
+            out += _tc_value(kind, value)
+    out.append(0)
+    return bytes(out)
+
+
+def _tc_value(kind, v):
+    if kind in ("i32", "i64"):
+        return _uvarint((v << 1) ^ (v >> 63))
+    if kind == "bin":
+        return _uvarint(len(v)) + v
+    return v  # an encoded struct
+
+
+def _snappy_literal(raw):
+    """`raw` as raw-format Snappy holding one literal (valid Snappy that
+    a decoder must copy through)."""
+    n = len(raw)
+    if n == 0:
+        return b"\x00"
+    assert n <= 1 << 24
+    return _uvarint(n) + bytes([62 << 2]) + (n - 1).to_bytes(3, "little") + raw
+
+
+def _page(kind, encoding, n, uncompressed):
+    """One SNAPPY page with its header: kind "dict" or "data" (whose
+    values are in `encoding`)."""
+    body = _snappy_literal(uncompressed)
+    if kind == "dict":
+        sub = (7, "struct", _tc_struct((1, "i32", n), (2, "i32", PQ_PLAIN)))
+        ptype = 2
+    else:
+        sub = (5, "struct", _tc_struct((1, "i32", n), (2, "i32", encoding), (3, "i32", PQ_RLE),
+                                       (4, "i32", PQ_RLE)))
+        ptype = 0
+    header = _tc_struct((1, "i32", ptype), (2, "i32", len(uncompressed)),
+                        (3, "i32", len(body)), sub)
+    return header + body, len(header) + len(uncompressed)
+
+
+def _all_valid_levels(n):
+    """Definition levels of n non-NULL rows: a 4-byte length, one RLE run."""
+    run = _uvarint(n << 1) + b"\x01"
+    return len(run).to_bytes(4, "little") + run
+
+
+def _bit_pack(idx, bw):
+    """Dictionary indices as one bit-packed run of the RLE/bit-packed
+    hybrid, led by the bit-width byte (padded to 8 values with 0)."""
+    pad = (-len(idx)) % 8
+    idx = np.concatenate([idx.astype(np.uint32), np.zeros(pad, np.uint32)])
+    bits = ((idx[:, None] >> np.arange(bw, dtype=np.uint32)) & 1).astype(np.uint8)
+    packed = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    return bytes([bw]) + _uvarint(((len(idx) // 8) << 1) | 1) + packed
+
+
+def _chunk_pages(kind, values, dictionary):
+    """(pages, uncompressed bytes, has a dictionary page) of one column
+    chunk: PLAIN doubles, or a dictionary page and RLE_DICTIONARY
+    indices (`values` then index `dictionary`, doubles or byte strings)."""
+    n = len(values)
+    pages, total = [], 0
+    levels_room = 16
+    if kind == "plain":
+        per = (PARQUET_PAGE_BYTES - levels_room) // 8
+        for lo in range(0, n, per):
+            v = values[lo:lo + per]
+            page, size = _page("data", PQ_PLAIN, len(v),
+                               _all_valid_levels(len(v)) + v.astype("<f8").tobytes())
+            pages.append(page)
+            total += size
+        return pages, total, False
+    if dictionary.dtype.kind == "f":
+        dict_bytes = dictionary.astype("<f8").tobytes()
+    else:
+        dict_bytes = b"".join(len(s).to_bytes(4, "little") + s for s in dictionary)
+    page, size = _page("dict", None, len(dictionary), dict_bytes)
+    pages.append(page)
+    total += size
+    bw = max(1, int(len(dictionary) - 1).bit_length())
+    per = ((PARQUET_PAGE_BYTES - levels_room - 8) * 8 // bw) // 8 * 8
+    for lo in range(0, n, per):
+        v = values[lo:lo + per]
+        page, size = _page("data", PQ_RLE_DICTIONARY, len(v),
+                           _all_valid_levels(len(v)) + _bit_pack(v, bw))
+        pages.append(page)
+        total += size
+    return pages, total, True
+
+
+def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP):
+    """`columns` as one Parquet file: a list of (name, physical type
+    PQ_DOUBLE or PQ_BYTE_ARRAY, kind "plain" or "dict", values,
+    dictionary); a "dict" column's values index its dictionary (doubles
+    or byte strings), a "plain" column's values are doubles.  Every
+    column is OPTIONAL with no NULL; the Utf8 ones carry the UTF8
+    annotation.  Returns the file's size."""
+    n = len(columns[0][3])
+    tmp = f"{path}.{os.getpid()}.tmp"
+    groups = []
+    with open(tmp, "wb") as f:
+        f.write(b"PAR1")
+        offset = 4
+        for lo in range(0, n, rows_per_group):
+            hi = min(n, lo + rows_per_group)
+            chunks, group_bytes = [], 0
+            for name, ptype, kind, values, dictionary in columns:
+                pages, usize, has_dict = _chunk_pages(kind, values[lo:hi], dictionary)
+                start = offset
+                data_at = start + (len(pages[0]) if has_dict else 0)
+                for page in pages:
+                    f.write(page)
+                    offset += len(page)
+                csize = offset - start
+                group_bytes += usize
+                meta = _tc_struct(
+                    (1, "i32", ptype),
+                    (2, ("list", "i32"), [PQ_PLAIN, PQ_RLE] + ([PQ_RLE_DICTIONARY]
+                                                               if has_dict else [])),
+                    (3, ("list", "bin"), [name.encode()]), (4, "i32", PQ_SNAPPY),
+                    (5, "i64", hi - lo), (6, "i64", usize), (7, "i64", csize),
+                    (9, "i64", data_at), (11, "i64", start if has_dict else None))
+                chunks.append(_tc_struct((2, "i64", start), (3, "struct", meta)))
+            groups.append(_tc_struct((1, ("list", "struct"), chunks),
+                                     (2, "i64", group_bytes), (3, "i64", hi - lo)))
+        schema = [_tc_struct((4, "bin", b"schema"), (5, "i32", len(columns)))]
+        for name, ptype, _, _, _ in columns:
+            utf8 = ptype == PQ_BYTE_ARRAY
+            schema.append(_tc_struct(
+                (1, "i32", ptype), (3, "i32", 1), (4, "bin", name.encode()),
+                (6, "i32", 0 if utf8 else None),
+                (10, "struct", _tc_struct((1, "struct", b"\x00")) if utf8 else None)))
+        footer = _tc_struct((1, "i32", 1), (2, ("list", "struct"), schema), (3, "i64", n),
+                            (4, ("list", "struct"), groups),
+                            (6, "bin", b"datafusion_tpu_torch chip_smoke.py"))
+        f.write(footer + len(footer).to_bytes(4, "little") + b"PAR1")
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def parquet_batches(rows, batch):
+    """The batches a scan of `write_parquet`'s file of `rows` rows yields
+    (a batch never spans a row group)."""
+    return sum(-(-min(PARQUET_ROW_GROUP, rows - lo) // batch)
+               for lo in range(0, rows, PARQUET_ROW_GROUP))
+
+
+def write_lineitem_parquet(path, cols, dates, lo=0, hi=None):
+    """Rows [lo, hi) of `lineitem_sf1`'s columns as Parquet
+    (`write_parquet`): l_returnflag, l_linestatus and l_shipdate coded
+    into lineitem_sf1's dictionaries, l_quantity, l_discount and l_tax
+    into their distinct values, l_extendedprice PLAIN."""
+    hi = len(cols["flag"]) if hi is None else hi
+
+    def coded(x):
+        uniq, codes = np.unique(x[lo:hi], return_inverse=True)
+        return codes.reshape(-1), uniq
+
+    def strings(values):
+        return np.array([s.encode() for s in values], dtype=object)
+
+    qty, disc, tax = coded(cols["qty"]), coded(cols["disc"]), coded(cols["tax"])
+    return write_parquet(path, [
+        ("l_returnflag", PQ_BYTE_ARRAY, "dict", cols["flag"][lo:hi], strings("ANR")),
+        ("l_linestatus", PQ_BYTE_ARRAY, "dict", cols["status"][lo:hi], strings("FO")),
+        ("l_quantity", PQ_DOUBLE, "dict", *qty),
+        ("l_extendedprice", PQ_DOUBLE, "plain", cols["price"][lo:hi], None),
+        ("l_discount", PQ_DOUBLE, "dict", *disc),
+        ("l_tax", PQ_DOUBLE, "dict", *tax),
+        ("l_shipdate", PQ_BYTE_ARRAY, "dict", cols["ship"][lo:hi], strings(dates)),
+    ])
+
+
+def _table_columns(table):
+    return [list(c) for c in zip(*table.to_rows())]
+
+
+def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
+    """Parquet on cuda:0 through the port's own reader
+    (datafusion_tpu_torch/native/parquet.cpp; no pyarrow here):
+
+    1. the fixtures `uk_cities.parquet` and `all_types_flat.parquet`
+       registered by CREATE EXTERNAL TABLE (schemas inferred), value for
+       value against the native CSV reads of their twins `uk_cities.csv`
+       and `all_types_flat.csv` under the same schema; the one cell
+       where a fixture and its twin differ (`all_types_flat` row 129,
+       c_utf8: the Parquet value leads with U+0015, the CSV's does not,
+       as tests/test_torch_parquet.py pins) is held to that;
+    2. `lineitem_sf1`'s columns written as one Parquet file by
+       `write_lineitem_parquet` (6 row groups of 1,000,000 rows), then
+       TPC-H Q1 through CREATE EXTERNAL TABLE ... STORED AS PARQUET,
+       once cold and WARM_RUNS times warm, against `q1_oracle`, 6
+       grouped-reduce launches a batch group, with its device and host
+       profile (`profile_parquet_tpch_q1_sf1`); the scan alone timed 3
+       times.  `parquet_*` lines; returns the report the `kernels` line
+       counts."""
+    import gc
+
+    gc.collect()
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(here, "test", "data")
+    out_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    reports = []
+
+    # 1. the fixtures against their CSV twins
+    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+    for name in ("uk_cities", "all_types_flat"):
+        t0 = time.perf_counter()
+        ctx.sql(f"CREATE EXTERNAL TABLE pq_{name} STORED AS PARQUET "
+                f"LOCATION '{data}/{name}.parquet'")
+        schema = ctx.datasources[f"pq_{name}"].schema
+        ctx.register_csv(f"csv_{name}", os.path.join(data, f"{name}.csv"), schema,
+                         has_header=False)
+        got = _table_columns(tdf.collect(ctx.sql(f"SELECT * FROM pq_{name}")))
+        want = _table_columns(tdf.collect(ctx.sql(f"SELECT * FROM csv_{name}")))
+        ms = (time.perf_counter() - t0) * 1e3
+        if len(got) != len(want) or len(got[0]) != len(want[0]):
+            raise AssertionError(f"{name}.parquet: shape differs from its CSV twin")
+        diffs = [(f.name, i) for f, g, w in zip(schema.fields, got, want)
+                 for i, (a, b) in enumerate(zip(g, w))
+                 if not (a == b or (a != a and b != b))]
+        pinned = [("c_utf8", 129)] if name == "all_types_flat" else []
+        if diffs != pinned:
+            raise AssertionError(f"{name}.parquet differs from its CSV twin at {diffs[:10]}")
+        for col, i in pinned:
+            j = schema.names().index(col)
+            if got[j][i] != "\x15" + want[j][i]:
+                raise AssertionError(f"{name}.parquet {col}[{i}]: {got[j][i]!r}")
+        log(f"parquet_fixture: {name}.parquet equals {name}.csv value for value "
+            f"({len(got[0])} rows x {len(got)} columns"
+            + (f"; {pinned} as pinned" if pinned else "") + f", {ms:.3f} ms; {smi})")
+    del ctx
+
+    # 2. Q1 over the SF-1 lineitem as Parquet
+    path = os.path.join(out_dir, f"lineitem_q1_{SF1_ROWS}.parquet")
+    t0 = time.perf_counter()
+    nbytes = write_lineitem_parquet(path, cols, dates)
+    write_s = time.perf_counter() - t0
+    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+    t0 = time.perf_counter()
+    ctx.sql(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION '{path}'")
+    ddl_ms = (time.perf_counter() - t0) * 1e3
+    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, "parquet_tpch_q1_sf1", SF1_ROWS)
+    assert_rows(table, q1_oracle(cols, dates), "Parquet Q1")
+    src = ctx.datasources["lineitem"]
+    nb = parquet_batches(SF1_ROWS, ctx.batch_size)
+    scan_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        if sum(1 for _ in src.batches()) != nb:
+            raise AssertionError(f"Parquet scan: batches other than {nb}")
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+    expect_launches(rep, "Parquet Q1", hash_agg=6 * fold_groups(nb))
+    try:
+        query_profile(tdf, torch, ctx, Q1, "parquet_tpch_q1_sf1", rep["p50_ms"])
+    except RuntimeError as e:  # the profiler is a measurement aid only
+        log(f"profiler unavailable: {e}")
+    rep.update({"parquet_bytes": nbytes, "write_s": write_s, "ddl_ms": ddl_ms,
+                "batches": nb, "scan_only_ms": scan_ms,
+                "scan_share_of_warm": float(np.median(scan_ms)) / rep["p50_ms"]})
+    log("parquet_q1: " + json.dumps(rep))
+    log(f"Parquet Q1 at SF-1 matches the numpy oracle cold and warm ({nb} batches, "
+        f"{nbytes} bytes)")
     reports.append(rep)
     return reports
 
@@ -3897,9 +4210,11 @@ def phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star, smi):
        processes on cuda:0 (fragment cache off), TPC-H Q1 over phase
        12's SF-1 lineitem CSV cut into 4 partitions, cold and twice warm,
        against `q1_oracle`; the workers' `status` must show 6
-       grouped-reduce launches a batch group of each fragment; then one
-       worker killed and Q1 again, every fragment answered by the
-       survivor;
+       grouped-reduce launches a batch group of each fragment; the same
+       4 partitions written as Parquet (`write_lineitem_parquet`), Q1
+       over them cold and twice warm, held to the same oracle and
+       launches; then one worker killed and Q1 again (over the CSV
+       partitions), every fragment answered by the survivor;
     3. Q12 over phase 12's orders and lineitem CSVs cut into 4
        partitions each: through the shuffle join (the coordinator's
        aggregate launches the grouped reduce, its ORDER BY the sort),
@@ -4031,6 +4346,39 @@ def phase_distributed(tdf, cuda_mod, torch, dev, li_cols, dates, star, smi):
         log("dist_q1: " + json.dumps(rep))
         log(f"distributed Q1 through 2 workers matches the numpy oracle ({want_q1} "
             "grouped-reduce launches in the workers a run)")
+        reports.append(rep)
+
+        # 2a. the same 4 partitions written as Parquet: cold, twice warm
+        t0 = time.perf_counter()
+        pq_parts, lo = [], 0
+        for p, (_, rows) in enumerate(li_parts):
+            part = os.path.join(out_dir, f"dist_parquet_lineitem_q1_part{p}.parquet")
+            write_lineitem_parquet(part, li_cols, dates, lo, lo + rows)
+            pq_parts.append((part, parquet_batches(rows, batch)))
+            lo += rows
+        write_s = time.perf_counter() - t0
+        ctx.register_datasource("lineitem", PartitionedDataSource(
+            [tdf.ParquetDataSource(p) for p, _ in pq_parts]))
+        want_pq = 6 * sum(fold_groups(nb) for _, nb in pq_parts)
+        runs = []
+        for i in range(3):
+            table, ms, coord, delta, nbytes = _dist_run(tdf, torch, ctx, Q1, cuda_mod)
+            assert_rows(table, q1_oracle(li_cols, dates), f"distributed Parquet Q1 run {i}")
+            got = _sum_kernels(delta)
+            if got["hash_agg"] != want_pq or coord["hash_agg"] != 0 or \
+                    sum(q for _, q in delta.values()) != DIST_PARTS:
+                raise AssertionError(f"distributed Parquet Q1 run {i}: workers launched {got}, "
+                                     f"coordinator {coord}, fragments {delta}; want {want_pq} "
+                                     "grouped reduces in the workers")
+            runs.append((ms, got, delta, nbytes))
+        rep = {"query": "dist_tpch_q1_sf1_parquet", "rows": SF1_ROWS,
+               "partitions": DIST_PARTS, "workers": 2, "launches": runs[0][1],
+               "cold_ms": runs[0][0], "warm_ms": [r[0] for r in runs[1:]],
+               "per_worker": {a: d for a, d in runs[0][2].items()},
+               "wire_bytes": runs[0][3], "parquet_write_s": write_s, "card": card()}
+        log("dist_q1_parquet: " + json.dumps(rep))
+        log(f"distributed Q1 over 4 Parquet partitions through 2 workers matches the numpy "
+            f"oracle ({want_pq} grouped-reduce launches in the workers a run)")
         reports.append(rep)
 
         # 3. Q12 through the shuffle join, then under DATAFUSION_TPU_SHUFFLE=0
@@ -5482,6 +5830,7 @@ def main() -> int:
         reports += phase_console(tdf, cuda_mod, torch, li_src, li_cols, dates, star_cols, smi)
     finally:
         del os.environ["DATAFUSION_TPU_CACHE"]
+    reports += phase_parquet(tdf, cuda_mod, torch, li_cols, dates, smi)
     csv_rep, cities = phase_csv(tdf, cuda_mod, torch, smi)
     reports.append(csv_rep)
     reports += phase_explain(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,

@@ -119,7 +119,8 @@ class StringDictionary:
 
     def merge_codes(self, codes: np.ndarray, values: Sequence[str]) -> np.ndarray:
         """Remap codes expressed in a local dictionary `values` (a
-        pyarrow per-batch dictionary) into this global dictionary."""
+        Parquet reader's local dictionary, native/parquet.py) into this global
+        dictionary, adding every value of `values` in order."""
         lut = np.fromiter(
             (self.add(v) for v in values), dtype=np.int32, count=len(values)
         )

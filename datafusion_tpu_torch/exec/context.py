@@ -263,8 +263,9 @@ class ExecutionContext:
         )
 
     def register_parquet(self, name: str, path: str, schema: Optional[Schema] = None):
-        """Register a Parquet file (through pyarrow, io/readers.py); with
-        no `schema` the file's metadata gives it."""
+        """Register a Parquet file, read by the port's native reader
+        (io/readers.ParquetReader over native/parquet.py); with no
+        `schema` the file's metadata gives it."""
         self.register_datasource(name, ParquetDataSource(path, schema, self.batch_size))
 
     def register_ndjson(self, name: str, path: str, schema: Schema) -> None:

@@ -4,8 +4,8 @@ Mirrors the JAX package's `exec/datasource.py`.  A DataSource is
 re-iterable (each `batches()` call restarts the scan) and
 projection-aware.  Sources: in memory, CSV (over the native C++
 parser, datafusion_tpu_torch/native), NDJSON and Parquet
-(io/readers.py; Parquet needs pyarrow, which the card's machine lacks:
-there it raises IoError).
+(io/readers.py; Parquet through the native reader of
+native/parquet.py, with no pyarrow).
 """
 
 from __future__ import annotations
@@ -208,8 +208,9 @@ class NdJsonDataSource(FileDataSource):
 
 
 class ParquetDataSource(FileDataSource):
-    """A Parquet file (io/readers.ParquetReader); with no `schema` the
-    file's metadata gives it."""
+    """A Parquet file (io/readers.ParquetReader, the port's native
+    reader); with no `schema` the file's metadata gives it.  A
+    projection reads only the projected column chunks."""
 
     def __init__(
         self,

@@ -8,9 +8,11 @@ from `make_host_batch` and pin their dictionaries' versions where they
 leave the reader (`batch.pin_dict_versions`), as the CSV reader's do.
 
 CSV is read by the native parser (`native/csv.py`); the JAX package's
-pyarrow CSV reader is not ported.  Parquet needs pyarrow, imported only
-inside the Parquet functions: where it is missing (the card's machine)
-a Parquet table raises IoError naming it.  NDJSON is plain Python.
+pyarrow CSV reader is not ported.  Parquet is read by the port's own
+native reader (`native/parquet.py`), so no pyarrow is needed here or on
+the card's machine.  NDJSON is plain Python.  Each Parquet and NDJSON
+batch passes the `io.read` fault site (`testing/faults.py`), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from datafusion_tpu_torch.exec.batch import (
     make_host_batch,
     pin_dict_versions,
 )
-from datafusion_tpu_torch.io.io_thread import confined_iter, run_on_io_thread
+from datafusion_tpu_torch.native.parquet import ParquetFile
+from datafusion_tpu_torch.testing import faults
 from datafusion_tpu_torch.utils.metrics import METRICS
 
 DEFAULT_BATCH_SIZE = 131072
@@ -36,62 +39,6 @@ DEFAULT_BATCH_SIZE = 131072
 
 def _project_schema(schema: Schema, projection: Optional[Sequence[int]]) -> Schema:
     return schema if projection is None else schema.select(list(projection))
-
-
-def _pyarrow():
-    """pyarrow and pyarrow.parquet, or IoError when pyarrow is missing."""
-    try:
-        import pyarrow
-        import pyarrow.parquet
-    except ImportError as e:
-        raise IoError(f"reading Parquet needs pyarrow, which is not installed: {e}") from e
-    return pyarrow, pyarrow.parquet
-
-
-def _arrow_to_columns(
-    table_cols, out_schema: Schema, dicts: list[Optional[StringDictionary]]
-):
-    """Convert pyarrow chunked arrays to (numpy columns, validity)."""
-    pa, _ = _pyarrow()
-    columns: list[np.ndarray] = []
-    validity: list[Optional[np.ndarray]] = []
-    for i, (field, col) in enumerate(zip(out_schema.fields, table_cols)):
-        if field.data_type == DataType.UTF8:
-            d = dicts[i]
-            # strictly per chunk: chunks may carry different local
-            # dictionaries, or arrive dictionary-encoded from the file
-            code_parts: list[np.ndarray] = []
-            null_parts: list[np.ndarray] = []
-            for chunk in col.chunks:
-                if pa.types.is_dictionary(chunk.type):
-                    enc = chunk
-                else:
-                    c = chunk
-                    if not pa.types.is_string(c.type) and not pa.types.is_large_string(c.type):
-                        # date and timestamp columns travel as ISO strings
-                        c = c.cast(pa.string())
-                    enc = c.dictionary_encode()
-                idx = enc.indices
-                local = idx.fill_null(0).to_numpy(zero_copy_only=False)
-                merged = d.merge_codes(local.astype(np.int32), enc.dictionary.to_pylist())
-                isnull = idx.is_null().to_numpy(zero_copy_only=False)
-                merged[isnull] = 0
-                code_parts.append(merged)
-                null_parts.append(isnull)
-            if not code_parts:
-                codes, null_mask = np.empty(0, np.int32), np.empty(0, bool)
-            elif len(code_parts) == 1:
-                codes, null_mask = code_parts[0], null_parts[0]
-            else:
-                codes, null_mask = np.concatenate(code_parts), np.concatenate(null_parts)
-            columns.append(codes)
-        else:
-            null_mask = col.is_null().to_numpy(zero_copy_only=False)
-            fill = False if pa.types.is_boolean(col.type) else 0
-            vals = col.fill_null(fill).to_numpy(zero_copy_only=False)
-            columns.append(np.asarray(vals).astype(field.data_type.np_dtype, copy=False))
-        validity.append(None if not null_mask.any() else ~null_mask)
-    return columns, validity
 
 
 def _batch(schema: Schema, columns, validity, dicts) -> RecordBatch:
@@ -146,6 +93,7 @@ class NdJsonReader:
                 yield self._rows_to_batch(rows)
 
     def _rows_to_batch(self, rows: list[dict]) -> RecordBatch:
+        faults.check("io.read", path=self.path, format="ndjson")
         METRICS.add("scan.rows", len(rows))
         columns: list[np.ndarray] = []
         validity: list[Optional[np.ndarray]] = []
@@ -162,8 +110,12 @@ class NdJsonReader:
 
 
 class ParquetReader:
-    """A Parquet file through pyarrow, every call on the confinement
-    threads (`io/io_thread.py`)."""
+    """A Parquet file through the native reader (`native/parquet.py`
+    over `native/parquet.cpp`), on the card's machine as here: no
+    pyarrow.  Batches of at most `batch_size` rows never span a row
+    group; Utf8 columns keep one dictionary each across every scan of
+    this reader, holding what the JAX package's pyarrow reader holds,
+    in its order."""
 
     def __init__(
         self,
@@ -183,23 +135,15 @@ class ParquetReader:
         ]
 
     def batches(self) -> Iterator[RecordBatch]:
-        yield from confined_iter(METRICS.timed_iter("scan.parse", self._batches()))
+        yield from METRICS.timed_iter("scan.parse", self._batches())
 
     def _batches(self) -> Iterator[RecordBatch]:
-        pa, pq = _pyarrow()
-        names = [f.name for f in self.out_schema.fields]
-        # Utf8 columns read dictionary-encoded straight off the file
-        dict_cols = [f.name for f in self.out_schema.fields if f.data_type == DataType.UTF8]
-        try:
-            pf = pq.ParquetFile(self.path, read_dictionary=dict_cols)
-        except Exception as e:  # noqa: BLE001 — pyarrow raises several types for a bad file
-            raise IoError(f"cannot open Parquet {self.path!r}: {e}") from e
-        for arrow_batch in pf.iter_batches(batch_size=self.batch_size, columns=names):
-            cols = [pa.chunked_array([arrow_batch.column(j)])
-                    for j in range(arrow_batch.num_columns)]
-            columns, validity = _arrow_to_columns(cols, self.out_schema, self.dicts)
-            METRICS.add("scan.rows", arrow_batch.num_rows)
-            yield _batch(self.out_schema, columns, validity, self.dicts)
+        with ParquetFile(self.path) as pf:
+            for n, columns, validity in pf.batches(self.out_schema, self.batch_size,
+                                                   self.dicts):
+                faults.check("io.read", path=self.path, format="parquet")
+                METRICS.add("scan.rows", n)
+                yield _batch(self.out_schema, columns, validity, self.dicts)
 
 
 _PARQUET_TYPES = {
@@ -220,23 +164,18 @@ _PARQUET_TYPES = {
 
 
 def infer_parquet_schema(path: str) -> Schema:
-    """Derive an engine Schema from Parquet file metadata."""
-
-    def _read_schema(p):
-        _, pq = _pyarrow()
-        try:
-            return pq.ParquetFile(p).schema_arrow
-        except Exception as e:  # noqa: BLE001 — pyarrow raises several types for a bad file
-            raise IoError(f"cannot open Parquet {p!r}: {e}") from e
-
-    fields = []
-    for f in run_on_io_thread(_read_schema, path):
-        t = str(f.type)
-        if t.startswith("timestamp") or t.startswith("date"):
-            dt = DataType.UTF8  # dates travel as ISO strings (order-preserving)
-        elif t in _PARQUET_TYPES:
-            dt = _PARQUET_TYPES[t]
-        else:
-            raise ExecutionError(f"unsupported parquet type {t!r} for column {f.name!r}")
-        fields.append(Field(f.name, dt, f.nullable))
+    """Derive an engine Schema from Parquet file metadata: each field's
+    type as pyarrow's `schema_arrow` names it, then the JAX package's
+    mapping (`datafusion_tpu/io/readers.py:317-350`)."""
+    with ParquetFile(path) as pf:
+        fields = []
+        for f in pf.fields:
+            t = f.arrow_type
+            if t.startswith("timestamp") or t.startswith("date"):
+                dt = DataType.UTF8  # dates travel as ISO strings (order-preserving)
+            elif t in _PARQUET_TYPES:
+                dt = _PARQUET_TYPES[t]
+            else:
+                raise ExecutionError(f"unsupported parquet type {t!r} for column {f.name!r}")
+            fields.append(Field(f.name, dt, f.nullable))
     return Schema(fields)

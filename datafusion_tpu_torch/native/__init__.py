@@ -1,19 +1,21 @@
-"""ctypes bindings for the C++ native runtime: the CSV parser and the
-SQL front-end.
+"""ctypes bindings for the C++ native runtime: the CSV parser, the
+SQL front-end and the Parquet reader.
 
 The counterpart of the JAX package's `native/__init__.py`.  The
 sources at the root of the checkout, `native/datafusion_native.cpp`
 (the `dtf_csv_*` symbols) and `native/sql_frontend.cpp` (`dtf_parse_sql`,
-`dtf_plan_roundtrip`, `dtf_plan_repr`, `dtf_free`), are compiled into
-one library on first use, as `native/Makefile` does:
+`dtf_plan_roundtrip`, `dtf_plan_repr`, `dtf_free`), and the port's own
+`datafusion_tpu_torch/native/parquet.cpp` (`dtf_pq_*`, bound by
+`native/parquet.py`) are compiled into one library on first use:
 
-    g++ -O3 -std=c++17 -fPIC -shared native/datafusion_native.cpp native/sql_frontend.cpp
+    g++ -O3 -std=c++17 -fPIC -shared -pthread native/datafusion_native.cpp \
+        native/sql_frontend.cpp datafusion_tpu_torch/native/parquet.cpp
 
 into `build/native/<hash>/libdatafusion_native.so`, keyed by a hash of
-both sources and the flags (an edited source rebuilds).  `native/`
+every source and the flags (an edited source rebuilds).  `native/`
 itself is never written.  The compiler is `$CXX`, else `g++`.  A
 missing compiler or a failed build raises IoError with the compiler's
-message; there is no other CSV parser to fall back on
+message; there is no other CSV or Parquet reader to fall back on
 (`DATAFUSION_TPU_NATIVE=0` selects the Python SQL parser, see
 `sql/parser.parse_sql`).
 """
@@ -34,9 +36,9 @@ from datafusion_tpu_torch.errors import IoError
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "datafusion_native.cpp"
-SOURCES = (SOURCE, REPO / "native" / "sql_frontend.cpp")
+SOURCES = (SOURCE, REPO / "native" / "sql_frontend.cpp", Path(__file__).with_name("parquet.cpp"))
 BUILD_DIR = REPO / "build" / "native"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 LIB_NAME = "libdatafusion_native.so"
 
 _LIB = None

@@ -152,8 +152,8 @@ class PlanFragment:
     def build_datasource(self, batch_size: int):
         """Reconstruct the partition's DataSource from its wire meta —
         what a remote worker does on receipt.  CSV reads through the
-        port's native parser; Parquet needs pyarrow (io/readers.py),
-        which the card's machine lacks."""
+        port's native parser, Parquet through its native reader
+        (native/parquet.py), on the card's machine too."""
         from datafusion_tpu_torch.datatypes import Schema
         from datafusion_tpu_torch.exec.datasource import (
             CsvDataSource,

@@ -11,8 +11,8 @@ so does a build without a compiler or one that fails.
 Then the golden corpus of `test/data/expected/` runs through the port
 on the CSV fixtures, with the exclusions and reasons of
 tests/test_golden_corpus.py (the empty int8-vs-literal goldens, the
-MIN/MAX(c_utf8) artifact) and its queries; the Parquet goldens wait for
-the port's Parquet reader (ROADMAP queue 1, item 9).  Last, the
+MIN/MAX(c_utf8) artifact) and its queries; the Parquet goldens run in
+`tests/test_torch_parquet.py`, over the port's Parquet reader.  Last, the
 reference's `examples/csv_sql.rs` query over `uk_cities.csv` (18 rows)
 and bench config 1's SQL over a generated cities CSV give the JAX
 package's rows.

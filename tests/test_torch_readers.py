@@ -5,10 +5,12 @@ confinement threads (`io/io_thread.py`), against the JAX package.
 
 The same DDL and queries run through `ctx.sql_collect` in both
 packages on the CPU: ints, strings, NULLs and order exactly, floats
-within rtol 1e-9.  Parquet needs pyarrow (skipped without it; the
-card's machine has none, and there a Parquet table raises IoError
-naming it, shown here with pyarrow blocked).  The io-thread cases are
-those of the JAX package's `tests/test_io_thread.py`.
+within rtol 1e-9.  The port reads Parquet with its own native reader
+(`native/parquet.py`), so with pyarrow blocked, as on the card's
+machine, a Parquet fixture still registers and gives its CSV twin's
+rows (the JAX package's side of these Parquet cases needs pyarrow, and
+they skip without it).  The io-thread cases are those of the JAX
+package's `tests/test_io_thread.py`.
 """
 
 from __future__ import annotations
@@ -174,23 +176,26 @@ def test_parquet_tables_give_the_jax_packages_rows(case):
     assert isinstance(tctx.datasources["t"], tdf.ParquetDataSource)
 
 
-def test_parquet_without_pyarrow_raises_io_error_naming_it():
+def test_parquet_without_pyarrow_reads_the_fixture():
     code = (
         "import sys\n"
         "sys.modules['pyarrow'] = None\n"
         "sys.modules['pyarrow.parquet'] = None\n"
         "import datafusion_tpu_torch as t\n"
-        "ctx = t.ExecutionContext(device='cpu')\n"
-        "try:\n"
-        f"    ctx.sql(\"CREATE EXTERNAL TABLE p STORED AS PARQUET LOCATION "
+        "ctx = t.ExecutionContext(device='cpu', result_cache=False)\n"
+        f"ctx.sql(\"CREATE EXTERNAL TABLE p STORED AS PARQUET LOCATION "
         f"'{DATA}/uk_cities.parquet'\")\n"
-        "except t.IoError as e:\n"
-        "    print('IoError', e)\n"
+        "ctx.register_csv('c', "
+        f"'{DATA}/uk_cities.csv', ctx.datasources['p'].schema, has_header=False)\n"
+        "got = ctx.sql_collect('SELECT city, lat, lng FROM p').to_rows()\n"
+        "want = ctx.sql_collect('SELECT city, lat, lng FROM c').to_rows()\n"
+        "assert 'pyarrow' not in {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        "print(len(got), got == want)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("IoError") and "pyarrow" in out.stdout
+    assert out.stdout.split() == ["37", "True"]
 
 
 # ------------------------------------------------------------ io threads
