@@ -132,7 +132,11 @@ which raises on failure:
    groups of 1,000,000 rows, RLE_DICTIONARY but l_extendedprice PLAIN,
    SNAPPY pages of at most 1 MiB), then Q1 over it through CREATE
    EXTERNAL TABLE ... STORED AS PARQUET, cold and warm, against
-   `q1_oracle`, with the scan alone timed.  `parquet_*` lines.
+   `q1_oracle`, with the scan alone timed; the same with GZIP pages
+   (zlib level 6), inflated by the port's own decoder; Q1 over the
+   committed ZSTD, LZ4_RAW and GZIP fixtures of pyarrow
+   (`tests/torch_data/parquet/`, lineitem_sf1's first 65,536 rows)
+   against `q1_oracle` over those rows.  `parquet_*` lines.
 13. Per-query observability (after phase 7, `phase_explain`): EXPLAIN
    ANALYZE of Q1 at SF-1 (rows against `q1_oracle`, 6 grouped-reduce
    launches, "execute" from CUDA events above 0 and within the wall, the
@@ -284,6 +288,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -1104,7 +1109,8 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",),
     must have launched in the cold run.  `peak_warm_mb`: the device
     memory allocated at its peak during the first warm run
     (`torch.cuda.max_memory_allocated`, the tables' cached device copies
-    included).  Returns (result, report, relation)."""
+    included); with no warm run, it, `p50_ms` and `rows_per_s` are None.
+    Returns (result, report, relation)."""
     cuda_mod.reset_launch_counts()
     t0 = time.perf_counter()
     rel = ctx.sql(sql)
@@ -1126,10 +1132,10 @@ def run_query(tdf, cuda_mod, torch, ctx, sql, label, rows, needs=("hash_agg",),
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             peak = torch.cuda.max_memory_allocated() / 2**20
-    p50 = float(np.median(times))
+    p50 = float(np.median(times)) if times else None
     report = {
         "query": label, "rows": rows, "cold_ms": cold, "p50_ms": p50,
-        "warm_ms": times, "rows_per_s": rows / (p50 / 1e3),
+        "warm_ms": times, "rows_per_s": rows / (p50 / 1e3) if times else None,
         "launches": launches, "peak_warm_mb": peak, "card": card(),
     }
     log(f"{label}: " + json.dumps(report))
@@ -1323,7 +1329,7 @@ def query_profile(tdf, torch, ctx, sql, label, p50_ms, top=8):
         )
         busy = sum(t[1] for t in by_kernel)
         out["device_busy_ms"] = busy or None
-        out["device_busy_share_of_p50"] = (busy / p50_ms) if busy else None
+        out["device_busy_share_of_p50"] = (busy / p50_ms) if busy and p50_ms else None
         out["top_device"] = [{"name": k[:60], "ms": ms, "count": c}
                              for k, ms, c in by_kernel[:top]]
     except RuntimeError as e:  # the profiler is a measurement aid only
@@ -1514,12 +1520,13 @@ def phase_joins(tdf, cuda_mod, torch, ctx):
         "orders build dense")
     query_profile(tdf, torch, ctx, Q12, "tpch_q12_order_by_sf1", rep["p50_ms"])
     reports.append(rep)
-    # the host-index route, driven once: no dense build for this query
+    # the host-index route, driven once cold (13 to 22 s a run, the
+    # script's time limit): no dense build for this query
     os.environ["DATAFUSION_TPU_JOIN_DENSE_SLOTS"] = "0"
     try:
         table, host_rep, rel = run_query(tdf, cuda_mod, torch, ctx, Q12,
                                          "tpch_q12_host_index_sf1", SF1_ROWS,
-                                         needs=("hash_agg", "sort_kernel"), warm_runs=1)
+                                         needs=("hash_agg", "sort_kernel"), warm_runs=0)
     finally:
         del os.environ["DATAFUSION_TPU_JOIN_DENSE_SLOTS"]
     if table.to_rows() != q12_oracle(cols):
@@ -1590,9 +1597,9 @@ def phase_high_cardinality_joins(tdf, cuda_mod, torch, ctx, cols, smi):
     reports = []
     for sql, label, want, builds in ((Q3, "tpch_q3_sf1", q3_columns(cols), 2),
                                      (Q10, "tpch_q10_sf1", q10_columns(cols), 3)):
-        # one warm run each (8 to 17 s a run): the script's time limit
+        # cold only (10 to 20 s a run): the script's time limit
         table, rep, rel = run_query(tdf, cuda_mod, torch, ctx, sql, label, SF1_ROWS,
-                                    needs=("sort_kernel", "hash_build"), warm_runs=1)
+                                    needs=("sort_kernel", "hash_build"), warm_runs=0)
         assert_grouped(table, want, label)
         routes = join_routes(rel)
         expect_launches(rep, label, hash_agg=0, sort_kernel=fold_groups(
@@ -2703,12 +2710,17 @@ def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
 # machine), in the layout benchmarks/data.py's pyarrow writer gives
 # lineitem: row groups of 1,000,000 rows, OPTIONAL columns, the Utf8
 # columns and the low-cardinality doubles RLE_DICTIONARY, l_extendedprice
-# PLAIN, data pages (v1) of at most 1 MiB, SNAPPY (literals only).
+# PLAIN, data pages (v1) of at most 1 MiB, SNAPPY (literals only) or
+# GZIP (the standard library's zlib, level 6, gzip wrapper).
 PARQUET_ROW_GROUP = 1_000_000  # benchmarks/data.py's _CHUNK
 PARQUET_PAGE_BYTES = 1 << 20
 PQ_BYTE_ARRAY, PQ_DOUBLE = 6, 5
 PQ_PLAIN, PQ_RLE, PQ_RLE_DICTIONARY = 0, 3, 8
-PQ_SNAPPY = 1
+PQ_SNAPPY, PQ_GZIP = 1, 2
+# pyarrow-written fixtures (scripts/port_parquet_codec_fixtures.py): rows
+# [0, 65,536) of lineitem_sf1 in 4 row groups, one file a codec
+PARQUET_CODEC_FIXTURES = ("zstd", "lz4_raw", "gzip")
+PARQUET_FIXTURE_ROWS = 65_536
 
 
 def _uvarint(n):
@@ -2767,10 +2779,21 @@ def _snappy_literal(raw):
     return _uvarint(n) + bytes([62 << 2]) + (n - 1).to_bytes(3, "little") + raw
 
 
-def _page(kind, encoding, n, uncompressed):
-    """One SNAPPY page with its header: kind "dict" or "data" (whose
-    values are in `encoding`)."""
-    body = _snappy_literal(uncompressed)
+def _gzip(raw):
+    """`raw` as one gzip member (zlib level 6, `wbits=31`), as
+    parquet-cpp and parquet-mr write a GZIP page."""
+    c = zlib.compressobj(6, zlib.DEFLATED, 31)
+    return c.compress(raw) + c.flush()
+
+
+# a page's compressor by Parquet codec id
+PQ_COMPRESSORS = {PQ_SNAPPY: _snappy_literal, PQ_GZIP: _gzip}
+
+
+def _page(kind, encoding, n, uncompressed, codec=PQ_SNAPPY):
+    """One page with its header, compressed with `codec`: kind "dict"
+    or "data" (whose values are in `encoding`)."""
+    body = PQ_COMPRESSORS[codec](uncompressed)
     if kind == "dict":
         sub = (7, "struct", _tc_struct((1, "i32", n), (2, "i32", PQ_PLAIN)))
         ptype = 2
@@ -2799,47 +2822,50 @@ def _bit_pack(idx, bw):
     return bytes([bw]) + _uvarint(((len(idx) // 8) << 1) | 1) + packed
 
 
-def _chunk_pages(kind, values, dictionary):
+def _chunk_pages(kind, values, dictionary, codec=PQ_SNAPPY):
     """(pages, uncompressed bytes, has a dictionary page) of one column
     chunk: PLAIN doubles, or a dictionary page and RLE_DICTIONARY
-    indices (`values` then index `dictionary`, doubles or byte strings)."""
+    indices (`values` then index `dictionary`, doubles or byte strings).
+    GZIP pages compress in threads (zlib releases the GIL)."""
     n = len(values)
-    pages, total = [], 0
+    specs = []  # _page's arguments, one page each
     levels_room = 16
     if kind == "plain":
         per = (PARQUET_PAGE_BYTES - levels_room) // 8
         for lo in range(0, n, per):
             v = values[lo:lo + per]
-            page, size = _page("data", PQ_PLAIN, len(v),
-                               _all_valid_levels(len(v)) + v.astype("<f8").tobytes())
-            pages.append(page)
-            total += size
-        return pages, total, False
-    if dictionary.dtype.kind == "f":
-        dict_bytes = dictionary.astype("<f8").tobytes()
+            specs.append(("data", PQ_PLAIN, len(v),
+                          _all_valid_levels(len(v)) + v.astype("<f8").tobytes(), codec))
     else:
-        dict_bytes = b"".join(len(s).to_bytes(4, "little") + s for s in dictionary)
-    page, size = _page("dict", None, len(dictionary), dict_bytes)
-    pages.append(page)
-    total += size
-    bw = max(1, int(len(dictionary) - 1).bit_length())
-    per = ((PARQUET_PAGE_BYTES - levels_room - 8) * 8 // bw) // 8 * 8
-    for lo in range(0, n, per):
-        v = values[lo:lo + per]
-        page, size = _page("data", PQ_RLE_DICTIONARY, len(v),
-                           _all_valid_levels(len(v)) + _bit_pack(v, bw))
-        pages.append(page)
-        total += size
-    return pages, total, True
+        if dictionary.dtype.kind == "f":
+            dict_bytes = dictionary.astype("<f8").tobytes()
+        else:
+            dict_bytes = b"".join(len(s).to_bytes(4, "little") + s for s in dictionary)
+        specs.append(("dict", None, len(dictionary), dict_bytes, codec))
+        bw = max(1, int(len(dictionary) - 1).bit_length())
+        per = ((PARQUET_PAGE_BYTES - levels_room - 8) * 8 // bw) // 8 * 8
+        for lo in range(0, n, per):
+            v = values[lo:lo + per]
+            specs.append(("data", PQ_RLE_DICTIONARY, len(v),
+                          _all_valid_levels(len(v)) + _bit_pack(v, bw), codec))
+    if codec == PQ_GZIP and len(specs) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(min(len(specs), os.cpu_count() or 1)) as pool:
+            made = list(pool.map(lambda a: _page(*a), specs))
+    else:
+        made = [_page(*a) for a in specs]
+    return [p for p, _ in made], sum(size for _, size in made), kind != "plain"
 
 
-def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP):
+def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAPPY):
     """`columns` as one Parquet file: a list of (name, physical type
     PQ_DOUBLE or PQ_BYTE_ARRAY, kind "plain" or "dict", values,
     dictionary); a "dict" column's values index its dictionary (doubles
     or byte strings), a "plain" column's values are doubles.  Every
     column is OPTIONAL with no NULL; the Utf8 ones carry the UTF8
-    annotation.  Returns the file's size."""
+    annotation.  Every page is compressed with `codec` (a key of
+    PQ_COMPRESSORS).  Returns the file's size."""
     n = len(columns[0][3])
     tmp = f"{path}.{os.getpid()}.tmp"
     groups = []
@@ -2850,7 +2876,7 @@ def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP):
             hi = min(n, lo + rows_per_group)
             chunks, group_bytes = [], 0
             for name, ptype, kind, values, dictionary in columns:
-                pages, usize, has_dict = _chunk_pages(kind, values[lo:hi], dictionary)
+                pages, usize, has_dict = _chunk_pages(kind, values[lo:hi], dictionary, codec)
                 start = offset
                 data_at = start + (len(pages[0]) if has_dict else 0)
                 for page in pages:
@@ -2862,7 +2888,7 @@ def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP):
                     (1, "i32", ptype),
                     (2, ("list", "i32"), [PQ_PLAIN, PQ_RLE] + ([PQ_RLE_DICTIONARY]
                                                                if has_dict else [])),
-                    (3, ("list", "bin"), [name.encode()]), (4, "i32", PQ_SNAPPY),
+                    (3, ("list", "bin"), [name.encode()]), (4, "i32", codec),
                     (5, "i64", hi - lo), (6, "i64", usize), (7, "i64", csize),
                     (9, "i64", data_at), (11, "i64", start if has_dict else None))
                 chunks.append(_tc_struct((2, "i64", start), (3, "struct", meta)))
@@ -2890,11 +2916,12 @@ def parquet_batches(rows, batch):
                for lo in range(0, rows, PARQUET_ROW_GROUP))
 
 
-def write_lineitem_parquet(path, cols, dates, lo=0, hi=None):
+def write_lineitem_parquet(path, cols, dates, lo=0, hi=None, codec=PQ_SNAPPY):
     """Rows [lo, hi) of `lineitem_sf1`'s columns as Parquet
-    (`write_parquet`): l_returnflag, l_linestatus and l_shipdate coded
-    into lineitem_sf1's dictionaries, l_quantity, l_discount and l_tax
-    into their distinct values, l_extendedprice PLAIN."""
+    (`write_parquet`, pages compressed with `codec`): l_returnflag,
+    l_linestatus and l_shipdate coded into lineitem_sf1's dictionaries,
+    l_quantity, l_discount and l_tax into their distinct values,
+    l_extendedprice PLAIN."""
     hi = len(cols["flag"]) if hi is None else hi
 
     def coded(x):
@@ -2913,7 +2940,7 @@ def write_lineitem_parquet(path, cols, dates, lo=0, hi=None):
         ("l_discount", PQ_DOUBLE, "dict", *disc),
         ("l_tax", PQ_DOUBLE, "dict", *tax),
         ("l_shipdate", PQ_BYTE_ARRAY, "dict", cols["ship"][lo:hi], strings(dates)),
-    ])
+    ], codec=codec)
 
 
 def _table_columns(table):
@@ -2977,37 +3004,67 @@ def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
             + (f"; {pinned} as pinned" if pinned else "") + f", {ms:.3f} ms; {smi})")
     del ctx
 
-    # 2. Q1 over the SF-1 lineitem as Parquet
-    path = os.path.join(out_dir, f"lineitem_q1_{SF1_ROWS}.parquet")
-    t0 = time.perf_counter()
-    nbytes = write_lineitem_parquet(path, cols, dates)
-    write_s = time.perf_counter() - t0
-    ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
-    t0 = time.perf_counter()
-    ctx.sql(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION '{path}'")
-    ddl_ms = (time.perf_counter() - t0) * 1e3
-    table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, "parquet_tpch_q1_sf1", SF1_ROWS)
-    assert_rows(table, q1_oracle(cols, dates), "Parquet Q1")
-    src = ctx.datasources["lineitem"]
-    nb = parquet_batches(SF1_ROWS, ctx.batch_size)
-    scan_ms = []
-    for _ in range(3):
+    # 2. Q1 over the SF-1 lineitem as Parquet, SNAPPY (literals) then GZIP
+    for codec, tag in ((PQ_SNAPPY, ""), (PQ_GZIP, "_gzip")):
+        label = f"parquet{tag}_tpch_q1_sf1"
+        path = os.path.join(out_dir, f"lineitem_q1{tag}_{SF1_ROWS}.parquet")
         t0 = time.perf_counter()
-        if sum(1 for _ in src.batches()) != nb:
-            raise AssertionError(f"Parquet scan: batches other than {nb}")
-        scan_ms.append((time.perf_counter() - t0) * 1e3)
-    expect_launches(rep, "Parquet Q1", hash_agg=6 * fold_groups(nb))
-    try:
-        query_profile(tdf, torch, ctx, Q1, "parquet_tpch_q1_sf1", rep["p50_ms"])
-    except RuntimeError as e:  # the profiler is a measurement aid only
-        log(f"profiler unavailable: {e}")
-    rep.update({"parquet_bytes": nbytes, "write_s": write_s, "ddl_ms": ddl_ms,
-                "batches": nb, "scan_only_ms": scan_ms,
-                "scan_share_of_warm": float(np.median(scan_ms)) / rep["p50_ms"]})
-    log("parquet_q1: " + json.dumps(rep))
-    log(f"Parquet Q1 at SF-1 matches the numpy oracle cold and warm ({nb} batches, "
-        f"{nbytes} bytes)")
-    reports.append(rep)
+        nbytes = write_lineitem_parquet(path, cols, dates, codec=codec)
+        write_s = time.perf_counter() - t0
+        ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+        t0 = time.perf_counter()
+        ctx.sql(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION '{path}'")
+        ddl_ms = (time.perf_counter() - t0) * 1e3
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, label, SF1_ROWS)
+        assert_rows(table, q1_oracle(cols, dates), f"Parquet{tag} Q1")
+        src = ctx.datasources["lineitem"]
+        nb = parquet_batches(SF1_ROWS, ctx.batch_size)
+        scan_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if sum(1 for _ in src.batches()) != nb:
+                raise AssertionError(f"Parquet{tag} scan: batches other than {nb}")
+            scan_ms.append((time.perf_counter() - t0) * 1e3)
+        expect_launches(rep, f"Parquet{tag} Q1", hash_agg=6 * fold_groups(nb))
+        if codec == PQ_SNAPPY:
+            try:
+                query_profile(tdf, torch, ctx, Q1, label, rep["p50_ms"])
+            except RuntimeError as e:  # the profiler is a measurement aid only
+                log(f"profiler unavailable: {e}")
+        rep.update({"codec": "GZIP" if codec == PQ_GZIP else "SNAPPY", "parquet_bytes": nbytes,
+                    "write_s": write_s, "ddl_ms": ddl_ms, "batches": nb,
+                    "scan_only_ms": scan_ms,
+                    "scan_share_of_warm": float(np.median(scan_ms)) / rep["p50_ms"]})
+        log(f"parquet{tag}_q1: " + json.dumps(rep))
+        log(f"Parquet{tag} Q1 at SF-1 matches the numpy oracle cold and warm ({nb} batches, "
+            f"{nbytes} bytes)")
+        reports.append(rep)
+        del ctx, src
+
+    # 3. pyarrow's ZSTD, LZ4_RAW and GZIP files of lineitem_sf1's first rows
+    n = PARQUET_FIXTURE_ROWS
+    want = q1_oracle({k: v[:n] for k, v in cols.items()}, dates)
+    for codec in PARQUET_CODEC_FIXTURES:
+        path = os.path.join(here, "tests", "torch_data", "parquet", f"lineitem_{n}_{codec}.parquet")
+        ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
+        ctx.sql(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION '{path}'")
+        table, rep, _ = run_query(tdf, cuda_mod, torch, ctx, Q1, f"parquet_{codec}_fixture_q1", n,
+                                  warm_runs=1)
+        assert_rows(table, want, f"Parquet {codec} fixture Q1")
+        nb = sum(1 for _ in ctx.datasources["lineitem"].batches())
+        # pyarrow writes each row group's dictionary in first appearance,
+        # so later row groups grow l_shipdate's global dictionary and the
+        # fold starts a batch group where the cutoff's rank table changes:
+        # 6 launches a batch group
+        got = rep["launches"]["hash_agg"]
+        if got <= 0 or got % 6 or got > 6 * nb:
+            raise AssertionError(f"Parquet {codec} fixture Q1: {got} grouped-reduce launches "
+                                 f"for {nb} batches")
+        rep.update({"codec": codec, "parquet_bytes": os.path.getsize(path), "batches": nb})
+        log("parquet_codec_fixture: " + json.dumps(rep))
+        reports.append(rep)
+    log(f"Q1 over pyarrow's {', '.join(PARQUET_CODEC_FIXTURES)} fixtures matches the numpy "
+        f"oracle over their {n} rows")
     return reports
 
 

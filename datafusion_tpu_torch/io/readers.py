@@ -10,7 +10,11 @@ leave the reader (`batch.pin_dict_versions`), as the CSV reader's do.
 CSV is read by the native parser (`native/csv.py`); the JAX package's
 pyarrow CSV reader is not ported.  Parquet is read by the port's own
 native reader (`native/parquet.py`), so no pyarrow is needed here or on
-the card's machine.  NDJSON is plain Python.  Each Parquet and NDJSON
+the card's machine: pages UNCOMPRESSED or compressed with SNAPPY, GZIP,
+ZSTD, LZ4_RAW or LZ4 (BROTLI and LZO raise IoError), and the Arrow
+schema a writer stores in the footer, which names each field's type as
+pyarrow's `schema_arrow` does (a timestamp's zone, a dictionary, a
+duration).  NDJSON is plain Python.  Each Parquet and NDJSON
 batch passes the `io.read` fault site (`testing/faults.py`), as in the
 JAX package.
 """

@@ -15,7 +15,12 @@
 //   - values: PLAIN (BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE,
 //     BYTE_ARRAY), PLAIN_DICTIONARY / RLE_DICTIONARY (a chunk may fall
 //     back to PLAIN partway), RLE for BOOLEAN;
-//   - codecs UNCOMPRESSED and SNAPPY (a raw-format decoder of its own).
+//   - codecs UNCOMPRESSED, SNAPPY (a raw-format decoder of its own), and
+//     GZIP, ZSTD, LZ4_RAW and LZ4 (Hadoop framing) through the decoders
+//     of native/codecs.cpp; BROTLI and LZO raise;
+//   - the footer's key-value metadata, of which it keeps the value of
+//     `ARROW:schema` (the Arrow schema a writer stores, base64 of an IPC
+//     message) for native/parquet.py to decode.
 // Anything else raises an error naming it and the column.  Every offset
 // and length is checked against its buffer, so a truncated or corrupt
 // file gives an error, never a read out of bounds.
@@ -64,6 +69,15 @@ enum Encoding { PLAIN = 0, PLAIN_DICTIONARY = 2, RLE = 3, BIT_PACKED = 4,
                 RLE_DICTIONARY = 8 };
 enum PageType { DATA_PAGE = 0, INDEX_PAGE = 1, DICTIONARY_PAGE = 2, DATA_PAGE_V2 = 3 };
 enum Codec { UNCOMPRESSED = 0, SNAPPY = 1 };
+
+}  // namespace
+
+namespace dtf_codec {  // native/codecs.cpp
+bool supported(int codec);
+void decompress(int codec, const uint8_t* src, size_t n, uint8_t* dst, size_t cap);
+}  // namespace dtf_codec
+
+namespace {
 
 const char* physical_name(int t) {
   static const char* names[] = {"BOOLEAN", "INT32", "INT64", "INT96", "FLOAT", "DOUBLE",
@@ -324,6 +338,7 @@ struct ChunkMeta {
   int64_t data_page_offset = -1;
   int64_t dictionary_page_offset = -1;
   int64_t total_compressed_size = -1;
+  int64_t total_uncompressed_size = -1;
   bool external = false;  // file_path set: the chunk lives in another file
 };
 
@@ -333,6 +348,10 @@ void read_column_meta(Thrift& t, ChunkMeta& c) {
       case 1: if (type != Thrift::I32) return false; c.type = t.i32(); return true;
       case 4: if (type != Thrift::I32) return false; c.codec = t.i32(); return true;
       case 5: if (type != Thrift::I64) return false; c.num_values = t.zigzag(); return true;
+      case 6:
+        if (type != Thrift::I64) return false;
+        c.total_uncompressed_size = t.zigzag();
+        return true;
       case 7:
         if (type != Thrift::I64) return false;
         c.total_compressed_size = t.zigzag();
@@ -658,6 +677,8 @@ struct File {
   std::vector<Field> fields;
   std::vector<RowGroupMeta> row_groups;
   int64_t num_rows = 0;
+  bool has_arrow_schema = false;
+  std::string arrow_schema;  // the `ARROW:schema` value, as stored
   int num_leaves = 0;
   // the scan
   std::vector<Column> cols;
@@ -725,6 +746,12 @@ struct File {
         for (uint64_t i = 0; i < n; ++i) row_groups.push_back(read_row_group_meta(t));
         return true;
       }
+      if (id == 5 && type == Thrift::LIST) {  // key_value_metadata
+        auto [n, et] = t.list();
+        if (et != Thrift::STRUCT) fail("bad key-value metadata");
+        for (uint64_t i = 0; i < n; ++i) read_key_value(t);
+        return true;
+      }
       return false;
     });
     if (schema.empty() || !has_rows) fail("metadata without a schema or a row count");
@@ -740,6 +767,22 @@ struct File {
     if (total != num_rows)
       fail("row groups hold " + std::to_string(total) + " rows, the footer says " +
            std::to_string(num_rows));
+  }
+
+  // KeyValue {1: key, 2: value}; keeps the value of ARROW:schema
+  void read_key_value(Thrift& t) {
+    std::string key, value;
+    bool has_value = false;
+    t.fields([&](int16_t id, uint8_t type) {
+      if (type != Thrift::BINARY || (id != 1 && id != 2)) return false;
+      (id == 1 ? key : value) = t.binary();
+      has_value |= id == 2;
+      return true;
+    });
+    if (key == "ARROW:schema" && has_value) {
+      has_arrow_schema = true;
+      arrow_schema = std::move(value);
+    }
   }
 
   // top-level fields from the depth-first schema list; a group's
@@ -792,9 +835,9 @@ struct File {
       for (const auto& rg : row_groups) {
         const ChunkMeta& m = rg.columns[f.leaf];
         if (m.external) fail("column '" + c.name + "': a chunk in another file");
-        if (m.codec != UNCOMPRESSED && m.codec != SNAPPY)
+        if (m.codec != UNCOMPRESSED && m.codec != SNAPPY && !dtf_codec::supported(m.codec))
           fail("column '" + c.name + "': compression codec " + codec_name(m.codec) +
-               " is not supported (UNCOMPRESSED and SNAPPY are)");
+               " is not supported (UNCOMPRESSED, SNAPPY, GZIP, LZ4, ZSTD and LZ4_RAW are)");
         if (m.type != c.physical)
           fail("column '" + c.name + "': chunk type " + physical_name(m.type) +
                " disagrees with the schema's " + physical_name(c.physical));
@@ -890,30 +933,40 @@ struct File {
         if (h.num_values < 0) fail("bad dictionary page");
         if (h.encoding != PLAIN && h.encoding != PLAIN_DICTIONARY)
           fail("dictionary page encoding " + encoding_name(h.encoding) + " is not supported");
-        const uint8_t* data = inflate(m.codec, body, h.compressed, h.uncompressed, c.page);
+        const uint8_t* data = inflate(m, body, h.compressed, h.uncompressed, c.page);
         read_dictionary(c, data, data + h.uncompressed, h.num_values);
       } else if (h.type == DATA_PAGE || h.type == DATA_PAGE_V2) {
         if (h.num_values < 0 || h.num_values > rows - done)
           fail("a page of " + std::to_string(h.num_values) + " values past the chunk's " +
                std::to_string(rows) + " rows");
-        data_page(c, m.codec, h, body, done);
+        data_page(c, m, h, body, done);
         done += h.num_values;
       }  // an index page, or a page type of later writers: skipped
     }
   }
 
   // a page's bytes, decompressed when the codec says so
-  static const uint8_t* inflate(int codec, const uint8_t* body, int32_t compressed,
+  static const uint8_t* inflate(const ChunkMeta& m, const uint8_t* body, int32_t compressed,
                                 int32_t uncompressed, Buffer& out) {
-    if (codec == UNCOMPRESSED) {
+    if (m.codec == UNCOMPRESSED) {
       if (compressed != uncompressed) fail("uncompressed page sizes disagree");
       return body;
     }
-    // Snappy expands a copy of 2 bytes to 11 at most
-    if (uint64_t(uncompressed) > uint64_t(compressed) * 22 + 64)
-      fail("page's uncompressed size is past what Snappy can give");
+    if (m.codec == SNAPPY) {
+      // Snappy expands a copy of 2 bytes to 11 at most
+      if (uint64_t(uncompressed) > uint64_t(compressed) * 22 + 64)
+        fail("page's uncompressed size is past what Snappy can give");
+    } else if (m.total_uncompressed_size < 0 || uncompressed > m.total_uncompressed_size) {
+      // the other codecs can expand without limit (a ZSTD RLE block):
+      // the chunk's uncompressed size bounds a page instead
+      fail("page's uncompressed size " + std::to_string(uncompressed) +
+           " is past its chunk's " + std::to_string(m.total_uncompressed_size));
+    }
     uint8_t* dst = out.reserve(size_t(uncompressed));
-    snappy_decompress(body, size_t(compressed), dst, size_t(uncompressed));
+    if (m.codec == SNAPPY)
+      snappy_decompress(body, size_t(compressed), dst, size_t(uncompressed));
+    else
+      dtf_codec::decompress(m.codec, body, size_t(compressed), dst, size_t(uncompressed));
     return dst;
   }
 
@@ -975,7 +1028,7 @@ struct File {
     }
   }
 
-  void data_page(Column& c, int codec, const PageHeader& h, const uint8_t* body,
+  void data_page(Column& c, const ChunkMeta& m, const PageHeader& h, const uint8_t* body,
                  int64_t done) const {
     const int64_t n = h.num_values;
     uint8_t* valid = c.optional ? c.valid + done : nullptr;
@@ -983,7 +1036,7 @@ struct File {
     const uint8_t* end;
     int64_t non_null = n;
     if (h.type == DATA_PAGE) {
-      data = inflate(codec, body, h.compressed, h.uncompressed, c.page);
+      data = inflate(m, body, h.compressed, h.uncompressed, c.page);
       end = data + h.uncompressed;
       if (valid) {
         if (h.def_encoding == RLE) {
@@ -1017,7 +1070,7 @@ struct File {
       const int32_t usize = h.uncompressed - h.def_bytes;
       if (usize < 0) fail("bad page sizes");
       if (h.is_compressed) {
-        data = inflate(codec, values, csize, usize, c.page);
+        data = inflate(m, values, csize, usize, c.page);
       } else {
         if (csize != usize) fail("uncompressed page sizes disagree");
         data = values;
@@ -1223,5 +1276,47 @@ const int64_t* dtf_pq_dict_offsets(void* h, int32_t j) {
 }
 
 void dtf_pq_close(void* h) { delete as_file(h); }
+
+// The footer's `ARROW:schema` value (base64 text, as stored) and its
+// length; null when the footer holds none.
+const char* dtf_pq_arrow_schema(void* h, int64_t* len) {
+  const File* f = as_file(h);
+  *len = f->has_arrow_schema ? int64_t(f->arrow_schema.size()) : -1;
+  return f->has_arrow_schema ? f->arrow_schema.data() : nullptr;
+}
+
+// Test entry, used by no read: `n` bytes at `src` compressed with
+// Parquet codec `codec` into exactly `cap` bytes at `dst`, as a page is
+// decompressed.  0 on success; -1 with the reason in
+// dtf_pq_decompress_error (of the calling thread).
+namespace {
+thread_local std::string decompress_error;
+}
+
+int32_t dtf_pq_decompress(int32_t codec, const uint8_t* src, int64_t n, uint8_t* dst,
+                          int64_t cap) {
+  decompress_error.clear();
+  try {
+    if (n < 0 || cap < 0) fail("negative size");
+    if (codec == UNCOMPRESSED) {
+      if (n != cap) fail("uncompressed sizes disagree");
+      if (n) std::memcpy(dst, src, size_t(n));
+    } else if (codec == SNAPPY) {
+      snappy_decompress(src, size_t(n), dst, size_t(cap));
+    } else if (dtf_codec::supported(codec)) {
+      dtf_codec::decompress(codec, src, size_t(n), dst, size_t(cap));
+    } else {
+      fail("compression codec " + codec_name(codec) + " is not supported");
+    }
+    return 0;
+  } catch (const std::bad_alloc&) {
+    decompress_error = "out of memory";
+  } catch (const std::exception& e) {  // nothing may cross the C ABI
+    decompress_error = e.what();
+  }
+  return -1;
+}
+
+const char* dtf_pq_decompress_error() { return decompress_error.c_str(); }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 
 The C++ side reads the footer, the flat schema and the pages of the
 projected column chunks (PLAIN and dictionary encodings, definition
-levels, UNCOMPRESSED and SNAPPY); see its header comment for what it
-reads and what raises.  This module binds it with ctypes on the
-pattern of `native/csv.py`.  Each row group decodes straight into
+levels; UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW and LZ4 pages through
+the decoders of `native/codecs.cpp`, BROTLI and LZO raising IoError);
+see its header comment for what it reads and what raises.  This module
+binds it with ctypes on the pattern of `native/csv.py`.  Each row group decodes straight into
 numpy arrays this module allocates (one chunk per thread on the C
 side), and batches are slices of them, so no value is copied twice; a
 Utf8 column's local dictionary (its row group's dictionary page, then
@@ -14,16 +15,23 @@ reader merges each batch's dictionary
 (`datafusion_tpu/io/readers.py:33-95`).
 
 `ParquetFile.fields` describe the file's top-level fields with the
-type string pyarrow's `schema_arrow` gives them (the Arrow schema a
-writer may store under `ARROW:schema` is not read), so schema
-inference and its errors match the JAX package's.  DATE, TIMESTAMP and
-INT96 columns read as Utf8 become the ISO strings of pyarrow's cast to
-string.
+type string pyarrow's `schema_arrow` gives them: mapped from the
+Parquet annotations, then, where the footer stores the Arrow schema
+under `ARROW:schema` (decoded by `native/arrow_schema.py`), adjusted
+by it as parquet-cpp does (a timestamp's zone, a duration, a
+dictionary, the large and view string types), so schema inference and
+its errors match the JAX package's.  DATE, TIMESTAMP and INT96 columns
+read as Utf8 become the ISO strings of pyarrow's cast to string: a
+zoned timestamp as local time and its offset (`zoneinfo`; a zone this
+machine has no data for raises IoError), UTC with a `Z`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import datetime
+import re
+import zoneinfo
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
 
@@ -33,6 +41,7 @@ from datafusion_tpu_torch.datatypes import DataType, Schema
 from datafusion_tpu_torch.errors import ExecutionError, IoError
 from datafusion_tpu_torch.exec.batch import StringDictionary
 from datafusion_tpu_torch.native import load_library
+from datafusion_tpu_torch.native.arrow_schema import ArrowField, apply_origin, decode_arrow_schema
 from datafusion_tpu_torch.native.csv import _view
 
 # parquet.thrift: physical types, and the LogicalType union's field ids
@@ -76,6 +85,9 @@ def _configure(lib) -> None:
         "dtf_pq_dict_blob": (vp, [vp, i32]),
         "dtf_pq_dict_offsets": (vp, [vp, i32]),
         "dtf_pq_close": (None, [vp]),
+        "dtf_pq_arrow_schema": (vp, [vp, ctypes.POINTER(i64)]),
+        "dtf_pq_decompress": (i32, [i32, ctypes.c_char_p, i64, vp, i64]),
+        "dtf_pq_decompress_error": (ctypes.c_char_p, []),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -99,6 +111,7 @@ class ParquetField:
     type_length: int
     scale: int
     precision: int
+    origin: Optional[ArrowField] = None  # the field of the stored Arrow schema
 
     @property
     def nullable(self) -> bool:
@@ -116,6 +129,14 @@ class ParquetField:
     @property
     def arrow_type(self) -> str:
         """The type string pyarrow's `schema_arrow` gives this field."""
+        inferred = self.storage_type
+        if self.origin is None or self.nested:
+            return inferred
+        return apply_origin(inferred, self.origin)
+
+    @property
+    def storage_type(self) -> str:
+        """The type pyarrow infers from the Parquet annotations alone."""
         if self.nested:
             return "list" if self.repetition == 2 else "struct"
         kind, a, b, legacy = self._logical()
@@ -123,7 +144,7 @@ class ParquetField:
         if kind == L_UNKNOWN:
             return "null"
         if kind == L_DECIMAL:
-            return f"decimal128({b}, {a})"
+            return f"decimal{128 if b <= 38 else 256}({b}, {a})"
         if p == BOOLEAN:
             return "bool"
         if kind in (L_TIME, L_TIMESTAMP) and a not in _UNITS:
@@ -155,14 +176,15 @@ class ParquetField:
             return f"fixed_size_binary[{16 if kind == L_UUID else self.type_length}]"
         return f"physical type {p} with logical type {kind}"
 
-    def temporal(self) -> Optional[tuple[str, bool]]:
-        """(numpy unit, UTC) of a DATE, TIMESTAMP or INT96 column, else
-        None: these read as Utf8 become ISO strings."""
+    def temporal(self) -> Optional[tuple[str, Optional[str]]]:
+        """(numpy unit, zone or None) of a DATE, TIMESTAMP or INT96
+        column, else None: these read as Utf8 become ISO strings."""
         t = self.arrow_type
         if t == "date32[day]":
-            return "D", False
+            return "D", None
         if t.startswith("timestamp["):
-            return t[10:12].rstrip(",]"), t.endswith("tz=UTC]")
+            tz = t[t.index(", tz=") + 5:-1] if ", tz=" in t else None
+            return t[10:12].rstrip(",]"), tz
         return None
 
 
@@ -181,16 +203,32 @@ class ParquetFile:
         if err:
             self.close()
             raise IoError(f"cannot open Parquet {path!r}: {err.decode(errors='replace')}")
-        self.fields = [self._field(i) for i in range(self.lib.dtf_pq_num_fields(self._h))]
+        try:
+            origin = self._arrow_schema()
+        except IoError as e:
+            self.close()
+            raise IoError(f"cannot open Parquet {path!r}: {e}") from e
+        n = self.lib.dtf_pq_num_fields(self._h)
+        if origin is not None and len(origin) != n:
+            origin = None  # not this file's schema: pyarrow ignores it too
+        self.fields = [self._field(i, origin[i] if origin else None) for i in range(n)]
 
-    def _field(self, i: int) -> ParquetField:
+    def _arrow_schema(self) -> Optional[list[ArrowField]]:
+        """The footer's stored Arrow schema, None when it holds none."""
+        ln = ctypes.c_int64()
+        ptr = self.lib.dtf_pq_arrow_schema(self._h, ctypes.byref(ln))
+        if ln.value < 0:
+            return None
+        return decode_arrow_schema(ctypes.string_at(ptr, ln.value))
+
+    def _field(self, i: int, origin: Optional[ArrowField]) -> ParquetField:
         ln = ctypes.c_int32()
         ptr = self.lib.dtf_pq_field_name(self._h, i, ctypes.byref(ln))
         info = (ctypes.c_int32 * 10)()
         self.lib.dtf_pq_field_info(self._h, i, info)
         name = ctypes.string_at(ptr, ln.value).decode("utf-8", errors="replace")
         nested, *rest = info
-        return ParquetField(name, bool(nested), *rest)
+        return ParquetField(name, bool(nested), *rest, origin=origin)
 
     def close(self) -> None:
         if self._h:
@@ -288,7 +326,7 @@ class ParquetFile:
         if seen[j] is not None and seen[j][0] == key:
             return seen[j][1]
         values = [blob[offs[k]:offs[k + 1]] for k in range(size)]
-        if src.arrow_type == "string":
+        if src.storage_type == "string":
             try:
                 values = [v.decode("utf-8") for v in values]
             except UnicodeDecodeError as e:
@@ -302,7 +340,7 @@ class ParquetFile:
 def _plan(src: ParquetField, dt: DataType) -> tuple[ParquetField, DataType, str]:
     """How a file field becomes a column of engine type `dt`."""
     if dt == DataType.UTF8:
-        if src.physical == BYTE_ARRAY and src.arrow_type in ("string", "binary"):
+        if src.physical == BYTE_ARRAY and src.storage_type in ("string", "binary"):
             return src, dt, "codes"
         if src.temporal() is not None:
             return src, dt, "temporal"
@@ -312,11 +350,83 @@ def _plan(src: ParquetField, dt: DataType) -> tuple[ParquetField, DataType, str]
         f"cannot read parquet column {src.name!r} of type {src.arrow_type!r} as {dt.name}")
 
 
+_PER_SECOND = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+_FIXED_OFFSET = re.compile(r"([+-])(\d\d):?(\d\d)")
+
+
+def _utc_offsets(seconds: np.ndarray, tz: str) -> np.ndarray:
+    """The zone's UTC offset in seconds at each instant (epoch seconds),
+    looked up once per UTC day unless the offset changes within it."""
+    fixed = _FIXED_OFFSET.fullmatch(tz)
+    if fixed:
+        sign, hh, mm = fixed.groups()
+        return np.full(len(seconds), (-1 if sign == "-" else 1) * (int(hh) * 3600 + int(mm) * 60),
+                       np.int64)
+    try:
+        zone = zoneinfo.ZoneInfo(tz)
+    except (zoneinfo.ZoneInfoNotFoundError, ValueError) as e:
+        raise IoError(f"no time zone data for {tz!r} on this machine: {e}") from e
+
+    def offset(t: int) -> int:
+        try:
+            when = datetime.datetime.fromtimestamp(t, tz=zone)
+        except (OverflowError, OSError, ValueError) as e:
+            raise IoError(f"timestamp {t} s is out of range in zone {tz!r}") from e
+        return int(when.utcoffset().total_seconds())
+
+    out = np.empty(len(seconds), np.int64)
+    days = np.floor_divide(seconds, 86400)
+    uniq, inv = np.unique(days, return_inverse=True)
+    inv = inv.reshape(-1)
+    for k, day in enumerate(uniq.tolist()):
+        lo, hi = offset(day * 86400), offset(day * 86400 + 86399)
+        sel = inv == k
+        if lo == hi:
+            out[sel] = lo
+        else:  # a transition within the day: each instant on its own
+            idx = np.flatnonzero(sel)
+            out[idx] = [offset(int(t)) for t in seconds[idx].tolist()]
+    return out
+
+
+def _offset_text(seconds: int) -> str:
+    """An offset as pyarrow prints it: +HHMM (and SS when not whole)."""
+    sign = "-" if seconds < 0 else "+"
+    m, s = divmod(abs(seconds), 60)
+    return f"{sign}{m // 60:02d}{m % 60:02d}" + (f"{s:02d}" if s else "")
+
+
+def _temporal_strings(values: np.ndarray, unit: str, tz: Optional[str]) -> list[str]:
+    """DATE / TIMESTAMP values formatted as pyarrow's cast to string
+    formats them: naive as is, UTC with a Z, another zone as local time
+    and its offset."""
+    if tz is None or tz == "UTC":
+        text = np.datetime_as_string(values.astype(f"M8[{unit}]"), unit=unit)
+        return [s.replace("T", " ") + ("Z" if tz else "") for s in text.tolist()]
+    per = _PER_SECOND[unit]
+    offsets = _utc_offsets(np.floor_divide(values, per), tz)
+    local = (values + offsets * per).astype(f"M8[{unit}]")
+    text = np.datetime_as_string(local, unit=unit)
+    return [s.replace("T", " ") + _offset_text(int(o))
+            for s, o in zip(text.tolist(), offsets.tolist())]
+
+
+def decompress(codec: int, data: bytes, size: int) -> bytes:
+    """`data` decompressed with Parquet codec `codec` into exactly `size`
+    bytes, as a page is (a test entry: no read goes through it)."""
+    lib = load_library()
+    _configure(lib)
+    out = ctypes.create_string_buffer(max(size, 1))
+    if lib.dtf_pq_decompress(codec, data, len(data), out, size) != 0:
+        raise IoError(lib.dtf_pq_decompress_error().decode(errors="replace"))
+    return out.raw[:size]
+
+
 def _temporal_codes(raw: np.ndarray, valid: Optional[np.ndarray], how, d: StringDictionary):
     """A DATE / TIMESTAMP batch as codes into `d`: its distinct valid
     values formatted as pyarrow's cast to string formats them, added in
     order of first appearance (pyarrow's per-batch dictionary_encode)."""
-    unit, utc = how
+    unit, tz = how
     vals = raw if valid is None else raw[valid]
     codes = np.zeros(len(raw), np.int32)
     if len(vals) == 0:
@@ -325,8 +435,7 @@ def _temporal_codes(raw: np.ndarray, valid: Optional[np.ndarray], how, d: String
     order = np.argsort(first, kind="stable")
     rank = np.empty(len(uniq), np.int32)
     rank[order] = np.arange(len(uniq), dtype=np.int32)
-    text = np.datetime_as_string(uniq[order].astype(f"M8[{unit}]"), unit=unit)
-    strings = [s.replace("T", " ") + ("Z" if utc else "") for s in text.tolist()]
+    strings = _temporal_strings(uniq[order], unit, tz)
     merged = d.merge_codes(rank[inv.reshape(-1)], strings)
     if valid is None:
         return merged

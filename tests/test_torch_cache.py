@@ -13,10 +13,11 @@ off, an externally rewritten file, concurrent queries) and
 rows, cached or not, equal the JAX package's on the same seeded table,
 and both packages fingerprint the same plan to the same digest.
 
-Left out, since their planes are not ported (ROADMAP queue 1, items 12
-and 13.2): `TestWorkerFragmentCache` (the worker fragment cache),
-`TestFingerprint::test_fragment_fingerprint_ignores_query_id` (its
-fingerprint) and `TestTraceFlusher` (the background trace flusher).
+Held elsewhere: `TestWorkerFragmentCache` (the worker fragment cache)
+and `TestFingerprint::test_fragment_fingerprint_ignores_query_id` (its
+fingerprint) in `tests/test_torch_fragment_cache.py`, against the JAX
+package's; `TestTraceFlusher` (the background span flusher) in
+`tests/test_torch_obs.py::test_flusher_appends_finished_spans_as_json_lines`.
 """
 
 from __future__ import annotations

@@ -24,9 +24,10 @@ counts, ints, MIN, MAX and NULLs exactly; f64 SUM and AVG within rtol
 batch-group fold; bit for bit against the port's rescan under
 `DATAFUSION_TPU_FUSE=0`.
 
-Left out, since their planes are not ported (ROADMAP queue 1, item
-13.2): `TestIncrementalViews::test_freshness_slo_reads_live_lags` (the
-freshness SLO; `freshness_lags`, the seam it reads, is checked here).
+Held elsewhere: `TestIncrementalViews::test_freshness_slo_reads_live_lags`
+(the freshness SLO) in
+`tests/test_torch_telemetry.py::test_freshness_objective_reads_live_lags`;
+`freshness_lags`, the seam it reads, is checked here.
 `TestMegabatchLanes` belongs to the serving megabatch lanes, which
 tests/test_torch_serve.py holds against the JAX package.
 """

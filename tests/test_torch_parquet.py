@@ -8,8 +8,9 @@ of Utf8 columns and the global dictionaries they index, in order, and
 the inferred schemas (or the error each package raises).  The files:
 the three fixtures of `test/data/`; files pyarrow writes here with a
 column for every type `infer_parquet_schema` accepts, with and without
-NULLs, as data page v1 and v2, UNCOMPRESSED and SNAPPY, with the
-dictionary on and off, in several row groups read at a batch size that
+NULLs, as data page v1 and v2, UNCOMPRESSED and SNAPPY (the other
+codecs: `tests/test_torch_parquet_codecs.py`), with the dictionary on
+and off, in several row groups read at a batch size that
 divides none of them; a high-cardinality Utf8 column and a
 `benchmarks/data.py` lineitem at SF 0.05 (300,000 rows), both of which
 fall back from dictionary to PLAIN pages partway through a chunk.  Q1,
@@ -18,7 +19,9 @@ through `ctx.sql_collect` (floats within rtol 1e-9).
 
 Then what only the port has: a projected scan never reads an
 unprojected column chunk (one overwritten with garbage changes no
-answer), a ZSTD file raises IoError naming the codec, nested fields
+answer), a ZSTD file reads as the JAX package reads it and a corrupt
+ZSTD page raises IoError naming the codec and the column, BROTLI and
+LZO chunks raise IoError naming the codec and the column, nested fields
 raise ExecutionError as in the JAX package, `chip_smoke.py`'s Parquet
 writer gives a file that pyarrow reads back as `lineitem_sf1`'s
 columns, the fixtures equal their CSV twins but for the one cell that
@@ -460,13 +463,68 @@ def test_projected_scan_never_reads_an_unprojected_chunk(lineitem, tmp_path):
 
 # ------------------------------------------------------------ what raises
 
+def _patch_codec(path, old, new):
+    """Rewrite column chunk codec `old` to `new` in the footer of a
+    one-column, one-row-group file (the i32 field 4 of ColumnMetaData,
+    one zigzag byte each; the byte is found by trying each candidate
+    against pyarrow's reading of the footer)."""
+    # pyarrow's names; it calls LZ4_RAW "LZ4" and LZ4 (Hadoop) "UNKNOWN"
+    names = {1: "SNAPPY", 3: "LZO", 4: "BROTLI", 5: "UNKNOWN", 7: "LZ4"}
+    blob = open(path, "rb").read()
+    footer = len(blob) - 8 - int.from_bytes(blob[-8:-4], "little")
+    pattern = bytes([0x15, old << 1])
+    at = blob.find(pattern, footer)
+    while at >= 0:
+        patched = blob[:at + 1] + bytes([new << 1]) + blob[at + 2:]
+        with open(path, "wb") as f:
+            f.write(patched)
+        try:
+            col = pq.ParquetFile(path).metadata.row_group(0).column(0)
+            if col.compression == names[new]:
+                return
+        except Exception:
+            pass
+        at = blob.find(pattern, at + 1)
+    raise AssertionError(f"no codec {old} field in {path}")
+
+
 def test_zstd_raises_io_error_naming_the_codec(tmp_path):
+    """ZSTD reads now (the JAX package's rows); a ZSTD page that does not
+    decode raises IoError naming the codec and the column."""
     path = str(tmp_path / "z.parquet")
-    pq.write_table(pa.table({"a": pa.array(np.arange(100))}), path, compression="zstd")
+    pq.write_table(pa.table({"a": pa.array(np.arange(100))}), path, compression="zstd",
+                   use_dictionary=False)
+    assert_same_read(path)
     ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
     ctx.sql(f"CREATE EXTERNAL TABLE z STORED AS PARQUET LOCATION '{path}'")
-    with pytest.raises(tdf.IoError, match="ZSTD"):
-        ctx.sql_collect("SELECT a FROM z")
+    assert ctx.sql_collect("SELECT a FROM z").to_rows() == [(i,) for i in range(100)]
+    blob = bytearray(open(path, "rb").read())
+    md = pq.ParquetFile(path).metadata.row_group(0).column(0)
+    frame = blob.find(b"\x28\xb5\x2f\xfd", md.data_page_offset)
+    assert 0 < frame < md.data_page_offset + md.total_compressed_size
+    blob[frame] ^= 0xFF  # the frame's magic
+    bad = str(tmp_path / "bad.parquet")
+    with open(bad, "wb") as f:
+        f.write(blob)
+    ctx.sql(f"CREATE EXTERNAL TABLE bad STORED AS PARQUET LOCATION '{bad}'")
+    with pytest.raises(tdf.IoError, match=r"column 'a'.*ZSTD"):
+        ctx.sql_collect("SELECT a FROM bad")
+
+
+@pytest.mark.parametrize("codec", ["BROTLI", "LZO"])
+def test_brotli_and_lzo_raise_io_error_naming_the_codec(tmp_path, codec):
+    """No decoder reads BROTLI (ROADMAP queue 1, item 19) or LZO (which
+    pyarrow does not read either): the scan raises IoError naming the
+    codec and the column."""
+    path = str(tmp_path / "b.parquet")
+    pq.write_table(pa.table({"a": pa.array(np.arange(100))}), path, compression="brotli")
+    if codec == "LZO":  # no writer here writes LZO: relabel the BROTLI chunk
+        _patch_codec(path, 4, 3)
+        assert pq.ParquetFile(path).metadata.row_group(0).column(0).compression == "LZO"
+    ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
+    ctx.sql(f"CREATE EXTERNAL TABLE b STORED AS PARQUET LOCATION '{path}'")
+    with pytest.raises(tdf.IoError, match=rf"column 'a': compression codec {codec} is not"):
+        ctx.sql_collect("SELECT a FROM b")
 
 
 def test_nested_fields_raise_the_jax_packages_error_type(tmp_path):
