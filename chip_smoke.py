@@ -2711,16 +2711,23 @@ def phase_console(tdf, cuda_mod, torch, src, cols, dates, star, smi):
 # lineitem: row groups of 1,000,000 rows, OPTIONAL columns, the Utf8
 # columns and the low-cardinality doubles RLE_DICTIONARY, l_extendedprice
 # PLAIN, data pages (v1) of at most 1 MiB, SNAPPY (literals only) or
-# GZIP (the standard library's zlib, level 6, gzip wrapper).
+# GZIP (the standard library's zlib, level 6, gzip wrapper).  The "v2"
+# layout is what Parquet v2 writers give the same table: DATA_PAGE_V2
+# pages, l_shipdate a DATE (INT32) in DELTA_BINARY_PACKED, the four
+# doubles BYTE_STREAM_SPLIT, the two flags RLE_DICTIONARY.
 PARQUET_ROW_GROUP = 1_000_000  # benchmarks/data.py's _CHUNK
 PARQUET_PAGE_BYTES = 1 << 20
-PQ_BYTE_ARRAY, PQ_DOUBLE = 6, 5
+PQ_INT32, PQ_BYTE_ARRAY, PQ_DOUBLE = 1, 6, 5
 PQ_PLAIN, PQ_RLE, PQ_RLE_DICTIONARY = 0, 3, 8
+PQ_DELTA_BINARY_PACKED, PQ_BYTE_STREAM_SPLIT = 5, 9
 PQ_SNAPPY, PQ_GZIP = 1, 2
-# pyarrow-written fixtures (scripts/port_parquet_codec_fixtures.py): rows
-# [0, 65,536) of lineitem_sf1 in 4 row groups, one file a codec
-PARQUET_CODEC_FIXTURES = ("zstd", "lz4_raw", "gzip")
-PARQUET_FIXTURE_ROWS = 65_536
+DELTA_BLOCK, DELTA_MINIBLOCKS = 128, 4  # parquet-mr's and parquet-cpp's
+# pyarrow-written fixtures (scripts/port_parquet_codec_fixtures.py), each
+# lineitem_sf1's first rows in row groups of 16,384: (name, rows) of
+# `lineitem_<rows>_<name>.parquet`, one file a codec, and the v2 layout
+# (SNAPPY)
+PARQUET_CODEC_FIXTURES = (("zstd", 65_536), ("lz4_raw", 65_536), ("gzip", 65_536),
+                          ("brotli", 65_536), ("v2_snappy", 32_768))
 
 
 def _uvarint(n):
@@ -2790,26 +2797,101 @@ def _gzip(raw):
 PQ_COMPRESSORS = {PQ_SNAPPY: _snappy_literal, PQ_GZIP: _gzip}
 
 
-def _page(kind, encoding, n, uncompressed, codec=PQ_SNAPPY):
+def _page(kind, encoding, n, values, codec=PQ_SNAPPY, version=1):
     """One page with its header, compressed with `codec`: kind "dict"
-    or "data" (whose values are in `encoding`)."""
-    body = PQ_COMPRESSORS[codec](uncompressed)
+    or "data" (n non-NULL rows whose values are in `encoding`), a data
+    page in the page format `version` 1 (DATA_PAGE: levels and values
+    compressed together) or 2 (DATA_PAGE_V2: levels left uncompressed)."""
     if kind == "dict":
         sub = (7, "struct", _tc_struct((1, "i32", n), (2, "i32", PQ_PLAIN)))
-        ptype = 2
-    else:
+        ptype, levels, raw = 2, b"", values
+    elif version == 1:
         sub = (5, "struct", _tc_struct((1, "i32", n), (2, "i32", encoding), (3, "i32", PQ_RLE),
                                        (4, "i32", PQ_RLE)))
-        ptype = 0
-    header = _tc_struct((1, "i32", ptype), (2, "i32", len(uncompressed)),
+        ptype, levels, raw = 0, b"", _all_valid_levels(n) + values
+    else:
+        levels = _all_valid_levels(n)[4:]  # v2 sizes them in the header
+        sub = (8, "struct", _tc_struct((1, "i32", n), (2, "i32", 0), (3, "i32", n),
+                                       (4, "i32", encoding), (5, "i32", len(levels)),
+                                       (6, "i32", 0)))
+        ptype, raw = 3, values
+    body = levels + PQ_COMPRESSORS[codec](raw)
+    header = _tc_struct((1, "i32", ptype), (2, "i32", len(levels) + len(raw)),
                         (3, "i32", len(body)), sub)
-    return header + body, len(header) + len(uncompressed)
+    return header + body, len(header) + len(levels) + len(raw)
 
 
 def _all_valid_levels(n):
     """Definition levels of n non-NULL rows: a 4-byte length, one RLE run."""
     run = _uvarint(n << 1) + b"\x01"
     return len(run).to_bytes(4, "little") + run
+
+
+def _varints(u):
+    """Unsigned ints as LEB128 varints, vectorised: (bytes, shape
+    (len(u), 10); byte k of value i at [i, k]) and each value's length."""
+    u = np.asarray(u, np.uint64)
+    shifts = np.arange(10, dtype=np.uint64) * np.uint64(7)
+    groups = (u[:, None] >> shifts) & np.uint64(0x7F)
+    lens = np.maximum(1, 10 - np.argmax((groups != 0)[:, ::-1], axis=1))
+    lens[~(groups != 0).any(axis=1)] = 1
+    more = np.arange(10)[None, :] < (lens[:, None] - 1)
+    return (groups | (more.astype(np.uint64) << np.uint64(7))).astype(np.uint8), lens
+
+
+def _delta_binary_packed(values, block=DELTA_BLOCK, minis=DELTA_MINIBLOCKS):
+    """INT32 `values` as one DELTA_BINARY_PACKED stream, vectorised over
+    rows and blocks: a header (block size, miniblocks a block, count,
+    first value zigzag), then per block of `block` deltas (32-bit
+    wraparound) its min delta (zigzag), one bit width a miniblock and the
+    miniblocks, each `block // minis` deltas less the min, bit-packed
+    least significant bit first.  The last block's unused miniblocks have
+    width 0 and no bytes; its last used one is padded whole with 0s."""
+    v = np.asarray(values, np.int64)
+    n = len(v)
+    first = (v[:1] << 1) ^ (v[:1] >> 63)
+    head = (_uvarint(block) + _uvarint(minis) + _uvarint(n) +
+            (_uvarint(int(first[0])) if n else b"\x00"))
+    if n <= 1:
+        return head
+    d = np.diff(v)
+    d = (d + (1 << 31)) % (1 << 32) - (1 << 31)
+    nd, per = len(d), block // minis
+    nb = -(-nd // block)
+    big = np.concatenate([d, np.full(nb * block - nd, d[-1])]).reshape(nb, block)
+    mins = big.min(axis=1)
+    rel = (big - mins[:, None]).astype(np.uint64)
+    rel.reshape(-1)[nd:] = 0  # the padding after the last delta
+    rel = rel.reshape(nb, minis, per)
+    top = rel.max(axis=2)
+    widths = np.zeros(top.shape, np.int64)
+    for b in range(33):  # the bit length of each miniblock's largest
+        widths += top >= np.uint64(1 << b)
+    widths[-1, -(-(nd - (nb - 1) * block) // per):] = 0
+    body = widths * (per // 8)
+    vz, vlen = _varints(((mins << 1) ^ (mins >> 63)).astype(np.uint64))
+    size = vlen + minis + body.sum(axis=1)
+    start = np.concatenate([[0], np.cumsum(size)[:-1]])
+    out = np.zeros(int(size.sum()), np.uint8)
+    for k in range(int(vlen.max())):
+        sel = vlen > k
+        out[start[sel] + k] = vz[sel, k]
+    out[(start + vlen)[:, None] + np.arange(minis)] = widths
+    at = (start + vlen + minis)[:, None] + np.concatenate(
+        [np.zeros((nb, 1), np.int64), np.cumsum(body, axis=1)[:, :-1]], axis=1)
+    for w in np.unique(widths[widths > 0]).tolist():
+        sel = widths == w
+        bits = ((rel[sel][:, :, None] >> np.arange(w, dtype=np.uint64)) & np.uint64(1))
+        packed = np.packbits(bits.astype(np.uint8).reshape(len(bits), per * w), axis=1,
+                             bitorder="little")
+        out[at[sel][:, None] + np.arange(per * w // 8)] = packed
+    return head + out.tobytes()
+
+
+def _byte_stream_split(values):
+    """Doubles as BYTE_STREAM_SPLIT: byte b of every value, then byte b + 1."""
+    return np.ascontiguousarray(np.asarray(values, "<f8").view(np.uint8).reshape(-1, 8).T
+                                ).tobytes()
 
 
 def _bit_pack(idx, bw):
@@ -2822,20 +2904,30 @@ def _bit_pack(idx, bw):
     return bytes([bw]) + _uvarint(((len(idx) // 8) << 1) | 1) + packed
 
 
-def _chunk_pages(kind, values, dictionary, codec=PQ_SNAPPY):
+def _chunk_pages(kind, values, dictionary, codec=PQ_SNAPPY, version=1):
     """(pages, uncompressed bytes, has a dictionary page) of one column
-    chunk: PLAIN doubles, or a dictionary page and RLE_DICTIONARY
-    indices (`values` then index `dictionary`, doubles or byte strings).
-    GZIP pages compress in threads (zlib releases the GIL)."""
+    chunk in data pages of format `version`: doubles PLAIN ("plain") or
+    BYTE_STREAM_SPLIT ("bss"), INT32 DELTA_BINARY_PACKED ("delta"), or a
+    dictionary page and RLE_DICTIONARY indices ("dict": `values` then
+    index `dictionary`, doubles or byte strings).  GZIP pages compress
+    in threads (zlib releases the GIL)."""
     n = len(values)
     specs = []  # _page's arguments, one page each
     levels_room = 16
-    if kind == "plain":
+    if kind in ("plain", "bss"):
         per = (PARQUET_PAGE_BYTES - levels_room) // 8
+        encoding = PQ_PLAIN if kind == "plain" else PQ_BYTE_STREAM_SPLIT
         for lo in range(0, n, per):
             v = values[lo:lo + per]
-            specs.append(("data", PQ_PLAIN, len(v),
-                          _all_valid_levels(len(v)) + v.astype("<f8").tobytes(), codec))
+            raw = v.astype("<f8").tobytes() if kind == "plain" else _byte_stream_split(v)
+            specs.append(("data", encoding, len(v), raw, codec, version))
+    elif kind == "delta":
+        # rows a page such that 32-bit deltas and every block's header fit
+        per = (PARQUET_PAGE_BYTES - 64) // (4 * DELTA_BLOCK + 5 + DELTA_MINIBLOCKS) * DELTA_BLOCK
+        for lo in range(0, n, per):
+            v = values[lo:lo + per]
+            specs.append(("data", PQ_DELTA_BINARY_PACKED, len(v), _delta_binary_packed(v),
+                          codec, version))
     else:
         if dictionary.dtype.kind == "f":
             dict_bytes = dictionary.astype("<f8").tobytes()
@@ -2846,8 +2938,7 @@ def _chunk_pages(kind, values, dictionary, codec=PQ_SNAPPY):
         per = ((PARQUET_PAGE_BYTES - levels_room - 8) * 8 // bw) // 8 * 8
         for lo in range(0, n, per):
             v = values[lo:lo + per]
-            specs.append(("data", PQ_RLE_DICTIONARY, len(v),
-                          _all_valid_levels(len(v)) + _bit_pack(v, bw), codec))
+            specs.append(("data", PQ_RLE_DICTIONARY, len(v), _bit_pack(v, bw), codec, version))
     if codec == PQ_GZIP and len(specs) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
@@ -2855,17 +2946,24 @@ def _chunk_pages(kind, values, dictionary, codec=PQ_SNAPPY):
             made = list(pool.map(lambda a: _page(*a), specs))
     else:
         made = [_page(*a) for a in specs]
-    return [p for p, _ in made], sum(size for _, size in made), kind != "plain"
+    return [p for p, _ in made], sum(size for _, size in made), kind == "dict"
 
 
-def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAPPY):
+# the encodings a column chunk of each kind lists
+_KIND_ENCODINGS = {"plain": [PQ_PLAIN, PQ_RLE], "dict": [PQ_PLAIN, PQ_RLE, PQ_RLE_DICTIONARY],
+                   "bss": [PQ_RLE, PQ_BYTE_STREAM_SPLIT], "delta": [PQ_RLE, PQ_DELTA_BINARY_PACKED]}
+
+
+def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAPPY, version=1):
     """`columns` as one Parquet file: a list of (name, physical type
-    PQ_DOUBLE or PQ_BYTE_ARRAY, kind "plain" or "dict", values,
-    dictionary); a "dict" column's values index its dictionary (doubles
-    or byte strings), a "plain" column's values are doubles.  Every
-    column is OPTIONAL with no NULL; the Utf8 ones carry the UTF8
-    annotation.  Every page is compressed with `codec` (a key of
-    PQ_COMPRESSORS).  Returns the file's size."""
+    PQ_DOUBLE, PQ_BYTE_ARRAY or PQ_INT32, kind, values, dictionary); a
+    "dict" column's values index its dictionary (doubles or byte
+    strings), a "plain" or "bss" column's values are doubles, a "delta"
+    column's are INT32 days since the epoch.  Every column is OPTIONAL
+    with no NULL; the Utf8 ones carry the UTF8 annotation, the INT32 ones
+    DATE.  Every page is compressed with `codec` (a key of
+    PQ_COMPRESSORS), data pages in the page format `version` (1 or 2).
+    Returns the file's size."""
     n = len(columns[0][3])
     tmp = f"{path}.{os.getpid()}.tmp"
     groups = []
@@ -2876,7 +2974,8 @@ def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAP
             hi = min(n, lo + rows_per_group)
             chunks, group_bytes = [], 0
             for name, ptype, kind, values, dictionary in columns:
-                pages, usize, has_dict = _chunk_pages(kind, values[lo:hi], dictionary, codec)
+                pages, usize, has_dict = _chunk_pages(kind, values[lo:hi], dictionary, codec,
+                                                      version)
                 start = offset
                 data_at = start + (len(pages[0]) if has_dict else 0)
                 for page in pages:
@@ -2885,9 +2984,7 @@ def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAP
                 csize = offset - start
                 group_bytes += usize
                 meta = _tc_struct(
-                    (1, "i32", ptype),
-                    (2, ("list", "i32"), [PQ_PLAIN, PQ_RLE] + ([PQ_RLE_DICTIONARY]
-                                                               if has_dict else [])),
+                    (1, "i32", ptype), (2, ("list", "i32"), _KIND_ENCODINGS[kind]),
                     (3, ("list", "bin"), [name.encode()]), (4, "i32", codec),
                     (5, "i64", hi - lo), (6, "i64", usize), (7, "i64", csize),
                     (9, "i64", data_at), (11, "i64", start if has_dict else None))
@@ -2896,11 +2993,14 @@ def write_parquet(path, columns, rows_per_group=PARQUET_ROW_GROUP, codec=PQ_SNAP
                                      (2, "i64", group_bytes), (3, "i64", hi - lo)))
         schema = [_tc_struct((4, "bin", b"schema"), (5, "i32", len(columns)))]
         for name, ptype, _, _, _ in columns:
-            utf8 = ptype == PQ_BYTE_ARRAY
+            # ConvertedType and LogicalType: UTF8 (0, STRING) or DATE (6, DATE)
+            converted, logical = {PQ_BYTE_ARRAY: (0, 1), PQ_INT32: (6, 6)}.get(ptype,
+                                                                               (None, None))
             schema.append(_tc_struct(
                 (1, "i32", ptype), (3, "i32", 1), (4, "bin", name.encode()),
-                (6, "i32", 0 if utf8 else None),
-                (10, "struct", _tc_struct((1, "struct", b"\x00")) if utf8 else None)))
+                (6, "i32", converted),
+                (10, "struct", None if logical is None else
+                 _tc_struct((logical, "struct", b"\x00")))))
         footer = _tc_struct((1, "i32", 1), (2, ("list", "struct"), schema), (3, "i64", n),
                             (4, ("list", "struct"), groups),
                             (6, "bin", b"datafusion_tpu_torch chip_smoke.py"))
@@ -2916,12 +3016,14 @@ def parquet_batches(rows, batch):
                for lo in range(0, rows, PARQUET_ROW_GROUP))
 
 
-def write_lineitem_parquet(path, cols, dates, lo=0, hi=None, codec=PQ_SNAPPY):
+def write_lineitem_parquet(path, cols, dates, lo=0, hi=None, codec=PQ_SNAPPY, layout="v1"):
     """Rows [lo, hi) of `lineitem_sf1`'s columns as Parquet
-    (`write_parquet`, pages compressed with `codec`): l_returnflag,
-    l_linestatus and l_shipdate coded into lineitem_sf1's dictionaries,
-    l_quantity, l_discount and l_tax into their distinct values,
-    l_extendedprice PLAIN."""
+    (`write_parquet`, pages compressed with `codec`).  Layout "v1":
+    l_returnflag, l_linestatus and l_shipdate coded into lineitem_sf1's
+    dictionaries, l_quantity, l_discount and l_tax into their distinct
+    values, l_extendedprice PLAIN, DATA_PAGE pages.  Layout "v2": the
+    flags as in "v1", l_shipdate a DATE in DELTA_BINARY_PACKED, the four
+    doubles BYTE_STREAM_SPLIT, DATA_PAGE_V2 pages."""
     hi = len(cols["flag"]) if hi is None else hi
 
     def coded(x):
@@ -2931,10 +3033,20 @@ def write_lineitem_parquet(path, cols, dates, lo=0, hi=None, codec=PQ_SNAPPY):
     def strings(values):
         return np.array([s.encode() for s in values], dtype=object)
 
+    flags = [("l_returnflag", PQ_BYTE_ARRAY, "dict", cols["flag"][lo:hi], strings("ANR")),
+             ("l_linestatus", PQ_BYTE_ARRAY, "dict", cols["status"][lo:hi], strings("FO"))]
+    if layout == "v2":
+        days = (np.array(dates, dtype="datetime64[D]") - np.datetime64("1970-01-01", "D")
+                ).astype(np.int64)
+        return write_parquet(path, flags + [
+            ("l_quantity", PQ_DOUBLE, "bss", cols["qty"][lo:hi], None),
+            ("l_extendedprice", PQ_DOUBLE, "bss", cols["price"][lo:hi], None),
+            ("l_discount", PQ_DOUBLE, "bss", cols["disc"][lo:hi], None),
+            ("l_tax", PQ_DOUBLE, "bss", cols["tax"][lo:hi], None),
+            ("l_shipdate", PQ_INT32, "delta", days[cols["ship"][lo:hi]], None),
+        ], codec=codec, version=2)
     qty, disc, tax = coded(cols["qty"]), coded(cols["disc"]), coded(cols["tax"])
-    return write_parquet(path, [
-        ("l_returnflag", PQ_BYTE_ARRAY, "dict", cols["flag"][lo:hi], strings("ANR")),
-        ("l_linestatus", PQ_BYTE_ARRAY, "dict", cols["status"][lo:hi], strings("FO")),
+    return write_parquet(path, flags + [
         ("l_quantity", PQ_DOUBLE, "dict", *qty),
         ("l_extendedprice", PQ_DOUBLE, "plain", cols["price"][lo:hi], None),
         ("l_discount", PQ_DOUBLE, "dict", *disc),
@@ -2964,11 +3076,16 @@ def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
        once cold and WARM_RUNS times warm, against `q1_oracle`, 6
        grouped-reduce launches a batch group, with its device and host
        profile (`profile_parquet_tpch_q1_sf1`); the scan alone timed 3
-       times.  `parquet_*` lines; returns the report the `kernels` line
-       counts."""
+       times.  The same with GZIP pages, and in the "v2" layout
+       (DATA_PAGE_V2, l_shipdate a DATE in DELTA_BINARY_PACKED, the
+       doubles BYTE_STREAM_SPLIT, SNAPPY);
+    3. Q1 cold and once warm over each pyarrow fixture of
+       PARQUET_CODEC_FIXTURES.
+    `parquet_*` lines; returns the reports the `kernels` line counts."""
     import gc
 
     gc.collect()
+    start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     data = os.path.join(here, "test", "data")
     out_dir = os.path.join(here, "build", "chip_smoke")
@@ -3004,12 +3121,15 @@ def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
             + (f"; {pinned} as pinned" if pinned else "") + f", {ms:.3f} ms; {smi})")
     del ctx
 
-    # 2. Q1 over the SF-1 lineitem as Parquet, SNAPPY (literals) then GZIP
-    for codec, tag in ((PQ_SNAPPY, ""), (PQ_GZIP, "_gzip")):
+    # 2. Q1 over the SF-1 lineitem as Parquet, SNAPPY (literals), GZIP,
+    # and the v2 layout
+    for codec, tag, layout in ((PQ_SNAPPY, "", "v1"), (PQ_GZIP, "_gzip", "v1"),
+                               (PQ_SNAPPY, "_v2", "v2")):
+        phase_t0 = time.perf_counter()
         label = f"parquet{tag}_tpch_q1_sf1"
         path = os.path.join(out_dir, f"lineitem_q1{tag}_{SF1_ROWS}.parquet")
         t0 = time.perf_counter()
-        nbytes = write_lineitem_parquet(path, cols, dates, codec=codec)
+        nbytes = write_lineitem_parquet(path, cols, dates, codec=codec, layout=layout)
         write_s = time.perf_counter() - t0
         ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
         t0 = time.perf_counter()
@@ -3031,20 +3151,21 @@ def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
                 query_profile(tdf, torch, ctx, Q1, label, rep["p50_ms"])
             except RuntimeError as e:  # the profiler is a measurement aid only
                 log(f"profiler unavailable: {e}")
-        rep.update({"codec": "GZIP" if codec == PQ_GZIP else "SNAPPY", "parquet_bytes": nbytes,
-                    "write_s": write_s, "ddl_ms": ddl_ms, "batches": nb,
-                    "scan_only_ms": scan_ms,
-                    "scan_share_of_warm": float(np.median(scan_ms)) / rep["p50_ms"]})
+        rep.update({"codec": "GZIP" if codec == PQ_GZIP else "SNAPPY", "layout": layout,
+                    "parquet_bytes": nbytes, "write_s": write_s, "ddl_ms": ddl_ms,
+                    "batches": nb, "scan_only_ms": scan_ms,
+                    "scan_share_of_warm": float(np.median(scan_ms)) / rep["p50_ms"],
+                    "phase_s": time.perf_counter() - phase_t0})
         log(f"parquet{tag}_q1: " + json.dumps(rep))
         log(f"Parquet{tag} Q1 at SF-1 matches the numpy oracle cold and warm ({nb} batches, "
             f"{nbytes} bytes)")
         reports.append(rep)
         del ctx, src
 
-    # 3. pyarrow's ZSTD, LZ4_RAW and GZIP files of lineitem_sf1's first rows
-    n = PARQUET_FIXTURE_ROWS
-    want = q1_oracle({k: v[:n] for k, v in cols.items()}, dates)
-    for codec in PARQUET_CODEC_FIXTURES:
+    # 3. pyarrow's ZSTD, LZ4_RAW, GZIP, BROTLI and v2-layout files of
+    # lineitem_sf1's first rows
+    for codec, n in PARQUET_CODEC_FIXTURES:
+        want = q1_oracle({k: v[:n] for k, v in cols.items()}, dates)
         path = os.path.join(here, "tests", "torch_data", "parquet", f"lineitem_{n}_{codec}.parquet")
         ctx = tdf.ExecutionContext(result_cache=False)  # cuda:0
         ctx.sql(f"CREATE EXTERNAL TABLE lineitem STORED AS PARQUET LOCATION '{path}'")
@@ -3063,8 +3184,9 @@ def phase_parquet(tdf, cuda_mod, torch, cols, dates, smi):
         rep.update({"codec": codec, "parquet_bytes": os.path.getsize(path), "batches": nb})
         log("parquet_codec_fixture: " + json.dumps(rep))
         reports.append(rep)
-    log(f"Q1 over pyarrow's {', '.join(PARQUET_CODEC_FIXTURES)} fixtures matches the numpy "
-        f"oracle over their {n} rows")
+    log(f"Q1 over pyarrow's {', '.join(f'{c} ({n} rows)' for c, n in PARQUET_CODEC_FIXTURES)} "
+        "fixtures matches the numpy oracle")
+    log(f"parquet_phase_s: {time.perf_counter() - start:.3f}")
     return reports
 
 

@@ -7,12 +7,15 @@ sources at the root of the checkout, `native/datafusion_native.cpp`
 `dtf_plan_roundtrip`, `dtf_plan_repr`, `dtf_free`), and the port's own
 `datafusion_tpu_torch/native/parquet.cpp` (`dtf_pq_*`, bound by
 `native/parquet.py`) with its page decompressors
-`datafusion_tpu_torch/native/codecs.cpp` are compiled into one library
-on first use:
+`datafusion_tpu_torch/native/codecs.cpp` and Brotli's tables
+`datafusion_tpu_torch/native/brotli_dictionary.cpp` (generated by
+`scripts/port_brotli_dictionary.py`) are compiled into one library on
+first use:
 
     g++ -O3 -std=c++17 -fPIC -shared -pthread native/datafusion_native.cpp \
         native/sql_frontend.cpp datafusion_tpu_torch/native/parquet.cpp \
-        datafusion_tpu_torch/native/codecs.cpp
+        datafusion_tpu_torch/native/codecs.cpp \
+        datafusion_tpu_torch/native/brotli_dictionary.cpp
 
 into `build/native/<hash>/libdatafusion_native.so`, keyed by a hash of
 every source and the flags (an edited source rebuilds).  `native/`
@@ -40,7 +43,8 @@ from datafusion_tpu_torch.errors import IoError
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "datafusion_native.cpp"
 SOURCES = (SOURCE, REPO / "native" / "sql_frontend.cpp", Path(__file__).with_name("parquet.cpp"),
-           Path(__file__).with_name("codecs.cpp"))
+           Path(__file__).with_name("codecs.cpp"),
+           Path(__file__).with_name("brotli_dictionary.cpp"))
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 LIB_NAME = "libdatafusion_native.so"

@@ -1,9 +1,10 @@
 // Page decompressors for the Parquet reader (native/parquet.cpp):
 // GZIP (inflate, RFC 1951, in the gzip wrapper of RFC 1952 or the zlib
 // wrapper of RFC 1950), ZSTD (the frame format of RFC 8878), LZ4_RAW
-// (the LZ4 block format) and LZ4 (the Hadoop framing of LZ4 blocks).
-// C++17 and the standard library only: no system libz, libzstd or
-// liblz4 is linked.
+// (the LZ4 block format), LZ4 (the Hadoop framing of LZ4 blocks) and
+// BROTLI (RFC 7932, its static dictionary and transforms compiled in
+// from brotli_dictionary.cpp).  C++17 and the standard library only: no
+// system libz, libzstd, liblz4 or libbrotli is linked.
 //
 // One entry, dtf_codec::decompress, fills exactly `cap` bytes of the
 // caller's buffer or throws std::runtime_error; every read of the input
@@ -20,6 +21,20 @@
 #include <vector>
 
 namespace dtf_codec {
+
+// RFC 7932's tables, in brotli_dictionary.cpp (generated by
+// scripts/port_brotli_dictionary.py)
+struct BrotliTransform {
+  uint8_t prefix_len;
+  const char* prefix;
+  uint8_t type;  // 0 identity, 1-9 omit last k, 10 uppercase first,
+                 // 11 uppercase all, 12-20 omit first (type - 11)
+  uint8_t suffix_len;
+  const char* suffix;
+};
+extern const char kBrotliDictionary[122785];
+extern const BrotliTransform kBrotliTransforms[121];
+extern const uint8_t kBrotliContextLut[2048];
 
 namespace {
 
@@ -1074,17 +1089,513 @@ void zstd(const uint8_t* src, size_t n, uint8_t* out, size_t cap) {
   if (op != cap) fail("ZSTD output shorter than the page header says");
 }
 
+// ------------------------------------------------------------ brotli
+
+// RFC 7932.  Bits are read least significant first, as in deflate; the
+// whole page is the window, so a back-reference reads the output itself.
+struct BrotliBits {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;
+  int cnt = 0;
+
+  void refill() {
+    if (end - p >= 8) {
+      buf |= load64(p) << cnt;
+      p += (63 - cnt) >> 3;
+      cnt |= 56;
+    } else {
+      while (cnt <= 56 && p < end) {
+        buf |= uint64_t(*p++) << cnt;
+        cnt += 8;
+      }
+    }
+  }
+  uint32_t bits(int n) {  // n <= 32
+    if (n == 0) return 0;
+    if (cnt < n) {
+      refill();
+      if (cnt < n) fail("truncated BROTLI stream");
+    }
+    uint32_t v = uint32_t(buf & ((uint64_t(1) << n) - 1));
+    buf >>= n;
+    cnt -= n;
+    return v;
+  }
+  void skip(int n) {  // n <= cnt
+    buf >>= n;
+    cnt -= n;
+  }
+  void align() {  // to the next byte; the bits passed over must be 0
+    const int k = cnt & 7;
+    if (buf & ((uint64_t(1) << k) - 1)) fail("nonzero padding bits in BROTLI stream");
+    skip(k);
+  }
+  // `n` whole bytes after align(), to `dst` (null: skipped)
+  void take(uint8_t* dst, size_t n) {
+    while (n && cnt >= 8) {
+      const uint8_t b = uint8_t(bits(8));
+      if (dst) *dst++ = b;
+      --n;
+    }
+    if (!n) return;
+    buf = 0;  // empty now: what it held past cnt is the bytes read below
+    if (size_t(end - p) < n) fail("truncated BROTLI stream");
+    if (dst) std::memcpy(dst, p, n);
+    p += n;
+  }
+};
+
+// A canonical prefix code of up to 704 symbols: a lookup of the first
+// FAST bits for codes that short, puff's canonical walk for the rest.
+// A code of one symbol reads no bits.
+struct BrotliCode {
+  static constexpr int FAST = 10;
+  int single = -1;
+  uint16_t fast[1 << FAST];  // symbol << 4 | length, 0 for a longer code
+  uint16_t count[16];
+  uint16_t symbol[704];
+
+  // the code of `n` symbols with these lengths (at most 15), which must
+  // fill the code space exactly
+  void build(const uint8_t* lengths, int n) {
+    single = -1;
+    std::memset(count, 0, sizeof count);
+    for (int s = 0; s < n; ++s) count[lengths[s]]++;
+    int left = 1;
+    for (int len = 1; len < 16; ++len) {
+      left <<= 1;
+      left -= count[len];
+      if (left < 0) fail("over-subscribed prefix code in BROTLI stream");
+    }
+    if (left != 0) fail("incomplete prefix code in BROTLI stream");
+    uint16_t offs[16];
+    offs[1] = 0;
+    for (int len = 1; len < 15; ++len) offs[len + 1] = offs[len] + count[len];
+    for (int s = 0; s < n; ++s)
+      if (lengths[s]) symbol[offs[lengths[s]]++] = uint16_t(s);
+    std::memset(fast, 0, sizeof fast);
+    int code = 0, k = 0;
+    for (int len = 1; len <= FAST; ++len) {
+      for (int i = 0; i < count[len]; ++i, ++k, ++code) {
+        int rev = 0;  // the code's bits in stream order
+        for (int b = 0; b < len; ++b) rev |= ((code >> b) & 1) << (len - 1 - b);
+        for (int j = rev; j < (1 << FAST); j += 1 << len)
+          fast[j] = uint16_t(symbol[k] << 4 | len);
+      }
+      code <<= 1;
+    }
+  }
+
+  int decode(BrotliBits& br) const {
+    if (single >= 0) return single;
+    if (br.cnt < 15) br.refill();
+    const uint16_t e = fast[br.buf & ((1u << FAST) - 1)];
+    int len = e & 15;
+    if (len) {
+      if (len > br.cnt) fail("truncated BROTLI stream");
+      br.skip(len);
+      return e >> 4;
+    }
+    int code = 0, first = 0, index = 0;
+    for (len = 1; len < 16; ++len) {
+      code |= int(br.bits(1));
+      const int c = count[len];
+      if (code - c < first) return symbol[index + (code - first)];
+      index += c;
+      first += c;
+      first <<= 1;
+      code <<= 1;
+    }
+    fail("bad prefix code in BROTLI stream");
+  }
+};
+
+int bit_length(uint32_t v) { return v ? 32 - __builtin_clz(v) : 0; }
+
+// A prefix code over an alphabet of `size` symbols (RFC 7932, 3.4-3.5).
+void brotli_read_code(BrotliBits& br, int size, BrotliCode& out) {
+  uint8_t lengths[704] = {0};
+  const int hskip = int(br.bits(2));
+  if (hskip == 1) {  // simple: 1 to 4 symbols
+    const int nsym = int(br.bits(2)) + 1, width = bit_length(uint32_t(size - 1));
+    int sym[4];
+    for (int i = 0; i < nsym; ++i) {
+      sym[i] = int(br.bits(width));
+      if (sym[i] >= size) fail("BROTLI symbol past its alphabet");
+      for (int j = 0; j < i; ++j)
+        if (sym[j] == sym[i]) fail("repeated symbol in a BROTLI simple prefix code");
+    }
+    if (nsym == 1) {
+      out.single = sym[0];
+      return;
+    }
+    static const uint8_t kLengths[4][4] = {{0}, {1, 1}, {1, 2, 2}, {2, 2, 2, 2}};
+    const uint8_t* lens = kLengths[nsym - 1];
+    static const uint8_t kTree[4] = {1, 2, 3, 3};
+    if (nsym == 4 && br.bits(1)) lens = kTree;
+    for (int i = 0; i < nsym; ++i) lengths[sym[i]] = lens[i];
+    out.build(lengths, size);
+    return;
+  }
+  // complex: code lengths coded with a code of 18 symbols, whose own
+  // lengths come in a fixed order, each in a fixed code of 2 to 4 bits
+  static const uint8_t kOrder[18] = {1, 2, 3, 4, 0, 5, 17, 6, 16,
+                                     7, 8, 9, 10, 11, 12, 13, 14, 15};
+  static const uint8_t kClLen[16] = {2, 2, 2, 3, 2, 2, 2, 4, 2, 2, 2, 3, 2, 2, 2, 4};
+  static const uint8_t kClVal[16] = {0, 4, 3, 2, 0, 4, 3, 1, 0, 4, 3, 2, 0, 4, 3, 5};
+  uint8_t cl[18] = {0};
+  int space = 32, num = 0, last = 0;
+  for (int i = hskip; i < 18; ++i) {
+    if (br.cnt < 4) br.refill();
+    const int idx = int(br.buf & 15);
+    if (kClLen[idx] > br.cnt) fail("truncated BROTLI stream");
+    br.skip(kClLen[idx]);
+    const int v = kClVal[idx];
+    cl[kOrder[i]] = uint8_t(v);
+    if (v) {
+      space -= 32 >> v;
+      ++num;
+      last = kOrder[i];
+      if (space <= 0) break;
+    }
+  }
+  if (num != 1 && space != 0) fail("bad code length code in BROTLI stream");
+  BrotliCode clc;
+  if (num == 1)
+    clc.single = last;  // one code length symbol, read with no bits
+  else
+    clc.build(cl, 18);
+  int sym = 0, prev = 8, repeat = 0, repeat_len = 0;
+  space = 32768;
+  while (sym < size && space > 0) {
+    const int c = clc.decode(br);
+    if (c < 16) {
+      repeat = 0;
+      lengths[sym++] = uint8_t(c);
+      if (c) {
+        prev = c;
+        space -= 32768 >> c;
+      }
+      continue;
+    }
+    const int extra = c == 16 ? 2 : 3, len = c == 16 ? prev : 0;
+    if (repeat_len != len) {
+      repeat = 0;
+      repeat_len = len;
+    }
+    const int old = repeat;
+    if (repeat > 0) repeat = (repeat - 2) << extra;
+    repeat += int(br.bits(extra)) + 3;
+    const int delta = repeat - old;
+    if (delta > size - sym) fail("BROTLI code lengths past the alphabet");
+    std::memset(lengths + sym, len, size_t(delta));
+    sym += delta;
+    if (len) space -= delta << (15 - len);
+  }
+  if (space != 0) fail("incomplete prefix code in BROTLI stream");
+  out.build(lengths, size);
+}
+
+int brotli_var_u8(BrotliBits& br) {  // VarLenUint8: 0 to 255
+  if (!br.bits(1)) return 0;
+  const int n = int(br.bits(3));
+  return n ? (1 << n) + int(br.bits(n)) : 1;
+}
+
+const uint16_t kBlockLenBase[26] = {1,   5,   9,   13,  17,  25,   33,   41,   49,
+                                    65,  81,  97,  113, 145, 177,  209,  241,  305,
+                                    369, 497, 753, 1265, 2289, 4337, 8433, 16625};
+const uint8_t kBlockLenExtra[26] = {2, 2, 2, 2, 3, 3, 3, 3, 4,  4,  4,  4,  5,
+                                    5, 5, 5, 6, 6, 7, 8, 9, 10, 11, 12, 13, 24};
+const uint32_t kInsBase[24] = {0,  1,  2,  3,  4,   5,   6,   8,   10,   14,   18,   26,
+                               34, 50, 66, 98, 130, 194, 322, 578, 1090, 2114, 6210, 22594};
+const uint8_t kInsExtra[24] = {0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 3,
+                               4, 4, 5, 5, 6, 7, 8, 9, 10, 12, 14, 24};
+const uint32_t kCopyBase[24] = {2,  3,  4,  5,  6,   7,   8,   9,   10,  12,   14,   18,
+                                22, 30, 38, 54, 70, 102, 134, 198, 326, 582, 1094, 2118};
+const uint8_t kCopyExtra[24] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2,
+                                3, 3, 4, 4, 5, 5, 6, 7, 8, 9, 10, 24};
+// per 64-command cell: insert and copy length code bases
+const uint8_t kCellIns[11] = {0, 0, 0, 0, 8, 8, 0, 16, 8, 16, 16};
+const uint8_t kCellCopy[11] = {0, 8, 0, 8, 0, 8, 16, 0, 16, 8, 16};
+// log2 of the dictionary's words of each length, 4 to 24 (RFC 7932, 8)
+const uint8_t kDictBits[25] = {0,  0,  0,  0,  10, 10, 11, 11, 10, 10, 10, 10, 10,
+                               9,  9,  8,  7,  7,  8,  7,  7,  6,  6,  5,  5};
+
+// One of the three block categories (literals, commands, distances):
+// its block types' codes and the current type and count.
+struct BrotliBlocks {
+  int ntypes = 1, type = 0, rb[2] = {1, 0};  // rb: second-to-last and last type
+  uint32_t left = 1u << 28;
+  BrotliCode type_code, len_code;
+
+  uint32_t length(BrotliBits& br) const {
+    const int s = len_code.decode(br);
+    return kBlockLenBase[s] + br.bits(kBlockLenExtra[s]);
+  }
+  void read(BrotliBits& br) {
+    ntypes = brotli_var_u8(br) + 1;
+    type = 0;
+    rb[0] = 1;
+    rb[1] = 0;
+    left = 1u << 28;  // one type: never switches
+    if (ntypes >= 2) {
+      brotli_read_code(br, ntypes + 2, type_code);
+      brotli_read_code(br, 26, len_code);
+      left = length(br);
+    }
+  }
+  void next(BrotliBits& br) {  // before each symbol of the category
+    if (left == 0) {
+      const int s = type_code.decode(br);
+      int t = s == 0 ? rb[0] : s == 1 ? rb[1] + 1 : s - 2;
+      if (t >= ntypes) t -= ntypes;
+      rb[0] = rb[1];
+      rb[1] = t;
+      type = t;
+      left = length(br);
+    }
+    --left;
+  }
+};
+
+// A context map of `size` entries into `ntrees` trees (RFC 7932, 7.3).
+void brotli_context_map(BrotliBits& br, int ntrees, std::vector<uint8_t>& map) {
+  const int rlemax = br.bits(1) ? int(br.bits(4)) + 1 : 0;
+  BrotliCode code;
+  brotli_read_code(br, ntrees + rlemax, code);
+  const size_t size = map.size();
+  for (size_t i = 0; i < size;) {
+    const int c = code.decode(br);
+    if (c == 0) {
+      map[i++] = 0;
+    } else if (c <= rlemax) {
+      const size_t reps = (size_t(1) << c) + br.bits(c);
+      if (reps > size - i) fail("BROTLI context map run past its end");
+      std::memset(map.data() + i, 0, reps);
+      i += reps;
+    } else {
+      map[i++] = uint8_t(c - rlemax);
+    }
+  }
+  if (br.bits(1)) {  // inverse move-to-front
+    uint8_t mtf[256];
+    for (int i = 0; i < 256; ++i) mtf[i] = uint8_t(i);
+    for (size_t i = 0; i < size; ++i) {
+      const uint8_t idx = map[i], v = mtf[idx];
+      map[i] = v;
+      std::memmove(mtf + 1, mtf, idx);
+      mtf[0] = v;
+    }
+  }
+}
+
+// The UTF-8 uppercasing of RFC 7932's transforms: one character at p,
+// returns its length (it may touch up to 2 bytes past the word).
+int brotli_upper(uint8_t* p) {
+  if (p[0] < 0xc0) {
+    if (p[0] >= 'a' && p[0] <= 'z') p[0] ^= 32;
+    return 1;
+  }
+  if (p[0] < 0xe0) {
+    p[1] ^= 32;
+    return 2;
+  }
+  p[2] ^= 5;
+  return 3;
+}
+
+// Dictionary word `word` of `len` bytes under transform `t` into dst
+// (room for 5 + 24 + 8 bytes and the uppercasing's 2 past the word);
+// returns the bytes written.
+int brotli_transform(uint8_t* dst, const uint8_t* word, int len, int t) {
+  const BrotliTransform& tr = kBrotliTransforms[t];
+  int k = tr.prefix_len;
+  std::memcpy(dst, tr.prefix, size_t(k));
+  if (tr.type <= 9) {
+    len -= tr.type;
+  } else if (tr.type >= 12) {
+    const int skip = tr.type - 11;
+    word += skip;
+    len -= skip;
+  }
+  if (len < 0) len = 0;
+  std::memcpy(dst + k, word, size_t(len));
+  if (tr.type == 10 && len > 0) {
+    brotli_upper(dst + k);
+  } else if (tr.type == 11) {
+    uint8_t* q = dst + k;
+    for (int rest = len; rest > 0;) {
+      const int step = brotli_upper(q);
+      q += step;
+      rest -= step;
+    }
+  }
+  k += len;
+  std::memcpy(dst + k, tr.suffix, tr.suffix_len);
+  return k + tr.suffix_len;
+}
+
+// One compressed meta-block of `mlen` bytes into out[op..) (RFC 7932, 9.2-9.3)
+void brotli_compressed(BrotliBits& br, size_t mlen, size_t window, uint8_t* out, size_t& op,
+                       int dist_rb[4], int& dist_idx) {
+  BrotliBlocks cat[3];  // literals, commands, distances
+  for (auto& c : cat) c.read(br);
+  const int npostfix = int(br.bits(2));
+  const int ndirect = int(br.bits(4)) << npostfix;
+  std::vector<uint8_t> mode(size_t(cat[0].ntypes));
+  for (auto& m : mode) m = uint8_t(br.bits(2));
+  const int ntrees_l = brotli_var_u8(br) + 1;
+  std::vector<uint8_t> cmap_l(size_t(cat[0].ntypes) * 64, 0);
+  if (ntrees_l >= 2) brotli_context_map(br, ntrees_l, cmap_l);
+  const int ntrees_d = brotli_var_u8(br) + 1;
+  std::vector<uint8_t> cmap_d(size_t(cat[2].ntypes) * 4, 0);
+  if (ntrees_d >= 2) brotli_context_map(br, ntrees_d, cmap_d);
+  const int dist_size = 16 + ndirect + (48 << npostfix);
+  std::vector<BrotliCode> lit(static_cast<size_t>(ntrees_l));
+  std::vector<BrotliCode> cmd(static_cast<size_t>(cat[1].ntypes));
+  std::vector<BrotliCode> dist(static_cast<size_t>(ntrees_d));
+  for (auto& c : lit) brotli_read_code(br, 256, c);
+  for (auto& c : cmd) brotli_read_code(br, 704, c);
+  for (auto& c : dist) brotli_read_code(br, dist_size, c);
+
+  const uint32_t postfix_mask = (1u << npostfix) - 1;
+  size_t left = mlen;
+  while (left > 0) {
+    cat[1].next(br);
+    const int c = cmd[size_t(cat[1].type)].decode(br);
+    const int cell = c >> 6;
+    const int ic = kCellIns[cell] + ((c >> 3) & 7), cc = kCellCopy[cell] + (c & 7);
+    const size_t ins = kInsBase[ic] + br.bits(kInsExtra[ic]);
+    const int copy = int(kCopyBase[cc] + br.bits(kCopyExtra[cc]));
+    if (ins > left) fail("BROTLI insert past its meta-block");
+    for (size_t i = 0; i < ins; ++i) {
+      cat[0].next(br);
+      const uint8_t p1 = op ? out[op - 1] : 0, p2 = op > 1 ? out[op - 2] : 0;
+      const uint8_t* lut = kBrotliContextLut + (mode[size_t(cat[0].type)] << 9);
+      const int ctx = lut[p1] | lut[256 + p2];
+      out[op++] = uint8_t(lit[cmap_l[size_t(cat[0].type) * 64 + size_t(ctx)]].decode(br));
+    }
+    left -= ins;
+    if (left == 0) break;  // the command's copy is not taken
+
+    int dcode = 0;
+    if (cell >= 2) {  // a distance code; cells 0 and 1 mean code 0
+      cat[2].next(br);
+      const int ctx = copy > 4 ? 3 : copy - 2;
+      dcode = dist[cmap_d[size_t(cat[2].type) * 4 + size_t(ctx)]].decode(br);
+    }
+    int64_t d;
+    if (dcode < 16) {  // the last distances, or one of them moved by up to 3
+      static const uint8_t kBack[16] = {1, 2, 3, 4, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 2};
+      static const int8_t kDelta[16] = {0, 0, 0, 0, -1, 1, -2, 2, -3, 3, -1, 1, -2, 2, -3, 3};
+      d = int64_t(dist_rb[(dist_idx - kBack[dcode]) & 3]) + kDelta[dcode];
+      if (d <= 0) fail("BROTLI distance below 1");
+    } else if (dcode < 16 + ndirect) {
+      d = dcode - 15;
+    } else {
+      const int x = dcode - ndirect - 16;
+      const int nbits = 1 + (x >> (npostfix + 1));
+      const int64_t offset = (int64_t(2 + ((x >> npostfix) & 1)) << nbits) - 4;
+      d = ((offset + br.bits(nbits)) << npostfix) + (x & int(postfix_mask)) + ndirect + 1;
+    }
+    const size_t max_distance = std::min(op, window);
+    if (uint64_t(d) > max_distance) {  // a static dictionary word
+      if (copy < 4 || copy > 24) fail("BROTLI dictionary word of a bad length");
+      const int64_t id = d - int64_t(max_distance) - 1;
+      const int nbits = kDictBits[copy];
+      const int64_t t = id >> nbits;
+      if (t >= 121) fail("BROTLI dictionary transform past the 121");
+      size_t at = 0;
+      for (int l = 4; l < copy; ++l) at += size_t(l) << kDictBits[l];
+      at += size_t(id & ((int64_t(1) << nbits) - 1)) * size_t(copy);
+      uint8_t word[48] = {0};
+      const uint8_t* dict = reinterpret_cast<const uint8_t*>(kBrotliDictionary);
+      const int n = brotli_transform(word, dict + at, copy, int(t));
+      if (size_t(n) > left) fail("BROTLI dictionary word past its meta-block");
+      std::memcpy(out + op, word, size_t(n));
+      op += size_t(n);
+      left -= size_t(n);
+    } else {
+      if (size_t(copy) > left) fail("BROTLI copy past its meta-block");
+      copy_match(out, op, size_t(d), size_t(copy), op + left);
+      op += size_t(copy);
+      left -= size_t(copy);
+      if (dcode != 0) {
+        dist_rb[dist_idx & 3] = int(d);
+        ++dist_idx;
+      }
+    }
+  }
+}
+
+void brotli(const uint8_t* src, size_t n, uint8_t* out, size_t cap) {
+  BrotliBits br{src, src + n};
+  int wbits = 16;  // the stream header: the window's size
+  if (br.bits(1)) {
+    const int a = int(br.bits(3));
+    if (a) {
+      wbits = 17 + a;
+    } else {
+      const int b = int(br.bits(3));
+      if (b == 1) fail("BROTLI large-window stream");
+      wbits = b ? 8 + b : 17;
+    }
+  }
+  const size_t window = (size_t(1) << wbits) - 16;
+  int dist_rb[4] = {16, 15, 11, 4}, dist_idx = 0;
+  size_t op = 0;
+  for (bool last = false; !last;) {
+    last = br.bits(1);
+    if (last && br.bits(1)) break;  // ISLASTEMPTY
+    const int nibbles = int(br.bits(2)) + 4;
+    if (nibbles == 7) {  // metadata, skipped
+      if (br.bits(1)) fail("reserved bit set in BROTLI stream");
+      const int nbytes = int(br.bits(2));
+      size_t skip = 0;
+      for (int i = 0; i < nbytes; ++i) {
+        const uint32_t b = br.bits(8);
+        if (i + 1 == nbytes && nbytes > 1 && b == 0) fail("bad BROTLI metadata length");
+        skip |= size_t(b) << (8 * i);
+      }
+      if (nbytes) skip += 1;
+      br.align();
+      br.take(nullptr, skip);
+      continue;
+    }
+    size_t mlen = 0;
+    for (int i = 0; i < nibbles; ++i) {
+      const uint32_t v = br.bits(4);
+      if (i + 1 == nibbles && nibbles > 4 && v == 0) fail("bad BROTLI meta-block length");
+      mlen |= size_t(v) << (4 * i);
+    }
+    mlen += 1;
+    if (mlen > cap - op) fail("BROTLI output longer than the page header says");
+    if (!last && br.bits(1)) {  // ISUNCOMPRESSED
+      br.align();
+      br.take(out + op, mlen);
+      op += mlen;
+      continue;
+    }
+    brotli_compressed(br, mlen, window, out, op, dist_rb, dist_idx);
+  }
+  br.align();  // bytes after the stream are left unread, as parquet-cpp leaves them
+  if (op != cap) fail("BROTLI output shorter than the page header says");
+}
+
 }  // namespace
 
 // Parquet codec ids (parquet.thrift CompressionCodec) this file decodes
-bool supported(int codec) { return codec == 2 || codec == 5 || codec == 6 || codec == 7; }
+bool supported(int codec) { return codec == 2 || (codec >= 4 && codec <= 7); }
 
-// `n` bytes of page at `src` compressed with `codec` (GZIP 2, LZ4 5,
-// ZSTD 6, LZ4_RAW 7) into exactly `cap` bytes at `dst`; throws
+// `n` bytes of page at `src` compressed with `codec` (GZIP 2, BROTLI 4,
+// LZ4 5, ZSTD 6, LZ4_RAW 7) into exactly `cap` bytes at `dst`; throws
 // std::runtime_error otherwise.
 void decompress(int codec, const uint8_t* src, size_t n, uint8_t* dst, size_t cap) {
   switch (codec) {
     case 2: gunzip(src, n, dst, cap); return;
+    case 4: brotli(src, n, dst, cap); return;
     case 5:
       if (!lz4_hadoop(src, n, dst, cap)) lz4_raw(src, n, dst, cap);
       return;

@@ -14,10 +14,13 @@
 //     v1, sized by the header in v2) and the legacy BIT_PACKED encoding;
 //   - values: PLAIN (BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE,
 //     BYTE_ARRAY), PLAIN_DICTIONARY / RLE_DICTIONARY (a chunk may fall
-//     back to PLAIN partway), RLE for BOOLEAN;
+//     back to another encoding partway), RLE for BOOLEAN,
+//     DELTA_BINARY_PACKED for INT32 and INT64, BYTE_STREAM_SPLIT for
+//     INT32, INT64, FLOAT and DOUBLE; DELTA_LENGTH_BYTE_ARRAY and
+//     DELTA_BYTE_ARRAY raise, as the JAX package's reader does;
 //   - codecs UNCOMPRESSED, SNAPPY (a raw-format decoder of its own), and
-//     GZIP, ZSTD, LZ4_RAW and LZ4 (Hadoop framing) through the decoders
-//     of native/codecs.cpp; BROTLI and LZO raise;
+//     GZIP, ZSTD, LZ4_RAW, LZ4 (Hadoop framing) and BROTLI through the
+//     decoders of native/codecs.cpp; LZO raises;
 //   - the footer's key-value metadata, of which it keeps the value of
 //     `ARROW:schema` (the Arrow schema a writer stores, base64 of an IPC
 //     message) for native/parquet.py to decode.
@@ -50,6 +53,7 @@
 #include <string>
 #include <system_error>
 #include <thread>
+#include <type_traits>
 #include <unordered_map>
 #include <utility>
 #include <vector>
@@ -66,7 +70,7 @@ struct PqError : std::runtime_error {
 enum Physical { BOOLEAN = 0, INT32 = 1, INT64 = 2, INT96 = 3, FLOAT = 4, DOUBLE = 5,
                 BYTE_ARRAY = 6, FIXED_LEN_BYTE_ARRAY = 7 };
 enum Encoding { PLAIN = 0, PLAIN_DICTIONARY = 2, RLE = 3, BIT_PACKED = 4,
-                RLE_DICTIONARY = 8 };
+                DELTA_BINARY_PACKED = 5, RLE_DICTIONARY = 8, BYTE_STREAM_SPLIT = 9 };
 enum PageType { DATA_PAGE = 0, INDEX_PAGE = 1, DICTIONARY_PAGE = 2, DATA_PAGE_V2 = 3 };
 enum Codec { UNCOMPRESSED = 0, SNAPPY = 1 };
 
@@ -837,7 +841,8 @@ struct File {
         if (m.external) fail("column '" + c.name + "': a chunk in another file");
         if (m.codec != UNCOMPRESSED && m.codec != SNAPPY && !dtf_codec::supported(m.codec))
           fail("column '" + c.name + "': compression codec " + codec_name(m.codec) +
-               " is not supported (UNCOMPRESSED, SNAPPY, GZIP, LZ4, ZSTD and LZ4_RAW are)");
+               " is not supported (UNCOMPRESSED, SNAPPY, GZIP, BROTLI, LZ4, ZSTD and LZ4_RAW "
+               "are)");
         if (m.type != c.physical)
           fail("column '" + c.name + "': chunk type " + physical_name(m.type) +
                " disagrees with the schema's " + physical_name(c.physical));
@@ -1146,8 +1151,121 @@ struct File {
       decode_hybrid(p, p + len, 1, n, out);
       return;
     }
+    if (encoding == DELTA_BINARY_PACKED && (c.physical == INT32 || c.physical == INT64)) {
+      delta_binary_packed(c.physical == INT64, p, end, n, out);
+      return;
+    }
+    if (encoding == BYTE_STREAM_SPLIT && (c.physical == INT32 || c.physical == INT64 ||
+                                          c.physical == FLOAT || c.physical == DOUBLE)) {
+      byte_stream_split(value_width(c.physical), p, end, n, out);
+      return;
+    }
     fail("value encoding " + encoding_name(encoding) + " is not supported for " +
          physical_name(c.physical));
+  }
+
+  // DELTA_BINARY_PACKED: a header (block size, miniblocks a block, value
+  // count, first value), then blocks of a min delta, one bit width a
+  // miniblock and the miniblocks' bit-packed deltas.  The deltas add
+  // with wraparound in the physical width, as the format allows (INT32
+  // keeps the low 32 bits of the 64-bit sums).  The bit widths of the
+  // miniblocks past the last value may hold anything; the miniblock of
+  // the last value is padded whole, as parquet-cpp requires.
+  static void delta_binary_packed(bool wide, const uint8_t* p, const uint8_t* end, int64_t n,
+                                  uint8_t* out) {
+    if (n == 0) return;  // an all-NULL page: nothing to read
+    auto varint = [&]() {
+      uint64_t r = 0;
+      for (int shift = 0; shift < 64; shift += 7) {
+        if (p >= end) fail("DELTA_BINARY_PACKED: truncated stream");
+        const uint8_t b = *p++;
+        r |= uint64_t(b & 0x7f) << shift;
+        if (!(b & 0x80)) return r;
+      }
+      fail("DELTA_BINARY_PACKED: bad varint");
+    };
+    auto zigzag = [&]() {
+      const uint64_t z = varint();
+      return (z >> 1) ^ (uint64_t(0) - (z & 1));
+    };
+    const uint64_t block = varint(), minis = varint(), total = varint();
+    if (block == 0 || block % 128 || block > INT32_MAX)
+      fail("DELTA_BINARY_PACKED: block size " + std::to_string(block) +
+           " is not a multiple of 128");
+    if (minis == 0 || block % minis || (block / minis) % 32)
+      fail("DELTA_BINARY_PACKED: " + std::to_string(minis) + " miniblocks in a block of " +
+           std::to_string(block) + " do not hold a multiple of 32 values each");
+    if (total != uint64_t(n))
+      fail("DELTA_BINARY_PACKED: the header holds " + std::to_string(total) +
+           " values, the page " + std::to_string(n));
+    const int max_width = wide ? 64 : 32;
+    const uint64_t per_mini = block / minis;
+    uint64_t value = zigzag();
+    auto put = [&](int64_t i) {
+      if (wide) {
+        std::memcpy(out + 8 * i, &value, 8);
+      } else {
+        const uint32_t v = uint32_t(value);
+        std::memcpy(out + 4 * i, &v, 4);
+      }
+    };
+    put(0);
+    int64_t i = 1;
+    while (i < n) {
+      const uint64_t min_delta = zigzag();
+      if (uint64_t(end - p) < minis) fail("DELTA_BINARY_PACKED: truncated bit widths");
+      const uint8_t* widths = p;
+      p += minis;
+      for (uint64_t m = 0; m < minis && i < n; ++m) {
+        const int w = widths[m];
+        if (w > max_width)
+          fail("DELTA_BINARY_PACKED: bit width " + std::to_string(w) + " past " +
+               std::to_string(max_width));
+        const int64_t k = std::min<int64_t>(int64_t(per_mini), n - i);
+        const uint64_t avail = uint64_t(end - p);
+        const uint64_t full = per_mini * uint64_t(w) / 8;
+        if (full > avail) fail("DELTA_BINARY_PACKED: truncated miniblock");
+        const uint64_t mask = w == 64 ? ~uint64_t(0) : (uint64_t(1) << w) - 1;
+        for (int64_t j = 0; j < k; ++j) {
+          uint64_t bits = 0;
+          if (w) {
+            const uint64_t bit = uint64_t(j) * uint64_t(w);
+            const uint64_t at = bit >> 3;
+            const int s = int(bit & 7);
+            uint64_t lo = 0;
+            if (avail - at >= 8)
+              std::memcpy(&lo, p + at, 8);
+            else
+              std::memcpy(&lo, p + at, size_t(avail - at));
+            bits = lo >> s;
+            if (s + w > 64) bits |= uint64_t(p[at + 8]) << (64 - s);  // inside `full`
+            bits &= mask;
+          }
+          value += min_delta + bits;
+          put(i + j);
+        }
+        i += k;
+        p += full;
+      }
+    }
+  }
+
+  // BYTE_STREAM_SPLIT: byte b of value i at p[b * n + i], for values of
+  // `width` bytes; the section holds exactly width x n bytes.
+  static void byte_stream_split(int width, const uint8_t* p, const uint8_t* end, int64_t n,
+                                uint8_t* out) {
+    if (uint64_t(end - p) != uint64_t(n) * uint64_t(width))
+      fail("BYTE_STREAM_SPLIT: a section of " + std::to_string(end - p) + " bytes for " +
+           std::to_string(n) + " values of " + std::to_string(width) + " bytes");
+    auto split = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+      for (int64_t i = 0; i < n; ++i)
+        for (int b = 0; b < W; ++b) out[i * W + b] = p[b * n + i];
+    };
+    if (width == 8)
+      split(std::integral_constant<int, 8>());
+    else
+      split(std::integral_constant<int, 4>());
   }
 
   // PLAIN BYTE_ARRAY values as codes into the local dictionary, new

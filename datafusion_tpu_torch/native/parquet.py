@@ -30,7 +30,10 @@ from __future__ import annotations
 
 import ctypes
 import datetime
+import functools
+import os
 import re
+import struct
 import zoneinfo
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
@@ -354,9 +357,48 @@ _PER_SECOND = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
 _FIXED_OFFSET = re.compile(r"([+-])(\d\d):?(\d\d)")
 
 
+@functools.lru_cache(maxsize=None)
+def _last_transition(tz: str) -> Optional[int]:
+    """The last transition (epoch seconds) listed in the zone's TZif file
+    on this machine's zone path, None where it lists none or no file is
+    found.  pyarrow's zone rules (the date library over the system's
+    TZif files) keep the offset of the last listed transition after it,
+    where zoneinfo goes on with the file's POSIX rule (for most zones,
+    daylight saving time after 2037)."""
+    for root in zoneinfo.TZPATH:
+        path = os.path.join(root, tz)
+        if os.path.isfile(path):
+            break
+    else:
+        return None
+    with open(path, "rb") as f:
+        data = f.read()
+
+    def header(at):  # isutcnt, isstdcnt, leapcnt, timecnt, typecnt, charcnt
+        if data[at:at + 4] != b"TZif" or len(data) < at + 44:
+            return None
+        return struct.unpack(">6l", data[at + 20:at + 44])
+
+    counts = header(0)
+    if counts is None:
+        return None
+    isut, isstd, leap, times, types, chars = counts
+    if data[4:5] >= b"2":  # the 64-bit data follows the version 1 block
+        at = 44 + times * 5 + types * 6 + chars + leap * 8 + isstd + isut
+        counts = header(at)
+        if counts is not None:
+            times = counts[3]
+            end = at + 44 + times * 8
+            return struct.unpack(">q", data[end - 8:end])[0] if times else None
+    end = 44 + times * 4
+    return struct.unpack(">l", data[end - 4:end])[0] if times else None
+
+
 def _utc_offsets(seconds: np.ndarray, tz: str) -> np.ndarray:
     """The zone's UTC offset in seconds at each instant (epoch seconds),
-    looked up once per UTC day unless the offset changes within it."""
+    looked up once per UTC day unless the offset changes within it; past
+    the zone file's last transition, that transition's offset (as
+    pyarrow reads the zone, see `_last_transition`)."""
     fixed = _FIXED_OFFSET.fullmatch(tz)
     if fixed:
         sign, hh, mm = fixed.groups()
@@ -366,6 +408,9 @@ def _utc_offsets(seconds: np.ndarray, tz: str) -> np.ndarray:
         zone = zoneinfo.ZoneInfo(tz)
     except (zoneinfo.ZoneInfoNotFoundError, ValueError) as e:
         raise IoError(f"no time zone data for {tz!r} on this machine: {e}") from e
+    last = _last_transition(tz)
+    if last is not None:
+        seconds = np.minimum(seconds, last)
 
     def offset(t: int) -> int:
         try:
@@ -390,10 +435,11 @@ def _utc_offsets(seconds: np.ndarray, tz: str) -> np.ndarray:
 
 
 def _offset_text(seconds: int) -> str:
-    """An offset as pyarrow prints it: +HHMM (and SS when not whole)."""
+    """An offset as pyarrow prints it: +HHMM, seconds dropped (a local
+    mean time of -4:56:02 prints -0456)."""
     sign = "-" if seconds < 0 else "+"
-    m, s = divmod(abs(seconds), 60)
-    return f"{sign}{m // 60:02d}{m % 60:02d}" + (f"{s:02d}" if s else "")
+    m = abs(seconds) // 60
+    return f"{sign}{m // 60:02d}{m % 60:02d}"
 
 
 def _temporal_strings(values: np.ndarray, unit: str, tz: Optional[str]) -> list[str]:

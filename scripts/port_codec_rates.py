@@ -7,11 +7,19 @@ values (8 MB of doubles, the pace-setting column of the GZIP SF-1 file)
 compressed by the standard library's zlib as `chip_smoke._gzip` writes
 a page (level 6, gzip wrapper), decoded by `native.parquet.decompress`
 (the port's inflate) and by `zlib.decompress`, best of N, in MB/s of
-output.  ZSTD, LZ4_RAW and GZIP files: each committed fixture of
+output.  ZSTD, LZ4_RAW, GZIP, BROTLI and v2-layout (DELTA_BINARY_PACKED,
+BYTE_STREAM_SPLIT) files: each committed fixture of
 `tests/torch_data/parquet/` scanned whole by the port's reader, best of
 N, in MB/s of the pages' uncompressed bytes (the footer's
-`total_uncompressed_size` of every chunk).  Prints one JSON line.  Runs
-on any host with a C++ compiler; needs neither pyarrow nor a card.
+`total_uncompressed_size` of every chunk).  With `--layout-rows N`:
+`chip_smoke.lineitem_sf1`'s first N rows written by
+`chip_smoke.write_lineitem_parquet` in its "v1" (SNAPPY) and "v2"
+(DELTA_BINARY_PACKED dates, BYTE_STREAM_SPLIT doubles) layouts to a
+temporary directory, each scanned whole at batches of 131,072, and
+without l_shipdate (its last column), best of N, in ms: the difference
+is what the date column costs, decoded and made strings.  Prints one
+JSON line.  Runs on any host with a C++ compiler;
+needs neither pyarrow nor a card.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ def _best(fn, repeats):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repeats", type=int, default=7)
+    ap.add_argument("--layout-rows", type=int, default=0)
     args = ap.parse_args(argv)
 
     import datafusion_tpu_torch as tdf
@@ -70,8 +79,8 @@ def main(argv=None) -> int:
         "port_mb_s": len(raw) / port_s / 1e6, "zlib_mb_s": len(raw) / zlib_s / 1e6}}
 
     fixtures = os.path.join(REPO, "tests", "torch_data", "parquet")
-    for codec in cs.PARQUET_CODEC_FIXTURES:
-        path = os.path.join(fixtures, f"lineitem_{cs.PARQUET_FIXTURE_ROWS}_{codec}.parquet")
+    for codec, rows in cs.PARQUET_CODEC_FIXTURES:
+        path = os.path.join(fixtures, f"lineitem_{rows}_{codec}.parquet")
         ubytes = _uncompressed_bytes(path)
         scan_s = _best(lambda: sum(b.num_rows for b in ParquetReader(path).batches()),
                        args.repeats)
@@ -79,6 +88,24 @@ def main(argv=None) -> int:
                                         "uncompressed_bytes": ubytes,
                                         "scan_ms": scan_s * 1e3,
                                         "mb_s": ubytes / scan_s / 1e6}
+    if args.layout_rows:
+        import tempfile
+
+        cs.SF1_ROWS = args.layout_rows
+        _, cols, dates = cs.lineitem_sf1(tdf, 1 << 20)
+        with tempfile.TemporaryDirectory() as tmp:
+            for layout in ("v1", "v2"):
+                path = os.path.join(tmp, f"lineitem_{layout}.parquet")
+                nbytes = cs.write_lineitem_parquet(path, cols, dates, layout=layout)
+                scan_s, rest_s = (
+                    _best(lambda p=path, cut=cut: sum(
+                        b.num_rows for b in ParquetReader(p, batch_size=131072,
+                                                          projection=cut).batches()),
+                          args.repeats)
+                    for cut in (None, range(6)))
+                out[f"scan_lineitem_{layout}"] = {
+                    "rows": args.layout_rows, "file_bytes": nbytes, "scan_ms": scan_s * 1e3,
+                    "scan_without_l_shipdate_ms": rest_s * 1e3}
     print(json.dumps(out))
     return 0
 

@@ -1,18 +1,27 @@
-"""Write the compressed Parquet fixtures `chip_smoke.py` reads on the card.
+"""Write the Parquet fixtures `chip_smoke.py` reads on the card.
 
     python3 scripts/port_parquet_codec_fixtures.py [OUT_DIR]
 
 Rows [0, 65,536) of `chip_smoke.lineitem_sf1`'s columns (seed 42; the
 first of its 1,000,000-row chunks, so the same rows as the full SF-1
-table), as 4 row groups of 16,384 rows written by pyarrow with
-`compression="zstd"`, `"lz4_raw"` and `"gzip"`, one file each:
-`lineitem_65536_<codec>.parquet` in OUT_DIR (default
-`tests/torch_data/parquet/`).  The card's machine has neither pyarrow
-nor a ZSTD or LZ4 compressor, so the files are committed; this script
-needs pyarrow and runs where it is installed.  l_returnflag,
-l_linestatus and l_shipdate are strings, the other four doubles, as
-`chip_smoke.write_lineitem_parquet` writes them; pyarrow stores its
-Arrow schema in each footer.
+table), as 4 row groups of 16,384 rows written by pyarrow, one file each
+in OUT_DIR (default `tests/torch_data/parquet/`):
+
+- `lineitem_65536_<codec>.parquet` with `compression=` `"zstd"`,
+  `"lz4_raw"`, `"gzip"` and `"brotli"`: l_returnflag, l_linestatus and
+  l_shipdate strings, the other four doubles, as
+  `chip_smoke.write_lineitem_parquet` writes them;
+- `lineitem_32768_v2_snappy.parquet`, the encodings of that writer's
+  "v2" layout from an independent writer: data page v2, l_shipdate a
+  date32 in DELTA_BINARY_PACKED, the four doubles BYTE_STREAM_SPLIT,
+  the two flags dictionary-coded, SNAPPY; rows [0, 32,768) only, in 2
+  row groups, since BYTE_STREAM_SPLIT doubles under SNAPPY take about
+  20 bytes a row (65,536 rows: 1,300,735 bytes).
+
+The card's machine has no pyarrow and no ZSTD, LZ4 or Brotli
+compressor, so the files are committed; this script needs pyarrow and
+runs where it is installed.  pyarrow stores its Arrow schema in each
+footer.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, ROW_GROUP = 65_536, 16_384
-CODECS = ("zstd", "lz4_raw", "gzip")
+CODECS = ("zstd", "lz4_raw", "gzip", "brotli")
+V2, V2_ROWS = "v2_snappy", 32_768
 
 
 def lineitem_rows(rows: int = ROWS):
@@ -59,6 +69,24 @@ def arrow_table(c, dates):
     })
 
 
+def arrow_table_v2(c, dates):
+    """`arrow_table`'s columns with l_shipdate a date32."""
+    import pyarrow as pa
+
+    days = np.array(dates, dtype="datetime64[D]")[c["ship"]]
+    return arrow_table(c, dates).set_column(6, "l_shipdate", pa.array(days, pa.date32()))
+
+
+def write_v2(table, path):
+    import pyarrow.parquet as pq
+
+    doubles = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+    pq.write_table(table, path, compression="snappy", row_group_size=ROW_GROUP,
+                   data_page_version="2.0", use_dictionary=["l_returnflag", "l_linestatus"],
+                   column_encoding={"l_shipdate": "DELTA_BINARY_PACKED",
+                                    **{k: "BYTE_STREAM_SPLIT" for k in doubles}})
+
+
 def main(argv) -> int:
     import pyarrow.parquet as pq
 
@@ -69,6 +97,9 @@ def main(argv) -> int:
         path = os.path.join(out, f"lineitem_{ROWS}_{codec}.parquet")
         pq.write_table(table, path, compression=codec, row_group_size=ROW_GROUP)
         print(f"{path}: {os.path.getsize(path)} bytes")
+    path = os.path.join(out, f"lineitem_{V2_ROWS}_{V2}.parquet")
+    write_v2(arrow_table_v2(*lineitem_rows(V2_ROWS)), path)
+    print(f"{path}: {os.path.getsize(path)} bytes")
     return 0
 
 

@@ -594,11 +594,27 @@ class _WS:
         return list(self.pins)
 
 
-def _advertised(mod_cluster, mod_agent, monkeypatch, qos):
+def _own_advertisement_state(monkeypatch, qos):
+    """The process-global state the advertisement reads, set here: QoS
+    on or off, the device capacity unknown (no DATAFUSION_TPU_HBM_BYTES,
+    so no headroom and no saturated flag on the CPU) and no pins in
+    either package's ledger.  Left to other tests in the process, a
+    capacity and the pins they leave can flip the saturated flag of one
+    package between two polls and re-put its record."""
+    import datafusion_tpu.obs.device as jdevice
+    import datafusion_tpu_torch.obs.device as tdevice
+
     if qos:
         monkeypatch.setenv("DATAFUSION_TPU_QOS", "1")
     else:
         monkeypatch.delenv("DATAFUSION_TPU_QOS", raising=False)
+    monkeypatch.delenv("DATAFUSION_TPU_HBM_BYTES", raising=False)
+    for ledger in (jdevice.LEDGER, tdevice.LEDGER):
+        monkeypatch.setattr(ledger, "_pins", {}, raising=False)
+
+
+def _advertised(mod_cluster, mod_agent, monkeypatch, qos):
+    _own_advertisement_state(monkeypatch, qos)
     client = mod_cluster.LocalClusterClient(mod_cluster.ClusterState())
     ws = _WS()
     agent = mod_agent.WorkerClusterAgent(client, "w:1", ws, ttl_s=30.0)
@@ -628,6 +644,34 @@ def test_pin_advertisement_matches_jax(monkeypatch, qos):
         assert got[2]["pins"] == ["table:hot", "table:warm"]
     else:
         assert "pins" not in got[0]
+
+
+def test_pin_advertisement_ignores_a_leaked_capacity_and_pins(monkeypatch):
+    """A capacity in the environment and a 1 MiB pin in both ledgers, as
+    an earlier test in the process could leave them, and the JAX
+    ledger's live bytes crossing that capacity from one read to the next
+    (its entries go as the collector frees arrays): the advertisement
+    still matches the JAX package's, record for record."""
+    import itertools
+
+    import datafusion_tpu.obs.device as jdevice
+    import datafusion_tpu_torch.obs.device as tdevice
+    from datafusion_tpu_torch.cluster import agent as tagent
+
+    monkeypatch.setenv("DATAFUSION_TPU_HBM_BYTES", str(2 << 20))
+    for ledger in (jdevice.LEDGER, tdevice.LEDGER):
+        # a copy of the pins the teardown throws away, with the leak in it
+        monkeypatch.setattr(ledger, "_pins", dict(getattr(ledger, "_pins", None) or {}),
+                            raising=False)
+        ledger.pin("table:leaked", nbytes=1 << 20)
+    drift = itertools.cycle([1 << 20, 3 << 20])
+    monkeypatch.setattr(jdevice.LEDGER, "live_bytes", lambda: next(drift))
+    assert tdevice.LEDGER.headroom() == 1 << 20  # as left
+    got = _advertised(tcluster, tagent, monkeypatch, True)
+    want = _advertised(jcluster, jagent, monkeypatch, True)
+    assert got == want
+    assert got[0]["pins"] == ["table:hot"] and got[1]
+    assert got[2]["pins"] == ["table:hot", "table:warm"]
 
 
 def test_heartbeat_telemetry_piggyback_and_expiry():

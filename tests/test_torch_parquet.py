@@ -20,8 +20,10 @@ through `ctx.sql_collect` (floats within rtol 1e-9).
 Then what only the port has: a projected scan never reads an
 unprojected column chunk (one overwritten with garbage changes no
 answer), a ZSTD file reads as the JAX package reads it and a corrupt
-ZSTD page raises IoError naming the codec and the column, BROTLI and
-LZO chunks raise IoError naming the codec and the column, nested fields
+ZSTD page raises IoError naming the codec and the column, a BROTLI file
+reads as the JAX package reads it and a corrupt BROTLI page raises
+IoError naming the codec and the column, an LZO chunk raises IoError
+naming the codec and the column, nested fields
 raise ExecutionError as in the JAX package, `chip_smoke.py`'s Parquet
 writer gives a file that pyarrow reads back as `lineitem_sf1`'s
 columns, the fixtures equal their CSV twins but for the one cell that
@@ -513,15 +515,31 @@ def test_zstd_raises_io_error_naming_the_codec(tmp_path):
 
 @pytest.mark.parametrize("codec", ["BROTLI", "LZO"])
 def test_brotli_and_lzo_raise_io_error_naming_the_codec(tmp_path, codec):
-    """No decoder reads BROTLI (ROADMAP queue 1, item 19) or LZO (which
-    pyarrow does not read either): the scan raises IoError naming the
-    codec and the column."""
+    """BROTLI reads (the decoder of `native/codecs.cpp`) with the JAX
+    package's rows, and a BROTLI page that does not decode raises
+    IoError naming the codec and the column; LZO, which pyarrow does not
+    read either, raises IoError naming the codec and the column."""
     path = str(tmp_path / "b.parquet")
     pq.write_table(pa.table({"a": pa.array(np.arange(100))}), path, compression="brotli")
-    if codec == "LZO":  # no writer here writes LZO: relabel the BROTLI chunk
-        _patch_codec(path, 4, 3)
-        assert pq.ParquetFile(path).metadata.row_group(0).column(0).compression == "LZO"
     ctx = tdf.ExecutionContext(device="cpu", result_cache=False)
+    if codec == "BROTLI":
+        assert_same_read(path)
+        ctx.sql(f"CREATE EXTERNAL TABLE b STORED AS PARQUET LOCATION '{path}'")
+        assert ctx.sql_collect("SELECT a FROM b").to_rows() == [(i,) for i in range(100)]
+        blob = bytearray(open(path, "rb").read())
+        md = pq.ParquetFile(path).metadata.row_group(0).column(0)
+        start = min(o for o in (md.dictionary_page_offset, md.data_page_offset) if o)
+        end = start + md.total_compressed_size
+        blob[end - 4:end] = b"\xff\xff\xff\xff"  # the last page's stream, cut short
+        bad = str(tmp_path / "bad.parquet")
+        with open(bad, "wb") as f:
+            f.write(blob)
+        ctx.sql(f"CREATE EXTERNAL TABLE bad STORED AS PARQUET LOCATION '{bad}'")
+        with pytest.raises(tdf.IoError, match=r"column 'a'.*BROTLI"):
+            ctx.sql_collect("SELECT a FROM bad")
+        return
+    _patch_codec(path, 4, 3)  # no writer here writes LZO: relabel the BROTLI chunk
+    assert pq.ParquetFile(path).metadata.row_group(0).column(0).compression == "LZO"
     ctx.sql(f"CREATE EXTERNAL TABLE b STORED AS PARQUET LOCATION '{path}'")
     with pytest.raises(tdf.IoError, match=rf"column 'a': compression codec {codec} is not"):
         ctx.sql_collect("SELECT a FROM b")

@@ -279,6 +279,25 @@ def test_mutated_arrow_schema_values_give_io_error_or_a_schema():
     assert outcomes["raised"] > 0 and outcomes["decoded"] > 0, outcomes
 
 
+FAR_ZONES = ["Europe/Berlin", "America/New_York", "Asia/Kolkata", "Australia/Lord_Howe"]
+
+
+@pytest.mark.parametrize("tz", FAR_ZONES, ids=lambda z: z.replace("/", "_"))
+def test_zoned_timestamps_far_from_the_zone_files_transitions_read_as_the_jax_reader(
+        tmp_path, tz):
+    """Instants before a zone's first transition (local mean time, an
+    offset with seconds, which pyarrow prints without them) and after
+    the last transition its TZif file lists (2037 for most zones, past
+    which pyarrow keeps that transition's offset where zoneinfo applies
+    the file's daylight saving rule) read as the JAX package reads them."""
+    years = (1700, 1850, 1893, 1916, 1945, 2036, 2037, 2038, 2050, 2087, 2300)
+    ms = [int((np.datetime64(f"{y}-{m:02d}-15T12:30:45") - np.datetime64("1970-01-01T00:00"))
+              / np.timedelta64(1, "ms")) for y in years for m in (1, 4, 7, 10)]
+    path = str(tmp_path / "far.parquet")
+    pq.write_table(pa.table({"ts": pa.array(ms, pa.timestamp("ms", tz=tz))}), path)
+    assert_same_read(path, None, 9)
+
+
 def test_a_zone_without_data_raises_io_error_naming_it(tmp_path):
     path = str(tmp_path / "z.parquet")
     pq.write_table(pa.table({"ts": pa.array([0, 1], pa.timestamp("ms", tz="Mars/Olympus"))}),

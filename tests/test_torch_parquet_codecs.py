@@ -1,5 +1,5 @@
 """PyTorch/CUDA port: the Parquet page decompressors of
-`native/codecs.cpp` (GZIP, ZSTD, LZ4_RAW, LZ4), on the CPU.
+`native/codecs.cpp` (GZIP, ZSTD, LZ4_RAW, LZ4, BROTLI), on the CPU.
 
 The decoders first, through the test entry `native.parquet.decompress`
 (`dtf_pq_decompress`, used by no read), against the standard library's
@@ -14,12 +14,20 @@ inputs cover what the writers here do not emit: gzip members in a row,
 zlib's preset dictionary, bad checksums and lengths, ZSTD frames
 concatenated and with skippable frames, a content checksum (XXH64), a
 dictionary ID, raw and RLE blocks, and Hadoop-framed LZ4 blocks with
-parquet-cpp's fall back to one raw block.
+parquet-cpp's fall back to one raw block.  BROTLI against pyarrow's
+`Codec("brotli", level)` at every level from 0 to 11 on the same inputs,
+and against this machine's libbrotlienc (ctypes) at every window size
+from 10 to 24 bits in its generic, text and font modes (skipped where
+the library cannot be loaded); hand-built streams with metadata and
+uncompressed meta-blocks; faults (a large-window header, a cut stream,
+nonzero padding) raise as pyarrow raises; the committed tables of
+`brotli_dictionary.cpp` equal libbrotlicommon's.
 
 Then files: pyarrow writes the typed columns of
 `tests/test_torch_parquet.py` (with and without NULLs, data page v1
-and v2, dictionary on and off) with GZIP, ZSTD and LZ4_RAW, ZSTD at
-every level from 1 to 22, and the SF 0.05 lineitem in each codec; an
+and v2, dictionary on and off) with GZIP, ZSTD, LZ4_RAW and BROTLI, ZSTD at
+every level from 1 to 22, BROTLI at every level from 0 to 11, and the
+SF 0.05 lineitem in each codec; an
 LZ4_RAW file relabelled LZ4 (parquet-cpp's raw fall back) and
 `chip_smoke.py`'s writer with Hadoop-framed LZ4 pages; every one reads
 through the port to the JAX package's batches bit for bit.  The
@@ -55,7 +63,7 @@ from datafusion_tpu_torch.native.parquet import decompress
 from test_torch_parquet import (BATCH, REPO, ROW_GROUP, ROWS, _patch_codec, _type_columns,
                                 assert_same_read, read_all)
 
-GZIP, LZ4, ZSTD, LZ4_RAW = 2, 5, 6, 7
+GZIP, BROTLI, LZ4, ZSTD, LZ4_RAW = 2, 4, 5, 6, 7
 FIXTURES = os.path.join(REPO, "tests", "torch_data", "parquet")
 
 
@@ -300,9 +308,185 @@ def test_lz4_hadoop_framing_that_does_not_cover_the_page_falls_back_and_raises()
         decompress(LZ4_RAW, b"\x0f\x00\x00", 19)
 
 
+# ------------------------------------------------------------ BROTLI
+
+@pytest.mark.parametrize("level", range(12))
+@pytest.mark.parametrize("name", sorted(INPUTS))
+def test_brotli_matches_pyarrow(name, level):
+    raw = INPUTS[name]
+    comp = pa.Codec("brotli", compression_level=level).compress(raw, asbytes=True)
+    _same_and_exact(BROTLI, comp, raw)
+
+
+def _libbrotli(name):
+    import ctypes
+
+    try:
+        return ctypes.CDLL(name)
+    except OSError as e:
+        pytest.skip(f"{name} cannot be loaded here ({e}): no reference encoder")
+
+
+def _brotli_compress(raw, quality, lgwin, mode):
+    """`raw` through libbrotlienc's BrotliEncoderCompress (mode 0
+    generic, 1 text, 2 font)."""
+    import ctypes
+
+    enc = _libbrotli("libbrotlienc.so.1")
+    enc.BrotliEncoderMaxCompressedSize.restype = ctypes.c_size_t
+    enc.BrotliEncoderMaxCompressedSize.argtypes = [ctypes.c_size_t]
+    enc.BrotliEncoderCompress.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_size_t, ctypes.c_char_p,
+                                          ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p]
+    cap = enc.BrotliEncoderMaxCompressedSize(len(raw)) or len(raw) + 1024
+    out, size = ctypes.create_string_buffer(cap), ctypes.c_size_t(cap)
+    assert enc.BrotliEncoderCompress(quality, lgwin, mode, len(raw), raw, ctypes.byref(size), out)
+    return out.raw[:size.value]
+
+
+def _window_input():
+    """Text, random bytes, a long run and the text again at distances
+    past the small windows (and past 2^16 for the large ones)."""
+    text = open(os.path.join(REPO, "README.md"), "rb").read()[:90_000]
+    rng = np.random.default_rng(31)
+    return (text + rng.bytes(50_000) + text[::-1] + bytes(70_000) + text) * 3
+
+
+@pytest.mark.parametrize("lgwin", range(10, 25))
+def test_brotli_every_window_size_of_libbrotlienc(lgwin):
+    raw = _window_input()
+    for quality in (1, 4, 9, 11):
+        for mode in (0, 1, 2):
+            comp = _brotli_compress(raw, quality, lgwin, mode)
+            assert decompress(BROTLI, comp, len(raw)) == raw, (quality, mode)
+
+
+def test_committed_brotli_tables_equal_libbrotlicommons():
+    """`brotli_dictionary.cpp` holds the dictionary that
+    BrotliGetDictionary() gives (RFC 7932's length and SHA-256), and the
+    script writes that file again byte for byte."""
+    import hashlib
+
+    _libbrotli("libbrotlicommon.so.1")
+    spec = importlib.util.spec_from_file_location(
+        "port_brotli_dictionary", os.path.join(REPO, "scripts", "port_brotli_dictionary.py"))
+    bd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bd)
+    data, transforms, lut = bd.extract()
+    committed = bd.parse_dictionary()
+    assert committed == data and len(committed) == 122_784
+    assert hashlib.sha256(committed).hexdigest() == bd.SHA256
+    assert len(transforms) == 121 and transforms[5] == (b"", 0, b" the ")
+    with open(bd.OUT, encoding="ascii") as f:
+        assert f.read() == bd.render(data, transforms, lut)
+
+
+class _Bits:
+    """A Brotli bit writer: fields least significant bit first."""
+
+    def __init__(self):
+        self.acc, self.n = 0, 0
+
+    def put(self, value, width):
+        self.acc |= value << self.n
+        self.n += width
+        return self
+
+    def pad(self):
+        self.n += -self.n % 8
+        return self
+
+    def raw(self, data):
+        self.pad()
+        for b in data:
+            self.put(b, 8)
+        return self
+
+    def bytes(self):
+        return self.pad().acc.to_bytes(self.n // 8, "little")
+
+
+def _uncompressed_block(bits, data):
+    """A meta-block of `data` stored uncompressed (MNIBBLES 4)."""
+    return bits.put(0, 1).put(0, 2).put(len(data) - 1, 16).put(1, 1).raw(data)
+
+
+def test_brotli_metadata_and_uncompressed_meta_blocks():
+    """Hand-built streams pyarrow also reads: a metadata meta-block
+    skipped, uncompressed meta-blocks, then an empty last meta-block;
+    window bits of several sizes; bytes after the stream."""
+    a, b = INPUTS["text"][:3000], INPUTS["random"][:500]
+    for wbits in (16, 17, 10, 18, 24):
+        bits = _Bits()
+        if wbits == 16:
+            bits.put(0, 1)
+        elif wbits == 17:
+            bits.put(1, 1).put(0, 3).put(0, 3)
+        elif wbits < 16:
+            bits.put(1, 1).put(0, 3).put(wbits - 8, 3)
+        else:
+            bits.put(1, 1).put(wbits - 17, 3)
+        bits.put(0, 1).put(3, 2).put(0, 1).put(1, 2).put(4, 8).raw(b"meta!")  # 5 bytes skipped
+        _uncompressed_block(bits, a)
+        _uncompressed_block(bits, b)
+        stream = bits.put(1, 1).put(1, 1).bytes()  # ISLAST, ISLASTEMPTY
+        assert pa.Codec("brotli").decompress(stream, len(a + b), asbytes=True) == a + b
+        _same_and_exact(BROTLI, stream, a + b)
+        # bytes after the stream are not read, by pyarrow nor here
+        assert pa.Codec("brotli").decompress(stream + b"xyz", len(a + b), asbytes=True) == a + b
+        assert decompress(BROTLI, stream + b"xyz", len(a + b)) == a + b
+
+
+BROTLI_FAULTS = {  # stream from a valid one, message
+    "large_window": (lambda s: bytes([0x11]) + s[1:], "large-window"),
+    "truncated": (lambda s: s[:len(s) // 2], "truncated"),
+    "padding_bits": (lambda s: s[:-1] + bytes([s[-1] | 0x80]), "padding"),
+    "empty": (lambda s: b"", "truncated"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(BROTLI_FAULTS))
+def test_brotli_faults_raise(fault):
+    raw = INPUTS["text"][:3000]
+    bits = _Bits().put(0, 1)
+    stream = _uncompressed_block(bits, raw).put(1, 1).put(1, 1).bytes()
+    make, match = BROTLI_FAULTS[fault]
+    bad = make(stream)
+    with pytest.raises(tdf.IoError, match=match):
+        decompress(BROTLI, bad, len(raw))
+    with pytest.raises(OSError):  # pyarrow refuses it too
+        assert pa.Codec("brotli").decompress(bad, len(raw), asbytes=True) == raw
+
+
+def test_corrupt_brotli_pages_raise_io_error_naming_brotli_and_the_column(tmp_path):
+    path = str(tmp_path / "b.parquet")
+    words = INPUTS["text"][:50_000].decode("latin-1").split(" ")
+    pq.write_table(pa.table({"col_b": pa.array(words, pa.string())}), path,
+                   compression="brotli", use_dictionary=False)
+    assert_same_read(path)
+    md = pq.ParquetFile(path).metadata.row_group(0).column(0)
+    blob = bytearray(open(path, "rb").read())
+    end = md.data_page_offset + md.total_compressed_size
+    named = 0
+    for at in range(end - 200, end, 7):  # inside the last page's stream
+        bad = bytearray(blob)
+        bad[at] ^= 0x5A
+        p = str(tmp_path / "bad.parquet")
+        with open(p, "wb") as f:
+            f.write(bad)
+        try:
+            read_all(tdf.io.readers.ParquetReader(p))
+        except tdf.IoError as e:
+            # a flipped literal decodes (Brotli has no checksum) and the
+            # values' decoder may be the one to refuse the page
+            assert "column 'col_b'" in str(e), str(e)
+            named += "BROTLI" in str(e)
+    assert named > 0
+
+
 # ------------------------------------------------------------ files
 
-CODECS = ["gzip", "zstd", "lz4_raw"]
+CODECS = ["gzip", "zstd", "lz4_raw", "brotli"]
 VARIANTS = [(nulls, version, dictionary) for nulls in (False, True)
             for version in ("1.0", "2.0") for dictionary in (True, False)]
 
@@ -326,7 +510,7 @@ def test_every_type_every_codec_equals_the_jax_reader(typed_tables, tmp_path, va
     pq.write_table(typed_tables[variant], path, data_page_version=version, compression=codec,
                    use_dictionary=dictionary, row_group_size=ROW_GROUP, data_page_size=4096)
     md = pq.ParquetFile(path).metadata
-    want = {"gzip": "GZIP", "zstd": "ZSTD", "lz4_raw": "LZ4"}[codec]
+    want = {"gzip": "GZIP", "zstd": "ZSTD", "lz4_raw": "LZ4", "brotli": "BROTLI"}[codec]
     assert md.row_group(0).column(0).compression == want
     sizes = assert_same_read(path)
     assert sum(sizes) == ROWS and max(sizes) <= BATCH
@@ -336,6 +520,14 @@ def test_every_type_every_codec_equals_the_jax_reader(typed_tables, tmp_path, va
 def test_zstd_every_level_equals_the_jax_reader(typed_tables, tmp_path, level):
     path = str(tmp_path / "z.parquet")
     pq.write_table(typed_tables[(True, "2.0", True)], path, compression="zstd",
+                   compression_level=level, row_group_size=ROW_GROUP, data_page_size=16384)
+    assert_same_read(path)
+
+
+@pytest.mark.parametrize("level", range(12))
+def test_brotli_every_level_equals_the_jax_reader(typed_tables, tmp_path, level):
+    path = str(tmp_path / "b.parquet")
+    pq.write_table(typed_tables[(True, "2.0", False)], path, compression="brotli",
                    compression_level=level, row_group_size=ROW_GROUP, data_page_size=16384)
     assert_same_read(path)
 
