@@ -75,11 +75,24 @@ which raises on failure:
    kernel.
 7. Bench config 1: a 2,000,000-row cities CSV (benchmarks/data.py's
    distributions, seed 7, written by this script under build/), scanned
-   by the native CSV parser (built on first use with g++) in batches of
-   2^19 rows, filtered and projected on cuda:0: one cold warm-up run,
-   then three cold runs that each parse the file, against numpy over
-   the generated columns, exactly.  Then the reference's own example
-   over test/data/uk_cities.csv: 18 rows, equal to a parse of the file.
+   by the port's CSV reader (datafusion_tpu_torch/native/csv.cpp, built
+   on first use with g++) in batches of 2^19 rows, filtered and
+   projected on cuda:0: one cold warm-up run, then three cold runs that
+   each parse the file, against numpy over the generated columns,
+   exactly.  Then the reference's own example over
+   test/data/uk_cities.csv: 18 rows, equal to a parse of the file.
+7b. The CSV reader's parity (after phase 7, `phase_csv_parity`): an
+   edge corpus (pyarrow's null spellings bare and quoted in every column
+   type, each type's number or bool grammar with blanks, Float32 rounded
+   once from the text, values each type refuses, LF, CRLF and bare-CR
+   records, blank lines, quoted newlines and doubled quotes, a ragged
+   record, headers matched by name, a file of many 4 KiB blocks and one
+   whose block edge falls between a CR and its LF) read at 1 thread and
+   at the default against `csv_oracle` (the csv module and the null
+   list: values, validity, codes, dictionaries batch by batch, batch
+   boundaries, and every IoError); then the scan alone of config 1's
+   file and of phase 12's SF-1 lineitem CSV, 3 runs each at 1 thread and
+   at the default, in turns.  `csv_parity` and `csv_scan_timing` lines.
 8. A filter and a computed projection over the SF-1 lineitem of phase 3
    against numpy: strings and floats of the input exactly, the product
    within rtol 1e-9; with its device and host profile.
@@ -285,6 +298,7 @@ import functools
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1786,6 +1800,322 @@ def phase_csv(tdf, cuda_mod, torch, smi):
         raise AssertionError(f"uk_cities: {len(got)} rows differ from the file's parse")
     log("uk_cities example: 18 rows match a parse of the file")
     return rep, (path, schema, oracle)
+
+
+# ------------------------------------------------------------ phase 7b
+
+
+# pyarrow's ConvertOptions.null_values default: the spellings the JAX
+# package's default CSV reader reads as NULL, in every column type
+CSV_NULLS = ("", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+             "1.#QNAN", "N/A", "NA", "NULL", "NaN", "n/a", "nan", "null")
+CSV_BOOLS = {"1": True, "True": True, "TRUE": True, "true": True,
+             "0": False, "False": False, "FALSE": False, "false": False}
+CSV_INTS = {"Int8": (8, True), "Int16": (16, True), "Int32": (32, True), "Int64": (64, True),
+            "UInt8": (8, False), "UInt16": (16, False), "UInt32": (32, False),
+            "UInt64": (64, False)}
+CSV_TYPES = ("Boolean",) + tuple(CSV_INTS) + ("Float32", "Float64", "Utf8")
+CSV_NP = {"Boolean": np.bool_, "Int8": np.int8, "Int16": np.int16, "Int32": np.int32,
+          "Int64": np.int64, "UInt8": np.uint8, "UInt16": np.uint16, "UInt32": np.uint32,
+          "UInt64": np.uint64, "Float32": np.float32, "Float64": np.float64}
+CSV_GOOD = {  # values each type must read, blanks and all
+    "Boolean": ["true", "True", "TRUE", "false", "False", "FALSE", "1", "0"],
+    "Int8": ["127", "-128", " 4 ", "4 ", "\t-7", "007"],
+    "Int16": ["32767", "-32768", " 12"],
+    "Int32": ["2147483647", "-2147483648", "0"],
+    "Int64": ["9223372036854775807", "-9223372036854775808", " 4 ", "4 ", "-0"],
+    "UInt8": ["255", "0", " 5 "],
+    "UInt16": ["65535", "000255"],
+    "UInt32": ["4294967295"],
+    "UInt64": ["18446744073709551615", "12"],
+    "Float32": ["1.00000005960464477539062500001", "3.4028235677973366e38",
+                "3.4028234663852886e38", "1e-46", "1.4e-45", "0.1", "16777217",
+                "0.333333333333333333", " 2.5 ", "-.5", "5.", "1e10", "-0", "inf", "-inf"],
+    "Float64": [" 1.5 ", "\t1.5\t", "1.5", "1e5", "1E5", ".5", "-.5", "+1.5", "1.5e-3",
+                "0.30000000000000004", "9007199254740993", "4.9e-324", "2.5e-324",
+                "1.7976931348623157e308", "1e400", "-0", "inf", "-inf"],
+    "Utf8": ["x", " a ", "a\tb", "ü中\U0001f600", "a,b", 'say "hi"', "two\nlines",
+             "cr\r\nlf", "None", "NAN", "x"],
+}
+CSV_BAD = (  # (type, field as written): every one an IoError in both packages
+    ("Int64", b"+3"), ("Float64", b"0x10"), ("Utf8", b"\xff\xfe"), ("Int8", b"128"),
+    ("Int8", b"-129"), ("UInt8", b"-1"), ("UInt64", b"18446744073709551616"),
+    ("Int64", b"1.0"), ("Float64", b"1e"), ("Float64", b"1.5.5"), ("Boolean", b"yes"),
+    ("Boolean", b" true"), ("Utf8", b"\xed\xa0\x80"), ("Int64", b"9223372036854775808"),
+)
+CSV_FLOAT = re.compile(r"[+-]?(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?\Z")
+
+
+def _f32_from_text(text):
+    """The float32 nearest the decimal `text` (ties to even), rounded
+    once from the text."""
+    from fractions import Fraction
+
+    q = Fraction(text)
+    if abs(q) >= Fraction(2 ** 128 - 2 ** 103):  # past the halfway point above max
+        return np.float32(-np.inf if q < 0 else np.inf)
+    f = np.float32(np.clip(float(q), -np.finfo(np.float32).max, np.finfo(np.float32).max))
+    best = None
+    with np.errstate(over="ignore"):
+        around = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    for c in around:
+        if not np.isfinite(c):
+            continue
+        d = abs(Fraction(float(c)) - q)
+        if (best is None or d < best[0]
+                or (d == best[0] and int(c.view(np.uint32)) % 2 == 0)):
+            best = (d, c)
+    out = best[1]
+    return np.float32(-0.0) if out == 0 and text.lstrip().startswith("-") else out
+
+
+def csv_oracle_value(type_name, field):
+    """One field as the JAX package's default reader converts it: None
+    for NULL; ValueError for what it refuses."""
+    if field in CSV_NULLS:
+        return None
+    if type_name == "Utf8":
+        field.encode("utf-8")  # a lone surrogate escape: invalid UTF-8
+        return field
+    if type_name == "Boolean":
+        return CSV_BOOLS[field] if field in CSV_BOOLS else _refuse(field)
+    v = field.strip(" \t")
+    if type_name in CSV_INTS:
+        bits, signed = CSV_INTS[type_name]
+        lo, hi = (-(1 << bits - 1), (1 << bits - 1) - 1) if signed else (0, (1 << bits) - 1)
+        body = v[1:] if signed and v.startswith("-") else v
+        if not body.isascii() or not body.isdigit() or not lo <= int(v) <= hi:
+            _refuse(field)
+        return int(v)
+    if v.lower() in ("inf", "+inf", "-inf"):
+        return float(v)
+    if not CSV_FLOAT.match(v):
+        _refuse(field)
+    return _f32_from_text(v) if type_name == "Float32" else float(v)
+
+
+def _refuse(field):
+    raise ValueError(f"refused: {field!r}")
+
+
+def csv_oracle(data, fields, has_header):
+    """What the JAX package's default reader reads from the bytes `data`
+    over `fields` [(name, type name)]: the csv module splits the records
+    (LF, CRLF or a bare CR, quotes), blank lines are skipped, a header
+    matches the columns by name, and each field converts by
+    `csv_oracle_value`.  Returns per column (values, validity, codes,
+    dictionary in first-seen order); raises ValueError for what the
+    reader refuses."""
+    import csv
+
+    text = data.decode("utf-8", "surrogateescape")
+    records = [r for r in csv.reader(io.StringIO(text, newline=""), strict=True) if r]
+    index = list(range(len(fields)))
+    width = len(fields)
+    if has_header:
+        header, records = records[0], records[1:]
+        width = len(header)
+        index = [header.index(name) for name, _ in fields]
+    out = []
+    for _ in fields:
+        out.append(([], [], [], {}))
+    for r in records:
+        if len(r) != width:
+            _refuse(r)
+        for (name, t), i, (vals, valid, codes, dic) in zip(fields, index, out):
+            v = csv_oracle_value(t, r[i])
+            valid.append(v is not None)
+            if t == "Utf8":
+                codes.append(0 if v is None else dic.setdefault(v, len(dic)))
+            vals.append(v)
+    return [(vals, valid, codes, list(dic)) for vals, valid, codes, dic in out]
+
+
+def _csv_parity_files():
+    """The edge corpus as (name, bytes, fields, has_header, batch_size,
+    block_size or None)."""
+    files = []
+    for t in CSV_TYPES:
+        good = CSV_GOOD[t]
+        rows = [b"id,v"]
+        for i, s in enumerate(CSV_NULLS):  # every null spelling, bare and quoted
+            rows += [b"%d,%s" % (2 * i, s.encode()), b'%d,"%s"' % (2 * i + 1, s.encode())]
+        for i, s in enumerate(good):
+            quoted = any(c in s for c in ',"\r\n') or t == "Utf8" and i % 2
+            s = s.encode()
+            rows.append(b"%d,%s" % (100 + i, b'"' + s.replace(b'"', b'""') + b'"'
+                                    if quoted else s))
+        files.append((f"values_{t}", b"\n".join(rows) + b"\n", [("id", "Int64"), ("v", t)],
+                      True, 5, None))
+    for k, (t, field) in enumerate(CSV_BAD):
+        files.append((f"bad_{k}_{t}", b"id,v\n1," + field + b"\n",
+                      [("id", "Int64"), ("v", t)], True, 5, None))
+    s2 = [("a", "Utf8"), ("b", "Int64")]
+    for name, data in (("lf", b"a,1\nb,2\n"), ("crlf", b"a,1\r\nb,2\r\n"),
+                       ("bare_cr", b"a,1\rb,2\r"), ("mixed", b"a,1\nb,2\r\nc,3\rd,4"),
+                       ("blank_lines", b"\n\na,1\n\r\n\nb,2\n\n"),
+                       ("quoted_newlines", b'"a\nx",1\r"b\r\ny",2\n"c\rz",3\n'),
+                       ("doubled_quotes", b'"a""q",1\n"",2\n'),
+                       ("ragged", b"a,1\nb\n")):
+        files.append((f"records_{name}", data, s2, False, 2, None))
+    files.append(("header_swapped", b"b,a\n1,2\n3,4\n", [("a", "Int64"), ("b", "Int64")],
+                  True, 2, None))
+    files.append(("header_by_name", b"s,w,v\r\nx,9,2\ry,8,3\n", [("v", "Int64"), ("s", "Utf8")],
+                  True, 1, None))
+    files.append(("header_missing", b"s,w\nx,2\n", [("v", "Int64"), ("s", "Utf8")],
+                  True, 1, None))
+    # many blocks: new names keep appearing, quoted fields with
+    # delimiters, doubled quotes and newlines, CRLF and LF, blank lines
+    rng = np.random.default_rng(23)
+    rows = [b"id,name,value,flag\r\n"]
+    specials = [b'"with, comma"', b'"say ""hi"""', b'"two\nlines"', b'"crlf\r\ninside"', b"NA"]
+    for i in range(20_000):
+        r = rng.random()
+        name = (specials[int(rng.integers(len(specials)))] if r < 0.1
+                else b"name_%d" % int(rng.integers(0, 1 + i // 4)))
+        v = rng.random()
+        value = (b"NaN" if v < 0.03 else b"NULL" if v < 0.06
+                 else b"%r" % float(np.round(rng.normal() * 100, 3)))
+        flag = (b"true", b"false", b"", b"1", b"0")[int(rng.integers(5))]
+        rows.append(b"%d,%s,%s,%s%s" % (i, name, value, flag,
+                                        b"\r\n" if rng.random() < 0.5 else b"\n"))
+        if rng.random() < 0.01:
+            rows.append(b"\n")
+    files.append(("many_blocks", b"".join(rows),
+                  [("id", "Int64"), ("name", "Utf8"), ("value", "Float64"),
+                   ("flag", "Boolean")], True, 1000, 4096))
+    # a block edge between a row's CR and its LF (16-byte rows; the first
+    # block is block_size bytes past the header)
+    body = b"".join(b"%06d,abcdefg\r\n" % i for i in range(5000))
+    files.append(("crlf_block_edge", b"id,s\r\n" + body, [("id", "Int64"), ("s", "Utf8")],
+                  True, 777, 256 * 16 + 15))
+    return files
+
+
+def _check_csv_read(tdf, path, data, fields, header, batch_size, block_size, threads):
+    """Read `path` with the port's CsvReader at `threads` and hold it
+    against `csv_oracle`: batch boundaries, values, validity, codes, the
+    dictionaries batch by batch; or an IoError where the oracle refuses."""
+    from datafusion_tpu_torch.io.readers import CsvReader
+
+    schema = tdf.Schema([tdf.Field(n, tdf.DataType.from_json(t), True) for n, t in fields])
+    try:
+        want = csv_oracle(data, fields, header)
+    except (ValueError, KeyError):
+        want = None
+    reader = CsvReader(path, schema, header, batch_size, threads=threads, block_size=block_size)
+    try:
+        got = []
+        for b in reader.batches():
+            n = b.num_rows
+            got.append((n, [np.asarray(c)[:n].copy() for c in b.data],
+                        [np.ones(n, bool) if v is None else np.asarray(v)[:n].astype(bool)
+                         for v in b.validity],
+                        [None if d is None else len(d.values) for d in b.dicts]))
+    except tdf.IoError as e:
+        if want is None:
+            return "IoError"
+        raise AssertionError(f"IoError where the oracle reads {len(want[0][0])} rows: {e}")
+    if want is None:
+        raise AssertionError("read rows where the JAX package's reader raises")
+    total = len(want[0][0])
+    sizes = [g[0] for g in got]
+    if sizes != [batch_size] * (total // batch_size) + ([total % batch_size] if total % batch_size
+                                                         else []):
+        raise AssertionError(f"batch boundaries {sizes} for {total} rows")
+    at = 0
+    for n, cols, valids, dict_sizes in got:
+        for j, ((_, t), (vals, valid, codes, dic)) in enumerate(zip(fields, want)):
+            if not np.array_equal(valids[j], np.array(valid[at:at + n], bool)):
+                raise AssertionError(f"column {j}: validity differs at rows {at}..{at + n}")
+            ok = valids[j]
+            if t == "Utf8":
+                if cols[j].tolist() != codes[at:at + n]:
+                    raise AssertionError(f"column {j}: codes differ at rows {at}..{at + n}")
+                if dict_sizes[j] != len(set(c for c, v in zip(codes[:at + n], valid)
+                                            if v)):
+                    raise AssertionError(f"column {j}: dictionary ran ahead of its rows")
+                continue
+            w = np.array([0 if v is None else v for v in vals[at:at + n]], CSV_NP[t])
+            g = cols[j]
+            if t.startswith("Float"):
+                bits = np.dtype(f"u{g.dtype.itemsize}")
+                same = np.array_equal(g[ok].view(bits), w[ok].view(bits))
+            else:
+                same = np.array_equal(g[ok], w[ok])
+            if g.dtype != w.dtype or not same:
+                raise AssertionError(f"column {j} ({t}): values differ at rows {at}..{at + n}")
+        at += n
+    for j, (_, _, _, dic) in enumerate(want):
+        if reader.dicts[j] is not None and reader.dicts[j].values != dic:
+            raise AssertionError(f"column {j}: dictionary {reader.dicts[j].values[:8]} ...")
+    return f"{total} rows in {len(got)} batches"
+
+
+CSV_SCAN_RUNS = 3
+
+
+def phase_csv_parity(tdf, cities_path, smi):
+    """The port's CSV reader (native/csv.cpp through io/readers.CsvReader)
+    against `csv_oracle` on the edge corpus at 1 thread and at the
+    default, then the scan alone of config 1's file and of the console's
+    SF-1 lineitem CSV, CSV_SCAN_RUNS runs each at 1 thread and at the
+    default, in turns (the files were just written: warm reads)."""
+    from datafusion_tpu_torch.io.readers import CsvReader
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "chip_smoke", "csv_parity")
+    os.makedirs(out_dir, exist_ok=True)
+    t_phase = time.perf_counter()
+    files = _csv_parity_files()
+    default_threads = os.cpu_count()  # the reader's default
+    refused = 0
+    for name, data, fields, header, batch_size, block_size in files:
+        path = os.path.join(out_dir, f"{name}.csv")
+        with open(path, "wb") as f:
+            f.write(data)
+        for threads in (1, default_threads):
+            what = _check_csv_read(tdf, path, data, fields, header, batch_size, block_size,
+                                   threads)
+        refused += what == "IoError"
+    rep = {"files": len(files), "refused": refused, "threads": [1, default_threads],
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    log("csv_parity: " + json.dumps(rep))
+    if refused != len(CSV_BAD) + 2:  # the ragged record and the missing header name
+        raise AssertionError(f"csv_parity: {refused} refused reads")
+
+    D = tdf.DataType
+    scans = (
+        ("config1", cities_path, 1 << 19, CONFIG1_ROWS,
+         [("city", D.UTF8), ("lat", D.FLOAT64), ("lng", D.FLOAT64)]),
+        ("lineitem_sf1", os.path.join(here, "build", "chip_smoke",
+                                      f"lineitem_q1_{SF1_ROWS}.csv"), 131_072, SF1_ROWS,
+         [("l_returnflag", D.UTF8), ("l_linestatus", D.UTF8), ("l_quantity", D.FLOAT64),
+          ("l_extendedprice", D.FLOAT64), ("l_discount", D.FLOAT64), ("l_tax", D.FLOAT64),
+          ("l_shipdate", D.UTF8)]),
+    )
+    for label, path, batch_size, rows, fields in scans:
+        schema = tdf.Schema([tdf.Field(n, t, False) for n, t in fields])
+        ms = {1: [], default_threads: []}
+        for _ in range(CSV_SCAN_RUNS):
+            for threads in ms:
+                t0 = time.perf_counter()
+                n = sum(b.num_rows for b in CsvReader(path, schema, True, batch_size,
+                                                      threads=threads).batches())
+                ms[threads].append((time.perf_counter() - t0) * 1e3)
+                if n != rows:
+                    raise AssertionError(f"{label}: {n} rows, want {rows}")
+        size = os.path.getsize(path)
+        p50 = {t: float(np.median(v)) for t, v in ms.items()}
+        log("csv_scan_timing: " + json.dumps({
+            "file": label, "rows": rows, "bytes": size, "batch_size": batch_size,
+            "block_size": max(1 << 20, batch_size * 64), "threads_default": default_threads,
+            "ms_1_thread": ms[1], "ms_default": ms[default_threads],
+            "p50_ms_1_thread": p50[1], "p50_ms_default": p50[default_threads],
+            "mb_per_s_1_thread": size / p50[1] / 1e3,
+            "mb_per_s_default": size / p50[default_threads] / 1e3,
+            "warm_read": True, "card": smi}))
+    log(f"csv_parity_phase: {time.perf_counter() - t_phase:.3f} s ({smi})")
 
 
 # ------------------------------------------------------------ phase 8
@@ -6012,6 +6342,7 @@ def main() -> int:
     reports += phase_parquet(tdf, cuda_mod, torch, li_cols, dates, smi)
     csv_rep, cities = phase_csv(tdf, cuda_mod, torch, smi)
     reports.append(csv_rep)
+    phase_csv_parity(tdf, cities[0], smi)
     reports += phase_explain(tdf, cuda_mod, torch, ctx, li_src, li_cols, dates, star_cols,
                              cities, smi)
     reports += phase_ingest(tdf, cuda_mod, torch, li_src, li_cols, dates, smi)

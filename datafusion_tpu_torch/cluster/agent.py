@@ -33,11 +33,16 @@ its pin manifest before registering advertises ``pins_rehydrated`` in
 its membership record.
 
 Storm control: consecutive heartbeat failures back the loop off with
-capped full jitter (never past one TTL), and a re-registration from
-the background loop staggers a bounded random delay first — a mass
-lease lapse across a failover reaches the new primary as a spread-out
-trickle, not one synchronized re-register burst
-(``DATAFUSION_TPU_CLUSTER_REREG_JITTER_S`` caps the stagger).
+capped full jitter, and a re-registration from the background loop
+staggers a bounded random delay first — a mass lease lapse across a
+failover reaches the new primary as a spread-out trickle, not one
+synchronized re-register burst (``DATAFUSION_TPU_CLUSTER_REREG_JITTER_S``
+caps the stagger).  The
+backoff never passes one refresh interval while the agent holds a
+lease: a promoted standby re-arms that lease with its shipped remaining
+TTL, at least TTL - refresh after a healthy beat, so a longer wait
+would lapse a live lease across the failover.  Only an agent without a
+lease (registration failing) backs off up to one TTL.
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ class WorkerClusterAgent:
         # backoff below so a fleet whose leases lapsed together (mass
         # expiry across a failover) re-registers SPREAD over a window
         # instead of stampeding the new primary in one synchronized
-        # burst.  Capped at one TTL: a worker never sits out longer
-        # than the liveness signal it is trying to maintain.
+        # burst.  Capped at one refresh interval while a lease is held
+        # (it must reach a promoted standby inside the remaining TTL
+        # that standby re-arms), at one TTL while none is.
         self._failures = 0
         self._backoff_cap_s = max(self.ttl_s, self.refresh_s)
         env = os.environ.get("DATAFUSION_TPU_CLUSTER_REREG_JITTER_S", "")
@@ -287,16 +293,17 @@ class WorkerClusterAgent:
     def _retry_delay_s(self) -> float:
         """The wait before the next heartbeat cycle: the plain refresh
         interval when healthy; after consecutive failures, capped
-        full-jitter backoff (never past one TTL, never a sub-50ms hot
-        loop) — the re-register storm killer for service outages."""
+        full-jitter backoff (never a sub-50ms hot loop) — the
+        re-register storm killer for service outages.  The cap is one
+        refresh interval while a lease is held, one TTL while none is."""
         from datafusion_tpu_torch.utils.retry import backoff_s
 
         if not self._failures:
             return self.refresh_s
+        cap = self.refresh_s if self.lease is not None else self._backoff_cap_s
         delay = backoff_s(min(self._failures, 6),
-                          base=self.refresh_s / 2.0,
-                          cap=self._backoff_cap_s)
-        return min(max(0.05, delay), self._backoff_cap_s)
+                          base=self.refresh_s / 2.0, cap=cap)
+        return min(max(0.05, delay), cap)
 
     # -- lifecycle --
     def _loop(self) -> None:

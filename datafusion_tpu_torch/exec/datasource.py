@@ -151,8 +151,8 @@ class FileDataSource(DataSource):
 
 
 class CsvDataSource(FileDataSource):
-    """A CSV file (reference `datasource.rs:31-50`), read by the native
-    parser."""
+    """A CSV file (reference `datasource.rs:31-50`), read by
+    io/readers.CsvReader over the port's own parser."""
 
     def __init__(
         self,
@@ -162,15 +162,14 @@ class CsvDataSource(FileDataSource):
         batch_size: int = 131072,
         projection: Optional[Sequence[int]] = None,
     ):
-        from datafusion_tpu_torch.native.csv import NativeCsvReader
+        from datafusion_tpu_torch.io.readers import CsvReader
 
         self.path = path
         self.table_schema = schema
         self.has_header = has_header
         self.batch_size = batch_size
         self.projection = list(projection) if projection is not None else None
-        self._reader = NativeCsvReader(path, schema, has_header, batch_size,
-                                       self.projection)
+        self._reader = CsvReader(path, schema, has_header, batch_size, self.projection)
 
     def with_projection(self, projection: Sequence[int]) -> "CsvDataSource":
         return CsvDataSource(self.path, self.table_schema, self.has_header,

@@ -1,22 +1,24 @@
-"""NDJSON and Parquet batch readers.
+"""CSV, NDJSON and Parquet batch readers.
 
 The counterpart of the JAX package's `io/readers.py`.  Each reader
 yields `RecordBatch`es of up to `batch_size` rows for a schema-driven
 typed parse, carrying validity masks and global string dictionaries;
 `projection` restricts which columns are parsed at all.  Batches come
 from `make_host_batch` and pin their dictionaries' versions where they
-leave the reader (`batch.pin_dict_versions`), as the CSV reader's do.
+leave the reader (`batch.pin_dict_versions`).
 
-CSV is read by the native parser (`native/csv.py`); the JAX package's
-pyarrow CSV reader is not ported.  Parquet is read by the port's own
+CSV is read by the port's own parser (`native/csv.cpp` through
+`native/csv.py`), which reads what the JAX package's default pyarrow
+reader reads, in the same batches and dictionary order, parsing blocks
+on the host's threads as pyarrow does.  Parquet is read by the port's own
 native reader (`native/parquet.py`), so no pyarrow is needed here or on
 the card's machine: pages UNCOMPRESSED or compressed with SNAPPY, GZIP,
 ZSTD, LZ4_RAW or LZ4 (BROTLI and LZO raise IoError), and the Arrow
 schema a writer stores in the footer, which names each field's type as
 pyarrow's `schema_arrow` does (a timestamp's zone, a dictionary, a
-duration).  NDJSON is plain Python.  Each Parquet and NDJSON
-batch passes the `io.read` fault site (`testing/faults.py`), as in the
-JAX package.
+duration).  NDJSON is plain Python.  Each CSV, Parquet and NDJSON
+batch passes the `io.read` fault site (`testing/faults.py`) and counts
+in `scan.rows`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from datafusion_tpu_torch.exec.batch import (
     make_host_batch,
     pin_dict_versions,
 )
+from datafusion_tpu_torch.native.csv import NativeCsvReader
 from datafusion_tpu_torch.native.parquet import ParquetFile
 from datafusion_tpu_torch.testing import faults
 from datafusion_tpu_torch.utils.metrics import METRICS
@@ -49,6 +52,33 @@ def _batch(schema: Schema, columns, validity, dicts) -> RecordBatch:
     batch = make_host_batch(schema, columns, validity, list(dicts))
     pin_dict_versions(batch)  # before the next batch grows them
     return batch
+
+
+class CsvReader(NativeCsvReader):
+    """Schema-driven typed CSV reader: the counterpart of the JAX
+    package's default reader, over the port's own parser.  Batches of
+    exactly `batch_size` rows (the last holds the rest); `threads` parse
+    blocks at once (default: the host's CPU count)."""
+
+    def __init__(
+        self,
+        path: str,
+        schema: Schema,
+        has_header: bool,
+        batch_size: int = DEFAULT_BATCH_SIZE,
+        projection: Optional[Sequence[int]] = None,
+        threads: Optional[int] = None,
+        block_size: Optional[int] = None,
+    ):
+        # the JAX package's CsvReader signature, with its default batch size
+        super().__init__(path, schema, has_header, batch_size, projection, threads,
+                         block_size)
+
+    def _batches(self) -> Iterator[RecordBatch]:
+        for batch in super()._batches():
+            faults.check("io.read", path=self.path, format="csv")
+            METRICS.add("scan.rows", batch.num_rows)
+            yield batch
 
 
 class NdJsonReader:

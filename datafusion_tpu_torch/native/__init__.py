@@ -1,9 +1,10 @@
-"""ctypes bindings for the C++ native runtime: the CSV parser, the
+"""ctypes bindings for the C++ native runtime: the CSV reader, the
 SQL front-end and the Parquet reader.
 
-The counterpart of the JAX package's `native/__init__.py`.  The
-sources at the root of the checkout, `native/datafusion_native.cpp`
-(the `dtf_csv_*` symbols) and `native/sql_frontend.cpp` (`dtf_parse_sql`,
+The counterpart of the JAX package's `native/__init__.py`.  The port's
+own CSV reader `datafusion_tpu_torch/native/csv.cpp` (`dtf_csv_*`,
+bound by `native/csv.py`), the SQL front-end at the root of the
+checkout `native/sql_frontend.cpp` (`dtf_parse_sql`,
 `dtf_plan_roundtrip`, `dtf_plan_repr`, `dtf_free`), and the port's own
 `datafusion_tpu_torch/native/parquet.cpp` (`dtf_pq_*`, bound by
 `native/parquet.py`) with its page decompressors
@@ -12,7 +13,7 @@ sources at the root of the checkout, `native/datafusion_native.cpp`
 `scripts/port_brotli_dictionary.py`) are compiled into one library on
 first use:
 
-    g++ -O3 -std=c++17 -fPIC -shared -pthread native/datafusion_native.cpp \
+    g++ -O3 -std=c++17 -fPIC -shared -pthread datafusion_tpu_torch/native/csv.cpp \
         native/sql_frontend.cpp datafusion_tpu_torch/native/parquet.cpp \
         datafusion_tpu_torch/native/codecs.cpp \
         datafusion_tpu_torch/native/brotli_dictionary.cpp
@@ -41,7 +42,7 @@ from datafusion_tpu_torch.analysis import lockcheck
 from datafusion_tpu_torch.errors import IoError
 
 REPO = Path(__file__).resolve().parents[2]
-SOURCE = REPO / "native" / "datafusion_native.cpp"
+SOURCE = Path(__file__).with_name("csv.cpp")
 SOURCES = (SOURCE, REPO / "native" / "sql_frontend.cpp", Path(__file__).with_name("parquet.cpp"),
            Path(__file__).with_name("codecs.cpp"),
            Path(__file__).with_name("brotli_dictionary.cpp"))
@@ -104,25 +105,21 @@ def build_library(build_dir: Optional[Path] = None, cxx: Optional[str] = None) -
 def _configure(lib) -> None:
     lib.dtf_csv_open.restype = ctypes.c_void_p
     lib.dtf_csv_open.argtypes = [
-        ctypes.c_char_p, ctypes.c_int32,
+        ctypes.c_char_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_char_p),
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int32,
     ]
     lib.dtf_csv_error.restype = ctypes.c_char_p
     lib.dtf_csv_error.argtypes = [ctypes.c_void_p]
     lib.dtf_csv_next.restype = ctypes.c_int64
     lib.dtf_csv_next.argtypes = [ctypes.c_void_p]
-    lib.dtf_csv_col_data.restype = ctypes.c_void_p
-    lib.dtf_csv_col_data.argtypes = [ctypes.c_void_p, ctypes.c_int32]
-    lib.dtf_csv_col_validity.restype = ctypes.c_void_p
-    lib.dtf_csv_col_validity.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    for fn in ("dtf_csv_col_data", "dtf_csv_col_validity", "dtf_csv_dict_bytes",
+               "dtf_csv_dict_offsets"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_void_p
+        f.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.dtf_csv_dict_size.restype = ctypes.c_int32
     lib.dtf_csv_dict_size.argtypes = [ctypes.c_void_p, ctypes.c_int32]
-    lib.dtf_csv_dict_value.restype = ctypes.c_void_p
-    lib.dtf_csv_dict_value.argtypes = [
-        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32),
-    ]
     lib.dtf_csv_close.restype = None
     lib.dtf_csv_close.argtypes = [ctypes.c_void_p]
     # the SQL front-end: restype c_void_p (not c_char_p) so the malloc'd

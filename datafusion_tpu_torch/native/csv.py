@@ -1,18 +1,24 @@
-"""Schema-driven CSV reader over the native C++ parser.
+"""Schema-driven CSV reader over the port's native parser.
 
 The counterpart of the JAX package's `native/csv.py`
-(`NativeCsvReader`): the parse runs in C++ (`native/datafusion_native.cpp`),
-which yields, per batch, typed column buffers, a validity byte per row
-(empty fields are NULL) and, for each Utf8 column, codes into an
-append-only string table of its own.  Those codes remap into the
-reader's `StringDictionary`s in first-seen order, so a re-scan and the
-JAX package's readers give the same codes.  A projection parses only
-the columns it names (the parser's `active` mask).
+(`NativeCsvReader`).  The parse runs in C++ (`native/csv.cpp`) with the
+semantics of the JAX package's default reader (pyarrow's, see the
+source's header): blocks of `block_size` bytes, cut at record ends, are
+parsed on `threads` host threads while the caller's thread takes them
+in file order, with the GIL released inside each `dtf_csv_next`.  Per
+batch the parser yields typed column buffers, a validity byte per row
+and, for each Utf8 column, codes into a string table of its own in
+order of first appearance across the file.  Those codes remap into the
+reader's `StringDictionary`s, so a re-scan and the JAX package's
+readers give the same codes.  A projection converts only the columns
+it names (the parser's `active` mask); with a header the schema's
+columns are found by name.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -28,12 +34,17 @@ from datafusion_tpu_torch.exec.batch import (
 from datafusion_tpu_torch.native import load_library
 from datafusion_tpu_torch.utils.metrics import METRICS
 
-# the parser's column type codes (datafusion_native.cpp ColType)
+# the parser's column type codes (csv.cpp ColType)
 _TYPE_CODE = {
     "Boolean": 0, "Int8": 1, "Int16": 2, "Int32": 3, "Int64": 4,
     "UInt8": 5, "UInt16": 6, "UInt32": 7, "UInt64": 8,
     "Float32": 9, "Float64": 10, "Utf8": 11,
 }
+
+
+def default_block_size(batch_size: int) -> int:
+    """The JAX package's pyarrow block size for a batch size."""
+    return max(1 << 20, batch_size * 64)
 
 
 def _view(ptr: int, n: int, dtype: np.dtype) -> np.ndarray:
@@ -46,7 +57,8 @@ def _view(ptr: int, n: int, dtype: np.dtype) -> np.ndarray:
 class NativeCsvReader:
     """Typed batches of a CSV file: `out_schema` is the projected
     schema; Utf8 columns keep one dictionary each across every scan
-    of this reader."""
+    of this reader.  `threads` parse blocks at once (default: the
+    host's CPU count); `block_size` defaults to the JAX package's."""
 
     def __init__(
         self,
@@ -55,6 +67,8 @@ class NativeCsvReader:
         has_header: bool,
         batch_size: int,
         projection: Optional[Sequence[int]] = None,
+        threads: Optional[int] = None,
+        block_size: Optional[int] = None,
     ):
         self.lib = load_library()
         self.path = path
@@ -62,6 +76,8 @@ class NativeCsvReader:
         self.has_header = has_header
         self.batch_size = batch_size
         self.projection = list(projection) if projection is not None else None
+        self.threads = threads or os.cpu_count() or 1
+        self.block_size = block_size or default_block_size(batch_size)
         self._out_cols = (
             list(range(len(schema))) if self.projection is None else self.projection
         )
@@ -79,25 +95,24 @@ class NativeCsvReader:
     def _batches(self) -> Iterator[RecordBatch]:
         lib = self.lib
         n_all = len(self.schema)
+        names = (ctypes.c_char_p * n_all)(*[f.name.encode() for f in self.schema.fields])
         types = (ctypes.c_int32 * n_all)(
             *[_TYPE_CODE[f.data_type.name] for f in self.schema.fields]
         )
-        active = None
-        if self.projection is not None:
-            flags = [0] * n_all
-            for i in self._out_cols:
-                flags[i] = 1
-            active = (ctypes.c_uint8 * n_all)(*flags)
+        flags = [0] * n_all
+        for i in self._out_cols:
+            flags[i] = 1
+        active = (ctypes.c_uint8 * n_all)(*flags)
         handle = lib.dtf_csv_open(
-            self.path.encode(), n_all, types, int(self.has_header),
-            self.batch_size, active,
+            self.path.encode(), n_all, names, types, int(self.has_header),
+            self.batch_size, active, self.block_size, self.threads,
         )
         try:
             err = lib.dtf_csv_error(handle)
             if err:
-                raise IoError(f"native csv: {err.decode()}")
+                raise IoError(f"native csv: {err.decode(errors='replace')}")
             # per Utf8 column: parser code -> dictionary code, grown as
-            # the parser's append-only table grows
+            # the parser's table grows
             luts = [np.empty(0, np.int32) for _ in self._out_cols]
             while True:
                 n = lib.dtf_csv_next(handle)
@@ -105,7 +120,7 @@ class NativeCsvReader:
                     err = lib.dtf_csv_error(handle)
                     raise IoError(
                         f"native csv {self.path!r}: "
-                        f"{err.decode() if err else 'parse error'}"
+                        f"{err.decode(errors='replace') if err else 'parse error'}"
                     )
                 if n == 0:
                     return
@@ -117,8 +132,6 @@ class NativeCsvReader:
                     valid = None
                     if vptr:
                         valid = _view(vptr, n, np.dtype(np.uint8)).astype(bool)
-                        if valid.all():
-                            valid = None
                     d = self.dicts[out_i]
                     if d is not None:
                         luts[out_i] = self._grow_lut(handle, src_i, d, luts[out_i])
@@ -139,9 +152,12 @@ class NativeCsvReader:
         size = self.lib.dtf_csv_dict_size(handle, src_i)
         if size == len(lut):
             return lut
-        ln = ctypes.c_int32()
-        new = []
-        for j in range(len(lut), size):
-            ptr = self.lib.dtf_csv_dict_value(handle, src_i, j, ctypes.byref(ln))
-            new.append(d.add(ctypes.string_at(ptr, ln.value).decode("utf-8")))
+        lo = len(lut)
+        offsets = _view(self.lib.dtf_csv_dict_offsets(handle, src_i) + 8 * lo,
+                        size - lo + 1, np.dtype(np.int64)).tolist()
+        raw = ctypes.string_at(self.lib.dtf_csv_dict_bytes(handle, src_i) + offsets[0],
+                               offsets[-1] - offsets[0])
+        base = offsets[0]
+        new = [d.add(raw[a - base:b - base].decode("utf-8"))
+               for a, b in zip(offsets[:-1], offsets[1:])]
         return np.concatenate([lut, np.asarray(new, np.int32)])

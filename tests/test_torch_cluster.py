@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import functools
 import os
+import random
 import shutil
 import threading
 import time
@@ -2131,6 +2132,49 @@ class TestLeaseDeadlineShipping:
         b.state.note_lease_deadlines({})  # legacy upstream: nothing shipped
         b.state.promote(2, now=1000.0)
         assert b.state._leases[g["lease"]].expires == pytest.approx(1005.0)
+
+
+class TestAgentBackoffAcrossFailover:
+    """An agent whose heartbeats fail while the primary is down must
+    reach the promoted standby inside the remaining TTL that standby
+    re-arms: after a healthy beat, at least TTL - refresh."""
+
+    def _agent(self, client):
+        class _Bare:
+            batch_size = 4
+            fragment_cache = None
+
+        return WorkerClusterAgent(client, "w:1", _Bare(), ttl_s=2.0)
+
+    @pytest.mark.parametrize("failures", [1, 2, 3, 4, 6, 50])
+    def test_a_held_lease_survives_the_takeover(self, monkeypatch, failures):
+        from datafusion_tpu_torch.utils import retry
+
+        monkeypatch.setattr(retry, "_RNG", random.Random(failures))
+        a, b, client = _pair()
+        agent = self._agent(client)
+        agent.poll_once()
+        b.replicate_once()
+        epoch = b.state.membership()["epoch"]
+        # the primary dies a whole refresh interval after the last beat
+        b.state.note_lease_deadlines({agent.lease: agent.ttl_s - agent.refresh_s})
+        b.state.promote(2, now=1000.0)
+        agent._failures = failures
+        wait = max(agent._retry_delay_s() for _ in range(256))
+        assert wait <= agent.refresh_s
+        assert b.state.lease_refresh(agent.lease, now=1000.0 + wait)["found"]
+        assert b.state.membership(now=1000.0 + wait)["epoch"] == epoch
+
+    def test_an_agent_without_a_lease_backs_off_up_to_one_ttl(self, monkeypatch):
+        from datafusion_tpu_torch.utils import retry
+
+        monkeypatch.setattr(retry, "_RNG", random.Random(7))
+        _, _, client = _pair()
+        agent = self._agent(client)  # never registered
+        agent._failures = 50
+        waits = [agent._retry_delay_s() for _ in range(256)]
+        assert max(waits) <= agent.ttl_s
+        assert max(waits) > agent.refresh_s
 
 
 class TestDeltaPublish:

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port, slice 6: the CSV scan, against the JAX package.
 
-The port reads CSV through its own ctypes bridge to the native C++
-parser (`native/datafusion_native.cpp`, built on first use into
-`build/native/<hash>/`).  Here its reader is held against the JAX
-package's default `CsvReader` (pyarrow) on the fixtures of `test/data/`:
-values exactly, validity, and dictionary codes with their dictionaries,
-with and without a projection.  A malformed file raises IoError, and
-so does a build without a compiler or one that fails.
+The port reads CSV with its own C++ parser
+(`datafusion_tpu_torch/native/csv.cpp`, built on first use into
+`build/native/<hash>/`, bound by `native/csv.py`), which follows the
+JAX package's default reader.  Here its ctypes bridge is held against
+the JAX package's default `CsvReader` (pyarrow) on the fixtures of
+`test/data/`: values exactly, validity, and dictionary codes with their
+dictionaries, with and without a projection; the edge cases where the
+two could part are in `tests/test_torch_csv_semantics.py`.  A
+malformed file raises IoError, and so does a build without a compiler
+or one that fails.
 
 Then the golden corpus of `test/data/expected/` runs through the port
 on the CSV fixtures, with the exclusions and reasons of

@@ -49,10 +49,6 @@ EXCEPTIONS: dict[str, tuple[str, str]] = {
     "cost/advisor.py:scan_chunk_rows": (
         "the learned scan chunk, a link-aware route (about 2,200 bytes "
         "a row)", "item 6"),
-    "io/readers.py:CsvReader*": (
-        "the JAX package's pyarrow CSV reader; the port parses CSV "
-        "through native/datafusion_native.cpp (native/csv.py), and the "
-        "card's machine has no pyarrow", "item 1"),
     "parallel/partition.py:shard_map": (
         "the mesh's shard_map stacking, a JAX collective; the port's "
         "mesh folds each device's slots into one state", "item 6"),
